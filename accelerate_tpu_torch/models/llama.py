@@ -1,0 +1,684 @@
+"""Llama-family decoder-only transformer in PyTorch.
+
+Counterpart of ``accelerate_tpu/models/llama.py``. Module and parameter
+names mirror the flax tree (``q_proj``, ``input_norm.scale``,
+``embed_tokens``...) so ``utils/convert.py`` moves weights across by name;
+the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
+
+* The uncached full-sequence forward runs attention through
+  ``ops/attention.py::flash_attention``: the Hopper flash kernel on the
+  card, the einsum path elsewhere.
+* The KV-cached path (``cache=`` / ``cache_pos=``, used by ``generate``) is
+  plain tensor code, as the JAX package leaves it to XLA. The cache is a
+  list of per-layer dicts updated in place (JAX returns a new cache; the
+  port writes into the buffers it was given, and returns them).
+* Parameters keep the module's dtype; a bf16 run builds or casts the module
+  to bf16 (``precision.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import (
+    _einsum_attention,
+    flash_attention,
+    flash_attention_available,
+    softcap_logits,
+)
+from ..utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    # HF-style rope scaling dict, e.g. {"rope_type": "llama3", "factor": 8.0,
+    # "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+    # "original_max_position_embeddings": 8192} or {"rope_type": "linear",
+    # "factor": 2.0}. None = vanilla RoPE.
+    rope_scaling: Optional[dict] = None
+    # Mistral-style local attention: each token sees only the last N keys.
+    sliding_window: Optional[int] = None
+    tie_word_embeddings: bool = False
+    # Family knobs that turn this skeleton into Qwen2 / Gemma:
+    # Qwen2 puts biases on the q/k/v projections (never on o_proj).
+    attention_qkv_bias: bool = False
+    attention_out_bias: bool = False
+    # Gemma: GeGLU MLP ("gelu_tanh"), zero-centered RMSNorm scales (the
+    # checkpoint stores w with the norm computing 1 + w), sqrt(hidden)
+    # embedding scaling, and a head_dim decoupled from hidden/heads.
+    mlp_activation: str = "silu"  # "silu" (SwiGLU) | "gelu_tanh"/"gelu_exact" (GeGLU)
+    rms_norm_unit_offset: bool = False
+    scale_embeddings: bool = False
+    head_dim_override: Optional[int] = None
+    # Gemma2: per-layer attention patterns and sandwich norms.
+    # layer_windows[i] is layer i's sliding window (None = full attention);
+    # overrides the uniform sliding_window when set. post_norms adds the
+    # 4-norm block. Softcaps bound logits via cap * tanh(x / cap);
+    # query_pre_attn_scalar replaces head_dim in the attention scale.
+    layer_windows: Optional[tuple] = None
+    post_norms: bool = False
+    attn_logit_softcapping: Optional[float] = None
+    final_logit_softcapping: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    # Training memory knobs of the JAX package. The port has no backward
+    # yet; a forward is the same with or without remat.
+    remat: bool = False
+    remat_policy: str = "dots"
+    use_flash_attention: bool = True
+    # "auto" | "flash" | "einsum"; the context-parallel "ring" / "ulysses"
+    # strategies are not ported yet and raise.
+    attention_backend: str = "auto"
+    # Pallas tile sizes of the JAX package; the Hopper kernel's tiles are
+    # fixed, so the port reads neither.
+    flash_block_q: int = 128
+    flash_block_k: int = 128
+    # fp8 projections of the JAX package (ops/quant.py); not ported yet.
+    use_fp8: bool = False
+    fp8_margin: int = 0
+    fp8_amax_history_len: int = 16
+    fp8_amax_compute_algo: str = "max"
+    fp8_format: str = "HYBRID"
+
+    @classmethod
+    def llama3_8b(cls, **overrides):
+        cfg = cls(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+            max_position_embeddings=8192, rope_theta=500000.0,
+        )
+        return dataclasses.replace(cfg, **overrides)
+
+    @classmethod
+    def qwen2_7b(cls, **overrides):
+        cfg = cls(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+            max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-6,
+            attention_qkv_bias=True,
+        )
+        return dataclasses.replace(cfg, **overrides)
+
+    @classmethod
+    def gemma2_9b(cls, **overrides):
+        cfg = cls(
+            vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+            num_hidden_layers=42, num_attention_heads=16, num_key_value_heads=8,
+            head_dim_override=256, max_position_embeddings=8192, rms_norm_eps=1e-6,
+            tie_word_embeddings=True, mlp_activation="gelu_tanh",
+            rms_norm_unit_offset=True, scale_embeddings=True, post_norms=True,
+            attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+            query_pre_attn_scalar=256.0,
+            layer_windows=tuple(4096 if i % 2 == 0 else None for i in range(42)),
+        )
+        return dataclasses.replace(cfg, **overrides)
+
+    @classmethod
+    def tiny(cls, **overrides):
+        """Test-size config."""
+        cfg = cls(
+            vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            max_position_embeddings=128,
+        )
+        return dataclasses.replace(cfg, **overrides)
+
+    @property
+    def head_dim(self):
+        """Per-head width: hidden_size // num_attention_heads, unless the
+        family decouples it (``head_dim_override``, e.g. Gemma)."""
+        if self.head_dim_override is not None:
+            return self.head_dim_override
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def sm_scale(self):
+        """Attention logit scale: 1/sqrt(query_pre_attn_scalar or head_dim)."""
+        base = self.query_pre_attn_scalar
+        return (base if base is not None else self.head_dim) ** -0.5
+
+    def window_for(self, layer_idx: int):
+        """Layer ``layer_idx``'s sliding window (None = full attention)."""
+        if self.layer_windows is not None:
+            return self.layer_windows[layer_idx]
+        return self.sliding_window
+
+
+def _linear(cfg: LlamaConfig, in_features: int, out_features: int, bias: bool, device, dtype):
+    if cfg.use_fp8:
+        raise NotImplementedError("fp8 projections (use_fp8) are not ported yet")
+    return nn.Linear(in_features, out_features, bias=bias, device=device, dtype=dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm in f32, returned in the input dtype. ``unit_offset`` (Gemma)
+    stores zero-centered scales and computes ``(1 + w) * x_hat``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, unit_offset: bool = False, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.unit_offset = unit_offset
+        init = torch.zeros if unit_offset else torch.ones
+        self.scale = nn.Parameter(init(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        x32 = x.float()
+        var = x32.square().mean(dim=-1, keepdim=True)
+        norm = x32 * torch.rsqrt(var + self.eps)
+        scale = self.scale.float()
+        if self.unit_offset:
+            scale = 1.0 + scale
+        return (norm * scale).to(x.dtype)
+
+
+def scale_rope_frequencies(inv_freq: torch.Tensor, rope_scaling: dict) -> torch.Tensor:
+    """Apply HF-style RoPE scaling to the base inverse frequencies.
+
+    "linear" divides every frequency by ``factor``; "llama3" keeps high
+    frequencies, scales low frequencies by ``factor`` and interpolates the
+    band in between."""
+    rope_type = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+    if rope_type in ("default", None):
+        return inv_freq
+    factor = float(rope_scaling.get("factor", 1.0))
+    if rope_type == "linear":
+        return inv_freq / factor
+    if rope_type == "llama3":
+        low = float(rope_scaling.get("low_freq_factor", 1.0))
+        high = float(rope_scaling.get("high_freq_factor", 4.0))
+        original = float(rope_scaling.get("original_max_position_embeddings", 8192))
+        wavelen = 2.0 * math.pi / inv_freq
+        low_wavelen = original / low
+        high_wavelen = original / high
+        smooth = (original / wavelen - low) / (high - low)
+        interpolated = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+        scaled = torch.where(wavelen > low_wavelen, inv_freq / factor, interpolated)
+        return torch.where(wavelen < high_wavelen, inv_freq, scaled)
+    raise NotImplementedError(f"rope_scaling type {rope_type!r} (supported: linear, llama3)")
+
+
+def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float,
+                     dtype=torch.float32, rope_scaling: Optional[dict] = None):
+    """RoPE tables: returns (cos, sin) of shape [..., seq, head_dim//2]."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device)
+    inv_freq = 1.0 / (theta ** (exponents / head_dim))
+    if rope_scaling:
+        inv_freq = scale_rope_frequencies(inv_freq, rope_scaling)
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x: [batch, seq, heads, head_dim]; rotate pairs (even, odd halves)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
+                         segment_ids=None, backend: str = "auto",
+                         sliding_window: Optional[int] = None,
+                         sm_scale: Optional[float] = None,
+                         logit_softcap: Optional[float] = None):
+    """Dispatch between the attention implementations in ops/.
+
+    ``logit_softcap`` (Gemma2) runs inside the flash kernel (causal only)
+    and the einsum path. ``sliding_window`` narrower than the sequence
+    routes to the banded flash kernel (O(S*w)) or the windowed einsum mask;
+    a window as wide as the sequence is full causal attention.
+
+    backend: 'auto' and 'flash' take the flash kernel when it tiles the
+    input, else einsum; 'einsum' always takes einsum. The context-parallel
+    'ring' and 'ulysses' strategies are not ported yet and raise."""
+    if backend not in ("auto", "ring", "ulysses", "flash", "einsum"):
+        raise ValueError(
+            f"unknown attention_backend {backend!r}; expected auto/ring/ulysses/flash/einsum")
+    if backend in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_backend={backend!r}: context-parallel attention is not ported yet")
+    if logit_softcap is not None:
+        window = (sliding_window if sliding_window is not None
+                  and sliding_window < q.shape[1] else None)
+        if backend != "einsum" and use_flash and causal and flash_attention_available(q):
+            return flash_attention(q, k, v, causal=True, sliding_window=window,
+                                   segment_ids=segment_ids, sm_scale=sm_scale,
+                                   logit_softcap=logit_softcap)
+        return _einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                                 sliding_window=sliding_window, sm_scale=sm_scale,
+                                 logit_softcap=logit_softcap)
+    if sliding_window is not None and sliding_window < q.shape[1]:
+        if backend != "einsum" and use_flash and causal:
+            return flash_attention(q, k, v, causal=True, sliding_window=sliding_window,
+                                   segment_ids=segment_ids, sm_scale=sm_scale)
+        return _einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                                 sliding_window=sliding_window, sm_scale=sm_scale)
+    if backend != "einsum" and use_flash and flash_attention_available(q):
+        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                               sm_scale=sm_scale)
+    return _einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
+                             sm_scale=sm_scale)
+
+
+def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=torch.bfloat16,
+                  ring_slack: int = 0, device=None):
+    """Per-layer KV cache: a list of ``{"k", "v"}`` with [B, max_len, n_kv, hd]
+    buffers (KV heads unrepeated). Sliding-window layers narrower than
+    ``max_len`` get a RING buffer of ``window + ring_slack`` slots with a
+    ``pos`` buffer [B, slots] of each slot's global position (-1 = never
+    written)."""
+    device = resolve_device(device)
+    caches = []
+    n_kv, hd = config.num_key_value_heads, config.head_dim
+    for i in range(config.num_hidden_layers):
+        w = config.window_for(i)
+        if w is not None and w < max_len:
+            size = min(w + ring_slack, max_len)
+            shape = (batch_size, size, n_kv, hd)
+            caches.append({
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.full((batch_size, size), -1, dtype=torch.int32, device=device),
+            })
+        else:
+            shape = (batch_size, max_len, n_kv, hd)
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return caches
+
+
+def _cached_attention(q, k_all, v_all, cache_pos: int, n_rep: int, sliding_window=None,
+                      sm_scale=None, logit_softcap=None):
+    """q [B, S, H, hd] against the whole dense cache [B, L, n_kv, hd]: keys at
+    global index <= cache_pos + (local query index) are valid, which covers
+    prefill and decode alike."""
+    S = q.shape[1]
+    L = k_all.shape[1]
+    q_pos = cache_pos + torch.arange(S, device=q.device)
+    k_pos = torch.arange(L, device=q.device)[None, :]
+    mask = k_pos <= q_pos[:, None]
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos[:, None] - sliding_window)
+    return _grouped_cached_attention(q, k_all, v_all, mask[None], n_rep,
+                                     sm_scale=sm_scale, logit_softcap=logit_softcap)
+
+
+def _ring_cached_attention(q, cache, cache_pos: int, n_rep: int, window: int,
+                           sm_scale=None, logit_softcap=None):
+    """Ring-cache decode: a slot is visible iff it was written (pos >= 0),
+    is not in the query's future and lies inside the window."""
+    S = q.shape[1]
+    q_pos = cache_pos + torch.arange(S, device=q.device)
+    slot_pos = cache["pos"][:, None, :]
+    mask = ((slot_pos >= 0) & (slot_pos <= q_pos[None, :, None])
+            & (slot_pos > q_pos[None, :, None] - window))  # [B, S, W]
+    return _grouped_cached_attention(q, cache["k"], cache["v"], mask, n_rep,
+                                     sm_scale=sm_scale, logit_softcap=logit_softcap)
+
+
+def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
+                              logit_softcap=None):
+    """Cached-attention core in f32: q [B, S, H, hd] against [B, L, n_kv, hd]
+    with a validity mask [B or 1, S, L]. GQA contracts grouped against the
+    unrepeated cache."""
+    B, S, H, hd = q.shape
+    scale = hd ** -0.5 if sm_scale is None else sm_scale
+    qg = (q * scale).float().reshape(B, S, H // n_rep, n_rep, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_all.float())
+    logits = softcap_logits(logits, logit_softcap)
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_all.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def update_kv_cache_and_attend(cache, q, k, v, cache_pos: int, n_rep: int, sliding_window=None,
+                               sm_scale=None, logit_softcap=None):
+    """Write this call's K/V into ``cache`` (in place) at ``cache_pos`` and
+    attend q against it. Returns (out [B, S, H, hd], cache).
+
+    Ring caches (``"pos"`` present) write slot ``pos % capacity``. A
+    multi-token write attends the pre-write ring contents concatenated with
+    the chunk, masked by per-slot positions; a single-token decode writes
+    one slot and attends the ring alone."""
+    if "pos" not in cache:
+        S, L = k.shape[1], cache["k"].shape[1]
+        if cache_pos + S > L:
+            raise ValueError(f"cache of length {L} cannot hold positions "
+                             f"[{cache_pos}, {cache_pos + S})")
+        cache["k"][:, cache_pos:cache_pos + S] = k.to(cache["k"].dtype)
+        cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
+        out = _cached_attention(q, cache["k"], cache["v"], cache_pos, n_rep,
+                                sliding_window=sliding_window, sm_scale=sm_scale,
+                                logit_softcap=logit_softcap)
+        return out, cache
+
+    window = cache["k"].shape[1]
+    B, S = q.shape[0], q.shape[1]
+    if S > 1:
+        eff_window = min(sliding_window or window, window)
+        k_comb = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+        v_comb = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+        chunk_pos = cache_pos + torch.arange(S, dtype=torch.int32, device=q.device)
+        pos_comb = torch.cat([cache["pos"], chunk_pos.expand(B, S)], dim=1)  # [B, W+S]
+        # Ring slots count only for positions strictly BEFORE the chunk: an
+        # earlier multi-token write may have left stale entries the chunk
+        # supersedes.
+        seg_valid = torch.cat(
+            [cache["pos"] < cache_pos, torch.ones((B, S), dtype=torch.bool, device=q.device)],
+            dim=1)
+        pc = pos_comb[:, None, :]
+        qp = chunk_pos[None, :, None]
+        mask = seg_valid[:, None, :] & (pc >= 0) & (pc <= qp) & (pc > qp - eff_window)
+        out = _grouped_cached_attention(q, k_comb, v_comb, mask, n_rep,
+                                        sm_scale=sm_scale, logit_softcap=logit_softcap)
+        take = min(S, window)
+        idx = cache_pos + torch.arange(S - take, S, dtype=torch.int32, device=q.device)
+        slots = (idx % window).long()
+        cache["k"][:, slots] = k[:, S - take:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, S - take:].to(cache["v"].dtype)
+        cache["pos"][:, slots] = idx.expand(B, take)
+        return out, cache
+
+    slot = cache_pos % window
+    cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
+    cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+    cache["pos"][:, slot] = cache_pos
+    out = _ring_cached_attention(q, cache, cache_pos, n_rep,
+                                 window=min(sliding_window or window, window),
+                                 sm_scale=sm_scale, logit_softcap=logit_softcap)
+    return out, cache
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, window: Any = "config", device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        # "config" reads the uniform cfg.sliding_window; LlamaBlock passes
+        # cfg.window_for(layer_idx) for Gemma2-style mixtures.
+        self.window = cfg.sliding_window if window == "config" else window
+        n_q, n_kv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        bias = cfg.attention_qkv_bias
+        self.q_proj = _linear(cfg, cfg.hidden_size, n_q * hd, bias, device, dtype)
+        self.k_proj = _linear(cfg, cfg.hidden_size, n_kv * hd, bias, device, dtype)
+        self.v_proj = _linear(cfg, cfg.hidden_size, n_kv * hd, bias, device, dtype)
+        self.o_proj = _linear(cfg, n_q * hd, cfg.hidden_size, cfg.attention_out_bias, device, dtype)
+
+    def forward(self, x, positions, causal=True, cache=None, cache_pos=None, segment_ids=None):
+        cfg = self.config
+        B, S, _ = x.shape
+        n_q, n_kv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        q = self.q_proj(x).reshape(B, S, n_q, hd)
+        k = self.k_proj(x).reshape(B, S, n_kv, hd)
+        v = self.v_proj(x).reshape(B, S, n_kv, hd)
+        cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=x.dtype,
+                                    rope_scaling=cfg.rope_scaling)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+        sm_scale = None if cfg.query_pre_attn_scalar is None else cfg.sm_scale
+        softcap = cfg.attn_logit_softcapping
+
+        if cache is not None:
+            out, cache = update_kv_cache_and_attend(
+                cache, q, k, v, cache_pos, n_q // n_kv, sliding_window=self.window,
+                sm_scale=sm_scale, logit_softcap=softcap)
+            return self.o_proj(out.reshape(B, S, n_q * hd)), cache
+
+        out = multi_head_attention(
+            q, k, v, causal=causal, use_flash=cfg.use_flash_attention,
+            segment_ids=segment_ids, backend=cfg.attention_backend,
+            sliding_window=self.window, sm_scale=sm_scale, logit_softcap=softcap)
+        return self.o_proj(out.reshape(B, S, n_q * hd))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        if cfg.mlp_activation not in ("silu", "gelu_tanh", "gelu_exact"):
+            raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}")
+        self.activation = cfg.mlp_activation
+        self.gate_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
+        self.up_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
+        self.down_proj = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, False, device, dtype)
+
+    def forward(self, x):
+        gate = self.gate_proj(x)
+        if self.activation == "gelu_tanh":     # GeGLU, tanh approx (Gemma)
+            act = F.gelu(gate, approximate="tanh")
+        elif self.activation == "gelu_exact":  # GeGLU, exact erf
+            act = F.gelu(gate)
+        else:                                  # SwiGLU (Llama et al.)
+            act = F.silu(gate)
+        return self.down_proj(act * self.up_proj(x))
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, config: LlamaConfig, layer_idx: int = 0, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        self.post_norms = cfg.post_norms
+
+        def norm():
+            return RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_norm_unit_offset,
+                           device=device, dtype=dtype)
+
+        self.input_norm = norm()
+        self.self_attn = LlamaAttention(cfg, window=cfg.window_for(layer_idx), device=device,
+                                        dtype=dtype)
+        self.post_attn_norm = norm()
+        if cfg.post_norms:
+            self.pre_ffn_norm = norm()
+            self.post_ffn_norm = norm()
+        self.mlp = LlamaMLP(cfg, device=device, dtype=dtype)
+
+    def forward(self, x, positions, cache=None, cache_pos=None, segment_ids=None):
+        attn = self.self_attn(self.input_norm(x), positions, cache=cache, cache_pos=cache_pos,
+                              segment_ids=segment_ids)
+        if cache is not None:
+            attn, cache = attn
+        if self.post_norms:
+            # Gemma2 sandwich block: sublayer OUTPUTS are normed before their
+            # residual adds, and the MLP gets its own pre-norm.
+            h = x + self.post_attn_norm(attn)
+            h = h + self.post_ffn_norm(self.mlp(self.pre_ffn_norm(h)))
+        else:
+            h = x + attn
+            h = h + self.mlp(self.post_attn_norm(h))
+        return h if cache is None else (h, cache)
+
+
+def _default_positions(input_ids, start: int = 0):
+    B, S = input_ids.shape
+    return (start + torch.arange(S, device=input_ids.device))[None, :].expand(B, S)
+
+
+def _scale_embeddings(cfg: LlamaConfig, x):
+    if not cfg.scale_embeddings:
+        return x
+    # Gemma: the sqrt(hidden) scalar is rounded to the activations' dtype.
+    return x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
+
+
+class LlamaModel(nn.Module):
+    """Decoder stack without head."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device,
+                                         dtype=dtype)
+        self.layers = nn.ModuleList(
+            LlamaBlock(cfg, layer_idx=i, device=device, dtype=dtype)
+            for i in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_norm_unit_offset,
+                            device=device, dtype=dtype)
+
+    def forward(self, input_ids, positions=None, cache=None, cache_pos=None, segment_ids=None):
+        if positions is None:
+            positions = _default_positions(input_ids, 0 if cache_pos is None else cache_pos)
+        if segment_ids is not None and cache is not None:
+            raise ValueError(
+                "segment_ids (packed sequences) is a training feature; the "
+                "KV-cache decode path does not apply segment masking")
+        x = _scale_embeddings(self.config, self.embed_tokens(input_ids))
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                x = layer(x, positions, segment_ids=segment_ids)
+            else:
+                x, cache[i] = layer(x, positions, cache=cache[i], cache_pos=cache_pos)
+        x = self.norm(x)
+        return x if cache is None else (x, cache)
+
+
+def _lm_head(cfg: LlamaConfig, x, embedding, lm_head):
+    if cfg.tie_word_embeddings:
+        logits = x @ embedding.to(x.dtype).T
+    else:
+        logits = lm_head(x)
+    return softcap_logits(logits, cfg.final_logit_softcapping)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator):
+    """Random weights from ``generator``: every projection and embedding
+    weight ~ N(0, 1/fan_in) (fan_in = the last dim), biases zero, norm
+    scales at identity (1, or 0 under ``unit_offset``)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(0.0 if module.config.rms_norm_unit_offset else 1.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama-family causal LM. Built on ``device`` (default ``cuda``; raises
+    without a card unless ``device="cpu"``) in ``dtype``. ``generator``
+    draws random weights (:func:`init_weights`); otherwise load them, e.g.
+    ``load_state_dict(state_dict_from_flax(params, config))``."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.model = LlamaModel(config, device=device, dtype=dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False,
+                                     device=device, dtype=dtype)
+        if generator is not None:
+            init_weights(self, generator)
+
+    def forward(self, input_ids, positions=None, cache=None, cache_pos=None,
+                return_hidden=False, segment_ids=None):
+        x = self.model(input_ids, positions, cache=cache, cache_pos=cache_pos,
+                       segment_ids=segment_ids)
+        if cache is not None:
+            x, cache = x
+        if not return_hidden:
+            # return_hidden: the pre-head normed hidden states.
+            x = _lm_head(self.config, x, self.model.embed_tokens.weight,
+                         getattr(self, "lm_head", None))
+        return x if cache is None else (x, cache)
+
+
+class PipelinedLlamaForCausalLM(nn.Module):
+    """Llama with its decoder blocks *stacked*: every block parameter
+    carries a leading ``[num_layers, ...]`` dim (``model.blocks.*``), the
+    layout of the JAX ``PipelinedLlamaForCausalLM``. The forward applies
+    the one block to each layer's slice in turn (the JAX package's ``pp=1``
+    scan; no pipeline schedule). Uniform windows only, as in JAX."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if config.layer_windows is not None and len(set(config.layer_windows)) > 1:
+            raise NotImplementedError(
+                "PipelinedLlamaForCausalLM applies one block over stacked params; "
+                "heterogeneous per-layer windows (layer_windows) need the "
+                "sequential LlamaForCausalLM")
+        device = resolve_device(device)
+        self.config = config
+        L = config.num_hidden_layers
+        blocks = LlamaBlock(config, device=device, dtype=dtype)
+        for name, p in list(blocks.named_parameters()):
+            owner_name, _, leaf = name.rpartition(".")
+            setattr(blocks.get_submodule(owner_name), leaf,
+                    nn.Parameter(torch.empty((L, *p.shape), device=device, dtype=dtype)))
+        self.model = nn.Module()
+        self.model.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
+                                               device=device, dtype=dtype)
+        self.model.blocks = blocks
+        self.model.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                                  config.rms_norm_unit_offset, device=device, dtype=dtype)
+        if not config.tie_word_embeddings:
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size, bias=False,
+                                     device=device, dtype=dtype)
+        if generator is not None:
+            init_weights(self, generator)
+
+    @staticmethod
+    def from_sequential_params(state_dict):
+        """``LlamaForCausalLM`` state dict (``model.layers.<i>.*``) -> the
+        stacked layout (``model.blocks.*`` with a leading layer dim)."""
+        per_name, out = {}, {}
+        for name, tensor in state_dict.items():
+            parts = name.split(".", 3)
+            if len(parts) == 4 and parts[:2] == ["model", "layers"] and parts[2].isdigit():
+                per_name.setdefault(parts[3], {})[int(parts[2])] = tensor
+            else:
+                out[name] = tensor
+        for name, layers in per_name.items():
+            if sorted(layers) != list(range(len(layers))):
+                raise ValueError(f"non-contiguous layer indices for {name}: {sorted(layers)}")
+            out[f"model.blocks.{name}"] = torch.stack([layers[i] for i in range(len(layers))])
+        return out
+
+    @staticmethod
+    def to_sequential_params(state_dict):
+        """Inverse of :meth:`from_sequential_params`."""
+        out = {}
+        for name, tensor in state_dict.items():
+            if name.startswith("model.blocks."):
+                for i in range(tensor.shape[0]):
+                    out[f"model.layers.{i}.{name[len('model.blocks.'):]}"] = tensor[i]
+            else:
+                out[name] = tensor
+        return out
+
+    def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False):
+        if positions is None:
+            positions = _default_positions(input_ids)
+        x = _scale_embeddings(self.config, self.model.embed_tokens(input_ids))
+        stacked = dict(self.model.blocks.named_parameters())
+        for i in range(self.config.num_hidden_layers):
+            x = torch.func.functional_call(
+                self.model.blocks, {name: p[i] for name, p in stacked.items()},
+                (x, positions), {"segment_ids": segment_ids})
+        x = self.model.norm(x)
+        if return_hidden:
+            return x
+        return _lm_head(self.config, x, self.model.embed_tokens.weight,
+                        getattr(self, "lm_head", None))

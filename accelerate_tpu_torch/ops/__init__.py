@@ -1,0 +1,2 @@
+from .attention import flash_attention, flash_attention_available, softcap_logits
+from .flash_cuda import flash_fwd, flash_fwd_reference

@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (accelerate_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (written for an H100), nvcc, and the repository around
+this file; imports nothing of JAX and nothing of the JAX package. Phases, in
+order; any failure exits non-zero:
+
+1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions; builds every kernel of ``accelerate_tpu_torch/ops/csrc`` (one
+   nvcc per source, all at once) and prints each build's register and spill
+   report.
+2. kernel vs plain version: ``flash_fwd`` on a case matrix (the main-path
+   shape in bf16; non-causal, window, segments, softcap with sm_scale, GQA
+   rep 1/4/8, head_dim 64/128/256, fp16, fp32, a ragged length) against
+   ``flash_fwd_reference`` on the same inputs, under the tolerances of
+   ``TOLERANCE``; then the kernel, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick, never used by the
+   port) timed at the main-path shape.
+3. forward: ``LlamaForCausalLM`` at Llama-3-8B widths and full depth, bf16,
+   random weights from a seeded generator, on 4 x 2048 tokens; the flash
+   kernel must launch once per layer and the logits must be finite. On a
+   small input at the same widths, the flash forward is held against the
+   einsum-attention forward, and the stacked-layer model built from the same
+   weights against the sequential one.
+4. generate: 4 prompts of 96/200/333/512 tokens, 32 new tokens each, greedy,
+   bf16 KV cache; a repeat call must return the same tokens.
+5. profile: device time of one forward and of decode steps, by kernel kind
+   (torch.profiler), and the device's busy share of the wall time.
+
+Prints the kernels' JSON line and the card's line, and as its last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Main-path attention shape: Llama-3-8B widths (32 query heads, 8 kv heads,
+# head_dim 128), batch 4 x 2048 tokens, causal, bf16.
+MAIN = dict(B=4, S=2048, H=32, G=8, D=128)
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+# (atol, rtol) on out, and atol on lse, per input dtype. N(0,1) inputs; a
+# 16-bit output differs from the reference by its rounding, about one ulp.
+TOLERANCE = {"bfloat16": (2e-2, 1e-2, 1e-2), "float16": (5e-3, 2e-3, 1e-3),
+             "float32": (1e-4, 1e-4, 1e-4)}
+PROMPT_LENGTHS = (96, 200, 333, 512)
+NEW_TOKENS = 32
+
+
+def fail(message: str):
+    print(f"chip_smoke: FAILED: {message}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def make_inputs(B, S, H, G, D, dtype, seed, segments=False):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, G, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, G, D), generator=gen, device="cuda").to(dtype)
+    seg = None
+    if segments:
+        # Three packed segments per row, boundaries drawn from the seed.
+        cuts = torch.sort(torch.randint(8, S - 8, (B, 2), generator=gen, device="cuda")).values
+        pos = torch.arange(S, device="cuda")[None, :]
+        seg = (1 + (pos >= cuts[:, :1]).int() + (pos >= cuts[:, 1:]).int()).to(torch.int32)
+    return q, k, v, seg
+
+
+def attention_bound(B, S, H, G, D, dtype, causal=True):
+    """Least time (ms) for the attention forward: visible (q, k) pairs need
+    4 * D operations each (two products); each input is read once and each
+    output written once. Returns (ms, "bytes" | "operations")."""
+    import torch
+
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4.0 * B * H * D * pairs
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (B * S * H * D * 2 + B * S * G * D * 2) + 4 * B * H * S
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_environment():
+    import torch
+
+    print(card_line())
+    print(f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | torch "
+          f"{torch.__version__} | cuda {torch.version.cuda} | python {sys.version.split()[0]}")
+    from accelerate_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    libraries = _build.build()
+    print(f"built {sorted(libraries)} in {time.perf_counter() - t0:.1f} s")
+    for name, path in libraries.items():
+        log = path.with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        report = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+        for line in report:
+            print(f"  {name}: {line}")
+
+
+def kernel_cases():
+    import torch
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (label, B, S, H, G, D, dtype, segments, kwargs)
+    return [
+        ("main-path llama3-8b causal", *MAIN.values(), bf16, False, dict(causal=True)),
+        ("non-causal", 2, 256, 4, 4, 128, bf16, False, dict(causal=False)),
+        ("window 100 < S", 1, 512, 4, 2, 64, bf16, False, dict(sliding_window=100)),
+        ("window 1", 1, 256, 2, 2, 64, bf16, False, dict(sliding_window=1)),
+        ("segments causal", 2, 256, 4, 2, 128, bf16, True, dict(causal=True)),
+        ("segments non-causal", 2, 256, 4, 2, 128, bf16, True, dict(causal=False)),
+        ("segments + window 70", 1, 256, 4, 2, 64, bf16, True, dict(sliding_window=70)),
+        ("softcap 50 + sm_scale, D=256", 1, 512, 8, 4, 256, bf16, False,
+         dict(logit_softcap=50.0, sm_scale=256.0 ** -0.5)),
+        ("softcap 5 + window 96 + sm_scale 0.17", 1, 512, 4, 2, 128, bf16, False,
+         dict(logit_softcap=5.0, sliding_window=96, sm_scale=0.17)),
+        ("softcap non-causal", 1, 256, 4, 4, 64, bf16, False,
+         dict(causal=False, logit_softcap=7.0)),
+        ("gqa rep 1", 2, 512, 8, 8, 128, bf16, False, {}),
+        ("gqa rep 4", 2, 512, 8, 2, 128, bf16, False, {}),
+        ("gqa rep 8", 2, 512, 8, 1, 128, bf16, False, {}),
+        ("D=64", 2, 384, 4, 2, 64, bf16, False, {}),
+        ("D=256", 2, 384, 4, 2, 256, bf16, False, {}),
+        ("D=96 (padded to 128)", 1, 256, 4, 2, 96, bf16, False, {}),
+        ("fp16", 2, 512, 8, 2, 128, f16, False, {}),
+        ("fp16 D=256 window", 1, 512, 4, 2, 256, f16, False, dict(sliding_window=200)),
+        ("fp32", 2, 256, 4, 2, 128, f32, False, {}),
+        ("fp32 D=256 softcap window segments", 1, 256, 4, 2, 256, f32, True,
+         dict(logit_softcap=30.0, sliding_window=100)),
+        ("fp32 non-causal D=64", 1, 256, 4, 1, 64, f32, False, dict(causal=False)),
+        ("ragged S=200 non-causal", 1, 200, 4, 2, 64, bf16, False, dict(causal=False)),
+        ("ragged S=200 causal fp32", 1, 200, 4, 2, 128, f32, False, {}),
+    ]
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops.flash_cuda import flash_fwd, flash_fwd_reference
+
+    main_err = None
+    for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
+        q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
+        out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_fwd_reference(q, k, v, segment_ids=seg, **kw)
+        atol, rtol, lse_tol = TOLERANCE[str(dtype).split(".")[-1]]
+        d_out = (out.float() - ref.float()).abs()
+        err = d_out.max().item()
+        excess = (d_out - rtol * ref.float().abs()).max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        ok = (torch.isfinite(out.float()).all().item() and excess <= atol and err_lse <= lse_tol)
+        print(f"  [{'ok' if ok else 'FAIL'}] {label}: B={B} S={S} H={H} G={G} D={D} "
+              f"{str(dtype).split('.')[-1]} max|dout|={err:.3e} max|dlse|={err_lse:.3e} "
+              f"(out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g})")
+        if not ok:
+            fail(f"flash_fwd disagrees with flash_fwd_reference on case {label!r}")
+        if i == 0:
+            main_err = err
+        del q, k, v, seg, out, lse, ref, ref_lse, d_out
+
+    B, S, H, G, D = MAIN.values()
+    q, k, v, _ = make_inputs(B, S, H, G, D, torch.bfloat16, seed=7)
+    ms = timed_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
+    plain_ms = timed_ms(lambda: flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
+    # The yardstick: one library call computing the same attention, in its
+    # [B, H, S, D] layout (the layout change is not timed).
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                 enable_gqa=True), iters=20)
+    bound_ms, bound_by = attention_bound(B, S, H, G, D, torch.bfloat16)
+    print(f"  flash_fwd at the main-path shape: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+          f"{bound_by}; plain {plain_ms:.3f} ms; SDPA {library_ms:.4f} ms)")
+    return dict(name="flash_fwd", route="cuda",
+                source="accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
+                replaces="accelerate_tpu/ops/flash_pallas.py:92",
+                max_abs_err=main_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def build_model():
+    import torch
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, policy_for
+
+    cfg = LlamaConfig.llama3_8b()
+    policy = policy_for("bf16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=policy.compute_dtype, generator=gen).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  llama3_8b: {cfg.num_hidden_layers} layers (full depth), {n_params / 1e9:.3f} B "
+          f"params in bf16, built in {time.perf_counter() - t0:.1f} s")
+    return model, policy, gen
+
+
+def phase_forward(model, policy, gen):
+    import torch
+
+    from accelerate_tpu_torch import PipelinedLlamaForCausalLM
+    from accelerate_tpu_torch.ops.flash_cuda import flash_fwd
+
+    cfg = model.config
+    B, S = MAIN["B"], MAIN["S"]
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    with torch.inference_mode():
+        model(ids[:1, :256])  # warm-up: library handles, allocator
+        torch.cuda.synchronize()
+        flash_fwd.launches = 0
+        t0 = time.perf_counter()
+        logits = policy.cast_to_output(model(ids))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_fwd.launches
+        if launches != cfg.num_hidden_layers:
+            fail(f"flash_fwd launched {launches} times in one forward, "
+                 f"expected {cfg.num_hidden_layers}")
+        if tuple(logits.shape) != (B, S, cfg.vocab_size) or not torch.isfinite(logits).all():
+            fail(f"forward logits: shape {tuple(logits.shape)} or non-finite values")
+        print(f"  forward {B}x{S} tokens: {seconds * 1e3:.1f} ms, {B * S / seconds:.0f} tokens/s, "
+              f"flash_fwd launches {launches} (one per layer), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del logits
+
+        # Same widths, small input: flash attention against einsum attention.
+        small = ids[:1, :256]
+        flash_logits = model(small).float()
+        cfg.attention_backend = "einsum"
+        try:
+            einsum_logits = model(small).float()
+        finally:
+            cfg.attention_backend = "auto"
+        rel = ((flash_logits - einsum_logits).norm() / einsum_logits.norm()).item()
+        agree = (flash_logits.argmax(-1) == einsum_logits.argmax(-1)).float().mean().item()
+        print(f"  flash vs einsum forward (1x256, bf16): relative L2 {rel:.3e}, "
+              f"top-1 agreement {agree:.4f} (limit: relative L2 <= 5e-2)")
+        if not rel <= 5e-2:
+            fail("flash forward disagrees with the einsum forward")
+
+        # The stacked-layer layout (the training bench's model) from the same
+        # weights: the same logits, the kernel once per layer.
+        stacked = PipelinedLlamaForCausalLM(cfg, device="cuda", dtype=policy.compute_dtype)
+        stacked.load_state_dict(
+            PipelinedLlamaForCausalLM.from_sequential_params(model.state_dict()))
+        flash_fwd.launches = 0
+        stacked_logits = stacked(small).float()
+        rel_stacked = ((stacked_logits - flash_logits).norm() / flash_logits.norm()).item()
+        print(f"  stacked-layer forward (1x256): relative L2 {rel_stacked:.3e} against the "
+              f"sequential one (limit 1e-3), flash_fwd launches {flash_fwd.launches}")
+        if flash_fwd.launches != cfg.num_hidden_layers or not rel_stacked <= 1e-3:
+            fail("the stacked-layer forward disagrees with the sequential one")
+        del stacked
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_generate(model, gen):
+    import torch
+
+    from accelerate_tpu_torch import generate
+
+    prompts = [torch.randint(0, model.config.vocab_size, (1, n), generator=gen, device="cuda")
+               for n in PROMPT_LENGTHS]
+
+    def serve(max_new):
+        outs, seconds = [], []
+        for p in prompts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(generate(model, p, max_new_tokens=max_new, cache_dtype=torch.bfloat16))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return outs, seconds
+
+    first, _ = serve(NEW_TOKENS)
+    repeat, seconds = serve(NEW_TOKENS)
+    _, prefill_seconds = serve(1)
+    for p, a, b in zip(prompts, first, repeat):
+        if a.shape != (1, p.shape[1] + NEW_TOKENS) or not torch.equal(a[:, :p.shape[1]], p):
+            fail(f"generate returned shape {tuple(a.shape)} for a {p.shape[1]}-token prompt")
+        if not torch.equal(a, b):
+            fail("a repeat greedy generate returned other tokens")
+        if int(a.min()) < 0 or int(a.max()) >= model.config.vocab_size:
+            fail("generate returned token ids outside the vocabulary")
+    decode_s = sum(seconds) - sum(prefill_seconds)
+    decode_tokens = len(prompts) * (NEW_TOKENS - 1)
+    print(f"  generate {len(prompts)} prompts ({'/'.join(map(str, PROMPT_LENGTHS))} tokens) x "
+          f"{NEW_TOKENS} new, greedy, bf16 cache: {sum(seconds):.3f} s; prefill "
+          f"{'/'.join(f'{s * 1e3:.1f}' for s in prefill_seconds)} ms; decode "
+          f"{decode_tokens / decode_s:.1f} tokens/s (batch 1); repeat call identical")
+
+
+def device_breakdown(label, fn, steps=1):
+    """Profile ``fn`` once and print where the device time went: wall time,
+    summed kernel time (the device's busy share of the wall), and kernel time
+    by kind. The profiler adds host overhead, so the wall time here is above
+    the unprofiled one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    times = {e.key: e.self_device_time_total / 1e3 for e in kernels}  # ms
+    count = sum(e.count for e in kernels)
+    busy = sum(times.values())
+    if busy <= 0:
+        print(f"  profile {label}: the profiler saw no device time (not measured)")
+        return
+
+    def kind(name):
+        if "flash_fwd_kernel" in name:
+            return "flash_fwd"
+        if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
+            return "matmul"
+        return "other"
+
+    by_kind = {}
+    for name, ms in times.items():
+        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
+    kinds = ", ".join(f"{k} {v / steps:.3f} ms" for k, v in sorted(by_kind.items(),
+                                                                   key=lambda kv: -kv[1]))
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+    print(f"  profile {label}: wall {wall_ms / steps:.3f} ms, device busy {busy / steps:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}% of wall), {count / steps:.0f} kernels; by kind: {kinds}")
+    for name, ms in top:
+        print(f"    {ms / steps:9.3f} ms  {name[:110]}")
+
+
+def phase_profile(model, gen):
+    import torch
+
+    from accelerate_tpu_torch import init_kv_cache
+
+    cfg = model.config
+    ids = torch.randint(0, cfg.vocab_size, (MAIN["B"], MAIN["S"]), generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen, device="cuda")
+    steps = 8
+    with torch.inference_mode():
+        device_breakdown(f"forward {MAIN['B']}x{MAIN['S']}", lambda: model(ids))
+        cache = init_kv_cache(cfg, 1, 640, torch.bfloat16, device="cuda")
+        _, cache = model(prompt, cache=cache, cache_pos=0)
+        tok = prompt[:, -1:]
+
+        def decode():
+            for t in range(steps):
+                model(tok, cache=cache, cache_pos=512 + t)
+
+        decode()  # warm-up
+        device_breakdown(f"decode step (batch 1, 512-token context, per step of {steps})",
+                         decode, steps=steps)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    try:
+        import accelerate_tpu_torch
+    except ImportError as exc:
+        fail(f"accelerate_tpu_torch is not beside chip_smoke.py: {exc}")
+    if not os.path.abspath(accelerate_tpu_torch.__file__).startswith(HERE + os.sep):
+        fail(f"accelerate_tpu_torch imported from {accelerate_tpu_torch.__file__}, not from {HERE}")
+    # The plain versions compare in full f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print("== 1. environment and build")
+    phase_environment()
+    print("== 2. flash_fwd vs flash_fwd_reference")
+    kernel = phase_kernels()
+    print("== 3. Llama-3-8B forward")
+    model, policy, gen = build_model()
+    launches = phase_forward(model, policy, gen)
+    print("== 4. generate")
+    from accelerate_tpu_torch.ops.flash_cuda import flash_fwd
+
+    flash_fwd.launches = 0
+    phase_generate(model, gen)
+    if flash_fwd.launches:
+        fail("the cached generate path launched flash_fwd; its attention is the einsum core")
+    print("== 5. where the device time goes")
+    phase_profile(model, gen)
+    kernel.update(launches=launches, launches_per_forward=model.config.num_hidden_layers)
+    print(json.dumps({"kernels": [kernel]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

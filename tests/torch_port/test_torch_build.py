@@ -1,0 +1,28 @@
+"""Host side of the kernel build (ops/_build.py); the compile itself runs
+only where nvcc is, on the card's machine."""
+
+import pytest
+
+from accelerate_tpu_torch.ops import _build
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    import torch.utils.cpp_extension as cpp_extension
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(_build, "_library_path", lambda name: _build.BUILD_DIR / "absent.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["flash_fwd"])
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("flash_fwd")
+
+
+def test_library_name_is_keyed_by_sources_and_flags(monkeypatch):
+    path = _build._library_path("flash_fwd")
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("libflash_fwd-")
+    assert _build._library_path("flash_fwd") == path  # stable
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build._library_path("flash_fwd") != path
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == ["flash_fwd"]
