@@ -13,7 +13,13 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
   list of per-layer dicts updated in place (JAX returns a new cache; the
   port writes into the buffers it was given, and returns them).
 * Parameters keep the module's dtype; a bf16 run builds or casts the module
-  to bf16 (``precision.py``).
+  to bf16 (``precision.py``), or trains f32 masters through
+  ``Accelerator.compile_train_step``, which casts them inside the
+  differentiated function.
+* The loss factories (:func:`causal_lm_loss`, :func:`fused_causal_lm_loss`)
+  return ``loss_fn(params, batch)`` over a dict of parameter tensors, run
+  through ``torch.func.functional_call``: the JAX contract
+  ``loss_fn(params, batch[, rng])``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (
     _einsum_attention,
@@ -75,8 +82,10 @@ class LlamaConfig:
     attn_logit_softcapping: Optional[float] = None
     final_logit_softcapping: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
-    # Training memory knobs of the JAX package. The port has no backward
-    # yet; a forward is the same with or without remat.
+    # Training memory: remat=True recomputes each decoder layer in the
+    # backward (torch.utils.checkpoint, non-reentrant) instead of keeping its
+    # activations. The port recomputes the whole layer for either policy:
+    # "dots" (keep the matmul outputs) is not told apart from "nothing" yet.
     remat: bool = False
     remat_policy: str = "dots"
     use_flash_attention: bool = True
@@ -506,6 +515,21 @@ class LlamaBlock(nn.Module):
         return h if cache is None else (h, cache)
 
 
+def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids):
+    return torch.func.functional_call(layer, params, (x, positions),
+                                      {"segment_ids": segment_ids})
+
+
+def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids):
+    """One decoder layer under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward. The layer's parameters go in by value
+    (``params``), so the recompute uses the tensors this forward used, also
+    when the forward ran inside a ``functional_call`` that has ended by the
+    time the backward runs."""
+    return checkpoint(_run_layer, layer, params, x, positions, segment_ids,
+                      use_reentrant=False)
+
+
 def _default_positions(input_ids, start: int = 0):
     B, S = input_ids.shape
     return (start + torch.arange(S, device=input_ids.device))[None, :].expand(B, S)
@@ -541,8 +565,12 @@ class LlamaModel(nn.Module):
                 "segment_ids (packed sequences) is a training feature; the "
                 "KV-cache decode path does not apply segment masking")
         x = _scale_embeddings(self.config, self.embed_tokens(input_ids))
+        remat = self.config.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            if cache is None:
+            if remat:
+                x = _remat_layer(layer, dict(layer.named_parameters()), x, positions,
+                                 segment_ids)
+            elif cache is None:
                 x = layer(x, positions, segment_ids=segment_ids)
             else:
                 x, cache[i] = layer(x, positions, cache=cache[i], cache_pos=cache_pos)
@@ -673,12 +701,88 @@ class PipelinedLlamaForCausalLM(nn.Module):
             positions = _default_positions(input_ids)
         x = _scale_embeddings(self.config, self.model.embed_tokens(input_ids))
         stacked = dict(self.model.blocks.named_parameters())
-        for i in range(self.config.num_hidden_layers):
-            x = torch.func.functional_call(
-                self.model.blocks, {name: p[i] for name, p in stacked.items()},
-                (x, positions), {"segment_ids": segment_ids})
+        run = _remat_layer if self.config.remat and torch.is_grad_enabled() else _run_layer
+        # One unbind per stacked tensor, not an index per layer: its backward
+        # stacks the layers' gradients in one write, where per-layer indexing
+        # would add a zero-filled full-size gradient for every layer.
+        for values in zip(*(p.unbind(0) for p in stacked.values())):
+            x = run(self.model.blocks, dict(zip(stacked, values)), x, positions, segment_ids)
         x = self.model.norm(x)
         if return_hidden:
             return x
         return _lm_head(self.config, x, self.model.embed_tokens.weight,
                         getattr(self, "lm_head", None))
+
+
+def _targets_and_mask(batch):
+    """Shared label semantics of every causal-LM loss: the next-token shift
+    when there are no explicit ``labels``, -100 = ignored (HF convention).
+    Returns (safe targets, float mask) with the -100 slots zeroed."""
+    targets = batch.get("labels")
+    if targets is None:
+        targets = F.pad(batch["input_ids"][:, 1:], (0, 1), value=-100)
+    mask = (targets != -100).float()
+    safe = torch.where(targets == -100, torch.zeros_like(targets), targets)
+    return safe.long(), mask
+
+
+def masked_next_token_ce(logits, batch):
+    """Next-token cross-entropy over a batch with optional ``labels`` (-100 =
+    ignored), in f32. Shared by the causal-LM loss factories."""
+    safe, mask = _targets_and_mask(batch)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _forward_kwargs(batch):
+    # Packed-sequence batches carry per-token positions and segment ids;
+    # plain batches do not. Forwarded so documents never attend across
+    # each other.
+    return {name: batch[name] for name in ("positions", "segment_ids") if name in batch}
+
+
+def _module(model):
+    """The ``nn.Module`` under a prepared model (``AcceleratedModel.module``)."""
+    return getattr(model, "module", model)
+
+
+def causal_lm_loss(model):
+    """``loss_fn(params, batch, rng=None)`` for ``compile_train_step``:
+    next-token cross-entropy over the full logits. ``params`` maps parameter
+    names of ``model`` to tensors (e.g. compute-cast copies); ``batch`` holds
+    ``input_ids`` and optional ``labels``, ``positions``, ``segment_ids``."""
+    module = _module(model)
+
+    def loss_fn(params, batch, rng=None):
+        logits = torch.func.functional_call(module, params, (batch["input_ids"],),
+                                            _forward_kwargs(batch))
+        return masked_next_token_ce(logits, batch)
+
+    return loss_fn
+
+
+def fused_causal_lm_loss(model, num_chunks: int = 8):
+    """Memory-efficient :func:`causal_lm_loss`: the [tokens, vocab] logits
+    are never materialized; the LM head runs chunked over the vocabulary
+    with an online softmax (``ops/fused_loss.py``), final-logit softcap
+    included. ``model`` is a ``LlamaForCausalLM`` or a
+    ``PipelinedLlamaForCausalLM`` (or either, prepared)."""
+    from ..ops.fused_loss import chunked_softmax_xent
+
+    module = _module(model)
+    cfg = module.config
+
+    def loss_fn(params, batch, rng=None):
+        h = torch.func.functional_call(module, params, (batch["input_ids"],),
+                                       {"return_hidden": True, **_forward_kwargs(batch)})
+        if cfg.tie_word_embeddings:
+            kernel = params["model.embed_tokens.weight"].T
+        else:
+            kernel = params["lm_head.weight"].T  # [hidden, vocab], the flax layout
+        safe, mask = _targets_and_mask(batch)
+        B, S, H = h.shape
+        return chunked_softmax_xent(h.reshape(B * S, H), kernel.to(h.dtype), safe.reshape(-1),
+                                    mask.reshape(-1), num_chunks, cfg.final_logit_softcapping)
+
+    return loss_fn

@@ -1,16 +1,17 @@
-"""Attention entry points: the Hopper flash kernel on the card, einsum elsewhere.
+"""Attention entry points: the Hopper flash kernels on the card, einsum elsewhere.
 
 Counterpart of ``accelerate_tpu/ops/attention.py``. Models dispatch through
-:func:`flash_attention`, which takes the hand-written kernel of
-``ops/flash_cuda.py`` for CUDA tensors of a shape it tiles, and the einsum
-path :func:`_einsum_attention` otherwise (the CPU tests run it).
+:func:`flash_attention`, which takes the hand-written kernels of
+``ops/flash_cuda.py`` (forward and backward, through
+``FlashAttentionFunction``) for CUDA tensors of a shape they tile, and the
+einsum path :func:`_einsum_attention` otherwise (the CPU tests run it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_cuda import MAX_HEAD_DIM, flash_fwd
+from .flash_cuda import MAX_HEAD_DIM, FlashAttentionFunction
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -82,11 +83,13 @@ def flash_attention(q, k, v, causal: bool = True, sliding_window=None, segment_i
                     sm_scale=None, logit_softcap=None):
     """Flash attention entry point; args are [batch, seq, heads, head_dim].
 
-    Dispatches to the Hopper kernel when :func:`flash_attention_available`
-    says it tiles ``q``, to the einsum path otherwise. ``segment_ids``,
-    ``sliding_window`` (banded: only the band's key tiles are visited),
-    ``sm_scale`` and ``logit_softcap`` (pre-mask) all run inside the kernel.
-    The kernel's tiles are fixed (64 x 64); the JAX entry's ``block_q`` and
+    Dispatches to the Hopper kernels when :func:`flash_attention_available`
+    says they tile ``q``, to the einsum path otherwise. The kernel path is
+    differentiable (``FlashAttentionFunction``: the forward kernel, then the
+    dK/dV and dQ kernels in the backward). ``segment_ids``,
+    ``sliding_window`` (banded: only the band's tiles are visited),
+    ``sm_scale`` and ``logit_softcap`` (pre-mask) all run inside the
+    kernels. Their tiles are fixed; the JAX entry's ``block_q`` and
     ``block_k`` have no counterpart here."""
     if sliding_window is not None and not causal:
         # Checked here too, so the einsum path fails as the kernel does.
@@ -95,7 +98,5 @@ def flash_attention(q, k, v, causal: bool = True, sliding_window=None, segment_i
         return _einsum_attention(q, k, v, causal, segment_ids=segment_ids,
                                  sliding_window=sliding_window, sm_scale=sm_scale,
                                  logit_softcap=logit_softcap)
-    out, _ = flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                       sliding_window=sliding_window, segment_ids=segment_ids,
-                       logit_softcap=logit_softcap)
-    return out
+    return FlashAttentionFunction.apply(q, k, v, segment_ids, causal, sm_scale, sliding_window,
+                                        logit_softcap)

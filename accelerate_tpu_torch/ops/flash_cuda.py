@@ -1,22 +1,33 @@
-"""Flash-attention forward on Hopper: the wrapper of ``csrc/flash_fwd.cu``
-and its plain PyTorch version.
+"""Flash attention on Hopper: the wrappers of ``csrc/flash_fwd.cu`` and
+``csrc/flash_bwd.cu``, their plain PyTorch versions, and the autograd
+function that joins them.
 
-Replaces the TPU kernel ``accelerate_tpu/ops/flash_pallas.py::_fwd_kernel``
-(launched by ``_flash_fwd``; public entry ``pallas_flash_attention``). It
-computes the same function: tiled online-softmax attention in f32 with
-causal, sliding-window (banded: only the key tiles of the band are visited),
-segment-id and Gemma2 softcap masks, an ``sm_scale`` override and GQA by
-index, returning ``(out, lse)``. The TPU kernel broadcast lse over 128
-lanes; here it is stored once per row, ``[B, H, Sq]`` f32.
+* :func:`flash_fwd` replaces the TPU kernel
+  ``accelerate_tpu/ops/flash_pallas.py::_fwd_kernel`` (launched by
+  ``_flash_fwd``): tiled online-softmax attention in f32 with causal,
+  sliding-window (banded: only the key tiles of the band are visited),
+  segment-id and Gemma2 softcap masks, an ``sm_scale`` override and GQA by
+  index, returning ``(out, lse)``. The TPU kernel broadcast lse over 128
+  lanes; here it is stored once per row, ``[B, H, Sq]`` f32.
+* :func:`flash_bwd` replaces ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel``
+  (launched by ``_flash_bwd``): it computes ``delta = rowsum(dO * O)`` in
+  f32 as plain torch (JAX does it in XLA, outside Pallas), then launches the
+  dK/dV kernel and the dQ kernel.
+* :class:`FlashAttentionFunction` is the ``custom_vjp`` of ``_flash_bhsd`` /
+  ``_flash_bhsd_seg``: forward through :func:`flash_fwd`, backward through
+  :func:`flash_bwd`.
 
-What bounds it: at the main-path shape (Llama-3-8B widths, B=4, S=2048,
-causal, bf16) a call does ~137 GFLOP over ~169 MB moved, so the tensor-core
-rate bounds it. The kernel keeps the score and probability tiles in
-registers and feeds both products to the tensor cores (``mma.sync``); see
-the source's header for what it leaves for later.
+What bounds them: at the forward path's shape (Llama-3-8B widths, B=4,
+S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB moved, and at
+the training shape (B=8, S=1024, H=16, G=8, D=128) the backward's two
+kernels do ~69 and ~52 GFLOP, each over ~135 MB: the tensor-core rate
+bounds all three. Each kernel keeps its score-sized tiles in registers and
+feeds every product to the tensor cores (``mma.sync``); see the sources'
+headers for what they leave for later.
 
-For a CUDA tensor :func:`flash_fwd` launches the kernel or raises. Only a
-tensor on the CPU takes :func:`flash_fwd_reference`, the plain version.
+For a CUDA tensor each wrapper launches its kernels or raises. Only a tensor
+on the CPU takes the plain version (:func:`flash_fwd_reference`,
+:func:`flash_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -48,6 +59,38 @@ def _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap):
         raise ValueError("segment_ids must be [batch, seq] with equal q and k lengths")
 
 
+def _pair_mask(q, k, causal, sliding_window, segment_ids):
+    """Visible (q, k) pairs, ``[B or 1, 1, 1, Sq, Sk]`` bool (True = keep),
+    or None when nothing is masked."""
+    if not (causal or sliding_window is not None or segment_ids is not None):
+        return None
+    Sq, Sk = q.shape[1], k.shape[1]
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos - sliding_window)
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, :, None] == segment_ids[:, None, :])
+    return mask[:, None, None]
+
+
+def _scaled_logits(q, k, sm_scale, logit_softcap, acc):
+    """``(s, s_cap)``: the logits [B, G, rep, Sq, Sk] in ``acc`` after the
+    scale and the softcap (``s_cap`` is None without a softcap)."""
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    qf = q.to(acc).reshape(B, Sq, G, H // G, D)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.to(acc)) * scale
+    if logit_softcap is None:
+        return s, None
+    s = logit_softcap * torch.tanh(s / logit_softcap)
+    return s, s
+
+
 def flash_fwd_reference(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
                         segment_ids=None, logit_softcap=None):
     """Plain version of :func:`flash_fwd`: dense masked softmax in f32.
@@ -55,48 +98,75 @@ def flash_fwd_reference(q, k, v, causal: bool = True, sm_scale=None, sliding_win
     Same arguments and results: q [B, Sq, H, D], k/v [B, Sk, G, D] with
     ``H = G * rep``; returns ``(out [B, Sq, H, D] in q's dtype, lse [B, H,
     Sq] f32)``. Masked logits take the finite ``NEG_INF`` and an empty row
-    divides by 1, as the kernel does."""
+    divides by 1, as the kernel does. float64 inputs compute (and return
+    lse) in float64, for ``torch.autograd.gradcheck``."""
     _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
     B, Sq, H, D = q.shape
-    Sk, G = k.shape[1], k.shape[2]
-    rep = H // G
-    scale = D ** -0.5 if sm_scale is None else sm_scale
-    qf = q.float().reshape(B, Sq, G, rep, D)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) * scale
-    if logit_softcap is not None:
-        s = logit_softcap * torch.tanh(s / logit_softcap)
-    if causal or sliding_window is not None or segment_ids is not None:
-        q_pos = torch.arange(Sq, device=q.device)[:, None]
-        k_pos = torch.arange(Sk, device=q.device)[None, :]
-        mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (k_pos <= q_pos)
-        if sliding_window is not None:
-            mask = mask & (k_pos > q_pos - sliding_window)
-        if segment_ids is not None:
-            mask = mask & (segment_ids[:, :, None] == segment_ids[:, None, :])
-        s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s, _ = _scaled_logits(q, k, sm_scale, logit_softcap, acc)
+    mask = _pair_mask(q, k, causal, sliding_window, segment_ids)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float()) / l
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p, v.to(acc)) / l
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
     lse = (m + torch.log(l)).reshape(B, H, Sq)
     return out, lse
 
 
-def _library():
+def _library(name: str):
+    """The ctypes library of ``csrc/<name>.cu``, built at first use, with
+    its C signatures set."""
     from ._build import load
 
-    lib = load("flash_fwd")
-    if lib.flash_fwd.argtypes is None:
+    lib = load(name)
+    error_string = getattr(lib, f"{name}_error_string")
+    if error_string.restype is not ctypes.c_char_p:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [f32, f32, i32, i32, ptr]
-        lib.flash_fwd.restype = ctypes.c_int
-        lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.flash_fwd_error_string.restype = ctypes.c_char_p
+        scalars = [i32] * 7 + [f32, f32, i32, i32, ptr]  # dtype, shape, options, stream
+        pointers = {"flash_fwd": 6, "flash_bwd_dkdv": 9, "flash_bwd_dq": 8}
+        for fn, count in pointers.items():
+            if fn.startswith(name):
+                getattr(lib, fn).argtypes = [ptr] * count + scalars
+                getattr(lib, fn).restype = i32
+        error_string.argtypes = [i32]
+        error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_cuda(name, q, k, v, segment_ids, *others):
+    """What the kernels take: one CUDA device, one kernel dtype, D % 16 == 0
+    and D <= 256. ``others`` must match q's dtype too (out, d_out)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
+    tensors = [q, k, v, *others] + ([segment_ids] if segment_ids is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: every tensor and segment_ids must be on one device")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, *others)):
+        raise TypeError(f"{name} takes float32/bfloat16/float16 tensors of one dtype, "
+                        f"got {[t.dtype for t in (q, k, v, *others)]}")
+    D = q.shape[-1]
+    if D % 16 or D > MAX_HEAD_DIM:
+        raise ValueError(f"{name} needs head_dim % 16 == 0 and <= {MAX_HEAD_DIM}, got {D}")
+
+
+def _contiguous_aligned(name, *tensors):
+    tensors = tuple(t.contiguous() for t in tensors)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned operands")
+    return tensors
+
+
+def _launch(lib, name: str, fn: str, *args):
+    """Calls kernel launcher ``fn`` of library ``name``; raises on a
+    non-zero ``cudaGetLastError``."""
+    err = getattr(lib, fn)(*args)
+    if err:
+        message = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} kernel launch failed: {message}")
 
 
 def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
@@ -119,41 +189,165 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
         return flash_fwd_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                    sliding_window=sliding_window, segment_ids=segment_ids,
                                    logit_softcap=logit_softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q.device}")
-    tensors = [q, k, v] + ([segment_ids] if segment_ids is not None else [])
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("q, k, v and segment_ids must be on one device")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32/bfloat16/float16 q, k, v of one dtype, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_cuda("flash_fwd", q, k, v, segment_ids)
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
-    if D % 16 or D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd needs head_dim % 16 == 0 and <= {MAX_HEAD_DIM}, got {D}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_fwd needs 16-byte aligned q, k, v")
-    seg = None
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32).contiguous()
+    q, k, v = _contiguous_aligned("flash_fwd", q, k, v)
+    seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
     if sm_scale is None:
         sm_scale = D ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _library()
+    lib = _library("flash_fwd")
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, G, Sq, Sk, D,
-            float(sm_scale), float(logit_softcap or 0.0), int(bool(causal)),
-            int(sliding_window or 0), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: "
-                           f"{lib.flash_fwd_error_string(err).decode()}")
+        _launch(lib, "flash_fwd", "flash_fwd",
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                _DTYPE_CODES[q.dtype], B, H, G, Sq, Sk, D,
+                float(sm_scale), float(logit_softcap or 0.0), int(bool(causal)),
+                int(sliding_window or 0), torch.cuda.current_stream().cuda_stream)
     flash_fwd.launches += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+
+
+def _check_residuals(q, out, lse, d_out):
+    B, Sq, H, _ = q.shape
+    if tuple(out.shape) != tuple(q.shape) or tuple(d_out.shape) != tuple(q.shape):
+        raise ValueError(f"out {tuple(out.shape)} and d_out {tuple(d_out.shape)} must have "
+                         f"q's shape {tuple(q.shape)}")
+    if tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"lse must be [B, H, Sq] = {(B, H, Sq)}, got {tuple(lse.shape)}")
+
+
+def flash_bwd_reference(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
+                        sliding_window=None, segment_ids=None, logit_softcap=None):
+    """Plain version of :func:`flash_bwd`: the dense backward in f32.
+
+    P is recomputed from ``lse`` exactly as the kernels do: ``exp(s - lse)``
+    on visible pairs and 0 on masked ones. dV takes P rounded to the input
+    dtype, dQ and dK take dS rounded to it (``_bwd_dkdv_kernel`` /
+    ``_bwd_dq_kernel`` round the same way); the softcap chain uses the
+    pre-mask capped logits. Returns ``(dq, dk, dv)`` in the inputs' dtypes;
+    dk/dv sum the ``rep`` query heads of each kv head."""
+    _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
+    _check_residuals(q, out, lse, d_out)
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    rep = H // G
+    scale = D ** -0.5 if sm_scale is None else sm_scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s, s_cap = _scaled_logits(q, k, sm_scale, logit_softcap, acc)
+    p = torch.exp(s - lse.to(acc).reshape(B, G, rep, Sq, 1))
+    mask = _pair_mask(q, k, causal, sliding_window, segment_ids)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    qf = q.to(acc).reshape(B, Sq, G, rep, D)
+    dof = d_out.to(acc).reshape(B, Sq, G, rep, D)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p.to(q.dtype).to(acc), dof)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, v.to(acc))
+    delta = (dof * out.to(acc).reshape(B, Sq, G, rep, D)).sum(-1)  # [B, Sq, G, rep]
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if s_cap is not None:
+        ds = ds * (1.0 - torch.square(s_cap / logit_softcap))
+    ds = (ds * scale).to(q.dtype).to(acc)
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.to(acc)).reshape(B, Sq, H, D)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _BackwardLaunch:
+    """The two backward kernels' operands on the card, ready to launch:
+    checked and laid out, ``delta = rowsum(dO * O)`` [B, H, Sq] computed in
+    f32, the outputs allocated. :meth:`dkdv` and :meth:`dq` each launch one
+    kernel on the current stream and count it."""
+
+    def __init__(self, q, k, v, out, lse, d_out, causal, sm_scale, sliding_window,
+                 segment_ids, logit_softcap):
+        d_out = d_out.to(q.dtype)
+        _check_cuda("flash_bwd", q, k, v, segment_ids, out, d_out)
+        B, Sq, H, D = q.shape
+        Sk, G = k.shape[1], k.shape[2]
+        q, k, v, d_out = _contiguous_aligned("flash_bwd", q, k, v, d_out)
+        self.delta = (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        self.lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+        self.seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+        self.operands = (q, k, v, d_out)  # kept alive until the launches are enqueued
+        self.grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        self.inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), d_out.data_ptr(),
+                       self.lse.data_ptr(), self.delta.data_ptr(),
+                       None if self.seg is None else self.seg.data_ptr())
+        self.shape = (_DTYPE_CODES[q.dtype], B, H, G, Sq, Sk, D,
+                      float(D ** -0.5 if sm_scale is None else sm_scale),
+                      float(logit_softcap or 0.0), int(bool(causal)), int(sliding_window or 0))
+        self.device = q.device
+        self.lib = _library("flash_bwd")
+
+    def _launch(self, fn, *outputs):
+        with torch.cuda.device(self.device):
+            _launch(self.lib, "flash_bwd", fn, *self.inputs, *(t.data_ptr() for t in outputs),
+                    *self.shape, torch.cuda.current_stream().cuda_stream)
+
+    def dkdv(self):
+        self._launch("flash_bwd_dkdv", *self.grads[1:])
+        flash_bwd.dkdv_launches += 1
+
+    def dq(self):
+        self._launch("flash_bwd_dq", self.grads[0])
+        flash_bwd.dq_launches += 1
+
+
+def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
+              sliding_window=None, segment_ids=None, logit_softcap=None):
+    """Flash-attention backward: ``(dq, dk, dv)`` from the forward's inputs,
+    its ``out`` and ``lse`` [B, H, Sq] f32, and the output gradient
+    ``d_out``; the options are :func:`flash_fwd`'s.
+
+    A CUDA tensor computes ``delta = rowsum(dO * O)`` [B, H, Sq] in f32 and
+    launches the dK/dV kernel, then the dQ kernel (no atomics: a repeat
+    call gives bit-identical gradients), or raises; a CPU tensor takes
+    :func:`flash_bwd_reference`. ``flash_bwd.dkdv_launches`` and
+    ``flash_bwd.dq_launches`` count the launches."""
+    _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
+    _check_residuals(q, out, lse, d_out)
+    kw = dict(causal=causal, sm_scale=sm_scale, sliding_window=sliding_window,
+              segment_ids=segment_ids, logit_softcap=logit_softcap)
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, out, lse, d_out, **kw)
+    launch = _BackwardLaunch(q, k, v, out, lse, d_out, **kw)
+    launch.dkdv()
+    launch.dq()
+    return launch.grads
+
+
+flash_bwd.dkdv_launches = 0
+flash_bwd.dq_launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (the ``custom_vjp`` of ``_flash_bhsd``
+    / ``_flash_bhsd_seg``): forward through :func:`flash_fwd`, backward
+    through :func:`flash_bwd`. Saves q, k, v, out, lse and the segment ids,
+    which get no gradient. Under ``torch.inference_mode()`` the forward still
+    launches the kernel once and saves nothing.
+
+    ``FlashAttentionFunction.apply(q, k, v, segment_ids, causal, sm_scale,
+    sliding_window, logit_softcap)`` returns out [B, Sq, H, D]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, sm_scale, sliding_window, logit_softcap):
+        options = dict(causal=causal, sm_scale=sm_scale, sliding_window=sliding_window,
+                       logit_softcap=logit_softcap)
+        out, lse = flash_fwd(q, k, v, segment_ids=segment_ids, **options)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.options = options
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, d_out, segment_ids=segment_ids,
+                               **ctx.options)
+        return dq, dk, dv, None, None, None, None, None

@@ -1,14 +1,18 @@
-"""Mixed-precision policies: explicit dtypes for params, compute and outputs.
+"""Mixed-precision policies and dynamic loss scaling.
 
-Counterpart of ``accelerate_tpu/precision.py`` (``Policy``, ``policy_for``).
-The default on the card, as on the TPU, is "bf16": f32 master params, bf16
-compute, f32 outputs. Dynamic loss scaling (fp16 training) and fp8 are not
-ported yet.
+Counterpart of ``accelerate_tpu/precision.py``: a policy of explicit dtypes
+for params, compute and outputs (``Policy``, ``policy_for``), and for fp16
+a loss-scale state (``LossScaleState``) kept as tensors on the device and
+advanced by pure functions, as torch's GradScaler would. The default on the
+card, as on the TPU, is "bf16": f32 master params, bf16 compute, f32
+outputs, and no scaling (bf16 has f32's exponent range). fp8 is not ported
+yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -66,3 +70,77 @@ def policy_for(mixed_precision) -> Policy:
     if mp == "fp8":
         raise NotImplementedError("mixed_precision='fp8' is not ported yet")
     raise ValueError(f"Unknown mixed precision mode {mixed_precision}")
+
+
+@dataclass
+class GradScalerKwargs:
+    """Dynamic loss-scaling config for fp16 (``utils/dataclasses.py`` of the
+    JAX package; torch GradScaler's defaults)."""
+
+    init_scale: float = 65536.0
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
+
+
+class LossScaleState(NamedTuple):
+    """Functional GradScaler state, tensors on the device."""
+
+    scale: torch.Tensor           # current loss scale, f32
+    growth_tracker: torch.Tensor  # consecutive finite steps, int32
+    fin_steps: torch.Tensor       # total applied steps (diagnostics), int32
+
+
+def make_loss_scale(kwargs: Optional[GradScalerKwargs] = None, enabled: bool = True,
+                    device=None) -> Optional[LossScaleState]:
+    """The initial state, or None when scaling is off."""
+    kwargs = kwargs or GradScalerKwargs()
+    if not enabled or not kwargs.enabled:
+        return None
+    return LossScaleState(
+        scale=torch.tensor(kwargs.init_scale, dtype=torch.float32, device=device),
+        growth_tracker=torch.zeros((), dtype=torch.int32, device=device),
+        fin_steps=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def scale_loss(loss, scale_state: Optional[LossScaleState]):
+    if scale_state is None:
+        return loss
+    return loss * scale_state.scale.to(loss.dtype)
+
+
+def unscale_grads(grads, scale_state: Optional[LossScaleState]):
+    """Each gradient times 1/scale (computed in f32, returned in its dtype)."""
+    if scale_state is None:
+        return list(grads)
+    inv = 1.0 / scale_state.scale
+    return [(g.float() * inv).to(g.dtype) for g in grads]
+
+
+def grads_finite(grads) -> torch.Tensor:
+    """A bool tensor: every entry of every gradient is finite."""
+    grads = list(grads)
+    if not grads:
+        return torch.tensor(True)
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+
+def update_loss_scale(scale_state: LossScaleState, finite: torch.Tensor,
+                      kwargs: Optional[GradScalerKwargs] = None) -> LossScaleState:
+    """Grow the scale after ``growth_interval`` finite steps in a row, back it
+    off after a non-finite one (GradScaler.update semantics)."""
+    kwargs = kwargs or GradScalerKwargs()
+    finite = finite.to(scale_state.scale.device)
+    tracker = torch.where(finite, scale_state.growth_tracker + 1,
+                          torch.zeros_like(scale_state.growth_tracker))
+    grow = tracker >= kwargs.growth_interval
+    new_scale = torch.where(
+        finite,
+        torch.where(grow, scale_state.scale * kwargs.growth_factor, scale_state.scale),
+        scale_state.scale * kwargs.backoff_factor,
+    )
+    tracker = torch.where(grow, torch.zeros_like(tracker), tracker)
+    return LossScaleState(scale=new_scale, growth_tracker=tracker,
+                          fin_steps=scale_state.fin_steps + finite.to(torch.int32))

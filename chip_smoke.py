@@ -11,8 +11,8 @@ order; any failure exits non-zero:
    versions; builds every kernel of ``accelerate_tpu_torch/ops/csrc`` (one
    nvcc per source, all at once) and prints each build's register and spill
    report.
-2. kernel vs plain version: ``flash_fwd`` on a case matrix (the main-path
-   shape in bf16; non-causal, window, segments, softcap with sm_scale, GQA
+2. kernel vs plain version: ``flash_fwd`` on a case matrix (the training
+   and the main-path shapes in bf16; non-causal, window, segments, softcap with sm_scale, GQA
    rep 1/4/8, head_dim 64/128/256, fp16, fp32, a ragged length) against
    ``flash_fwd_reference`` on the same inputs, under the tolerances of
    ``TOLERANCE``; then the kernel, its plain version and
@@ -29,6 +29,22 @@ order; any failure exits non-zero:
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
+2b (after 2). backward kernels vs plain version: ``flash_bwd`` (the dK/dV
+   and dQ kernels) on phase 2's case matrix (its first case is the training
+   shape: B=8, S=1024, H=16, G=8, D=128, causal, bf16), against
+   ``flash_bwd_reference`` on the same inputs under ``BWD_TOLERANCE``; a
+   repeat launch must give bit-identical gradients. At the training shape: each backward kernel, the
+   plain backward, the SDPA backward (the yardstick) and the forward timed.
+6. train (the Llama-3-8B model is freed first): the tier-1 model
+   (``accelerate_tpu_torch.bench.run_bench``: hidden 2048, 10 layers, bf16
+   over f32 masters, AdamW, fused LM-head loss, clip 1.0) for 3 + 20 steps on
+   8 x 1024 tokens; exactly 10 forward, 10 dK/dV and 10 dQ launches a step,
+   finite losses that fall. At the same widths with 2 layers in f32, the
+   parameter gradients through the kernels against einsum attention; one
+   step with remat gives the first step's loss with 2 forward launches a
+   layer.
+7. profile of one train step by kernel kind, and the device's busy share.
+
 Prints the kernels' JSON line and the card's line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -36,6 +52,7 @@ Prints the kernels' JSON line and the card's line, and as its last line
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +69,20 @@ PEAK_BYTES = 3.35e12
 # 16-bit output differs from the reference by its rounding, about one ulp.
 TOLERANCE = {"bfloat16": (2e-2, 1e-2, 1e-2), "float16": (5e-3, 2e-3, 1e-3),
              "float32": (1e-4, 1e-4, 1e-4)}
+# Backward tolerances. fp32: tests/test_flash_attention.py's 5e-4 (atol and
+# rtol). 16-bit: max|grad - ref| <= tol * max(max|ref|, 1). The kernels and
+# the plain version round P and dS to 16 bits at the same points, but from
+# f32 values summed in another order, so a rounding may land one ulp apart
+# (2^-8 relative in bf16, 2^-11 in fp16) and the output's cast adds half an
+# ulp: a few ulps of the largest gradient entry. The floor of 1 (the scale of
+# the N(0, 1) inputs) covers gradients that are zero but for rounding, as dq
+# and dk are with a window of 1.
+BWD_TOLERANCE = {"bfloat16": 2e-2, "float16": 4e-3, "float32": 5e-4}
+# Training shape of the tier-1 model (accelerate_tpu_torch.bench): batch 8 x
+# 1024 tokens, 16 query heads, 8 kv heads, head_dim 128, causal, bf16.
+TRAIN = dict(B=8, S=1024, H=16, G=8, D=128)
+TRAIN_LABEL = "training shape, tier-1 llama causal"
+MAIN_LABEL = "main-path llama3-8b causal"
 PROMPT_LENGTHS = (96, 200, 333, 512)
 NEW_TOKENS = 32
 
@@ -97,19 +128,28 @@ def make_inputs(B, S, H, G, D, dtype, seed, segments=False):
     return q, k, v, seg
 
 
-def attention_bound(B, S, H, G, D, dtype, causal=True):
-    """Least time (ms) for the attention forward: visible (q, k) pairs need
-    4 * D operations each (two products); each input is read once and each
-    output written once. Returns (ms, "bytes" | "operations")."""
-    import torch
-
-    pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4.0 * B * H * D * pairs
-    item = torch.finfo(dtype).bits // 8
-    nbytes = item * (B * S * H * D * 2 + B * S * G * D * 2) + 4 * B * H * S
-    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+def kernel_bound(ops: float, nbytes: float, dtype):
+    """Least time (ms) for work of ``ops`` operations at the dtype's peak
+    and ``nbytes`` moved at the memory rate: the larger of the two, and
+    which of them it is ("bytes" or "operations")."""
+    t_ops = ops / PEAK_FLOPS[str(dtype).split(".")[-1]]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def itemsize(dtype) -> int:
+    import torch
+
+    return torch.finfo(dtype).bits // 8
+
+
+def attention_bound(B, S, H, G, D, dtype, causal=True):
+    """Bound (ms, by) of the attention forward: visible (q, k) pairs need
+    4 * D operations each (two products); each input is read once and each
+    output (out, lse) written once."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = itemsize(dtype) * (B * S * H * D * 2 + B * S * G * D * 2) + 4 * B * H * S
+    return kernel_bound(4.0 * B * H * D * pairs, nbytes, dtype)
 
 
 def phase_environment():
@@ -137,7 +177,8 @@ def kernel_cases():
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     # (label, B, S, H, G, D, dtype, segments, kwargs)
     return [
-        ("main-path llama3-8b causal", *MAIN.values(), bf16, False, dict(causal=True)),
+        (TRAIN_LABEL, *TRAIN.values(), bf16, False, dict(causal=True)),
+        (MAIN_LABEL, *MAIN.values(), bf16, False, dict(causal=True)),
         ("non-causal", 2, 256, 4, 4, 128, bf16, False, dict(causal=False)),
         ("window 100 < S", 1, 512, 4, 2, 64, bf16, False, dict(sliding_window=100)),
         ("window 1", 1, 256, 2, 2, 64, bf16, False, dict(sliding_window=1)),
@@ -173,7 +214,7 @@ def phase_kernels():
 
     from accelerate_tpu_torch.ops.flash_cuda import flash_fwd, flash_fwd_reference
 
-    main_err = None
+    errors = {}
     for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
         q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
         out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
@@ -190,8 +231,7 @@ def phase_kernels():
               f"(out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g})")
         if not ok:
             fail(f"flash_fwd disagrees with flash_fwd_reference on case {label!r}")
-        if i == 0:
-            main_err = err
+        errors[label] = err
         del q, k, v, seg, out, lse, ref, ref_lse, d_out
 
     B, S, H, G, D = MAIN.values()
@@ -209,8 +249,143 @@ def phase_kernels():
     return dict(name="flash_fwd", route="cuda",
                 source="accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
                 replaces="accelerate_tpu/ops/flash_pallas.py:92",
-                max_abs_err=main_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                max_abs_err=errors[TRAIN_LABEL], main_path_err=errors[MAIN_LABEL], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def backward_bounds(B, S, H, G, D, dtype, causal=True):
+    """Bounds (ms, by) of the two backward kernels: per visible (q, k) pair
+    and head column, dK/dV does 8 operations (four products: S, dP, dV, dK)
+    and dQ 6 (S, dP, dQ). Bytes: each reads q, k, v, dO, lse and delta once;
+    dK/dV writes dk and dv, dQ writes dq."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    unit = B * H * D * pairs
+    item = itemsize(dtype)
+    read = item * (2 * B * S * H * D + 2 * B * S * G * D) + 2 * 4 * B * H * S
+    dkdv = kernel_bound(8.0 * unit, read + item * 2 * B * S * G * D, dtype)
+    dq = kernel_bound(6.0 * unit, read + item * B * S * H * D, dtype)
+    return dkdv, dq
+
+
+def sdpa_backward_yardstick(q, k, v, d_out):
+    """Time of the library's attention backward on the same inputs:
+    ``torch.autograd.grad`` through a retained ``scaled_dot_product_attention``
+    graph, causal. K and V are expanded to the query heads (outside the
+    timed region) so every SDPA backend takes them. Returns (ms, backend)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).detach().requires_grad_()
+    dot = d_out.transpose(1, 2)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend):
+                o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+                torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            ms = timed_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                          iters=20)
+        return ms, backend.name
+    fail("no SDPA backend takes the yardstick's inputs")
+
+
+def phase_backward():
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops.flash_cuda import (
+        _BackwardLaunch,
+        flash_bwd,
+        flash_bwd_reference,
+        flash_fwd,
+        flash_fwd_reference,
+    )
+
+    cases = kernel_cases()
+    errors = {}
+    for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(cases):
+        q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=300 + i, segments=segments)
+        gen = torch.Generator(device="cuda").manual_seed(400 + i)
+        d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+        grads = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        repeat = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        refs = flash_bwd_reference(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+        name = str(dtype).split(".")[-1]
+        report, ok = [], True
+        for g_name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            diff = (g.float() - r.float()).abs()
+            scale = r.float().abs().max().item()
+            if name == "float32":
+                excess = (diff - BWD_TOLERANCE[name] * r.float().abs()).max().item()
+                ok = ok and excess <= BWD_TOLERANCE[name]
+            else:
+                ok = ok and diff.max().item() <= BWD_TOLERANCE[name] * max(scale, 1.0)
+            ok = ok and bool(torch.isfinite(g.float()).all())
+            report.append(f"max|d{g_name[1:]}|={diff.max().item():.3e} (max|ref| {scale:.3g})")
+            errors.setdefault(i, {})[g_name] = diff.max().item()
+        identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
+        bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
+                 else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
+        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label}: B={B} S={S} H={H} G={G} "
+              f"D={D} {name} {' '.join(report)} (limit {bound}); repeat launch "
+              f"{'bit-identical' if identical else 'DIFFERS'}")
+        if not ok:
+            fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
+        if not identical:
+            fail(f"a repeat flash_bwd launch gave other gradients on case {label!r}")
+        del q, k, v, seg, d_out, out, lse, grads, repeat, refs
+
+    # Timing at the training shape (CUDA events): each backward kernel alone,
+    # the whole plain backward, the SDPA backward; the forward beside them.
+    B, S, H, G, D = TRAIN.values()
+    dtype = torch.bfloat16
+    q, k, v, _ = make_inputs(B, S, H, G, D, dtype, seed=9)
+    d_out = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(10),
+                        device="cuda").to(dtype)
+    out, lse = flash_fwd(q, k, v, causal=True)
+    launch = _BackwardLaunch(q, k, v, out, lse, d_out, causal=True, sm_scale=None,
+                             sliding_window=None, segment_ids=None, logit_softcap=None)
+    dkdv_ms = timed_ms(launch.dkdv, iters=20)
+    dq_ms = timed_ms(launch.dq, iters=20)
+    bwd_ms = timed_ms(lambda: flash_bwd(q, k, v, out, lse, d_out, causal=True), iters=20)
+    plain_bwd_ms = timed_ms(lambda: flash_bwd_reference(q, k, v, out, lse, d_out, causal=True),
+                            iters=3, warmup=1)
+    sdpa_bwd_ms, backend = sdpa_backward_yardstick(q, k, v, d_out)
+    fwd_ms = timed_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
+    plain_fwd_ms = timed_ms(lambda: flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_fwd_ms = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                  enable_gqa=True), iters=20)
+    (dkdv_bound, dkdv_by), (dq_bound, dq_by) = backward_bounds(B, S, H, G, D, dtype)
+    fwd_bound, fwd_by = attention_bound(B, S, H, G, D, dtype)
+    print(f"  training shape B={B} S={S} H={H} G={G} D={D} causal bf16 (CUDA events):")
+    print(f"    flash_bwd_dkdv {dkdv_ms:.4f} ms (bound {dkdv_bound:.4f} ms, {dkdv_by}); "
+          f"flash_bwd_dq {dq_ms:.4f} ms (bound {dq_bound:.4f} ms, {dq_by}); flash_bwd whole "
+          f"(delta + both) {bwd_ms:.4f} ms; plain backward {plain_bwd_ms:.3f} ms; SDPA "
+          f"backward ({backend}, K/V expanded to {H} heads) {sdpa_bwd_ms:.4f} ms")
+    print(f"    flash_fwd {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms, {fwd_by}); plain "
+          f"{plain_fwd_ms:.3f} ms; SDPA forward {sdpa_fwd_ms:.4f} ms")
+    common = dict(route="cuda", source="accelerate_tpu_torch/ops/csrc/flash_bwd.cu",
+                  plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms, library=f"SDPA backward "
+                  f"({backend}), all three grads", plain="flash_bwd_reference, all three grads")
+    return [
+        dict(name="flash_bwd_dkdv", replaces="accelerate_tpu/ops/flash_pallas.py:227",
+             max_abs_err=max(errors[0]["dk"], errors[0]["dv"]), ms=dkdv_ms, bound_ms=dkdv_bound,
+             bound_by=dkdv_by, **common),
+        dict(name="flash_bwd_dq", replaces="accelerate_tpu/ops/flash_pallas.py:305",
+             max_abs_err=errors[0]["dq"], ms=dq_ms, bound_ms=dq_bound, bound_by=dq_by, **common),
+    ], dict(ms=fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by, plain_ms=plain_fwd_ms,
+            library_ms=sdpa_fwd_ms)
 
 
 def build_model():
@@ -326,11 +501,13 @@ def phase_generate(model, gen):
           f"{decode_tokens / decode_s:.1f} tokens/s (batch 1); repeat call identical")
 
 
-def device_breakdown(label, fn, steps=1):
+def device_breakdown(label, fn, steps=1, top=4):
     """Profile ``fn`` once and print where the device time went: wall time,
-    summed kernel time (the device's busy share of the wall), and kernel time
-    by kind. The profiler adds host overhead, so the wall time here is above
-    the unprofiled one."""
+    summed kernel time (the device's busy share of the wall), kernel time by
+    kind and the ``top`` kernels. User-annotated ranges (such as the
+    optimizer's ``Optimizer.step`` range, which the profiler also lists on
+    the device) are not kernels and are left out of the sums. The profiler
+    adds host overhead, so the wall time here is above the unprofiled one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -340,7 +517,8 @@ def device_breakdown(label, fn, steps=1):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     times = {e.key: e.self_device_time_total / 1e3 for e in kernels}  # ms
     count = sum(e.count for e in kernels)
     busy = sum(times.values())
@@ -349,8 +527,9 @@ def device_breakdown(label, fn, steps=1):
         return
 
     def kind(name):
-        if "flash_fwd_kernel" in name:
-            return "flash_fwd"
+        for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            if f"{kernel}_kernel" in name:
+                return kernel
         if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
             return "matmul"
         return "other"
@@ -360,7 +539,7 @@ def device_breakdown(label, fn, steps=1):
         by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
     kinds = ", ".join(f"{k} {v / steps:.3f} ms" for k, v in sorted(by_kind.items(),
                                                                    key=lambda kv: -kv[1]))
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:top]
     print(f"  profile {label}: wall {wall_ms / steps:.3f} ms, device busy {busy / steps:.3f} ms "
           f"({100 * busy / wall_ms:.1f}% of wall), {count / steps:.0f} kernels; by kind: {kinds}")
     for name, ms in top:
@@ -391,6 +570,124 @@ def phase_profile(model, gen):
                          decode, steps=steps)
 
 
+def reset_counts():
+    from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
+
+    flash_fwd.launches = flash_bwd.dkdv_launches = flash_bwd.dq_launches = 0
+
+
+def read_counts() -> dict:
+    from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
+
+    return {"flash_fwd": flash_fwd.launches, "flash_bwd_dkdv": flash_bwd.dkdv_launches,
+            "flash_bwd_dq": flash_bwd.dq_launches}
+
+
+def free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """The tier-1 train step at full width, through the bench's entry point;
+    then the flash-vs-einsum gradient check and the remat check."""
+    from accelerate_tpu_torch.bench import run_bench
+
+    reset_counts()
+    result = run_bench()  # 3 warm-up steps, then 20 timed ones
+    counts = read_counts()
+    extra = result["extra"]
+    steps, layers = extra["steps"], extra["config"]["layers"]
+    losses = extra["losses"]
+    print(f"  tier-1 llama ({extra['config']['n_params'] / 1e9:.3f} B params, {layers} layers, "
+          f"f32 masters, bf16 compute, AdamW), {extra['config']['batch']} x "
+          f"{extra['config']['seq']} tokens: step {extra['step_ms']:.2f} ms, "
+          f"{result['value']:.0f} tokens/s, MFU {extra['mfu']:.4f} "
+          f"({extra['achieved_tflops']:.1f} of {extra['peak_tflops']:g} TFLOP/s), peak memory "
+          f"{extra['peak_memory_gib']:.2f} GiB")
+    print(f"  loss step 1 {losses[0]:.5f} -> step {steps} {losses[-1]:.5f}; mean of the first 4 "
+          f"{sum(losses[:4]) / 4:.5f}, of the last 4 {sum(losses[-4:]) / 4:.5f}; last grad norm "
+          f"{extra['grad_norm']:.4f}; launches in {steps} steps: {counts}")
+    expected = {name: layers * steps for name in counts}
+    if counts != expected:
+        fail(f"flash launches {counts} in {steps} train steps, expected {expected} "
+             f"({layers} of each per step)")
+    if not all(math.isfinite(x) for x in losses + [extra["grad_norm"]]):
+        fail("a train step gave a non-finite loss or grad norm")
+    if not sum(losses[-4:]) < sum(losses[:4]):
+        fail("the loss did not fall over the train steps")
+    free_cuda()
+
+    grad_check()
+    free_cuda()
+
+    # Remat: the first step again, every layer recomputed in the backward.
+    reset_counts()
+    remat = run_bench(iters=1, warmup=0, remat=True)
+    remat_counts = read_counts()
+    remat_loss = remat["extra"]["losses"][0]
+    print(f"  remat=True, first step: loss {remat_loss:.7f} (without remat {losses[0]:.7f}), "
+          f"grad norm {remat['extra']['grad_norm']:.6f}, peak memory "
+          f"{remat['extra']['peak_memory_gib']:.2f} GiB, launches {remat_counts}")
+    if abs(remat_loss - losses[0]) > 1e-6 * abs(losses[0]):
+        fail("remat changed the first step's loss")
+    if remat_counts != {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
+                        "flash_bwd_dq": layers}:
+        fail(f"remat step launches {remat_counts}: expected 2 forward launches per layer")
+    free_cuda()
+    return result, counts
+
+
+def grad_check():
+    """The kernels inside the model: at the tier-1 widths with 2 layers, in
+    f32 (fp32 kernels), on 1 x 256 tokens, the parameter gradients through
+    the flash kernels must agree with those through einsum attention."""
+    import torch
+
+    from accelerate_tpu_torch import PipelinedLlamaForCausalLM, fused_causal_lm_loss
+    from accelerate_tpu_torch.bench import tier1_llama_config
+
+    cfg = tier1_llama_config(num_hidden_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = PipelinedLlamaForCausalLM(cfg, device="cuda", dtype=torch.float32, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen, device="cuda")
+    grads, launches = {}, {}
+    for backend in ("auto", "einsum"):
+        cfg.attention_backend = backend
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        fused_causal_lm_loss(model)(dict(model.named_parameters()), {"input_ids": ids}).backward()
+        torch.cuda.synchronize()
+        launches[backend] = read_counts()
+        grads[backend] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    cfg.attention_backend = "auto"
+    worst = max(((grads["auto"][n] - g).norm() / g.norm()).item()
+                for n, g in grads["einsum"].items())
+    print(f"  flash vs einsum parameter gradients (tier-1 widths, 2 layers, f32, 1 x 256): worst "
+          f"relative L2 {worst:.3e} (limit 1e-3); launches flash {launches['auto']}, einsum "
+          f"{launches['einsum']}")
+    if launches["auto"] != {"flash_fwd": 2, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2} or any(
+            launches["einsum"].values()):
+        fail("the gradient check did not go through the kernels as expected")
+    if not worst <= 1e-3:
+        fail("gradients through the flash kernels disagree with einsum attention")
+
+
+def phase_train_profile():
+    from accelerate_tpu_torch.bench import build_train_step
+
+    cfg, model, step, batches = build_train_step()
+    for b in batches[:2]:
+        step(b)  # warm-up
+    device_breakdown("train step (tier-1, 8 x 1024 tokens)", lambda: step(batches[2]), top=16)
+    del cfg, model, step, batches
+    free_cuda()
+
+
 def main():
     import torch
 
@@ -411,6 +708,8 @@ def main():
     phase_environment()
     print("== 2. flash_fwd vs flash_fwd_reference")
     kernel = phase_kernels()
+    print("== 2b. flash_bwd vs flash_bwd_reference")
+    backward, train_shape_fwd = phase_backward()
     print("== 3. Llama-3-8B forward")
     model, policy, gen = build_model()
     launches = phase_forward(model, policy, gen)
@@ -423,8 +722,27 @@ def main():
         fail("the cached generate path launched flash_fwd; its attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
-    kernel.update(launches=launches, launches_per_forward=model.config.num_hidden_layers)
-    print(json.dumps({"kernels": [kernel]}))
+    layers_8b = model.config.num_hidden_layers
+    del model, gen
+    free_cuda()
+    print("== 6. train (tier-1 llama, bf16 over f32 masters)")
+    result, counts = phase_train()
+    print("== 7. where the device time of a train step goes")
+    phase_train_profile()
+
+    steps = result["extra"]["steps"]
+    forward_path = {k: kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}
+    forward_path.update(max_abs_err=kernel.pop("main_path_err"),
+                        shape="B=4 S=2048 H=32 G=8 D=128 causal bf16", launches=launches,
+                        launches_per_forward=layers_8b)
+    kernel.update(train_shape_fwd, forward_path=forward_path)
+    kernels = [kernel] + backward
+    for entry in kernels:
+        entry.update(launches=counts[entry["name"]],
+                     launches_per_step=counts[entry["name"]] / steps,
+                     shape="B=8 S=1024 H=16 G=8 D=128 causal bf16")
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

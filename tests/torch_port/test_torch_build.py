@@ -22,7 +22,9 @@ def test_library_name_is_keyed_by_sources_and_flags(monkeypatch):
     path = _build._library_path("flash_fwd")
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libflash_fwd-")
     assert _build._library_path("flash_fwd") == path  # stable
+    # Every source keys every library: one digest over all of csrc/.
+    assert _build._library_path("flash_bwd").name.split("-")[1] == path.name.split("-")[1]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._library_path("flash_fwd") != path
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == ["flash_fwd"]
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == ["flash_bwd", "flash_fwd"]

@@ -7,12 +7,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import accelerate_tpu_torch
-from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, PipelinedLlamaForCausalLM
-from accelerate_tpu_torch import init_kv_cache, resolve_device
+from accelerate_tpu_torch import Accelerator, LlamaConfig, LlamaForCausalLM, PipelinedLlamaForCausalLM
+from accelerate_tpu_torch import init_kv_cache, make_global_batch, resolve_device
+from accelerate_tpu_torch.bench import build_train_step, run_bench
 
 REPO = Path(__file__).resolve().parents[2]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax")
@@ -57,7 +59,7 @@ def test_import_adds_no_jax_module():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import accelerate_tpu_torch, accelerate_tpu_torch.generation\n"
-        "import accelerate_tpu_torch.ops._build\n"
+        "import accelerate_tpu_torch.ops._build, accelerate_tpu_torch.bench\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -83,11 +85,28 @@ def test_entry_points_raise_without_a_card():
         PipelinedLlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_kv_cache(LlamaConfig.tiny(), 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Accelerator(mixed_precision="bf16")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_global_batch({"input_ids": np.zeros((1, 4), np.int32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_bench()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step()
+    # The train step takes the prepared objects' device: cpu only when asked.
+    acc = Accelerator(cpu=True)
+    model, _ = acc.prepare(PipelinedLlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
+                           torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=0.1))
+    assert acc.device == torch.device("cpu") and model.module.model.norm.scale.device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_package_exports_the_slice():
     for name in ("LlamaConfig", "LlamaForCausalLM", "PipelinedLlamaForCausalLM", "generate",
                  "greedy_generate", "flash_attention", "flash_fwd", "flash_fwd_reference",
-                 "state_dict_from_flax", "policy_for", "resolve_device"):
+                 "state_dict_from_flax", "policy_for", "resolve_device", "Accelerator",
+                 "fused_causal_lm_loss", "causal_lm_loss", "make_global_batch", "flash_bwd",
+                 "flash_bwd_reference", "FlashAttentionFunction", "chunked_softmax_xent"):
         assert hasattr(accelerate_tpu_torch, name), name
+    assert callable(Accelerator.prepare) and callable(Accelerator.compile_train_step)
+    assert callable(run_bench)
