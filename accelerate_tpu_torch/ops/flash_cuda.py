@@ -1,6 +1,5 @@
-"""Flash attention on Hopper: the wrappers of ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu``, their plain PyTorch versions, and the autograd
-function that joins them.
+"""Flash attention on Hopper: the wrappers of the kernels in ``csrc/``,
+their plain PyTorch versions, and the autograd function that joins them.
 
 * :func:`flash_fwd` replaces the TPU kernel
   ``accelerate_tpu/ops/flash_pallas.py::_fwd_kernel`` (launched by
@@ -17,16 +16,21 @@ function that joins them.
   ``_flash_bhsd_seg``: forward through :func:`flash_fwd`, backward through
   :func:`flash_bwd`.
 
-What bounds them: at the forward path's shape (Llama-3-8B widths, B=4,
-S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB moved, and at
-the training shape (B=8, S=1024, H=16, G=8, D=128) the backward's two
-kernels do ~69 and ~52 GFLOP, each over ~135 MB: the tensor-core rate
-bounds all three. Each kernel keeps its score-sized tiles in registers and
-feeds every product to the tensor cores (``mma.sync``); see the sources'
-headers for what they leave for later.
+Two routes, picked by :func:`_wgmma_route` from the dtype and head_dim
+alone, before any launch: 16-bit inputs at head_dim 64 or 128 take the
+``wgmma`` kernels (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkdv_sm90.cu``:
+TMA into shared-memory rings under mbarriers, two warpgroups of products);
+everything else (float32, head_dim 16..256 otherwise) takes the ``mma.sync``
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). dQ always takes
+``flash_bwd.cu``. What bounds them: at the forward path's shape (Llama-3-8B
+widths, B=4, S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB
+moved, and at the training shape (B=8, S=1024, H=16, G=8, D=128) the
+backward's two kernels do ~69 and ~52 GFLOP, each over ~135 MB: the
+tensor-core rate bounds all of them; see the sources' headers.
 
-For a CUDA tensor each wrapper launches its kernels or raises. Only a tensor
-on the CPU takes the plain version (:func:`flash_fwd_reference`,
+For a CUDA tensor each wrapper launches its kernels or raises: a failed
+build or launch is never retried on the other route. Only a tensor on the
+CPU takes the plain version (:func:`flash_fwd_reference`,
 :func:`flash_bwd_reference`).
 """
 
@@ -117,6 +121,27 @@ def flash_fwd_reference(q, k, v, causal: bool = True, sm_scale=None, sliding_win
     return out, lse
 
 
+# C launchers of each csrc library and their pointer arguments; every
+# launcher then takes dtype, B, H, G, Sq, Sk, D, sm_scale, softcap, causal,
+# window and the stream.
+_LAUNCHERS = {
+    "flash_fwd": {"flash_fwd": 6},
+    "flash_fwd_sm90": {"flash_fwd_sm90": 6},
+    "flash_bwd": {"flash_bwd_dkdv": 9, "flash_bwd_dq": 8},
+    "flash_bwd_dkdv_sm90": {"flash_bwd_dkdv_sm90": 9},
+}
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_HEAD_DIMS = (64, 128)
+
+
+def _wgmma_route(dtype, head_dim: int) -> bool:
+    """The route predicate: True sends a call to the ``wgmma`` kernels
+    (16-bit inputs at head_dim 64 or 128, what their 128-byte-swizzled TMA
+    boxes and m64nNk16 products take), False to the ``mma.sync`` kernels.
+    It depends on dtype and head_dim only."""
+    return dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS
+
+
 def _library(name: str):
     """The ctypes library of ``csrc/<name>.cu``, built at first use, with
     its C signatures set."""
@@ -127,11 +152,9 @@ def _library(name: str):
     if error_string.restype is not ctypes.c_char_p:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         scalars = [i32] * 7 + [f32, f32, i32, i32, ptr]  # dtype, shape, options, stream
-        pointers = {"flash_fwd": 6, "flash_bwd_dkdv": 9, "flash_bwd_dq": 8}
-        for fn, count in pointers.items():
-            if fn.startswith(name):
-                getattr(lib, fn).argtypes = [ptr] * count + scalars
-                getattr(lib, fn).restype = i32
+        for fn, count in _LAUNCHERS[name].items():
+            getattr(lib, fn).argtypes = [ptr] * count + scalars
+            getattr(lib, fn).restype = i32
         error_string.argtypes = [i32]
         error_string.restype = ctypes.c_char_p
     return lib
@@ -180,16 +203,24 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
     tanh(s / cap)`` before the mask. Returns out [B, Sq, H, D] in q's dtype
     and lse [B, H, Sq] f32.
 
-    A CUDA tensor launches the Hopper kernel (float32, bfloat16 or float16;
-    ``D % 16 == 0`` and ``D <= 256``) or raises; a CPU tensor takes
-    :func:`flash_fwd_reference`. ``flash_fwd.launches`` counts the kernel's
-    launches."""
+    A CUDA tensor launches a Hopper kernel (float32, bfloat16 or float16;
+    ``D % 16 == 0`` and ``D <= 256``; the route by :func:`_wgmma_route`) or
+    raises; a CPU tensor takes :func:`flash_fwd_reference`.
+    ``flash_fwd.launches`` counts the launches of both routes,
+    ``flash_fwd.wgmma_launches`` and ``flash_fwd.mma_launches`` each route's."""
     _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                                    sliding_window=sliding_window, segment_ids=segment_ids,
                                    logit_softcap=logit_softcap)
     _check_cuda("flash_fwd", q, k, v, segment_ids)
+    launch = _fwd_wgmma if _wgmma_route(q.dtype, q.shape[-1]) else _fwd_mma
+    return launch(q, k, v, causal, sm_scale, sliding_window, segment_ids, logit_softcap)
+
+
+def _fwd_launch(name, q, k, v, causal, sm_scale, sliding_window, segment_ids, logit_softcap):
+    """Launches forward kernel ``name`` (one library, one C launcher of the
+    same name) on checked CUDA operands; returns ``(out, lse)``."""
     B, Sq, H, D = q.shape
     Sk, G = k.shape[1], k.shape[2]
     q, k, v = _contiguous_aligned("flash_fwd", q, k, v)
@@ -198,9 +229,8 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
         sm_scale = D ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _library("flash_fwd")
     with torch.cuda.device(q.device):
-        _launch(lib, "flash_fwd", "flash_fwd",
+        _launch(_library(name), name, name,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if seg is None else seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 _DTYPE_CODES[q.dtype], B, H, G, Sq, Sk, D,
@@ -210,7 +240,23 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
     return out, lse
 
 
+def _fwd_wgmma(*args):
+    """The forward on the ``wgmma`` route (``csrc/flash_fwd_sm90.cu``)."""
+    result = _fwd_launch("flash_fwd_sm90", *args)
+    flash_fwd.wgmma_launches += 1
+    return result
+
+
+def _fwd_mma(*args):
+    """The forward on the ``mma.sync`` route (``csrc/flash_fwd.cu``)."""
+    result = _fwd_launch("flash_fwd", *args)
+    flash_fwd.mma_launches += 1
+    return result
+
+
 flash_fwd.launches = 0
+flash_fwd.wgmma_launches = 0
+flash_fwd.mma_launches = 0
 
 
 def _check_residuals(q, out, lse, d_out):
@@ -261,8 +307,10 @@ def flash_bwd_reference(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=
 class _BackwardLaunch:
     """The two backward kernels' operands on the card, ready to launch:
     checked and laid out, ``delta = rowsum(dO * O)`` [B, H, Sq] computed in
-    f32, the outputs allocated. :meth:`dkdv` and :meth:`dq` each launch one
-    kernel on the current stream and count it."""
+    f32, the outputs allocated. :meth:`dkdv` (on the route of
+    :func:`_wgmma_route`) and :meth:`dq` each launch one kernel on the
+    current stream and count it; :meth:`dkdv_wgmma` and :meth:`dkdv_mma`
+    launch the dK/dV kernel of one route."""
 
     def __init__(self, q, k, v, out, lse, d_out, causal, sm_scale, sliding_window,
                  segment_ids, logit_softcap):
@@ -283,19 +331,28 @@ class _BackwardLaunch:
                       float(D ** -0.5 if sm_scale is None else sm_scale),
                       float(logit_softcap or 0.0), int(bool(causal)), int(sliding_window or 0))
         self.device = q.device
-        self.lib = _library("flash_bwd")
+        self.wgmma = _wgmma_route(q.dtype, D)
 
-    def _launch(self, fn, *outputs):
+    def _launch(self, name, fn, *outputs):
         with torch.cuda.device(self.device):
-            _launch(self.lib, "flash_bwd", fn, *self.inputs, *(t.data_ptr() for t in outputs),
+            _launch(_library(name), name, fn, *self.inputs, *(t.data_ptr() for t in outputs),
                     *self.shape, torch.cuda.current_stream().cuda_stream)
 
     def dkdv(self):
-        self._launch("flash_bwd_dkdv", *self.grads[1:])
+        (self.dkdv_wgmma if self.wgmma else self.dkdv_mma)()
+
+    def dkdv_wgmma(self):
+        self._launch("flash_bwd_dkdv_sm90", "flash_bwd_dkdv_sm90", *self.grads[1:])
         flash_bwd.dkdv_launches += 1
+        flash_bwd.dkdv_wgmma_launches += 1
+
+    def dkdv_mma(self):
+        self._launch("flash_bwd", "flash_bwd_dkdv", *self.grads[1:])
+        flash_bwd.dkdv_launches += 1
+        flash_bwd.dkdv_mma_launches += 1
 
     def dq(self):
-        self._launch("flash_bwd_dq", self.grads[0])
+        self._launch("flash_bwd", "flash_bwd_dq", self.grads[0])
         flash_bwd.dq_launches += 1
 
 
@@ -308,7 +365,8 @@ def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
     A CUDA tensor computes ``delta = rowsum(dO * O)`` [B, H, Sq] in f32 and
     launches the dK/dV kernel, then the dQ kernel (no atomics: a repeat
     call gives bit-identical gradients), or raises; a CPU tensor takes
-    :func:`flash_bwd_reference`. ``flash_bwd.dkdv_launches`` and
+    :func:`flash_bwd_reference`. ``flash_bwd.dkdv_launches`` (both routes;
+    ``dkdv_wgmma_launches`` and ``dkdv_mma_launches`` each route's) and
     ``flash_bwd.dq_launches`` count the launches."""
     _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
     _check_residuals(q, out, lse, d_out)
@@ -323,6 +381,8 @@ def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
 
 
 flash_bwd.dkdv_launches = 0
+flash_bwd.dkdv_wgmma_launches = 0
+flash_bwd.dkdv_mma_launches = 0
 flash_bwd.dq_launches = 0
 
 

@@ -12,37 +12,41 @@ order; any failure exits non-zero:
    nvcc per source, all at once) and prints each build's register and spill
    report.
 2. kernel vs plain version: ``flash_fwd`` on a case matrix (the training
-   and the main-path shapes in bf16; non-causal, window, segments, softcap with sm_scale, GQA
-   rep 1/4/8, head_dim 64/128/256, fp16, fp32, a ragged length) against
-   ``flash_fwd_reference`` on the same inputs, under the tolerances of
-   ``TOLERANCE``; then the kernel, its plain version and
-   ``F.scaled_dot_product_attention`` (the yardstick, never used by the
-   port) timed at the main-path shape.
+   and the main-path shapes in bf16; non-causal, window, segments, softcap
+   with sm_scale, GQA rep 1/4/8, head_dim 64/128/256, fp16, fp32, ragged
+   lengths such as S=1000 and B=3 x S=200) against ``flash_fwd_reference``
+   on the same inputs, under the tolerances of ``TOLERANCE``, printing each
+   case's route (``wgmma`` for 16-bit inputs at head_dim 64/128, else
+   ``mma.sync``); a repeat launch must be bit-identical. Then, at the
+   training and the main-path shapes, both routes of the forward, its plain
+   version and ``F.scaled_dot_product_attention`` (the yardstick, never used
+   by the port) timed beside the bound.
 3. forward: ``LlamaForCausalLM`` at Llama-3-8B widths and full depth, bf16,
    random weights from a seeded generator, on 4 x 2048 tokens; the flash
-   kernel must launch once per layer and the logits must be finite. On a
-   small input at the same widths, the flash forward is held against the
-   einsum-attention forward, and the stacked-layer model built from the same
-   weights against the sequential one.
+   kernel must launch once per layer, on the wgmma route, and the logits
+   must be finite. On a small input at the same widths, the flash forward is
+   held against the einsum-attention forward, and the stacked-layer model
+   built from the same weights against the sequential one.
 4. generate: 4 prompts of 96/200/333/512 tokens, 32 new tokens each, greedy,
    bf16 KV cache; a repeat call must return the same tokens.
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
 2b (after 2). backward kernels vs plain version: ``flash_bwd`` (the dK/dV
-   and dQ kernels) on phase 2's case matrix (its first case is the training
-   shape: B=8, S=1024, H=16, G=8, D=128, causal, bf16), against
-   ``flash_bwd_reference`` on the same inputs under ``BWD_TOLERANCE``; a
-   repeat launch must give bit-identical gradients. At the training shape: each backward kernel, the
-   plain backward, the SDPA backward (the yardstick) and the forward timed.
+   kernel of the case's route and the dQ kernel) on phase 2's case matrix
+   against ``flash_bwd_reference`` on the same inputs under
+   ``BWD_TOLERANCE``; a repeat launch must give bit-identical gradients. At
+   the training and the main-path shapes: the dK/dV kernel of each route,
+   the dQ kernel, the plain backward and the SDPA backward (the yardstick)
+   timed beside the bounds.
 6. train (the Llama-3-8B model is freed first): the tier-1 model
    (``accelerate_tpu_torch.bench.run_bench``: hidden 2048, 10 layers, bf16
    over f32 masters, AdamW, fused LM-head loss, clip 1.0) for 3 + 20 steps on
    8 x 1024 tokens; exactly 10 forward, 10 dK/dV and 10 dQ launches a step,
-   finite losses that fall. At the same widths with 2 layers in f32, the
-   parameter gradients through the kernels against einsum attention; one
-   step with remat gives the first step's loss with 2 forward launches a
-   layer.
+   the forward and dK/dV all on the wgmma route, finite losses that fall.
+   At the same widths with 2 layers in f32, the parameter gradients through
+   the kernels (the mma.sync route: f32) against einsum attention; one step
+   with remat gives the first step's loss with 2 forward launches a layer.
 7. profile of one train step by kernel kind, and the device's busy share.
 
 Prints the kernels' JSON line and the card's line, and as its last line
@@ -205,20 +209,50 @@ def kernel_cases():
         ("fp32 non-causal D=64", 1, 256, 4, 1, 64, f32, False, dict(causal=False)),
         ("ragged S=200 non-causal", 1, 200, 4, 2, 64, bf16, False, dict(causal=False)),
         ("ragged S=200 causal fp32", 1, 200, 4, 2, 128, f32, False, {}),
+        ("S=1000 causal (not a multiple of 128)", 1, 1000, 4, 2, 128, bf16, False, {}),
+        ("B=3 S=200 causal (rows past S beside the next batch's)", 3, 200, 4, 2, 128, bf16, False,
+         {}),
+        ("gqa rep 8 + window 100 + segments, D=64", 2, 512, 8, 1, 64, bf16, True,
+         dict(sliding_window=100)),
+        ("fp16 softcap 20 + sm_scale 0.1, D=128", 1, 512, 4, 2, 128, f16, False,
+         dict(logit_softcap=20.0, sm_scale=0.1)),
     ]
 
 
+def route_of(dtype, D) -> str:
+    """The kernel route a forward or dK/dV call of this dtype and head_dim
+    takes (``flash_cuda._wgmma_route``)."""
+    from accelerate_tpu_torch.ops.flash_cuda import _wgmma_route
+
+    return "wgmma" if _wgmma_route(dtype, D) else "mma.sync"
+
+
+def in_turns(fns: dict, iters: int = 20) -> dict:
+    """Times each of ``fns`` (name -> callable) twice, in the order a, b, b,
+    a, ..., and returns each one's mean ms: the versions share the card's
+    state (clocks, power) as evenly as one run allows."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(timed_ms(fns[n], iters=iters))
+    return {n: sum(t) / len(t) for n, t in times.items()}
+
+
 def phase_kernels():
+    """Every case on its route against the plain version, and a repeat
+    launch bit-identical; then both routes timed at the training and the
+    main-path shapes. Returns {"train": ..., "main": ...} timings."""
     import torch
-    import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops.flash_cuda import flash_fwd, flash_fwd_reference
 
-    errors = {}
     for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
         q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
         out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
         torch.cuda.synchronize()
+        again, again_lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+        torch.cuda.synchronize()
+        identical = torch.equal(out, again) and torch.equal(lse, again_lse)
         ref, ref_lse = flash_fwd_reference(q, k, v, segment_ids=seg, **kw)
         atol, rtol, lse_tol = TOLERANCE[str(dtype).split(".")[-1]]
         d_out = (out.float() - ref.float()).abs()
@@ -226,31 +260,58 @@ def phase_kernels():
         excess = (d_out - rtol * ref.float().abs()).max().item()
         err_lse = (lse - ref_lse).abs().max().item()
         ok = (torch.isfinite(out.float()).all().item() and excess <= atol and err_lse <= lse_tol)
-        print(f"  [{'ok' if ok else 'FAIL'}] {label}: B={B} S={S} H={H} G={G} D={D} "
-              f"{str(dtype).split('.')[-1]} max|dout|={err:.3e} max|dlse|={err_lse:.3e} "
-              f"(out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g})")
+        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} ({route_of(dtype, D)}): B={B} "
+              f"S={S} H={H} G={G} D={D} {str(dtype).split('.')[-1]} max|dout|={err:.3e} "
+              f"max|dlse|={err_lse:.3e} (out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g}); repeat "
+              f"launch {'bit-identical' if identical else 'DIFFERS'}")
         if not ok:
             fail(f"flash_fwd disagrees with flash_fwd_reference on case {label!r}")
-        errors[label] = err
-        del q, k, v, seg, out, lse, ref, ref_lse, d_out
+        if not identical:
+            fail(f"a repeat flash_fwd launch gave another result on case {label!r}")
+        del q, k, v, seg, out, lse, again, again_lse, ref, ref_lse, d_out
 
-    B, S, H, G, D = MAIN.values()
-    q, k, v, _ = make_inputs(B, S, H, G, D, torch.bfloat16, seed=7)
-    ms = timed_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
-    plain_ms = timed_ms(lambda: flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
+    timings = {}
+    for key, shape, label in (("train", TRAIN, TRAIN_LABEL), ("main", MAIN, MAIN_LABEL)):
+        timings[key] = forward_timings(*shape.values(), seed=7)
+        t = timings[key]
+        print(f"  flash forward, {label} {shape_text(shape)} (CUDA events): wgmma "
+              f"{t['ms']['wgmma']:.4f} ms, mma.sync {t['ms']['mma.sync']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f} ms, {t['bound_by']}; wgmma at "
+              f"{100 * t['bound_ms'] / t['ms']['wgmma']:.1f} % of it); plain {t['plain_ms']:.3f} "
+              f"ms; SDPA {t['library_ms']:.4f} ms; max|dout| wgmma {t['err']['wgmma']:.3e}, "
+              f"mma.sync {t['err']['mma.sync']:.3e}")
+    return timings
+
+
+def shape_text(shape) -> str:
+    return " ".join(f"{k}={v}" for k, v in shape.items()) + " causal bf16"
+
+
+def forward_timings(B, S, H, G, D, seed):
+    """Both routes of the forward at one causal bf16 shape, each checked
+    against the plain version once, then timed in turns beside the plain
+    version, SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, _ = make_inputs(B, S, H, G, D, torch.bfloat16, seed=seed)
+    args = (q, k, v, True, None, None, None, None)
+    routes = {"wgmma": lambda: fc._fwd_wgmma(*args), "mma.sync": lambda: fc._fwd_mma(*args)}
+    ref, _ = fc.flash_fwd_reference(q, k, v, causal=True)
+    err = {n: (fn()[0].float() - ref.float()).abs().max().item() for n, fn in routes.items()}
+    del ref
+    ms = in_turns(routes)
+    plain_ms = timed_ms(lambda: fc.flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
     # The yardstick: one library call computing the same attention, in its
     # [B, H, S, D] layout (the layout change is not timed).
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library_ms = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                  enable_gqa=True), iters=20)
     bound_ms, bound_by = attention_bound(B, S, H, G, D, torch.bfloat16)
-    print(f"  flash_fwd at the main-path shape: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
-          f"{bound_by}; plain {plain_ms:.3f} ms; SDPA {library_ms:.4f} ms)")
-    return dict(name="flash_fwd", route="cuda",
-                source="accelerate_tpu_torch/ops/csrc/flash_fwd.cu",
-                replaces="accelerate_tpu/ops/flash_pallas.py:92",
-                max_abs_err=errors[TRAIN_LABEL], main_path_err=errors[MAIN_LABEL], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return dict(ms=ms, err=err, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def backward_bounds(B, S, H, G, D, dtype, causal=True):
@@ -297,20 +358,15 @@ def sdpa_backward_yardstick(q, k, v, d_out):
 
 
 def phase_backward():
+    """Every case through ``flash_bwd`` (dK/dV on the case's route, then dQ)
+    against the plain version, a repeat bit-identical; then the dK/dV
+    kernel of each route and the dQ kernel timed at the training and the
+    main-path shapes. Returns {"train": ..., "main": ...} timings."""
     import torch
-    import torch.nn.functional as F
 
-    from accelerate_tpu_torch.ops.flash_cuda import (
-        _BackwardLaunch,
-        flash_bwd,
-        flash_bwd_reference,
-        flash_fwd,
-        flash_fwd_reference,
-    )
+    from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_bwd_reference, flash_fwd
 
-    cases = kernel_cases()
-    errors = {}
-    for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(cases):
+    for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
         q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=300 + i, segments=segments)
         gen = torch.Generator(device="cuda").manual_seed(400 + i)
         d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -332,60 +388,67 @@ def phase_backward():
                 ok = ok and diff.max().item() <= BWD_TOLERANCE[name] * max(scale, 1.0)
             ok = ok and bool(torch.isfinite(g.float()).all())
             report.append(f"max|d{g_name[1:]}|={diff.max().item():.3e} (max|ref| {scale:.3g})")
-            errors.setdefault(i, {})[g_name] = diff.max().item()
         identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
         bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
                  else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
-        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label}: B={B} S={S} H={H} G={G} "
-              f"D={D} {name} {' '.join(report)} (limit {bound}); repeat launch "
-              f"{'bit-identical' if identical else 'DIFFERS'}")
+        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV {route_of(dtype, D)}, "
+              f"dQ mma.sync): B={B} S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
+              f"{bound}); repeat launch {'bit-identical' if identical else 'DIFFERS'}")
         if not ok:
             fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
         if not identical:
             fail(f"a repeat flash_bwd launch gave other gradients on case {label!r}")
         del q, k, v, seg, d_out, out, lse, grads, repeat, refs
 
-    # Timing at the training shape (CUDA events): each backward kernel alone,
-    # the whole plain backward, the SDPA backward; the forward beside them.
-    B, S, H, G, D = TRAIN.values()
-    dtype = torch.bfloat16
-    q, k, v, _ = make_inputs(B, S, H, G, D, dtype, seed=9)
-    d_out = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(10),
-                        device="cuda").to(dtype)
-    out, lse = flash_fwd(q, k, v, causal=True)
-    launch = _BackwardLaunch(q, k, v, out, lse, d_out, causal=True, sm_scale=None,
-                             sliding_window=None, segment_ids=None, logit_softcap=None)
-    dkdv_ms = timed_ms(launch.dkdv, iters=20)
-    dq_ms = timed_ms(launch.dq, iters=20)
-    bwd_ms = timed_ms(lambda: flash_bwd(q, k, v, out, lse, d_out, causal=True), iters=20)
-    plain_bwd_ms = timed_ms(lambda: flash_bwd_reference(q, k, v, out, lse, d_out, causal=True),
-                            iters=3, warmup=1)
-    sdpa_bwd_ms, backend = sdpa_backward_yardstick(q, k, v, d_out)
-    fwd_ms = timed_ms(lambda: flash_fwd(q, k, v, causal=True), iters=20)
-    plain_fwd_ms = timed_ms(lambda: flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa_fwd_ms = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                  enable_gqa=True), iters=20)
-    (dkdv_bound, dkdv_by), (dq_bound, dq_by) = backward_bounds(B, S, H, G, D, dtype)
-    fwd_bound, fwd_by = attention_bound(B, S, H, G, D, dtype)
-    print(f"  training shape B={B} S={S} H={H} G={G} D={D} causal bf16 (CUDA events):")
-    print(f"    flash_bwd_dkdv {dkdv_ms:.4f} ms (bound {dkdv_bound:.4f} ms, {dkdv_by}); "
-          f"flash_bwd_dq {dq_ms:.4f} ms (bound {dq_bound:.4f} ms, {dq_by}); flash_bwd whole "
-          f"(delta + both) {bwd_ms:.4f} ms; plain backward {plain_bwd_ms:.3f} ms; SDPA "
-          f"backward ({backend}, K/V expanded to {H} heads) {sdpa_bwd_ms:.4f} ms")
-    print(f"    flash_fwd {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms, {fwd_by}); plain "
-          f"{plain_fwd_ms:.3f} ms; SDPA forward {sdpa_fwd_ms:.4f} ms")
-    common = dict(route="cuda", source="accelerate_tpu_torch/ops/csrc/flash_bwd.cu",
-                  plain_ms=plain_bwd_ms, library_ms=sdpa_bwd_ms, library=f"SDPA backward "
-                  f"({backend}), all three grads", plain="flash_bwd_reference, all three grads")
-    return [
-        dict(name="flash_bwd_dkdv", replaces="accelerate_tpu/ops/flash_pallas.py:227",
-             max_abs_err=max(errors[0]["dk"], errors[0]["dv"]), ms=dkdv_ms, bound_ms=dkdv_bound,
-             bound_by=dkdv_by, **common),
-        dict(name="flash_bwd_dq", replaces="accelerate_tpu/ops/flash_pallas.py:305",
-             max_abs_err=errors[0]["dq"], ms=dq_ms, bound_ms=dq_bound, bound_by=dq_by, **common),
-    ], dict(ms=fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by, plain_ms=plain_fwd_ms,
-            library_ms=sdpa_fwd_ms)
+    timings = {}
+    for key, shape, label in (("train", TRAIN, TRAIN_LABEL), ("main", MAIN, MAIN_LABEL)):
+        timings[key] = backward_timings(*shape.values(), seed=9)
+        t = timings[key]
+        print(f"  flash backward, {label} {shape_text(shape)} (CUDA events): dK/dV wgmma "
+              f"{t['ms']['wgmma']:.4f} ms, mma.sync {t['ms']['mma.sync']:.4f} ms (bound "
+              f"{t['dkdv_bound'][0]:.4f} ms, {t['dkdv_bound'][1]}; wgmma at "
+              f"{100 * t['dkdv_bound'][0] / t['ms']['wgmma']:.1f} % of it); dQ "
+              f"{t['ms']['dq']:.4f} ms (bound {t['dq_bound'][0]:.4f} ms); plain backward "
+              f"{t['plain_ms']:.3f} ms; SDPA backward ({t['backend']}, K/V expanded to "
+              f"{shape['H']} heads, all three grads) {t['library_ms']:.4f} ms; max|dk, dv| wgmma "
+              f"{t['err']['wgmma']:.3e}, mma.sync {t['err']['mma.sync']:.3e}, max|dq| "
+              f"{t['err']['dq']:.3e}")
+    return timings
+
+
+def backward_timings(B, S, H, G, D, seed):
+    """The dK/dV kernel of each route and the dQ kernel at one causal bf16
+    shape, each checked against the plain backward once, then timed (the
+    two dK/dV routes in turns) beside the plain backward, SDPA's backward
+    and the bounds."""
+    import torch
+
+    from accelerate_tpu_torch.ops import flash_cuda as fc
+
+    q, k, v, _ = make_inputs(B, S, H, G, D, torch.bfloat16, seed=seed)
+    d_out = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                        device="cuda").to(torch.bfloat16)
+    out, lse = fc.flash_fwd(q, k, v, causal=True)
+    launch = fc._BackwardLaunch(q, k, v, out, lse, d_out, causal=True, sm_scale=None,
+                                sliding_window=None, segment_ids=None, logit_softcap=None)
+    refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
+    routes = {"wgmma": launch.dkdv_wgmma, "mma.sync": launch.dkdv_mma}
+    err = {}
+    for name, fn in routes.items():
+        fn()
+        err[name] = max((g.float() - r.float()).abs().max().item()
+                        for g, r in zip(launch.grads[1:], refs[1:]))
+    launch.dq()
+    err["dq"] = (launch.grads[0].float() - refs[0].float()).abs().max().item()
+    del refs
+    ms = in_turns(routes)
+    ms["dq"] = timed_ms(launch.dq, iters=20)
+    plain_ms = timed_ms(lambda: fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True),
+                        iters=2, warmup=1)
+    library_ms, backend = sdpa_backward_yardstick(q, k, v, d_out)
+    dkdv_bound, dq_bound = backward_bounds(B, S, H, G, D, torch.bfloat16)
+    return dict(ms=ms, err=err, plain_ms=plain_ms, library_ms=library_ms, backend=backend,
+                dkdv_bound=dkdv_bound, dq_bound=dq_bound)
 
 
 def build_model():
@@ -417,19 +480,20 @@ def phase_forward(model, policy, gen):
     with torch.inference_mode():
         model(ids[:1, :256])  # warm-up: library handles, allocator
         torch.cuda.synchronize()
-        flash_fwd.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         logits = policy.cast_to_output(model(ids))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = flash_fwd.launches
-        if launches != cfg.num_hidden_layers:
-            fail(f"flash_fwd launched {launches} times in one forward, "
-                 f"expected {cfg.num_hidden_layers}")
+        counts = read_counts()
+        launches = counts["flash_fwd_sm90"]
+        if counts["flash_fwd"] != cfg.num_hidden_layers or launches != cfg.num_hidden_layers:
+            fail(f"flash_fwd launched {counts['flash_fwd']} times in one forward, "
+                 f"{launches} on the wgmma route; expected {cfg.num_hidden_layers} of each")
         if tuple(logits.shape) != (B, S, cfg.vocab_size) or not torch.isfinite(logits).all():
             fail(f"forward logits: shape {tuple(logits.shape)} or non-finite values")
         print(f"  forward {B}x{S} tokens: {seconds * 1e3:.1f} ms, {B * S / seconds:.0f} tokens/s, "
-              f"flash_fwd launches {launches} (one per layer), peak memory "
+              f"flash_fwd launches {launches} (one per layer, wgmma route), peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         del logits
 
@@ -527,7 +591,8 @@ def device_breakdown(label, fn, steps=1, top=4):
         return
 
     def kind(name):
-        for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        for kernel in ("flash_fwd_sm90", "flash_bwd_dkdv_sm90", "flash_fwd", "flash_bwd_dkdv",
+                       "flash_bwd_dq"):
             if f"{kernel}_kernel" in name:
                 return kernel
         if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
@@ -573,14 +638,32 @@ def phase_profile(model, gen):
 def reset_counts():
     from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
 
-    flash_fwd.launches = flash_bwd.dkdv_launches = flash_bwd.dq_launches = 0
+    flash_fwd.launches = flash_fwd.wgmma_launches = flash_fwd.mma_launches = 0
+    flash_bwd.dkdv_launches = flash_bwd.dkdv_wgmma_launches = flash_bwd.dkdv_mma_launches = 0
+    flash_bwd.dq_launches = 0
 
 
 def read_counts() -> dict:
+    """Launches since ``reset_counts``, by kernel: the totals of the forward
+    and dK/dV (both routes), and each kernel of each route."""
     from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
 
-    return {"flash_fwd": flash_fwd.launches, "flash_bwd_dkdv": flash_bwd.dkdv_launches,
-            "flash_bwd_dq": flash_bwd.dq_launches}
+    return {"flash_fwd": flash_fwd.launches, "flash_fwd_sm90": flash_fwd.wgmma_launches,
+            "flash_fwd_mma": flash_fwd.mma_launches, "flash_bwd_dkdv": flash_bwd.dkdv_launches,
+            "flash_bwd_dkdv_sm90": flash_bwd.dkdv_wgmma_launches,
+            "flash_bwd_dkdv_mma": flash_bwd.dkdv_mma_launches, "flash_bwd_dq": flash_bwd.dq_launches}
+
+
+def expected_counts(forward: int, backward: int, wgmma: bool) -> dict:
+    """``read_counts`` of ``forward`` forward and ``backward`` backward
+    launches, all on one route."""
+    route = {"flash_fwd_sm90": forward, "flash_bwd_dkdv_sm90": backward} if wgmma else {
+        "flash_fwd_mma": forward, "flash_bwd_dkdv_mma": backward}
+    counts = {"flash_fwd": forward, "flash_fwd_sm90": 0, "flash_fwd_mma": 0,
+              "flash_bwd_dkdv": backward, "flash_bwd_dkdv_sm90": 0, "flash_bwd_dkdv_mma": 0,
+              "flash_bwd_dq": backward}
+    counts.update(route)
+    return counts
 
 
 def free_cuda():
@@ -612,17 +695,17 @@ def phase_train():
     print(f"  loss step 1 {losses[0]:.5f} -> step {steps} {losses[-1]:.5f}; mean of the first 4 "
           f"{sum(losses[:4]) / 4:.5f}, of the last 4 {sum(losses[-4:]) / 4:.5f}; last grad norm "
           f"{extra['grad_norm']:.4f}; launches in {steps} steps: {counts}")
-    expected = {name: layers * steps for name in counts}
+    expected = expected_counts(layers * steps, layers * steps, wgmma=True)
     if counts != expected:
         fail(f"flash launches {counts} in {steps} train steps, expected {expected} "
-             f"({layers} of each per step)")
+             f"({layers} of each per step, forward and dK/dV on the wgmma route)")
     if not all(math.isfinite(x) for x in losses + [extra["grad_norm"]]):
         fail("a train step gave a non-finite loss or grad norm")
     if not sum(losses[-4:]) < sum(losses[:4]):
         fail("the loss did not fall over the train steps")
     free_cuda()
 
-    grad_check()
+    check_counts = grad_check()
     free_cuda()
 
     # Remat: the first step again, every layer recomputed in the backward.
@@ -635,17 +718,17 @@ def phase_train():
           f"{remat['extra']['peak_memory_gib']:.2f} GiB, launches {remat_counts}")
     if abs(remat_loss - losses[0]) > 1e-6 * abs(losses[0]):
         fail("remat changed the first step's loss")
-    if remat_counts != {"flash_fwd": 2 * layers, "flash_bwd_dkdv": layers,
-                        "flash_bwd_dq": layers}:
+    if remat_counts != expected_counts(2 * layers, layers, wgmma=True):
         fail(f"remat step launches {remat_counts}: expected 2 forward launches per layer")
     free_cuda()
-    return result, counts
+    return result, counts, check_counts
 
 
 def grad_check():
     """The kernels inside the model: at the tier-1 widths with 2 layers, in
-    f32 (fp32 kernels), on 1 x 256 tokens, the parameter gradients through
-    the flash kernels must agree with those through einsum attention."""
+    f32 (the mma.sync route), on 1 x 256 tokens, the parameter gradients
+    through the flash kernels must agree with those through einsum
+    attention. Returns the flash run's launch counts."""
     import torch
 
     from accelerate_tpu_torch import PipelinedLlamaForCausalLM, fused_causal_lm_loss
@@ -670,11 +753,11 @@ def grad_check():
     print(f"  flash vs einsum parameter gradients (tier-1 widths, 2 layers, f32, 1 x 256): worst "
           f"relative L2 {worst:.3e} (limit 1e-3); launches flash {launches['auto']}, einsum "
           f"{launches['einsum']}")
-    if launches["auto"] != {"flash_fwd": 2, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2} or any(
-            launches["einsum"].values()):
+    if launches["auto"] != expected_counts(2, 2, wgmma=False) or any(launches["einsum"].values()):
         fail("the gradient check did not go through the kernels as expected")
     if not worst <= 1e-3:
         fail("gradients through the flash kernels disagree with einsum attention")
+    return launches["auto"]
 
 
 def phase_train_profile():
@@ -707,46 +790,83 @@ def main():
     print("== 1. environment and build")
     phase_environment()
     print("== 2. flash_fwd vs flash_fwd_reference")
-    kernel = phase_kernels()
+    forward = phase_kernels()
     print("== 2b. flash_bwd vs flash_bwd_reference")
-    backward, train_shape_fwd = phase_backward()
+    backward = phase_backward()
     print("== 3. Llama-3-8B forward")
     model, policy, gen = build_model()
-    launches = phase_forward(model, policy, gen)
+    launches_8b = phase_forward(model, policy, gen)
     print("== 4. generate")
-    from accelerate_tpu_torch.ops.flash_cuda import flash_fwd
-
-    flash_fwd.launches = 0
+    reset_counts()
     phase_generate(model, gen)
-    if flash_fwd.launches:
-        fail("the cached generate path launched flash_fwd; its attention is the einsum core")
+    if any(read_counts().values()):
+        fail("the cached generate path launched a flash kernel; its attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
     del model, gen
     free_cuda()
     print("== 6. train (tier-1 llama, bf16 over f32 masters)")
-    result, counts = phase_train()
+    result, counts, check_counts = phase_train()
     print("== 7. where the device time of a train step goes")
     phase_train_profile()
 
     steps = result["extra"]["steps"]
-    forward_path = {k: kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms")}
-    forward_path.update(max_abs_err=kernel.pop("main_path_err"),
-                        shape="B=4 S=2048 H=32 G=8 D=128 causal bf16", launches=launches,
-                        launches_per_forward=layers_8b)
-    kernel.update(train_shape_fwd, forward_path=forward_path)
-    kernels = [kernel] + backward
-    for entry in kernels:
-        entry.update(launches=counts[entry["name"]],
-                     launches_per_step=counts[entry["name"]] / steps,
-                     shape="B=8 S=1024 H=16 G=8 D=128 causal bf16")
+    kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+TRAIN_PATH = "tier-1 train steps (phase 6)"
+CHECK_PATH = "f32 gradient check through the model (phase 6): tier-1 widths, 2 layers, 1 x 256"
+
+
+def kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b):
+    """The kernels' JSON entries, both routes. Times and errors at the
+    training shape (``main_path``: at the Llama-3-8B shape) from phases 2
+    and 2b; launches from the path each kernel runs on: the wgmma kernels
+    and dQ from the train steps, the mma.sync forward and dK/dV from the f32
+    gradient check (16-bit inputs at head_dim 128 never reach them)."""
+    csrc = "accelerate_tpu_torch/ops/csrc/"
+    pallas = "accelerate_tpu/ops/flash_pallas.py"
+    kernels = []
+
+    def add(name, design, source, replaces, timings, ms_key, bound_key, library, launches,
+            path):
+        t, m = timings["train"], timings["main"]
+        bound = (t["bound_ms"], t["bound_by"]) if bound_key is None else t[bound_key]
+        main_bound = (m["bound_ms"], m["bound_by"]) if bound_key is None else m[bound_key]
+        kernels.append(dict(
+            name=name, route="cuda", design=design, source=csrc + source, replaces=replaces,
+            launches=launches, path=path, shape=shape_text(TRAIN), max_abs_err=t["err"][ms_key],
+            ms=t["ms"][ms_key], plain_ms=t["plain_ms"], bound_ms=bound[0], bound_by=bound[1],
+            library_ms=t["library_ms"], library=library,
+            main_path=dict(shape=shape_text(MAIN), max_abs_err=m["err"][ms_key],
+                           ms=m["ms"][ms_key], plain_ms=m["plain_ms"], bound_ms=main_bound[0],
+                           bound_by=main_bound[1], library_ms=m["library_ms"])))
+
+    sdpa_bwd = f"SDPA backward ({backward['train']['backend']}), all three grads"
+    add("flash_fwd_sm90", "wgmma", "flash_fwd_sm90.cu", f"{pallas}:92", forward, "wgmma", None,
+        "SDPA forward", counts["flash_fwd_sm90"], TRAIN_PATH)
+    kernels[-1]["launches_per_step"] = counts["flash_fwd_sm90"] / steps
+    kernels[-1]["main_path"].update(launches=launches_8b, launches_per_forward=layers_8b)
+    add("flash_fwd", "mma.sync", "flash_fwd.cu", f"{pallas}:92", forward, "mma.sync", None,
+        "SDPA forward", check_counts["flash_fwd_mma"], CHECK_PATH)
+    add("flash_bwd_dkdv_sm90", "wgmma", "flash_bwd_dkdv_sm90.cu", f"{pallas}:227", backward,
+        "wgmma", "dkdv_bound", sdpa_bwd, counts["flash_bwd_dkdv_sm90"], TRAIN_PATH)
+    kernels[-1]["launches_per_step"] = counts["flash_bwd_dkdv_sm90"] / steps
+    add("flash_bwd_dkdv", "mma.sync", "flash_bwd.cu", f"{pallas}:227", backward, "mma.sync",
+        "dkdv_bound", sdpa_bwd, check_counts["flash_bwd_dkdv_mma"], CHECK_PATH)
+    add("flash_bwd_dq", "mma.sync", "flash_bwd.cu", f"{pallas}:305", backward, "dq", "dq_bound",
+        sdpa_bwd, counts["flash_bwd_dq"], TRAIN_PATH)
+    kernels[-1]["launches_per_step"] = counts["flash_bwd_dq"] / steps
+    for entry in kernels:
+        if entry["library"].startswith("SDPA backward"):
+            entry["plain"] = "flash_bwd_reference, all three grads"
+    return kernels
 
 
 if __name__ == "__main__":

@@ -27,4 +27,17 @@ def test_library_name_is_keyed_by_sources_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._library_path("flash_fwd") != path
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == ["flash_bwd", "flash_fwd"]
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
+        "flash_bwd", "flash_bwd_dkdv_sm90", "flash_fwd", "flash_fwd_sm90"]
+
+
+def test_shared_header_keys_every_library(monkeypatch, tmp_path):
+    # sm90.cuh is compiled into the wgmma sources: editing it must rebuild them.
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build._library_path("flash_fwd_sm90")
+    (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+    assert _build._library_path("flash_fwd_sm90") != before

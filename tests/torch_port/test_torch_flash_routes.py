@@ -1,0 +1,115 @@
+"""The two kernel routes of ops/flash_cuda.py: the predicate that picks one
+before any launch, the plain version for CPU tensors, and the CUDA sources'
+notes. The kernels themselves run only on the card (chip_smoke.py)."""
+
+import re
+import types
+
+import pytest
+import torch
+
+from accelerate_tpu_torch.ops import _build
+from accelerate_tpu_torch.ops import flash_cuda as fc
+
+ROUTES = [(dtype, D, True) for dtype in (torch.bfloat16, torch.float16) for D in (64, 128)] + [
+    (torch.float32, 64, False), (torch.float32, 128, False), (torch.bfloat16, 96, False),
+    (torch.float16, 96, False), (torch.bfloat16, 256, False), (torch.float16, 256, False),
+    (torch.bfloat16, 32, False),
+]
+REPLACED = {"flash_fwd": ["_fwd_kernel"], "flash_fwd_sm90": ["_fwd_kernel"],
+            "flash_bwd": ["_bwd_dkdv_kernel", "_bwd_dq_kernel"],
+            "flash_bwd_dkdv_sm90": ["_bwd_dkdv_kernel"]}
+COUNTERS = (("flash_fwd", "launches"), ("flash_fwd", "wgmma_launches"),
+            ("flash_fwd", "mma_launches"), ("flash_bwd", "dkdv_launches"),
+            ("flash_bwd", "dkdv_wgmma_launches"), ("flash_bwd", "dkdv_mma_launches"),
+            ("flash_bwd", "dq_launches"))
+
+
+def counts():
+    return {f"{fn}.{attr}": getattr(getattr(fc, fn), attr) for fn, attr in COUNTERS}
+
+
+def qkv(dtype, D, device="cpu", B=1, S=48, H=4, G=2, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=gen).to(dtype)
+    k = torch.randn((B, S, G, D), generator=gen).to(dtype)
+    v = torch.randn((B, S, G, D), generator=gen).to(dtype)
+    return tuple(t.to(device) for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
+def test_route_predicate(dtype, D, wgmma):
+    assert fc._wgmma_route(dtype, D) is wgmma
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
+def test_forward_dispatches_on_the_predicate_alone(monkeypatch, dtype, D, wgmma):
+    # Meta tensors stand in for CUDA ones: the route is chosen from dtype and
+    # head_dim before anything touches the card, and exactly one route runs.
+    calls = []
+    monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(fc, "_fwd_wgmma", lambda *a: calls.append("wgmma"))
+    monkeypatch.setattr(fc, "_fwd_mma", lambda *a: calls.append("mma.sync"))
+    fc.flash_fwd(*qkv(dtype, D, device="meta"), causal=True)
+    assert calls == ["wgmma" if wgmma else "mma.sync"]
+
+
+@pytest.mark.parametrize("wgmma", [True, False])
+def test_backward_dkdv_takes_its_route(wgmma):
+    calls = []
+    launch = types.SimpleNamespace(wgmma=wgmma, dkdv_wgmma=lambda: calls.append("wgmma"),
+                                   dkdv_mma=lambda: calls.append("mma.sync"))
+    fc._BackwardLaunch.dkdv(launch)
+    assert calls == ["wgmma" if wgmma else "mma.sync"]
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
+                                     (torch.float32, 64)])
+def test_cpu_tensor_takes_the_plain_version_on_either_route(dtype, D):
+    q, k, v = qkv(dtype, D)
+    before = counts()
+    out, lse = fc.flash_fwd(q, k, v, causal=True)
+    ref, ref_lse = fc.flash_fwd_reference(q, k, v, causal=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype)
+    grads = fc.flash_bwd(q, k, v, out, lse, d_out, causal=True)
+    refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
+    assert all(torch.equal(g, r) for g, r in zip(grads, refs))
+    assert counts() == before
+
+
+def test_a_failed_launch_raises_with_the_cuda_error():
+    lib = types.SimpleNamespace(flash_fwd_sm90=lambda *a: 700,
+                                flash_fwd_sm90_error_string=lambda code: b"an illegal memory access")
+    with pytest.raises(RuntimeError, match="flash_fwd_sm90 kernel launch failed: an illegal"):
+        fc._launch(lib, "flash_fwd_sm90", "flash_fwd_sm90", 0)
+
+
+def test_every_source_has_its_launchers():
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(fc._LAUNCHERS) == sources
+    for name, launchers in fc._LAUNCHERS.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" const char* {name}_error_string(int code)' in text
+        for fn, pointers in launchers.items():
+            signature = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+            assert signature, f"{name}.cu defines no launcher {fn}"
+            params = [p.strip() for p in signature.group(1).split(",")]
+            assert len(params) == pointers + 12  # + dtype, 6 sizes, 2 floats, 2 options, stream
+            assert all("*" in p for p in params[:pointers])
+
+
+@pytest.mark.parametrize("name", sorted(REPLACED))
+def test_source_notes_the_tpu_kernel_and_includes_no_pytorch_header(name):
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    header = text.split("#include")[0]
+    for kernel in REPLACED[name]:
+        assert f"accelerate_tpu/ops/flash_pallas.py::{kernel}" in header or (
+            kernel in header and "accelerate_tpu/ops/flash_pallas.py" in header)
+    assert "What bounds it" in header or "What bounds them" in header
+    assert not re.search(r'#include\s*[<"](torch|ATen|c10|pybind11)', text)
+
+
+def test_shared_header_includes_no_pytorch_header():
+    for path in _build.CSRC.glob("*.cuh"):
+        assert not re.search(r'#include\s*[<"](torch|ATen|c10|pybind11)', path.read_text())
