@@ -1,7 +1,7 @@
 // Flash-attention dK/dV backward kernel for Hopper (sm_90a) on wgmma, TMA
 // and warp specialisation, written by hand: the route of 16-bit inputs at
-// head_dim 64 and 128 (flash_cuda._wgmma_route). Everything else takes
-// flash_bwd.cu's flash_bwd_dkdv_kernel; dQ always takes flash_bwd.cu.
+// head_dim 64 and 128 (flash_cuda._wgmma_route), beside flash_bwd_dq_sm90.cu
+// on the same route. Everything else takes flash_bwd.cu's kernels.
 //
 // Replaces the TPU kernel accelerate_tpu/ops/flash_pallas.py::_bwd_dkdv_kernel
 // (launched by _flash_bwd): dV += P^T dO and dK += dS^T Q over the q band

@@ -1,24 +1,26 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkdv_sm90.cu): mbarriers, TMA loads of 4-D
-// tensor maps, wgmma shared-memory descriptors for the 128-byte swizzle,
-// and the wgmma products themselves. No PyTorch header: each
-// source builds alone with nvcc into a library with a plain C interface.
+// (flash_fwd_sm90.cu, flash_bwd_dkdv_sm90.cu, flash_bwd_dq_sm90.cu):
+// mbarriers, TMA loads of 4-D tensor maps, wgmma shared-memory descriptors
+// for the 128-byte swizzle, and the wgmma products themselves. No PyTorch
+// header: each source builds alone with nvcc into a library with a plain C
+// interface.
 //
-// Conventions, used by both kernels:
+// Conventions, used by every kernel:
 // - A 16-bit [B, S, heads, D] tensor is a 4-D tensor map (dims D, heads, S,
 //   B; innermost first) cut into boxes of 64 columns x `rows` rows of one
 //   head. A box is 128 bytes wide, the widest the 128-byte swizzle allows, so
 //   a D=128 tile is two boxes on one barrier, the second `rows * 128` bytes
 //   after the first. Rows past S are zero-filled by the hardware, never read
 //   from the next batch.
-// - A K-major operand (the contraction runs along D: Q and K in Q.K^T) steps
-//   its descriptor 32 bytes per 16-wide k slice inside a box and a whole box
-//   every 4 slices; SBO = 1024 bytes (8 rows of 128 bytes). An MN-major
-//   operand (the contraction runs along the rows: V in P.V, dO and Q in
-//   P^T.dO and dS^T.Q) steps 16 rows (2048 bytes) per k slice, with SBO =
-//   1024 bytes (the next 8 rows) and LBO = the distance to the next box (the
-//   next 64 output columns). Tiles start 1024-byte aligned, as the swizzle's
-//   8-row atom needs.
+// - A K-major operand (the contraction runs along D: Q and K in Q.K^T)
+//   steps its descriptor 32 bytes per 16-wide k slice inside a box and a
+//   whole box every 4 slices; SBO = 1024 bytes (8 rows of 128 bytes). An
+//   MN-major operand (the contraction runs along the rows: V in P.V, dO and
+//   Q in P^T.dO and dS^T.Q, K in dS.K) steps 16 rows (2048 bytes) per k
+//   slice, with SBO = 1024 bytes (the next 8 rows) and LBO = the distance to
+//   the next box (the next 64 output columns). Tiles start 1024-byte
+//   aligned, as the swizzle's 8-row atom needs. One tile may be read both
+//   ways (Q in dK/dV, K in dQ).
 // - wgmma m64nNk16 accumulators follow mma.sync's m16n8 layout per warp:
 //   warp w of the warpgroup owns rows 16w..16w+15; lane 4g+t holds d[4i],
 //   d[4i+1] at row g, columns 8i+2t, 8i+2t+1 and d[4i+2], d[4i+3] at row

@@ -18,15 +18,16 @@ their plain PyTorch versions, and the autograd function that joins them.
 
 Two routes, picked by :func:`_wgmma_route` from the dtype and head_dim
 alone, before any launch: 16-bit inputs at head_dim 64 or 128 take the
-``wgmma`` kernels (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkdv_sm90.cu``:
-TMA into shared-memory rings under mbarriers, two warpgroups of products);
-everything else (float32, head_dim 16..256 otherwise) takes the ``mma.sync``
-kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). dQ always takes
-``flash_bwd.cu``. What bounds them: at the forward path's shape (Llama-3-8B
-widths, B=4, S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB
-moved, and at the training shape (B=8, S=1024, H=16, G=8, D=128) the
-backward's two kernels do ~69 and ~52 GFLOP, each over ~135 MB: the
-tensor-core rate bounds all of them; see the sources' headers.
+``wgmma`` kernels (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkdv_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu``: TMA into shared-memory rings under mbarriers,
+two warpgroups of products); everything else (float32, head_dim 16..256
+otherwise) takes the ``mma.sync`` kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``). A backward call runs dK/dV and dQ on one route.
+What bounds them: at the forward path's shape (Llama-3-8B widths, B=4,
+S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB moved, and at
+the training shape (B=8, S=1024, H=16, G=8, D=128) the backward's two
+kernels do ~69 and ~52 GFLOP, each over ~135 MB: the tensor-core rate
+bounds all of them; see the sources' headers.
 
 For a CUDA tensor each wrapper launches its kernels or raises: a failed
 build or launch is never retried on the other route. Only a tensor on the
@@ -129,6 +130,7 @@ _LAUNCHERS = {
     "flash_fwd_sm90": {"flash_fwd_sm90": 6},
     "flash_bwd": {"flash_bwd_dkdv": 9, "flash_bwd_dq": 8},
     "flash_bwd_dkdv_sm90": {"flash_bwd_dkdv_sm90": 9},
+    "flash_bwd_dq_sm90": {"flash_bwd_dq_sm90": 8},
 }
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 _WGMMA_HEAD_DIMS = (64, 128)
@@ -307,10 +309,10 @@ def flash_bwd_reference(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=
 class _BackwardLaunch:
     """The two backward kernels' operands on the card, ready to launch:
     checked and laid out, ``delta = rowsum(dO * O)`` [B, H, Sq] computed in
-    f32, the outputs allocated. :meth:`dkdv` (on the route of
-    :func:`_wgmma_route`) and :meth:`dq` each launch one kernel on the
-    current stream and count it; :meth:`dkdv_wgmma` and :meth:`dkdv_mma`
-    launch the dK/dV kernel of one route."""
+    f32, the outputs allocated. :meth:`dkdv` and :meth:`dq` each launch one
+    kernel on the current stream, on the route of :func:`_wgmma_route`, and
+    count it; :meth:`dkdv_wgmma`, :meth:`dkdv_mma`, :meth:`dq_wgmma` and
+    :meth:`dq_mma` launch the kernel of one route."""
 
     def __init__(self, q, k, v, out, lse, d_out, causal, sm_scale, sliding_window,
                  segment_ids, logit_softcap):
@@ -352,8 +354,17 @@ class _BackwardLaunch:
         flash_bwd.dkdv_mma_launches += 1
 
     def dq(self):
+        (self.dq_wgmma if self.wgmma else self.dq_mma)()
+
+    def dq_wgmma(self):
+        self._launch("flash_bwd_dq_sm90", "flash_bwd_dq_sm90", self.grads[0])
+        flash_bwd.dq_launches += 1
+        flash_bwd.dq_wgmma_launches += 1
+
+    def dq_mma(self):
         self._launch("flash_bwd", "flash_bwd_dq", self.grads[0])
         flash_bwd.dq_launches += 1
+        flash_bwd.dq_mma_launches += 1
 
 
 def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
@@ -363,11 +374,12 @@ def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
     ``d_out``; the options are :func:`flash_fwd`'s.
 
     A CUDA tensor computes ``delta = rowsum(dO * O)`` [B, H, Sq] in f32 and
-    launches the dK/dV kernel, then the dQ kernel (no atomics: a repeat
-    call gives bit-identical gradients), or raises; a CPU tensor takes
-    :func:`flash_bwd_reference`. ``flash_bwd.dkdv_launches`` (both routes;
-    ``dkdv_wgmma_launches`` and ``dkdv_mma_launches`` each route's) and
-    ``flash_bwd.dq_launches`` count the launches."""
+    launches the dK/dV kernel, then the dQ kernel, both on the route of
+    :func:`_wgmma_route` (no atomics: a repeat call gives bit-identical
+    gradients), or raises; a CPU tensor takes :func:`flash_bwd_reference`.
+    ``flash_bwd.dkdv_launches`` and ``flash_bwd.dq_launches`` count the
+    launches of both routes, ``dkdv_wgmma_launches``, ``dkdv_mma_launches``,
+    ``dq_wgmma_launches`` and ``dq_mma_launches`` each route's."""
     _check_args(q, k, v, causal, sliding_window, segment_ids, logit_softcap)
     _check_residuals(q, out, lse, d_out)
     kw = dict(causal=causal, sm_scale=sm_scale, sliding_window=sliding_window,
@@ -384,6 +396,8 @@ flash_bwd.dkdv_launches = 0
 flash_bwd.dkdv_wgmma_launches = 0
 flash_bwd.dkdv_mma_launches = 0
 flash_bwd.dq_launches = 0
+flash_bwd.dq_wgmma_launches = 0
+flash_bwd.dq_mma_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -33,20 +33,20 @@ order; any failure exits non-zero:
    (torch.profiler), and the device's busy share of the wall time.
 
 2b (after 2). backward kernels vs plain version: ``flash_bwd`` (the dK/dV
-   kernel of the case's route and the dQ kernel) on phase 2's case matrix
+   and the dQ kernel of the case's route, counted) on phase 2's case matrix
    against ``flash_bwd_reference`` on the same inputs under
    ``BWD_TOLERANCE``; a repeat launch must give bit-identical gradients. At
-   the training and the main-path shapes: the dK/dV kernel of each route,
-   the dQ kernel, the plain backward and the SDPA backward (the yardstick)
-   timed beside the bounds.
+   the training and the main-path shapes: the dK/dV and the dQ kernel of
+   each route (the two routes of each in turns), the plain backward and the
+   SDPA backward (the yardstick) timed beside the bounds.
 6. train (the Llama-3-8B model is freed first): the tier-1 model
    (``accelerate_tpu_torch.bench.run_bench``: hidden 2048, 10 layers, bf16
    over f32 masters, AdamW, fused LM-head loss, clip 1.0) for 3 + 20 steps on
    8 x 1024 tokens; exactly 10 forward, 10 dK/dV and 10 dQ launches a step,
-   the forward and dK/dV all on the wgmma route, finite losses that fall.
-   At the same widths with 2 layers in f32, the parameter gradients through
-   the kernels (the mma.sync route: f32) against einsum attention; one step
-   with remat gives the first step's loss with 2 forward launches a layer.
+   all on the wgmma route, finite losses that fall. At the same widths with
+   2 layers in f32, the parameter gradients through the kernels (the
+   mma.sync route: f32) against einsum attention; one step with remat
+   gives the first step's loss with 2 forward launches a layer.
 7. profile of one train step by kernel kind, and the device's busy share.
 
 Prints the kernels' JSON line and the card's line, and as its last line
@@ -220,8 +220,8 @@ def kernel_cases():
 
 
 def route_of(dtype, D) -> str:
-    """The kernel route a forward or dK/dV call of this dtype and head_dim
-    takes (``flash_cuda._wgmma_route``)."""
+    """The kernel route a forward or backward call of this dtype and
+    head_dim takes (``flash_cuda._wgmma_route``)."""
     from accelerate_tpu_torch.ops.flash_cuda import _wgmma_route
 
     return "wgmma" if _wgmma_route(dtype, D) else "mma.sync"
@@ -358,10 +358,10 @@ def sdpa_backward_yardstick(q, k, v, d_out):
 
 
 def phase_backward():
-    """Every case through ``flash_bwd`` (dK/dV on the case's route, then dQ)
-    against the plain version, a repeat bit-identical; then the dK/dV
-    kernel of each route and the dQ kernel timed at the training and the
-    main-path shapes. Returns {"train": ..., "main": ...} timings."""
+    """Every case through ``flash_bwd`` (dK/dV, then dQ, both on the case's
+    route, as the counts must show) against the plain version, a repeat
+    bit-identical; then both kernels of each route timed at the training
+    and the main-path shapes. Returns {"train": ..., "main": ...} timings."""
     import torch
 
     from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_bwd_reference, flash_fwd
@@ -371,10 +371,16 @@ def phase_backward():
         gen = torch.Generator(device="cuda").manual_seed(400 + i)
         d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+        route = route_of(dtype, D)
+        reset_counts()
         grads = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
         torch.cuda.synchronize()
         repeat = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
         torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expected_counts(0, 2, wgmma=route == "wgmma")
+        if counts != expected:
+            fail(f"flash_bwd launches {counts} on case {label!r}, expected {expected}")
         refs = flash_bwd_reference(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
         name = str(dtype).split(".")[-1]
         report, ok = [], True
@@ -391,8 +397,8 @@ def phase_backward():
         identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
         bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
                  else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
-        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV {route_of(dtype, D)}, "
-              f"dQ mma.sync): B={B} S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
+        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV and dQ {route}): B={B} "
+              f"S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
               f"{bound}); repeat launch {'bit-identical' if identical else 'DIFFERS'}")
         if not ok:
             fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
@@ -404,23 +410,31 @@ def phase_backward():
     for key, shape, label in (("train", TRAIN, TRAIN_LABEL), ("main", MAIN, MAIN_LABEL)):
         timings[key] = backward_timings(*shape.values(), seed=9)
         t = timings[key]
+        ms, err = t["ms"], t["err"]
         print(f"  flash backward, {label} {shape_text(shape)} (CUDA events): dK/dV wgmma "
-              f"{t['ms']['wgmma']:.4f} ms, mma.sync {t['ms']['mma.sync']:.4f} ms (bound "
+              f"{ms['wgmma']:.4f} ms, mma.sync {ms['mma.sync']:.4f} ms (bound "
               f"{t['dkdv_bound'][0]:.4f} ms, {t['dkdv_bound'][1]}; wgmma at "
-              f"{100 * t['dkdv_bound'][0] / t['ms']['wgmma']:.1f} % of it); dQ "
-              f"{t['ms']['dq']:.4f} ms (bound {t['dq_bound'][0]:.4f} ms); plain backward "
+              f"{100 * t['dkdv_bound'][0] / ms['wgmma']:.1f} % of it); dQ wgmma "
+              f"{ms['dq wgmma']:.4f} ms, mma.sync {ms['dq mma.sync']:.4f} ms (bound "
+              f"{t['dq_bound'][0]:.4f} ms, {t['dq_bound'][1]}; wgmma at "
+              f"{100 * t['dq_bound'][0] / ms['dq wgmma']:.1f} % of it, "
+              f"{ms['dq mma.sync'] / ms['dq wgmma']:.2f}x faster than mma.sync); plain backward "
               f"{t['plain_ms']:.3f} ms; SDPA backward ({t['backend']}, K/V expanded to "
               f"{shape['H']} heads, all three grads) {t['library_ms']:.4f} ms; max|dk, dv| wgmma "
-              f"{t['err']['wgmma']:.3e}, mma.sync {t['err']['mma.sync']:.3e}, max|dq| "
-              f"{t['err']['dq']:.3e}")
+              f"{err['wgmma']:.3e}, mma.sync {err['mma.sync']:.3e}; max|dq| wgmma "
+              f"{err['dq wgmma']:.3e}, mma.sync {err['dq mma.sync']:.3e}")
+        pair = ms["wgmma"] + ms["dq wgmma"]
+        print(f"  dK/dV + dQ (wgmma), {label}: {ms['wgmma']:.4f} + {ms['dq wgmma']:.4f} = "
+              f"{pair:.4f} ms against SDPA's whole backward {t['library_ms']:.4f} ms: "
+              f"{pair / t['library_ms']:.2f}x its time")
     return timings
 
 
 def backward_timings(B, S, H, G, D, seed):
-    """The dK/dV kernel of each route and the dQ kernel at one causal bf16
-    shape, each checked against the plain backward once, then timed (the
-    two dK/dV routes in turns) beside the plain backward, SDPA's backward
-    and the bounds."""
+    """The dK/dV and the dQ kernel of each route at one causal bf16 shape,
+    each checked against the plain backward once, then timed (the two
+    routes of each kernel in turns) beside the plain backward, SDPA's
+    backward and the bounds."""
     import torch
 
     from accelerate_tpu_torch.ops import flash_cuda as fc
@@ -433,16 +447,18 @@ def backward_timings(B, S, H, G, D, seed):
                                 sliding_window=None, segment_ids=None, logit_softcap=None)
     refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
     routes = {"wgmma": launch.dkdv_wgmma, "mma.sync": launch.dkdv_mma}
+    dq_routes = {"dq wgmma": launch.dq_wgmma, "dq mma.sync": launch.dq_mma}
     err = {}
     for name, fn in routes.items():
         fn()
         err[name] = max((g.float() - r.float()).abs().max().item()
                         for g, r in zip(launch.grads[1:], refs[1:]))
-    launch.dq()
-    err["dq"] = (launch.grads[0].float() - refs[0].float()).abs().max().item()
+    for name, fn in dq_routes.items():
+        fn()
+        err[name] = (launch.grads[0].float() - refs[0].float()).abs().max().item()
     del refs
     ms = in_turns(routes)
-    ms["dq"] = timed_ms(launch.dq, iters=20)
+    ms.update(in_turns(dq_routes))
     plain_ms = timed_ms(lambda: fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True),
                         iters=2, warmup=1)
     library_ms, backend = sdpa_backward_yardstick(q, k, v, d_out)
@@ -591,8 +607,8 @@ def device_breakdown(label, fn, steps=1, top=4):
         return
 
     def kind(name):
-        for kernel in ("flash_fwd_sm90", "flash_bwd_dkdv_sm90", "flash_fwd", "flash_bwd_dkdv",
-                       "flash_bwd_dq"):
+        for kernel in ("flash_fwd_sm90", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90", "flash_fwd",
+                       "flash_bwd_dkdv", "flash_bwd_dq"):
             if f"{kernel}_kernel" in name:
                 return kernel
         if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
@@ -640,28 +656,31 @@ def reset_counts():
 
     flash_fwd.launches = flash_fwd.wgmma_launches = flash_fwd.mma_launches = 0
     flash_bwd.dkdv_launches = flash_bwd.dkdv_wgmma_launches = flash_bwd.dkdv_mma_launches = 0
-    flash_bwd.dq_launches = 0
+    flash_bwd.dq_launches = flash_bwd.dq_wgmma_launches = flash_bwd.dq_mma_launches = 0
 
 
 def read_counts() -> dict:
-    """Launches since ``reset_counts``, by kernel: the totals of the forward
-    and dK/dV (both routes), and each kernel of each route."""
+    """Launches since ``reset_counts``, by kernel: the totals of the forward,
+    dK/dV and dQ (both routes), and each kernel of each route."""
     from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
 
     return {"flash_fwd": flash_fwd.launches, "flash_fwd_sm90": flash_fwd.wgmma_launches,
             "flash_fwd_mma": flash_fwd.mma_launches, "flash_bwd_dkdv": flash_bwd.dkdv_launches,
             "flash_bwd_dkdv_sm90": flash_bwd.dkdv_wgmma_launches,
-            "flash_bwd_dkdv_mma": flash_bwd.dkdv_mma_launches, "flash_bwd_dq": flash_bwd.dq_launches}
+            "flash_bwd_dkdv_mma": flash_bwd.dkdv_mma_launches, "flash_bwd_dq": flash_bwd.dq_launches,
+            "flash_bwd_dq_sm90": flash_bwd.dq_wgmma_launches,
+            "flash_bwd_dq_mma": flash_bwd.dq_mma_launches}
 
 
 def expected_counts(forward: int, backward: int, wgmma: bool) -> dict:
     """``read_counts`` of ``forward`` forward and ``backward`` backward
-    launches, all on one route."""
-    route = {"flash_fwd_sm90": forward, "flash_bwd_dkdv_sm90": backward} if wgmma else {
-        "flash_fwd_mma": forward, "flash_bwd_dkdv_mma": backward}
+    launches (dK/dV and dQ each), all on one route."""
+    route = {"flash_fwd_sm90": forward, "flash_bwd_dkdv_sm90": backward,
+             "flash_bwd_dq_sm90": backward} if wgmma else {
+        "flash_fwd_mma": forward, "flash_bwd_dkdv_mma": backward, "flash_bwd_dq_mma": backward}
     counts = {"flash_fwd": forward, "flash_fwd_sm90": 0, "flash_fwd_mma": 0,
               "flash_bwd_dkdv": backward, "flash_bwd_dkdv_sm90": 0, "flash_bwd_dkdv_mma": 0,
-              "flash_bwd_dq": backward}
+              "flash_bwd_dq": backward, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_mma": 0}
     counts.update(route)
     return counts
 
@@ -698,7 +717,7 @@ def phase_train():
     expected = expected_counts(layers * steps, layers * steps, wgmma=True)
     if counts != expected:
         fail(f"flash launches {counts} in {steps} train steps, expected {expected} "
-             f"({layers} of each per step, forward and dK/dV on the wgmma route)")
+             f"({layers} of each per step, all on the wgmma route)")
     if not all(math.isfinite(x) for x in losses + [extra["grad_norm"]]):
         fail("a train step gave a non-finite loss or grad norm")
     if not sum(losses[-4:]) < sum(losses[:4]):
@@ -828,8 +847,8 @@ def kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, la
     """The kernels' JSON entries, both routes. Times and errors at the
     training shape (``main_path``: at the Llama-3-8B shape) from phases 2
     and 2b; launches from the path each kernel runs on: the wgmma kernels
-    and dQ from the train steps, the mma.sync forward and dK/dV from the f32
-    gradient check (16-bit inputs at head_dim 128 never reach them)."""
+    from the train steps, the mma.sync ones from the f32 gradient check
+    (16-bit inputs at head_dim 128 never reach them)."""
     csrc = "accelerate_tpu_torch/ops/csrc/"
     pallas = "accelerate_tpu/ops/flash_pallas.py"
     kernels = []
@@ -860,9 +879,11 @@ def kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, la
     kernels[-1]["launches_per_step"] = counts["flash_bwd_dkdv_sm90"] / steps
     add("flash_bwd_dkdv", "mma.sync", "flash_bwd.cu", f"{pallas}:227", backward, "mma.sync",
         "dkdv_bound", sdpa_bwd, check_counts["flash_bwd_dkdv_mma"], CHECK_PATH)
-    add("flash_bwd_dq", "mma.sync", "flash_bwd.cu", f"{pallas}:305", backward, "dq", "dq_bound",
-        sdpa_bwd, counts["flash_bwd_dq"], TRAIN_PATH)
-    kernels[-1]["launches_per_step"] = counts["flash_bwd_dq"] / steps
+    add("flash_bwd_dq_sm90", "wgmma", "flash_bwd_dq_sm90.cu", f"{pallas}:305", backward,
+        "dq wgmma", "dq_bound", sdpa_bwd, counts["flash_bwd_dq_sm90"], TRAIN_PATH)
+    kernels[-1]["launches_per_step"] = counts["flash_bwd_dq_sm90"] / steps
+    add("flash_bwd_dq", "mma.sync", "flash_bwd.cu", f"{pallas}:305", backward, "dq mma.sync",
+        "dq_bound", sdpa_bwd, check_counts["flash_bwd_dq_mma"], CHECK_PATH)
     for entry in kernels:
         if entry["library"].startswith("SDPA backward"):
             entry["plain"] = "flash_bwd_reference, all three grads"

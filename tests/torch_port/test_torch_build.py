@@ -28,7 +28,7 @@ def test_library_name_is_keyed_by_sources_and_flags(monkeypatch):
     assert _build._library_path("flash_fwd") != path
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
-        "flash_bwd", "flash_bwd_dkdv_sm90", "flash_fwd", "flash_fwd_sm90"]
+        "flash_bwd", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90", "flash_fwd", "flash_fwd_sm90"]
 
 
 def test_shared_header_keys_every_library(monkeypatch, tmp_path):

@@ -18,11 +18,12 @@ ROUTES = [(dtype, D, True) for dtype in (torch.bfloat16, torch.float16) for D in
 ]
 REPLACED = {"flash_fwd": ["_fwd_kernel"], "flash_fwd_sm90": ["_fwd_kernel"],
             "flash_bwd": ["_bwd_dkdv_kernel", "_bwd_dq_kernel"],
-            "flash_bwd_dkdv_sm90": ["_bwd_dkdv_kernel"]}
+            "flash_bwd_dkdv_sm90": ["_bwd_dkdv_kernel"], "flash_bwd_dq_sm90": ["_bwd_dq_kernel"]}
 COUNTERS = (("flash_fwd", "launches"), ("flash_fwd", "wgmma_launches"),
             ("flash_fwd", "mma_launches"), ("flash_bwd", "dkdv_launches"),
             ("flash_bwd", "dkdv_wgmma_launches"), ("flash_bwd", "dkdv_mma_launches"),
-            ("flash_bwd", "dq_launches"))
+            ("flash_bwd", "dq_launches"), ("flash_bwd", "dq_wgmma_launches"),
+            ("flash_bwd", "dq_mma_launches"))
 
 
 def counts():
@@ -61,6 +62,35 @@ def test_backward_dkdv_takes_its_route(wgmma):
                                    dkdv_mma=lambda: calls.append("mma.sync"))
     fc._BackwardLaunch.dkdv(launch)
     assert calls == ["wgmma" if wgmma else "mma.sync"]
+
+
+@pytest.mark.parametrize("wgmma", [True, False])
+def test_backward_dq_takes_its_route(wgmma):
+    calls = []
+    launch = types.SimpleNamespace(wgmma=wgmma, dq_wgmma=lambda: calls.append("wgmma"),
+                                   dq_mma=lambda: calls.append("mma.sync"))
+    fc._BackwardLaunch.dq(launch)
+    assert calls == ["wgmma" if wgmma else "mma.sync"]
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
+def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D, wgmma):
+    # Meta tensors stand in for CUDA ones, as in the forward's dispatch test:
+    # a backward call launches dK/dV and then dQ, both on the predicate's route.
+    calls = []
+    monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
+    for kernel in ("dkdv", "dq"):
+        for route, label in (("wgmma", "wgmma"), ("mma", "mma.sync")):
+            monkeypatch.setattr(fc._BackwardLaunch, f"{kernel}_{route}",
+                                lambda self, kern=kernel, r=label: calls.append((kern, r)))
+    q, k, v = qkv(dtype, D, device="meta")
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
+    dq, dk, dv = fc.flash_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q),
+                              causal=True)
+    route = "wgmma" if wgmma else "mma.sync"
+    assert calls == [("dkdv", route), ("dq", route)]
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
