@@ -2,15 +2,32 @@
 
 A self-contained package beside ``accelerate_tpu`` (the JAX reference,
 which it never imports). It holds the Llama forward and KV-cached
-``generate``, and training: ``Accelerator.prepare`` and the fused
-``compile_train_step`` over the chunked LM-head loss, with attention on
+``generate``, and training: ``Accelerator.prepare`` of models, optimizers,
+schedulers and data loaders, the user's loop (``accumulate``, ``backward``,
+``clip_grad_norm_``, ``save_state``/``load_state``) and the fused
+``compile_train_step``, over the chunked LM-head loss, with attention on
 hand-written Hopper flash-attention kernels, forward and backward. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .accelerator import AcceleratedModel, Accelerator
-from .data_loader import make_global_batch
+from .checkpointing import load_safetensors_model, save_model
+from .data_loader import (
+    AsyncPrefetcher,
+    BatchSamplerShard,
+    DataLoaderShard,
+    NumpyDataLoader,
+    SeedableRandomSampler,
+    SkipBatchSampler,
+    SkipDataLoader,
+    default_collate,
+    make_global_batch,
+    pack_sequences,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .generation import generate, greedy_generate
+from .logging import get_logger
 from .models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -30,6 +47,17 @@ from .ops.flash_cuda import (
 )
 from .ops.fused_loss import chunked_softmax_xent
 from .optimizer import AcceleratedOptimizer
+from .parallel.sharding import resolve_remat_policy
 from .precision import GradScalerKwargs, Policy, policy_for
+from .scheduler import AcceleratedScheduler, LRScheduler
+from .state import AcceleratorState, GradientState, PartialState
+from .tracking import GeneralTracker, JSONLTracker
 from .utils.convert import flax_from_state_dict, state_dict_from_flax
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    ProjectConfiguration,
+)
 from .utils.device import resolve_device
+from .utils.memory import find_executable_batch_size, release_memory
+from .utils.random import set_seed

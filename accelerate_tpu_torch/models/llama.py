@@ -39,6 +39,7 @@ from ..ops.attention import (
     flash_attention_available,
     softcap_logits,
 )
+from ..parallel.sharding import RematPolicy, resolve_remat_policy
 from ..utils.device import resolve_device
 
 
@@ -82,10 +83,13 @@ class LlamaConfig:
     attn_logit_softcapping: Optional[float] = None
     final_logit_softcapping: Optional[float] = None
     query_pre_attn_scalar: Optional[float] = None
-    # Training memory: remat=True recomputes each decoder layer in the
-    # backward (torch.utils.checkpoint, non-reentrant) instead of keeping its
-    # activations. The port recomputes the whole layer for either policy:
-    # "dots" (keep the matmul outputs) is not told apart from "nothing" yet.
+    # Training memory: remat=True checkpoints each decoder layer
+    # (torch.utils.checkpoint, non-reentrant) under remat_policy
+    # (parallel/sharding.py): "dots" keeps the outputs of the products
+    # without batch dims (the projections, handed back to the recompute by
+    # _remat_layer) and recomputes the rest in the backward, the flash
+    # kernel included; "nothing" recomputes the whole layer; "everything"
+    # keeps it all (no checkpoint).
     remat: bool = False
     remat_policy: str = "dots"
     use_flash_attention: bool = True
@@ -170,7 +174,17 @@ class LlamaConfig:
 def _linear(cfg: LlamaConfig, in_features: int, out_features: int, bias: bool, device, dtype):
     if cfg.use_fp8:
         raise NotImplementedError("fp8 projections (use_fp8) are not ported yet")
-    return nn.Linear(in_features, out_features, bias=bias, device=device, dtype=dtype)
+    return _Projection(in_features, out_features, bias=bias, device=device, dtype=dtype)
+
+
+class _Projection(nn.Linear):
+    """A decoder layer's projection: ``nn.Linear``, whose output a "dots"
+    remat keeps (:func:`_remat_layer`)."""
+
+    def forward(self, x):
+        if _kept_products is None:
+            return F.linear(x, self.weight, self.bias)
+        return _KeptProduct.apply(x, self.weight, self.bias, _kept_products)
 
 
 class RMSNorm(nn.Module):
@@ -520,14 +534,92 @@ def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids):
                                       {"segment_ids": segment_ids})
 
 
-def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids):
-    """One decoder layer under ``torch.utils.checkpoint``: its activations
-    are recomputed in the backward. The layer's parameters go in by value
-    (``params``), so the recompute uses the tensors this forward used, also
-    when the forward ran inside a ``functional_call`` that has ended by the
-    time the backward runs."""
-    return checkpoint(_run_layer, layer, params, x, positions, segment_ids,
-                      use_reentrant=False)
+# The _KeptProducts of the "dots" layer that runs now (its forward or its
+# recompute), else None. A global, not a thread-local: on the card the
+# autograd engine runs the recompute on its own thread.
+_kept_products = None
+
+
+class _KeptProducts:
+    """The projections' outputs of one "dots"-checkpointed layer call: its
+    forward stores them in order, and its recompute in the backward takes
+    them back in the same order instead of multiplying again."""
+
+    def __init__(self):
+        self.outputs = []
+        self.recomputing = False
+        self.taken = 0
+
+    def run(self, layer, params, x, positions, segment_ids):
+        global _kept_products
+        outer, _kept_products = _kept_products, self
+        self.taken = 0
+        try:
+            return _run_layer(layer, params, x, positions, segment_ids)
+        finally:
+            _kept_products = outer
+
+    def product(self, compute):
+        if not self.recomputing:
+            out = compute()
+            self.outputs.append(out.detach())
+            return out
+        if self.taken >= len(self.outputs) or self.outputs[self.taken] is None:
+            raise RuntimeError(
+                'a remat_policy="dots" layer was recomputed twice; a second backward through '
+                'it (retain_graph=True) needs remat_policy="nothing"')
+        out, self.outputs[self.taken] = self.outputs[self.taken], None
+        self.taken += 1
+        return out
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``F.linear`` whose output comes from ``kept`` (:class:`_KeptProducts`):
+    computed and stored in the layer's forward, taken back in its recompute.
+    The backward is ``F.linear``'s, product for product."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kept):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return kept.product(lambda: F.linear(x, weight, bias))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        grad2d = grad.reshape(-1, grad.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (grad2d @ weight).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).T @ grad2d).T
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = grad2d.sum(0)
+        return dx, dw, db, None
+
+
+def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
+                 policy: str = "nothing"):
+    """One decoder layer under ``torch.utils.checkpoint`` (non-reentrant):
+    what ``policy`` (a :func:`resolve_remat_policy` name) does not keep is
+    recomputed in the backward. "dots" stores the projections' outputs in a
+    :class:`_KeptProducts` and the recompute takes them back, so it runs
+    everything but the products again; torch's selective checkpointing
+    would decide the same op by op, through a Python dispatch mode that
+    costs more host time than the products save. The layer's parameters go
+    in by value (``params``), so the recompute uses the tensors this
+    forward used, also when the forward ran inside a ``functional_call``
+    that has ended by the time the backward runs."""
+    rule = resolve_remat_policy(policy)
+    if rule is RematPolicy.EVERYTHING:
+        return _run_layer(layer, params, x, positions, segment_ids)
+    if rule is RematPolicy.NOTHING:
+        return checkpoint(_run_layer, layer, params, x, positions, segment_ids,
+                          use_reentrant=False)
+    kept = _KeptProducts()
+    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, use_reentrant=False)
+    kept.recomputing = True
+    return out
 
 
 def _default_positions(input_ids, start: int = 0):
@@ -569,7 +661,7 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             if remat:
                 x = _remat_layer(layer, dict(layer.named_parameters()), x, positions,
-                                 segment_ids)
+                                 segment_ids, self.config.remat_policy)
             elif cache is None:
                 x = layer(x, positions, segment_ids=segment_ids)
             else:
@@ -701,12 +793,17 @@ class PipelinedLlamaForCausalLM(nn.Module):
             positions = _default_positions(input_ids)
         x = _scale_embeddings(self.config, self.model.embed_tokens(input_ids))
         stacked = dict(self.model.blocks.named_parameters())
-        run = _remat_layer if self.config.remat and torch.is_grad_enabled() else _run_layer
+        remat = self.config.remat and torch.is_grad_enabled()
         # One unbind per stacked tensor, not an index per layer: its backward
         # stacks the layers' gradients in one write, where per-layer indexing
         # would add a zero-filled full-size gradient for every layer.
         for values in zip(*(p.unbind(0) for p in stacked.values())):
-            x = run(self.model.blocks, dict(zip(stacked, values)), x, positions, segment_ids)
+            params = dict(zip(stacked, values))
+            if remat:
+                x = _remat_layer(self.model.blocks, params, x, positions, segment_ids,
+                                 self.config.remat_policy)
+            else:
+                x = _run_layer(self.model.blocks, params, x, positions, segment_ids)
         x = self.model.norm(x)
         if return_hidden:
             return x

@@ -1,14 +1,23 @@
 """Optimizer wrapper over a ``torch.optim.Optimizer``.
 
 Counterpart of the single-device part of ``accelerate_tpu/optimizer.py``
-(``AcceleratedOptimizer``). The JAX wrapper owns an optax transformation and
-its state; here the torch optimizer owns its state and this wrapper adds
-what the JAX one adds around it: the fp16 loss scale (``precision.py``) and
-the count of applied and skipped steps, kept without a host sync per step
-(the fused step records a device-side finite flag that is read only when
-:attr:`steps_applied` or :attr:`step_was_skipped` is asked for). The update
-itself is ``Accelerator.compile_train_step``'s. ZeRO sharding, host offload
-and fp8 statistics masks are not ported yet.
+(``AcceleratedOptimizer``). The JAX wrapper owns an optax transformation,
+its state and a gradient accumulator; here the torch optimizer owns its
+state, and the gradients accumulate in the f32 master parameters' ``.grad``
+(``Accelerator.backward``). This wrapper adds what the JAX one adds around
+the update:
+
+* ``step()`` applies only at a sync step of gradient accumulation, and
+  ``zero_grad()`` does nothing while accumulating;
+* under fp16 the loss scale (``precision.py``): the gradients are unscaled
+  once (not again when ``Accelerator.clip_grad_norm_`` already did), a
+  non-finite step is skipped and backs the scale off;
+* the count of applied updates and whether the last one was skipped.
+
+One update, :meth:`AcceleratedOptimizer._apply`, serves both the loop's
+``step()`` and the fused step (``Accelerator.compile_train_step``).
+
+ZeRO sharding, host offload and fp8 statistics masks are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,52 +27,96 @@ from typing import Optional
 
 import torch
 
-from .precision import GradScalerKwargs, LossScaleState, make_loss_scale
+from .precision import (
+    GradScalerKwargs,
+    LossScaleState,
+    grads_finite,
+    make_loss_scale,
+    unscale_grads,
+    update_loss_scale,
+)
+from .state import GradientState
 
 
 class AcceleratedOptimizer:
-    """Wraps a torch optimizer with loss scaling and step bookkeeping.
-
-    Created by ``Accelerator.prepare``; not usually constructed directly."""
+    """Wraps a torch optimizer with accumulation, loss scaling and step
+    bookkeeping. Created by ``Accelerator.prepare``."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  scaler_kwargs: Optional[GradScalerKwargs] = None,
                  use_loss_scaling: bool = False, device=None):
         self.optimizer = optimizer
+        self.gradient_state = GradientState()
         self.scaler_kwargs = scaler_kwargs or GradScalerKwargs()
         self.loss_scale: Optional[LossScaleState] = make_loss_scale(
             self.scaler_kwargs, enabled=use_loss_scaling, device=device)
         self._steps_applied = 0
-        # Device-side finite flags of fused steps, drained on read.
-        self._pending_finite: list = []
-        self._last_finite = None
+        self._step_was_skipped = False
+        self._grads_already_unscaled = False  # set by Accelerator.clip_grad_norm_
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def grads(self) -> list:
+        """The gradients of the optimizer's parameters that have one."""
+        return [p.grad for group in self.optimizer.param_groups for p in group["params"]
+                if p.grad is not None]
 
     @property
     def step_was_skipped(self) -> bool:
-        """True if the last step applied no update (non-finite fp16 grads);
-        reads the device-side flag of the last fused step."""
-        return self._last_finite is not None and not bool(self._last_finite)
+        """True if the last ``step()`` applied no update (accumulating, no
+        gradients, or non-finite fp16 gradients)."""
+        return self._step_was_skipped
 
     @property
     def steps_applied(self) -> int:
-        """Number of applied updates. Drains the pending flags of fused
-        steps (one device read) when asked."""
-        if self._pending_finite:
-            self._steps_applied += int(torch.stack(self._pending_finite).sum())
-            self._pending_finite = []
+        """Number of applied updates."""
         return self._steps_applied
 
-    def _record(self, finite=None):
-        """Bookkeeping of one fused step: a device flag under loss scaling,
-        else a plain count."""
-        if finite is None:
-            self._steps_applied += 1
-        else:
-            self._pending_finite.append(finite)
-            self._last_finite = finite
+    def unscale_(self):
+        """Divide the accumulated gradients by the loss scale, once per
+        update."""
+        if self.loss_scale is None or self._grads_already_unscaled:
+            return
+        grads = self.grads()
+        for g, unscaled in zip(grads, unscale_grads(grads, self.loss_scale)):
+            g.copy_(unscaled)
+        self._grads_already_unscaled = True
+
+    def _apply(self):
+        """One update from the accumulated gradients: under fp16 unscale
+        them (unless already done) and skip the update when one is not
+        finite (one device read, as GradScaler does), updating the loss
+        scale either way; then count. Returns the finite flag (a device
+        tensor) under loss scaling, else None."""
+        finite = None
+        if self.loss_scale is not None:
+            self.unscale_()
+            finite = grads_finite(self.grads())
+        applied = finite is None or bool(finite)
+        if applied:
+            self.optimizer.step()
+        if finite is not None:
+            self.loss_scale = update_loss_scale(self.loss_scale, finite, self.scaler_kwargs)
+        self._grads_already_unscaled = False
+        self._step_was_skipped = not applied
+        self._steps_applied += int(applied)
+        return finite
+
+    def step(self, closure=None):
+        """Apply the accumulated gradients (:meth:`_apply`), at a sync step
+        only."""
+        if not self.gradient_state.sync_gradients or not self.grads():
+            self._step_was_skipped = True
+            return
+        self._apply()
 
     def zero_grad(self, set_to_none: bool = True):
-        self.optimizer.zero_grad(set_to_none=set_to_none)
+        """Drop the accumulated gradients; a no-op while accumulating."""
+        if self.gradient_state.sync_gradients:
+            self.optimizer.zero_grad(set_to_none=set_to_none)
+            self._grads_already_unscaled = False
 
     def state_dict(self):
         """The torch optimizer's state dict, the applied-step count and the
@@ -79,7 +132,7 @@ class AcceleratedOptimizer:
         device as it is, so two optimizers would otherwise share moments."""
         self.optimizer.load_state_dict(copy.deepcopy(sd["optimizer"]))
         self._steps_applied = sd.get("steps_applied", 0)
-        self._pending_finite, self._last_finite = [], None
+        self._step_was_skipped = False
         if sd.get("loss_scale") is not None:
             device = self.loss_scale.scale.device if self.loss_scale is not None else None
             self.loss_scale = LossScaleState(*(torch.as_tensor(t, device=device)

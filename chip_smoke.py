@@ -48,6 +48,25 @@ order; any failure exits non-zero:
    mma.sync route: f32) against einsum attention; one step with remat
    gives the first step's loss with 2 forward launches a layer.
 7. profile of one train step by kernel kind, and the device's busy share.
+8. the training loop a user writes, on the tier-1 model with "dots" remat
+   (bf16 over f32 masters, AdamW, a warmup-then-cosine ``LRScheduler``):
+   a seeded corpus of 64-2048-token documents packed into 1024-token rows
+   (``segment_ids``, ``positions``, ``labels``) read by a shuffled
+   ``NumpyDataLoader`` of batch 8 with async prefetch; accumulation 2,
+   ``backward``, ``clip_grad_norm_`` at the sync step, ``step``, for 6
+   updates. The flash launches of that loop are counted (per microbatch two
+   forward launches a layer, the forward recomputed under "dots", and one
+   dK/dV and one dQ, all wgmma). A second run saves its state after update
+   3 (``blocking=False``), a fresh one loads it, skips the 6 microbatches
+   read and runs updates 4-6: bit-identical to the first run. The loop's
+   first update against ``compile_train_step`` on the same two microbatches;
+   a packed microbatch's loss through the kernels against einsum attention,
+   and the kernels alone on its ``segment_ids`` against their plain
+   versions under phase 2's tolerances;
+   the peak memory of "dots" between "nothing" and no remat;
+   ``find_executable_batch_size`` from 128 x 1024 tokens without remat,
+   through at least one real ``torch.OutOfMemoryError``. Times beside the
+   card's name and power limit.
 
 Prints the kernels' JSON line and the card's line, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -238,37 +257,44 @@ def in_turns(fns: dict, iters: int = 20) -> dict:
     return {n: sum(t) / len(t) for n, t in times.items()}
 
 
-def phase_kernels():
-    """Every case on its route against the plain version, and a repeat
-    launch bit-identical; then both routes timed at the training and the
-    main-path shapes. Returns {"train": ..., "main": ...} timings."""
+def check_forward(label, q, k, v, seg, kw):
+    """``flash_fwd`` on one case against ``flash_fwd_reference`` under
+    ``TOLERANCE``, and a repeat launch bit-identical; fails otherwise."""
     import torch
 
     from accelerate_tpu_torch.ops.flash_cuda import flash_fwd, flash_fwd_reference
 
+    (B, S, H, D), G, dtype = q.shape, k.shape[2], q.dtype
+    out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+    torch.cuda.synchronize()
+    again, again_lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+    torch.cuda.synchronize()
+    identical = torch.equal(out, again) and torch.equal(lse, again_lse)
+    ref, ref_lse = flash_fwd_reference(q, k, v, segment_ids=seg, **kw)
+    atol, rtol, lse_tol = TOLERANCE[str(dtype).split(".")[-1]]
+    d_out = (out.float() - ref.float()).abs()
+    err = d_out.max().item()
+    excess = (d_out - rtol * ref.float().abs()).max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = (torch.isfinite(out.float()).all().item() and excess <= atol and err_lse <= lse_tol)
+    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} ({route_of(dtype, D)}): B={B} "
+          f"S={S} H={H} G={G} D={D} {str(dtype).split('.')[-1]} max|dout|={err:.3e} "
+          f"max|dlse|={err_lse:.3e} (out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g}); repeat "
+          f"launch {'bit-identical' if identical else 'DIFFERS'}")
+    if not ok:
+        fail(f"flash_fwd disagrees with flash_fwd_reference on case {label!r}")
+    if not identical:
+        fail(f"a repeat flash_fwd launch gave another result on case {label!r}")
+
+
+def phase_kernels():
+    """Every case on its route against the plain version, and a repeat
+    launch bit-identical; then both routes timed at the training and the
+    main-path shapes. Returns {"train": ..., "main": ...} timings."""
     for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
         q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
-        out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
-        torch.cuda.synchronize()
-        again, again_lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
-        torch.cuda.synchronize()
-        identical = torch.equal(out, again) and torch.equal(lse, again_lse)
-        ref, ref_lse = flash_fwd_reference(q, k, v, segment_ids=seg, **kw)
-        atol, rtol, lse_tol = TOLERANCE[str(dtype).split(".")[-1]]
-        d_out = (out.float() - ref.float()).abs()
-        err = d_out.max().item()
-        excess = (d_out - rtol * ref.float().abs()).max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        ok = (torch.isfinite(out.float()).all().item() and excess <= atol and err_lse <= lse_tol)
-        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} ({route_of(dtype, D)}): B={B} "
-              f"S={S} H={H} G={G} D={D} {str(dtype).split('.')[-1]} max|dout|={err:.3e} "
-              f"max|dlse|={err_lse:.3e} (out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g}); repeat "
-              f"launch {'bit-identical' if identical else 'DIFFERS'}")
-        if not ok:
-            fail(f"flash_fwd disagrees with flash_fwd_reference on case {label!r}")
-        if not identical:
-            fail(f"a repeat flash_fwd launch gave another result on case {label!r}")
-        del q, k, v, seg, out, lse, again, again_lse, ref, ref_lse, d_out
+        check_forward(label, q, k, v, seg, kw)
+        del q, k, v, seg
 
     timings = {}
     for key, shape, label in (("train", TRAIN, TRAIN_LABEL), ("main", MAIN, MAIN_LABEL)):
@@ -357,54 +383,63 @@ def sdpa_backward_yardstick(q, k, v, d_out):
     fail("no SDPA backend takes the yardstick's inputs")
 
 
+def check_backward(label, q, k, v, seg, kw, seed):
+    """``flash_bwd`` (dK/dV, then dQ, both on the case's route, as the
+    counts must show) on one case, with a seeded ``d_out``, against
+    ``flash_bwd_reference`` under ``BWD_TOLERANCE``, and a repeat launch
+    bit-identical; fails otherwise."""
+    import torch
+
+    from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_bwd_reference, flash_fwd
+
+    (B, S, H, D), G, dtype = q.shape, k.shape[2], q.dtype
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
+    route = route_of(dtype, D)
+    reset_counts()
+    grads = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+    torch.cuda.synchronize()
+    repeat = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = expected_counts(0, 2, wgmma=route == "wgmma")
+    if counts != expected:
+        fail(f"flash_bwd launches {counts} on case {label!r}, expected {expected}")
+    refs = flash_bwd_reference(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
+    name = str(dtype).split(".")[-1]
+    report, ok = [], True
+    for g_name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        diff = (g.float() - r.float()).abs()
+        scale = r.float().abs().max().item()
+        if name == "float32":
+            excess = (diff - BWD_TOLERANCE[name] * r.float().abs()).max().item()
+            ok = ok and excess <= BWD_TOLERANCE[name]
+        else:
+            ok = ok and diff.max().item() <= BWD_TOLERANCE[name] * max(scale, 1.0)
+        ok = ok and bool(torch.isfinite(g.float()).all())
+        report.append(f"max|d{g_name[1:]}|={diff.max().item():.3e} (max|ref| {scale:.3g})")
+    identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
+    bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
+             else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
+    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV and dQ {route}): B={B} "
+          f"S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
+          f"{bound}); repeat launch {'bit-identical' if identical else 'DIFFERS'}")
+    if not ok:
+        fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
+    if not identical:
+        fail(f"a repeat flash_bwd launch gave other gradients on case {label!r}")
+
+
 def phase_backward():
     """Every case through ``flash_bwd`` (dK/dV, then dQ, both on the case's
     route, as the counts must show) against the plain version, a repeat
     bit-identical; then both kernels of each route timed at the training
     and the main-path shapes. Returns {"train": ..., "main": ...} timings."""
-    import torch
-
-    from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_bwd_reference, flash_fwd
-
     for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
         q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=300 + i, segments=segments)
-        gen = torch.Generator(device="cuda").manual_seed(400 + i)
-        d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
-        route = route_of(dtype, D)
-        reset_counts()
-        grads = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
-        torch.cuda.synchronize()
-        repeat = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        expected = expected_counts(0, 2, wgmma=route == "wgmma")
-        if counts != expected:
-            fail(f"flash_bwd launches {counts} on case {label!r}, expected {expected}")
-        refs = flash_bwd_reference(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
-        name = str(dtype).split(".")[-1]
-        report, ok = [], True
-        for g_name, g, r in zip(("dq", "dk", "dv"), grads, refs):
-            diff = (g.float() - r.float()).abs()
-            scale = r.float().abs().max().item()
-            if name == "float32":
-                excess = (diff - BWD_TOLERANCE[name] * r.float().abs()).max().item()
-                ok = ok and excess <= BWD_TOLERANCE[name]
-            else:
-                ok = ok and diff.max().item() <= BWD_TOLERANCE[name] * max(scale, 1.0)
-            ok = ok and bool(torch.isfinite(g.float()).all())
-            report.append(f"max|d{g_name[1:]}|={diff.max().item():.3e} (max|ref| {scale:.3g})")
-        identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
-        bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
-                 else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
-        print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV and dQ {route}): B={B} "
-              f"S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
-              f"{bound}); repeat launch {'bit-identical' if identical else 'DIFFERS'}")
-        if not ok:
-            fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
-        if not identical:
-            fail(f"a repeat flash_bwd launch gave other gradients on case {label!r}")
-        del q, k, v, seg, d_out, out, lse, grads, repeat, refs
+        check_backward(label, q, k, v, seg, kw, seed=400 + i)
+        del q, k, v, seg
 
     timings = {}
     for key, shape, label in (("train", TRAIN, TRAIN_LABEL), ("main", MAIN, MAIN_LABEL)):
@@ -790,6 +825,326 @@ def phase_train_profile():
     free_cuda()
 
 
+# Phase 8: the training loop. Batch 8 x 1024 packed tokens, accumulation 2,
+# 6 updates; the second run saves after update 3.
+LOOP = dict(batch=8, seq=1024, accum=2, updates=6, save_after=3, warmup=2, lr=1e-4)
+
+
+def loop_schedule(count):
+    """Learning rate after ``count`` updates: linear warmup over
+    ``LOOP["warmup"]`` updates, then cosine to 0 at ``LOOP["updates"]``."""
+    warmup, total, lr = LOOP["warmup"], LOOP["updates"], LOOP["lr"]
+    if count < warmup:
+        return lr * (count + 1) / (warmup + 1)
+    return 0.5 * lr * (1 + math.cos(math.pi * min(1.0, (count - warmup) / (total - warmup))))
+
+
+def packed_rows(vocab, rows, seed=5):
+    """A seeded corpus of documents of 64-2048 tokens packed into at least
+    ``rows`` rows of ``LOOP["seq"]`` tokens; one dict of numpy arrays a row."""
+    import numpy as np
+
+    from accelerate_tpu_torch import pack_sequences
+
+    rng = np.random.default_rng(seed)
+    docs, total = [], 0
+    while total < rows * LOOP["seq"]:
+        n = int(rng.integers(64, 2049))
+        docs.append(rng.integers(1, vocab, n))
+        total += n
+    packed = pack_sequences(docs, LOOP["seq"])
+    return [{k: v[i] for k, v in packed.items()} for i in range(len(packed["input_ids"]))], docs
+
+
+def build_loop(rows, accum=None, **config):
+    """A fresh tier-1 run on the card, weights from seed 0: the accelerator
+    and the prepared model, AdamW, shuffled prefetching loader and
+    scheduler."""
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, LRScheduler, NumpyDataLoader,
+                                      PipelinedLlamaForCausalLM)
+    from accelerate_tpu_torch.bench import tier1_llama_config
+
+    acc = Accelerator(mixed_precision="bf16",
+                      gradient_accumulation_steps=accum or LOOP["accum"])
+    cfg = tier1_llama_config(**({"remat": True, "remat_policy": "dots"} | config))
+    module = PipelinedLlamaForCausalLM(cfg, device=acc.device, dtype=torch.float32,
+                                       generator=torch.Generator(device=acc.device).manual_seed(0))
+    model, opt, loader, sched = acc.prepare(
+        module, torch.optim.AdamW(module.parameters(), lr=loop_schedule(0), weight_decay=1e-4),
+        NumpyDataLoader(rows, batch_size=LOOP["batch"], shuffle=True, seed=3),
+        LRScheduler(loop_schedule))
+    return acc, model, opt, loader, sched
+
+
+def run_loop(acc, model, opt, loader, sched, updates, after_update=None, keep=0):
+    """The user's loop for ``updates`` optimizer steps. Returns per update
+    (mean microbatch loss, grad norm, learning rate) as device tensors and
+    floats, the first ``keep`` microbatches, and the mean wall ms of updates
+    2 onwards. ``after_update(n)`` runs inside the loop after update n."""
+    import torch
+
+    from accelerate_tpu_torch import fused_causal_lm_loss
+
+    loss_fn = fused_causal_lm_loss(model)
+    history, losses, kept, t0 = [], [], [], None
+    for batch in loader:
+        if len(kept) < keep:
+            kept.append({k: v.clone() for k, v in batch.items()})
+        with acc.accumulate(model):
+            losses.append(acc.backward(loss_fn, batch))
+            if acc.sync_gradients:
+                gnorm = acc.clip_grad_norm_(max_norm=1.0)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        if not acc.sync_gradients:
+            continue
+        history.append(((losses[0] + losses[1]) / 2, gnorm, opt.param_groups[0]["lr"]))
+        losses = []
+        if len(history) == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if after_update is not None:
+            after_update(len(history))
+        if len(history) == updates:
+            break
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(1, updates - 1)
+    return history, kept, ms
+
+
+def drop(acc):
+    """Release a run's device memory: the accelerator's prepared objects go,
+    the caller drops its own references."""
+    acc.free_memory()
+    free_cuda()
+
+
+def steady_update(rows, profile_label=None, **config):
+    """Peak device memory (GiB) and wall ms of one steady-state loop update
+    (the second: AdamW's moments exist) from a fresh run; with
+    ``profile_label``, then one more update under the profiler."""
+    import torch
+
+    run = build_loop(rows, **config)
+    marks = {}
+
+    def mark(n):
+        torch.cuda.synchronize()
+        if n == 1:
+            torch.cuda.reset_peak_memory_stats()
+            marks["t0"] = time.perf_counter()
+        else:
+            marks["ms"] = (time.perf_counter() - marks["t0"]) * 1e3
+
+    run_loop(*run, updates=2, after_update=mark)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile_label is not None:
+        device_breakdown(profile_label, lambda: run_loop(*run, updates=1), top=8)
+    drop(run[0])
+    del run
+    return peak, marks["ms"]
+
+
+def phase_loop():
+    """Phase 8 (see the module docstring). Returns the flash launch counts
+    of the uninterrupted loop and its number of microbatches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import find_executable_batch_size, fused_causal_lm_loss
+    from accelerate_tpu_torch.bench import tier1_llama_config
+
+    card = card_line()
+    cfg = tier1_llama_config()
+    micro = LOOP["updates"] * LOOP["accum"]
+    rows, docs = packed_rows(cfg.vocab_size, rows=(micro + 8) * LOOP["batch"])
+    print(f"  corpus: {len(docs)} documents of 64-2048 tokens ({sum(map(len, docs))} tokens) "
+          f"packed into {len(rows)} rows of {LOOP['seq']}; batch {LOOP['batch']}, accumulation "
+          f"{LOOP['accum']}, {LOOP['updates']} updates ({micro} microbatches)")
+
+    # A: the uninterrupted loop, its flash launches counted.
+    run = build_loop(rows)
+    layers = run[1].config.num_hidden_layers
+    torch.cuda.synchronize()
+    reset_counts()
+    straight, first_two, loop_ms = run_loop(*run, updates=LOOP["updates"], keep=2)
+    counts = read_counts()
+    expected = expected_counts(2 * layers * micro, layers * micro, wgmma=True)
+    final = {n: p.detach().cpu() for n, p in run[1].named_parameters()}
+    pipeline = run[0].input_pipeline_metrics()
+    tokens = LOOP["batch"] * LOOP["seq"] * LOOP["accum"]
+    print(f"  loop, {micro} microbatches: flash launches {counts} ({2 * layers} forward, "
+          f"{layers} dK/dV and {layers} dQ a microbatch expected, all wgmma)")
+    if counts != expected:
+        fail(f"loop flash launches {counts}, expected {expected}")
+    for i, (loss, gnorm, lr) in enumerate(straight, 1):
+        print(f"    update {i}: loss {loss.item():.6f}, grad norm {gnorm.item():.6f}, lr {lr:.4e}")
+        if not (math.isfinite(loss.item()) and math.isfinite(gnorm.item())):
+            fail(f"update {i} of the loop gave a non-finite loss or grad norm")
+    print(f"  input pipeline: {pipeline}")
+
+    # The packed microbatch through the kernels and through einsum attention.
+    model = run[1]
+    with torch.no_grad():
+        cast = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
+        flash_loss = fused_causal_lm_loss(model)(cast, first_two[0]).item()
+        model.config.attention_backend = "einsum"
+        try:
+            einsum_loss = fused_causal_lm_loss(model)(cast, first_two[0]).item()
+        finally:
+            model.config.attention_backend = "auto"
+    rel = abs(flash_loss - einsum_loss) / abs(einsum_loss)
+    print(f"  packed microbatch (segment_ids, {int(first_two[0]['segment_ids'].max())} documents "
+          f"in a row at most), trained weights: loss through the kernels {flash_loss:.6f}, "
+          f"einsum attention {einsum_loss:.6f}, relative {rel:.3e} (limit 1e-2)")
+    if not rel <= 1e-2:
+        fail("the packed loss through the kernels disagrees with einsum attention")
+    # The kernels alone on that microbatch's segment_ids, at the loop's
+    # attention shape, against their plain versions under phase 2's
+    # tolerances (N(0, 1) q, k, v and d_out; not counted as the loop's).
+    seg = first_two[0]["segment_ids"]
+    q, k, v, _ = make_inputs(*seg.shape, cfg.num_attention_heads, cfg.num_key_value_heads,
+                             cfg.head_dim, torch.bfloat16, seed=11)
+    label = "the loop's first packed microbatch, its segment_ids"
+    check_forward(label, q, k, v, seg, dict(causal=True))
+    check_backward(label, q, k, v, seg, dict(causal=True), seed=12)
+    del cast, model, q, k, v, seg
+    drop(run[0])
+    del run
+
+    # The fused step on the same two microbatches from the same weights.
+    acc, model, opt, loader, sched = build_loop(rows)
+    step = acc.compile_train_step(fused_causal_lm_loss(model), accumulation_steps=LOOP["accum"],
+                                  max_grad_norm=1.0)
+    stacked = {k: torch.stack([b[k] for b in first_two]) for k in first_two[0]}
+    metrics = step(stacked)
+    fused_loss, fused_gnorm = metrics["loss"], metrics["grad_norm"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOOP["updates"] - 1):
+        step(stacked)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3 / (LOOP["updates"] - 1)
+    loop_loss, loop_gnorm = straight[0][0], straight[0][1]
+    d_loss = abs(loop_loss.item() - fused_loss.item()) / abs(fused_loss.item())
+    d_gnorm = abs(loop_gnorm.item() - fused_gnorm.item()) / abs(fused_gnorm.item())
+    identical = torch.equal(loop_loss, fused_loss) and torch.equal(loop_gnorm, fused_gnorm)
+    print(f"  first update, loop vs compile_train_step on the same 2 microbatches: loss "
+          f"{loop_loss.item():.7f} vs {fused_loss.item():.7f} (relative {d_loss:.2e}, limit "
+          f"1e-6), grad norm {loop_gnorm.item():.7f} vs {fused_gnorm.item():.7f} (relative "
+          f"{d_gnorm:.2e}, limit 1e-5); {'bit-identical' if identical else 'not bit-identical'}")
+    if not (d_loss <= 1e-6 and d_gnorm <= 1e-5):
+        fail("the loop's first update disagrees with compile_train_step's")
+    print(f"  step time, tier-1, bf16, dots remat, {tokens} packed tokens an update ({card}): "
+          f"loop {loop_ms:.2f} ms ({tokens / loop_ms * 1e3:.0f} tokens/s; updates 2-"
+          f"{LOOP['updates']}, async prefetch), compile_train_step {fused_ms:.2f} ms "
+          f"({tokens / fused_ms * 1e3:.0f} tokens/s)")
+    del step, model, opt, loader, sched, metrics
+    drop(acc)
+    del acc
+
+    # B: save after update 3 in the background, then wait; C: load, resume.
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        run = build_loop(rows)
+        need = sum(p.numel() * 4 * 3 for p in run[1].parameters())  # masters, exp_avg(_sq)
+        free = shutil.disk_usage(ckpt).free
+        if free < 1.2 * need:
+            fail(f"{ckpt} has {free / 1e9:.1f} GB free; the checkpoint needs {need / 1e9:.1f} GB "
+                 "(set TMPDIR to a larger disk)")
+        timing = {}
+
+        def save(n):
+            if n == LOOP["save_after"]:
+                t0 = time.perf_counter()
+                run[0].save_state(ckpt, blocking=False)
+                timing["snapshot"] = time.perf_counter() - t0
+                run[0].wait_for_checkpoint()
+                timing["save"] = time.perf_counter() - t0
+
+        first, _, _ = run_loop(*run, updates=LOOP["save_after"], after_update=save)
+        drop(run[0])
+        del run
+        files = os.listdir(ckpt)
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+
+        acc, model, opt, loader, sched = build_loop(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc.load_state(ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loader = acc.skip_first_batches(loader, LOOP["save_after"] * LOOP["accum"])
+        rest, _, _ = run_loop(acc, model, opt, loader, sched,
+                              updates=LOOP["updates"] - LOOP["save_after"])
+        resumed_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, opt, loader, sched
+        drop(acc)
+        del acc
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  checkpoint ({card}): {size / 1e9:.3f} GB in {len(files)} files; save_state(blocking=False) returned after {timing['snapshot']:.2f} s (host "
+          f"copy), written after {timing['save']:.2f} s; load_state {load_s:.2f} s")
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+               for a, b in zip(first + rest, straight))
+    same_params = all(torch.equal(resumed_params[n], t) for n, t in final.items())
+    for i in range(LOOP["save_after"], LOOP["updates"]):
+        print(f"    update {i + 1} resumed: loss {rest[i - LOOP['save_after']][0].item():.7f}, "
+              f"uninterrupted {straight[i][0].item():.7f}")
+    print(f"  resume: updates 1-{LOOP['updates']} (loss, grad norm, lr) "
+          f"{'bit-identical' if same else 'DIFFER'} to the uninterrupted run; final parameters "
+          f"{'bit-identical' if same_params else 'DIFFER'}")
+    if not (same and same_params and len(first + rest) == LOOP["updates"]):
+        fail("the resumed run is not bit-identical to the uninterrupted one")
+    del final, resumed_params
+
+    # One steady-state update per remat policy: "dots" keeps more than
+    # "nothing" and less than no remat.
+    steady = {"nothing": steady_update(rows, remat_policy="nothing"),
+              "dots": steady_update(rows, profile_label="loop update, dots remat (tier-1, "
+                                    f"2 x {LOOP['batch']} x {LOOP['seq']} packed tokens)"),
+              "remat=False": steady_update(rows, remat=False)}
+    print(f"  steady-state update (the second) ({card}): " + ", ".join(
+        f"{k}: peak {peak:.2f} GiB, {ms:.2f} ms" for k, (peak, ms) in steady.items()))
+    peaks = {k: v[0] for k, v in steady.items()}
+    if not peaks["nothing"] < peaks["dots"] < peaks["remat=False"]:
+        fail("the dots peak does not lie between the nothing and the no-remat peaks")
+
+    # find_executable_batch_size from a batch the card cannot hold.
+    acc, model, opt, loader, sched = build_loop(rows, accum=1, remat=False)
+    loss_fn = fused_causal_lm_loss(model)
+    tried = []
+
+    @find_executable_batch_size(starting_batch_size=128)
+    def one_step(batch_size):
+        tried.append(batch_size)
+        opt.optimizer.zero_grad(set_to_none=True)
+        ids = torch.randint(0, cfg.vocab_size, (batch_size, LOOP["seq"]), device=acc.device,
+                            generator=torch.Generator(device=acc.device).manual_seed(batch_size))
+        with acc.accumulate(model):
+            loss = acc.backward(loss_fn, {"input_ids": ids})
+            acc.clip_grad_norm_(max_norm=1.0)
+            opt.step()
+            opt.zero_grad()
+        return loss.item()
+
+    loss = one_step()
+    print(f"  find_executable_batch_size, remat=False, from 128 x {LOOP['seq']} tokens: tried "
+          f"{tried}, {len(tried) - 1} torch.OutOfMemoryError caught, ran at {tried[-1]} x "
+          f"{LOOP['seq']} with loss {loss:.5f}")
+    if len(tried) < 2 or not math.isfinite(loss):
+        fail("find_executable_batch_size caught no out-of-memory error or gave a non-finite loss")
+    del model, opt, loader, sched, loss_fn, one_step
+    drop(acc)
+    del acc
+    return counts, micro
+
+
 def main():
     import torch
 
@@ -829,9 +1184,16 @@ def main():
     result, counts, check_counts = phase_train()
     print("== 7. where the device time of a train step goes")
     phase_train_profile()
+    print("== 8. the training loop: packed sequences, dots remat, save/load, resume")
+    loop_counts, loop_microbatches = phase_loop()
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
+    for entry in kernels:
+        if entry["name"].endswith("_sm90"):
+            entry["loop_launches"] = loop_counts[entry["name"]]
+            entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
+            entry["loop_path"] = LOOP_PATH
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -840,6 +1202,8 @@ def main():
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"
+LOOP_PATH = ("tier-1 training loop (phase 8): packed 1024-token rows with segment_ids, "
+             "dots remat, accumulation 2")
 CHECK_PATH = "f32 gradient check through the model (phase 6): tier-1 widths, 2 layers, 1 x 256"
 
 

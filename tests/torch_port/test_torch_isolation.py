@@ -13,6 +13,7 @@ import torch
 
 import accelerate_tpu_torch
 from accelerate_tpu_torch import Accelerator, LlamaConfig, LlamaForCausalLM, PipelinedLlamaForCausalLM
+from accelerate_tpu_torch import DataLoaderShard, NumpyDataLoader, prepare_data_loader
 from accelerate_tpu_torch import init_kv_cache, make_global_batch, resolve_device
 from accelerate_tpu_torch.bench import build_train_step, run_bench
 
@@ -46,7 +47,7 @@ def test_forbidden_matches_only_the_jax_side():
 
 def test_no_source_imports_jax_or_the_jax_package():
     sources = port_sources()
-    assert len(sources) >= 12
+    assert len(sources) >= 25
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
     assert not bad, f"the port imports the JAX side: {bad}"
@@ -60,6 +61,11 @@ def test_import_adds_no_jax_module():
         "before = set(sys.modules)\n"
         "import accelerate_tpu_torch, accelerate_tpu_torch.generation\n"
         "import accelerate_tpu_torch.ops._build, accelerate_tpu_torch.bench\n"
+        "import accelerate_tpu_torch.checkpointing, accelerate_tpu_torch.tracking\n"
+        "import accelerate_tpu_torch.data_loader, accelerate_tpu_torch.scheduler\n"
+        "import accelerate_tpu_torch.state, accelerate_tpu_torch.logging\n"
+        "import accelerate_tpu_torch.utils.memory, accelerate_tpu_torch.utils.operations\n"
+        "import accelerate_tpu_torch.utils.random, accelerate_tpu_torch.parallel.sharding\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -90,6 +96,10 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_global_batch({"input_ids": np.zeros((1, 4), np.int32)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataLoaderShard([{"x": np.zeros(2)}])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prepare_data_loader(NumpyDataLoader([np.zeros(2)]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         run_bench()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_train_step()
@@ -98,6 +108,8 @@ def test_entry_points_raise_without_a_card():
     model, _ = acc.prepare(PipelinedLlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
                            torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=0.1))
     assert acc.device == torch.device("cpu") and model.module.model.norm.scale.device.type == "cpu"
+    batch = next(iter(acc.prepare(NumpyDataLoader([{"x": np.zeros(2)}]))))
+    assert batch["x"].device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -106,7 +118,16 @@ def test_package_exports_the_slice():
                  "greedy_generate", "flash_attention", "flash_fwd", "flash_fwd_reference",
                  "state_dict_from_flax", "policy_for", "resolve_device", "Accelerator",
                  "fused_causal_lm_loss", "causal_lm_loss", "make_global_batch", "flash_bwd",
-                 "flash_bwd_reference", "FlashAttentionFunction", "chunked_softmax_xent"):
+                 "flash_bwd_reference", "FlashAttentionFunction", "chunked_softmax_xent",
+                 "NumpyDataLoader", "DataLoaderShard", "pack_sequences", "skip_first_batches",
+                 "LRScheduler", "AcceleratedScheduler", "GradientState", "PartialState",
+                 "AcceleratorState", "JSONLTracker", "find_executable_batch_size", "set_seed",
+                 "save_model", "load_safetensors_model", "resolve_remat_policy",
+                 "ProjectConfiguration", "DataLoaderConfiguration",
+                 "GradientAccumulationPlugin"):
         assert hasattr(accelerate_tpu_torch, name), name
-    assert callable(Accelerator.prepare) and callable(Accelerator.compile_train_step)
+    for method in ("prepare", "compile_train_step", "accumulate", "backward", "clip_grad_norm_",
+                   "save_state", "load_state", "wait_for_checkpoint", "gather_for_metrics",
+                   "init_trackers", "log", "skip_first_batches", "input_pipeline_metrics"):
+        assert callable(getattr(Accelerator, method)), method
     assert callable(run_bench)

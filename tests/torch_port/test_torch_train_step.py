@@ -77,12 +77,13 @@ def make_batches(accum=None, seed=1):
     return [{"input_ids": rng.integers(0, 256, shape).astype(np.int32)} for _ in range(4)]
 
 
-def jax_trajectory(params, batches, mixed_precision, accum):
+def jax_trajectory(params, batches, mixed_precision, accum, grad_reduce=False):
     module = JaxPipelined(JaxLlamaConfig.tiny())
     acc = JaxAccelerator(mixed_precision=mixed_precision)
     model, _ = acc.prepare(Model(module, params), optax.adamw(1e-4))
     step = acc.compile_train_step(jax_fused_causal_lm_loss(module), max_grad_norm=1.0,
-                                  accumulation_steps=accum)
+                                  accumulation_steps=accum,
+                                  grad_reduce_dtype=jnp.bfloat16 if grad_reduce else None)
     metrics = [step(jax_make_global_batch(batches[i % 4], acc.mesh)) for i in range(STEPS)]
     history = [(float(m["loss"]), float(m["grad_norm"])) for m in metrics]
     return history, jax.device_get(model.params)
@@ -99,21 +100,26 @@ def port_setup(params, mixed_precision, cfg=None, **step_kwargs):
     return acc, model, opt, step
 
 
-def port_trajectory(params, batches, mixed_precision, accum):
-    acc, model, _, step = port_setup(params, mixed_precision, accumulation_steps=accum)
+def port_trajectory(params, batches, mixed_precision, accum, grad_reduce=False):
+    acc, model, _, step = port_setup(params, mixed_precision, accumulation_steps=accum,
+                                     grad_reduce_dtype=torch.bfloat16 if grad_reduce else None)
     metrics = [step(make_global_batch(batches[i % 4], acc)) for i in range(STEPS)]
     history = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
     return history, model.state_dict()
 
 
-@pytest.mark.parametrize("mixed_precision,accum,tol", [
-    ("no", None, FP32), ("no", 2, FP32), ("bf16", None, BF16),
-], ids=["fp32", "fp32-accumulation-2", "bf16"])
-def test_train_step_follows_the_jax_trajectory(mixed_precision, accum, tol):
+@pytest.mark.parametrize("mixed_precision,accum,tol,grad_reduce", [
+    ("no", None, FP32, False), ("no", 2, FP32, False), ("bf16", None, BF16, False),
+    ("bf16", 2, BF16, True),
+], ids=["fp32", "fp32-accumulation-2", "bf16", "bf16-grad-reduce-bf16-accumulation-2"])
+def test_train_step_follows_the_jax_trajectory(mixed_precision, accum, tol, grad_reduce):
+    """grad_reduce: ``grad_reduce_dtype=bf16`` on both sides, the gradients
+    taken with respect to the bf16-cast parameters (the JAX package's
+    TestGradReduceDtype mechanism), upcast and summed in f32."""
     params = initial_params()
     batches = make_batches(accum)
-    ref_history, ref_params = jax_trajectory(params, batches, mixed_precision, accum)
-    history, state = port_trajectory(params, batches, mixed_precision, accum)
+    ref_history, ref_params = jax_trajectory(params, batches, mixed_precision, accum, grad_reduce)
+    history, state = port_trajectory(params, batches, mixed_precision, accum, grad_reduce)
     for i, ((loss, gnorm), (ref_loss, ref_gnorm)) in enumerate(zip(history, ref_history)):
         np.testing.assert_allclose(loss, ref_loss, rtol=tol["loss"], err_msg=f"loss, step {i}")
         np.testing.assert_allclose(gnorm, ref_gnorm, rtol=tol["grad_norm"],
@@ -252,10 +258,23 @@ def test_accumulation_needs_a_microbatch_dim():
         step(make_global_batch(make_batches()[0], acc))
 
 
-def test_unported_options_raise():
+def test_grad_reduce_dtype_sees_narrow_params_and_warns_on_a_mismatch():
+    seen = []
     acc, model, _, _ = port_setup(initial_params(), "no")
-    with pytest.raises(NotImplementedError, match="grad_reduce_dtype"):
-        acc.compile_train_step(fused_causal_lm_loss(model), grad_reduce_dtype=torch.bfloat16)
+    loss_fn = fused_causal_lm_loss(model)
+
+    def spy(params, batch):
+        seen.append(params["lm_head.weight"].dtype)
+        return loss_fn(params, batch)
+
+    with pytest.warns(UserWarning, match="grad_reduce_dtype"):
+        step = acc.compile_train_step(spy, grad_reduce_dtype=torch.bfloat16)
+    metrics = step(make_global_batch(make_batches()[0], acc))
+    assert seen == [torch.bfloat16] and torch.isfinite(metrics["loss"])
+    assert {p.grad.dtype for p in model.parameters()} == {torch.float32}
+
+
+def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="FSDP"):
         Accelerator(cpu=True, fsdp_plugin=object())
     with pytest.raises(NotImplementedError, match="mesh"):
