@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of accelerate_tpu for NVIDIA Hopper (H100).
 
 A self-contained package beside ``accelerate_tpu`` (the JAX reference,
-which it never imports). It holds the Llama forward and KV-cached
-``generate``, and training: ``Accelerator.prepare`` of models, optimizers,
+which it never imports). It holds the Llama forward, KV-cached
+``generate``, the speculative decoders (``prompt_lookup_generate``,
+``assisted_generate``) and ``beam_search_generate``, and training: ``Accelerator.prepare`` of models, optimizers,
 schedulers and data loaders, the user's loop (``accumulate``, ``backward``,
 ``clip_grad_norm_``, ``save_state``/``load_state``) and the fused
 ``compile_train_step``, over the chunked LM-head loss, with attention on
@@ -26,7 +27,15 @@ from .data_loader import (
     prepare_data_loader,
     skip_first_batches,
 )
-from .generation import generate, greedy_generate
+from .generation import (
+    assisted_generate,
+    beam_search_generate,
+    generate,
+    greedy_generate,
+    prompt_lookup_generate,
+    speculative_accept,
+    speculative_emit,
+)
 from .logging import get_logger
 from .models.llama import (
     LlamaConfig,
@@ -51,13 +60,16 @@ from .parallel.sharding import resolve_remat_policy
 from .precision import GradScalerKwargs, Policy, policy_for
 from .scheduler import AcceleratedScheduler, LRScheduler
 from .state import AcceleratorState, GradientState, PartialState
-from .tracking import GeneralTracker, JSONLTracker
+from .tracking import GeneralTracker, JSONLTracker, TensorBoardTracker
 from .utils.convert import flax_from_state_dict, state_dict_from_flax
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     GradientAccumulationPlugin,
+    ProfileKwargs,
     ProjectConfiguration,
 )
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory
+from .utils.profiling import ProfileSession, annotate, save_device_memory_profile
 from .utils.random import set_seed

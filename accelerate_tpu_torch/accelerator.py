@@ -24,10 +24,13 @@ Two ways to train, with the same arithmetic in the same order:
   gradient is not finite), and metrics as device tensors. The bf16 and
   fp32 steps never read a device value on the host.
 
+Around the loop: ``profile`` (a ``torch.profiler`` session with the input
+pipeline's counters), ``autocast`` (the active policy) and the preemption
+handler (SIGTERM latches :attr:`Accelerator.preemption_requested`).
+
 Multi-device meshes, FSDP (its activation checkpointing included),
-optimizer-state host offload, ``LocalSGD``, ``join_uneven_inputs``,
-``profile`` and the preemption handler are not ported yet (ROADMAP.md, A3
-and A8).
+optimizer-state host offload, ``LocalSGD`` and ``join_uneven_inputs`` are
+not ported yet (ROADMAP.md, A8).
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ from .precision import (
 from .scheduler import AcceleratedScheduler, LRScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     GradientAccumulationPlugin,
+    ProfileKwargs,
     ProjectConfiguration,
 )
 from .utils.operations import gather, gather_object, pad_across_processes, recursively_apply, reduce
@@ -89,6 +94,13 @@ class AcceleratedModel:
 
     def state_dict(self):
         return self.module.state_dict()
+
+    def load_state_dict(self, state_dict, strict: bool = True):
+        """Copy ``state_dict`` (tensors or arrays) into the f32 masters on the
+        model's device, in place: an optimizer prepared on the parameters
+        keeps them."""
+        return self.module.load_state_dict(
+            {k: torch.as_tensor(v) for k, v in state_dict.items()}, strict=strict)
 
     def train(self, mode: bool = True):
         self.module.train(mode)
@@ -170,8 +182,9 @@ class Accelerator:
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
-        self.scaler_handler = next((h for h in kwargs_handlers or []
-                                    if isinstance(h, GradScalerKwargs)), None)
+        handlers = kwargs_handlers or []
+        self.scaler_handler = next((h for h in handlers if isinstance(h, GradScalerKwargs)), None)
+        self.profile_handler = next((h for h in handlers if isinstance(h, ProfileKwargs)), None)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
@@ -576,6 +589,61 @@ class Accelerator:
     def get_state_dict(self, model, unwrap: bool = True) -> dict:
         """The model's state dict, on the host."""
         return {k: v.detach().cpu() for k, v in self.unwrap_model(model).state_dict().items()}
+
+    # -- preemption, autocast, profile ---------------------------------------
+
+    #: Exit code of a run that saved its state on a preemption notice and
+    #: stopped: EX_TEMPFAIL, which restart policies treat as retryable.
+    PREEMPTED_EXIT_CODE = 75
+
+    def install_preemption_handler(self, signals=None):
+        """Latch :attr:`preemption_requested` on SIGTERM (or ``signals``),
+        the notice schedulers send before they take the machine. The loop
+        checks it between steps::
+
+            accelerator.install_preemption_handler()
+            for batch in loader:
+                if accelerator.preemption_requested:
+                    accelerator.save_state()
+                    sys.exit(accelerator.PREEMPTED_EXIT_CODE)
+                ...
+
+        and the restarted run resumes with ``load_state()``. The handler only
+        sets a flag, so a signal in the middle of a kernel launch is safe."""
+        import signal
+
+        self._preemption_requested = False
+        for sig in signals or (signal.SIGTERM,):
+            signal.signal(sig, self._on_preemption_signal)
+
+    def _on_preemption_signal(self, signum, frame):
+        self._preemption_requested = True
+
+    @property
+    def preemption_requested(self) -> bool:
+        """True once a signal of :meth:`install_preemption_handler` arrived."""
+        return getattr(self, "_preemption_requested", False)
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Optional[AutocastKwargs] = None):
+        """Yield the active precision policy. Prepared models and steps cast
+        by it on every call already, so no ``torch.autocast`` region is
+        opened, as the JAX package opens none."""
+        yield self.policy
+
+    def profile(self, profile_handler: Optional[ProfileKwargs] = None):
+        """A :class:`~accelerate_tpu_torch.utils.profiling.ProfileSession`
+        (a context manager) tracing the host, and the card when the
+        accelerator runs on one, with the input pipeline's counters
+        attached. The traces go to the handler's ``output_trace_dir``, else
+        the project's ``logging_dir``, else ``./torch_trace``."""
+        from .utils.profiling import DEFAULT_TRACE_DIR
+
+        handler = profile_handler or self.profile_handler or ProfileKwargs()
+        log_dir = (handler.output_trace_dir or self.project_configuration.logging_dir
+                   or DEFAULT_TRACE_DIR)
+        return handler.build(log_dir=log_dir, device=self.device).attach_pipeline_stats(
+            self.pipeline_stats)
 
     # -- triggers, memory ----------------------------------------------------
 

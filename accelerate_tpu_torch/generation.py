@@ -1,24 +1,33 @@
-"""KV-cached autoregressive decoding.
+"""KV-cached autoregressive decoding: plain, speculative and beam search.
 
-Counterpart of ``accelerate_tpu/generation.py`` (``generate`` /
-``greedy_generate``). The JAX package compiles a prefill and one
-``lax.scan`` over the decode steps; PyTorch runs eagerly, so here the
-prefill is one forward over the padded prompt and the decode is a Python
-loop of single-token forwards against the cache. The selection rules are
-the JAX package's, step for step: repetition penalty before the warpers,
-``min_new_tokens`` masking EOS, the EOS latch (a sequence that emitted EOS
-keeps emitting it), the 128-bucketed cache length and the edge-padded
-prompt. Greedy decoding is token-exact against the JAX package on the same
-weights; sampling draws from a ``torch.Generator`` (Philox, not JAX's
-threefry), so sampled tokens agree in distribution only.
+Counterpart of ``accelerate_tpu/generation.py``: ``generate`` /
+``greedy_generate``, the speculative decoders ``prompt_lookup_generate``
+(drafts from the sequence itself) and ``assisted_generate`` (drafts from a
+smaller model) over the shared accept rule ``speculative_accept`` /
+``speculative_emit``, and ``beam_search_generate``. The JAX package
+compiles each decoder into a prefill and one ``lax.scan`` or
+``lax.while_loop``; PyTorch runs eagerly, so here each is a Python loop of
+cached forwards. The selection rules are the JAX package's, step for step:
+repetition penalty before the warpers, ``min_new_tokens`` masking EOS, the
+EOS latch (a sequence that emitted EOS keeps emitting it), the 128-bucketed
+cache length and the edge-padded prompt. Greedy decoding (and beam search)
+is token-exact against the JAX package on the same weights; sampling draws
+from a ``torch.Generator`` (Philox, not JAX's threefry), so sampled tokens
+agree in distribution only.
+
+A speculative round reads the device once (:func:`_read`: the accepted
+count and the emitted chain); :data:`last_speculation` counts the rounds,
+the accepted drafts and the reads of the last speculative call.
 
 Cache capability is registered in :func:`big_modeling.cache_factory_for`.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, fields
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -108,15 +117,40 @@ def _bucket128(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def _bucket_and_pad(ids, max_positions: int):
+def _bucket_and_pad(ids, *modules_or_bounds):
     """EDGE-pad ``ids`` to the 128-bucket of its length (repeating each row's
-    last token, so a repetition-penalty seen-set is unchanged), capped at the
-    model's position table."""
+    last token, so a repetition-penalty seen-set is unchanged), capped at
+    every given module's position table (or int bound)."""
     S = ids.shape[1]
-    P = min(_bucket128(S), max_positions)
+    P = _bucket128(S)
+    for mb in modules_or_bounds:
+        bound = mb if isinstance(mb, int) else getattr(
+            getattr(mb, "config", None), "max_position_embeddings", None)
+        if bound is not None:
+            P = min(P, int(bound))
     if P <= S:
         return ids
     return torch.cat([ids, ids[:, -1:].expand(ids.shape[0], P - S)], dim=1)
+
+
+def _check_position_bound(module, total_len: int, label: str = "prompt + max_new_tokens"):
+    """Refuse a decode that would run past the model's position table."""
+    bound = getattr(getattr(module, "config", None), "max_position_embeddings", None)
+    if bound is not None and total_len > bound:
+        raise ValueError(f"{label} = {total_len} exceeds max_position_embeddings = {bound} "
+                         f"for {type(module).__name__}")
+
+
+def _cache_factory(module, role: Optional[str] = None):
+    """The model's KV-cache factory; TypeError for a family without one."""
+    from .big_modeling import cache_factory_for
+
+    factory = cache_factory_for(module)
+    if factory is None:
+        who = f" ({role})" if role else ""
+        raise TypeError(f"{type(module).__name__}{who} does not thread a KV cache "
+                        "(big_modeling.cache_factory_for)")
+    return factory
 
 
 @torch.inference_mode()
@@ -153,24 +187,16 @@ def generate(
 
     Returns [B, S + max_new_tokens] ids (prompt + completion).
     """
-    from .big_modeling import cache_factory_for
-
-    factory = cache_factory_for(module)
-    if factory is None:
-        raise TypeError(f"{type(module).__name__} does not thread a KV cache "
-                        "(big_modeling.cache_factory_for)")
+    factory = _cache_factory(module)
     device = next(module.parameters()).device
     ids = torch.as_tensor(input_ids, device=device)
     if max_new_tokens <= 0:
         return ids
     B, S = ids.shape
-    max_positions = module.config.max_position_embeddings
-    if S + max_new_tokens > max_positions:
-        raise ValueError(f"prompt + max_new_tokens = {S + max_new_tokens} exceeds "
-                         f"max_position_embeddings = {max_positions}")
+    _check_position_bound(module, S + max_new_tokens)
     cache = factory(B, _bucket128(S + max_new_tokens), cache_dtype or torch.bfloat16,
                     ring_slack=128)
-    ids_p = _bucket_and_pad(ids, max_positions)
+    ids_p = _bucket_and_pad(ids, module)
 
     sampling = (float(temperature), top_k, top_p) if do_sample else None
     select = _make_selector(sampling, float(repetition_penalty))
@@ -208,3 +234,420 @@ def greedy_generate(module, input_ids, max_new_tokens: int = 20,
     """Greedy alias of :func:`generate`."""
     return generate(module, input_ids, max_new_tokens=max_new_tokens,
                     eos_token_id=eos_token_id, cache_dtype=cache_dtype)
+
+
+# -- speculative decoding -------------------------------------------------------
+
+
+def speculative_accept(warped_logits, draft, generator):
+    """Exact speculative sampling over one verification chunk (the
+    Leviathan/Chen rejection rule with a deterministic, delta, proposal).
+
+    Args:
+      warped_logits: [K+1, V] f32; position j's target distribution is
+        ``softmax(warped_logits[j])`` (already temperature/top-k/top-p
+        warped).
+      draft: [K] proposed tokens.
+      generator: ``torch.Generator`` on the logits' device.
+
+    Returns ``(m, final)`` as device tensors: ``m`` draft tokens commit
+    (draft j passes when ``u_j < p_j(draft_j)``), followed by ``final``,
+    drawn from position ``m``'s distribution with the rejected draft token
+    masked out (the residual ``max(p - delta, 0) / Z``) when ``m < K``, or
+    from position K's full target when every draft passed. The emitted
+    tokens follow the chain of target distributions exactly."""
+    K = draft.shape[0]
+    probs = torch.softmax(warped_logits, dim=-1)
+    u = torch.rand(K, generator=generator, device=warped_logits.device)
+    p_draft = probs[:K].gather(1, draft[:, None].long())[:, 0]
+    m = torch.cumprod((u < p_draft).int(), dim=0).sum()
+    row = warped_logits[torch.clamp(m, max=K)]
+    rejected = draft[torch.clamp(m, max=K - 1)].long()
+    masked = row.scatter(0, rejected[None], float("-inf"))
+    row = torch.where(m < K, masked, row)
+    final = torch.multinomial(torch.softmax(row, dim=-1), 1, generator=generator)[0]
+    return m, final
+
+
+def speculative_emit(logits, draft, generator, warp, eos_token_id, dtype, prior_done=None):
+    """One verification chunk -> the emitted token chain, shared by the
+    speculative decoders (and, in the JAX package, the serving engine).
+
+    Args:
+      logits: [K+1, V] target logits over ``[last_committed, draft]``.
+      draft: [K] proposed tokens.
+      generator: ``torch.Generator`` for the accept rule (unused when
+        ``warp`` is None).
+      warp: a warper from :func:`_make_warper`, or None for greedy.
+      eos_token_id: the EOS id or None.
+      dtype: the emitted tokens' dtype.
+      prior_done: bool (or 0-dim bool tensor): the sequence already emitted
+        EOS, so the whole chunk emits EOS.
+
+    Returns ``(m, emit)`` as device tensors: ``emit`` [K+1] is the chain of
+    which the caller commits the first ``min(m + 1, remaining)``; ``m``
+    counts the accepted drafts. Greedy: the longest prefix of ``draft``
+    that agrees with the EOS-latched argmax chain. Sampled: the count of
+    :func:`speculative_accept`, with ``emit[m]`` its resample. Every
+    position after the chain's first EOS emits EOS, so a committed prefix
+    stops as :func:`generate` does."""
+    K = draft.shape[0]
+    done0 = torch.as_tensor(False if prior_done is None else prior_done, device=logits.device)
+    if warp is None:
+        emit = logits.argmax(dim=-1).to(dtype)
+    else:
+        m, final = speculative_accept(warp(logits), draft, generator)
+        slots = torch.arange(K + 1, device=logits.device)
+        padded = torch.cat([draft.to(dtype), torch.zeros(1, dtype=dtype, device=draft.device)])
+        emit = torch.where(slots < m, padded, final.to(dtype))
+    if eos_token_id is not None:
+        is_eos = emit == eos_token_id
+        after = torch.cat([torch.zeros(1, dtype=torch.bool, device=emit.device),
+                           torch.cumsum(is_eos.int(), dim=0)[:-1] > 0])
+        emit = torch.where(done0 | after, torch.full_like(emit, eos_token_id), emit)
+    if warp is None:
+        m = torch.cumprod((draft.to(dtype) == emit[:K]).int(), dim=0).sum()
+    return m, emit
+
+
+@dataclass
+class SpeculationStats:
+    """What one speculative call did: verification ``rounds``, draft tokens
+    accepted (``accepted``, of ``num_draft`` a round), tokens committed
+    (``committed``, the prefill's first token included) and host ``reads``
+    of the device (the prompt and first token, then one a round)."""
+
+    rounds: int = 0
+    accepted: int = 0
+    committed: int = 0
+    reads: int = 0
+
+    @property
+    def accepted_per_round(self) -> float:
+        return self.accepted / max(1, self.rounds)
+
+    def reset(self):
+        for f in fields(self):
+            setattr(self, f.name, f.default)
+
+
+#: The counters of the last ``prompt_lookup_generate`` / ``assisted_generate``.
+last_speculation = SpeculationStats()
+
+
+def _read(tensor) -> list:
+    """The one way the speculative loops read the device: a blocking copy
+    of ``tensor`` to a host list, counted in :data:`last_speculation`."""
+    last_speculation.reads += 1
+    return tensor.tolist()
+
+
+def lookup_draft(buf: np.ndarray, cur: int, ngram: int, num_draft: int) -> np.ndarray:
+    """Prompt-lookup draft: the ``num_draft`` tokens of ``buf`` after the
+    most recent earlier occurrence (start ``i`` with ``i + ngram < cur``) of
+    the last ``ngram`` committed tokens ``buf[cur - ngram:cur]``; with no
+    occurrence, after ``i = -1``. The start is clipped into
+    ``[0, len(buf) - num_draft]``, so a draft may read positions at or past
+    ``cur``: what earlier rounds wrote there, as in the JAX package."""
+    L = len(buf)
+    best = -1
+    if cur - 1 >= ngram:
+        windows = np.lib.stride_tricks.sliding_window_view(buf[:cur - 1], ngram)
+        hits = np.flatnonzero((windows == buf[cur - ngram:cur]).all(axis=1))
+        if hits.size:
+            best = int(hits[-1])
+    start = min(max(best + ngram, 0), L - num_draft)
+    return buf[start:start + num_draft]
+
+
+def _first_token(last, warp, generator, dtype):
+    """The prefill's token from its last-position logits [B, V]."""
+    if warp is None:
+        return last.argmax(dim=-1).to(dtype)
+    probs = torch.softmax(warp(last), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(dtype)
+
+
+def _speculate(ids, first, max_new_tokens: int, num_draft: int, buf_len: int, eos_token_id,
+               propose, verify):
+    """The speculative loop both decoders share, on a host copy of the
+    committed tokens ``buf`` [buf_len].
+
+    Each round, with ``cur`` tokens committed and ``last`` [1, 1] the last
+    of them on the device: ``propose(buf, cur, last, m_prev)`` (``m_prev``
+    the drafts the last round accepted, None in the first) gives the draft
+    [1, K] on the device, ``verify(chunk, draft, cur)`` runs the target over
+    ``chunk = [last, draft]`` at cache position ``cur - 1`` and returns
+    ``speculative_emit``'s ``(m, emit)``; one read brings both back. The
+    round commits ``min(m + 1, remaining)`` tokens; the whole chain is
+    written at ``cur`` (positions past the commit may feed a later draft,
+    as in the JAX package). After an EOS the rest of the output is EOS."""
+    device = ids.device
+    S = ids.shape[1]
+    stats = last_speculation
+    head = _read(torch.cat([ids[0], first.to(ids.dtype)]))
+    buf = np.zeros(buf_len, np.int64)
+    buf[:S + 1] = head
+    n_gen = 1
+    done = eos_token_id is not None and head[S] == eos_token_id
+    m = None
+    while n_gen < max_new_tokens and not done:
+        cur = S + n_gen
+        last = torch.as_tensor(buf[None, cur - 1:cur], dtype=ids.dtype).to(device)
+        draft = propose(buf, cur, last, m)
+        m, emit = verify(torch.cat([last, draft], dim=1), draft[0], cur)
+        out = _read(torch.cat([m.reshape(1).to(emit.dtype), emit]))
+        m, emit = out[0], out[1:]
+        n_emit = min(m + 1, max_new_tokens - n_gen)
+        buf[cur:cur + num_draft + 1] = emit
+        if eos_token_id is not None:
+            done = eos_token_id in emit[:n_emit]
+        n_gen += n_emit
+        stats.rounds += 1
+        stats.accepted += m
+    stats.committed = n_gen
+    if eos_token_id is not None:
+        buf[S + n_gen:S + max_new_tokens] = eos_token_id
+    return torch.as_tensor(buf[None, :S + max_new_tokens], dtype=ids.dtype).to(device)
+
+
+@torch.inference_mode()
+def prompt_lookup_generate(
+    module,
+    input_ids,
+    max_new_tokens: int = 20,
+    eos_token_id: Optional[int] = None,
+    cache_dtype=None,
+    ngram: int = 2,
+    num_draft: int = 5,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Decoding sped up by prompt-lookup speculation (transformers'
+    ``prompt_lookup_num_tokens``): greedy by default, distribution-exact
+    sampling with ``do_sample=True``.
+
+    Each round drafts ``num_draft`` tokens, those after the most recent
+    earlier occurrence of the last ``ngram`` committed tokens
+    (:func:`lookup_draft`), and verifies them in one cached forward of
+    ``num_draft + 1`` tokens; the model's own predictions decide how many
+    commit, so greedy output is exactly :func:`generate`'s. Rejected
+    positions leave stale KV entries that the next chunk overwrites before
+    a query attends them; ring caches mask them by stored position (their
+    ``ring_slack`` covers a chunk plus the prompt's padding). Batch 1 only.
+
+    Returns [1, S + max_new_tokens] ids on the model's device."""
+    factory = _cache_factory(module)
+    ids = torch.as_tensor(input_ids, device=next(module.parameters()).device)
+    if ids.shape[0] != 1:
+        raise ValueError(f"prompt_lookup_generate is batch-1 only (got batch {ids.shape[0]})")
+    if ngram < 1 or num_draft < 1:
+        raise ValueError(f"ngram and num_draft must be >= 1 (got {ngram}, {num_draft})")
+    if max_new_tokens <= 0:
+        return ids
+    S, K = ids.shape[1], int(num_draft)
+    # The last chunk starts at S + max_new_tokens - 2 and spans K + 1.
+    _check_position_bound(module, S + max_new_tokens + K - 1,
+                          label="prompt + max_new_tokens + speculative slack")
+    L = _bucket128(S + max_new_tokens + K + 1)
+    cache = factory(1, L, cache_dtype or torch.bfloat16, ring_slack=K + 1 + 128)
+    warp = _make_warper((float(temperature), top_k, top_p)) if do_sample else None
+    if generator is None:
+        generator = torch.Generator(device=ids.device).manual_seed(0)
+    last_speculation.reset()
+
+    logits, cache = module(_bucket_and_pad(ids, module), cache=cache, cache_pos=0)
+    first = _first_token(logits[:, S - 1], warp, generator, ids.dtype)
+
+    def verify(chunk, draft, cur):
+        logits, _ = module(chunk, cache=cache, cache_pos=cur - 1)
+        return speculative_emit(logits[0], draft, generator, warp, eos_token_id, ids.dtype)
+
+    def propose(buf, cur, last, m_prev):
+        draft = lookup_draft(buf, cur, int(ngram), K)
+        return torch.as_tensor(draft[None], dtype=ids.dtype).to(ids.device)
+
+    return _speculate(ids, first, max_new_tokens, K, L, eos_token_id, propose, verify)
+
+
+@torch.inference_mode()
+def assisted_generate(
+    module,
+    draft_module,
+    input_ids,
+    max_new_tokens: int = 20,
+    num_draft: int = 5,
+    eos_token_id: Optional[int] = None,
+    cache_dtype=None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Draft-model speculative decoding (transformers' assisted generation).
+
+    Each round the draft model proposes ``num_draft`` tokens by greedy
+    cached decode from the last committed token (and, after a round that
+    accepted every draft, the last draft, whose KV its cache lacks: the
+    JAX package leaves that hole, which costs acceptances, never tokens),
+    and the target verifies them in one cached forward: greedy output is exactly the target's
+    :func:`generate` output; ``do_sample=True`` samples the warped target
+    exactly (the greedy draft is a delta proposal for
+    :func:`speculative_accept`). Stale KV entries of rejected drafts, in
+    both caches, are overwritten before a query attends them. Both models
+    are decoder-only over the same vocabulary; batch 1 only.
+
+    Returns [1, S + max_new_tokens] ids on the target's device."""
+    factory, draft_factory = _cache_factory(module, "target"), _cache_factory(draft_module, "draft")
+    t_vocab = getattr(module.config, "vocab_size", None)
+    d_vocab = getattr(draft_module.config, "vocab_size", None)
+    if t_vocab != d_vocab:
+        raise ValueError(f"target and draft must share a vocabulary (got {t_vocab} vs {d_vocab})")
+    ids = torch.as_tensor(input_ids, device=next(module.parameters()).device)
+    if ids.shape[0] != 1:
+        raise ValueError(f"assisted_generate is batch-1 only (got batch {ids.shape[0]})")
+    if num_draft < 1:
+        raise ValueError(f"num_draft must be >= 1 (got {num_draft})")
+    if max_new_tokens <= 0:
+        return ids
+    S, K = ids.shape[1], int(num_draft)
+    _check_position_bound(module, S + max_new_tokens + K - 1,
+                          label="prompt + max_new_tokens + speculative slack")
+    # The draft decodes at positions up to S + max_new_tokens + K - 3.
+    _check_position_bound(draft_module, S + max_new_tokens + K - 2,
+                          label="prompt + max_new_tokens + draft slack")
+    L = _bucket128(S + max_new_tokens + K + 1)
+    dtype = cache_dtype or torch.bfloat16
+    cache = factory(1, L, dtype, ring_slack=K + 1 + 128)
+    dcache = draft_factory(1, L, dtype, ring_slack=K + 1 + 128)
+    warp = _make_warper((float(temperature), top_k, top_p)) if do_sample else None
+    if generator is None:
+        generator = torch.Generator(device=ids.device).manual_seed(0)
+    last_speculation.reset()
+
+    ids_p = _bucket_and_pad(ids, module, draft_module)
+    logits, cache = module(ids_p, cache=cache, cache_pos=0)
+    first = _first_token(logits[:, S - 1], warp, generator, ids.dtype)
+    draft_module(ids_p, cache=dcache, cache_pos=0)
+
+    def propose(buf, cur, last, m_prev):
+        # A round's K draft steps write the KV of the last committed token
+        # and of drafts 1..K-1; when all K were accepted, draft K is
+        # committed too but not in the draft's cache, so it goes in with
+        # the next round's first step.
+        start = cur - 2 if m_prev == K else cur - 1
+        tok = last if start == cur - 1 else torch.as_tensor(
+            buf[None, start:cur], dtype=ids.dtype).to(ids.device)
+        toks = []
+        for j in range(K):
+            dlogits, _ = draft_module(tok, cache=dcache, cache_pos=start if j == 0 else cur - 1 + j)
+            tok = dlogits[:, -1].argmax(dim=-1, keepdim=True).to(ids.dtype)
+            toks.append(tok)
+        return torch.cat(toks, dim=1)
+
+    def verify(chunk, draft, cur):
+        logits, _ = module(chunk, cache=cache, cache_pos=cur - 1)
+        return speculative_emit(logits[0], draft, generator, warp, eos_token_id, ids.dtype)
+
+    return _speculate(ids, first, max_new_tokens, K, L, eos_token_id, propose, verify)
+
+
+# -- beam search -----------------------------------------------------------------
+
+
+def _top_k_by_index(scores, k: int):
+    """``torch.topk`` with ties to the lower index, as ``jax.lax.top_k``:
+    a stable descending sort. Returns (values, indices) [..., k]."""
+    values, indices = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def _gather_cache_rows(cache, rows):
+    """Every layer's cache buffers (``k``, ``v`` and a ring's ``pos``) follow
+    their beams: row i takes row ``rows[i]``. One layer's buffers are copied
+    at a time, so the peak grows by a layer, not by a cache."""
+    for layer in cache:
+        for name in layer:
+            layer[name] = layer[name].index_select(0, rows)
+
+
+@torch.inference_mode()
+def beam_search_generate(
+    module,
+    input_ids,
+    max_new_tokens: int = 20,
+    num_beams: int = 4,
+    eos_token_id: Optional[int] = None,
+    length_penalty: float = 1.0,
+    cache_dtype=None,
+):
+    """Beam search for decoder-only cache-threading models.
+
+    The prompt is prefilled on its B rows, then the cache is repeated to
+    B x num_beams rows (beams ride the batch axis). The first step takes
+    the num_beams best distinct tokens; each later step scores num_beams x V
+    continuations per sequence, keeps the best num_beams by summed log
+    probability (ties to the lower index, as ``jax.lax.top_k``), and
+    gathers the cache rows and token histories of the beams kept. A beam
+    that emitted EOS is frozen: its one continuation is EOS at an unchanged
+    score. The winner maximises score / generated_length **
+    length_penalty, the length counting up to and including the first EOS.
+
+    Returns [B, S + max_new_tokens] ids of the best beam per row, on the
+    model's device."""
+    factory = _cache_factory(module)
+    device = next(module.parameters()).device
+    ids = torch.as_tensor(input_ids, device=device)
+    B, S = ids.shape
+    if max_new_tokens <= 0:
+        return ids
+    _check_position_bound(module, S + max_new_tokens)
+    K = num_beams
+    cache = factory(B, _bucket128(S + max_new_tokens), cache_dtype or torch.bfloat16,
+                    ring_slack=128)
+    logits, cache = module(_bucket_and_pad(ids, module), cache=cache, cache_pos=0)
+    logp = torch.log_softmax(logits[:, S - 1].float(), dim=-1)
+    del logits  # the prompt's logits are not held beside the repeated cache
+    for layer in cache:
+        for name in layer:
+            layer[name] = layer[name].repeat_interleave(K, dim=0)
+    V = logp.shape[-1]
+    beam_scores, first = _top_k_by_index(logp, K)                    # [B, K]
+    tok_hist = torch.zeros((B, K, max_new_tokens), dtype=ids.dtype, device=device)
+    tok_hist[:, :, 0] = first
+    done = torch.zeros((B, K), dtype=torch.bool, device=device)
+    if eos_token_id is not None:
+        done = first == eos_token_id
+        eos_only = torch.full((V,), -1e9, dtype=torch.float32, device=device)
+        eos_only[eos_token_id] = 0.0
+    row_base = torch.arange(B, device=device)[:, None] * K
+    for step in range(max_new_tokens - 1):
+        cur = tok_hist[:, :, step].reshape(B * K, 1)
+        logits, cache = module(cur, cache=cache, cache_pos=S + step)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(B, K, V)
+        if eos_token_id is not None:
+            logp = torch.where(done[:, :, None], eos_only, logp)
+        cand = beam_scores[:, :, None] + logp
+        beam_scores, top_idx = _top_k_by_index(cand.reshape(B, K * V), K)
+        src = top_idx // V
+        new_tok = (top_idx % V).to(ids.dtype)
+        tok_hist = tok_hist.gather(1, src[:, :, None].expand(B, K, max_new_tokens))
+        _gather_cache_rows(cache, (row_base + src).reshape(-1))
+        done = done.gather(1, src)
+        tok_hist[:, :, step + 1] = new_tok
+        if eos_token_id is not None:
+            done = done | (new_tok == eos_token_id)
+    if eos_token_id is not None:
+        is_eos = tok_hist == eos_token_id
+        first_eos = is_eos.int().argmax(dim=-1)
+        lengths = torch.where(is_eos.any(dim=-1), first_eos + 1,
+                              torch.full_like(first_eos, max_new_tokens))
+    else:
+        lengths = torch.full((B, K), max_new_tokens, device=device)
+    norm = beam_scores / lengths.float() ** length_penalty
+    best = norm.argmax(dim=-1)
+    return torch.cat([ids, tok_hist[torch.arange(B, device=device), best]], dim=1)

@@ -12,7 +12,11 @@ the update:
 * under fp16 the loss scale (``precision.py``): the gradients are unscaled
   once (not again when ``Accelerator.clip_grad_norm_`` already did), a
   non-finite step is skipped and backs the scale off;
-* the count of applied updates and whether the last one was skipped.
+* the count of applied updates and whether the last one was skipped;
+* every sync-step update, applied or skipped, consumes the gradients: they
+  are dropped (``p.grad = None``), as the JAX wrapper drops its
+  accumulator, so a loop that never calls ``zero_grad()`` does not apply a
+  window's gradients twice.
 
 One update, :meth:`AcceleratedOptimizer._apply`, serves both the loop's
 ``step()`` and the fused step (``Accelerator.compile_train_step``).
@@ -88,8 +92,8 @@ class AcceleratedOptimizer:
         """One update from the accumulated gradients: under fp16 unscale
         them (unless already done) and skip the update when one is not
         finite (one device read, as GradScaler does), updating the loss
-        scale either way; then count. Returns the finite flag (a device
-        tensor) under loss scaling, else None."""
+        scale either way; then drop the gradients and count. Returns the
+        finite flag (a device tensor) under loss scaling, else None."""
         finite = None
         if self.loss_scale is not None:
             self.unscale_()
@@ -99,6 +103,9 @@ class AcceleratedOptimizer:
             self.optimizer.step()
         if finite is not None:
             self.loss_scale = update_loss_scale(self.loss_scale, finite, self.scaler_kwargs)
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                p.grad = None
         self._grads_already_unscaled = False
         self._step_was_skipped = not applied
         self._steps_applied += int(applied)

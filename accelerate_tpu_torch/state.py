@@ -15,6 +15,7 @@ from contextlib import contextmanager
 from functools import partial, wraps
 from typing import Any, Callable, Optional
 
+from .utils.constants import env_var
 from .utils.dataclasses import GradientAccumulationPlugin
 from .utils.device import resolve_device
 
@@ -138,7 +139,8 @@ class AcceleratorState:
     """``PartialState`` plus the mixed-precision mode. Constructing it again
     with another mode raises, as in the JAX package, and so does asking
     for another device (``cpu``): the device is the process's. ``None``
-    (the default of both) takes what is there."""
+    (the default of both) takes what is there; a first ``None`` mode reads
+    ``ACCELERATE_TPU_MIXED_PRECISION`` (the launcher sets it), else "no"."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -159,7 +161,9 @@ class AcceleratorState:
                     f"{self.mixed_precision!r}; cannot re-init with {mixed_precision!r}. "
                     "Call AcceleratorState._reset_state() first (tests) or construct once.")
             return
-        mixed_precision = "no" if mixed_precision is None else str(mixed_precision).lower()
+        if mixed_precision is None:
+            mixed_precision = os.environ.get(env_var("MIXED_PRECISION"), "no")
+        mixed_precision = str(mixed_precision).lower()
         if mixed_precision not in PRECISIONS:
             raise ValueError(f"mixed_precision must be one of {PRECISIONS}, got {mixed_precision}")
         partial_state = PartialState(bool(cpu), **kwargs)

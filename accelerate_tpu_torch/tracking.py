@@ -2,16 +2,19 @@
 
 Counterpart of ``accelerate_tpu/tracking.py``: ``GeneralTracker``
 (``:48``), ``JSONLTracker`` (``:79``, one JSON object per line, the
-default), ``filter_trackers``/``resolve_trackers`` and
-``with_input_pipeline_metrics`` (``:413``). The seven third-party trackers
-of the JAX package (TensorBoard, W&B, Comet ML, Aim, MLflow, ClearML,
-DVCLive, ``:129-386``) need packages the port does not depend on; asking
-for one by name raises ``NotImplementedError`` (ROADMAP.md, A3).
+default), ``TensorBoardTracker`` (``:129``, on
+``torch.utils.tensorboard``, which needs the ``tensorboard`` package),
+``filter_trackers``/``resolve_trackers`` and
+``with_input_pipeline_metrics`` (``:413``). The six other trackers of the
+JAX package (W&B, Comet ML, Aim, MLflow, ClearML, DVCLive, ``:174-386``)
+need packages the port does not depend on; asking for one by name raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
+import importlib.util
 import json
 import os
 import time
@@ -22,8 +25,8 @@ from .state import is_main_process
 
 logger = get_logger(__name__)
 
-#: Trackers of the JAX package that the port does not have yet.
-NOT_PORTED = ("aim", "comet_ml", "mlflow", "tensorboard", "wandb", "clearml", "dvclive")
+#: Trackers of the JAX package over packages the port does not depend on.
+NOT_PORTED = ("aim", "comet_ml", "mlflow", "wandb", "clearml", "dvclive")
 
 
 def on_main_process(function):
@@ -115,7 +118,68 @@ class JSONLTracker(GeneralTracker):
             fh.close()
 
 
-LOGGER_TYPE_TO_CLASS = {"jsonl": JSONLTracker}
+def _summary_writer_module():
+    """``torch.utils.tensorboard``, imported when a tracker is made: it
+    needs the ``tensorboard`` package, which the port does not depend on."""
+    try:
+        return importlib.import_module("torch.utils.tensorboard")
+    except ImportError as exc:
+        raise ImportError(
+            "the tensorboard tracker needs the `tensorboard` package (for "
+            "torch.utils.tensorboard), which is not installed; use the 'jsonl' tracker "
+            "or install tensorboard") from exc
+
+
+def _tensorboard_available() -> bool:
+    return importlib.util.find_spec("tensorboard") is not None
+
+
+class TensorBoardTracker(GeneralTracker):
+    """Event files under ``<logging_dir>/<run_name>`` through
+    ``SummaryWriter``: the configuration as hparams, numbers as scalars,
+    strings as text and dicts as scalar groups."""
+
+    name = "tensorboard"
+    requires_logging_directory = True
+
+    @on_main_process
+    def __init__(self, run_name: str, logging_dir: str, **kwargs):
+        super().__init__()
+        tensorboard = _summary_writer_module()
+        self.run_name = run_name
+        self.logging_dir = os.path.join(logging_dir, run_name)
+        self.writer = tensorboard.SummaryWriter(self.logging_dir, **kwargs)
+
+    @property
+    def tracker(self):
+        return self.writer
+
+    @on_main_process
+    def store_init_configuration(self, values: dict):
+        self.writer.add_hparams(
+            {k: v for k, v in values.items() if isinstance(v, (int, float, str, bool))},
+            metric_dict={})
+        self.writer.flush()
+
+    @on_main_process
+    def log(self, values: dict, step: Optional[int] = None, **kwargs):
+        for k, v in values.items():
+            if isinstance(v, (int, float)):
+                self.writer.add_scalar(k, v, global_step=step, **kwargs)
+            elif isinstance(v, str):
+                self.writer.add_text(k, v, global_step=step, **kwargs)
+            elif isinstance(v, dict):
+                self.writer.add_scalars(k, v, global_step=step, **kwargs)
+        self.writer.flush()
+
+    @on_main_process
+    def finish(self):
+        self.writer.close()
+
+
+LOGGER_TYPE_TO_CLASS = {"jsonl": JSONLTracker, "tensorboard": TensorBoardTracker}
+#: Whether a tracker's package is importable; "all" starts only these.
+_AVAILABILITY = {"jsonl": lambda: True, "tensorboard": _tensorboard_available}
 
 
 def with_input_pipeline_metrics(values: dict, pipeline_stats,
@@ -142,11 +206,11 @@ def filter_trackers(log_with, logging_dir: Optional[str] = None) -> list:
         if isinstance(item, GeneralTracker):
             trackers.append(item)
         elif str(item) == "all":
-            names.extend(LOGGER_TYPE_TO_CLASS)
+            names.extend(n for n, available in _AVAILABILITY.items() if available())
         elif str(item) in NOT_PORTED:
             raise NotImplementedError(
-                f"the {item} tracker is not ported to accelerate_tpu_torch yet (ROADMAP.md, A3); "
-                "use 'jsonl' or pass a GeneralTracker")
+                f"the {item} tracker needs a package accelerate_tpu_torch does not depend on; "
+                "use 'jsonl' or 'tensorboard', or pass a GeneralTracker")
         elif str(item) in LOGGER_TYPE_TO_CLASS:
             names.append(str(item))
         else:

@@ -1,5 +1,11 @@
 from .convert import flax_from_state_dict, state_dict_from_flax
-from .dataclasses import DataLoaderConfiguration, GradientAccumulationPlugin, ProjectConfiguration
+from .dataclasses import (
+    AutocastKwargs,
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    ProfileKwargs,
+    ProjectConfiguration,
+)
 from .device import resolve_device
 from .memory import (
     clear_device_cache,

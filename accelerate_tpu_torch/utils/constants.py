@@ -1,8 +1,9 @@
-"""Names of the files a checkpoint holds.
+"""Names of the files a checkpoint holds, and of the environment variables.
 
 Counterpart of ``accelerate_tpu/utils/constants.py`` (the checkpoint names,
-``:9-23``, and ``WEIGHTS_PATTERN``). The mesh-axis names of the JAX package
-have no counterpart on one GPU.
+``:9-23``, ``WEIGHTS_PATTERN`` and ``ENV_PREFIX``) and of ``env_var`` in
+``accelerate_tpu/utils/environment.py``. The mesh-axis names of the JAX
+package have no counterpart on one GPU.
 """
 
 MODEL_NAME = "model"
@@ -20,3 +21,13 @@ SAFE_WEIGHTS_INDEX_NAME = "model.safetensors.index.json"
 CHECKPOINT_DIR_PREFIX = "checkpoint"
 
 WEIGHTS_PATTERN = "model-{:05d}-of-{:05d}.safetensors"
+
+# Environment variables the launcher sets and the state reads share this
+# prefix, the JAX package's, so one launched script configures either.
+ENV_PREFIX = "ACCELERATE_TPU_"
+
+
+def env_var(name: str) -> str:
+    """Namespaced variable name: ``env_var("MIXED_PRECISION") ==
+    "ACCELERATE_TPU_MIXED_PRECISION"``."""
+    return ENV_PREFIX + name

@@ -1,7 +1,8 @@
 """Configuration of the training loop.
 
 Counterpart of the part of ``accelerate_tpu/utils/dataclasses.py`` the loop
-reads: ``GradientAccumulationPlugin`` (``:291``), ``DataLoaderConfiguration``
+reads: ``AutocastKwargs`` (``:146``), ``ProfileKwargs`` (``:265``),
+``GradientAccumulationPlugin`` (``:291``), ``DataLoaderConfiguration``
 (``:301``) and ``ProjectConfiguration`` (``:323``). ``GradScalerKwargs``
 lives in ``precision.py``.
 """
@@ -9,7 +10,60 @@ lives in ``precision.py``.
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
-from typing import Optional
+from typing import Callable, Optional
+
+
+@dataclass
+class AutocastKwargs:
+    """The handler ``Accelerator.autocast`` takes. The precision policy
+    (f32 masters, compute and output dtypes) applies in every prepared call
+    already, so there is no region to switch: both fields are kept for the
+    JAX package's signature and read by nothing."""
+
+    enabled: bool = True
+    cache_enabled: bool = True
+
+
+@dataclass
+class ProfileKwargs:
+    """How ``Accelerator.profile`` traces, on ``torch.profiler``.
+
+    * ``activities``: "cpu" and/or "cuda" (or ``ProfilerActivity`` values);
+      default the CPU, and the card when the session's device is one.
+    * ``schedule_option``: ``{wait, warmup, active, repeat, skip_first}``
+      over ``ProfileSession.step()`` calls: the trace covers the ``active``
+      steps after ``skip_first + wait + warmup``, the whole block when
+      ``active`` is 0 or missing. ``repeat`` is read by nothing, as in the
+      JAX package.
+    * ``on_trace_ready(session)``: called when a traced window closes, after
+      its Chrome trace is written.
+    * ``record_shapes``, ``profile_memory``, ``with_stack``, ``with_flops``:
+      passed to ``torch.profiler.profile``.
+    * ``output_trace_dir``: where the traces go (the first choice of
+      ``Accelerator.profile``).
+    * ``create_perfetto_link``, ``create_perfetto_trace``: the Chrome trace
+      JSON the session writes opens in Perfetto as it is, so neither has
+      anything left to do; kept for the JAX package's signature.
+    """
+
+    activities: Optional[list] = None
+    schedule_option: Optional[dict] = None
+    on_trace_ready: Optional[Callable] = None
+    record_shapes: bool = False
+    profile_memory: bool = False
+    with_stack: bool = False
+    with_flops: bool = False
+    output_trace_dir: Optional[str] = None
+    create_perfetto_link: bool = False
+    create_perfetto_trace: bool = False
+
+    def build(self, log_dir: Optional[str] = None, device=None):
+        """A :class:`~accelerate_tpu_torch.utils.profiling.ProfileSession`
+        writing under ``log_dir`` (else ``output_trace_dir``), tracing the
+        card too when ``device`` is a CUDA device."""
+        from .profiling import ProfileSession
+
+        return ProfileSession(self, log_dir=log_dir or self.output_trace_dir, device=device)
 
 
 @dataclass

@@ -29,6 +29,22 @@ order; any failure exits non-zero:
    built from the same weights against the sequential one.
 4. generate: 4 prompts of 96/200/333/512 tokens, 32 new tokens each, greedy,
    bf16 KV cache; a repeat call must return the same tokens.
+4b. speculative and beam-search decoding, on the same model:
+   exactness first, at the same widths with 2 layers in f32 (TF32 off): on
+   a prompt repeating a seeded 64-token snippet, ``prompt_lookup_generate``
+   and ``assisted_generate`` (the model as its own draft, where every round
+   accepts all K drafts, and a seeded 1-layer draft) equal greedy
+   ``generate`` token for token, and so does ``beam_search_generate`` with
+   one beam; each sampled decoder run twice from one generator seed gives
+   the same tokens. Then at full depth in bf16 on a 512-token prompt (the
+   snippet 8 times), 64 new tokens: tokens/s of plain ``generate``, of
+   prompt lookup (ngram 2, K 5) and of assisted decoding with a seeded
+   2-layer draft, with their rounds, mean accepted drafts a round and the
+   prefix they share with ``generate`` (bf16 rounds a K+1-token chunk and a
+   1-token step differently, so it is reported, not asserted); beam search
+   with 4 beams on prompts of 200 and 333 tokens, 32 new: ms a step, the
+   peak memory above the weights, and a repeat call identical; one
+   profiled verify round beside one profiled decode step.
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
@@ -65,8 +81,10 @@ order; any failure exits non-zero:
    versions under phase 2's tolerances;
    the peak memory of "dots" between "nothing" and no remat;
    ``find_executable_batch_size`` from 128 x 1024 tokens without remat,
-   through at least one real ``torch.OutOfMemoryError``. Times beside the
-   card's name and power limit.
+   through at least one real ``torch.OutOfMemoryError``. The second update
+   of the run that saves runs under ``Accelerator.profile``: its Chrome
+   trace must name the three wgmma flash kernels. Times beside the card's
+   name and power limit.
 
 Prints the kernels' JSON line and the card's line, and as its last line
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +126,10 @@ TRAIN_LABEL = "training shape, tier-1 llama causal"
 MAIN_LABEL = "main-path llama3-8b causal"
 PROMPT_LENGTHS = (96, 200, 333, 512)
 NEW_TOKENS = 32
+# Phase 4b: speculative decoding on prompts that repeat a seeded snippet,
+# and beam search.
+SPEC = dict(snippet=64, repeats=8, new=64, ngram=2, num_draft=5, draft_layers=2,
+            exact_repeats=4, exact_new=40, beam_prompts=(200, 333), beams=4, beam_new=32)
 
 
 def fail(message: str):
@@ -616,6 +638,199 @@ def phase_generate(model, gen):
           f"{decode_tokens / decode_s:.1f} tokens/s (batch 1); repeat call identical")
 
 
+def snippet_prompt(vocab, repeats, gen):
+    """A prompt that repeats one seeded ``SPEC["snippet"]``-token snippet."""
+    import torch
+
+    snippet = torch.randint(0, vocab, (1, SPEC["snippet"]), generator=gen, device="cuda")
+    return snippet.repeat(1, repeats)
+
+
+def agreed_prefix(a, b, start: int) -> int:
+    """New tokens ``a`` and ``b`` share from position ``start`` on."""
+    differ = (a[0, start:] != b[0, start:]).nonzero()
+    return int(differ[0, 0]) if differ.numel() else a.shape[1] - start
+
+
+def timed_call(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def speculation_exactness(cfg):
+    """Phase 4b's exact half: 2 layers at the model's widths in f32."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import (LlamaForCausalLM, assisted_generate, beam_search_generate,
+                                      generate, prompt_lookup_generate)
+    from accelerate_tpu_torch import generation
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = LlamaForCausalLM(small, device="cuda", dtype=torch.float32, generator=gen).eval()
+    draft = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=1), device="cuda",
+                             dtype=torch.float32, generator=gen).eval()
+    prompt = snippet_prompt(cfg.vocab_size, SPEC["exact_repeats"], gen)
+    new, K, f32 = SPEC["exact_new"], SPEC["num_draft"], torch.float32
+    plain = generate(model, prompt, max_new_tokens=new, cache_dtype=f32)
+    checks = {"prompt_lookup_generate": lambda: prompt_lookup_generate(
+                  model, prompt, max_new_tokens=new, ngram=SPEC["ngram"], num_draft=K,
+                  cache_dtype=f32),
+              "assisted_generate, itself as draft": lambda: assisted_generate(
+                  model, model, prompt, max_new_tokens=new, num_draft=K, cache_dtype=f32),
+              "assisted_generate, 1-layer draft": lambda: assisted_generate(
+                  model, draft, prompt, max_new_tokens=new, num_draft=K, cache_dtype=f32),
+              "beam_search_generate, 1 beam": lambda: beam_search_generate(
+                  model, prompt, max_new_tokens=new, num_beams=1, cache_dtype=f32)}
+    for name, call in checks.items():
+        out = call()
+        stats = generation.last_speculation
+        extra = (f"; {stats.rounds} rounds, {stats.accepted} of {stats.rounds * K} drafts accepted"
+                 if name.startswith(("prompt", "assisted")) else "")
+        print(f"  f32, 2 layers at the model's widths, {prompt.shape[1]}-token prompt, {new} new: "
+              f"{name} {'equals' if torch.equal(out, plain) else 'DIFFERS FROM'} greedy "
+              f"generate{extra}")
+        if not torch.equal(out, plain):
+            fail(f"{name} is not token-exact with generate at f32")
+        if name.endswith("itself as draft"):
+            rounds = -(-(new - 1) // (K + 1))
+            if stats.rounds != rounds or stats.accepted != rounds * K:
+                fail(f"the model as its own draft took {stats.rounds} rounds and accepted "
+                     f"{stats.accepted} drafts; expected {rounds} rounds and all {rounds * K}")
+    sampled = dict(max_new_tokens=new, num_draft=K, cache_dtype=f32, do_sample=True, top_k=50)
+    for name, call in {
+            "prompt_lookup_generate": lambda g: prompt_lookup_generate(
+                model, prompt, generator=g, **sampled),
+            "assisted_generate": lambda g: assisted_generate(
+                model, draft, prompt, generator=g, **sampled)}.items():
+        outs = [call(torch.Generator(device="cuda").manual_seed(7)) for _ in range(2)]
+        print(f"  sampled {name} (top_k 50), twice from seed 7: "
+              f"{'identical' if torch.equal(*outs) else 'DIFFERENT'}")
+        if not torch.equal(*outs):
+            fail(f"sampled {name} is not deterministic under one generator seed")
+    del model, draft
+    free_cuda()
+
+
+def phase_speculative(model, gen):
+    """Phase 4b (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import (LlamaForCausalLM, assisted_generate, beam_search_generate,
+                                      generate, prompt_lookup_generate)
+    from accelerate_tpu_torch import generation
+
+    card = card_line()
+    cfg = model.config
+    speculation_exactness(cfg)
+
+    prompt = snippet_prompt(cfg.vocab_size, SPEC["repeats"], gen)
+    S, new, K = prompt.shape[1], SPEC["new"], SPEC["num_draft"]
+    draft = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=SPEC["draft_layers"]),
+                             device="cuda", dtype=next(model.parameters()).dtype,
+                             generator=torch.Generator(device="cuda").manual_seed(22)).eval()
+    bf16 = torch.bfloat16
+    runs = {"generate": lambda: generate(model, prompt, max_new_tokens=new, cache_dtype=bf16),
+            "prompt_lookup_generate": lambda: prompt_lookup_generate(
+                model, prompt, max_new_tokens=new, ngram=SPEC["ngram"], num_draft=K,
+                cache_dtype=bf16),
+            f"assisted_generate, {SPEC['draft_layers']}-layer draft": lambda: assisted_generate(
+                model, draft, prompt, max_new_tokens=new, num_draft=K, cache_dtype=bf16)}
+    for call in runs.values():
+        call()  # warm-up
+    _, prefill_s = timed_call(lambda: generate(model, prompt, max_new_tokens=1, cache_dtype=bf16))
+    plain = None
+    for name, call in runs.items():
+        out, seconds = timed_call(call)
+        stats = dataclasses.replace(generation.last_speculation)
+        if plain is None:
+            plain = out
+            print(f"  bf16, full depth, {S}-token prompt (a 64-token snippet x {SPEC['repeats']}), "
+                  f"{new} new ({card}): generate {new / seconds:.2f} tokens/s ({seconds:.3f} s; "
+                  f"prefill {prefill_s * 1e3:.1f} ms, decode "
+                  f"{(new - 1) / (seconds - prefill_s):.2f} tokens/s)")
+            continue
+        agreed = agreed_prefix(out, plain, S)
+        print(f"  {name}: {new / seconds:.2f} tokens/s ({seconds:.3f} s), {stats.rounds} rounds, "
+              f"{stats.accepted_per_round:.2f} drafts accepted a round of {K}, "
+              f"{stats.reads} device reads; agrees with generate on the first {agreed} of {new} "
+              f"new tokens")
+        if out.shape != plain.shape or not torch.equal(out[:, :S], prompt):
+            fail(f"{name} returned shape {tuple(out.shape)}")
+        if stats.reads != stats.rounds + 1 or stats.committed != new:
+            fail(f"{name}: {stats.reads} reads for {stats.rounds} rounds, {stats.committed} "
+                 f"tokens committed")
+    del draft
+    free_cuda()
+
+    for n in SPEC["beam_prompts"]:
+        ids = torch.randint(0, cfg.vocab_size, (1, n), generator=gen, device="cuda")
+        beams, beam_new = SPEC["beams"], SPEC["beam_new"]
+
+        def beam(max_new):
+            return beam_search_generate(model, ids, max_new_tokens=max_new, num_beams=beams,
+                                        cache_dtype=bf16)
+
+        beam(2)  # warm-up
+        _, one_s = timed_call(lambda: beam(1))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first, seconds = timed_call(lambda: beam(beam_new))
+        peak = torch.cuda.max_memory_allocated() - base
+        repeat, _ = timed_call(lambda: beam(beam_new))
+        L = -(-(n + beam_new) // 128) * 128
+        cache_bytes = (cfg.num_hidden_layers * 2 * beams * L * cfg.num_key_value_heads
+                       * cfg.head_dim * 2)
+        print(f"  beam search, {beams} beams, {n}-token prompt, {beam_new} new ({card}): "
+              f"{(seconds - one_s) * 1e3 / (beam_new - 1):.2f} ms a step, peak "
+              f"{peak / 2**30:.3f} GiB above the weights (cache {cache_bytes / 2**30:.3f} GiB), "
+              f"repeat call {'identical' if torch.equal(first, repeat) else 'DIFFERENT'}")
+        if not torch.equal(first, repeat) or first.shape != (1, n + beam_new):
+            fail("a repeat beam search returned other tokens")
+        # A step gathers the cache a layer at a time: a second whole cache
+        # (at least twice the cache) must never be held.
+        if peak > 1.5 * cache_bytes + 64 * 2**20:
+            fail(f"beam search peaked at {peak / 2**30:.3f} GiB above the weights, more than "
+                 f"one cache of {cache_bytes / 2**30:.3f} GiB and change")
+
+    # One verify round beside one decode step, at the 512-token context.
+    with torch.inference_mode():
+        cache = generation._cache_factory(model)(1, 640, bf16, ring_slack=K + 1 + 128)
+        model(prompt, cache=cache, cache_pos=0)
+        chunk = prompt[:, -(K + 1):]
+
+        def verify():
+            logits, _ = model(chunk, cache=cache, cache_pos=S)
+            m, emit = generation.speculative_emit(logits[0], chunk[0, 1:], None, None, None,
+                                                  prompt.dtype)
+            return torch.cat([m.reshape(1), emit]).tolist()
+
+        def decode():
+            logits, _ = model(chunk[:, :1], cache=cache, cache_pos=S)
+            return logits[:, -1].argmax(-1).tolist()
+
+        verify()
+        decode()
+        v = device_breakdown(f"verify round ({K + 1} tokens, 512-token context)", verify)
+        d = device_breakdown("decode step (1 token, 512-token context)", decode)
+    if not (v and d):
+        fail("torch.profiler saw no device time in a verify round or a decode step")
+    print(f"  verify round / decode step: wall {v['wall_ms']:.3f} / {d['wall_ms']:.3f} ms, "
+          f"device busy {v['busy_ms']:.3f} / {d['busy_ms']:.3f} ms "
+          f"({100 * v['busy_ms'] / v['wall_ms']:.1f} / "
+          f"{100 * d['busy_ms'] / d['wall_ms']:.1f} % of wall), kernels {v['kernels']:.0f} / "
+          f"{d['kernels']:.0f}")
+
+
 def device_breakdown(label, fn, steps=1, top=4):
     """Profile ``fn`` once and print where the device time went: wall time,
     summed kernel time (the device's busy share of the wall), kernel time by
@@ -660,6 +875,7 @@ def device_breakdown(label, fn, steps=1, top=4):
           f"({100 * busy / wall_ms:.1f}% of wall), {count / steps:.0f} kernels; by kind: {kinds}")
     for name, ms in top:
         print(f"    {ms / steps:9.3f} ms  {name[:110]}")
+    return dict(wall_ms=wall_ms / steps, busy_ms=busy / steps, kernels=count / steps)
 
 
 def phase_profile(model, gen):
@@ -948,6 +1164,24 @@ def steady_update(rows, profile_label=None, **config):
     return peak, marks["ms"]
 
 
+def check_loop_trace(prof, trace_dir, export_s):
+    """The Chrome trace ``Accelerator.profile`` wrote of one loop update
+    must exist under ``trace_dir`` and name the three wgmma flash kernels."""
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    if not files or prof.trace_files != files:
+        fail(f"Accelerator.profile wrote {files} under {trace_dir}, expected {prof.trace_files}")
+    with open(files[0]) as f:
+        text = f.read()
+    kernels = ("flash_fwd_sm90", "flash_bwd_dkdv_sm90", "flash_bwd_dq_sm90")
+    missing = [k for k in kernels if f"{k}_kernel" not in text]
+    print(f"  Accelerator.profile of update 2: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0]) / 1e6:.1f} MB, written in {export_s:.2f} s; names "
+          f"{', '.join(k for k in kernels if k not in missing)}; {len(prof.step_breakdowns)} "
+          f"step snapshots (none: the loop calls no prof.step())")
+    if missing:
+        fail(f"the profile trace of a loop update names no {missing}")
+
+
 def phase_loop():
     """Phase 8 (see the module docstring). Returns the flash launch counts
     of the uninterrupted loop and its number of microbatches."""
@@ -956,7 +1190,8 @@ def phase_loop():
 
     import torch
 
-    from accelerate_tpu_torch import find_executable_batch_size, fused_causal_lm_loss
+    from accelerate_tpu_torch import (ProfileKwargs, find_executable_batch_size,
+                                      fused_causal_lm_loss)
     from accelerate_tpu_torch.bench import tier1_llama_config
 
     card = card_line()
@@ -1049,7 +1284,9 @@ def phase_loop():
     del acc
 
     # B: save after update 3 in the background, then wait; C: load, resume.
+    # B's second update runs under Accelerator.profile.
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
     try:
         run = build_loop(rows)
         need = sum(p.numel() * 4 * 3 for p in run[1].parameters())  # masters, exp_avg(_sq)
@@ -1057,9 +1294,16 @@ def phase_loop():
         if free < 1.2 * need:
             fail(f"{ckpt} has {free / 1e9:.1f} GB free; the checkpoint needs {need / 1e9:.1f} GB "
                  "(set TMPDIR to a larger disk)")
-        timing = {}
+        timing, session = {}, {}
 
         def save(n):
+            if n == 1:
+                session["prof"] = run[0].profile(
+                    ProfileKwargs(output_trace_dir=trace_dir)).__enter__()
+            if n == 2:
+                t0 = time.perf_counter()
+                session["prof"].__exit__(None, None, None)
+                session["export_s"] = time.perf_counter() - t0
             if n == LOOP["save_after"]:
                 t0 = time.perf_counter()
                 run[0].save_state(ckpt, blocking=False)
@@ -1070,6 +1314,7 @@ def phase_loop():
         first, _, _ = run_loop(*run, updates=LOOP["save_after"], after_update=save)
         drop(run[0])
         del run
+        check_loop_trace(session["prof"], trace_dir, session["export_s"])
         files = os.listdir(ckpt)
         size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
 
@@ -1088,6 +1333,7 @@ def phase_loop():
         del acc
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(trace_dir, ignore_errors=True)
     print(f"  checkpoint ({card}): {size / 1e9:.3f} GB in {len(files)} files; save_state(blocking=False) returned after {timing['snapshot']:.2f} s (host "
           f"copy), written after {timing['save']:.2f} s; load_state {load_s:.2f} s")
     same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
@@ -1175,6 +1421,12 @@ def main():
     phase_generate(model, gen)
     if any(read_counts().values()):
         fail("the cached generate path launched a flash kernel; its attention is the einsum core")
+    print("== 4b. speculative and beam-search decoding")
+    reset_counts()
+    phase_speculative(model, gen)
+    if any(read_counts().values()):
+        fail("a speculative or beam-search decoder launched a flash kernel; its attention is "
+             "the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -1199,6 +1451,19 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def main_speculative():
+    """Phase 4b alone (no kernel is built: the cached path runs none)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card_line())
+    model, _, gen = build_model()
+    reset_counts()
+    phase_speculative(model, gen)
+    if any(read_counts().values()):
+        fail("a speculative or beam-search decoder launched a flash kernel")
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

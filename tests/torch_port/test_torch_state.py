@@ -2,7 +2,9 @@
 helpers of the port, against the JAX package's where both have them.
 
 * ``PartialState``/``AcceleratorState``/``GradientState`` share state as
-  the JAX package's do, refuse a second precision and several processes.
+  the JAX package's do, refuse a second precision and several processes;
+  with no precision given, both packages read
+  ``ACCELERATE_TPU_MIXED_PRECISION`` and refuse an unknown value.
 * ``JSONLTracker`` writes the JAX package's records (equal but for the
   wall-clock ``time``).
 * ``find_executable_batch_size`` halves on ``torch.OutOfMemoryError``, as
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from accelerate_tpu import tracking as jax_tracking
+from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
 from accelerate_tpu.utils import memory as jax_memory
 from accelerate_tpu.utils.profiling import PipelineStats as JaxPipelineStats
 from accelerate_tpu_torch import Accelerator, GradientAccumulationPlugin, set_seed
@@ -47,6 +50,32 @@ def test_singletons_share_their_state():
         AcceleratorState(mixed_precision="int3")
     GradientState(GradientAccumulationPlugin(num_steps=5, sync_each_batch=True))
     assert GradientState().num_steps == 5 and GradientState().sync_each_batch
+
+
+def test_mixed_precision_comes_from_the_environment(monkeypatch):
+    """A launched script asks for its precision through the environment:
+    both packages resolve it when the argument is None; an argument wins."""
+    monkeypatch.setenv("ACCELERATE_TPU_MIXED_PRECISION", "bf16")
+    JaxAcceleratorState._reset_state(reset_partial_state=True)
+    assert JaxAcceleratorState().mixed_precision == "bf16"
+    JaxAcceleratorState._reset_state(reset_partial_state=True)
+    assert AcceleratorState(cpu=True).mixed_precision == "bf16"
+    AcceleratorState._reset_state()
+    acc = Accelerator(cpu=True)
+    assert acc.mixed_precision == "bf16" and acc.policy.compute_dtype == torch.bfloat16
+    AcceleratorState._reset_state()
+    assert AcceleratorState(mixed_precision="no", cpu=True).mixed_precision == "no"
+
+
+def test_an_unknown_precision_in_the_environment_is_refused(monkeypatch):
+    monkeypatch.setenv("ACCELERATE_TPU_MIXED_PRECISION", "int3")
+    JaxAcceleratorState._reset_state(reset_partial_state=True)
+    with pytest.raises(ValueError, match="mixed_precision must be one of"):
+        JaxAcceleratorState()
+    JaxAcceleratorState._reset_state(reset_partial_state=True)
+    with pytest.raises(ValueError, match="mixed_precision must be one of"):
+        AcceleratorState(cpu=True)
+    assert AcceleratorState._shared_state == {}  # a failed construction leaves no state
 
 
 def test_another_device_in_the_same_process_is_refused():
@@ -162,7 +191,7 @@ def test_trackers_through_the_accelerator(tmp_path):
     assert lines[1]["loss"] == 2.0 and lines[1]["input_pipeline/data_wait_ms"] == 4.0
     with pytest.raises(ValueError, match="not an available tracker"):
         acc.get_tracker("wandb")
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="wandb tracker needs a package"):
         tracking.filter_trackers("wandb", str(tmp_path))
     with pytest.raises(ValueError, match="Unknown tracker"):
         tracking.filter_trackers("nope", str(tmp_path))

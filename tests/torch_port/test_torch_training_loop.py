@@ -15,6 +15,9 @@ numpy batches:
   falls (and follows the JAX loop's within 1e-5 relative: SGD, fp32, the
   same arithmetic in another order), accumulation 4 x 4 equals a batch of
   16, the clip, the fp16 skip;
+* the same Llama loop without ``zero_grad``, at accumulation 1 and 2: every
+  update consumes its gradients on both sides, so it still follows the JAX
+  loop at ``FP32``;
 * the loop's first update equal to ``compile_train_step``'s on the same two
   microbatches;
 * the remat policies: "dots" gives the no-remat gradients (within 1e-6 at
@@ -79,9 +82,9 @@ def token_rows(n=16, seq=16, seed=1):
     return [{"input_ids": rng.integers(0, 256, seq).astype(np.int32)} for _ in range(n)]
 
 
-def jax_llama_loop(params, rows):
+def jax_llama_loop(params, rows, accum=2, zero_grad=True):
     module = JaxPipelined(JaxLlamaConfig.tiny())
-    acc = JaxAccelerator(gradient_accumulation_steps=2)
+    acc = JaxAccelerator(gradient_accumulation_steps=accum)
     tx = optax.inject_hyperparams(optax.adamw)(learning_rate=warmup(0))
     model, opt, loader, sched = acc.prepare(Model(module, params), tx,
                                             JaxNumpyDataLoader(rows, batch_size=2),
@@ -95,17 +98,18 @@ def jax_llama_loop(params, rows):
                 norms.append(float(acc.clip_grad_norm_(max_norm=1.0)))
             opt.step()
             sched.step()
-            opt.zero_grad()
+            if zero_grad:
+                opt.zero_grad()
             if acc.sync_gradients:
                 lrs.append(float(opt.opt_state.hyperparams["learning_rate"]))
     return losses, norms, lrs, jax.device_get(model.params)
 
 
-def port_llama_loop(params, rows):
+def port_llama_loop(params, rows, accum=2, zero_grad=True):
     cfg = LlamaConfig.tiny()
     module = PipelinedLlamaForCausalLM(cfg, device="cpu")
     module.load_state_dict(state_dict_from_flax(params, cfg))
-    acc = Accelerator(cpu=True, gradient_accumulation_steps=2)
+    acc = Accelerator(cpu=True, gradient_accumulation_steps=accum)
     model, opt, loader, sched = acc.prepare(
         module, torch.optim.AdamW(module.parameters(), lr=warmup(0), weight_decay=1e-4),
         NumpyDataLoader(rows, batch_size=2), LRScheduler(warmup))
@@ -118,7 +122,8 @@ def port_llama_loop(params, rows):
                 norms.append(acc.clip_grad_norm_(max_norm=1.0).item())
             opt.step()
             sched.step()
-            opt.zero_grad()
+            if zero_grad:
+                opt.zero_grad()
             if acc.sync_gradients:
                 lrs.append(opt.param_groups[0]["lr"])
     assert opt.steps_applied == len(norms) and sched.scheduler.count == len(norms)
@@ -135,6 +140,25 @@ def test_llama_loop_follows_the_jax_loop():
     # The schedule's values; the JAX side holds them in f32.
     assert lrs == [warmup(1), warmup(2), warmup(3), warmup(4)]
     np.testing.assert_allclose(lrs, ref_lrs, rtol=1e-7)
+    assert_same_params(params, ref_params, state)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_llama_loop_without_zero_grad_follows_the_jax_loop(accum):
+    """``step()`` consumes the gradients it applied: a loop that never calls
+    ``zero_grad`` trains as the JAX loop does, whose accumulator is dropped
+    at every sync-step update."""
+    params, rows = llama_params(), token_rows()
+    ref_losses, ref_norms, _, ref_params = jax_llama_loop(params, rows, accum, zero_grad=False)
+    losses, norms, _, state = port_llama_loop(params, rows, accum, zero_grad=False)
+    assert len(losses) == 8 and len(norms) == 8 // accum
+    np.testing.assert_allclose(losses, ref_losses, rtol=FP32["loss"])
+    np.testing.assert_allclose(norms, ref_norms, rtol=FP32["grad_norm"])
+    assert_same_params(params, ref_params, state)
+
+
+def assert_same_params(params, ref_params, state):
+    """The port's final weights against the JAX loop's, at ``FP32``."""
     initial = state_dict_from_flax(params, LlamaConfig.tiny())
     expected = state_dict_from_flax(ref_params, LlamaConfig.tiny())
     for name, tensor in expected.items():
