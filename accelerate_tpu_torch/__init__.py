@@ -7,8 +7,10 @@ which it never imports). It holds the Llama forward, KV-cached
 schedulers and data loaders, the user's loop (``accumulate``, ``backward``,
 ``clip_grad_norm_``, ``save_state``/``load_state``) and the fused
 ``compile_train_step``, over the chunked LM-head loss, with attention on
-hand-written Hopper flash-attention kernels, forward and backward. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+hand-written Hopper flash-attention kernels, forward and backward, and the
+continuous-batching ``ServingEngine`` (chunked prefill, paged KV, prefix
+cache, async ticks) on fixed-shape steps under CUDA graphs. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .accelerator import AcceleratedModel, Accelerator
@@ -59,6 +61,7 @@ from .optimizer import AcceleratedOptimizer
 from .parallel.sharding import resolve_remat_policy
 from .precision import GradScalerKwargs, Policy, policy_for
 from .scheduler import AcceleratedScheduler, LRScheduler
+from .serving import ServingEngine, ServingStats
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import GeneralTracker, JSONLTracker, TensorBoardTracker
 from .utils.convert import flax_from_state_dict, state_dict_from_flax
@@ -71,5 +74,10 @@ from .utils.dataclasses import (
 )
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory
-from .utils.profiling import ProfileSession, annotate, save_device_memory_profile
+from .utils.profiling import (
+    GraphCaptureWatcher,
+    ProfileSession,
+    annotate,
+    save_device_memory_profile,
+)
 from .utils.random import set_seed

@@ -25,8 +25,12 @@ Two ways to train, with the same arithmetic in the same order:
   fp32 steps never read a device value on the host.
 
 Around the loop: ``profile`` (a ``torch.profiler`` session with the input
-pipeline's counters), ``autocast`` (the active policy) and the preemption
-handler (SIGTERM latches :attr:`Accelerator.preemption_requested`).
+pipeline's counters and the serving engines'), ``autocast`` (the active
+policy) and the preemption handler (SIGTERM latches
+:attr:`Accelerator.preemption_requested`, which a serving engine built with
+``accelerator=`` answers by draining). ``serving_stats`` is shared by every
+``ServingEngine(accelerator=...)``: ``serving_metrics()`` and
+``log(include_serving=True)`` read it.
 
 Multi-device meshes, FSDP (its activation checkpointing included),
 optimizer-state host offload, ``LocalSGD`` and ``join_uneven_inputs`` are
@@ -63,6 +67,7 @@ from .utils.dataclasses import (
     ProjectConfiguration,
 )
 from .utils.operations import gather, gather_object, pad_across_processes, recursively_apply, reduce
+from .serving.metrics import ServingStats
 from .utils.profiling import PipelineStats
 
 
@@ -199,6 +204,10 @@ class Accelerator:
         self.policy = policy_for(self.mixed_precision)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.pipeline_stats = PipelineStats()
+        # Shared by ServingEngine(accelerator=...) instances, so the engines
+        # and this accelerator tell one story: serving_metrics(), profile()
+        # and log(include_serving=True) read it.
+        self.serving_stats = ServingStats()
         self._models: list[AcceleratedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
@@ -370,6 +379,12 @@ class Accelerator:
         (the loop blocked on data), ``stage_ms`` (collate and the copy to
         the card) and ``queue_depth``."""
         return self.pipeline_stats.summary()
+
+    def serving_metrics(self) -> dict:
+        """The serving engines' counters (TTFT, queue wait, decode
+        tokens/s, slot occupancy, prefill and prefix-cache keys) of every
+        ``ServingEngine(accelerator=self)``: ``ServingStats.summary``."""
+        return self.serving_stats.summary()
 
     # -- gradient accumulation -------------------------------------------
 
@@ -635,15 +650,17 @@ class Accelerator:
         """A :class:`~accelerate_tpu_torch.utils.profiling.ProfileSession`
         (a context manager) tracing the host, and the card when the
         accelerator runs on one, with the input pipeline's counters
-        attached. The traces go to the handler's ``output_trace_dir``, else
-        the project's ``logging_dir``, else ``./torch_trace``."""
+        attached, and the serving engines' too. The traces go to the
+        handler's ``output_trace_dir``, else the project's ``logging_dir``,
+        else ``./torch_trace``."""
         from .utils.profiling import DEFAULT_TRACE_DIR
 
         handler = profile_handler or self.profile_handler or ProfileKwargs()
         log_dir = (handler.output_trace_dir or self.project_configuration.logging_dir
                    or DEFAULT_TRACE_DIR)
-        return handler.build(log_dir=log_dir, device=self.device).attach_pipeline_stats(
-            self.pipeline_stats)
+        return (handler.build(log_dir=log_dir, device=self.device)
+                .attach_pipeline_stats(self.pipeline_stats)
+                .attach_serving_stats(self.serving_stats))
 
     # -- triggers, memory ----------------------------------------------------
 
@@ -729,13 +746,18 @@ class Accelerator:
                                          init_kwargs=init_kwargs or {})
 
     def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None,
-            include_input_pipeline: bool = False):
+            include_input_pipeline: bool = False, include_serving: bool = False):
         """Log scalars to every tracker; ``include_input_pipeline`` adds the
-        input pipeline's breakdown under ``input_pipeline/``."""
+        input pipeline's breakdown under ``input_pipeline/``, and
+        ``include_serving`` the serving engines' under ``serving/``."""
         if include_input_pipeline:
             from .tracking import with_input_pipeline_metrics
 
             values = with_input_pipeline_metrics(values, self.pipeline_stats)
+        if include_serving:
+            from .tracking import with_serving_metrics
+
+            values = with_serving_metrics(values, self.serving_stats)
         for tracker in self.trackers:
             tracker.log(values, step=step, **((log_kwargs or {}).get(tracker.name, {})))
 

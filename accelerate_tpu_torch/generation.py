@@ -112,6 +112,32 @@ def _next_token(last, generator, seen, done, select, eos_token_id, dtype):
     return nxt, done
 
 
+def _chunk_prefill_token(logits, generator, select, eos_token_id, dtype, true_len, offset=0,
+                         seen=None):
+    """The prefill epilogue of the serving engine's chunk step: read the
+    logits row of the last real prompt position, ``true_len - 1`` mapped
+    into this chunk's window ``[offset, offset + W)`` and clamped so a chunk
+    that does not hold it still indexes in bounds, and select token #1
+    through :func:`_next_token`. ``true_len`` and ``offset`` are tensors
+    [B] (or ints); the row is read with a tensor index, never on the host,
+    so a CUDA graph can capture the call. Only the chunk holding
+    ``true_len - 1`` selects a real token; the engine discards the others'.
+    ``generator`` goes to ``select`` as it is (the engine passes its
+    per-row draw keys). Returns ``(tok [B], done [B])``; the JAX package's
+    epilogue also splits an rng carry, which the engine's position-keyed
+    draws do not need."""
+    B, W = logits.shape[:2]
+    local = true_len - 1 - offset
+    if not torch.is_tensor(local):
+        local = torch.full((B,), local, device=logits.device)
+    local = local.reshape(-1).expand(B).clamp(0, W - 1)
+    last = logits[torch.arange(B, device=logits.device), local]
+    if seen is None:
+        seen = torch.zeros((B, 1), dtype=torch.bool, device=logits.device)
+    done = torch.zeros((B,), dtype=torch.bool, device=logits.device)
+    return _next_token(last, generator, seen, done, select, eos_token_id, dtype)
+
+
 def _bucket128(n: int) -> int:
     """Ceil to the 128 bucket: the granularity of cache lengths and padded prompts."""
     return -(-n // 128) * 128

@@ -11,7 +11,10 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
 * The KV-cached path (``cache=`` / ``cache_pos=``, used by ``generate``) is
   plain tensor code, as the JAX package leaves it to XLA. The cache is a
   list of per-layer dicts updated in place (JAX returns a new cache; the
-  port writes into the buffers it was given, and returns them).
+  port writes into the buffers it was given, and returns them). A tensor
+  ``cache_pos`` [B] gives each row its own write position, over slot rows
+  or a pool of pages (:func:`_update_slots_and_attend`): the serving
+  engine's steps, which a CUDA graph captures.
 * Parameters keep the module's dtype; a bf16 run builds or casts the module
   to bf16 (``precision.py``), or trains f32 masters through
   ``Accelerator.compile_train_step``, which casts them inside the
@@ -337,8 +340,8 @@ def _cached_attention(q, k_all, v_all, cache_pos: int, n_rep: int, sliding_windo
     mask = k_pos <= q_pos[:, None]
     if sliding_window is not None:
         mask = mask & (k_pos > q_pos[:, None] - sliding_window)
-    return _grouped_cached_attention(q, k_all, v_all, mask[None], n_rep,
-                                     sm_scale=sm_scale, logit_softcap=logit_softcap)
+    return _grouped_cached_attention(q, k_all.transpose(1, 2), v_all.transpose(1, 2), mask[None],
+                                     n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
 
 
 def _ring_cached_attention(q, cache, cache_pos: int, n_rep: int, window: int,
@@ -350,35 +353,110 @@ def _ring_cached_attention(q, cache, cache_pos: int, n_rep: int, window: int,
     slot_pos = cache["pos"][:, None, :]
     mask = ((slot_pos >= 0) & (slot_pos <= q_pos[None, :, None])
             & (slot_pos > q_pos[None, :, None] - window))  # [B, S, W]
-    return _grouped_cached_attention(q, cache["k"], cache["v"], mask, n_rep,
-                                     sm_scale=sm_scale, logit_softcap=logit_softcap)
+    return _grouped_cached_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+                                     mask, n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
+
+
+def _update_slots_and_attend(cache, q, k, v, pos, n_rep: int, sliding_window=None,
+                             sm_scale=None, logit_softcap=None):
+    """The serving engine's cached attention: row ``b`` writes its K/V at
+    positions ``pos[b] + i`` and attends keys at positions ``<=`` its
+    query's. ``pos`` [B] is a tensor and nothing here reads it on the host,
+    so a CUDA graph can capture the call, and the rows may stand at
+    different positions. The engine keeps its K/V head-major, so that each
+    row's view reaches the attention in one gather and one cast. Two
+    layouts of ``cache``:
+
+    * slot rows: ``"k"``/``"v"`` [R, n_kv, L, hd]; ``"rows"`` [B] names the
+      rows of this batch (absent: every row, R == B).
+    * pages: ``"k"``/``"v"`` [N, n_kv, P, hd] (a pool of P-token pages)
+      with ``"table"`` [B, Np] of page ids; a row's view is its Np pages end
+      to end. ``"write"`` [B] bool, where given, sends the writes of the
+      rows it clears to page 0, the engine's scratch page.
+
+    Write positions are clamped into the view. Keys past a query's position
+    (a slot's stale or scratch entries) are masked by replacement, so they
+    add exactly 0 to its output."""
+    B, S = q.shape[:2]
+    dev = pos.device
+    q_pos = pos[:, None] + torch.arange(S, device=dev)  # [B, S]
+    ck, cv = cache["k"], cache["v"]
+    G, hd = ck.shape[1], ck.shape[3]
+    heads = torch.arange(G, device=dev)
+    if "table" in cache:
+        table = cache["table"]
+        P = ck.shape[2]
+        L = table.shape[1] * P
+        w = q_pos.clamp(0, L - 1)
+        page = table.gather(1, w // P)
+        if cache.get("write") is not None:
+            page = torch.where(cache["write"][:, None], page, torch.zeros_like(page))
+        index = (page.reshape(-1, 1), heads, (w % P).reshape(-1, 1))
+        # Each row's view in one gather of whole (page, head) blocks:
+        # [B, n_kv, Np] block ids into the pool seen as [N * n_kv, P, hd].
+        blocks = (table[:, None, :] * G + heads[None, :, None]).reshape(-1)
+    else:
+        rows = cache.get("rows")
+        L = ck.shape[2]
+        w = q_pos.clamp(0, L - 1)
+        r = torch.arange(B, device=dev) if rows is None else rows
+        index = (r[:, None].expand(B, S).reshape(-1, 1), heads, w.reshape(-1, 1))
+    ck.index_put_(index, k.reshape(B * S, G, hd).to(ck.dtype))
+    cv.index_put_(index, v.reshape(B * S, G, hd).to(cv.dtype))
+    if "table" in cache:
+        k_all = ck.view(-1, P, hd).index_select(0, blocks).view(B, G, L, hd)
+        v_all = cv.view(-1, P, hd).index_select(0, blocks).view(B, G, L, hd)
+    else:
+        k_all = ck if rows is None else ck.index_select(0, rows)
+        v_all = cv if rows is None else cv.index_select(0, rows)
+    k_pos = torch.arange(L, device=dev)[None, None, :]
+    mask = k_pos <= q_pos[:, :, None]  # [B, S, L]
+    if sliding_window is not None:
+        mask = mask & (k_pos > q_pos[:, :, None] - sliding_window)
+    return _grouped_cached_attention(q, k_all, v_all, mask, n_rep, sm_scale=sm_scale,
+                                     logit_softcap=logit_softcap)
 
 
 def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
                               logit_softcap=None):
-    """Cached-attention core in f32: q [B, S, H, hd] against [B, L, n_kv, hd]
-    with a validity mask [B or 1, S, L]. GQA contracts grouped against the
-    unrepeated cache."""
+    """Cached-attention core in f32: q [B, S, H, hd] against head-major K/V
+    views [B, n_kv, L, hd] (any strides; a token-major cache passes
+    ``.transpose(1, 2)``) with a validity mask [B or 1, S, L]. GQA contracts
+    grouped against the unrepeated K/V, as the JAX package's einsum does:
+    each view is cast to f32 in one copy that also makes it contiguous, and
+    the two products are batched matmuls over (B, n_kv) with the keys read
+    transposed in place (an einsum over token-major views would copy each f32
+    view once more into this layout)."""
     B, S, H, hd = q.shape
+    G, L = k_all.shape[1], k_all.shape[2]
     scale = hd ** -0.5 if sm_scale is None else sm_scale
-    qg = (q * scale).float().reshape(B, S, H // n_rep, n_rep, hd)
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_all.float())
-    logits = softcap_logits(logits, logit_softcap)
+    qg = (q * scale).float().reshape(B, S, G, n_rep, hd).permute(0, 2, 3, 1, 4)
+    kf = k_all.to(torch.float32, memory_format=torch.contiguous_format)
+    vf = v_all.to(torch.float32, memory_format=torch.contiguous_format)
+    logits = torch.matmul(qg.reshape(B, G, n_rep * S, hd), kf.transpose(-1, -2))
+    logits = softcap_logits(logits.view(B, G, n_rep, S, L), logit_softcap)
     logits = logits.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v_all.float())
-    return out.reshape(B, S, H, hd).to(q.dtype)
+    out = torch.matmul(probs.view(B, G, n_rep * S, L), vf)  # [B, G, rep * S, hd]
+    return out.view(B, G, n_rep, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def update_kv_cache_and_attend(cache, q, k, v, cache_pos: int, n_rep: int, sliding_window=None,
+def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_window=None,
                                sm_scale=None, logit_softcap=None):
     """Write this call's K/V into ``cache`` (in place) at ``cache_pos`` and
     attend q against it. Returns (out [B, S, H, hd], cache).
 
-    Ring caches (``"pos"`` present) write slot ``pos % capacity``. A
-    multi-token write attends the pre-write ring contents concatenated with
-    the chunk, masked by per-slot positions; a single-token decode writes
-    one slot and attends the ring alone."""
+    An int ``cache_pos`` (``generate`` and the decoders) writes every row at
+    the same position of a dense or ring cache. Ring caches (``"pos"``
+    present) write slot ``pos % capacity``. A multi-token write attends the
+    pre-write ring contents concatenated with the chunk, masked by per-slot
+    positions; a single-token decode writes one slot and attends the ring
+    alone. A tensor ``cache_pos`` [B] (the serving engine) takes
+    :func:`_update_slots_and_attend`."""
+    if torch.is_tensor(cache_pos):
+        return _update_slots_and_attend(cache, q, k, v, cache_pos, n_rep,
+                                        sliding_window=sliding_window, sm_scale=sm_scale,
+                                        logit_softcap=logit_softcap), cache
     if "pos" not in cache:
         S, L = k.shape[1], cache["k"].shape[1]
         if cache_pos + S > L:
@@ -408,8 +486,8 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos: int, n_rep: int, slidi
         pc = pos_comb[:, None, :]
         qp = chunk_pos[None, :, None]
         mask = seg_valid[:, None, :] & (pc >= 0) & (pc <= qp) & (pc > qp - eff_window)
-        out = _grouped_cached_attention(q, k_comb, v_comb, mask, n_rep,
-                                        sm_scale=sm_scale, logit_softcap=logit_softcap)
+        out = _grouped_cached_attention(q, k_comb.transpose(1, 2), v_comb.transpose(1, 2), mask,
+                                        n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
         take = min(S, window)
         idx = cache_pos + torch.arange(S - take, S, dtype=torch.int32, device=q.device)
         slots = (idx % window).long()
@@ -622,9 +700,13 @@ def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
     return out
 
 
-def _default_positions(input_ids, start: int = 0):
+def _default_positions(input_ids, start=0):
+    """Positions ``start + i``; a tensor ``start`` [B] gives each row its own."""
     B, S = input_ids.shape
-    return (start + torch.arange(S, device=input_ids.device))[None, :].expand(B, S)
+    steps = torch.arange(S, device=input_ids.device)
+    if torch.is_tensor(start):
+        return start[:, None] + steps
+    return (start + steps)[None, :].expand(B, S)
 
 
 def _scale_embeddings(cfg: LlamaConfig, x):

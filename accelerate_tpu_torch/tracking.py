@@ -194,6 +194,18 @@ def with_input_pipeline_metrics(values: dict, pipeline_stats,
     return merged
 
 
+def with_serving_metrics(values: dict, serving_stats, prefix: str = "serving/") -> dict:
+    """``values`` with a serving engine's summary (``ttft_ms``,
+    ``queue_wait_ms``, ``decode_tokens_per_sec``, ``slot_occupancy``, the
+    prefill and prefix-cache keys: ``serving.metrics.ServingStats``) under
+    ``prefix``; the caller's keys win."""
+    if serving_stats is None:
+        return values
+    merged = {f"{prefix}{k}": v for k, v in serving_stats.summary().items()}
+    merged.update(values)
+    return merged
+
+
 def filter_trackers(log_with, logging_dir: Optional[str] = None) -> list:
     """Tracker names and instances to start from ``log_with`` (a name, a
     ``GeneralTracker``, "all", or a list of them)."""

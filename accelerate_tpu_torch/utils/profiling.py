@@ -12,9 +12,13 @@ Counterpart of ``accelerate_tpu/utils/profiling.py``:
   ``step()`` calls, one Chrome trace a traced window under ``log_dir``, and
   per-step snapshots of the attached ``PipelineStats``.
 * ``annotate`` (``:446``) and ``save_device_memory_profile`` (``:453``).
+* ``GraphCaptureWatcher``, the counterpart of ``CompileWatcher`` (``:21``):
+  the serving engine's steps run as captured CUDA graphs, so "did serving
+  build anything after warmup" is a count of graph captures.
 
-The serving and gateway counters a session can carry in the JAX package
-come with the serving engine and the gateway.
+A session also carries the serving engine's ``ServingStats``
+(``attach_serving_stats``, JAX ``:359``); the gateway's counters come with
+the gateway.
 """
 
 from __future__ import annotations
@@ -24,6 +28,78 @@ import pickle
 import threading
 import time
 from typing import Optional
+
+
+class GraphCaptureWatcher:
+    """Counts the serving engine's step captures: the counterpart of the
+    JAX package's ``CompileWatcher``, whose compiles are what a CUDA graph
+    capture is here.
+
+    :meth:`record` takes a step's name and its signature (the step and the
+    shapes and types of its inputs). A signature not seen before is an
+    event: on the card the engine records each step once, when it captures
+    its graph (with the seconds the capture took); on the CPU, where steps
+    run eagerly, it records every run, so an event there is a step run
+    with inputs of a shape it never had. ``events`` lists the events since
+    the last :meth:`reset` (empty = nothing captured since warmup, the
+    engine's steady state); :meth:`counts` counts every signature ever
+    seen, by step. Thread-safe. ``on_event(name, seconds_or_None)`` runs for each
+    event, outside the lock; its exceptions are swallowed."""
+
+    def __init__(self, on_event=None):
+        self._on_event = on_event
+        self._lock = threading.Lock()
+        self._seen: dict = {}            # signature -> step name
+        self._events: list[tuple] = []   # (name, seconds or None)
+
+    def record(self, name: str, signature, seconds: Optional[float] = None) -> bool:
+        """Note one run (or capture) of step ``name``; True when its
+        signature is new."""
+        with self._lock:
+            if signature in self._seen:
+                return False
+            self._seen[signature] = name
+            self._events.append((name, seconds))
+        if self._on_event is not None:
+            try:
+                self._on_event(name, seconds)
+            except Exception:
+                pass
+        return True
+
+    def reset(self) -> None:
+        """Clear the events (the post-warmup baseline); signatures stay."""
+        with self._lock:
+            self._events = []
+
+    @property
+    def events(self) -> list:
+        """Step names of the events since :meth:`reset`, in order."""
+        with self._lock:
+            return [name for name, _ in self._events]
+
+    @property
+    def total(self) -> int:
+        """Number of events since :meth:`reset`."""
+        with self._lock:
+            return len(self._events)
+
+    def counts(self) -> dict:
+        """Signatures seen per step name (resets do not clear them)."""
+        out: dict = {}
+        with self._lock:
+            for name in self._seen.values():
+                out[name] = out.get(name, 0) + 1
+        return out
+
+    def summary(self) -> dict:
+        """Scalars: events since reset, their capture seconds, signatures."""
+        with self._lock:
+            return {
+                "graph_captures": len(self._events),
+                "capture_secs": round(sum(s or 0.0 for _, s in self._events), 6),
+                "step_signatures": len(self._seen),
+            }
 
 
 class PipelineStats:
@@ -129,7 +205,8 @@ class ProfileSession:
     """
 
     def __init__(self, kwargs, log_dir: Optional[str] = None,
-                 pipeline_stats: Optional[PipelineStats] = None, device=None):
+                 pipeline_stats: Optional[PipelineStats] = None, device=None,
+                 serving_stats=None):
         self.kwargs = kwargs
         self.log_dir = log_dir or kwargs.output_trace_dir or DEFAULT_TRACE_DIR
         sched = kwargs.schedule_option or {}
@@ -138,6 +215,7 @@ class ProfileSession:
         self.active = int(sched.get("active", 0)) or None  # None = the whole block
         self.device = device
         self.pipeline_stats = pipeline_stats
+        self.serving_stats = serving_stats
         self.profiler = None
         self.trace_files: list[str] = []
         self._step = 0
@@ -197,11 +275,22 @@ class ProfileSession:
         self.pipeline_stats = stats
         return self
 
+    def attach_serving_stats(self, stats):
+        """Attach serving-engine counters (``serving.metrics.ServingStats``)
+        so ``step()`` snapshots them under ``serving/`` keys."""
+        self.serving_stats = stats
+        return self
+
     def step(self):
         """End a step: snapshot the attached counters, then open or close
         the traced window as the schedule says."""
-        if self.pipeline_stats is not None:
-            self._step_breakdowns.append({"step": self._step, **self.pipeline_stats.summary()})
+        if self.pipeline_stats is not None or self.serving_stats is not None:
+            snap = {"step": self._step}
+            if self.pipeline_stats is not None:
+                snap.update(self.pipeline_stats.summary())
+            if self.serving_stats is not None:
+                snap.update({f"serving/{k}": v for k, v in self.serving_stats.summary().items()})
+            self._step_breakdowns.append(snap)
         self._step += 1
         should = self._should_trace()
         if should and not self._tracing:
@@ -215,9 +304,16 @@ class ProfileSession:
             return {}
         return self.pipeline_stats.summary()
 
+    def serving_breakdown(self) -> dict:
+        """The serving engine's latest summary; empty without counters."""
+        if self.serving_stats is None:
+            return {}
+        return self.serving_stats.summary()
+
     @property
     def step_breakdowns(self) -> list[dict]:
-        """One cumulative input-pipeline snapshot per ``step()``."""
+        """One cumulative snapshot per ``step()``: the input pipeline's
+        counters and the ``serving/``-prefixed engine counters."""
         return list(self._step_breakdowns)
 
 

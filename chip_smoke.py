@@ -45,6 +45,24 @@ order; any failure exits non-zero:
    with 4 beams on prompts of 200 and 333 tokens, 32 new: ms a step, the
    peak memory above the weights, and a repeat call identical; one
    profiled verify round beside one profiled decode step.
+4c. the serving engine (``ServingEngine``: chunked prefill, paged KV,
+   prefix cache, async ticks, each step a CUDA graph), on the same model:
+   exactness first, at the same widths with 2 layers in f32 (TF32 off): 12
+   staggered greedy requests (prompts of 5-700 tokens, 32 new) on 4 slots,
+   dense and paged, sync and async, equal ``generate`` token for token; a
+   repeated prompt restores its cached prefix and gives the same tokens;
+   a pool sized to force a preemption gives token-exact streams; a sampled
+   request gives the same tokens alone and beside others. Then at full depth
+   in bf16, 8 slots x 2048 tokens, 256-token chunks, an external prefix cache
+   (restores by copy): 24 requests from a seeded schedule (prompts of
+   96-1536 tokens, half behind one shared 512-token prefix, 64-128 new)
+   arriving over 1 s. No flash kernel launches, every step was captured
+   once at warmup (decode, chunk, restore) and nothing after, every request
+   completes. Reported: TTFT p50/p95, ITL p50/p99, decode tokens/s, host
+   us a tick, prefix hits, peak pages in use, 4 streams' agreed prefix with
+   batch-1 ``generate`` (bf16 rounds a batch-8 product otherwise: not
+   asserted), and one steady tick (all slots) as a graph replay and eagerly,
+   with a profiled replay's device busy share and kernel count.
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
@@ -130,6 +148,12 @@ NEW_TOKENS = 32
 # and beam search.
 SPEC = dict(snippet=64, repeats=8, new=64, ngram=2, num_draft=5, draft_layers=2,
             exact_repeats=4, exact_new=40, beam_prompts=(200, 333), beams=4, beam_new=32)
+# Phase 4c: the serving engine. Exactness at 2 layers in f32 on 4 slots,
+# then full depth in bf16 on 8 slots of 2048 tokens, 256-token chunks.
+SERVE = dict(exact_requests=12, exact_prompts=(5, 700), exact_new=32, exact_slots=4,
+             exact_max_len=768, preempt=(250, 64, 18), chunk=256, slots=8, max_len=2048, requests=24,
+             prompts=(96, 1536), shared_prefix=512, new=(64, 128), arrival_s=1.0,
+             prefix_cache_gib=4, seed=41)
 
 
 def fail(message: str):
@@ -831,6 +855,303 @@ def phase_speculative(model, gen):
           f"{d['kernels']:.0f}")
 
 
+def stream_prompts(vocab, lengths, gen):
+    """Seeded prompts of the given lengths, as int32 arrays [1, S]."""
+    import torch
+
+    return [torch.randint(0, vocab, (1, n), generator=gen, device="cuda").int().cpu().numpy()
+            for n in lengths]
+
+
+def submit_waves(engine, work, waves=3, pause=0.05, **kw):
+    """Submit ``(prompt, max_new)`` pairs in ``waves`` groups ``pause``
+    seconds apart, so later requests join a batch already decoding."""
+    reqs, per = [], -(-len(work) // waves)
+    for w in range(waves):
+        for prompt, new in work[w * per:(w + 1) * per]:
+            reqs.append(engine.submit(prompt, max_new_tokens=new, **kw))
+        time.sleep(pause)
+    return reqs
+
+
+def engine_checks(engine, label):
+    """After warmup and a round of traffic: every step was captured as a
+    CUDA graph at warmup and nothing was captured since."""
+    watcher = engine.compile_watcher
+    steps = sorted(engine.captured_steps)
+    want = ["chunk", "decode", "restore"] if "restore" in watcher.counts() else ["chunk", "decode"]
+    if steps != want or watcher.events:
+        fail(f"{label}: graphs captured {steps} (expected {want}), captures after warmup "
+             f"{watcher.events}")
+    return steps
+
+
+def serving_exactness(cfg):
+    """Phase 4c's exact half: 2 layers at the model's widths in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import LlamaForCausalLM, ServingEngine, generate
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = LlamaForCausalLM(small, device="cuda", dtype=torch.float32, generator=gen).eval()
+    f32, new = torch.float32, SERVE["exact_new"]
+    lo, hi = SERVE["exact_prompts"]
+    lengths = [int(n) for n in torch.randint(lo, hi + 1, (SERVE["exact_requests"],),
+                                             generator=gen, device="cuda").tolist()]
+    work = [(p, new) for p in stream_prompts(cfg.vocab_size, lengths, gen)]
+
+    def reference(prompt, max_new):
+        out = generate(model, torch.from_numpy(prompt).long().cuda(), max_new_tokens=max_new,
+                       cache_dtype=f32)
+        return out[0, prompt.shape[1]:].cpu().numpy()
+
+    refs = [reference(p, n) for p, n in work]
+    longest = max(range(len(work)), key=lambda i: work[i][0].shape[1])
+    shape = dict(max_slots=SERVE["exact_slots"], max_len=SERVE["exact_max_len"],
+                 prefill_chunk=SERVE["chunk"], cache_dtype=f32)
+    for paged in (False, True):
+        for async_ticks in (False, True):
+            label = f"{'paged' if paged else 'dense'}, {'async' if async_ticks else 'sync'}"
+            engine = ServingEngine(model, paged=paged, async_ticks=async_ticks, **shape)
+            try:
+                # The longest prompt twice: the repeat admits by restoring its
+                # cached chunk-aligned prefix (by copy dense, by page aliasing
+                # paged).
+                twice = [engine.submit(work[longest][0], max_new_tokens=new).result(300)
+                         for _ in range(2)]
+                hits = engine.serving_metrics()["prefix_cache_hit_chunks"]
+                outs = [r.result(300) for r in submit_waves(engine, work)]
+                same = sum(np.array_equal(o, r) for o, r in zip(outs, refs))
+                steps = engine_checks(engine, label)
+            finally:
+                engine.shutdown(drain=False, timeout=300)
+            repeat_ok = all(np.array_equal(t, refs[longest]) for t in twice)
+            print(f"  f32, 2 layers at the model's widths, {label}, {len(work)} staggered "
+                  f"requests (prompts {min(lengths)}-{max(lengths)} tokens, {new} new) on "
+                  f"{shape['max_slots']} slots: {same} of {len(work)} streams equal generate; the "
+                  f"{work[longest][0].shape[1]}-token prompt repeated restored {hits} chunks and "
+                  f"{'equals' if repeat_ok else 'DIFFERS FROM'} generate; graphs {steps}, none "
+                  f"captured after warmup")
+            if same != len(work) or not repeat_ok or hits < 1:
+                fail(f"the {label} engine is not token-exact with generate at f32")
+
+    # A pool sized to force a preemption: 4 streams of 250 + 32 tokens in
+    # 64-token pages fill 16 pages at admission (the chunk covers 256) and
+    # need a fifth page each while decoding; 18 pages make the third to
+    # cross evict the newest.
+    length, page, pages = SERVE["preempt"]
+    pre = [(p, new) for p in stream_prompts(cfg.vocab_size, [length] * 4, gen)]
+    engine = ServingEngine(model, page_size=page, max_pages=pages, prefix_cache_mb=0, **shape)
+    try:
+        outs = [r.result(300) for r in [engine.submit(p, max_new_tokens=n) for p, n in pre]]
+        preempted = engine.serving_metrics()["preemptions"]
+        engine_checks(engine, "preemption")
+    finally:
+        engine.shutdown(drain=False, timeout=300)
+    same = sum(np.array_equal(o, reference(p, n)) for o, (p, n) in zip(outs, pre))
+    print(f"  paged pool of {pages} x {page}-token pages, 4 streams of {length} + {new} tokens: "
+          f"{preempted} preemptions, {same} of 4 streams equal generate")
+    if preempted < 1 or same != 4:
+        fail("the forced preemption did not happen or a resumed stream is not token-exact")
+
+    # Sampled: the same seed alone and in a mixed batch.
+    sampled = dict(do_sample=True, top_k=50, **shape)
+    streams = []
+    for mix in (False, True):
+        engine = ServingEngine(model, **sampled)
+        try:
+            others = [engine.submit(p, max_new_tokens=n, seed=11) for p, n in work[:3]] if mix else []
+            streams.append(engine.submit(work[3][0], max_new_tokens=new, seed=7).result(300))
+            [r.result(300) for r in others]
+        finally:
+            engine.shutdown(drain=False, timeout=300)
+    print(f"  sampled (top_k 50), seed 7 alone and beside 3 other streams: "
+          f"{'identical' if np.array_equal(*streams) else 'DIFFERENT'}")
+    if not np.array_equal(*streams):
+        fail("a sampled stream changed with the batch around it")
+    del model
+    free_cuda()
+
+
+def serving_schedule(vocab, gen):
+    """Phase 4c's seeded traffic: (arrival s, prompt, max_new) sorted by
+    arrival; half the prompts start with one shared system prefix."""
+    import torch
+
+    n, (lo, hi) = SERVE["requests"], SERVE["prompts"]
+    prefix = torch.randint(0, vocab, (1, SERVE["shared_prefix"]), generator=gen, device="cuda")
+    lengths = torch.randint(lo, hi + 1, (n,), generator=gen, device="cuda").tolist()
+    news = torch.randint(SERVE["new"][0], SERVE["new"][1] + 1, (n,), generator=gen,
+                         device="cuda").tolist()
+    arrivals = sorted((torch.rand(n, generator=gen, device="cuda") * SERVE["arrival_s"]).tolist())
+    out = []
+    for i in range(n):
+        if i % 2 == 0:
+            tail = max(lengths[i], SERVE["shared_prefix"] + 1) - SERVE["shared_prefix"]
+            ids = torch.cat([prefix, torch.randint(0, vocab, (1, tail), generator=gen,
+                                                   device="cuda")], dim=1)
+        else:
+            ids = torch.randint(0, vocab, (1, lengths[i]), generator=gen, device="cuda")
+        out.append((arrivals[i], ids.int().cpu().numpy(), int(news[i])))
+    return out
+
+
+def percentile(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, int(round(q * (len(s) - 1)))))] if s else float("nan")
+
+
+def replay_tick(engine, graphed: bool):
+    """One decode tick of ``engine`` (stopped) with every slot active on
+    a full page table, replayed from its graph or run eagerly."""
+    import numpy as np
+    import torch
+
+    S, Np = engine.max_slots, engine._pages_per_slot
+    table = (1 + np.arange(S * Np) % engine.total_pages).reshape(S, Np)
+    parts = [("active", np.ones(S, np.int64)), ("table", table)]
+
+    def tick():
+        if graphed:
+            engine._launch("decode", engine._decode_step, engine._decode_in,
+                           engine._decode_stage[0], parts)
+        else:
+            engine._decode_in.copy_(torch.from_numpy(np.concatenate(
+                [parts[0][1], table.reshape(-1)])).cuda())
+            engine._decode_step()
+        engine._decode_host_out[0].copy_(engine._decode_out.view(-1))
+
+    return tick
+
+
+def replay_chunk(engine):
+    """One prompt chunk of ``engine`` (stopped) into slot 0 at offset 0,
+    replayed from its graph."""
+    import numpy as np
+
+    C, Np = engine._chunk, engine._pages_per_slot
+    parts = [("ids", np.zeros(C, np.int64)), ("slot", [0]), ("offset", [0]), ("true_len", [C]),
+             ("seed", [0]), ("row", 1 + np.arange(Np) % engine.total_pages)]
+
+    def chunk():
+        engine._launch("chunk", engine._chunk_step, engine._chunk_in, engine._chunk_stage, parts)
+        engine._chunk_host_out.copy_(engine._chunk_out)
+
+    return chunk
+
+
+def steady_tick(engine, card):
+    """Time one steady decode tick of the stopped ``engine`` (all slots
+    active) as a graph replay and eagerly, and a prompt chunk's replay;
+    profile a tick both ways and a chunk."""
+    import torch
+
+    with torch.inference_mode(), torch.cuda.stream(engine._stream):
+        graphed, eager, chunk = (replay_tick(engine, True), replay_tick(engine, False),
+                                 replay_chunk(engine))
+        graphed_ms = timed_ms(graphed, 20)
+        eager_ms = timed_ms(eager, 5)
+        chunk_ms = timed_ms(chunk, 10)
+        profiled = {mode: device_breakdown(f"decode tick ({engine.max_slots} slots, {mode})", fn,
+                                           top=8)
+                    for mode, fn in (("graph replay", graphed), ("eager", eager))}
+        device_breakdown(f"prompt chunk ({engine._chunk} tokens, graph replay)", chunk, top=6)
+    print(f"  decode tick, {engine.max_slots} slots ({card}): graph replay {graphed_ms:.3f} ms "
+          f"({engine.max_slots * 1e3 / graphed_ms:.0f} tokens/s), eager {eager_ms:.3f} ms; "
+          f"a {engine._chunk}-token chunk, graph replay {chunk_ms:.3f} ms")
+    for mode, tick in profiled.items():
+        # The profiler may not see inside a graph: then CUDA events above stand.
+        print(f"  profiled {mode} tick: " + (
+            f"device busy {tick['busy_ms']:.3f} of {tick['wall_ms']:.3f} ms wall "
+            f"({100 * tick['busy_ms'] / tick['wall_ms']:.1f}%), {tick['kernels']:.0f} kernels"
+            if tick else "no device time seen (not measured)"))
+    if not any(profiled.values()):
+        fail("torch.profiler saw no device time in a decode tick, graphed or eager")
+
+
+def phase_serving(model):
+    """Phase 4c (see the module docstring). The traffic comes from its own
+    seed, so the whole script and ``main_serving`` drive the same requests."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import ServingEngine, generate
+    from accelerate_tpu_torch.serving import PrefixCache, RequestStatus
+
+    card = card_line()
+    cfg = model.config
+    serving_exactness(cfg)
+
+    schedule = serving_schedule(cfg.vocab_size,
+                                torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    bf16, C = torch.bfloat16, SERVE["chunk"]
+    t0 = time.perf_counter()
+    # An external prefix cache (as a fleet shares one): its hits restore by
+    # copy, through the restore step, so all three steps run.
+    engine = ServingEngine(model, max_slots=SERVE["slots"], max_len=SERVE["max_len"],
+                           prefill_chunk=C, cache_dtype=bf16, trace_capacity=1 << 15,
+                           prefix_cache=PrefixCache(SERVE["prefix_cache_gib"] << 30))
+    warm_s = time.perf_counter() - t0
+    warm = dict(engine.compile_watcher.counts())
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reqs = []
+        for arrival, prompt, new in schedule:
+            time.sleep(max(0.0, arrival - (time.perf_counter() - t0)))
+            reqs.append(engine.submit(prompt, max_new_tokens=new, ignore_eos=True))
+        for r in reqs:
+            r.wait(600)
+        wall = time.perf_counter() - t0
+        launched = read_counts()
+        steps = engine_checks(engine, "full depth")
+        if launched != {k: 0 for k in launched}:
+            fail(f"the serving engine launched flash kernels: {launched}")
+        bad = [r for r in reqs if r.status is not RequestStatus.COMPLETED]
+        if bad or any(len(r.tokens) != new for r, (_, _, new) in zip(reqs, schedule)):
+            fail(f"{len(bad)} of {len(reqs)} requests did not complete: {bad[:3]}")
+        s = engine.serving_metrics()
+        itl = [dur * 1e3 for _, _, dur, name, _, _, _ in engine.trace_events() if name == "itl"]
+    finally:
+        engine.shutdown(drain=False, timeout=600)
+    tokens = sum(len(r.tokens) for r in reqs)
+    prompt_tokens = sum(p.shape[1] for _, p, _ in schedule)
+    print(f"  bf16, full depth, {SERVE['slots']} slots x {SERVE['max_len']} tokens, chunk {C}, "
+          f"paged, async ({card}): warmup {warm_s:.1f} s capturing {warm}; {len(reqs)} requests "
+          f"({prompt_tokens} prompt tokens, {tokens} new, half behind one "
+          f"{SERVE['shared_prefix']}-token prefix) arriving over {SERVE['arrival_s']} s, all "
+          f"done in {wall:.3f} s ({tokens / wall:.1f} new tokens/s overall); graphs {steps}, "
+          f"none captured after warmup; no flash launch")
+    print(f"  TTFT p50 {s['ttft_ms_p50']:.1f} ms, p95 {s['ttft_ms_p95']:.1f} ms; ITL p50 "
+          f"{percentile(itl, 0.5):.2f} ms, p99 {percentile(itl, 0.99):.2f} ms ({len(itl)} "
+          f"samples); decode {s['decode_tokens_per_sec']:.1f} tokens/s over "
+          f"{s['decode_ticks']} ticks, slot occupancy {s['slot_occupancy']:.3f}; host "
+          f"{s['host_us_per_tick']:.1f} us a tick (max {s['host_us_per_tick_max']:.1f}); "
+          f"prefill {s['prefill_chunks']} chunks, {s['prefill_ms_per_chunk']:.2f} ms each; "
+          f"prefix hits {s['prefix_cache_hit_chunks']} chunks ({s['prefix_cache_hit_chunks'] * C} "
+          f"tokens, hit rate {s['prefix_cache_hit_rate']:.3f}); pages in use at most "
+          f"{s['pages_used_max']} of {s['pages_total']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # For reference: batch-1 generate on 4 of the streams (bf16 rounds a
+    # batch-8 product unlike a batch-1 one: reported, not asserted).
+    agreed = []
+    for r, (_, prompt, new) in list(zip(reqs, schedule))[:4]:
+        ref = generate(model, torch.from_numpy(prompt).long().cuda(), max_new_tokens=new,
+                       cache_dtype=bf16)[0, prompt.shape[1]:].cpu().numpy()
+        differ = np.flatnonzero(ref != np.asarray(r.tokens))
+        agreed.append(f"{int(differ[0]) if differ.size else new}/{new}")
+    print(f"  streams against batch-1 generate (bf16): agreed prefixes {', '.join(agreed)}")
+    steady_tick(engine, card)
+    del engine
+    free_cuda()
+
+
 def device_breakdown(label, fn, steps=1, top=4):
     """Profile ``fn`` once and print where the device time went: wall time,
     summed kernel time (the device's busy share of the wall), kernel time by
@@ -1427,6 +1748,12 @@ def main():
     if any(read_counts().values()):
         fail("a speculative or beam-search decoder launched a flash kernel; its attention is "
              "the einsum core")
+    print("== 4c. the serving engine")
+    reset_counts()
+    phase_serving(model)
+    serving_counts = read_counts()
+    if any(serving_counts.values()):
+        fail("the serving engine launched a flash kernel; its attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -1442,6 +1769,7 @@ def main():
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
     for entry in kernels:
+        entry["serving_launches"] = serving_counts[entry["name"]]
         if entry["name"].endswith("_sm90"):
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
@@ -1464,6 +1792,22 @@ def main_speculative():
     phase_speculative(model, gen)
     if any(read_counts().values()):
         fail("a speculative or beam-search decoder launched a flash kernel")
+
+
+def main_serving():
+    """Phase 4c alone (no kernel is built: the serving path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    model, _, _ = build_model()
+    reset_counts()
+    phase_serving(model)
+    if any(read_counts().values()):
+        fail("the serving engine launched a flash kernel")
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

@@ -14,7 +14,7 @@ import torch
 import accelerate_tpu_torch
 from accelerate_tpu_torch import Accelerator, LlamaConfig, LlamaForCausalLM, PipelinedLlamaForCausalLM
 from accelerate_tpu_torch import DataLoaderShard, NumpyDataLoader, prepare_data_loader
-from accelerate_tpu_torch import init_kv_cache, make_global_batch, resolve_device
+from accelerate_tpu_torch import ServingEngine, init_kv_cache, make_global_batch, resolve_device
 from accelerate_tpu_torch.bench import build_train_step, run_bench
 
 REPO = Path(__file__).resolve().parents[2]
@@ -48,6 +48,12 @@ def test_forbidden_matches_only_the_jax_side():
 def test_no_source_imports_jax_or_the_jax_package():
     sources = port_sources()
     assert len(sources) >= 25
+    # The scan covers the serving engine and its observability modules.
+    scanned = {str(p.relative_to(REPO)) for p in sources}
+    for name in ("__init__", "engine", "graphs", "scheduler", "request", "metrics", "control"):
+        assert f"accelerate_tpu_torch/serving/{name}.py" in scanned, name
+    for name in ("__init__", "tracing", "flight_recorder"):
+        assert f"accelerate_tpu_torch/observability/{name}.py" in scanned, name
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
     assert not bad, f"the port imports the JAX side: {bad}"
@@ -66,6 +72,8 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.state, accelerate_tpu_torch.logging\n"
         "import accelerate_tpu_torch.utils.memory, accelerate_tpu_torch.utils.operations\n"
         "import accelerate_tpu_torch.utils.random, accelerate_tpu_torch.parallel.sharding\n"
+        "import accelerate_tpu_torch.serving, accelerate_tpu_torch.serving.engine\n"
+        "import accelerate_tpu_torch.serving.graphs, accelerate_tpu_torch.observability\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -103,6 +111,8 @@ def test_entry_points_raise_without_a_card():
         run_bench()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_train_step()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"))
     # The train step takes the prepared objects' device: cpu only when asked.
     acc = Accelerator(cpu=True)
     model, _ = acc.prepare(PipelinedLlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
@@ -124,10 +134,12 @@ def test_package_exports_the_slice():
                  "AcceleratorState", "JSONLTracker", "find_executable_batch_size", "set_seed",
                  "save_model", "load_safetensors_model", "resolve_remat_policy",
                  "ProjectConfiguration", "DataLoaderConfiguration",
-                 "GradientAccumulationPlugin"):
+                 "GradientAccumulationPlugin", "ServingEngine", "ServingStats",
+                 "GraphCaptureWatcher"):
         assert hasattr(accelerate_tpu_torch, name), name
     for method in ("prepare", "compile_train_step", "accumulate", "backward", "clip_grad_norm_",
                    "save_state", "load_state", "wait_for_checkpoint", "gather_for_metrics",
-                   "init_trackers", "log", "skip_first_batches", "input_pipeline_metrics"):
+                   "init_trackers", "log", "skip_first_batches", "input_pipeline_metrics",
+                   "serving_metrics"):
         assert callable(getattr(Accelerator, method)), method
     assert callable(run_bench)
