@@ -8,13 +8,27 @@ schedulers and data loaders, the user's loop (``accumulate``, ``backward``,
 ``clip_grad_norm_``, ``save_state``/``load_state``) and the fused
 ``compile_train_step``, over the chunked LM-head loss, with attention on
 hand-written Hopper flash-attention kernels, forward and backward, and the
-continuous-batching ``ServingEngine`` (chunked prefill, paged KV, prefix
-cache, async ticks) on fixed-shape steps under CUDA graphs. Entry points
+continuous-batching ``ServingEngine`` (chunked or monolithic prefill, paged
+KV in the cache dtype or int8, prefix cache, async ticks, draft-model and
+prompt-lookup speculation, sliding-window page freeing, multi-tenant LoRA
+adapters over full-precision or int8 base weights) on fixed-shape steps
+under CUDA graphs. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .accelerator import AcceleratedModel, Accelerator
-from .checkpointing import load_safetensors_model, save_model
+from .adapters import (
+    AdapterBank,
+    AdapterBankFull,
+    LoRAConfig,
+    LoRATrainState,
+    UnknownAdapterError,
+    init_lora_params,
+    merge_adapter,
+    prepare_lora,
+    quantize_base_weights,
+)
+from .checkpointing import load_adapter, load_safetensors_model, save_adapter, save_model
 from .data_loader import (
     AsyncPrefetcher,
     BatchSamplerShard,
@@ -37,6 +51,7 @@ from .generation import (
     prompt_lookup_generate,
     speculative_accept,
     speculative_emit,
+    speculative_emit_keyed,
 )
 from .logging import get_logger
 from .models.llama import (
@@ -79,5 +94,12 @@ from .utils.profiling import (
     ProfileSession,
     annotate,
     save_device_memory_profile,
+)
+from .utils.quantization import (
+    QuantizationConfig,
+    QuantizedTensor,
+    dequantize_params,
+    quantize_params,
+    quantize_tensor,
 )
 from .utils.random import set_seed

@@ -113,6 +113,60 @@ def load_safetensors(path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Adapter-only checkpoints (LoRA)
+# ---------------------------------------------------------------------------
+
+ADAPTER_META_NAME = "adapter.json"
+ADAPTER_WEIGHTS_NAME = "adapter.safetensors"
+ADAPTER_FORMAT = "accelerate-tpu-lora"
+
+
+def save_adapter(adapter: dict, path, *, config=None) -> str:
+    """Write an adapter-only checkpoint (JAX ``checkpointing.py:220``): the
+    factors as ``<path>/adapter.safetensors`` (``<module>.a`` / ``.b`` /
+    ``.scale``, f32) and the hyperparameters as ``<path>/adapter.json``. A
+    few MB whatever the base model's size; training (``prepare_lora``)
+    writes it and serving (``AdapterBank.register``) reads it."""
+    from .adapters.lora import adapter_module_paths, adapter_rank
+
+    paths = adapter_module_paths(adapter)
+    if not paths:
+        raise ValueError("not an adapter: no {'a','b','scale'} modules found")
+    path = Path(path).absolute()
+    path.mkdir(parents=True, exist_ok=True)
+    meta = {"format": ADAPTER_FORMAT, "version": 1, "rank": adapter_rank(adapter),
+            "modules": paths}
+    if config is not None:
+        meta.update({"alpha": float(config.alpha), "dropout": float(config.dropout),
+                     "target_modules": list(config.target_modules)})
+    tensors = {f"{p}.{k}": torch.as_tensor(adapter[p][k]).detach().to("cpu", torch.float32)
+               for p in paths for k in ("a", "b", "scale")}
+    save_safetensors(tensors, path / ADAPTER_WEIGHTS_NAME, {"format": ADAPTER_FORMAT})
+    (path / ADAPTER_META_NAME).write_text(json.dumps(meta, indent=2))
+    return str(path)
+
+
+def load_adapter(path):
+    """``(adapter, meta)`` from a directory :func:`save_adapter` wrote (JAX
+    ``checkpointing.py:253``); the tensors on the CPU."""
+    path = Path(path).absolute()
+    meta_path = path / ADAPTER_META_NAME
+    if not meta_path.exists():
+        raise FileNotFoundError(f"{path} is not an adapter checkpoint (missing "
+                                f"{ADAPTER_META_NAME})")
+    meta = json.loads(meta_path.read_text())
+    if meta.get("format") != ADAPTER_FORMAT:
+        raise ValueError(f"{path} has format {meta.get('format')!r}, expected "
+                         f"{ADAPTER_FORMAT!r}")
+    flat = load_safetensors(path / ADAPTER_WEIGHTS_NAME)
+    adapter: dict = {}
+    for name, tensor in flat.items():
+        module, leaf = name.rsplit(".", 1)
+        adapter.setdefault(module, {})[leaf] = tensor
+    return adapter, meta
+
+
+# ---------------------------------------------------------------------------
 # RNG state
 # ---------------------------------------------------------------------------
 

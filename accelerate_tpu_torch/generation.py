@@ -112,6 +112,44 @@ def _next_token(last, generator, seen, done, select, eos_token_id, dtype):
     return nxt, done
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x):
+    """A 32-bit integer mix (xorshift-multiply, three rounds) of int64
+    values in ``[0, 2**32)``; products stay below 2**63, so nothing wraps."""
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def _gumbel(keys, vocab: int):
+    """Gumbel noise [B, vocab] (f32) from ``keys`` [B, 2] int64 (seed,
+    counter): a hash of (seed, counter, vocab index), nothing else, in
+    torch ops (no generator state, so a CUDA graph can capture it)."""
+    seed, counter = keys[:, 0], keys[:, 1]
+    row = _hash32(_hash32(seed & _M32) ^ ((seed >> 32) & _M32))
+    row = _hash32(row ^ _hash32(counter & _M32))
+    col = _hash32((torch.arange(vocab, device=keys.device) + 0x9E3779B9) & _M32)
+    bits = _hash32(row[:, None] ^ col[None, :])
+    u = ((bits >> 9).float() + 0.5) * (2.0 ** -23)  # in (0, 1), exact in f32
+    return -torch.log(-torch.log(u))
+
+
+def _make_keyed_selector(sampling):
+    """``select(logits [B, V], keys [B, 2], seen) -> [B]``: argmax when
+    ``sampling`` is None, else Gumbel-max over the warped logits with noise
+    keyed by ``keys`` (:func:`_gumbel`)."""
+    if sampling is None:
+        return lambda logits, keys, seen: torch.argmax(logits, dim=-1)
+    warp = _make_warper(sampling)
+
+    def select(logits, keys, seen):
+        return torch.argmax(warp(logits) + _gumbel(keys, logits.shape[-1]), dim=-1)
+
+    return select
+
+
 def _chunk_prefill_token(logits, generator, select, eos_token_id, dtype, true_len, offset=0,
                          seen=None):
     """The prefill epilogue of the serving engine's chunk step: read the
@@ -333,6 +371,54 @@ def speculative_emit(logits, draft, generator, warp, eos_token_id, dtype, prior_
         emit = torch.where(done0 | after, torch.full_like(emit, eos_token_id), emit)
     if warp is None:
         m = torch.cumprod((draft.to(dtype) == emit[:K]).int(), dim=0).sum()
+    return m, emit
+
+
+def speculative_emit_keyed(logits, draft, seed, pos, warp, eos_token_id, dtype, prior_done):
+    """The serving engine's verify epilogue over ``S`` rows at once: the
+    batched, generator-free form of :func:`speculative_emit`.
+
+    Args:
+      logits: [S, K+1, V] target logits over ``[carry, draft]``; row ``s``'s
+        carry token sits at position ``pos[s]``, so logits ``j`` draw the
+        token at position ``pos[s] + 1 + j``.
+      draft: [S, K] proposed tokens (a delta proposal: each is one token,
+        not a distribution).
+      seed / pos: [S] int64, each row's sampling seed and carry position.
+      warp: a warper from :func:`_make_warper`, or None for greedy.
+      eos_token_id / dtype / prior_done ([S] bool): as in
+        :func:`speculative_emit`.
+
+    Returns ``(m [S], emit [S, K+1])``; the caller commits ``emit[s, :n]``
+    with ``n = min(m + 1, remaining)``. Greedy: ``emit`` is the EOS-latched
+    argmax chain and ``m`` the longest prefix of ``draft`` agreeing with
+    it. Sampled: the token at position ``p`` is the Gumbel-max sample
+    ``argmax(warp(logits) + g(seed, p))`` with the noise of
+    :func:`_gumbel`, keyed by the seed and ``p`` only, as the engine's
+    decode step draws it. Draft ``j`` passes when it equals that sample,
+    which happens with probability ``p_j(draft_j)``: the rejection rule's
+    acceptance for a delta proposal. At the first rejection the residual
+    draw, a Gumbel-max over the row with the rejected draft masked out, is
+    that same sample (it was not the draft), so the emitted chain follows
+    the chain of target distributions exactly, and a seed gives the same
+    tokens whether a position was drawn by a verify or by a decode or
+    chunk step: whatever the slot, batch, ticking mode or preemption."""
+    S, K1, V = logits.shape
+    K = K1 - 1
+    if warp is None:
+        emit = logits.argmax(dim=-1).to(dtype)
+    else:
+        at = pos[:, None] + 1 + torch.arange(K1, device=logits.device)
+        keys = torch.stack([seed[:, None].expand(S, K1), at], dim=-1).reshape(S * K1, 2)
+        noise = _gumbel(keys, V).view(S, K1, V)
+        emit = (warp(logits.reshape(S * K1, V)).view(S, K1, V) + noise).argmax(dim=-1).to(dtype)
+    if eos_token_id is not None:
+        is_eos = emit == eos_token_id
+        after = torch.cat([prior_done[:, None],
+                           torch.cumsum(is_eos.int(), dim=1)[:, :-1] > 0], dim=1)
+        after = after | prior_done[:, None]
+        emit = torch.where(after, torch.full_like(emit, eos_token_id), emit)
+    m = torch.cumprod((draft.to(dtype) == emit[:, :K]).int(), dim=1).sum(dim=1)
     return m, emit
 
 

@@ -506,6 +506,51 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_wi
     return out, cache
 
 
+def _lora_delta(y, x, lora, name):
+    """``y`` plus the LoRA delta ``((x @ a) @ b) * scale`` of module ``name``
+    of ``lora`` (JAX ``models/llama.py:562``), or ``y`` when ``lora`` does
+    not adapt it. Factors with a leading batch dim give each row its own
+    adapter (the serving engine's per-slot rows); ``a @ b`` is never
+    formed."""
+    mod = lora.get(name) if lora else None
+    if mod is None:
+        return y
+    a = mod["a"].to(x.dtype)
+    b = mod["b"].to(x.dtype)
+    scale = mod["scale"].to(x.dtype)
+    if scale.dim() == 1:
+        scale = scale[:, None, None]
+    return y + ((x @ a) @ b) * scale
+
+
+def _lora_sub(lora, prefix: str):
+    """The modules of ``lora`` under ``prefix`` (e.g. ``"self_attn."``),
+    with the prefix dropped; None when there are none."""
+    if not lora:
+        return None
+    n = len(prefix)
+    sub = {name[n:]: mod for name, mod in lora.items() if name.startswith(prefix)}
+    return sub or None
+
+
+def _lora_layers(lora, num_layers: int) -> list:
+    """A model-level adapter (``{"model.layers.<i>.<module>": {...}}``)
+    split per decoder layer: a list of ``num_layers`` dicts (or Nones)."""
+    if not lora:
+        return [None] * num_layers
+    per: list = [None] * num_layers
+    for name, mod in lora.items():
+        parts = name.split(".", 3)
+        if len(parts) != 4 or parts[:2] != ["model", "layers"] or not parts[2].isdigit():
+            raise ValueError(f"lora module {name!r} is not a decoder-layer projection "
+                             "(model.layers.<i>.<module>)")
+        i = int(parts[2])
+        if per[i] is None:
+            per[i] = {}
+        per[i][parts[3]] = mod
+    return per
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, window: Any = "config", device=None,
                  dtype=torch.float32):
@@ -522,13 +567,14 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(cfg, cfg.hidden_size, n_kv * hd, bias, device, dtype)
         self.o_proj = _linear(cfg, n_q * hd, cfg.hidden_size, cfg.attention_out_bias, device, dtype)
 
-    def forward(self, x, positions, causal=True, cache=None, cache_pos=None, segment_ids=None):
+    def forward(self, x, positions, causal=True, cache=None, cache_pos=None, segment_ids=None,
+                lora=None):
         cfg = self.config
         B, S, _ = x.shape
         n_q, n_kv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(B, S, n_q, hd)
-        k = self.k_proj(x).reshape(B, S, n_kv, hd)
-        v = self.v_proj(x).reshape(B, S, n_kv, hd)
+        q = _lora_delta(self.q_proj(x), x, lora, "q_proj").reshape(B, S, n_q, hd)
+        k = _lora_delta(self.k_proj(x), x, lora, "k_proj").reshape(B, S, n_kv, hd)
+        v = _lora_delta(self.v_proj(x), x, lora, "v_proj").reshape(B, S, n_kv, hd)
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=x.dtype,
                                     rope_scaling=cfg.rope_scaling)
         q = apply_rotary(q, cos, sin)
@@ -540,13 +586,15 @@ class LlamaAttention(nn.Module):
             out, cache = update_kv_cache_and_attend(
                 cache, q, k, v, cache_pos, n_q // n_kv, sliding_window=self.window,
                 sm_scale=sm_scale, logit_softcap=softcap)
-            return self.o_proj(out.reshape(B, S, n_q * hd)), cache
+            out = out.reshape(B, S, n_q * hd)
+            return _lora_delta(self.o_proj(out), out, lora, "o_proj"), cache
 
         out = multi_head_attention(
             q, k, v, causal=causal, use_flash=cfg.use_flash_attention,
             segment_ids=segment_ids, backend=cfg.attention_backend,
             sliding_window=self.window, sm_scale=sm_scale, logit_softcap=softcap)
-        return self.o_proj(out.reshape(B, S, n_q * hd))
+        out = out.reshape(B, S, n_q * hd)
+        return _lora_delta(self.o_proj(out), out, lora, "o_proj")
 
 
 class LlamaMLP(nn.Module):
@@ -560,15 +608,16 @@ class LlamaMLP(nn.Module):
         self.up_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
         self.down_proj = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, False, device, dtype)
 
-    def forward(self, x):
-        gate = self.gate_proj(x)
+    def forward(self, x, lora=None):
+        gate = _lora_delta(self.gate_proj(x), x, lora, "gate_proj")
         if self.activation == "gelu_tanh":     # GeGLU, tanh approx (Gemma)
             act = F.gelu(gate, approximate="tanh")
         elif self.activation == "gelu_exact":  # GeGLU, exact erf
             act = F.gelu(gate)
         else:                                  # SwiGLU (Llama et al.)
             act = F.silu(gate)
-        return self.down_proj(act * self.up_proj(x))
+        h = act * _lora_delta(self.up_proj(x), x, lora, "up_proj")
+        return _lora_delta(self.down_proj(h), h, lora, "down_proj")
 
 
 class LlamaBlock(nn.Module):
@@ -591,25 +640,26 @@ class LlamaBlock(nn.Module):
             self.post_ffn_norm = norm()
         self.mlp = LlamaMLP(cfg, device=device, dtype=dtype)
 
-    def forward(self, x, positions, cache=None, cache_pos=None, segment_ids=None):
+    def forward(self, x, positions, cache=None, cache_pos=None, segment_ids=None, lora=None):
         attn = self.self_attn(self.input_norm(x), positions, cache=cache, cache_pos=cache_pos,
-                              segment_ids=segment_ids)
+                              segment_ids=segment_ids, lora=_lora_sub(lora, "self_attn."))
         if cache is not None:
             attn, cache = attn
+        mlp_lora = _lora_sub(lora, "mlp.")
         if self.post_norms:
             # Gemma2 sandwich block: sublayer OUTPUTS are normed before their
             # residual adds, and the MLP gets its own pre-norm.
             h = x + self.post_attn_norm(attn)
-            h = h + self.post_ffn_norm(self.mlp(self.pre_ffn_norm(h)))
+            h = h + self.post_ffn_norm(self.mlp(self.pre_ffn_norm(h), lora=mlp_lora))
         else:
             h = x + attn
-            h = h + self.mlp(self.post_attn_norm(h))
+            h = h + self.mlp(self.post_attn_norm(h), lora=mlp_lora)
         return h if cache is None else (h, cache)
 
 
-def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids):
+def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids, lora=None):
     return torch.func.functional_call(layer, params, (x, positions),
-                                      {"segment_ids": segment_ids})
+                                      {"segment_ids": segment_ids, "lora": lora})
 
 
 # The _KeptProducts of the "dots" layer that runs now (its forward or its
@@ -628,12 +678,12 @@ class _KeptProducts:
         self.recomputing = False
         self.taken = 0
 
-    def run(self, layer, params, x, positions, segment_ids):
+    def run(self, layer, params, x, positions, segment_ids, lora=None):
         global _kept_products
         outer, _kept_products = _kept_products, self
         self.taken = 0
         try:
-            return _run_layer(layer, params, x, positions, segment_ids)
+            return _run_layer(layer, params, x, positions, segment_ids, lora)
         finally:
             _kept_products = outer
 
@@ -677,7 +727,7 @@ class _KeptProduct(torch.autograd.Function):
 
 
 def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
-                 policy: str = "nothing"):
+                 policy: str = "nothing", lora=None):
     """One decoder layer under ``torch.utils.checkpoint`` (non-reentrant):
     what ``policy`` (a :func:`resolve_remat_policy` name) does not keep is
     recomputed in the backward. "dots" stores the projections' outputs in a
@@ -690,12 +740,13 @@ def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
     that has ended by the time the backward runs."""
     rule = resolve_remat_policy(policy)
     if rule is RematPolicy.EVERYTHING:
-        return _run_layer(layer, params, x, positions, segment_ids)
+        return _run_layer(layer, params, x, positions, segment_ids, lora)
     if rule is RematPolicy.NOTHING:
-        return checkpoint(_run_layer, layer, params, x, positions, segment_ids,
+        return checkpoint(_run_layer, layer, params, x, positions, segment_ids, lora,
                           use_reentrant=False)
     kept = _KeptProducts()
-    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, use_reentrant=False)
+    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, lora,
+                     use_reentrant=False)
     kept.recomputing = True
     return out
 
@@ -731,7 +782,10 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_norm_unit_offset,
                             device=device, dtype=dtype)
 
-    def forward(self, input_ids, positions=None, cache=None, cache_pos=None, segment_ids=None):
+    def forward(self, input_ids, positions=None, cache=None, cache_pos=None, segment_ids=None,
+                lora=None):
+        """``lora``: an adapter (``adapters/lora.py``) applied to its
+        projections, or None."""
         if positions is None:
             positions = _default_positions(input_ids, 0 if cache_pos is None else cache_pos)
         if segment_ids is not None and cache is not None:
@@ -740,14 +794,16 @@ class LlamaModel(nn.Module):
                 "KV-cache decode path does not apply segment masking")
         x = _scale_embeddings(self.config, self.embed_tokens(input_ids))
         remat = self.config.remat and cache is None and torch.is_grad_enabled()
+        per_layer = _lora_layers(lora, len(self.layers))
         for i, layer in enumerate(self.layers):
             if remat:
                 x = _remat_layer(layer, dict(layer.named_parameters()), x, positions,
-                                 segment_ids, self.config.remat_policy)
+                                 segment_ids, self.config.remat_policy, per_layer[i])
             elif cache is None:
-                x = layer(x, positions, segment_ids=segment_ids)
+                x = layer(x, positions, segment_ids=segment_ids, lora=per_layer[i])
             else:
-                x, cache[i] = layer(x, positions, cache=cache[i], cache_pos=cache_pos)
+                x, cache[i] = layer(x, positions, cache=cache[i], cache_pos=cache_pos,
+                                    lora=per_layer[i])
         x = self.norm(x)
         return x if cache is None else (x, cache)
 
@@ -794,9 +850,9 @@ class LlamaForCausalLM(nn.Module):
             init_weights(self, generator)
 
     def forward(self, input_ids, positions=None, cache=None, cache_pos=None,
-                return_hidden=False, segment_ids=None):
+                return_hidden=False, segment_ids=None, lora=None):
         x = self.model(input_ids, positions, cache=cache, cache_pos=cache_pos,
-                       segment_ids=segment_ids)
+                       segment_ids=segment_ids, lora=lora)
         if cache is not None:
             x, cache = x
         if not return_hidden:

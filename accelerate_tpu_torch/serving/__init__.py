@@ -1,8 +1,9 @@
 """The serving engine on one GPU: continuous batching over fixed-shape
 steps captured as CUDA graphs.
 
-Counterpart of ``accelerate_tpu/serving`` (ROADMAP A5): the engine
-(``engine.py``), its requests (``request.py``), the admission queue, slot
+Counterpart of ``accelerate_tpu/serving`` (ROADMAP A5, A6): the engine
+(``engine.py``; its adapters and int8 base weights come from
+``accelerate_tpu_torch.adapters``), its requests (``request.py``), the admission queue, slot
 scheduler, page pool and prefix cache (``scheduler.py``), the traffic
 classes (``control.py``, ``PriorityPolicy``), the counters (``metrics.py``)
 and the graph runner (``graphs.py``, which has no JAX counterpart). The

@@ -67,14 +67,39 @@ N+1's pending copy; each tick's page-table copy is its snapshot. Tokens
 come back with one non-blocking copy and an event a tick. Streaming
 callbacks run on an emitter thread; a slow consumer is flow-controlled.
 
+Speculation (``draft_model=`` or ``spec_lookup=``, paged engines): the
+tick is a ``spec`` step instead of ``decode``. It takes ``spec_tokens``
+proposals a slot, from K draft-model steps through the slot's draft pages
+(the same pool's ids through their own table, at the draft's widths) or
+from the host's prompt lookup (passed in the step's input), and verifies
+them in one ``[max_slots, K+1]`` forward; greedy streams are the decode
+tick's, sampled ones follow the same law with the same position-keyed
+noise (:func:`generation.speculative_emit_keyed`). A draft engine's chunk
+step also prefills the draft, and a ``draft_chunk`` step rebuilds a
+prefix-restored span's draft K/V. A lookup engine reconciles a tick before
+drafting the next (its proposals anchor on the newest token).
+
+int8 KV pages (``kv_dtype="int8"``): one f32 scale per page and layer leaf.
+A step gathers its rows' views dequantized, the forward writes and attends
+them at full precision, and every page the step wrote is requantized whole
+from its view (JAX ``:1313-1378``).
+
+``prefill_chunk=None`` (dense only): a prompt is edge-padded to its
+128-bucket and prefilled whole by that bucket's step, captured at the
+bucket's first use. Sliding-window models serve on paged engines: where
+every layer has the same window, pages wholly behind it are freed as a
+stream advances. Adapters (``adapters=``, an
+:class:`~accelerate_tpu_torch.adapters.AdapterBank`): each slot's bank row
+is state of the steps, gathered inside them; ``weights_dtype="int8"``
+serves a copy of the model with int8 base projections
+(:func:`~accelerate_tpu_torch.adapters.quantize_base_weights`).
+
 The engine runs its own thread, which sets ``torch.inference_mode`` and
 the engine's CUDA stream for itself and captures the graphs at warmup.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: engine speculation (``draft_model``, ``spec_lookup``),
-int8 KV pages, the monolithic ``prefill_chunk=None`` path and sliding-window
-(ring) models (A5); ``adapters`` and ``weights_dtype`` (A6); ``chaos`` and
-``trace_dir`` (A7); ``tp``, ``mesh`` and ``devices`` (A8).
+ROADMAP item: ``chaos`` and ``trace_dir`` (A7); ``tp``, ``mesh`` and
+``devices`` (A8).
 """
 
 from __future__ import annotations
@@ -90,7 +115,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..generation import _check_position_bound, _chunk_prefill_token, _make_warper, _next_token
+from ..adapters.quantize import quantize_base_weights
+from ..adapters.registry import AdapterBank
+from ..generation import (
+    _bucket128,
+    _check_position_bound,
+    _chunk_prefill_token,
+    _make_keyed_selector,
+    _make_warper,
+    _next_token,
+    speculative_emit_keyed,
+)
 from ..observability import FlightRecorder, Tracer, new_trace_id
 from ..utils.device import resolve_device
 from ..utils.profiling import GraphCaptureWatcher
@@ -105,43 +140,7 @@ __all__ = ["ServingEngine"]
 #: distinct tracer/flight-recorder identities per engine in one process.
 _ENGINE_SEQ = itertools.count()
 
-_M32 = 0xFFFFFFFF
 _SEED_MASK = (1 << 63) - 1
-
-
-def _hash32(x):
-    """A 32-bit integer mix (xorshift-multiply, three rounds) of int64
-    values in ``[0, 2**32)``; products stay below 2**63, so nothing wraps."""
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    return (x >> 16) ^ x
-
-
-def _gumbel(keys, vocab: int):
-    """Gumbel noise [B, vocab] (f32) from ``keys`` [B, 2] int64 (seed,
-    counter): a hash of (seed, counter, vocab index), nothing else, in
-    torch ops (no generator state, so a CUDA graph can capture it)."""
-    seed, counter = keys[:, 0], keys[:, 1]
-    row = _hash32(_hash32(seed & _M32) ^ ((seed >> 32) & _M32))
-    row = _hash32(row ^ _hash32(counter & _M32))
-    col = _hash32((torch.arange(vocab, device=keys.device) + 0x9E3779B9) & _M32)
-    bits = _hash32(row[:, None] ^ col[None, :])
-    u = ((bits >> 9).float() + 0.5) * (2.0 ** -23)  # in (0, 1), exact in f32
-    return -torch.log(-torch.log(u))
-
-
-def _make_keyed_selector(sampling):
-    """``select(logits [B, V], keys [B, 2], seen) -> [B]``: argmax when
-    ``sampling`` is None, else Gumbel-max over the warped logits with noise
-    keyed by ``keys`` (:func:`_gumbel`)."""
-    if sampling is None:
-        return lambda logits, keys, seen: torch.argmax(logits, dim=-1)
-    warp = _make_warper(sampling)
-
-    def select(logits, keys, seen):
-        return torch.argmax(warp(logits) + _gumbel(keys, logits.shape[-1]), dim=-1)
-
-    return select
 
 
 class _TickFlight:
@@ -151,13 +150,14 @@ class _TickFlight:
     launch time. Reconcile commits an entry only if its request is still
     RUNNING *and* its preemption epoch matches (exactly-once emission)."""
 
-    __slots__ = ("entries", "t_dispatch", "buf", "event")
+    __slots__ = ("entries", "t_dispatch", "buf", "event", "lookup_hits")
 
-    def __init__(self, entries, t_dispatch, buf, event):
+    def __init__(self, entries, t_dispatch, buf, event, lookup_hits=0):
         self.entries = entries          # [(slot, req, req._preempted)]
         self.t_dispatch = t_dispatch
         self.buf = buf
         self.event = event
+        self.lookup_hits = lookup_hits  # prompt-lookup slots whose n-gram matched
 
 
 class _HostEvent:
@@ -245,6 +245,32 @@ def _later(what: str, item: str):
                                f"(ROADMAP.md, {item})")
 
 
+def _cached_lm(model, role: str):
+    """The cache-threading ``LlamaForCausalLM`` under ``model`` (a prepared
+    model or the module itself); TypeError for anything else."""
+    module = getattr(model, "module", model)
+    cfg = getattr(module, "config", None)
+    if cfg is None or not hasattr(module, "model") or not hasattr(cfg, "window_for"):
+        raise TypeError(f"{type(module).__name__} ({role}) is not a cache-threading "
+                        "LlamaForCausalLM; the engine cannot hold its decode state")
+    return module
+
+
+def _windows(cfg) -> list:
+    """Each layer's sliding window (None = full attention)."""
+    return [cfg.window_for(i) for i in range(cfg.num_hidden_layers)]
+
+
+def _quant_page(blocks):
+    """int8 pages and their f32 scales from f32 page blocks [n, ...] (JAX
+    ``_quant_page`` ``engine.py:1313``, per block): a symmetric absmax over
+    the whole block with a 1e-6 floor, ``/ 127``, round half to even."""
+    flat = blocks.reshape(blocks.shape[0], -1)
+    scale = flat.abs().amax(dim=1).clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(flat / scale[:, None]), -127, 127).to(torch.int8)
+    return q.view(blocks.shape), scale
+
+
 class ServingEngine:
     """Slot-based continuous-batching decode service on one device.
 
@@ -258,19 +284,35 @@ class ServingEngine:
         sampling, fixed in the captured steps. Greedy when
         ``do_sample=False``.
       cache_dtype: KV dtype (default bfloat16, like ``generate``).
+      kv_dtype: ``"int8"`` stores the paged KV pool as int8 with one f32
+        scale per page and layer leaf (paged only); None keeps
+        ``cache_dtype``.
+      weights_dtype: ``"int8"`` serves the model's base projections as
+        per-output-channel int8, dequantized before each product; adapters
+        stay full precision.
       max_queued / priority_policy: the admission queue's bound and order
         (``"default"``: a :class:`~.control.PriorityPolicy`; None: FCFS).
       prefill_chunk: width of the one chunk step (clamped to ``max_len``
-        and the position table).
+        and the position table); None prefills each prompt whole, one step
+        per 128-bucket of prompt length (dense engines only).
       prefill_chunks_per_tick: chunk calls between two decode ticks,
         alternating the PREFILLING backlog (round-robin) and new arrivals.
       prefix_cache_mb: LRU budget of chunk-aligned prefix blocks (0: off).
       prefix_cache: an external (shareable) :class:`~.scheduler.PrefixCache`
         instead; its blocks restore by copy, also on a paged engine.
-      paged / page_size / max_pages: the paged pool (default on; page size
+      adapters: an :class:`~accelerate_tpu_torch.adapters.AdapterBank` of
+        LoRA adapters on the engine's device; a request's ``adapter`` names
+        one (None: bank row 0, the base model).
+      paged / page_size / max_pages: the paged pool (default on with
+        chunked prefill; page size
         defaults to the chunk and must divide it; ``max_pages`` usable pages
         besides the scratch page, default enough for every slot at
         ``max_len``).
+      draft_model / spec_tokens: speculative decoding with a draft
+        ``LlamaForCausalLM`` of the same vocabulary, ``spec_tokens``
+        proposals a tick (paged only; its pages come from the same pool).
+      spec_lookup: n-gram width of draft-free prompt-lookup speculation
+        (exclusive with ``draft_model``).
       accelerator: shares its ``serving_stats`` and makes the engine drain
         on its preemption notice (stop admitting, finish in-flight work,
         cancel the queue).
@@ -304,34 +346,20 @@ class ServingEngine:
                  async_ticks: Optional[bool] = None, emission_queue: int = 256,
                  autostart: bool = True, warmup: bool = True, idle_poll_s: float = 0.005,
                  device=None):
-        if draft_model is not None or spec_lookup is not None:
-            raise _later("engine speculation (draft_model=, spec_lookup=)", "A5")
-        if kv_dtype is not None:
-            raise _later(f"kv_dtype={kv_dtype!r} (quantized KV pages)", "A5")
-        if prefill_chunk is None:
-            raise _later("the monolithic prefill path (prefill_chunk=None)", "A5")
-        if adapters is not None or weights_dtype is not None:
-            raise _later("adapter banks and weights_dtype", "A6")
         if chaos is not None or trace_dir is not None:
             raise _later("chaos= and trace_dir=", "A7")
         if tp is not None or mesh is not None or devices is not None:
             raise _later("tensor-parallel serving (tp=, mesh=, devices=)", "A8")
-        module = getattr(model, "module", model)
-        cfg = getattr(module, "config", None)
-        if cfg is None or not hasattr(module, "model") or not hasattr(cfg, "window_for"):
-            raise TypeError(f"{type(module).__name__} is not a cache-threading "
-                            "LlamaForCausalLM; the engine cannot hold its decode state")
+        module = _cached_lm(model, "model")
+        cfg = module.config
         if max_slots < 1 or max_len < 2:
             raise ValueError(f"need max_slots >= 1 and max_len >= 2 (got {max_slots}, {max_len})")
-        if int(prefill_chunk) < 1:
+        if prefill_chunk is not None and int(prefill_chunk) < 1:
             raise ValueError(f"prefill_chunk must be >= 1 or None (got {prefill_chunk})")
         if prefill_chunks_per_tick < 1:
             raise ValueError(f"prefill_chunks_per_tick must be >= 1 (got {prefill_chunks_per_tick})")
         if prefix_cache_mb < 0:
             raise ValueError(f"prefix_cache_mb must be >= 0 (got {prefix_cache_mb})")
-        windows = [cfg.window_for(i) for i in range(cfg.num_hidden_layers)]
-        if any(w is not None and w < max_len for w in windows):
-            raise _later("sliding-window (ring) KV caches narrower than max_len", "A5")
 
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -340,28 +368,37 @@ class ServingEngine:
         if param.device != self.device:
             raise ValueError(f"the model's parameters are on {param.device}, the engine's "
                              f"device is {self.device}; move the model first")
-        self.module = module
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         self.eos_token_id = eos_token_id
         self._dtype = cache_dtype or torch.bfloat16
         self._sampling = (float(temperature), top_k, top_p) if do_sample else None
         self._select = _make_keyed_selector(self._sampling)
+        # The sampling target's warper, shared by the speculative verify.
+        self._warp = _make_warper(self._sampling) if self._sampling is not None else None
         self._idle_poll_s = float(idle_poll_s)
         self._accelerator = accelerator
         self._on_card = self.device.type == "cuda"
 
         # The usable position range: max_len capped at the position table.
         self._chunk_limit = min(self.max_len, int(cfg.max_position_embeddings))
-        self._chunk = min(int(prefill_chunk), self._chunk_limit)
-        # The final chunk may start below its natural i*C offset so its
-        # fixed width never writes past the limit (re-running already
-        # prefilled positions rewrites the same KV).
-        self._chunk_cap = self._chunk_limit - self._chunk
+        if prefill_chunk is None:
+            # Monolithic prefill: one step per 128-bucket of prompt length.
+            self._chunk: Optional[int] = None
+            self._chunk_cap = 0
+        else:
+            self._chunk = min(int(prefill_chunk), self._chunk_limit)
+            # The final chunk may start below its natural i*C offset so its
+            # fixed width never writes past the limit (re-running already
+            # prefilled positions rewrites the same KV).
+            self._chunk_cap = self._chunk_limit - self._chunk
         self._chunks_per_tick = int(prefill_chunks_per_tick)
 
         if paged is None:
-            paged = True
+            paged = self._chunk is not None
+        if paged and self._chunk is None:
+            raise ValueError("paged=True requires chunked prefill (pages are allocated at chunk "
+                             "granularity); pass a prefill_chunk width")
         self._paged = bool(paged)
         if self._paged:
             P = int(page_size) if page_size is not None else self._chunk
@@ -376,10 +413,61 @@ class ServingEngine:
                                  "(paged=False keeps dense per-slot rows)")
             self._page = None
 
+        # Quantized serving: int8 KV pages (one f32 scale per page and
+        # leaf) need the paged pool; int8 base weights any layout.
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8' (got {kv_dtype!r})")
+        if weights_dtype not in (None, "int8"):
+            raise ValueError(f"weights_dtype must be None or 'int8' (got {weights_dtype!r})")
+        if kv_dtype is not None and not self._paged:
+            raise ValueError("kv_dtype='int8' requires the paged engine (per-page scales are "
+                             "indexed by page id); pass paged=True or drop kv_dtype")
+        self._kv_dtype = kv_dtype
+        self._weights_dtype = weights_dtype
+
+        # Speculation: a draft model or host prompt lookup proposes
+        # spec_tokens tokens a tick, one [max_slots, K+1] verify checks them.
+        if draft_model is not None and spec_lookup is not None:
+            raise ValueError("draft_model= and spec_lookup= are mutually exclusive: one engine "
+                             "drafts either with a model or by prompt lookup")
+        self._draft = None
+        self._spec_lookup: Optional[int] = None
+        self._spec_mode: Optional[str] = None
+        self._spec_k: Optional[int] = None
+        if draft_model is not None or spec_lookup is not None:
+            if not self._paged:
+                raise NotImplementedError("speculative decoding requires the paged engine "
+                                          "(paged=True)")
+            if int(spec_tokens) < 1:
+                raise ValueError(f"spec_tokens must be >= 1 (got {spec_tokens})")
+            self._spec_k = int(spec_tokens)
+        if draft_model is not None:
+            draft = _cached_lm(draft_model, "draft_model")
+            if draft.config.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab ({draft.config.vocab_size}) != target vocab "
+                                 f"({cfg.vocab_size}); acceptance compares token ids, so the "
+                                 "vocabularies must match")
+            if next(draft.parameters()).device != self.device:
+                raise ValueError("the draft model's parameters are not on the engine's device")
+            span = self.max_len + self._spec_k
+            if any(w is not None and w < span for w in _windows(draft.config)):
+                raise NotImplementedError("the draft model's KV cache must be linear at max_len "
+                                          "+ spec_tokens (raise its sliding window)")
+            self._draft = draft
+            self._spec_mode = "draft"
+        elif spec_lookup is not None:
+            if int(spec_lookup) < 1:
+                raise ValueError(f"spec_lookup (n-gram width) must be >= 1 (got {spec_lookup})")
+            self._spec_lookup = int(spec_lookup)
+            self._spec_mode = "lookup"
+
         if prefix_cache is not None:
+            if self._chunk is None:
+                raise ValueError("prefix_cache= requires chunked prefill (prefill_chunk=None "
+                                 "has no chunk-aligned blocks)")
             self._prefix_cache: Optional[PrefixCache] = prefix_cache
             self._alias_cache = False   # external/shared cache: COPY restores
-        elif prefix_cache_mb > 0:
+        elif self._chunk is not None and prefix_cache_mb > 0:
             # A paged engine's private cache holds page-id tuples: a hit is
             # a host table write + refcount, eviction returns the pages.
             self._alias_cache = self._paged
@@ -393,6 +481,30 @@ class ServingEngine:
         #: exists only where the prefix cache restores by copy.
         self._copy_restore = self._prefix_cache is not None and not self._alias_cache
         self._prefilling: collections.deque = collections.deque()
+
+        # Sliding-window (ring) models: the paged view is a linear cache the
+        # attention masks by the window; dense slot rows cannot rotate.
+        windows = _windows(cfg)
+        has_ring = any(w is not None and w < self.max_len for w in windows)
+        if has_ring and not self._paged:
+            raise NotImplementedError(
+                "sliding-window (ring) KV caches need the paged engine (paged=True frees "
+                "out-of-window pages); the dense slot layout cannot rotate them, or set the "
+                "config's window >= max_len")
+        #: the window when pages wholly out of it may be freed: paged and
+        #: every layer windowed alike (mixed local/global stacks keep all
+        #: their pages).
+        self._page_window: Optional[int] = (
+            int(windows[0]) if self._paged and has_ring and len(set(windows)) == 1 else None)
+
+        if adapters is not None:
+            if not isinstance(adapters, AdapterBank):
+                raise TypeError(f"adapters must be an AdapterBank (got {type(adapters).__name__})")
+        self._adapters = adapters
+        # int8 base weights: a copy of the model whose projections keep
+        # int8 at rest (the caller's model is left as it was); adapters
+        # stay full precision in the bank.
+        self.module = module if weights_dtype is None else quantize_base_weights(module)
 
         self._build_state(cfg, max_pages)
 
@@ -449,68 +561,96 @@ class ServingEngine:
     def _build_state(self, cfg, max_pages):
         """Allocate the decode state, the steps' static inputs and outputs
         and the host staging buffers."""
-        dev, S, C = self.device, self.max_slots, self._chunk
-        n_kv, hd, L = cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers
-        itemsize = torch.finfo(self._dtype).bits // 8
+        dev, S = self.device, self.max_slots
+        C, K = self._chunk or 0, self._spec_k or 0
+        L = cfg.num_hidden_layers
         long = dict(dtype=torch.int64, device=dev)
         if self._paged:
             P = self._page
-            self._pages_per_slot = -(-self.max_len // P)
+            # The view holds max_len + K positions: a verify near the end of
+            # a stream writes up to pos + K.
+            self._pages_per_slot = -(-(self.max_len + K) // P)
             usable = (int(max_pages) if max_pages is not None
-                      else self.max_slots * self._pages_per_slot)
+                      else self.max_slots * -(-self.max_len // P))
             if usable < 1:
                 raise ValueError(f"max_pages must be >= 1 (got {max_pages})")
             self._pool = PagePool(usable)
             self._table = np.zeros((S, self._pages_per_slot), np.int64)
             # +1: page 0 is the scratch page inactive writes route to.
-            shape = (usable + 1, n_kv, P, hd)
-            self._page_bytes = L * 2 * P * n_kv * hd * itemsize
+            self._kv, self._pscale, self._page_bytes = self._pool_state(cfg, usable + 1)
             Np = self._pages_per_slot
         else:
             self._pool = None
             self._table = None
-            self._pages_per_slot = 0
-            shape = (S, n_kv, self.max_len, hd)
+            self._pages_per_slot = Np = 0
+            shape = (S, cfg.num_key_value_heads, self.max_len, cfg.head_dim)
+            self._kv = [{"k": torch.zeros(shape, dtype=self._dtype, device=dev),
+                         "v": torch.zeros(shape, dtype=self._dtype, device=dev)}
+                        for _ in range(L)]
+            self._pscale = None
             self._page_bytes = 0
-            Np = 0
-        # Head-major K/V per layer (models.llama._update_slots_and_attend).
-        self._kv = [{"k": torch.zeros(shape, dtype=self._dtype, device=dev),
-                     "v": torch.zeros(shape, dtype=self._dtype, device=dev)}
-                    for _ in range(L)]
+        if self._spec_mode == "draft":
+            # Draft pages: the same pool's ids through their own table, at
+            # the draft's widths.
+            self._dkv, self._dpscale, self._draft_page_bytes = self._pool_state(
+                self._draft.config, usable + 1)
+            self._dtable = np.zeros((S, Np), np.int64)
+        else:
+            self._dkv = self._dpscale = self._dtable = None
+            self._draft_page_bytes = 0
         self._pos = torch.zeros(S, **long)
         self._tok = torch.zeros(S, **long)
         self._done = torch.zeros(S, dtype=torch.bool, device=dev)
         self._seed = torch.zeros(S, **long)
-        self._block_shape = (L, 2, n_kv, C, hd)  # a chunk's K/V, head-major
-        self._block_bytes = L * 2 * C * n_kv * hd * itemsize
+        self._adapter_idx = torch.zeros(S, **long) if self._adapters is not None else None
+        # The token at position pos - 1 (draft engines): the draft scan
+        # starts from it, so every committed token's draft K/V is written.
+        self._prev = torch.zeros(S, **long) if self._spec_mode == "draft" else None
+        self._zero = torch.zeros(1, **long)
+        itemsize = torch.finfo(self._dtype).bits // 8
+        self._block_shape = (L, 2, cfg.num_key_value_heads, C, cfg.head_dim)  # head-major
+        self._block_bytes = L * 2 * C * cfg.num_key_value_heads * cfg.head_dim * itemsize
 
         # Static inputs (one int64 tensor a step, so one copy a call) and
-        # outputs. Layouts: decode [active S | table S*Np]; chunk [ids C |
-        # slot | offset | true_len | seed | row Np]; restore [slot | offset |
-        # true_len] (dense) or [slot | true_len | pages C/P] (paged).
+        # outputs. Layouts: tick [active S | table S*Np], and on a
+        # speculative engine then [dtable S*Np (draft) | remaining S |
+        # proposals S*K (lookup)]; chunk [ids C | slot | offset | true_len |
+        # seed | row Np | adapter row (bank) | draft row Np (draft)];
+        # draft chunk [ids C | offset | draft row Np]; restore [slot |
+        # offset | true_len] (dense) or [slot | true_len | pages C/P]
+        # (paged); a monolithic prefill of width W [ids W | slot | true_len
+        # | seed | adapter row (bank)]. The tick's output is [K+2, S]:
+        # tokens and EOS latches, or the verify's emitted chains and counts.
+        bank = 1 if self._adapters is not None else 0
+        tick_width = S + S * Np
+        if self._spec_k is not None:
+            tick_width += S + (S * Np if self._spec_mode == "draft" else S * K)
         self._restore_width = 3 if not self._paged else 2 + C // self._page
-        self._decode_in = torch.zeros(S + S * Np, **long)
-        self._decode_out = torch.zeros(2, S, **long)
-        self._chunk_in = torch.zeros(C + 4 + Np, **long)
+        self._decode_in = torch.zeros(tick_width, **long)
+        self._decode_out = torch.zeros(K + 2, S, **long)
+        self._chunk_in = torch.zeros(C + 4 + Np + bank + (Np if self._dkv is not None else 0),
+                                     **long)
         self._chunk_out = torch.zeros(1, **long)
         self._restore_in = torch.zeros(self._restore_width, **long)
+        self._dchunk_in = torch.zeros(C + 1 + Np, **long) if self._dkv is not None else None
+        self._prefill_in: dict = {}     # monolithic width -> static input
+        self._prefill_stage: dict = {}
         if self._copy_restore:
             self._block_out = torch.zeros(self._block_shape, dtype=self._dtype, device=dev)
             self._block_in = torch.zeros(self._block_shape, dtype=self._dtype, device=dev)
         else:
             self._block_out = self._block_in = None
 
-        def host(n):
-            return torch.zeros(n, dtype=torch.int64, pin_memory=self._on_card)
-
         # The tick's staging and outputs are double-buffered (see the
         # module docstring); chunk and restore calls wait on their event
         # before their one buffer is written again.
-        self._decode_stage = [host(self._decode_in.numel()) for _ in range(2)]
-        self._decode_host_out = [host(2 * S) for _ in range(2)]
-        self._chunk_stage = host(self._chunk_in.numel())
-        self._chunk_host_out = host(1)
-        self._restore_stage = host(self._restore_width)
+        self._decode_stage = [self._host(self._decode_in.numel()) for _ in range(2)]
+        self._decode_host_out = [self._host(self._decode_out.numel()) for _ in range(2)]
+        self._chunk_stage = self._host(self._chunk_in.numel())
+        self._chunk_host_out = self._host(1)
+        self._restore_stage = self._host(self._restore_width)
+        self._dchunk_stage = (self._host(self._dchunk_in.numel())
+                              if self._dchunk_in is not None else None)
         if self._on_card:
             self._stream = torch.cuda.Stream(device=dev)
             self._decode_events = [torch.cuda.Event() for _ in range(2)]
@@ -522,13 +662,93 @@ class ServingEngine:
             self._decode_events = [_HostEvent(), _HostEvent()]
             self._chunk_event = self._restore_event = _HostEvent()
         self._tick_buf = 0
+        self._window_frees = 0  # page references dropped behind a sliding window
 
-    def _layer_caches(self, rows=None, table=None, write=None):
-        """Per-layer cache dicts for one step's forward (the layouts of
-        ``models.llama._update_slots_and_attend``)."""
+    def _host(self, n: int) -> torch.Tensor:
+        """A host int64 staging buffer (pinned on the card)."""
+        return torch.zeros(n, dtype=torch.int64, pin_memory=self._on_card)
+
+    def _pool_state(self, cfg, pages: int):
+        """Head-major K/V pages ``[pages, n_kv, P, hd]`` per layer of a model
+        with ``cfg`` (int8 under ``kv_dtype="int8"``, with one f32 scale a
+        page and leaf: rows ``[2 * layers, pages]``, layer ``i``'s K at row
+        ``2i`` and V at ``2i + 1``, initialised to ones), and the bytes of
+        one page over every layer, scales included."""
+        n_kv, hd, L, P = cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers, self._page
+        quant = self._kv_dtype is not None
+        dtype = torch.int8 if quant else self._dtype
+        shape = (pages, n_kv, P, hd)
+        kv = [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
+               "v": torch.zeros(shape, dtype=dtype, device=self.device)} for _ in range(L)]
+        scales = (torch.ones((2 * L, pages), dtype=torch.float32, device=self.device)
+                  if quant else None)
+        elem = 1 if quant else torch.finfo(self._dtype).bits // 8
+        return kv, scales, L * 2 * (P * n_kv * hd * elem + (4 if quant else 0))
+
+    def _layer_caches(self, kv, rows=None, table=None, write=None):
+        """Per-layer cache dicts over ``kv`` for one step's forward (the
+        layouts of ``models.llama._update_slots_and_attend``)."""
         if self._paged:
-            return [{"k": c["k"], "v": c["v"], "table": table, "write": write} for c in self._kv]
-        return [{"k": c["k"], "v": c["v"], "rows": rows} for c in self._kv]
+            return [{"k": c["k"], "v": c["v"], "table": table, "write": write} for c in kv]
+        return [{"k": c["k"], "v": c["v"], "rows": rows} for c in kv]
+
+    def _views(self, kv, scales, table):
+        """Dequantized views of the rows of ``table`` [B, Np] over int8
+        pages ``kv`` (JAX ``_gather_view`` ``:1327``): per layer ``{"k",
+        "v"}`` [B, n_kv, Np * P, hd] in the cache dtype, slot-row caches that
+        the forward writes its K/V into and attends at full precision
+        before :meth:`_requant` puts the written pages back."""
+        B, Np = table.shape
+        flat = table.reshape(-1)
+        views = []
+        for i, c in enumerate(kv):
+            G, P, hd = c["k"].shape[1:]
+            blocks = (table[:, None, :] * G
+                      + torch.arange(G, device=table.device)[None, :, None]).reshape(-1)
+            layer = {}
+            for j, name in enumerate(("k", "v")):
+                q = c[name].view(-1, P, hd).index_select(0, blocks).view(B, G, Np, P, hd)
+                s = scales[2 * i + j].index_select(0, flat).view(B, 1, Np, 1, 1)
+                # q * s in f32, rounded once to the cache dtype as it is stored.
+                view = torch.empty((B, G, Np, P, hd), dtype=self._dtype, device=q.device)
+                layer[name] = torch.mul(q, s, out=view).view(B, G, Np * P, hd)
+            views.append(layer)
+        return views
+
+    def _requant(self, kv, scales, views, table, pos, last_off: int, steps: int, active=None):
+        """Requantize whole, from ``views``, the pages each row of ``table``
+        wrote (positions ``pos .. pos + last_off``) into the pool and their
+        scales (JAX ``_scatter_page`` ``:1352``, ``_scatter_slot_pages``
+        ``:1555``): ``steps`` pages a row, those past its writes and every
+        page of a row outside ``active`` going to the scratch page."""
+        B, Np = table.shape
+        P = self._page
+        tp = (pos // P)[:, None] + torch.arange(steps, device=table.device)   # [B, steps]
+        touched = (tp * P <= (pos + last_off)[:, None]) & (tp >= 0) & (tp < Np)
+        if active is not None:
+            touched = touched & active[:, None]
+        tpc = tp.clamp(0, Np - 1)
+        tgt = torch.where(touched, table.gather(1, tpc), torch.zeros_like(tpc)).reshape(-1)
+        rows = torch.arange(B, device=table.device)[:, None]
+        for i, (c, view) in enumerate(zip(kv, views)):
+            for j, name in enumerate(("k", "v")):
+                G, _, hd = c[name].shape[1:]
+                blocks = view[name].view(B, G, Np, P, hd)[rows, :, tpc]  # [B, steps, G, P, hd]
+                q, s = _quant_page(blocks.reshape(B * steps, G, P, hd).float())
+                c[name].index_copy_(0, tgt, q)
+                scales[2 * i + j].index_copy_(0, tgt, s)
+
+    def _lora(self, rows):
+        """The ``lora=`` argument of a forward whose rows decode under bank
+        rows ``rows`` [B]; None without a bank."""
+        return None if self._adapters is None else self._adapters.gather(rows)
+
+    def _target_cache(self, table, write=None, rows=None):
+        """The target model's caches for one step: dequantized views of the
+        rows of ``table`` over int8 pages, else the pool or slot rows."""
+        if self._pscale is not None:
+            return self._views(self._kv, self._pscale, table)
+        return self._layer_caches(self._kv, rows=rows, table=table, write=write)
 
     def _decode_step(self):
         """One tick over every slot (JAX ``_decode_fn`` / ``_paged_decode_fn``):
@@ -539,8 +759,11 @@ class ServingEngine:
         active = self._decode_in[:S].bool()
         table = self._decode_in[S:].view(S, Np) if self._paged else None
         pos = self._pos
-        logits, _ = self.module(self._tok[:, None], cache=self._layer_caches(
-            table=table, write=active), cache_pos=pos)
+        cache = self._target_cache(table, write=active)
+        logits, _ = self.module(self._tok[:, None], cache=cache, cache_pos=pos,
+                                lora=self._lora(self._adapter_idx))
+        if self._pscale is not None:
+            self._requant(self._kv, self._pscale, cache, table, pos, 0, 1, active)
         keys = torch.stack([self._seed, pos + 1], dim=1)  # the drawn token's position
         nxt, done = _next_token(logits[:, -1], keys, None, self._done, self._select,
                                 self.eos_token_id, torch.int64)
@@ -550,20 +773,107 @@ class ServingEngine:
         self._decode_out[0].copy_(nxt)
         self._decode_out[1].copy_(done)
 
+    def _spec_step(self):
+        """One speculative tick over every slot (JAX ``_spec_lookup_fn``
+        ``:1769`` and ``_spec_fn`` ``:1685``): the draft model's K steps
+        through each slot's draft pages, or the host's lookup proposals,
+        then ONE ``[max_slots, K+1]`` verify of ``[carry, drafts]`` at each
+        slot's position, accepted by :func:`generation.speculative_emit_keyed`.
+        A slot advances by ``n = min(accepted + 1, remaining)``. The K/V the
+        verify (and the draft scan) wrote at rejected positions is garbage,
+        but the next verify rewrites target positions ``pos + n .. pos + n
+        + K`` (and the next scan draft positions ``pos + n .. pos + n + K -
+        1``) before any query attends them (JAX ``:1698-1702``)."""
+        S, Np, K = self.max_slots, self._pages_per_slot, self._spec_k
+        buf = self._decode_in
+        active = buf[:S].bool()
+        at = S + S * Np
+        table = buf[S:at].view(S, Np)
+        if self._spec_mode == "draft":
+            dtable = buf[at:at + S * Np].view(S, Np)
+            at += S * Np
+        remaining = buf[at:at + S]
+        pos, tok = self._pos, self._tok
+        if self._spec_mode == "draft":
+            drafts = self._draft_scan(dtable, active)
+        else:
+            drafts = buf[at + S:].view(S, K)
+        cache = self._target_cache(table, write=active)
+        logits, _ = self.module(torch.cat([tok[:, None], drafts], dim=1), cache=cache,
+                                cache_pos=pos, lora=self._lora(self._adapter_idx))
+        if self._pscale is not None:
+            self._requant(self._kv, self._pscale, cache, table, pos, K, K // self._page + 2,
+                          active)
+        m, emit = speculative_emit_keyed(logits, drafts, self._seed, pos, self._warp,
+                                         self.eos_token_id, torch.int64, self._done)
+        n = torch.minimum(m + 1, remaining)
+        new_tok = emit.gather(1, (n - 1).clamp(0, K)[:, None])[:, 0]
+        new_done = new_tok == self.eos_token_id if self.eos_token_id is not None else self._done
+        if self._prev is not None:
+            # The token before the new carry: emit[n - 2], or the old carry.
+            before = emit.gather(1, (n - 2).clamp(0, K)[:, None])[:, 0]
+            self._prev.copy_(torch.where(active, torch.where(n >= 2, before, tok), self._prev))
+        self._pos.copy_(torch.where(active, pos + n, pos))
+        self._tok.copy_(torch.where(active, new_tok, tok))
+        self._done.copy_(torch.where(active, new_done, self._done))
+        self._decode_out[:K + 1].copy_(emit.T)
+        self._decode_out[K + 1].copy_(n)
+
+    def _draft_scan(self, dtable, active):
+        """K draft steps from each slot's carry token through its draft
+        pages (JAX ``_spec_fn``'s scan): each draft is the argmax of the
+        warped draft logits, a delta proposal. Returns [S, K].
+
+        The first step feeds ``[prev, carry]`` at ``pos - 1``: after a tick
+        that accepted all K drafts, the last of them sits at ``pos - 1``
+        and no step has written its draft K/V yet (the JAX scan leaves that
+        position stale, ROADMAP.md C); rewriting it otherwise recomputes
+        the same token's K/V. So a model drafting for itself accepts every
+        draft."""
+        K, pos = self._spec_k, self._pos
+        quant = self._dpscale is not None
+        cache = (self._views(self._dkv, self._dpscale, dtable) if quant
+                 else self._layer_caches(self._dkv, table=dtable, write=active))
+        cur, drafts = self._tok, []
+        for k in range(K):
+            if k == 0:
+                logits, _ = self._draft(torch.stack([self._prev, cur], dim=1), cache=cache,
+                                        cache_pos=pos - 1)
+            else:
+                logits, _ = self._draft(cur[:, None], cache=cache, cache_pos=pos + k)
+            row = logits[:, -1]
+            if self._warp is not None:
+                row = self._warp(row)
+            cur = row.argmax(dim=-1)
+            drafts.append(cur)
+        if quant:
+            self._requant(self._dkv, self._dpscale, cache, dtable, pos - 1, K,
+                          K // self._page + 2, active)
+        return torch.stack(drafts, dim=1)
+
     def _chunk_step(self):
         """One ``[1, C]`` prompt chunk at a tensor offset (JAX
         ``_prefill_chunk_fn`` / ``_paged_prefill_chunk_fn``): writes the
         chunk's KV into the slot (its rows, or its pages), selects the
         candidate first token, pins ``pos[slot] = true_len`` and writes the
-        slot's ``tok``/``done``/``seed``; where restores copy, also the
-        chunk's KV block."""
+        slot's ``tok``/``done``/``seed`` (and adapter row); where restores
+        copy, also the chunk's KV block; a draft engine also runs the draft
+        model over the chunk into the slot's draft pages."""
         C, Np = self._chunk, self._pages_per_slot
         buf = self._chunk_in
         ids = buf[:C].view(1, C)
         slot, offset, true_len, seed = buf[C:C + 1], buf[C + 1:C + 2], buf[C + 2:C + 3], buf[C + 3:C + 4]
-        row = buf[C + 4:].view(1, Np) if self._paged else None
-        logits, _ = self.module(ids, cache=self._layer_caches(rows=slot, table=row),
-                                cache_pos=offset)
+        at = C + 4 + Np
+        row = buf[C + 4:at].view(1, Np) if self._paged else None
+        aidx = None
+        if self._adapters is not None:
+            aidx = buf[at:at + 1]
+            at += 1
+        cache = self._target_cache(row, rows=slot)
+        logits, _ = self.module(ids, cache=cache, cache_pos=offset,
+                                lora=None if aidx is None else self._lora(aidx))
+        if self._pscale is not None:
+            self._requant(self._kv, self._pscale, cache, row, offset, C - 1, C // self._page + 1)
         keys = torch.stack([seed, true_len], dim=1)  # token #1 sits at position true_len
         tok, done = _chunk_prefill_token(logits, keys, self._select, self.eos_token_id,
                                          torch.int64, true_len, offset)
@@ -571,28 +881,68 @@ class ServingEngine:
         self._tok.index_copy_(0, slot, tok)
         self._done.index_copy_(0, slot, done)
         self._seed.index_copy_(0, slot, seed)
+        if aidx is not None:
+            self._adapter_idx.index_copy_(0, slot, aidx)
+        if self._prev is not None:  # the last prompt token (real in the final chunk)
+            last = (true_len - 1 - offset).clamp(0, C - 1)
+            self._prev.index_copy_(0, slot, ids[0].index_select(0, last))
         self._chunk_out.copy_(tok)
         if self._block_out is not None:
-            at = offset + torch.arange(C, device=buf.device)
-            if self._paged:
-                index = (row[0, at // self._page], slice(None), at % self._page)
+            at_c = offset + torch.arange(C, device=buf.device)
+            if self._pscale is not None:
+                # The block of the full-precision view, as JAX slices it.
+                for i, v in enumerate(cache):
+                    self._block_out[i, 0].copy_(v["k"][0][:, at_c])
+                    self._block_out[i, 1].copy_(v["v"][0][:, at_c])
             else:
-                index = (slot.expand(C), slice(None), at)
-            for i, c in enumerate(self._kv):  # [C, n_kv, hd] -> [n_kv, C, hd]
-                self._block_out[i, 0].copy_(c["k"][index].transpose(0, 1))
-                self._block_out[i, 1].copy_(c["v"][index].transpose(0, 1))
+                if self._paged:
+                    index = (row[0, at_c // self._page], slice(None), at_c % self._page)
+                else:
+                    index = (slot.expand(C), slice(None), at_c)
+                for i, c in enumerate(self._kv):  # [C, n_kv, hd] -> [n_kv, C, hd]
+                    self._block_out[i, 0].copy_(c["k"][index].transpose(0, 1))
+                    self._block_out[i, 1].copy_(c["v"][index].transpose(0, 1))
+        if self._dkv is not None:
+            self._draft_prefill(ids, offset, buf[at:at + Np].view(1, Np))
+
+    def _draft_prefill(self, ids, offset, drow):
+        """The draft model over one prompt chunk into the draft pages of
+        ``drow`` [1, Np] (the draft half of JAX ``_paged_prefill_chunk_fn``,
+        and ``_draft_chunk_fn`` ``:1469``); the draft stays base-weight."""
+        C = ids.shape[1]
+        quant = self._dpscale is not None
+        cache = (self._views(self._dkv, self._dpscale, drow) if quant
+                 else self._layer_caches(self._dkv, table=drow))
+        self._draft(ids, cache=cache, cache_pos=offset, return_hidden=True)
+        if quant:
+            self._requant(self._dkv, self._dpscale, cache, drow, offset, C - 1,
+                          C // self._page + 1)
+
+    def _draft_chunk_step(self):
+        """Rebuild a prefix-restored chunk's draft K/V (restored pages hold
+        the target's K/V only)."""
+        C, Np = self._chunk, self._pages_per_slot
+        buf = self._dchunk_in
+        self._draft_prefill(buf[:C].view(1, C), buf[C:C + 1], buf[C + 1:].view(1, Np))
 
     def _restore_step(self):
         """Copy one cached chunk block into a slot (JAX ``_restore_prefix_fn``
-        / ``_paged_restore_prefix_fn``) and pin ``pos[slot] = true_len``."""
+        / ``_paged_restore_prefix_fn``), quantizing its pages on an int8
+        pool, and pin ``pos[slot] = true_len``."""
         C, buf, blk = self._chunk, self._restore_in, self._block_in
         slot, G, hd = buf[0:1], blk.shape[2], blk.shape[4]
         if self._paged:
             true_len, pages = buf[1:2], buf[2:]
             shape = (G, C // self._page, self._page, hd)
             for i, c in enumerate(self._kv):  # [n_kv, C, hd] -> [C/P, n_kv, P, hd]
-                c["k"].index_copy_(0, pages, blk[i, 0].view(shape).transpose(0, 1))
-                c["v"].index_copy_(0, pages, blk[i, 1].view(shape).transpose(0, 1))
+                for j, name in enumerate(("k", "v")):
+                    pages_blk = blk[i, j].view(shape).transpose(0, 1)
+                    if self._pscale is None:
+                        c[name].index_copy_(0, pages, pages_blk)
+                        continue
+                    q, s = _quant_page(pages_blk.float())
+                    c[name].index_copy_(0, pages, q)
+                    self._pscale[2 * i + j].index_copy_(0, pages, s)
         else:
             offset, true_len = buf[1:2], buf[2:3]
             at = offset + torch.arange(C, device=buf.device)
@@ -602,6 +952,29 @@ class ServingEngine:
                 c["k"].index_put_(index, blk[i, 0])
                 c["v"].index_put_(index, blk[i, 1])
         self._pos.index_copy_(0, slot, true_len)
+
+    def _prefill_step(self, width: int):
+        """Monolithic prefill of one edge-padded prompt of ``width`` tokens
+        (a 128-bucket) into a slot's rows from position 0 (JAX
+        ``_prefill_fn`` ``:1154``): the first token as the chunk step
+        selects it, and the slot's state."""
+        buf = self._prefill_in[width]
+        ids = buf[:width].view(1, width)
+        slot, true_len, seed = (buf[width + i:width + i + 1] for i in range(3))
+        aidx = buf[width + 3:width + 4] if self._adapters is not None else None
+        logits, _ = self.module(ids, cache=self._layer_caches(self._kv, rows=slot),
+                                cache_pos=self._zero,
+                                lora=None if aidx is None else self._lora(aidx))
+        keys = torch.stack([seed, true_len], dim=1)
+        tok, done = _chunk_prefill_token(logits, keys, self._select, self.eos_token_id,
+                                         torch.int64, true_len, 0)
+        self._pos.index_copy_(0, slot, true_len)
+        self._tok.index_copy_(0, slot, tok)
+        self._done.index_copy_(0, slot, done)
+        self._seed.index_copy_(0, slot, seed)
+        if aidx is not None:
+            self._adapter_idx.index_copy_(0, slot, aidx)
+        self._chunk_out.copy_(tok)
 
     def _launch(self, name: str, step, device_in, stage, parts):
         """Copy ``parts`` ((name, values) pairs, laid end to end) through the
@@ -637,9 +1010,12 @@ class ServingEngine:
 
     def warmup(self, timeout: float = 300.0):
         """Run every step once through the normal path, capturing its graph
-        on the card: one chunk call and decode ticks, and, when the engine
-        restores by copy and a two-chunk prompt fits, two identical
-        two-chunk prompts (the second restores). ``ignore_eos`` keeps the
+        on the card: one chunk call (a monolithic engine: the prefill of the
+        smallest bucket) and ticks (decode, or the speculative verify), and,
+        when the engine has a prefix cache and a two-chunk prompt fits, two
+        identical two-chunk prompts (the second restores: by copy, or by
+        aliasing and, on a draft engine, the draft chunk). The requests run
+        on the base model, bank row 0 on an adapter engine. ``ignore_eos`` keeps the
         dummies decoding. Stats, the prefix cache, spans, flight events and
         the capture events are cleared afterwards."""
         req = self.submit(np.zeros((1, 1), np.int32), max_new_tokens=2, seed=0,
@@ -647,7 +1023,8 @@ class ServingEngine:
         if not req.wait(timeout):
             raise TimeoutError(f"engine warmup did not finish within {timeout}s")
         self._raise_if_failed(req)
-        if self._prefix_cache is not None and self._chunk + 2 <= self._chunk_limit:
+        if (self._chunk is not None and self._prefix_cache is not None
+                and self._chunk + 2 <= self._chunk_limit):
             ids = np.zeros((1, self._chunk + 1), np.int32)
             for _ in range(2):
                 r = self.submit(ids, max_new_tokens=1, seed=0, ignore_eos=True, block=True)
@@ -732,6 +1109,21 @@ class ServingEngine:
         return self._pool.free_pages if self._paged else 0
 
     @property
+    def _spec_page_factor(self) -> int:
+        """Pages a token costs at admission: 2 on a draft engine (a draft
+        page beside every target page, from the same pool), else 1."""
+        return 2 if self._spec_mode == "draft" else 1
+
+    def page_deficit(self, total_tokens: int) -> int:
+        """Pages this engine is short for a request of ``total_tokens``
+        (prompt + max_new) now: 0 when the pool holds it (and always on a
+        dense engine), a draft engine counting its draft pages."""
+        if not self._paged or total_tokens <= 0:
+            return 0
+        needed = -(-int(total_tokens) // self._page) * self._spec_page_factor
+        return max(0, needed - self._pool.free_pages)
+
+    @property
     def heartbeat(self) -> tuple:
         """``(loop_iterations, wall_time)`` published at the top of every
         loop iteration and at every reconcile."""
@@ -764,23 +1156,30 @@ class ServingEngine:
     def submit(self, prompt_ids=None, *, request: Optional[Request] = None,
                max_new_tokens: int = 20, seed: Optional[int] = None, rng=None,
                timeout: Optional[float] = None, on_token=None, ignore_eos: bool = False,
-               trace_id: Optional[str] = None, priority: Optional[str] = None,
-               block: bool = False, block_timeout: Optional[float] = None) -> Request:
+               adapter: Optional[str] = None, trace_id: Optional[str] = None,
+               priority: Optional[str] = None, block: bool = False,
+               block_timeout: Optional[float] = None) -> Request:
         """Enqueue one request; returns its :class:`Request` handle at once.
         Raises :class:`~.scheduler.QueueFull` under backpressure when
         ``block=False``; ``block=True`` waits for queue space (up to
         ``block_timeout``). ``seed`` (or ``rng`` as an int) keys a sampled
-        request's draws. A ``request=`` handle must be fresh."""
+        request's draws. ``adapter`` names a registered LoRA adapter of the
+        engine's bank (an unknown name raises
+        :class:`~accelerate_tpu_torch.adapters.UnknownAdapterError` here). A
+        ``request=`` handle must be fresh."""
         if request is None:
             request = Request(prompt_ids, max_new_tokens=max_new_tokens, rng=rng, seed=seed,
                               timeout=timeout, on_token=on_token, ignore_eos=ignore_eos,
-                              trace_id=trace_id, priority=priority)
+                              adapter=adapter, trace_id=trace_id, priority=priority)
         elif request.status is not RequestStatus.QUEUED or request.submitted_at is not None:
             raise ValueError(
                 f"Request handle already used (status {request.status.value}); Request "
                 "objects are single-use — build a fresh Request (or pass prompt_ids)")
         if request.adapter is not None:
-            raise _later("adapters", "A6")
+            if self._adapters is None:
+                raise ValueError(f"request names adapter {request.adapter!r} but this engine "
+                                 "has no adapter bank (pass adapters=AdapterBank(...))")
+            self._adapters.check_known(request.adapter)
         for name, value in (("seed", request.seed), ("rng", request.rng)):
             if value is not None and not isinstance(value, (int, np.integer)):
                 raise TypeError(f"{name} must be an int for the PyTorch engine (draws are "
@@ -798,13 +1197,23 @@ class ServingEngine:
         if self._paged:
             # A lone request must always fit the pool (everyone else
             # preempted, the alias cache drained), or admission could wedge.
-            need = -(-(S + request.max_new_tokens) // self._page)
+            need = -(-(S + request.max_new_tokens) // self._page) * self._spec_page_factor
             if need > self._pool.num_pages:
                 raise ValueError(
                     f"request needs up to {need} KV pages (prompt {S} + max_new_tokens "
-                    f"{request.max_new_tokens} at page_size {self._page}) but the pool only "
-                    f"has {self._pool.num_pages}; raise max_pages or shorten the request")
-        _check_position_bound(self.module, S + request.max_new_tokens)
+                    f"{request.max_new_tokens} at page_size {self._page}"
+                    + (", doubled for draft KV pages" if self._spec_page_factor > 1 else "")
+                    + f") but the pool only has {self._pool.num_pages}; raise max_pages or "
+                    "shorten the request")
+        if self._spec_k is not None:
+            # A verify near the end of a stream writes up to position
+            # (S + max_new - 1) + K; the draft scan stops one short.
+            K = self._spec_k
+            _check_position_bound(self.module, S + request.max_new_tokens + K)
+            if self._draft is not None:
+                _check_position_bound(self._draft, S + request.max_new_tokens + K - 1)
+        else:
+            _check_position_bound(self.module, S + request.max_new_tokens)
         if request.trace_id is None:
             request.trace_id = new_trace_id()
         request.submitted_at = time.monotonic()
@@ -874,13 +1283,52 @@ class ServingEngine:
         """The flight-recorder dump captured when the run loop died."""
         return self._postmortem
 
+    @property
+    def adapters(self) -> Optional[AdapterBank]:
+        return self._adapters
+
+    def register_adapter(self, name: str, adapter, **kwargs) -> None:
+        """Register a named LoRA adapter with this engine's bank (host side;
+        its row loads at its first request)."""
+        if self._adapters is None:
+            raise RuntimeError("engine has no adapter bank; construct it with "
+                               "adapters=AdapterBank(model, ...)")
+        self._adapters.register(name, adapter, **kwargs)
+
+    def adapter_resident(self, name: str) -> bool:
+        """Whether ``name`` holds a bank row now."""
+        return self._adapters is not None and self._adapters.resident(name)
+
+    @property
+    def kv_dtype(self) -> Optional[str]:
+        """``"int8"`` when KV pages are stored quantized; None = the cache
+        dtype, exact."""
+        return self._kv_dtype
+
+    @property
+    def weights_dtype(self) -> Optional[str]:
+        """``"int8"`` when the base projections are stored quantized (the
+        LoRA path full precision); None = the model's weights as given."""
+        return self._weights_dtype
+
+    def kv_cache_per_chip_bytes(self) -> int:
+        """Bytes of the decode K/V state on the card: the page pool (the
+        draft's too) with its scales, or the dense slot rows."""
+        tensors = [t for c in self._kv for t in c.values()]
+        if self._dkv is not None:
+            tensors += [t for c in self._dkv for t in c.values()]
+        tensors += [t for t in (self._pscale, self._dpscale) if t is not None]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     def page_pool_metrics(self) -> dict:
-        """Host-side pool snapshot (empty for dense engines)."""
+        """Host-side pool snapshot (empty for dense engines). On an int8
+        engine ``page_bytes`` is the int8 figure (a byte an element and a
+        4-byte scale a leaf)."""
         if not self._paged:
             return {}
-        return {
+        out = {
             "page_size": self._page,
-            "kv_dtype": None,
+            "kv_dtype": self._kv_dtype,
             "pages_per_slot": self._pages_per_slot,
             "page_bytes": self._page_bytes,
             "pages_total": self._pool.num_pages,
@@ -888,12 +1336,17 @@ class ServingEngine:
             "pages_used": self._pool.used_pages,
             "page_allocations": self._pool.allocations,
             "preemptions": self._pool.preemptions,
+            "window_pages_freed": self._window_frees,
         }
+        if self._spec_mode == "draft":
+            out["draft_page_bytes"] = self._draft_page_bytes
+        return out
 
-    def cached_prefix_tokens(self, prompt_ids) -> int:
+    def cached_prefix_tokens(self, prompt_ids, adapter: Optional[str] = None) -> int:
         """Leading prompt tokens this engine could restore from its prefix
-        cache now (host work only; no LRU promotion)."""
-        if self._prefix_cache is None:
+        cache now for a request under ``adapter`` (host work only; no LRU
+        promotion)."""
+        if self._prefix_cache is None or self._chunk is None:
             return 0
         ids = np.asarray(prompt_ids, np.int32)
         if ids.ndim == 1:
@@ -902,7 +1355,8 @@ class ServingEngine:
         restorable = min(S // C, -(-S // C) - 1)
         if restorable < 1:
             return 0
-        return self._prefix_cache.longest_prefix(self._prefix_keys(ids, restorable)) * C
+        return self._prefix_cache.longest_prefix(
+            self._prefix_keys(ids, restorable, adapter)) * C
 
     # ------------------------------------------------------------------
     # engine thread
@@ -944,8 +1398,15 @@ class ServingEngine:
                         self._stats.record_finish(req.status)
                 # Bounded admission: at most chunks_per_tick chunk calls,
                 # alternating one continuation of the PREFILLING backlog
-                # (round-robin) with one new admission.
-                budget = self._chunks_per_tick
+                # (round-robin) with one new admission. A monolithic engine
+                # prefills each admitted prompt whole, inline.
+                budget = self._chunks_per_tick if self._chunk is not None else 0
+                while self._chunk is None and self._slots.has_free():
+                    req = self._queue.get_nowait()
+                    if req is None:
+                        break
+                    if self._screen(req, now):
+                        self._admit(req)
                 while budget > 0:
                     progressed = False
                     if self._advance_one_prefill():
@@ -965,6 +1426,14 @@ class ServingEngine:
                            if req.status is RequestStatus.RUNNING]
                 if running:
                     if self._async:
+                        if self._spec_mode == "lookup" and flight is not None:
+                            # Lookup proposals anchor on the newest committed
+                            # token: a proposal drafted one variable-length
+                            # tick behind verifies to nothing. So a lookup
+                            # engine settles tick N before drafting N+1.
+                            self._reconcile(flight)
+                            flight = None
+                            continue
                         nxt = self._dispatch(running, ahead=flight is not None)
                         if flight is not None:
                             self._reconcile(flight)
@@ -994,7 +1463,10 @@ class ServingEngine:
                     # goes through the same screen as the busy path.
                     req = self._queue.get(timeout=self._idle_poll_s)
                     if req is not None and self._screen(req, time.monotonic()):
-                        self._begin_prefill(req, self._chunks_per_tick)
+                        if self._chunk is None:
+                            self._admit(req)
+                        else:
+                            self._begin_prefill(req, self._chunks_per_tick)
         except BaseException as e:  # engine-fatal: fail everything loudly
             self._error = e
             self._flight.record("fatal", error=repr(e))
@@ -1025,6 +1497,37 @@ class ServingEngine:
         self._stats.record_finish(req.status)
         return False
 
+    def _acquire_adapter(self, req: Request) -> bool:
+        """Pin the request's adapter into a bank row before it takes a slot
+        (base requests: row 0, the identity). An unknown name or a bank
+        whose rows are all pinned fails THIS request with that error; the
+        engine stays healthy. False when the request failed."""
+        if self._adapters is None or req.adapter is None:
+            req._adapter_row = 0
+            return True
+        try:
+            row, hit, evicted = self._adapters.acquire(req.adapter)
+        except Exception as e:
+            self._finish_req(req, RequestStatus.FAILED, e)
+            self._stats.record_finish(req.status)
+            return False
+        req._adapter_row = row
+        req._adapter_pinned = True
+        self._stats.record_adapter_admit(req.adapter, hit=hit, evicted=evicted)
+        if not hit:
+            self._flight.record("adapter_load", adapter=req.adapter, row=row, evicted=evicted,
+                                trace_id=req.trace_id)
+        return True
+
+    def _adapter_part(self, req: Request) -> list:
+        """The adapter-row part of a prefill step's input (bank engines)."""
+        return [] if self._adapters is None else [("adapter", [req._adapter_row])]
+
+    def _release_adapter(self, req: Request):
+        if req._adapter_pinned:
+            req._adapter_pinned = False
+            self._adapters.release(req.adapter)
+
     # -- host-side page accounting (engine thread only) -----------------
     def _on_prefix_evict(self, key, value):
         """Alias-cache eviction hook: give back the page refs it held."""
@@ -1032,20 +1535,28 @@ class ServingEngine:
             self._pool.decref(int(pid))
 
     def _release_slot_pages(self, slot: int):
-        row = self._table[slot]
-        for idx in range(self._pages_per_slot):
-            if row[idx]:
-                self._pool.decref(int(row[idx]))
-        row[:] = 0
+        """Drop the slot's reference on every page of its table (and of its
+        draft table) and clear the rows."""
+        rows = [self._table[slot]]
+        if self._dtable is not None:
+            rows.append(self._dtable[slot])
+        for row in rows:
+            for idx in range(self._pages_per_slot):
+                if row[idx]:
+                    self._pool.decref(int(row[idx]))
+            row[:] = 0
 
-    def _alloc_page_into(self, req: Request, idx: int) -> bool:
-        """Allocate one page into ``table[req.slot, idx]``; on exhaustion
-        first reclaim alias-cache entries LRU-first, then preempt. False
-        only when the requester is alone and the pool is still dry."""
+    def _alloc_page_into(self, req: Request, idx: int, table=None) -> bool:
+        """Allocate one page into ``table[req.slot, idx]`` (the target
+        table by default; the draft table shares the pool's id space); on
+        exhaustion first reclaim alias-cache entries LRU-first, then
+        preempt. False only when the requester is alone and the pool is
+        still dry."""
+        table = self._table if table is None else table
         while True:
             pid = self._pool.alloc()
             if pid is not None:
-                self._table[req.slot, idx] = pid
+                table[req.slot, idx] = pid
                 return True
             if self._alias_cache and self._prefix_cache.evict_lru():
                 continue
@@ -1053,11 +1564,23 @@ class ServingEngine:
                 return False
 
     def _ensure_pages(self, req: Request, upto_pos: int) -> bool:
-        """Cover position ``upto_pos`` in the slot's table."""
+        """Cover position ``upto_pos`` in the slot's table. Entries below
+        the request's window floor were freed on purpose (sliding-window
+        page lifetime) and stay free."""
         row = self._table[req.slot]
-        for idx in range(upto_pos // self._page + 1):
+        for idx in range(req._page_floor, upto_pos // self._page + 1):
             if not row[idx]:
                 if not self._alloc_page_into(req, idx):
+                    return False
+        return True
+
+    def _ensure_draft_pages(self, req: Request, upto_pos: int) -> bool:
+        """Cover position ``upto_pos`` in the slot's draft table (the draft
+        cache is linear: its pages live while the slot does)."""
+        row = self._dtable[req.slot]
+        for idx in range(upto_pos // self._page + 1):
+            if not row[idx]:
+                if not self._alloc_page_into(req, idx, table=self._dtable):
                     return False
         return True
 
@@ -1096,6 +1619,7 @@ class ServingEngine:
         self._release_slot_pages(victim.slot)
         self._slots.release(victim.slot)
         victim.slot = None
+        self._release_adapter(victim)
         try:
             self._prefilling.remove(victim)
         except ValueError:
@@ -1123,10 +1647,11 @@ class ServingEngine:
         after a preemption."""
         if req._serve_ids is None:
             req._serve_ids = req.prompt_ids
+        req._page_floor = 0  # every (re)admission prefills from page 0
         S = req._serve_ids.shape[1]
         C = self._chunk
         if self._paged:
-            need = -(-S // self._page)
+            need = -(-S // self._page) * self._spec_page_factor
             if need > self._pool.free_pages + self._reclaimable_pages():
                 self._flight.record("pool_exhausted", trace_id=req.trace_id,
                                     need_pages=need, free_pages=self._pool.free_pages)
@@ -1136,10 +1661,12 @@ class ServingEngine:
                     req._finish(RequestStatus.CANCELLED)
                     self._stats.record_finish(req.status)
                 return None
+        if not self._acquire_adapter(req):
+            return budget
         req.admitted_at = time.monotonic()
         slot = self._slots.assign(req)
         self._flight.record("admission", trace_id=req.trace_id, slot=slot, prompt_len=S,
-                            resumed=bool(req.tokens))
+                            adapter=req.adapter, resumed=bool(req.tokens))
         req.status = RequestStatus.PREFILLING
         seed = req.seed if req.seed is not None else (req.rng if req.rng is not None else 0)
         req._rng_key = int(seed) & _SEED_MASK
@@ -1149,7 +1676,7 @@ class ServingEngine:
         if self._prefix_cache is not None:
             n_full = S // C
             if n_full:
-                req._chunk_keys = self._prefix_keys(req._serve_ids, n_full)
+                req._chunk_keys = self._prefix_keys(req._serve_ids, n_full, req.adapter)
             # The FINAL chunk always re-runs (blocks hold KV, not the
             # logits the first token needs): at most chunks 0..n-2 restore.
             restorable = min(n_full, req._chunks_total - 1)
@@ -1184,6 +1711,20 @@ class ServingEngine:
                                  self._restore_stage, parts)
                     self._restore_event.record(self._stream)
                     restored_bytes += self._block_bytes
+                if blocks and self._dkv is not None:
+                    # The cache holds the target's K/V only: rebuild the
+                    # draft's for the restored span, chunk by chunk.
+                    for i in range(len(blocks)):
+                        if not self._ensure_draft_pages(req, (i + 1) * C - 1):
+                            raise RuntimeError(
+                                "page pool exhausted during the draft prefix rebuild; the "
+                                "admission gate's draft factor should make this impossible")
+                        parts = [("ids", req._serve_ids[0, i * C:(i + 1) * C]),
+                                 ("offset", [i * C]), ("drow", self._dtable[slot])]
+                        self._chunk_event.synchronize()  # its staging buffer is free again
+                        self._launch("draft_chunk", self._draft_chunk_step, self._dchunk_in,
+                                     self._dchunk_stage, parts)
+                        self._chunk_event.record(self._stream)
                 self._stats.record_prefix(looked_up=restorable, hit=len(blocks),
                                           bytes_restored=restored_bytes, aliased=aliased)
                 if blocks:
@@ -1195,12 +1736,22 @@ class ServingEngine:
         self._run_chunk(req)
         return budget - 1
 
-    def _prefix_keys(self, prompt_ids, n_full: int) -> list:
+    def _prefix_keys(self, prompt_ids, n_full: int, adapter: Optional[str] = None) -> list:
         """Hash-chain digests of the prompt's full chunks: chunk i's key
-        covers tokens ``[0, (i+1)*C)`` (each digest folds in the previous)."""
+        covers tokens ``[0, (i+1)*C)`` (each digest folds in the previous).
+        The chain is seeded with the KV dtype and the request's adapter: an
+        adapter changes the K/V a prefix produces (two tenants never share
+        blocks), and int8 pages carry their quantization and need their own
+        pool's scales (an int8 and a full-precision engine sharing a cache
+        never restore each other's blocks)."""
         flat = np.ascontiguousarray(prompt_ids[0], np.int32)
         C = self._chunk
-        keys, prev = [], b"chunk:%d" % C
+        seed = b"chunk:%d" % C
+        if self._kv_dtype is not None:
+            seed += b"/kv:" + self._kv_dtype.encode("utf-8")
+        if adapter is not None:
+            seed += b"/adapter:" + adapter.encode("utf-8")
+        keys, prev = [], seed
         for i in range(n_full):
             prev = hashlib.blake2b(prev + flat[i * C:(i + 1) * C].tobytes(),
                                    digest_size=16).digest()
@@ -1241,13 +1792,14 @@ class ServingEngine:
                 raise RuntimeError("page pool exhausted mid-prefill with no preemptable "
                                    "stream — the submit page bound should make this impossible")
             parts.append(("row", self._table[req.slot]))
-        self._launch("chunk", self._chunk_step, self._chunk_in, self._chunk_stage, parts)
-        self._chunk_host_out.copy_(self._chunk_out, non_blocking=True)
-        self._chunk_event.record(self._stream)
-        tb = time.monotonic()
-        self._chunk_event.synchronize()  # honest chunk timing, paced launches
-        self._blocked_s += time.monotonic() - tb
-        tok = int(self._chunk_host_out[0])
+        parts += self._adapter_part(req)
+        if self._dkv is not None:
+            if not self._ensure_draft_pages(req, offset + C - 1):
+                raise RuntimeError("page pool exhausted mid-prefill for draft KV; the admission "
+                                   "gate's draft factor should make this impossible")
+            parts.append(("drow", self._dtable[req.slot]))
+        tok = self._prefill_call("chunk", self._chunk_step, self._chunk_in, self._chunk_stage,
+                                 parts)
         dt_ms = (time.monotonic() - t0) * 1e3
         backlog = sum(1 for r in self._prefilling if r.status is RequestStatus.PREFILLING)
         self._stats.record_prefill_chunk(dt_ms, backlog=backlog)
@@ -1276,6 +1828,71 @@ class ServingEngine:
         req._next_chunk = i + 1
         if final:
             self._finish_prefill(req, tok)
+
+    def _admit(self, req: Request):
+        """Monolithic admission (``prefill_chunk=None``, JAX ``_admit``
+        ``:2723``): edge-pad the prompt on the host to its 128-bucket, run
+        it whole through that bucket's prefill step (a graph captured at
+        the bucket's first use), and commit the first token."""
+        if not self._acquire_adapter(req):
+            return
+        req.admitted_at = time.monotonic()
+        slot = self._slots.assign(req)
+        self._flight.record("admission", trace_id=req.trace_id, slot=slot,
+                            prompt_len=req.prompt_ids.shape[1], adapter=req.adapter)
+        req._serve_ids = req.prompt_ids
+        S = req.prompt_ids.shape[1]
+        W = self._bucket(S)
+        ids = req.prompt_ids[0]
+        if W > S:
+            ids = np.pad(ids, (0, W - S), mode="edge")
+        seed = req.seed if req.seed is not None else (req.rng if req.rng is not None else 0)
+        req._rng_key = int(seed) & _SEED_MASK
+        if W not in self._prefill_in:
+            self._prefill_in[W] = torch.zeros(W + 3 + (self._adapters is not None),
+                                              dtype=torch.int64, device=self.device)
+            self._prefill_stage[W] = self._host(self._prefill_in[W].numel())
+        parts = [("ids", ids), ("slot", [slot]), ("true_len", [S]),
+                 ("seed", [req._rng_key])] + self._adapter_part(req)
+        t0 = time.monotonic()
+        tok = self._prefill_call(f"prefill_{W}", lambda: self._prefill_step(W),
+                                 self._prefill_in[W], self._prefill_stage[W], parts)
+        dt_ms = (time.monotonic() - t0) * 1e3
+        self._stats.record_prefill_chunk(dt_ms, backlog=0)
+        self._tracer.emit("prefill", t0, dt_ms / 1e3, trace_id=req.trace_id,
+                          args={"width": W, "slot": slot})
+        self._finish_prefill(req, tok)
+
+    def _bucket(self, S: int) -> int:
+        return max(min(_bucket128(S), self._chunk_limit), S)
+
+    def _free_window_pages(self, req: Request):
+        """Sliding-window page lifetime (JAX ``:2706``): page ``j`` ends at
+        position ``(j+1)*P - 1``; every later query sits at ``q >= pos`` and
+        attends keys ``k > q - window`` only, so once ``(j+1)*P - 1 <= pos -
+        window`` the page is never read again and its reference is dropped
+        (its zeroed entry gathers scratch, which the same mask excludes)."""
+        pos = req._pos_base + len(req.tokens)
+        row = self._table[req.slot]
+        for j in range(self._pages_per_slot):
+            if (j + 1) * self._page - 1 > pos - self._page_window:
+                break
+            if row[j]:
+                self._pool.decref(int(row[j]))
+                row[j] = 0
+                self._window_frees += 1
+            req._page_floor = j + 1
+
+    def _prefill_call(self, name: str, step, device_in, stage, parts) -> int:
+        """Run a prefill step (a chunk, or a monolithic prompt) and wait for
+        its candidate first token: honest prefill timing, paced launches."""
+        self._launch(name, step, device_in, stage, parts)
+        self._chunk_host_out.copy_(self._chunk_out, non_blocking=True)
+        self._chunk_event.record(self._stream)
+        tb = time.monotonic()
+        self._chunk_event.synchronize()
+        self._blocked_s += time.monotonic() - tb
+        return int(self._chunk_host_out[0])
 
     def _finish_prefill(self, req: Request, token: int):
         """Prompt fully in KV: the request starts decoding. TTFT is stamped
@@ -1310,6 +1927,8 @@ class ServingEngine:
         ``ahead=True`` (one tick in flight): a stream within one token of
         its budget sits out (it retires at the in-flight tick), and page
         coverage reaches one position past the stale frontier."""
+        if self._spec_k is not None:
+            return self._dispatch_spec(running, ahead)
         live = []
         for slot, req in running:
             if ahead and req.max_new_tokens - len(req.tokens) <= 1:
@@ -1337,15 +1956,91 @@ class ServingEngine:
         parts = [("active", mask)]
         if self._paged:
             parts.append(("table", self._table))
+        return self._launch_tick("decode", self._decode_step, live, parts)
+
+    def _launch_tick(self, name: str, step, live, parts, lookup_hits: int = 0) -> _TickFlight:
+        """Launch the tick step (decode or spec) through the tick's next
+        staging buffer, start its outputs' copy home, and return its flight."""
         t0 = time.monotonic()
         buf = self._tick_buf
         self._tick_buf ^= 1
-        self._launch("decode", self._decode_step, self._decode_in, self._decode_stage[buf],
-                     parts)
+        self._launch(name, step, self._decode_in, self._decode_stage[buf], parts)
         self._decode_host_out[buf].copy_(self._decode_out.view(-1), non_blocking=True)
         event = self._decode_events[buf]
         event.record(self._stream)
-        return _TickFlight([(slot, req, req._preempted) for slot, req in live], t0, buf, event)
+        return _TickFlight([(slot, req, req._preempted) for slot, req in live], t0, buf, event,
+                           lookup_hits)
+
+    def _dispatch_spec(self, running, ahead: bool) -> Optional[_TickFlight]:
+        """The speculative twin of :meth:`_dispatch` (JAX ``:3234``): launch
+        one draft-and-verify tick (up to ``K + 1`` tokens a slot). Pages
+        are covered up to the furthest position the slot can commit; writes
+        past them go to scratch inside the step. ``ahead=True``: a stream
+        with fewer than 2 tokens of budget sits out (it retires at the
+        in-flight tick), coverage reaches two chains' worth of commits, and
+        ``remaining`` goes in stale (never below the true budget, which the
+        host's commit loop enforces)."""
+        K = self._spec_k
+        live = []
+        for slot, req in running:
+            if ahead and req.max_new_tokens - len(req.tokens) < 2:
+                continue  # retires at the in-flight tick (position bound)
+            if (self._emitter is not None and req.on_token is not None
+                    and self._emitter.backlogged(req)):
+                self._stats.record_emission_stall()
+                continue
+            live.append((slot, req))
+        for slot, req in live:
+            if req.status is not RequestStatus.RUNNING:
+                continue  # preempted by an earlier slot's allocation
+            rem = max(req.max_new_tokens - len(req.tokens), 1)
+            span = min((2 if ahead else 1) * (K + 1), rem)
+            cover = req._pos_base + len(req.tokens) + span - 1
+            if not self._ensure_pages(req, cover) or (
+                    self._dtable is not None and not self._ensure_draft_pages(req, cover)):
+                raise RuntimeError("page pool exhausted at a speculative tick with no "
+                                   "preemptable stream; the submit page bound should make "
+                                   "this impossible")
+        live = [(s, r) for s, r in live if r.status is RequestStatus.RUNNING]
+        if not live:
+            return None
+        mask = np.zeros((self.max_slots,), np.int64)
+        remaining = np.ones((self.max_slots,), np.int64)
+        for slot, req in live:
+            mask[slot] = 1
+            remaining[slot] = max(req.max_new_tokens - len(req.tokens), 1)
+        parts = [("active", mask), ("table", self._table)]
+        if self._dtable is not None:
+            parts.append(("dtable", self._dtable))
+        parts.append(("remaining", remaining))
+        hits = 0
+        if self._spec_mode == "lookup":
+            proposals = np.zeros((self.max_slots, K), np.int64)
+            for slot, req in live:
+                proposals[slot], hit = self._lookup_proposals(req)
+                hits += int(hit)
+            parts.append(("proposals", proposals))
+        return self._launch_tick("spec", self._spec_step, live, parts, hits)
+
+    def _lookup_proposals(self, req: Request):
+        """Prompt-lookup drafting (JAX ``:3319``, host numpy): the ``K``
+        tokens that followed the most recent earlier occurrence of the
+        stream's last ``n`` tokens (prompt and committed output); on a miss
+        the last token repeated, which still verifies correctly. Returns
+        ``(proposal [K], hit)``."""
+        K, n = self._spec_k, self._spec_lookup
+        seq = np.concatenate([np.asarray(req._serve_ids[0][:req._pos_base + 1], np.int64),
+                              np.asarray(req.tokens, np.int64)])
+        if len(seq) > n:
+            windows = np.lib.stride_tricks.sliding_window_view(seq[:-1], n)
+            hits = np.nonzero((windows == seq[-n:]).all(axis=1))[0]
+            if hits.size:
+                start = int(hits[-1]) + n
+                prop = seq[start:start + K]
+                if prop.size < K:
+                    prop = np.concatenate([prop, np.full((K - prop.size,), seq[-1], np.int64)])
+                return prop, True
+        return np.full((K,), seq[-1], np.int64), False
 
     def _reconcile(self, flight: _TickFlight):
         """Settle a launched tick: wait for its tokens (the one device sync
@@ -1358,8 +2053,12 @@ class ServingEngine:
         since the previous reconcile."""
         tb = time.monotonic()
         flight.event.synchronize()
-        out = self._decode_host_out[flight.buf].numpy()
-        toks, dones = out[:self.max_slots].copy(), out[self.max_slots:].astype(bool)
+        spec = self._spec_k is not None
+        out = self._decode_host_out[flight.buf].numpy().reshape(-1, self.max_slots).copy()
+        if spec:
+            emit, ns = out[:-1].T, out[-1]
+        else:
+            toks, dones = out[0], out[1].astype(bool)
         t1 = time.monotonic()
         self._blocked_s += t1 - tb
         self._heartbeat = (self._loop_iters, t1)
@@ -1368,28 +2067,60 @@ class ServingEngine:
         self._last_complete_t = t1
         host_s = max(0.0, interval - self._blocked_s)
         self._blocked_s = 0.0
-        committed = 0
+        committed = accepted = n_valid = 0
         for slot, req, epoch in flight.entries:
             if req.status is not RequestStatus.RUNNING or req._preempted != epoch:
                 continue  # stray lane: retired/preempted since launch
-            if not self._commit_token(req, int(toks[slot])):
-                continue  # callback failed; slot already freed
-            committed += 1
-            if (len(req.tokens) >= req.max_new_tokens
-                    or (not req.ignore_eos and bool(dones[slot]))):
-                self._retire(req, RequestStatus.COMPLETED)
+            n_valid += 1
+            if spec:
+                # The emitted chain commits like n decode ticks: it stops at
+                # max_new_tokens or the first EOS.
+                n = int(ns[slot])
+                accepted += n - 1
+                retired = False
+                for j in range(n):
+                    token = int(emit[slot, j])
+                    if not self._commit_token(req, token):
+                        retired = True
+                        break
+                    committed += 1
+                    if (len(req.tokens) >= req.max_new_tokens
+                            or (not req.ignore_eos and self.eos_token_id is not None
+                                and token == self.eos_token_id)):
+                        self._retire(req, RequestStatus.COMPLETED)
+                        retired = True
+                        break
+            else:
+                if not self._commit_token(req, int(toks[slot])):
+                    continue  # callback failed; slot already freed
+                committed += 1
+                retired = (len(req.tokens) >= req.max_new_tokens
+                           or (not req.ignore_eos and bool(dones[slot])))
+                if retired:
+                    self._retire(req, RequestStatus.COMPLETED)
+            if not retired and self._page_window is not None:
+                self._free_window_pages(req)
+        if spec:
+            lookup = self._spec_mode == "lookup"
+            self._stats.record_spec(proposed=self._spec_k * n_valid, accepted=accepted,
+                                    lookup_hits=flight.lookup_hits if lookup else None,
+                                    lookup_slots=n_valid if lookup else 0)
         self._decode_ticks += 1
         self._stats.record_tick(active_slots=len(flight.entries), committed_tokens=committed,
                                 max_slots=self.max_slots, seconds=interval,
                                 host_us=host_s * 1e6)
         tracer = self._tracer
         if tracer.enabled:
-            tracer.emit("decode_tick", flight.t_dispatch, t1 - flight.t_dispatch,
-                        args={"active": len(flight.entries), "committed": committed,
-                              "host_us": round(host_s * 1e6, 1)})
+            targs = {"active": len(flight.entries), "committed": committed,
+                     "host_us": round(host_s * 1e6, 1)}
+            if spec:
+                targs["spec_accepted"] = accepted
+            tracer.emit("decode_tick", flight.t_dispatch, t1 - flight.t_dispatch, args=targs)
             for slot, req, _ in flight.entries:
-                tracer.emit("itl", t1 - interval, interval, trace_id=req.trace_id,
-                            args={"slot": slot, "token": len(req.tokens)})
+                iargs = {"slot": slot, "token": len(req.tokens)}
+                if spec:
+                    iargs["accepted"] = int(ns[slot]) - 1
+                tracer.emit("itl", t1 - interval, interval, trace_id=req.trace_id, args=iargs)
         if self._decode_ticks >= self._next_profile_tick:
             self._next_profile_tick = self._decode_ticks + 128
             self._flight.record("tick_profile", tick=self._decode_ticks,
@@ -1434,6 +2165,9 @@ class ServingEngine:
             if self._paged:
                 self._release_slot_pages(req.slot)
             self._slots.release(req.slot)
+        self._release_adapter(req)
+        if req.adapter is not None:
+            self._stats.record_adapter_tokens(req.adapter, len(req.tokens))
         if req.priority is not None:
             self._stats.record_priority_tokens(req.priority, len(req.tokens))
         self._finish_req(req, status, error)

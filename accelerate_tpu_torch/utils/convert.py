@@ -95,3 +95,54 @@ def flax_from_state_dict(state_dict) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(array)
     return params
+
+
+def _port_name(path) -> str:
+    names = []
+    for part in path:
+        if part.startswith("layers_") and part[len("layers_"):].isdigit():
+            names += ["layers", part[len("layers_"):]]
+        else:
+            names.append(part)
+    return ".".join(names)
+
+
+def adapter_from_flax(tree) -> dict:
+    """A JAX package LoRA adapter (nested dicts mirroring the flax params,
+    each adapted module ``{"a": [in, r], "b": [r, out], "scale": []}``) ->
+    the port's adapter (``{"model.layers.0.self_attn.q_proj": {...}}``),
+    float32 CPU tensors. ``a`` and ``b`` keep their orientation."""
+    out: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) == {"a", "b", "scale"}:
+            out[_port_name(path)] = {k: torch.from_numpy(np.array(node[k], np.float32))
+                                     for k in ("a", "b", "scale")}
+        elif isinstance(node, dict):
+            for key, value in node.items():
+                walk(value, path + (key,))
+
+    walk(tree, ())
+    return out
+
+
+def adapter_to_flax(adapter: dict) -> dict:
+    """Inverse of :func:`adapter_from_flax`: nested dicts of float32 numpy
+    arrays at the flax paths (``layers.0`` -> ``layers_0``)."""
+    tree: dict = {}
+    for dotted, module in adapter.items():
+        parts = dotted.split(".")
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"layers_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        for k in ("a", "b", "scale"):
+            node[k] = torch.as_tensor(module[k]).detach().to("cpu", torch.float32).numpy()
+    return tree

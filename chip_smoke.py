@@ -154,6 +154,17 @@ SERVE = dict(exact_requests=12, exact_prompts=(5, 700), exact_new=32, exact_slot
              exact_max_len=768, preempt=(250, 64, 18), chunk=256, slots=8, max_len=2048, requests=24,
              prompts=(96, 1536), shared_prefix=512, new=(64, 128), arrival_s=1.0,
              prefix_cache_gib=4, seed=41)
+# Phase 4d: speculative, quantized and multi-tenant serving. Exactness on
+# 4c's set; full depth in 4c's shape and schedule (modes b-d on its first
+# 12 requests); a sliding-window model at Mistral-7B's shapes.
+EXTRA = dict(spec_tokens=4, spec_lookup=3, exact_window=64, lora_rank=16,
+             lora_targets=("q_proj", "k_proj", "v_proj", "o_proj"), adapters=4, cut_requests=12,
+             draft=dict(hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+                        tie_word_embeddings=True),
+             window=dict(config=dict(vocab_size=32000, rope_theta=10000.0, sliding_window=4096,
+                                     max_position_embeddings=32768),
+                         slots=4, max_len=8192, requests=6, prompts=(5000, 7000), new=128,
+                         seed=43))
 
 
 def fail(message: str):
@@ -1152,6 +1163,405 @@ def phase_serving(model):
     free_cuda()
 
 
+# -- phase 4d: speculative, quantized and multi-tenant serving --------------------
+
+
+def exact_requests(cfg, layers=2, **overrides):
+    """Phase 4c's exact set: a seeded f32 model of 2 layers at the model's
+    widths, its 12 staggered requests and their ``generate`` tokens."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import LlamaForCausalLM
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    small = dataclasses.replace(cfg, num_hidden_layers=layers, **overrides)
+    model = LlamaForCausalLM(small, device="cuda", dtype=torch.float32, generator=gen).eval()
+    lo, hi = SERVE["exact_prompts"]
+    lengths = [int(n) for n in torch.randint(lo, hi + 1, (SERVE["exact_requests"],),
+                                             generator=gen, device="cuda").tolist()]
+    work = [(p, SERVE["exact_new"]) for p in stream_prompts(cfg.vocab_size, lengths, gen)]
+    return model, work
+
+
+def generate_ref(model, prompt, max_new):
+    import torch
+
+    from accelerate_tpu_torch import generate
+
+    out = generate(model, torch.from_numpy(prompt).long().cuda(), max_new_tokens=max_new,
+                   cache_dtype=torch.float32)
+    return out[0, prompt.shape[1]:].cpu().numpy()
+
+
+def serve_exact(model, work, label, refs, check=True, captures_ok=False, adapters_of=None, **kw):
+    """Serve ``work`` staggered on an f32 engine; count the streams equal to
+    ``refs`` (a list, or ``refs(adapter, prompt, max_new)``) and, when
+    ``check``, fail unless all are and nothing was captured after warmup
+    (``captures_ok``: monolithic buckets capture at first use). With
+    ``adapters_of``, every third request is the base model's and the others
+    alternate its tenants. Returns (streams, metrics, capture counts,
+    captures after warmup, pool metrics)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import ServingEngine
+
+    shape = dict(max_slots=SERVE["exact_slots"], max_len=SERVE["exact_max_len"],
+                 prefill_chunk=SERVE["chunk"], cache_dtype=torch.float32)
+    shape.update(kw)
+    tenants = list(adapters_of or {})
+    names = [tenants[i % len(tenants)] if tenants and i % 3 else None for i in range(len(work))]
+    engine = ServingEngine(model, **shape)
+    try:
+        for name in tenants:
+            engine.register_adapter(name, adapters_of[name])
+        reqs, per = [], -(-len(work) // 3)
+        for w in range(3):
+            for (p, n), name in list(zip(work, names))[w * per:(w + 1) * per]:
+                reqs.append(engine.submit(p, max_new_tokens=n, adapter=name))
+            time.sleep(0.05)
+        outs = [r.result(300) for r in reqs]
+        s = engine.serving_metrics()
+        counts, events = engine.compile_watcher.counts(), engine.compile_watcher.events
+        pages = engine.page_pool_metrics()
+    finally:
+        engine.shutdown(drain=False, timeout=300)
+    ref_of = refs if not callable(refs) else [refs(name, p, n) for (p, n), name in zip(work, names)]
+    same = [int(np.argmax(o != r)) if np.any(o != r) else len(o) for o, r in zip(outs, ref_of)]
+    equal = sum(a == len(o) for a, o in zip(same, outs))
+    print(f"  f32, {label}: {equal} of {len(work)} streams equal the reference"
+          + ("" if check else f" (agreed tokens a stream: {same})")
+          + f"; graphs {sorted(counts)}, captures after warmup {events}")
+    if check and (equal != len(work) or (events and not captures_ok)):
+        fail(f"4d exactness, {label}: {equal} of {len(work)} streams token-exact, captures after "
+             f"warmup {events}")
+    return outs, s, counts, events, pages
+
+
+def serving_extras_exactness(cfg):
+    """Phase 4d's exact half, on 4c's staggered set at f32 and 2 layers."""
+    import dataclasses
+
+    import torch
+
+    from accelerate_tpu_torch import LlamaForCausalLM
+    from accelerate_tpu_torch.adapters import (
+        AdapterBank,
+        LoRAConfig,
+        dequantized_state_dict,
+        merge_adapter,
+        quantize_base_weights,
+    )
+
+    model, work = exact_requests(cfg)
+    refs = [generate_ref(model, p, n) for p, n in work]
+    K = EXTRA["spec_tokens"]
+
+    # Speculation: prompt lookup, a seeded 1-layer draft, the model itself.
+    serve_exact(model, work, f"prompt lookup (n-gram {EXTRA['spec_lookup']}, K {K})", refs,
+                spec_lookup=EXTRA["spec_lookup"], spec_tokens=K)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    draft = LlamaForCausalLM(dataclasses.replace(cfg, num_hidden_layers=1), device="cuda",
+                             dtype=torch.float32, generator=gen).eval()
+    serve_exact(model, work, f"1-layer draft (K {K})", refs, draft_model=draft, spec_tokens=K)
+    del draft
+    own = [(p, 1 + 6 * (K + 1)) for p, _ in work]   # full chains: no verify cut short
+    own_refs = [generate_ref(model, p, n) for p, n in own]
+    # A pool for every slot's target and draft pages: no preemption, whose
+    # resume would commit a token outside a verify.
+    pages = 2 * SERVE["exact_slots"] * -(-SERVE["exact_max_len"] // SERVE["chunk"])
+    _, s, _, _, _ = serve_exact(model, own, "the model drafting for itself", own_refs,
+                                draft_model=model, spec_tokens=K, async_ticks=False,
+                                max_pages=pages)
+    print(f"    drafts accepted {s['spec_accepted_tokens']} of {s['spec_proposed_tokens']} "
+          f"proposed, {s['spec_tokens_per_tick']:.3f} tokens a slot-tick summed")
+    if s["spec_accepted_tokens"] != s["spec_proposed_tokens"]:
+        fail("the model drafting for itself had a draft rejected")
+
+    # int8 base weights against the fp engine on the dequantized weights.
+    dq = LlamaForCausalLM(model.config, device="cuda", dtype=torch.float32)
+    dq.load_state_dict(dequantized_state_dict(quantize_base_weights(model)))
+    dq.eval()
+    fp_on_dq, _, _, _, _ = serve_exact(dq, work, "fp engine on the dequantized weights",
+                                       [generate_ref(dq, p, n) for p, n in work])
+    serve_exact(model, work, "weights_dtype=int8 against it", fp_on_dq, weights_dtype="int8")
+
+    # A mixed-adapter batch (base, two tenants) on the fp and the int8 base.
+    lora = LoRAConfig(rank=EXTRA["lora_rank"], target_modules=EXTRA["lora_targets"])
+    tenants = {f"t{i}": seeded_adapter(model, lora, 100 + i) for i in range(2)}
+    for base, label, kw in ((model, "fp", {}), (dq, "int8", dict(weights_dtype="int8"))):
+        refs_of = {}
+
+        def ref(name, p, n, base=base):
+            key = (name, p.tobytes(), n)
+            if key not in refs_of:
+                merged = base if name is None else merge_adapter(base, tenants[name])
+                refs_of[key] = generate_ref(merged, p, n)
+                del merged
+            return refs_of[key]
+
+        bank = AdapterBank(model, config=lora, max_adapters=3)
+        serve_exact(model, work, f"adapters (base + 2 tenants, rank {lora.rank}) on the "
+                    f"{label} base", ref, adapters=bank, adapters_of=tenants, **kw)
+        del bank
+    del dq
+
+    # Monolithic prefill: one capture per 128-bucket used.
+    _, _, counts, events, _ = serve_exact(model, work, "monolithic prefill (prefill_chunk=None)",
+                                          refs, captures_ok=True, prefill_chunk=None,
+                                          paged=False)
+    buckets = sorted(n for n in counts if n.startswith("prefill_"))
+    # The 128-bucket of each prompt (and of warmup's 1-token prompt), capped
+    # at max_len.
+    want = sorted({f"prefill_{min(-(-n // 128) * 128, SERVE['exact_max_len'])}"
+                   for n in [1] + [p.shape[1] for p, _ in work]})
+    print(f"    buckets captured {buckets} (each once), {len(events)} of them after warmup")
+    if buckets != want or any(v != 1 for v in counts.values()) or len(events) != len(want) - 1:
+        fail(f"monolithic prefill captured {counts}, expected one graph per bucket {want}")
+
+    # int8 KV pages: reported, not asserted (quantized K/V).
+    serve_exact(model, work, "kv_dtype=int8 against generate", refs, check=False,
+                kv_dtype="int8")
+    del model
+
+    # A ring model (window 64 < max_len): token-exact, with freed pages.
+    ring, rwork = exact_requests(cfg, sliding_window=EXTRA["exact_window"])
+    rrefs = [generate_ref(ring, p, n) for p, n in rwork]
+    _, _, _, _, pages = serve_exact(ring, rwork, f"sliding window {EXTRA['exact_window']} "
+                                    "(64-token pages)", rrefs, page_size=64)
+    print(f"    pages freed behind the window: {pages['window_pages_freed']}")
+    if pages["window_pages_freed"] < 1:
+        fail("the sliding-window engine freed no page")
+    del ring
+    free_cuda()
+
+
+def seeded_adapter(model, lora, seed):
+    """A random adapter for ``model``: ``a`` as LoRA initialises it, ``b``
+    nonzero, both from a seeded generator on the card."""
+    import torch
+
+    from accelerate_tpu_torch.adapters import init_lora_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ad = init_lora_params(gen, model, lora)
+    for mod in ad.values():
+        mod["b"] = 0.05 * torch.randn(mod["b"].shape, generator=gen, device="cuda")
+    return ad
+
+
+def tick_replay(engine):
+    """One tick of the stopped ``engine`` with every slot active on a full
+    page table (decode, or the speculative verify), replayed from its graph."""
+    import numpy as np
+
+    S, Np = engine.max_slots, engine._pages_per_slot
+    table = (1 + np.arange(S * Np) % engine.total_pages).reshape(S, Np)
+    parts = [("active", np.ones(S, np.int64)), ("table", table)]
+    name, step = "decode", engine._decode_step
+    if engine._spec_k is not None:
+        name, step = "spec", engine._spec_step
+        if engine._dtable is not None:
+            parts.append(("dtable", table))
+        parts.append(("remaining", np.full(S, engine._spec_k + 1, np.int64)))
+        if engine._spec_mode == "lookup":
+            parts.append(("proposals", np.zeros((S, engine._spec_k), np.int64)))
+
+    def tick():
+        engine._launch(name, step, engine._decode_in, engine._decode_stage[0], parts)
+        engine._decode_host_out[0].copy_(engine._decode_out.view(-1))
+
+    return tick
+
+
+def serve_schedule(engine, schedule):
+    """Submit ``schedule`` on its arrival times, wait, check completion and
+    captures; returns (requests, wall s, metrics, ITL samples ms)."""
+    import torch
+
+    from accelerate_tpu_torch.serving import RequestStatus
+
+    t0 = time.perf_counter()
+    reqs = []
+    for arrival, prompt, new, adapter in schedule:
+        time.sleep(max(0.0, arrival - (time.perf_counter() - t0)))
+        reqs.append(engine.submit(prompt, max_new_tokens=new, ignore_eos=True, adapter=adapter))
+    for r in reqs:
+        r.wait(900)
+    wall = time.perf_counter() - t0
+    bad = [r for r in reqs if r.status is not RequestStatus.COMPLETED]
+    if bad or any(len(r.tokens) != item[2] for r, item in zip(reqs, schedule)):
+        fail(f"{len(bad)} of {len(reqs)} requests did not complete: {bad[:3]}")
+    if engine.compile_watcher.events:
+        fail(f"captures after warmup: {engine.compile_watcher.events}")
+    s = engine.serving_metrics()
+    itl = [dur * 1e3 for _, _, dur, name, _, _, _ in engine.trace_events() if name == "itl"]
+    torch.cuda.synchronize()
+    return reqs, wall, s, itl
+
+
+def full_depth_modes(model):
+    """Phase 4d at full depth: 4c's engine shape and seeded schedule in four
+    modes (speculation by lookup and by a draft model, int8 KV, int8 weights
+    with 4 LoRA tenants)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
+    from accelerate_tpu_torch.adapters import AdapterBank, LoRAConfig
+
+    card = card_line()
+    cfg = model.config
+    own = {t.data_ptr(): t.numel() * t.element_size() for t in model.state_dict().values()}
+    schedule = serving_schedule(cfg.vocab_size,
+                                torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    shape = dict(max_slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_chunk=SERVE["chunk"],
+                 cache_dtype=torch.bfloat16, trace_capacity=1 << 15)
+    fp_pool = ServingEngine(model, autostart=False, **shape)
+    fp_bytes = fp_pool.kv_cache_per_chip_bytes()
+    fp_pool.shutdown()
+    del fp_pool
+    free_cuda()
+    K, cut = EXTRA["spec_tokens"], EXTRA["cut_requests"]
+    lora = LoRAConfig(rank=EXTRA["lora_rank"], target_modules=EXTRA["lora_targets"])
+    tenants = [f"t{i}" for i in range(EXTRA["adapters"])]
+
+    def draft_model():
+        gen = torch.Generator(device="cuda").manual_seed(53)
+        dcfg = LlamaConfig.llama3_8b(**EXTRA["draft"])
+        return LlamaForCausalLM(dcfg, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+
+    modes = [
+        ("a", f"spec_lookup={EXTRA['spec_lookup']}, spec_tokens={K}", None,
+         lambda: dict(spec_lookup=EXTRA["spec_lookup"], spec_tokens=K)),
+        ("b", f"draft_model=Llama-3.2-1B shape, spec_tokens={K}", cut,
+         lambda: dict(draft_model=draft_model(), spec_tokens=K,
+                      max_pages=2 * SERVE["slots"] * -(-SERVE["max_len"] // SERVE["chunk"]))),
+        ("c", "kv_dtype=int8", cut, lambda: dict(kv_dtype="int8")),
+        ("d", f"weights_dtype=int8, {len(tenants)} LoRA adapters of rank {lora.rank} on q/k/v/o",
+         cut, lambda: dict(weights_dtype="int8",
+                           adapters=AdapterBank(model, config=lora,
+                                                max_adapters=len(tenants) + 1))),
+    ]
+    results = {}
+    for key, label, n_req, make in modes:
+        work = schedule if n_req is None else schedule[:n_req]
+        if n_req is not None:
+            print(f"  mode ({key}) runs the first {n_req} of the {len(schedule)} requests of 4c's "
+                  "schedule (to keep the script's time)")
+        items = [(a, p, n, tenants[i % len(tenants)] if key == "d" else None)
+                 for i, (a, p, n) in enumerate(work)]
+        torch.cuda.reset_peak_memory_stats()
+        kw = make()
+        t0 = time.perf_counter()
+        engine = ServingEngine(model, **shape, **kw)
+        warm_s = time.perf_counter() - t0
+        if key == "d":
+            for i, name in enumerate(tenants):
+                engine.register_adapter(name, seeded_adapter(model, lora, 200 + i))
+        try:
+            reqs, wall, s, itl = serve_schedule(engine, items)
+            pool_bytes = engine.kv_cache_per_chip_bytes()
+            bank = engine.adapters.counters() if engine.adapters is not None else None
+            peak = torch.cuda.max_memory_allocated()
+            # The int8 projections are a copy beside the caller's model.
+            copy_bytes = sum(t.numel() * t.element_size()
+                             for t in engine.module.state_dict().values()
+                             if t.data_ptr() not in own)
+        finally:
+            engine.shutdown(drain=False, timeout=600)
+        with torch.inference_mode(), torch.cuda.stream(engine._stream):
+            tick = tick_replay(engine)
+            tick_ms = timed_ms(tick, 10)
+            device_breakdown(f"({key}) tick, graph replay", tick, top=5)
+            del tick   # its closure holds the engine: drop it before the next mode
+        tokens = sum(len(r.tokens) for r in reqs)
+        line = (f"  ({key}) {label}, bf16, full depth ({card}): warmup {warm_s:.1f} s; "
+                f"{len(reqs)} requests, {tokens} new tokens in {wall:.3f} s; graphed tick "
+                f"{tick_ms:.3f} ms ({SERVE['slots']} slots); decode "
+                f"{s['decode_tokens_per_sec']:.1f} "
+                f"tokens/s over {s['decode_ticks']} ticks; TTFT p50 {s['ttft_ms_p50']:.1f} ms, p95 "
+                f"{s['ttft_ms_p95']:.1f} ms; ITL p50 {percentile(itl, 0.5):.2f} ms, p99 "
+                f"{percentile(itl, 0.99):.2f} ms ({len(itl)} samples); host "
+                f"{s['host_us_per_tick']:.1f} us a tick; peak memory {peak / 2**30:.2f} GiB "
+                f"(the bf16 model {sum(own.values()) / 2**30:.2f} GiB of it); "
+                f"pool {pool_bytes / 2**30:.3f} GiB (4c's bf16 pool {fp_bytes / 2**30:.3f} GiB); "
+                f"captures after warmup 0")
+        if key in ("a", "b"):
+            # A round is one slot's verify: K drafts proposed.
+            per_round = K * s["spec_accepted_tokens"] / max(1, s["spec_proposed_tokens"])
+            line += (f"; accepted drafts a slot's round {per_round:.3f}"
+                     f" (accept rate {s['spec_accept_rate']:.4f}, lookup hit rate "
+                     f"{s['spec_lookup_hit_rate']:.4f})")
+        if bank is not None:
+            line += f"; bank loads {bank['loads']}, evictions {bank['evictions']}"
+        if copy_bytes:
+            line += (f"; int8 weight copy {copy_bytes / 2**30:.2f} GiB beside the caller's bf16 "
+                     "model, which stays resident while the caller holds it")
+        print(line)
+        results[key] = dict(tick_ms=tick_ms, pool_bytes=pool_bytes)
+        del engine, kw, reqs
+        free_cuda()
+    if results["c"]["pool_bytes"] >= fp_bytes:
+        fail(f"the int8 KV pool ({results['c']['pool_bytes']} B) is not below 4c's ({fp_bytes} B)")
+    return results
+
+
+def sliding_window_full_width():
+    """Phase 4d's ring model at Mistral-7B's shapes: pages behind the
+    window freed as streams advance."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, ServingEngine
+
+    card = card_line()
+    W = EXTRA["window"]
+    cfg = LlamaConfig.llama3_8b(**W["config"])
+    gen = torch.Generator(device="cuda").manual_seed(W["seed"])
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+    build_s = time.perf_counter() - t0
+    lo, hi = W["prompts"]
+    lengths = torch.randint(lo, hi + 1, (W["requests"],), generator=gen, device="cuda").tolist()
+    items = [(0.0, p, W["new"], None) for p in stream_prompts(cfg.vocab_size, lengths, gen)]
+    engine = ServingEngine(model, max_slots=W["slots"], max_len=W["max_len"],
+                           prefill_chunk=SERVE["chunk"], cache_dtype=torch.bfloat16,
+                           prefix_cache_mb=0, trace_capacity=1 << 15)
+    try:
+        reqs, wall, s, itl = serve_schedule(engine, items)
+        pages = engine.page_pool_metrics()
+    finally:
+        engine.shutdown(drain=False, timeout=600)
+    with torch.inference_mode(), torch.cuda.stream(engine._stream):
+        tick_ms = timed_ms(tick_replay(engine), 10)
+    P = engine.page_size
+    unfreed = sum(sorted((-(-(p.shape[1] + n) // P) for _, p, n, _ in items),
+                         reverse=True)[:W["slots"]])
+    print(f"  sliding window {cfg.sliding_window}, Mistral-7B shapes ({cfg.num_hidden_layers} "
+          f"layers, vocab {cfg.vocab_size}), bf16 ({card}): built in {build_s:.1f} s; "
+          f"{W['slots']} slots x {W['max_len']} tokens; {len(reqs)} requests of "
+          f"{min(lengths)}-{max(lengths)} prompt tokens + {W['new']} new in {wall:.3f} s; pages "
+          f"freed behind the window {pages['window_pages_freed']}; pages in use at most "
+          f"{s['pages_used_max']} of {pages['pages_total']} (without freeing the {W['slots']} "
+          f"largest streams hold {unfreed}); graphed tick {tick_ms:.3f} ms; TTFT p50 "
+          f"{s['ttft_ms_p50']:.1f} ms, p95 {s['ttft_ms_p95']:.1f} ms; ITL p50 "
+          f"{percentile(itl, 0.5):.2f} ms; decode {s['decode_tokens_per_sec']:.1f} tokens/s")
+    if pages["window_pages_freed"] < 1:
+        fail("the sliding-window engine freed no page at full width")
+    del engine, model
+    free_cuda()
+
+
+def phase_serving_extras(model):
+    """Phase 4d (see the module docstring)."""
+    serving_extras_exactness(model.config)
+    full_depth_modes(model)
+    sliding_window_full_width()
+
+
 def device_breakdown(label, fn, steps=1, top=4):
     """Profile ``fn`` once and print where the device time went: wall time,
     summed kernel time (the device's busy share of the wall), kernel time by
@@ -1754,6 +2164,12 @@ def main():
     serving_counts = read_counts()
     if any(serving_counts.values()):
         fail("the serving engine launched a flash kernel; its attention is the einsum core")
+    print("== 4d. speculative, quantized and multi-tenant serving")
+    reset_counts()
+    phase_serving_extras(model)
+    extras_counts = read_counts()
+    if any(extras_counts.values()):
+        fail("4d launched a flash kernel; the serving path's attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -1770,6 +2186,7 @@ def main():
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
     for entry in kernels:
         entry["serving_launches"] = serving_counts[entry["name"]]
+        entry["serving_extras_launches"] = extras_counts[entry["name"]]
         if entry["name"].endswith("_sm90"):
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
@@ -1808,6 +2225,22 @@ def main_serving():
     phase_serving(model)
     if any(read_counts().values()):
         fail("the serving engine launched a flash kernel")
+
+
+def main_serving_extras():
+    """Phase 4d alone (no kernel is built: the serving path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    model, _, _ = build_model()
+    reset_counts()
+    phase_serving_extras(model)
+    if any(read_counts().values()):
+        fail("4d launched a flash kernel")
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

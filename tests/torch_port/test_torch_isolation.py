@@ -15,6 +15,7 @@ import accelerate_tpu_torch
 from accelerate_tpu_torch import Accelerator, LlamaConfig, LlamaForCausalLM, PipelinedLlamaForCausalLM
 from accelerate_tpu_torch import DataLoaderShard, NumpyDataLoader, prepare_data_loader
 from accelerate_tpu_torch import ServingEngine, init_kv_cache, make_global_batch, resolve_device
+from accelerate_tpu_torch import AdapterBank, LoRAConfig, quantize_base_weights
 from accelerate_tpu_torch.bench import build_train_step, run_bench
 
 REPO = Path(__file__).resolve().parents[2]
@@ -54,6 +55,9 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert f"accelerate_tpu_torch/serving/{name}.py" in scanned, name
     for name in ("__init__", "tracing", "flight_recorder"):
         assert f"accelerate_tpu_torch/observability/{name}.py" in scanned, name
+    for name in ("__init__", "lora", "registry", "quantize"):
+        assert f"accelerate_tpu_torch/adapters/{name}.py" in scanned, name
+    assert "accelerate_tpu_torch/utils/quantization.py" in scanned
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
     assert not bad, f"the port imports the JAX side: {bad}"
@@ -74,6 +78,7 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.utils.random, accelerate_tpu_torch.parallel.sharding\n"
         "import accelerate_tpu_torch.serving, accelerate_tpu_torch.serving.engine\n"
         "import accelerate_tpu_torch.serving.graphs, accelerate_tpu_torch.observability\n"
+        "import accelerate_tpu_torch.adapters, accelerate_tpu_torch.utils.quantization\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -135,7 +140,9 @@ def test_package_exports_the_slice():
                  "save_model", "load_safetensors_model", "resolve_remat_policy",
                  "ProjectConfiguration", "DataLoaderConfiguration",
                  "GradientAccumulationPlugin", "ServingEngine", "ServingStats",
-                 "GraphCaptureWatcher"):
+                 "GraphCaptureWatcher", "AdapterBank", "AdapterBankFull", "LoRAConfig",
+                 "prepare_lora", "save_adapter", "load_adapter", "quantize_base_weights",
+                 "quantize_tensor", "speculative_emit_keyed"):
         assert hasattr(accelerate_tpu_torch, name), name
     for method in ("prepare", "compile_train_step", "accumulate", "backward", "clip_grad_norm_",
                    "save_state", "load_state", "wait_for_checkpoint", "gather_for_metrics",
@@ -143,3 +150,22 @@ def test_package_exports_the_slice():
                    "serving_metrics"):
         assert callable(getattr(Accelerator, method)), method
     assert callable(run_bench)
+
+
+def test_engine_takes_the_serving_slice_arguments():
+    """The engine takes every constructor argument of the JAX engine but the
+    fleet's (A7: chaos, trace_dir) and the mesh's (A8: tp, mesh, devices),
+    which raise; the new public names build what it serves."""
+    import inspect
+
+    params = inspect.signature(ServingEngine.__init__).parameters
+    for name in ("draft_model", "spec_tokens", "spec_lookup", "kv_dtype", "weights_dtype",
+                 "adapters", "prefill_chunk"):
+        assert name in params, name
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    bank = AdapterBank(model, config=LoRAConfig(rank=2), max_adapters=2)
+    engine = ServingEngine(model, device="cpu", autostart=False, adapters=bank, kv_dtype="int8",
+                           weights_dtype="int8", spec_lookup=2)
+    engine.shutdown()
+    assert engine.adapters is bank and engine.kv_dtype == "int8"
+    assert type(quantize_base_weights(model).lm_head) is type(model.lm_head)  # the head stays fp

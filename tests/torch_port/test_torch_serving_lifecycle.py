@@ -1,7 +1,8 @@
 """The serving engine's lifecycle on the CPU: cancel, timeouts,
 backpressure, drain, shutdown without drain, the preemption drain through
 ``Accelerator``, a killed engine, the accelerator's shared counters, the
-options not ported yet, and validation. Timing-sensitive tests run a model
+options not ported yet (and those of ROADMAP A5/A6, which now build), and
+validation. Timing-sensitive tests run a model
 whose every forward sleeps, so they do not depend on the host's speed."""
 
 import json
@@ -157,17 +158,40 @@ def test_spans_and_flight_events(model, make_engine):
     (dict(chaos="schedule"), "A7"), (dict(trace_dir="/nowhere"), "A7"),
     (dict(tp=2), "A8"), (dict(mesh="mesh"), "A8"), (dict(devices=["d"]), "A8")])
 def test_options_not_ported_name_their_roadmap_item(model, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-        ServingEngine(model, device="cpu", autostart=False, **kwargs)
+    """A7 and A8 options raise, naming their ROADMAP item. The A5 and A6
+    options, which this test once saw refused, now build an engine that
+    reports them (the placeholders stand for a draft model and a bank)."""
+    if item in ("A7", "A8"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            ServingEngine(model, device="cpu", autostart=False, **kwargs)
+        return
+    from accelerate_tpu_torch.adapters import AdapterBank
+
+    stand_in = {"draft": model, "bank": AdapterBank(model, max_adapters=2)}
+    kwargs = {k: stand_in.get(v, v) if isinstance(v, str) else v for k, v in kwargs.items()}
+    engine = ServingEngine(model, device="cpu", autostart=False, **kwargs)
+    engine.shutdown()
+    if "draft_model" in kwargs or "spec_lookup" in kwargs:
+        assert engine._spec_mode == ("draft" if "draft_model" in kwargs else "lookup")
+    assert engine.kv_dtype == kwargs.get("kv_dtype")
+    assert engine.weights_dtype == kwargs.get("weights_dtype")
+    assert engine.adapters is kwargs.get("adapters")
+    assert engine.paged is ("prefill_chunk" not in kwargs)
 
 
 def test_ring_models_wait_for_page_freeing():
+    """A window narrower than max_len: the paged engine serves it and frees
+    out-of-window pages; dense slot rows cannot rotate a ring and raise."""
     ring = LlamaForCausalLM(LlamaConfig.tiny(sliding_window=16), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A5"):
-        ServingEngine(ring, max_len=64, device="cpu", autostart=False)
+    with pytest.raises(NotImplementedError, match="paged engine"):
+        ServingEngine(ring, max_len=64, paged=False, device="cpu", autostart=False)
+    engine = ServingEngine(ring, max_len=64, prefill_chunk=8, device="cpu", autostart=False)
+    engine.shutdown()
+    assert engine._page_window == 16
     wide = LlamaForCausalLM(LlamaConfig.tiny(sliding_window=64), device="cpu")
     engine = ServingEngine(wide, max_len=64, device="cpu", autostart=False)
     engine.shutdown()  # a window as wide as max_len is full attention
+    assert engine._page_window is None
 
 
 def test_validation(model, make_engine):

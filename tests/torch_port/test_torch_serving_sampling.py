@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from accelerate_tpu.generation import _make_warper as jax_make_warper
-from accelerate_tpu_torch.serving.engine import _gumbel, _make_keyed_selector
+from accelerate_tpu_torch.generation import _gumbel, _make_keyed_selector
 from torch_serving_common import WAIT, make_engine, pair, prompts  # noqa: F401
 
 SAMPLING = dict(do_sample=True, temperature=0.8, top_k=20, top_p=0.95)
