@@ -12,8 +12,10 @@ continuous-batching ``ServingEngine`` (chunked or monolithic prefill, paged
 KV in the cache dtype or int8, prefix cache, async ticks, draft-model and
 prompt-lookup speculation, sliding-window page freeing, multi-tenant LoRA
 adapters over full-precision or int8 base weights) on fixed-shape steps
-under CUDA graphs. Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+under CUDA graphs, with the fleet in front of it (``serving``: the replica
+router with failover, the supervisor, scripted faults, the HTTP gateway;
+``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .accelerator import AcceleratedModel, Accelerator

@@ -30,7 +30,9 @@ policy) and the preemption handler (SIGTERM latches
 :attr:`Accelerator.preemption_requested`, which a serving engine built with
 ``accelerator=`` answers by draining). ``serving_stats`` is shared by every
 ``ServingEngine(accelerator=...)``: ``serving_metrics()`` and
-``log(include_serving=True)`` read it.
+``log(include_serving=True)`` read it; ``gateway_stats`` likewise by every
+``ServingGateway(accelerator=...)`` (``gateway_metrics()``,
+``log(include_gateway=True)``).
 
 Multi-device meshes, FSDP (its activation checkpointing included),
 optimizer-state host offload, ``LocalSGD`` and ``join_uneven_inputs`` are
@@ -67,7 +69,7 @@ from .utils.dataclasses import (
     ProjectConfiguration,
 )
 from .utils.operations import gather, gather_object, pad_across_processes, recursively_apply, reduce
-from .serving.metrics import ServingStats
+from .serving.metrics import GatewayStats, ServingStats
 from .utils.profiling import PipelineStats
 
 
@@ -208,6 +210,8 @@ class Accelerator:
         # and this accelerator tell one story: serving_metrics(), profile()
         # and log(include_serving=True) read it.
         self.serving_stats = ServingStats()
+        # The same for ServingGateway(accelerator=...): its HTTP counters.
+        self.gateway_stats = GatewayStats()
         self._models: list[AcceleratedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
@@ -385,6 +389,12 @@ class Accelerator:
         tokens/s, slot occupancy, prefill and prefix-cache keys) of every
         ``ServingEngine(accelerator=self)``: ``ServingStats.summary``."""
         return self.serving_stats.summary()
+
+    def gateway_metrics(self) -> dict:
+        """The HTTP counters (requests by status class, SSE streams, in
+        flight) of every ``ServingGateway(accelerator=self)``:
+        ``GatewayStats.summary``."""
+        return self.gateway_stats.summary()
 
     # -- gradient accumulation -------------------------------------------
 
@@ -660,7 +670,8 @@ class Accelerator:
                    or DEFAULT_TRACE_DIR)
         return (handler.build(log_dir=log_dir, device=self.device)
                 .attach_pipeline_stats(self.pipeline_stats)
-                .attach_serving_stats(self.serving_stats))
+                .attach_serving_stats(self.serving_stats)
+                .attach_gateway_stats(self.gateway_stats))
 
     # -- triggers, memory ----------------------------------------------------
 
@@ -746,10 +757,12 @@ class Accelerator:
                                          init_kwargs=init_kwargs or {})
 
     def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None,
-            include_input_pipeline: bool = False, include_serving: bool = False):
+            include_input_pipeline: bool = False, include_serving: bool = False,
+            include_gateway: bool = False):
         """Log scalars to every tracker; ``include_input_pipeline`` adds the
-        input pipeline's breakdown under ``input_pipeline/``, and
-        ``include_serving`` the serving engines' under ``serving/``."""
+        input pipeline's breakdown under ``input_pipeline/``,
+        ``include_serving`` the serving engines' under ``serving/`` and
+        ``include_gateway`` the gateways' under ``gateway/``."""
         if include_input_pipeline:
             from .tracking import with_input_pipeline_metrics
 
@@ -758,6 +771,10 @@ class Accelerator:
             from .tracking import with_serving_metrics
 
             values = with_serving_metrics(values, self.serving_stats)
+        if include_gateway:
+            from .tracking import with_gateway_metrics
+
+            values = with_gateway_metrics(values, self.gateway_stats)
         for tracker in self.trackers:
             tracker.log(values, step=step, **((log_kwargs or {}).get(tracker.name, {})))
 

@@ -97,9 +97,19 @@ serves a copy of the model with int8 base projections
 The engine runs its own thread, which sets ``torch.inference_mode`` and
 the engine's CUDA stream for itself and captures the graphs at warmup.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``chaos`` and ``trace_dir`` (A7); ``tp``, ``mesh`` and
-``devices`` (A8).
+Fleet hooks (JAX ``:1006-1031``, ``:2020-2053``): a
+:class:`~.chaos.ChaosSchedule` (``chaos=``) runs at the top of every loop
+iteration, before the heartbeat; a chaos wedge sleeps inside the next
+reconcile barrier, before the tick's sync, publishing no heartbeat;
+``trace_dir=`` dumps ``<name>-trace.json`` and ``<name>-flight.json`` on
+death and on shutdown; :meth:`page_drain_rate` and
+:meth:`projected_page_deficit` feed the router's and the autoscaler's
+pressure signals. A run loop that dies waits for its stream before it
+retires its requests, so no replay of a dead engine is still running when
+they fail over.
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: ``tp``, ``mesh`` and ``devices`` (A8).
 """
 
 from __future__ import annotations
@@ -108,6 +118,7 @@ import collections
 import contextlib
 import hashlib
 import itertools
+import os
 import threading
 import time
 from typing import Optional
@@ -319,6 +330,11 @@ class ServingEngine:
       stats: a :class:`~.metrics.ServingStats` to record into.
       tracing / trace_capacity / flight_capacity: the span tracer and the
         flight recorder.
+      trace_dir: when set, ``<name>-trace.json`` and ``<name>-flight.json``
+        are written there on shutdown or death (``serve --trace-dir``).
+      chaos: a :class:`~.chaos.ChaosSchedule` of scripted faults (kill,
+        hang, slow ticks, a wedge inside a launched tick) keyed on decode
+        ticks, applied from the run loop.
       async_ticks: the one-tick-ahead runtime (default); False ticks
         synchronously and runs callbacks inline.
       emission_queue: per-request bound on queued callbacks (async).
@@ -346,8 +362,6 @@ class ServingEngine:
                  async_ticks: Optional[bool] = None, emission_queue: int = 256,
                  autostart: bool = True, warmup: bool = True, idle_poll_s: float = 0.005,
                  device=None):
-        if chaos is not None or trace_dir is not None:
-            raise _later("chaos= and trace_dir=", "A7")
         if tp is not None or mesh is not None or devices is not None:
             raise _later("tensor-parallel serving (tp=, mesh=, devices=)", "A8")
         module = _cached_lm(model, "model")
@@ -539,9 +553,18 @@ class ServingEngine:
         self._fail_injection: Optional[BaseException] = None
         self._thread: Optional[threading.Thread] = None
         self._warmup_on_start = bool(warmup)
+        # Liveness and fault injection (supervisor.py, chaos.py): the loop
+        # publishes a heartbeat each iteration unless a chaos hang froze
+        # it; a chaos wedge sleeps ``_wedge_s`` inside the next reconcile.
+        self._chaos = chaos
+        self._trace_dir = trace_dir
         self._loop_iters = 0
         self._decode_ticks = 0
         self._heartbeat = (0, time.monotonic())
+        self._heartbeat_frozen = False
+        self._wedge_s = 0.0
+        # (time, pages freed so far) a tick: the page_drain_rate samples.
+        self._drain_samples: collections.deque = collections.deque(maxlen=256)
         self._async = True if async_ticks is None else bool(async_ticks)
         if int(emission_queue) < 1:
             raise ValueError(f"emission_queue must be >= 1 (got {emission_queue})")
@@ -1001,6 +1024,7 @@ class ServingEngine:
             return
         self._accepting = True
         self._heartbeat = (self._loop_iters, time.monotonic())
+        self._heartbeat_frozen = False
         if self._async and (self._emitter is None or not self._emitter.alive):
             self._emitter = _TokenEmitter(self._emission_queue)
         self._thread = threading.Thread(target=self._run, name="serving-engine", daemon=True)
@@ -1060,6 +1084,8 @@ class ServingEngine:
         self._queue.close()
         if self._emitter is not None:
             self._emitter.close(timeout)
+        if self._trace_dir is not None and self._error is None:
+            self._dump_debug_files()
         if self._error is not None:
             raise RuntimeError("serving engine died") from self._error
 
@@ -1132,6 +1158,35 @@ class ServingEngine:
     @property
     def decode_ticks(self) -> int:
         return self._decode_ticks
+
+    def page_drain_rate(self, window_s: float = 15.0) -> float:
+        """Pages freed per second over the last ``window_s`` of decode
+        ticks (0.0 when dense or not yet observed): the denominator of the
+        gateway's pressure-shed Retry-After."""
+        if not self._paged:
+            return 0.0
+        samples = list(self._drain_samples)
+        if len(samples) < 2:
+            return 0.0
+        now = time.monotonic()
+        recent = [s for s in samples if now - s[0] <= window_s]
+        if len(recent) < 2:
+            recent = samples[-2:]
+        (t0, f0), (t1, f1) = recent[0], recent[-1]
+        if t1 <= t0 or f1 <= f0:
+            return 0.0
+        return (f1 - f0) / (t1 - t0)
+
+    def projected_page_deficit(self, total_tokens: int) -> int:
+        """Pages the pool is short if a ``total_tokens`` request is admitted
+        behind the queued work: its pages plus the queue's, less the free
+        pages, floored at 0 (a dense engine is never short)."""
+        if not self._paged or total_tokens <= 0:
+            return 0
+        factor = self._spec_page_factor
+        needed = -(-int(total_tokens) // self._page) * factor
+        queued = -(-int(self._queue.pending_tokens) // self._page) * factor
+        return max(0, needed + queued - self._pool.free_pages)
 
     @property
     def load(self) -> float:
@@ -1283,6 +1338,17 @@ class ServingEngine:
         """The flight-recorder dump captured when the run loop died."""
         return self._postmortem
 
+    def _dump_debug_files(self):
+        """Best-effort trace and flight dump into ``trace_dir`` (a full disk
+        must not mask a death or a shutdown)."""
+        try:
+            os.makedirs(self._trace_dir, exist_ok=True)
+            base = os.path.join(self._trace_dir, self._tracer.name)
+            self._tracer.dump(base + "-trace.json")
+            self._flight.dump_json(base + "-flight.json")
+        except OSError:
+            pass
+
     @property
     def adapters(self) -> Optional[AdapterBank]:
         return self._adapters
@@ -1373,8 +1439,13 @@ class ServingEngine:
         flight: Optional[_TickFlight] = None
         try:
             while not self._stop:
+                # Chaos first (a scripted kill sets the injection checked
+                # next), then the heartbeat, unless a chaos hang froze it.
                 self._loop_iters += 1
-                self._heartbeat = (self._loop_iters, time.monotonic())
+                if self._chaos is not None:
+                    self._chaos.apply(self)
+                if not self._heartbeat_frozen:
+                    self._heartbeat = (self._loop_iters, time.monotonic())
                 if self._fail_injection is not None:
                     raise self._fail_injection
                 if (self._accelerator is not None
@@ -1471,6 +1542,15 @@ class ServingEngine:
             self._error = e
             self._flight.record("fatal", error=repr(e))
             self._postmortem = self._flight.dump()
+            if self._trace_dir is not None:
+                self._dump_debug_files()
+            if self._on_card:
+                # A launched tick may still be replaying: let it finish
+                # before the requests fail over and the engine is dropped.
+                try:
+                    self._stream.synchronize()
+                except Exception:
+                    pass
         finally:
             self._accepting = False
             self._queue.close()
@@ -2051,6 +2131,11 @@ class ServingEngine:
         ``itl`` is the device-complete to device-complete interval;
         ``host_us_per_tick`` is that interval minus every blocked wait
         since the previous reconcile."""
+        if self._wedge_s:
+            # Chaos: stall inside the barrier, before the tick's sync, as a
+            # replay that does not return would; no heartbeat meanwhile.
+            w, self._wedge_s = self._wedge_s, 0.0
+            time.sleep(w)
         tb = time.monotonic()
         flight.event.synchronize()
         spec = self._spec_k is not None
@@ -2061,7 +2146,8 @@ class ServingEngine:
             toks, dones = out[0], out[1].astype(bool)
         t1 = time.monotonic()
         self._blocked_s += t1 - tb
-        self._heartbeat = (self._loop_iters, t1)
+        if not self._heartbeat_frozen:
+            self._heartbeat = (self._loop_iters, t1)
         prev = self._last_complete_t
         interval = t1 - (prev if prev is not None else flight.t_dispatch)
         self._last_complete_t = t1
@@ -2127,6 +2213,7 @@ class ServingEngine:
                                 itl_ms=round(interval * 1e3, 3),
                                 host_us=round(host_s * 1e6, 1), active=len(flight.entries))
         if self._paged:
+            self._drain_samples.append((time.monotonic(), self._pool.frees))
             self._stats.record_pages(self._pool.free_pages, self._pool.used_pages,
                                      self._pool.num_pages, freed_total=self._pool.frees)
 

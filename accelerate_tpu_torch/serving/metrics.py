@@ -1,8 +1,8 @@
 """Serving-engine counters, in the style of ``utils.profiling.PipelineStats``.
 
 Counterpart of ``accelerate_tpu/serving/metrics.py`` (``LatencyHistogram``
-``:44``, ``ServingStats`` ``:102``), with the same ``summary()`` keys; the
-gateway's counters come with the gateway.
+``:44``, ``ServingStats`` ``:102``, ``GatewayStats`` ``:574``), with the
+same ``summary()`` keys.
 
 The engine is a host loop driving a few fixed-shape steps; the numbers that
 matter operationally are therefore host-side:
@@ -577,3 +577,140 @@ class ServingStats:
                 for k, v in self._priority[name].items():
                     out[f"priority/{name}/{k}"] = v
             return out
+
+
+class GatewayStats:
+    """HTTP-layer counters for the :class:`~.gateway.ServingGateway`: responses by route and status code, in-flight
+    connections, streamed tokens, and the backpressure/shed classes the
+    gateway maps to HTTP (429 queue-full, 408 deadline, 413 body cap,
+    503 saturated/draining). Thread-safe — every handler thread records
+    into the same object; ``summary()`` is a flat scalar dict and
+    ``by_route()`` feeds the labeled Prometheus series."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        """Zero every counter (e.g. between measurement windows)."""
+        with self._lock:
+            self._responses: dict = {}   # (route, code) -> count
+            self._inflight = 0
+            self._inflight_max = 0
+            self._streams = 0
+            self._tokens_streamed = 0
+            self._bytes_in = 0
+            self._pressure_sheds = 0
+            self._rate_limit_sheds = 0
+            self._fair_share_sheds = 0
+            # SSE saturation observables: how many event-stream responses
+            # are OPEN right now (the front end's true concurrency — the
+            # number the asyncio refactor exists to scale) and how many
+            # requests bounced off the connection cap (503s the open-loop
+            # harness counts as refusals, distinct from queue-full 429s).
+            self._open_streams = 0
+            self._open_streams_max = 0
+            self._conn_rejections = 0
+
+    def record_response(self, route: str, code: int, body_bytes: int = 0):
+        """One finished HTTP exchange on ``route`` with status ``code``."""
+        with self._lock:
+            key = (str(route), int(code))
+            self._responses[key] = self._responses.get(key, 0) + 1
+            self._bytes_in += int(body_bytes)
+
+    def record_pressure_shed(self):
+        """One 429 issued on PROJECTED KV-page pressure (pool headroom
+        short for admitted + queued demand) rather than queue depth —
+        distinguishes proactive sheds from queue-full backpressure in the
+        overall 429 count."""
+        with self._lock:
+            self._pressure_sheds += 1
+
+    def record_rate_limit_shed(self):
+        """One 429 issued by the per-tenant token-bucket rate limiter
+        (Retry-After derives from the tenant bucket's refill time) —
+        per-cause accounting alongside the pressure/queue-full sheds."""
+        with self._lock:
+            self._rate_limit_sheds += 1
+
+    def record_fair_share_shed(self):
+        """One 429 issued by weighted fair-share admission: the fleet was
+        past its pressure threshold and this tenant past its guaranteed
+        share of in-flight streams."""
+        with self._lock:
+            self._fair_share_sheds += 1
+
+    def record_stream(self, tokens: int):
+        """One SSE stream that delivered ``tokens`` token events."""
+        with self._lock:
+            self._streams += 1
+            self._tokens_streamed += int(tokens)
+
+    def record_conn_rejection(self):
+        """One request refused (503) at the connection cap — saturation of
+        the FRONT END itself, visible on /metrics before any load harness
+        goes looking for it."""
+        with self._lock:
+            self._conn_rejections += 1
+
+    def stream_enter(self):
+        """An SSE response opened (headers sent, events may follow)."""
+        with self._lock:
+            self._open_streams += 1
+            self._open_streams_max = max(self._open_streams_max,
+                                         self._open_streams)
+
+    def stream_exit(self):
+        """An SSE response closed (final event written or socket broke)."""
+        with self._lock:
+            self._open_streams -= 1
+
+    def inflight_enter(self):
+        with self._lock:
+            self._inflight += 1
+            self._inflight_max = max(self._inflight_max, self._inflight)
+
+    def inflight_exit(self):
+        with self._lock:
+            self._inflight -= 1
+
+    def by_route(self) -> dict:
+        """``(route, code) -> count`` snapshot (Prometheus labels)."""
+        with self._lock:
+            return dict(self._responses)
+
+    def summary(self) -> dict:
+        """Flat scalar snapshot: totals, per-class counts, in-flight."""
+        with self._lock:
+            total = sum(self._responses.values())
+
+            def klass(digit):
+                return sum(c for (_, code), c in self._responses.items()
+                           if code // 100 == digit)
+
+            def code_count(code):
+                return sum(c for (_, c2), c in self._responses.items()
+                           if c2 == code)
+
+            return {
+                "http_requests": total,
+                "http_2xx": klass(2),
+                "http_4xx": klass(4),
+                "http_5xx": klass(5),
+                "http_429": code_count(429),
+                "http_408": code_count(408),
+                "http_413": code_count(413),
+                "http_503": code_count(503),
+                "http_inflight": self._inflight,
+                "http_inflight_max": self._inflight_max,
+                "streams": self._streams,
+                "tokens_streamed": self._tokens_streamed,
+                "request_bytes_in": self._bytes_in,
+                "pressure_sheds": self._pressure_sheds,
+                "rate_limit_sheds": self._rate_limit_sheds,
+                "fair_share_sheds": self._fair_share_sheds,
+                "open_sse_streams": self._open_streams,
+                "open_sse_streams_max": self._open_streams_max,
+                "conn_rejections": self._conn_rejections,
+            }

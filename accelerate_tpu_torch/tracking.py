@@ -206,6 +206,18 @@ def with_serving_metrics(values: dict, serving_stats, prefix: str = "serving/") 
     return merged
 
 
+def with_gateway_metrics(values: dict, gateway_stats, prefix: str = "gateway/") -> dict:
+    """``values`` with the HTTP gateway's counters (``http_requests``,
+    ``http_429``, ``streams``, ``tokens_streamed``...:
+    ``serving.metrics.GatewayStats``) under ``prefix``; the caller's keys
+    win."""
+    if gateway_stats is None:
+        return values
+    merged = {f"{prefix}{k}": v for k, v in gateway_stats.summary().items()}
+    merged.update(values)
+    return merged
+
+
 def filter_trackers(log_with, logging_dir: Optional[str] = None) -> list:
     """Tracker names and instances to start from ``log_with`` (a name, a
     ``GeneralTracker``, "all", or a list of them)."""

@@ -17,8 +17,10 @@ Counterpart of ``accelerate_tpu/utils/profiling.py``:
   build anything after warmup" is a count of graph captures.
 
 A session also carries the serving engine's ``ServingStats``
-(``attach_serving_stats``, JAX ``:359``); the gateway's counters come with
-the gateway.
+(``attach_serving_stats``, JAX ``:359``), the gateway's ``GatewayStats``
+(``attach_gateway_stats``, ``:365``) and a span sink
+(``attach_tracer``, ``:371``): each ``step()`` then emits a ``train_step``
+span in the serving engine's Chrome-trace format.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ class GraphCaptureWatcher:
         self._lock = threading.Lock()
         self._seen: dict = {}            # signature -> step name
         self._events: list[tuple] = []   # (name, seconds or None)
+        self._lifetime_secs = 0.0        # capture seconds, resets included
 
     def record(self, name: str, signature, seconds: Optional[float] = None) -> bool:
         """Note one run (or capture) of step ``name``; True when its
@@ -60,6 +63,7 @@ class GraphCaptureWatcher:
                 return False
             self._seen[signature] = name
             self._events.append((name, seconds))
+            self._lifetime_secs += seconds or 0.0
         if self._on_event is not None:
             try:
                 self._on_event(name, seconds)
@@ -91,6 +95,13 @@ class GraphCaptureWatcher:
             for name in self._seen.values():
                 out[name] = out.get(name, 0) + 1
         return out
+
+    def lifetime(self) -> tuple:
+        """``(events, capture seconds)`` since construction, warmup and
+        resets included: the gateway's monotone capture counters sum these
+        over the fleet's engines, live and retired."""
+        with self._lock:
+            return len(self._seen), self._lifetime_secs
 
     def summary(self) -> dict:
         """Scalars: events since reset, their capture seconds, signatures."""
@@ -206,7 +217,7 @@ class ProfileSession:
 
     def __init__(self, kwargs, log_dir: Optional[str] = None,
                  pipeline_stats: Optional[PipelineStats] = None, device=None,
-                 serving_stats=None):
+                 serving_stats=None, gateway_stats=None, tracer=None):
         self.kwargs = kwargs
         self.log_dir = log_dir or kwargs.output_trace_dir or DEFAULT_TRACE_DIR
         sched = kwargs.schedule_option or {}
@@ -216,11 +227,16 @@ class ProfileSession:
         self.device = device
         self.pipeline_stats = pipeline_stats
         self.serving_stats = serving_stats
+        self.gateway_stats = gateway_stats
+        # An observability.Tracer: each step() emits a "train_step" span
+        # in the serving engine's Chrome-trace format.
+        self.tracer = tracer
         self.profiler = None
         self.trace_files: list[str] = []
         self._step = 0
         self._tracing = False
         self._step_breakdowns: list[dict] = []
+        self._last_step_t: Optional[float] = None
 
     def _activities(self) -> list:
         from torch.profiler import ProfilerActivity
@@ -264,6 +280,7 @@ class ProfileSession:
     def __enter__(self):
         if self._should_trace():
             self._start()
+        self._last_step_t = time.monotonic()
         return self
 
     def __exit__(self, *exc):
@@ -281,15 +298,43 @@ class ProfileSession:
         self.serving_stats = stats
         return self
 
+    def attach_gateway_stats(self, stats):
+        """Attach HTTP gateway counters (``serving.metrics.GatewayStats``)
+        so ``step()`` snapshots them under ``gateway/`` keys."""
+        self.gateway_stats = stats
+        return self
+
+    def attach_tracer(self, tracer):
+        """Attach an ``observability.Tracer`` so every ``step()`` emits a
+        ``train_step`` span (step-to-step wall time, with the input
+        pipeline's data-wait breakdown in ``args``)."""
+        self.tracer = tracer
+        self._last_step_t = time.monotonic()
+        return self
+
     def step(self):
-        """End a step: snapshot the attached counters, then open or close
-        the traced window as the schedule says."""
-        if self.pipeline_stats is not None or self.serving_stats is not None:
+        """End a step: emit its span, snapshot the attached counters, then
+        open or close the traced window as the schedule says."""
+        if self.tracer is not None:
+            now = time.monotonic()
+            if self._last_step_t is not None:
+                args: dict = {"step": self._step}
+                if self.pipeline_stats is not None:
+                    s = self.pipeline_stats.summary()
+                    args["data_wait_ms"] = s["data_wait_ms_last"]
+                    args["stage_ms"] = s["stage_ms_last"]
+                self.tracer.emit("train_step", self._last_step_t, now - self._last_step_t,
+                                 cat="training", args=args)
+            self._last_step_t = now
+        if (self.pipeline_stats is not None or self.serving_stats is not None
+                or self.gateway_stats is not None):
             snap = {"step": self._step}
             if self.pipeline_stats is not None:
                 snap.update(self.pipeline_stats.summary())
             if self.serving_stats is not None:
                 snap.update({f"serving/{k}": v for k, v in self.serving_stats.summary().items()})
+            if self.gateway_stats is not None:
+                snap.update({f"gateway/{k}": v for k, v in self.gateway_stats.summary().items()})
             self._step_breakdowns.append(snap)
         self._step += 1
         should = self._should_trace()
@@ -310,10 +355,17 @@ class ProfileSession:
             return {}
         return self.serving_stats.summary()
 
+    def gateway_breakdown(self) -> dict:
+        """The gateway's latest summary; empty without counters."""
+        if self.gateway_stats is None:
+            return {}
+        return self.gateway_stats.summary()
+
     @property
     def step_breakdowns(self) -> list[dict]:
         """One cumulative snapshot per ``step()``: the input pipeline's
-        counters and the ``serving/``-prefixed engine counters."""
+        counters, the ``serving/``-prefixed engine counters and the
+        ``gateway/``-prefixed gateway counters."""
         return list(self._step_breakdowns)
 
 

@@ -63,6 +63,27 @@ order; any failure exits non-zero:
    batch-1 ``generate`` (bf16 rounds a batch-8 product otherwise: not
    asserted), and one steady tick (all slots) as a graph replay and eagerly,
    with a profiled replay's device busy share and kernel count.
+4d. speculative, quantized and multi-tenant serving (see ``phase_serving_extras``).
+4e. the serving fleet, on the same model: exactness first, at the same
+   widths with 2 layers in f32: 2 replicas (4 slots x 768) behind the
+   asyncio HTTP gateway with a ``FleetSupervisor``; 4c's 12 staggered greedy
+   requests over HTTP, half as SSE streams; a ``ChaosSchedule`` kill of
+   replica 0 at decode tick 12 mid-stream. Every stream equals ``generate``
+   (the failed-over ones too), the supervisor restarts replica 0, which
+   comes back HEALTHY and serves a stream equal to ``generate``. Then at
+   full depth in bf16: 2 replicas sharing the weights, each 4c's shape (8
+   slots x 2048, 256-token chunks and pages, async) with one shared prefix
+   cache, behind the asyncio gateway and a supervisor; ``loadgen`` drives
+   4c's 24-request schedule over HTTP (SSE), and a chaos kill of replica 0
+   comes at decode tick 40. Every request ends 200 with its full token
+   count, one or more fail over, replica 0 restarts HEALTHY, the survivor
+   captures nothing after warmup, ``/metrics`` passes promlint, no flash
+   kernel launches. Reported beside the card's name and power limit:
+   loadgen's TTFT p50/p95 and ITL p50/p99 beside 4c's in-process ones,
+   decode tokens/s summed over the replicas, each replica's graphed tick
+   alone and while the other replays its own, the restart's seconds,
+   device memory before the kill, at the restart's peak and after it, and
+   the gateway loop thread's CPU microseconds per streamed token.
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
@@ -165,6 +186,14 @@ EXTRA = dict(spec_tokens=4, spec_lookup=3, exact_window=64, lora_rank=16,
                                      max_position_embeddings=32768),
                          slots=4, max_len=8192, requests=6, prompts=(5000, 7000), new=128,
                          seed=43))
+# Phase 4e: the serving fleet. Exactness on 4c's f32 set with a kill at
+# decode tick 12 of replica 0; full depth in 4c's shape and schedule with a
+# kill at tick 40. The watchdog's hang timeout stays far above any tick.
+FLEET = dict(exact_seed=51, exact_kill_tick=12, kill_tick=40, hang_timeout_s=30.0)
+
+
+#: Phase 4c's numbers from this run, which phase 4e prints beside its own.
+SERVING_4C: dict = {}
 
 
 def fail(message: str):
@@ -1082,6 +1111,7 @@ def steady_tick(engine, card):
             if tick else "no device time seen (not measured)"))
     if not any(profiled.values()):
         fail("torch.profiler saw no device time in a decode tick, graphed or eager")
+    return graphed_ms
 
 
 def phase_serving(model):
@@ -1138,6 +1168,9 @@ def phase_serving(model):
           f"{SERVE['shared_prefix']}-token prefix) arriving over {SERVE['arrival_s']} s, all "
           f"done in {wall:.3f} s ({tokens / wall:.1f} new tokens/s overall); graphs {steps}, "
           f"none captured after warmup; no flash launch")
+    SERVING_4C.update(ttft_p50=s["ttft_ms_p50"], ttft_p95=s["ttft_ms_p95"],
+                      itl_p50=percentile(itl, 0.5), itl_p99=percentile(itl, 0.99),
+                      tokens_per_s=s["decode_tokens_per_sec"])
     print(f"  TTFT p50 {s['ttft_ms_p50']:.1f} ms, p95 {s['ttft_ms_p95']:.1f} ms; ITL p50 "
           f"{percentile(itl, 0.5):.2f} ms, p99 {percentile(itl, 0.99):.2f} ms ({len(itl)} "
           f"samples); decode {s['decode_tokens_per_sec']:.1f} tokens/s over "
@@ -1158,7 +1191,7 @@ def phase_serving(model):
         differ = np.flatnonzero(ref != np.asarray(r.tokens))
         agreed.append(f"{int(differ[0]) if differ.size else new}/{new}")
     print(f"  streams against batch-1 generate (bf16): agreed prefixes {', '.join(agreed)}")
-    steady_tick(engine, card)
+    SERVING_4C["tick_ms"] = steady_tick(engine, card)
     del engine
     free_cuda()
 
@@ -1560,6 +1593,367 @@ def phase_serving_extras(model):
     serving_extras_exactness(model.config)
     full_depth_modes(model)
     sliding_window_full_width()
+
+
+# -- phase 4e: the serving fleet (router, supervisor, chaos, gateway) -----------------
+
+
+def http_completion(url, body, timeout=600):
+    """POST one completion: ``(status, final summary, streamed tokens)``;
+    the streamed tokens are None for a JSON (non-stream) request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            text = resp.read().decode()
+            if not body.get("stream"):
+                return resp.status, json.loads(text), None
+            events = [json.loads(b[len("data: "):]) for b in text.split("\n\n")
+                      if b.startswith("data: ")]
+            return resp.status, events[-1], [e["token"] for e in events[:-1]]
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), None
+
+
+def wait_until(predicate, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+
+
+def fleet_exactness(cfg):
+    """Phase 4e's exact half: 2 replicas of a 2-layer f32 model at the
+    model's widths behind the asyncio gateway; a chaos kill of replica 0;
+    every stream over HTTP token-exact with ``generate``."""
+    import dataclasses
+    import threading
+
+    import torch
+
+    from accelerate_tpu_torch import LlamaForCausalLM, ServingEngine, generate
+    from accelerate_tpu_torch.serving import (ChaosSchedule, FleetSupervisor, GatewayConfig,
+                                              ReplicaSet, ReplicaState, ServingGateway)
+
+    gen = torch.Generator(device="cuda").manual_seed(FLEET["exact_seed"])
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = LlamaForCausalLM(small, device="cuda", dtype=torch.float32, generator=gen).eval()
+    f32, new = torch.float32, SERVE["exact_new"]
+    lo, hi = SERVE["exact_prompts"]
+    lengths = [int(n) for n in torch.randint(lo, hi + 1, (SERVE["exact_requests"],),
+                                             generator=gen, device="cuda").tolist()]
+    # The last prompt, shorter than a chunk (no cached prefix steers it),
+    # goes to the restarted replica after the run.
+    work = stream_prompts(cfg.vocab_size, lengths + [SERVE["chunk"] // 2], gen)
+    refs = [generate(model, torch.from_numpy(p).long().cuda(), max_new_tokens=new,
+                     cache_dtype=f32)[0, p.shape[1]:].tolist() for p in work]
+    (last, last_ref), work, refs = (work[-1], refs[-1]), work[:-1], refs[:-1]
+    shape = dict(max_slots=SERVE["exact_slots"], max_len=SERVE["exact_max_len"],
+                 prefill_chunk=SERVE["chunk"], cache_dtype=f32)
+
+    def factory():
+        return ServingEngine(model, **shape)
+
+    chaos = ChaosSchedule().kill(at_tick=FLEET["exact_kill_tick"])
+    fleet = ReplicaSet([ServingEngine(model, chaos=chaos, **shape), factory()],
+                       factories=[factory, factory])
+    results = [None] * len(work)
+    with FleetSupervisor(fleet, hang_timeout_s=FLEET["hang_timeout_s"], poll_interval_s=0.02,
+                         restart_backoff_s=0.05) as sup, \
+            ServingGateway(fleet, config=GatewayConfig(server="asyncio", port=0)) as gw:
+
+        def call(i):
+            results[i] = http_completion(gw.url, {"prompt": work[i].ravel().tolist(),
+                                                  "max_new_tokens": new, "stream": i % 2 == 1})
+
+        cpu0 = thread_cpu_s(gw._server._loop)
+        threads = []
+        per = -(-len(work) // 3)
+        for wave in range(3):  # staggered: later requests join a batch already decoding
+            for i in range(wave * per, min(len(work), (wave + 1) * per)):
+                threads.append(threading.Thread(target=call, args=(i,)))
+                threads[-1].start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(600)
+        gateway_cpu = thread_cpu_s(gw._server._loop) - cpu0
+        wait_until(lambda: fleet.replica_states()[0] is ReplicaState.HEALTHY
+                   and sup.restarts == 1, 300, "replica 0's restart")
+        # Both replicas idle: the tie goes to replica 0, which must serve.
+        again = http_completion(gw.url, {"prompt": last.ravel().tolist(), "max_new_tokens": new})
+        survivor_captures = list(fleet.engine(1).compile_watcher.events)
+    same = sum(code == 200 and final["tokens"] == ref and (toks is None or toks == ref)
+               for (code, final, toks), ref in zip(results, refs))
+    failovers = sum(final.get("failovers", 0) for _, final, _ in results)
+    served_again = again[0] == 200 and again[1]["tokens"] == last_ref \
+        and again[1]["replica_trail"] == [0]
+    print(f"  f32, 2 layers at the model's widths ({card_line()}), 2 replicas x "
+          f"{shape['max_slots']} slots behind the asyncio gateway, kill of replica 0 at decode "
+          f"tick {FLEET['exact_kill_tick']}: "
+          f"{same} of {len(work)} streams over HTTP ({len(work) // 2} JSON, {len(work) // 2} SSE) "
+          f"equal generate; {failovers} failovers; supervisor events "
+          f"{[e['kind'] for e in sup.events()]}; replica 0 back HEALTHY and "
+          f"{'served a stream equal to generate' if served_again else 'DID NOT SERVE'}; "
+          f"captures after warmup on the survivor {survivor_captures}; gateway loop thread "
+          f"{gateway_cpu * 1e6 / (len(work) * new):.1f} us of CPU per token")
+    if same != len(work) or failovers < 1 or not served_again or survivor_captures:
+        fail("the fleet is not token-exact across a failover, or replica 0 did not come back")
+
+
+class FixedSchedule:
+    """An ``ArrivalSchedule`` stand-in for ``loadgen.run_open_loop``: the
+    arrival offsets of a given schedule."""
+
+    def __init__(self, offsets):
+        import numpy as np
+
+        self._offsets = np.asarray(offsets, dtype=float)
+        self.n = len(self._offsets)
+
+    def offsets(self):
+        return self._offsets.copy()
+
+    def describe(self):
+        return {"n": self.n, "dist": "phase 4c's seeded schedule",
+                "span_s": float(self._offsets[-1] - self._offsets[0])}
+
+
+class FixedProfile:
+    """A ``TrafficProfile`` stand-in: the given request bodies, in order."""
+
+    def __init__(self, bodies):
+        self._bodies = list(bodies)
+        self._next = 0
+
+    def sample(self, vocab_size=None):
+        body = self._bodies[self._next]
+        self._next += 1
+        return body
+
+    def describe(self):
+        return {"requests": len(self._bodies)}
+
+
+def thread_cpu_s(loop):
+    """CPU seconds the thread running asyncio ``loop`` has used."""
+    import asyncio
+
+    async def read():
+        return time.thread_time()
+
+    return asyncio.run_coroutine_threadsafe(read(), loop).result(60)
+
+
+def tick_beside(engines, card):
+    """Each replica's graphed decode tick (all slots) alone, and while the
+    other replica replays its own tick on its stream without pause."""
+    import threading
+
+    import torch
+
+    def timed(engine):
+        with torch.inference_mode(), torch.cuda.stream(engine._stream):
+            return timed_ms(replay_tick(engine, True), 20)
+
+    alone = [timed(e) for e in engines]
+    beside = []
+    for i, engine in enumerate(engines):
+        other = engines[1 - i]
+        stop = threading.Event()
+
+        def spin():
+            with torch.inference_mode(), torch.cuda.stream(other._stream):
+                tick = replay_tick(other, True)
+                while not stop.is_set():
+                    tick()
+
+        t = threading.Thread(target=spin)
+        t.start()
+        time.sleep(0.2)
+        try:
+            beside.append(timed(engine))
+        finally:
+            stop.set()
+            t.join(60)
+        torch.cuda.synchronize()
+    ref = SERVING_4C.get("tick_ms")
+    print(f"  graphed decode tick, {engines[0].max_slots} slots ({card}): replica 0 alone "
+          f"{alone[0]:.3f} ms, beside replica 1's {beside[0]:.3f} ms; replica 1 alone "
+          f"{alone[1]:.3f} ms, beside replica 0's {beside[1]:.3f} ms; 4c's single engine "
+          + (f"{ref:.3f} ms in this run" if ref else "not run in this call"))
+    return alone, beside
+
+
+def fleet_full_width(model):
+    """Phase 4e at full depth: 2 replicas sharing the weights, behind the
+    asyncio gateway with a supervisor; loadgen drives 4c's schedule over
+    HTTP; a chaos kill of replica 0 at decode tick ``FLEET['kill_tick']``."""
+    import gc
+    import threading
+    import weakref
+
+    import torch
+
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.loadgen import build_report, percentile as lg_percentile
+    from accelerate_tpu_torch.loadgen import run_open_loop
+    from accelerate_tpu_torch.observability import lint_prometheus_text
+    from accelerate_tpu_torch.serving import (ChaosSchedule, FleetSupervisor, GatewayConfig,
+                                              PrefixCache, ReplicaSet, ReplicaState,
+                                              ServingGateway)
+
+    card = card_line()
+    cfg = model.config
+    schedule = serving_schedule(cfg.vocab_size,
+                                torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    # One prefix cache for the fleet (restores by copy): a prefix the dead
+    # replica cached is still a hit when its streams resume on the survivor.
+    cache = PrefixCache(SERVE["prefix_cache_gib"] << 30)
+    shape = dict(max_slots=SERVE["slots"], max_len=SERVE["max_len"], prefill_chunk=SERVE["chunk"],
+                 cache_dtype=torch.bfloat16, trace_capacity=1 << 15, prefix_cache=cache)
+
+    def factory():
+        return ServingEngine(model, **shape)  # the same model: no copy of the weights
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    chaos = ChaosSchedule().kill(at_tick=FLEET["kill_tick"])
+    fleet = ReplicaSet([ServingEngine(model, chaos=chaos, **shape), factory()],
+                       factories=[factory, factory])
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated()
+    bodies = [{"prompt": p.ravel().tolist(), "max_new_tokens": new, "ignore_eos": True}
+              for _, p, new in schedule]
+    sched = FixedSchedule([a for a, _, _ in schedule])
+
+    # Device memory through the run: sampled every 5 ms; the peak counter
+    # is reset when replica 0 is seen dead, so it reads the restart's peak,
+    # and a weak reference to the dead engine shows whether it is freed.
+    samples, dead, stop = [], [], threading.Event()
+
+    def sample_memory():
+        while not stop.is_set():
+            engine = fleet.replicas[0].engine
+            if not dead and engine.error is not None:
+                dead.append(weakref.ref(engine))
+                torch.cuda.reset_peak_memory_stats()
+            del engine
+            samples.append((time.monotonic(), torch.cuda.memory_allocated()))
+            time.sleep(0.005)
+
+    sampler = threading.Thread(target=sample_memory, daemon=True)
+    config = GatewayConfig(server="asyncio", port=0, shed_projected_pressure=False)
+    sup = FleetSupervisor(fleet, hang_timeout_s=FLEET["hang_timeout_s"], poll_interval_s=0.02,
+                          restart_backoff_s=0.05)
+    try:
+        with ServingGateway(fleet, config=config) as gw:
+            sup.start()
+            sampler.start()
+            loop = gw._server._loop
+            reset_counts()
+            cpu0 = thread_cpu_s(loop)
+            t0 = time.perf_counter()
+            run = run_open_loop(gw.url, sched, FixedProfile(bodies), wall_deadline_s=600)
+            wall = time.perf_counter() - t0
+            gateway_cpu = thread_cpu_s(loop) - cpu0
+            launched = read_counts()
+            wait_until(lambda: fleet.replica_states()[0] is ReplicaState.HEALTHY
+                       and sup.restarts == 1, 600, "replica 0's restart")
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            restart_peak = torch.cuda.max_memory_allocated()
+            stop.set()
+            sampler.join(60)
+            metrics_text = scrape_metrics(gw.url)
+            survivor_captures = list(fleet.engine(1).compile_watcher.events)
+            dead_stats = fleet._retired_stats.summary()
+            live = [fleet.engine(i).serving_metrics() for i in range(2)]
+            fm = fleet.fleet_metrics()
+            sup.stop()  # before the gateway drains the replicas: no restart of a drained one
+    finally:
+        stop.set()
+        sup.stop()
+        fleet.shutdown(drain=False, timeout=600)
+    report = build_report(run, sched)
+    results = run["results"]
+    if launched != {k: 0 for k in launched}:
+        fail(f"the serving fleet launched flash kernels: {launched}")
+    bad = [r.index for r, (_, _, new) in zip(results, schedule)
+           if r.code != 200 or not r.completed or len(r.tokens) != new]
+    if bad:
+        fail(f"requests {bad} did not end 200 with their full token count")
+    lint = lint_prometheus_text(metrics_text)
+    failovers = sum(r.done.get("failovers", 0) for r in results)
+    restarts = [e for e in sup.events() if e["kind"] == "restart"]
+    kill_ts = next(e["ts"] for e in fleet.failover_reports[0]["flight_recorder"]["events"]
+                   if e["kind"] == "chaos_kill")
+    before = ([m for t, m in samples if t < kill_ts] or [float("nan")])[-1]
+    freed = bool(dead) and dead[0]() is None
+    if lint or failovers < 1 or not restarts or survivor_captures or not freed:
+        fail(f"fleet: promlint {lint[:3]}, {failovers} failovers, restarts {restarts}, "
+             f"captures after warmup on the survivor {survivor_captures}, dead engine "
+             f"{'freed' if freed else 'STILL REFERENCED'}")
+    ttfts = [r.ttft_s * 1e3 for r in results]
+    itls = [g * 1e3 for r in results for g in r.token_gaps_s]
+    tokens = sum(len(r.tokens) for r in results)
+    decode_tps = (dead_stats["decode_tokens_per_sec"] + live[0]["decode_tokens_per_sec"]
+                  + live[1]["decode_tokens_per_sec"])
+    gib = 2 ** 30
+    ref = SERVING_4C
+    print(f"  bf16, full depth, 2 replicas x {SERVE['slots']} slots x {SERVE['max_len']} tokens "
+          f"sharing the {weights / gib:.2f} GiB of weights, one {SERVE['prefix_cache_gib']} GiB "
+          f"prefix cache, asyncio gateway, supervisor ({card}): both built and warmed in "
+          f"{build_s:.1f} s; 4c's {len(results)} requests by loadgen over HTTP (SSE), kill of "
+          f"replica 0 at decode tick {FLEET['kill_tick']}: all 200 with their full token "
+          f"counts in {wall:.3f} s ({tokens} tokens); {failovers} failovers; replica 0 "
+          f"restarted in {restarts[0]['warmup_s']:.3f} s (factory, warmup and graph capture) and "
+          f"HEALTHY; no capture after warmup on the survivor; /metrics passes promlint; no "
+          f"flash launch; pressure shedding off")
+    print(f"  loadgen over HTTP ({card}): TTFT p50 {lg_percentile(ttfts, 50):.1f} ms, p95 "
+          f"{lg_percentile(ttfts, 95):.1f} ms; ITL p50 {lg_percentile(itls, 50):.2f} ms, p99 "
+          f"{lg_percentile(itls, 99):.2f} ms ({len(itls)} gaps); 4c in-process in this run: "
+          + (f"TTFT p50 {ref['ttft_p50']:.1f} ms, p95 {ref['ttft_p95']:.1f} ms; ITL p50 "
+             f"{ref['itl_p50']:.2f} ms, p99 {ref['itl_p99']:.2f} ms"
+             if "ttft_p50" in ref else "not run in this call"))
+    print(f"  ({card}) decode tokens/s summed over the replicas {decode_tps:.1f} (replica 0 "
+          f"before the kill {dead_stats['decode_tokens_per_sec']:.1f}, after the restart "
+          f"{live[0]['decode_tokens_per_sec']:.1f}, replica 1 "
+          f"{live[1]['decode_tokens_per_sec']:.1f}; 4c's one engine "
+          + (f"{ref['tokens_per_s']:.1f}" if "tokens_per_s" in ref else "not run")
+          + f"); fleet failovers {fm['fleet_failovers']}, "
+          f"fences {fm['fleet_fences']}, restarts {fm['fleet_restarts']}; gateway host "
+          f"{gateway_cpu * 1e6 / max(1, tokens):.1f} us of its loop thread's CPU per streamed "
+          f"token; loadgen conformance {report['conformance']}")
+    print(f"  device memory allocated ({card}): weights {weights / gib:.2f} GiB; "
+          f"{(built - base) / gib:.2f} GiB for the 2 engines; before the kill "
+          f"{before / gib:.2f} GiB; restart peak {restart_peak / gib:.2f} GiB; after the "
+          f"restart (dead engine collected) {after / gib:.2f} GiB")
+    return fleet
+
+
+def scrape_metrics(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        return resp.read().decode()
+
+
+def phase_fleet(model):
+    """Phase 4e (see the module docstring)."""
+    fleet_exactness(model.config)
+    free_cuda()
+    fleet = fleet_full_width(model)
+    tick_beside([fleet.engine(0), fleet.engine(1)], card_line())
+    del fleet
+    free_cuda()
 
 
 def device_breakdown(label, fn, steps=1, top=4):
@@ -2170,6 +2564,12 @@ def main():
     extras_counts = read_counts()
     if any(extras_counts.values()):
         fail("4d launched a flash kernel; the serving path's attention is the einsum core")
+    print("== 4e. the serving fleet: router, supervisor, chaos, HTTP gateway, loadgen")
+    reset_counts()
+    phase_fleet(model)
+    fleet_counts = read_counts()
+    if any(fleet_counts.values()):
+        fail("4e launched a flash kernel; the serving path's attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -2187,6 +2587,7 @@ def main():
     for entry in kernels:
         entry["serving_launches"] = serving_counts[entry["name"]]
         entry["serving_extras_launches"] = extras_counts[entry["name"]]
+        entry["serving_fleet_launches"] = fleet_counts[entry["name"]]
         if entry["name"].endswith("_sm90"):
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
@@ -2241,6 +2642,22 @@ def main_serving_extras():
     phase_serving_extras(model)
     if any(read_counts().values()):
         fail("4d launched a flash kernel")
+
+
+def main_fleet():
+    """Phase 4e alone (no kernel is built: the serving path runs none)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    model, _, _ = build_model()
+    reset_counts()
+    phase_fleet(model)
+    if any(read_counts().values()):
+        fail("4e launched a flash kernel")
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

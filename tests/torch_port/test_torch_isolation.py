@@ -51,10 +51,15 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(sources) >= 25
     # The scan covers the serving engine and its observability modules.
     scanned = {str(p.relative_to(REPO)) for p in sources}
-    for name in ("__init__", "engine", "graphs", "scheduler", "request", "metrics", "control"):
+    for name in ("__init__", "engine", "graphs", "scheduler", "request", "metrics", "control",
+                 "router", "supervisor", "chaos", "gateway", "gateway_aio"):
         assert f"accelerate_tpu_torch/serving/{name}.py" in scanned, name
-    for name in ("__init__", "tracing", "flight_recorder"):
+    for name in ("__init__", "tracing", "flight_recorder", "promlint"):
         assert f"accelerate_tpu_torch/observability/{name}.py" in scanned, name
+    for name in ("loadgen/__init__", "loadgen/generator", "loadgen/report",
+                 "commands/__init__", "commands/accelerate_cli", "commands/serve",
+                 "commands/loadtest"):
+        assert f"accelerate_tpu_torch/{name}.py" in scanned, name
     for name in ("__init__", "lora", "registry", "quantize"):
         assert f"accelerate_tpu_torch/adapters/{name}.py" in scanned, name
     assert "accelerate_tpu_torch/utils/quantization.py" in scanned
@@ -79,6 +84,11 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.serving, accelerate_tpu_torch.serving.engine\n"
         "import accelerate_tpu_torch.serving.graphs, accelerate_tpu_torch.observability\n"
         "import accelerate_tpu_torch.adapters, accelerate_tpu_torch.utils.quantization\n"
+        "import accelerate_tpu_torch.serving.router, accelerate_tpu_torch.serving.supervisor\n"
+        "import accelerate_tpu_torch.serving.chaos, accelerate_tpu_torch.serving.gateway\n"
+        "import accelerate_tpu_torch.serving.gateway_aio, accelerate_tpu_torch.loadgen\n"
+        "import accelerate_tpu_torch.commands.accelerate_cli\n"
+        "import accelerate_tpu_torch.commands.serve, accelerate_tpu_torch.commands.loadtest\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -154,13 +164,13 @@ def test_package_exports_the_slice():
 
 def test_engine_takes_the_serving_slice_arguments():
     """The engine takes every constructor argument of the JAX engine but the
-    fleet's (A7: chaos, trace_dir) and the mesh's (A8: tp, mesh, devices),
-    which raise; the new public names build what it serves."""
+    mesh's (A8: tp, mesh, devices), which raise; the new public names build
+    what it serves."""
     import inspect
 
     params = inspect.signature(ServingEngine.__init__).parameters
     for name in ("draft_model", "spec_tokens", "spec_lookup", "kv_dtype", "weights_dtype",
-                 "adapters", "prefill_chunk"):
+                 "adapters", "prefill_chunk", "chaos", "trace_dir"):
         assert name in params, name
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     bank = AdapterBank(model, config=LoRAConfig(rank=2), max_adapters=2)

@@ -157,20 +157,27 @@ def test_spans_and_flight_events(model, make_engine):
     (dict(adapters="bank"), "A6"), (dict(weights_dtype="int8"), "A6"),
     (dict(chaos="schedule"), "A7"), (dict(trace_dir="/nowhere"), "A7"),
     (dict(tp=2), "A8"), (dict(mesh="mesh"), "A8"), (dict(devices=["d"]), "A8")])
-def test_options_not_ported_name_their_roadmap_item(model, kwargs, item):
-    """A7 and A8 options raise, naming their ROADMAP item. The A5 and A6
+def test_options_not_ported_name_their_roadmap_item(model, kwargs, item, tmp_path):
+    """A8 options raise, naming their ROADMAP item. The A5, A6 and A7
     options, which this test once saw refused, now build an engine that
-    reports them (the placeholders stand for a draft model and a bank)."""
-    if item in ("A7", "A8"):
+    reports them (the placeholders stand for a draft model, a bank, a
+    chaos schedule and a trace directory)."""
+    if item == "A8":
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
             ServingEngine(model, device="cpu", autostart=False, **kwargs)
         return
     from accelerate_tpu_torch.adapters import AdapterBank
+    from accelerate_tpu_torch.serving import ChaosSchedule
 
-    stand_in = {"draft": model, "bank": AdapterBank(model, max_adapters=2)}
+    stand_in = {"draft": model, "bank": AdapterBank(model, max_adapters=2),
+                "schedule": ChaosSchedule().kill(at_tick=5), "/nowhere": str(tmp_path / "trace")}
     kwargs = {k: stand_in.get(v, v) if isinstance(v, str) else v for k, v in kwargs.items()}
     engine = ServingEngine(model, device="cpu", autostart=False, **kwargs)
     engine.shutdown()
+    assert engine._chaos is kwargs.get("chaos")
+    if "trace_dir" in kwargs:  # a shutdown writes the span and flight dumps
+        assert sorted(p.name.split("-", 2)[-1] for p in (tmp_path / "trace").iterdir()) \
+            == ["flight.json", "trace.json"]
     if "draft_model" in kwargs or "spec_lookup" in kwargs:
         assert engine._spec_mode == ("draft" if "draft_model" in kwargs else "lookup")
     assert engine.kv_dtype == kwargs.get("kv_dtype")
