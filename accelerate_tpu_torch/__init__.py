@@ -14,7 +14,10 @@ prompt-lookup speculation, sliding-window page freeing, multi-tenant LoRA
 adapters over full-precision or int8 base weights) on fixed-shape steps
 under CUDA graphs, with the fleet in front of it (``serving``: the replica
 router with failover, the supervisor, scripted faults, the HTTP gateway;
-``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands).
+``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands), and
+big-model inference (``big_modeling``: the device-map solver over card,
+host and disk, ``StreamedModel`` streaming a model's blocks onto the card,
+HF-layout checkpoints of the Llama family, quantized loading).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
@@ -30,7 +33,32 @@ from .adapters import (
     prepare_lora,
     quantize_base_weights,
 )
-from .checkpointing import load_adapter, load_safetensors_model, save_adapter, save_model
+from .big_modeling import (
+    BlockSpec,
+    LazyWeight,
+    StreamedModel,
+    UserCpuOffloadHook,
+    WeightStore,
+    block_specs_for,
+    cpu_offload,
+    cpu_offload_with_hook,
+    disk_offload,
+    dispatch_model,
+    init_empty_weights,
+    init_on_device,
+    load_checkpoint_and_dispatch,
+    load_checkpoint_in_model,
+    load_hf_checkpoint_and_dispatch,
+    store_from_params,
+)
+from .checkpointing import (
+    SafetensorsFile,
+    checkpoint_shards,
+    load_adapter,
+    load_safetensors_model,
+    save_adapter,
+    save_model,
+)
 from .data_loader import (
     AsyncPrefetcher,
     BatchSamplerShard,
@@ -82,6 +110,13 @@ from .serving import ServingEngine, ServingStats
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import GeneralTracker, JSONLTracker, TensorBoardTracker
 from .utils.convert import flax_from_state_dict, state_dict_from_flax
+from .utils.hf_interop import (
+    config_from_hf,
+    convert_hf_state_dict,
+    export_hf_state_dict,
+    load_hf_checkpoint,
+    save_hf_checkpoint,
+)
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
@@ -91,6 +126,15 @@ from .utils.dataclasses import (
 )
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory
+from .utils.modeling import (
+    calculate_maximum_sizes,
+    check_device_map,
+    compute_module_sizes,
+    get_balanced_memory,
+    get_max_memory,
+    infer_auto_device_map,
+)
+from .utils.offload import OffloadedWeightsLoader, offload_state_dict
 from .utils.profiling import (
     GraphCaptureWatcher,
     ProfileSession,
@@ -101,6 +145,8 @@ from .utils.quantization import (
     QuantizationConfig,
     QuantizedTensor,
     dequantize_params,
+    load_and_quantize_hf_checkpoint,
+    load_and_quantize_model,
     quantize_params,
     quantize_tensor,
 )

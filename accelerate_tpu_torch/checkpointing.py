@@ -88,28 +88,80 @@ def save_safetensors(tensors: dict, path, metadata: Optional[dict] = None):
                 f.write(t.reshape(-1).view(torch.uint8).numpy().data)
 
 
+class SafetensorsFile:
+    """One safetensors file, its header parsed once: ``keys()``, each
+    tensor's ``dtype``/``shape`` (:meth:`meta`), and :meth:`read` of one
+    tensor at its byte offsets, optionally into pinned host memory (the
+    staging of a host-to-card copy). Nothing else of the file is read."""
+
+    def __init__(self, path):
+        self.path = str(path)
+        with open(self.path, "rb") as f:
+            (length,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(length))
+        self.metadata = header.pop("__metadata__", None)
+        self._start = 8 + length
+        self._header = header
+
+    def keys(self) -> list:
+        return list(self._header)
+
+    def __contains__(self, name) -> bool:
+        return name in self._header
+
+    def meta(self, name):
+        """``(torch dtype, shape, nbytes)`` of tensor ``name``."""
+        info = self._header[name]
+        dtype = _FROM_NAME.get(info["dtype"])
+        if dtype is None:
+            raise TypeError(f"unsupported safetensors dtype {info['dtype']} of {name!r}")
+        lo, hi = info["data_offsets"]
+        return dtype, tuple(info["shape"]), hi - lo
+
+    def read(self, name, pin: bool = False) -> torch.Tensor:
+        """Tensor ``name`` as a CPU tensor of its own, in pinned memory when
+        ``pin``."""
+        dtype, shape, nbytes = self.meta(name)
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        if nbytes:
+            view = memoryview(buf.numpy())
+            with open(self.path, "rb", buffering=0) as f:
+                f.seek(self._start + self._header[name]["data_offsets"][0])
+                got = 0
+                while got < nbytes:
+                    n = f.readinto(view[got:])
+                    if not n:
+                        raise ValueError(f"{self.path}: tensor {name!r} runs past the end of "
+                                         "the file")
+                    got += n
+        return buf.view(dtype).reshape(shape)
+
+
 def load_safetensors(path) -> dict:
     """Read a safetensors file into ``{name: CPU tensor}``."""
-    with open(path, "rb") as f:
-        (length,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(length))
-        start = 8 + length
-        out = {}
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            dtype = _FROM_NAME.get(info["dtype"])
-            if dtype is None:
-                raise TypeError(f"unsupported safetensors dtype {info['dtype']} of {name!r}")
-            lo, hi = info["data_offsets"]
-            f.seek(start + lo)
-            buf = bytearray(hi - lo)
-            if f.readinto(buf) != hi - lo:
-                raise ValueError(f"{path}: tensor {name!r} runs past the end of the file")
-            flat = (torch.frombuffer(buf, dtype=torch.uint8) if buf
-                    else torch.empty(0, dtype=torch.uint8))
-            out[name] = flat.view(dtype).reshape(info["shape"])
-    return out
+    f = SafetensorsFile(path)
+    return {name: f.read(name) for name in f.keys()}
+
+
+def checkpoint_shards(checkpoint) -> list:
+    """The :class:`SafetensorsFile` of each shard of a checkpoint: a
+    safetensors file, a directory with ``model.safetensors.index.json``
+    (its shards in name order), or a directory with ``model.safetensors``."""
+    checkpoint = str(checkpoint)
+    if os.path.isfile(checkpoint):
+        paths = [checkpoint]
+    else:
+        index = os.path.join(checkpoint, SAFE_WEIGHTS_INDEX_NAME)
+        if os.path.isfile(index):
+            with open(index) as f:
+                weight_map = json.load(f)["weight_map"]
+            paths = [os.path.join(checkpoint, s) for s in sorted(set(weight_map.values()))]
+        else:
+            single = os.path.join(checkpoint, SAFE_WEIGHTS_NAME)
+            if not os.path.isfile(single):
+                raise FileNotFoundError(f"No safetensors checkpoint under {checkpoint}")
+            paths = [single]
+    return [SafetensorsFile(p) for p in paths]
 
 
 # ---------------------------------------------------------------------------
@@ -460,26 +512,14 @@ def unflatten_params(flat: dict) -> dict:
     return tree
 
 
-def save_model(model, save_directory: str, max_shard_size="10GB",
-               safe_serialization: bool = True):
-    """Export the model's state dict as safetensors: one ``model.safetensors``
-    or, past ``max_shard_size``, shards named ``model-0000i-of-0000n`` with
-    ``model.safetensors.index.json`` mapping each tensor to its shard. Tied
-    weights (one storage under two names) are written once."""
-    if not safe_serialization:
-        raise NotImplementedError("the port writes model files as safetensors only")
+def save_sharded(tensors: dict, save_directory, max_shard_size="10GB"):
+    """Write ``{name: tensor}`` as safetensors: one ``model.safetensors`` or,
+    past ``max_shard_size``, shards named ``model-0000i-of-0000n`` with
+    ``model.safetensors.index.json`` mapping each tensor to its shard."""
     os.makedirs(save_directory, exist_ok=True)
-    module = getattr(model, "module", model)
-    flat, seen = {}, set()
-    for name, t in module.state_dict().items():
-        key = (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape))
-        if key in seen:
-            continue
-        seen.add(key)
-        flat[name] = t
     limit = _parse_size(max_shard_size)
     shards, sizes = [{}], [0]
-    for name, t in flat.items():
+    for name, t in tensors.items():
         nbytes = t.numel() * t.element_size()
         if sizes[-1] + nbytes > limit and shards[-1]:
             shards.append({})
@@ -498,6 +538,23 @@ def save_model(model, save_directory: str, max_shard_size="10GB",
             index["weight_map"][k] = name
     with open(os.path.join(save_directory, SAFE_WEIGHTS_INDEX_NAME), "w") as f:
         json.dump(index, f, indent=2)
+
+
+def save_model(model, save_directory: str, max_shard_size="10GB",
+               safe_serialization: bool = True):
+    """Export the model's state dict as safetensors (:func:`save_sharded`).
+    Tied weights (one storage under two names) are written once."""
+    if not safe_serialization:
+        raise NotImplementedError("the port writes model files as safetensors only")
+    module = getattr(model, "module", model)
+    flat, seen = {}, set()
+    for name, t in module.state_dict().items():
+        key = (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape))
+        if key in seen:
+            continue
+        seen.add(key)
+        flat[name] = t
+    save_sharded(flat, save_directory, max_shard_size)
 
 
 def load_safetensors_model(save_directory: str) -> dict:

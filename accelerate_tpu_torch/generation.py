@@ -217,6 +217,16 @@ def _cache_factory(module, role: Optional[str] = None):
     return factory
 
 
+def _device_of(module) -> torch.device:
+    """The device a model computes on: its parameters', or a streamed
+    model's execution device (``big_modeling.StreamedModel``)."""
+    from .big_modeling import StreamedModel
+
+    if isinstance(module, StreamedModel):
+        return module.device
+    return next(module.parameters()).device
+
+
 @torch.inference_mode()
 def generate(
     module,
@@ -252,7 +262,7 @@ def generate(
     Returns [B, S + max_new_tokens] ids (prompt + completion).
     """
     factory = _cache_factory(module)
-    device = next(module.parameters()).device
+    device = _device_of(module)
     ids = torch.as_tensor(input_ids, device=device)
     if max_new_tokens <= 0:
         return ids
@@ -553,7 +563,7 @@ def prompt_lookup_generate(
 
     Returns [1, S + max_new_tokens] ids on the model's device."""
     factory = _cache_factory(module)
-    ids = torch.as_tensor(input_ids, device=next(module.parameters()).device)
+    ids = torch.as_tensor(input_ids, device=_device_of(module))
     if ids.shape[0] != 1:
         raise ValueError(f"prompt_lookup_generate is batch-1 only (got batch {ids.shape[0]})")
     if ngram < 1 or num_draft < 1:
@@ -619,7 +629,7 @@ def assisted_generate(
     d_vocab = getattr(draft_module.config, "vocab_size", None)
     if t_vocab != d_vocab:
         raise ValueError(f"target and draft must share a vocabulary (got {t_vocab} vs {d_vocab})")
-    ids = torch.as_tensor(input_ids, device=next(module.parameters()).device)
+    ids = torch.as_tensor(input_ids, device=_device_of(module))
     if ids.shape[0] != 1:
         raise ValueError(f"assisted_generate is batch-1 only (got batch {ids.shape[0]})")
     if num_draft < 1:
@@ -712,7 +722,7 @@ def beam_search_generate(
     Returns [B, S + max_new_tokens] ids of the best beam per row, on the
     model's device."""
     factory = _cache_factory(module)
-    device = next(module.parameters()).device
+    device = _device_of(module)
     ids = torch.as_tensor(input_ids, device=device)
     B, S = ids.shape
     if max_new_tokens <= 0:

@@ -12,12 +12,15 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``cuda`` by default; ``"cpu"`` (or any explicit device) as asked.
+    """``cuda`` by default; ``"cpu"`` (or any explicit device) as asked. A
+    ``torch.device`` context other than the CPU (``big_modeling``'s
+    ``init_empty_weights``, ``init_on_device``) sets the default instead.
 
     Raises ``RuntimeError`` when no device is given and no CUDA card is
     visible, or when a CUDA device is asked for without one."""
     if device is None:
-        device = "cuda"
+        default = torch.get_default_device()
+        device = "cuda" if default.type == "cpu" else default
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

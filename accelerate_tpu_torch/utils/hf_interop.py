@@ -1,0 +1,356 @@
+"""HuggingFace Transformers checkpoints of the Llama family.
+
+Counterpart of ``accelerate_tpu/utils/hf_interop.py`` for the families the
+port's ``LlamaForCausalLM`` covers: llama, mistral, qwen2, gemma and
+gemma2. The JAX package's tables map HF names onto a flax tree and
+transpose every projection (op ``"t"``: HF ``Linear.weight`` is ``[out,
+in]``, a flax kernel ``[in, out]``). The port's ``nn.Linear.weight`` is
+``[out, in]`` too, so here every tensor crosses as it is and only the names
+change (``input_layernorm.weight`` -> ``input_norm.scale``, ...). A square
+projection carried across with the JAX op would come out transposed with no
+shape check to catch it; the tests hold both packages' loads of one
+directory against each other.
+
+The other families of the JAX package (gpt2, gptj, gpt_neox, bloom, opt,
+phi, mixtral, qwen2_moe, bert, vit, t5) come with their models (ROADMAP.md,
+A9) and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Optional
+
+import torch
+
+from ..models.llama import LlamaConfig, scale_rope_frequencies
+
+__all__ = [
+    "detect_family",
+    "config_from_hf",
+    "hf_config_from",
+    "convert_hf_state_dict",
+    "export_hf_state_dict",
+    "load_hf_checkpoint",
+    "save_hf_checkpoint",
+]
+
+# (HF template, port template, alternatives for {p}); {i} is a layer index.
+_LLAMA_RULES = [
+    ("model.embed_tokens.weight", "model.embed_tokens.weight", None),
+    ("model.layers.{i}.self_attn.{p}_proj.weight",
+     "model.layers.{i}.self_attn.{p}_proj.weight", ("q", "k", "v", "o")),
+    ("model.layers.{i}.mlp.{p}_proj.weight",
+     "model.layers.{i}.mlp.{p}_proj.weight", ("gate", "up", "down")),
+    ("model.layers.{i}.input_layernorm.weight", "model.layers.{i}.input_norm.scale", None),
+    ("model.layers.{i}.post_attention_layernorm.weight",
+     "model.layers.{i}.post_attn_norm.scale", None),
+    ("model.norm.weight", "model.norm.scale", None),
+    ("lm_head.weight", "lm_head.weight", None),
+]
+
+# Qwen2: llama-named tensors plus biases on the q/k/v projections.
+_QWEN2_RULES = _LLAMA_RULES + [
+    ("model.layers.{i}.self_attn.{p}_proj.bias",
+     "model.layers.{i}.self_attn.{p}_proj.bias", ("q", "k", "v")),
+]
+
+# Gemma2: llama-named tensors plus the sandwich-norm pair around the MLP.
+_GEMMA2_RULES = _LLAMA_RULES + [
+    ("model.layers.{i}.pre_feedforward_layernorm.weight",
+     "model.layers.{i}.pre_ffn_norm.scale", None),
+    ("model.layers.{i}.post_feedforward_layernorm.weight",
+     "model.layers.{i}.post_ffn_norm.scale", None),
+]
+
+# Mistral and Gemma checkpoints are llama-named tensor for tensor; their
+# differences live in config_from_hf.
+_FAMILY_RULES = {
+    "llama": _LLAMA_RULES,
+    "mistral": _LLAMA_RULES,
+    "qwen2": _QWEN2_RULES,
+    "gemma": _LLAMA_RULES,
+    "gemma2": _GEMMA2_RULES,
+}
+
+# Families the JAX package reads that the port has no model for yet.
+_LATER_FAMILIES = ("mixtral", "qwen2_moe", "gpt2", "gptj", "gpt_neox", "bloom", "opt", "phi",
+                   "bert", "vit", "t5")
+
+# HF keys that are legitimately rule-less: a tied head's copy and buffers.
+_SKIPPABLE = re.compile(r"(^|\.)(lm_head\.weight|position_ids|rotary_emb\.inv_freq)$")
+
+
+def _compile_rules(rules):
+    compiled = []
+    for hf_t, ours_t, alts in rules:
+        pats = []
+        for t in (hf_t, ours_t):
+            pat = re.escape(t).replace(r"\{i\}", r"(?P<i>\d+)")
+            if alts:
+                pat = pat.replace(r"\{p\}", f"(?P<p>{'|'.join(alts)})")
+            pats.append(re.compile(f"^{pat}$"))
+        compiled.append((pats[0], pats[1], hf_t, ours_t))
+    return compiled
+
+
+_COMPILED = {fam: _compile_rules(rules) for fam, rules in _FAMILY_RULES.items()}
+
+
+def _fill(template: str, match: re.Match) -> str:
+    out = template
+    for name, val in match.groupdict().items():
+        out = out.replace("{" + name + "}", val)
+    return out
+
+
+def _check_family(family: str) -> None:
+    if family in _COMPILED:
+        return
+    if family in _LATER_FAMILIES:
+        raise NotImplementedError(
+            f"model family {family!r} is not ported yet (ROADMAP.md, A9); the port reads "
+            f"{'/'.join(_COMPILED)}")
+    raise ValueError(f"unsupported family {family!r}; supported: {sorted(_COMPILED)}")
+
+
+def detect_family(hf_config: dict) -> str:
+    """Family name from an HF ``config.json`` dict (its ``model_type``)."""
+    family = str(hf_config.get("model_type", "")).lower()
+    _check_family(family)
+    return family
+
+
+def config_from_hf(hf_config: dict, family: Optional[str] = None) -> LlamaConfig:
+    """The port's ``LlamaConfig`` for an HF ``config.json`` dict."""
+    family = family or detect_family(hf_config)
+    _check_family(family)
+    get = hf_config.get
+    if family in ("gemma", "gemma2"):
+        # transformers: an absent hidden_activation means the tanh gelu the
+        # checkpoints were trained with; an explicit "gelu" is the erf form.
+        act = get("hidden_activation") or "gelu_pytorch_tanh"
+        if act not in ("gelu", "gelu_pytorch_tanh"):
+            raise NotImplementedError(
+                f"hidden_activation {act!r}: the {family} MLP is GeGLU (gelu)")
+    else:
+        act = get("hidden_act", "silu")
+        if act not in ("silu", "swish"):
+            raise NotImplementedError(f"hidden_act {act!r}: the {family} MLP is SwiGLU (silu)")
+    rope_scaling = get("rope_scaling") or None
+    if rope_scaling:
+        # An unsupported scaling type must fail now, not at the first forward.
+        scale_rope_frequencies(torch.ones(2), rope_scaling)
+    kwargs = dict(
+        rope_scaling=rope_scaling,
+        vocab_size=get("vocab_size", 32000),
+        hidden_size=get("hidden_size", 4096),
+        intermediate_size=get("intermediate_size", 11008),
+        num_hidden_layers=get("num_hidden_layers", 32),
+        num_attention_heads=get("num_attention_heads", 32),
+        num_key_value_heads=get("num_key_value_heads", get("num_attention_heads", 32)),
+        max_position_embeddings=get("max_position_embeddings", 4096),
+        rms_norm_eps=get("rms_norm_eps", 1e-5),
+        rope_theta=get("rope_theta", 10000.0),
+        tie_word_embeddings=get("tie_word_embeddings", False),
+    )
+    if family == "llama":
+        return LlamaConfig(**kwargs)
+    if family == "mistral":
+        return LlamaConfig(**kwargs, sliding_window=get("sliding_window"))
+    if family == "qwen2":
+        # Sliding windows only when the config opts in; the first
+        # max_window_layers layers stay full attention.
+        sliding, windows = None, None
+        if get("use_sliding_window"):
+            n = kwargs["num_hidden_layers"]
+            if get("layer_types"):
+                windows = tuple(get("sliding_window") if t == "sliding_attention" else None
+                                for t in get("layer_types"))
+            else:
+                full = get("max_window_layers", n)
+                windows = tuple(None if i < full else get("sliding_window") for i in range(n))
+            if len(set(windows)) == 1:
+                sliding, windows = windows[0], None
+        return LlamaConfig(**kwargs, attention_qkv_bias=True, sliding_window=sliding,
+                           layer_windows=windows)
+    gemma = dict(
+        {**kwargs, "rms_norm_eps": get("rms_norm_eps", 1e-6),
+         "tie_word_embeddings": get("tie_word_embeddings", True)},
+        mlp_activation="gelu_tanh" if act == "gelu_pytorch_tanh" else "gelu_exact",
+        rms_norm_unit_offset=True, scale_embeddings=True, head_dim_override=get("head_dim"))
+    if family == "gemma":
+        return LlamaConfig(**gemma)
+    if get("layer_types"):
+        windows = tuple(get("sliding_window") if t == "sliding_attention" else None
+                        for t in get("layer_types"))
+    else:  # older configs: even layers slide
+        windows = tuple(get("sliding_window") if i % 2 == 0 else None
+                        for i in range(kwargs["num_hidden_layers"]))
+    return LlamaConfig(**gemma, post_norms=True, layer_windows=windows,
+                       attn_logit_softcapping=get("attn_logit_softcapping"),
+                       final_logit_softcapping=get("final_logit_softcapping"),
+                       query_pre_attn_scalar=get("query_pre_attn_scalar"))
+
+
+def hf_config_from(config: LlamaConfig, family: str = "llama") -> dict:
+    """The HF ``config.json`` dict of a ``LlamaConfig`` (the inverse of
+    :func:`config_from_hf` for the fields it reads), for writing a
+    checkpoint directory."""
+    _check_family(family)
+    out = dict(
+        model_type=family, vocab_size=config.vocab_size, hidden_size=config.hidden_size,
+        intermediate_size=config.intermediate_size,
+        num_hidden_layers=config.num_hidden_layers,
+        num_attention_heads=config.num_attention_heads,
+        num_key_value_heads=config.num_key_value_heads,
+        max_position_embeddings=config.max_position_embeddings,
+        rms_norm_eps=config.rms_norm_eps, rope_theta=config.rope_theta,
+        rope_scaling=config.rope_scaling, tie_word_embeddings=config.tie_word_embeddings)
+    if family in ("gemma", "gemma2"):
+        out["hidden_activation"] = ("gelu_pytorch_tanh" if config.mlp_activation == "gelu_tanh"
+                                    else "gelu")
+        out["head_dim"] = config.head_dim
+    else:
+        out["hidden_act"] = "silu"
+    if family == "mistral":
+        out["sliding_window"] = config.sliding_window
+    windows = [config.window_for(i) for i in range(config.num_hidden_layers)]
+    if family == "qwen2" and any(w is not None for w in windows):
+        out["use_sliding_window"] = True
+        out["sliding_window"] = next(w for w in windows if w is not None)
+        out["layer_types"] = ["full_attention" if w is None else "sliding_attention"
+                              for w in windows]
+    if family == "gemma2":
+        out["sliding_window"] = next((w for w in windows if w is not None), None)
+        out["layer_types"] = ["full_attention" if w is None else "sliding_attention"
+                              for w in windows]
+        out.update(attn_logit_softcapping=config.attn_logit_softcapping,
+                   final_logit_softcapping=config.final_logit_softcapping,
+                   query_pre_attn_scalar=config.query_pre_attn_scalar)
+    return out
+
+
+def _read_hf_config(checkpoint_dir: str) -> dict:
+    path = os.path.join(checkpoint_dir, "config.json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{checkpoint_dir} has no config.json; family detection needs it")
+    with open(path) as f:
+        return json.load(f)
+
+
+def model_from_config(config: LlamaConfig, family: str, device="meta", dtype=torch.float32):
+    """The port's model of ``family`` for ``config``; on the meta device by
+    default, where it holds no memory (a skeleton for the loaders)."""
+    from ..models.llama import LlamaForCausalLM
+
+    _check_family(family)
+    return LlamaForCausalLM(config, device=device, dtype=dtype)
+
+
+def open_hf_checkpoint(checkpoint_dir: str, config: Optional[LlamaConfig] = None, dtype=None):
+    """Read ``config.json``, detect the family, build (or take) the config,
+    and build the model on the meta device: ``(family, config, module)``."""
+    hf_config = _read_hf_config(checkpoint_dir)
+    family = detect_family(hf_config)
+    if config is None:
+        config = config_from_hf(hf_config, family)
+    return family, config, model_from_config(config, family, dtype=dtype or torch.float32)
+
+
+def map_hf_key(key: str, family: str) -> Optional[str]:
+    """The port's name for one HF tensor name, or None for a rule-less key
+    (a tied head's copy, buffers): the per-tensor form the shard-streaming
+    loaders use."""
+    _check_family(family)
+    for hf_re, _, _, ours_t in _COMPILED[family]:
+        match = hf_re.match(key)
+        if match:
+            return _fill(ours_t, match)
+    return None
+
+
+def _drop_tied_head(state_dict: dict) -> bool:
+    head, embed = state_dict.get("lm_head.weight"), state_dict.get("model.embed_tokens.weight")
+    if head is None or embed is None or head.shape != embed.shape:
+        return False
+    # First row first, so an untied head pays for no full comparison.
+    return bool(torch.equal(head[:1], embed[:1]) and torch.equal(head, embed))
+
+
+def convert_hf_state_dict(state_dict: dict, family: str, *, strict: bool = False) -> dict:
+    """HF state dict -> the port's state dict (the same tensors, renamed).
+    A head equal to the embedding (a tied checkpoint's copy) is dropped;
+    unmatched HF keys are skipped unless ``strict``."""
+    _check_family(family)
+    drop_head = _drop_tied_head(state_dict)
+    out = {}
+    for key, value in state_dict.items():
+        if drop_head and key == "lm_head.weight":
+            continue
+        name = map_hf_key(key, family)
+        if name is not None:
+            out[name] = torch.as_tensor(value)
+        elif strict and not _SKIPPABLE.search(key):
+            raise KeyError(f"no conversion rule for HF key {key!r} ({family})")
+    return out
+
+
+def export_hf_state_dict(params, family: str, *, prefix: str = "", dtype=None) -> dict:
+    """The port's state dict (or a model) -> an HF-named state dict of the
+    same tensors. Raises on a parameter with no rule, so nothing is dropped
+    silently; ``dtype`` casts every floating tensor."""
+    _check_family(family)
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    out = {}
+    for key, value in params.items():
+        for _, ours_re, hf_t, _ in _COMPILED[family]:
+            match = ours_re.match(key)
+            if match:
+                if dtype is not None and value.is_floating_point():
+                    value = value.to(dtype)
+                out[prefix + _fill(hf_t, match)] = value
+                break
+        else:
+            raise KeyError(f"no export rule for parameter {key!r} ({family})")
+    return out
+
+
+def load_hf_checkpoint(checkpoint_dir: str, family: Optional[str] = None,
+                       config: Optional[LlamaConfig] = None, dtype=None):
+    """``(config, state_dict)`` of an HF checkpoint directory (one file or
+    sharded), CPU tensors cast to ``dtype`` as they are read."""
+    from ..checkpointing import checkpoint_shards
+
+    hf_config = {}
+    if os.path.exists(os.path.join(checkpoint_dir, "config.json")):
+        hf_config = _read_hf_config(checkpoint_dir)
+    family = family or detect_family(hf_config)
+    config = config or config_from_hf(hf_config, family)
+    state_dict = {}
+    for shard in checkpoint_shards(checkpoint_dir):
+        for key in shard.keys():
+            t = shard.read(key)
+            state_dict[key] = t if dtype is None else t.to(dtype)
+    return config, convert_hf_state_dict(state_dict, family)
+
+
+def save_hf_checkpoint(params, checkpoint_dir: str, config: LlamaConfig, family: str = "llama",
+                       max_shard_size="5GB", dtype=None) -> None:
+    """Write an HF checkpoint directory: ``config.json`` and the weights of
+    ``params`` (a state dict or a model, on any device) under HF names, one
+    ``model.safetensors`` or shards of at most ``max_shard_size`` with an
+    index."""
+    from ..checkpointing import save_sharded
+
+    hf = export_hf_state_dict(params, family, dtype=dtype)
+    save_sharded(hf, checkpoint_dir, max_shard_size)
+    hf_config = hf_config_from(config, family)
+    floating = [t.dtype for t in hf.values() if t.is_floating_point()]
+    if floating:
+        hf_config["torch_dtype"] = str(floating[0]).removeprefix("torch.")
+    with open(os.path.join(checkpoint_dir, "config.json"), "w") as f:
+        json.dump(hf_config, f, indent=2)

@@ -15,9 +15,12 @@ no packed int4 dtype), ``scale`` ``[..., out, in/bs, 1]`` over ``q`` seen as
 ``[..., out, in/bs, bs]``; :meth:`QuantizedTensor.nbytes` counts half a
 byte each, the packed size.
 
-``load_and_quantize_model`` and ``load_and_quantize_hf_checkpoint`` of the
-JAX module come with the checkpoint loaders (ROADMAP.md, A9), and with them
-``QuantizationConfig.compute_dtype``, which only they read.
+:func:`load_and_quantize_model` and :func:`load_and_quantize_hf_checkpoint`
+(``accelerate_tpu/utils/quantization.py:207-335``) quantize a checkpoint
+tensor by tensor as its shards stream, so host memory holds one
+full-precision tensor at a time, and return the quantized state dict with
+an ``apply_fn`` that dequantizes to ``QuantizationConfig.compute_dtype`` for
+each call.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ class QuantizationConfig:
     """Which weights to quantize and how. ``skip_modules`` are regexes
     searched in a parameter's dotted name (the head stays full precision by
     default); ``min_weight_size`` keeps small tensors (norms, biases) as
-    they are."""
+    they are; ``compute_dtype`` is what the loaders' ``apply_fn``
+    dequantizes to."""
 
     load_in_8bit: bool = False
     load_in_4bit: bool = False
     block_size: int = 64            # int4 contraction-dim block
+    compute_dtype: torch.dtype = torch.bfloat16
     skip_modules: Optional[list] = None
     min_weight_size: int = 4096
 
@@ -58,18 +63,23 @@ class QuantizationConfig:
 
 class QuantizedTensor:
     """An integer-quantized weight and its scales (see the module
-    docstring for the layouts)."""
+    docstring for the layouts). ``transposed``: ``q`` and ``scale`` hold the
+    quantization of the weight's transpose (an embedding table, whose
+    channels run along dim -2), and :meth:`dequantize` transposes back."""
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor, bits: int, block_size: int = 0):
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, bits: int, block_size: int = 0,
+                 transposed: bool = False):
         self.q = q
         self.scale = scale
         self.bits = int(bits)
         self.block_size = int(block_size)
+        self.transposed = transposed
 
     @property
     def shape(self):
         """Shape of the logical tensor."""
-        return tuple(self.q.shape)
+        shape = tuple(self.q.shape)
+        return shape[:-2] + shape[:-3:-1] if self.transposed else shape
 
     @property
     def dtype(self):
@@ -86,10 +96,12 @@ class QuantizedTensor:
         once as it is stored, bit for bit the f32 product cast)."""
         if self.bits == 8:
             out = torch.empty(self.q.shape, dtype=dtype, device=self.q.device)
-            return torch.mul(self.q, self.scale, out=out)
-        shape = self.q.shape
-        blocked = self.q.reshape(*shape[:-1], shape[-1] // self.block_size, self.block_size)
-        return (blocked.float() * self.scale).reshape(shape).to(dtype)
+            out = torch.mul(self.q, self.scale, out=out)
+        else:
+            shape = self.q.shape
+            blocked = self.q.reshape(*shape[:-1], shape[-1] // self.block_size, self.block_size)
+            out = (blocked.float() * self.scale).reshape(shape).to(dtype)
+        return out.mT if self.transposed else out
 
     def nbytes(self) -> int:
         """Bytes at rest: the integers (int4 packed two to a byte) and the
@@ -101,12 +113,19 @@ class QuantizedTensor:
         return f"QuantizedTensor(int{self.bits}, shape={self.shape}, block={self.block_size})"
 
 
-def quantize_tensor(w: torch.Tensor, bits: int = 8, block_size: int = 64) -> QuantizedTensor:
+def quantize_tensor(w: torch.Tensor, bits: int = 8, block_size: int = 64,
+                    transposed: bool = False) -> QuantizedTensor:
     """Symmetric quantization of a weight ``[..., out, in]``: round half to
     even of ``w / scale``, clipped to the symmetric range, with
     ``scale = amax / 127`` per output channel (8 bits) or ``amax / 7`` per
     block of ``block_size`` inputs (4 bits; the block shrinks by halves
-    until it divides ``in``); an all-zero channel or block gets scale 1."""
+    until it divides ``in``); an all-zero channel or block gets scale 1.
+    ``transposed`` quantizes ``w`` as ``[..., in, out]`` (an embedding
+    table, laid out as the JAX package's flax kernels are)."""
+    if transposed:
+        qt = quantize_tensor(w.mT, bits, block_size)
+        qt.transposed = True
+        return qt
     if w.dim() < 2:
         raise ValueError(f"quantize_tensor expects ndim>=2, got {tuple(w.shape)}")
     f = w.detach().float()
@@ -141,11 +160,13 @@ def eligible(name: str, tensor, config: QuantizationConfig) -> bool:
     return not any(re.search(p, name) for p in config.skip_modules or [])
 
 
-def quantize_params(params: dict, config: QuantizationConfig) -> dict:
+def quantize_params(params: dict, config: QuantizationConfig, transposed=()) -> dict:
     """Quantize every eligible tensor of a ``{name: tensor}`` dict (a
     state dict); the others, and tensors already quantized, pass as they
-    are."""
-    return {name: (quantize_tensor(t, bits=config.bits, block_size=config.block_size)
+    are. The names in ``transposed`` are embedding tables
+    (:func:`quantize_tensor`)."""
+    return {name: (quantize_tensor(t, bits=config.bits, block_size=config.block_size,
+                                   transposed=name in transposed)
                    if eligible(name, t, config) else t)
             for name, t in params.items()}
 
@@ -171,3 +192,78 @@ def quantizing_apply(apply_fn, compute_dtype=torch.bfloat16):
         return apply_fn(dequantize_params(params, compute_dtype), *args, **kwargs)
 
     return wrapped
+
+
+def load_and_quantize_model(module, checkpoint=None, params=None,
+                            quantization_config: Optional[QuantizationConfig] = None, dtype=None,
+                            key_map=None, device=None):
+    """Load weights and quantize the eligible ones (:func:`eligible`):
+    ``(quantized state dict, apply_fn)``, ``apply_fn(qparams, *args,
+    **kwargs)`` running ``module`` (on the meta device is enough) on the
+    weights dequantized to ``compute_dtype``.
+
+    From a ``checkpoint`` (a safetensors file or directory) each tensor is
+    read, moved to ``device``, cast to ``dtype`` and quantized before the
+    next is read; ``key_map(checkpoint key)`` gives the port's name or None
+    to skip (HF names: ``utils/hf_interop.map_hf_key``), and a parameter of
+    ``module`` the checkpoint lacks raises. From ``params`` (a state dict)
+    the tensors are quantized where they are moved. ``device`` defaults to
+    the card (``utils/device.py``)."""
+    from .device import resolve_device
+
+    if quantization_config is None:
+        raise ValueError("quantization_config is required")
+    if (checkpoint is None) == (params is None):
+        raise ValueError("pass exactly one of checkpoint / params")
+    config = quantization_config
+    device = resolve_device(device)
+    # An embedding table is [vocab, hidden] here and in the JAX package,
+    # where a projection's weight is the transpose of its flax kernel: its
+    # channels run along dim -2, as the JAX package quantizes them.
+    embeddings = {f"{owner}.weight" if owner else "weight"
+                  for owner, m in module.named_modules() if isinstance(m, torch.nn.Embedding)}
+
+    def prepared(t):
+        t = torch.as_tensor(t).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    if checkpoint is not None:
+        from ..checkpointing import checkpoint_shards
+
+        expected = set(dict(module.named_parameters()))
+        qparams: dict = {}
+        for shard in checkpoint_shards(checkpoint):
+            for key in shard.keys():
+                name = key_map(key) if key_map is not None else key
+                if name is None or name not in expected:
+                    continue
+                t = prepared(shard.read(key))
+                qparams[name] = (quantize_tensor(t, bits=config.bits, block_size=config.block_size,
+                                                 transposed=name in embeddings)
+                                 if eligible(name, t, config) else t)
+        missing = expected - set(qparams)
+        if missing:
+            raise ValueError(f"Checkpoint {checkpoint} is missing keys: {sorted(missing)[:5]}...")
+    else:
+        qparams = quantize_params({n: prepared(t) for n, t in params.items()}, config,
+                                  transposed=embeddings)
+
+    def apply(p, *args, **kwargs):
+        return torch.func.functional_call(module, p, args, kwargs)
+
+    return qparams, quantizing_apply(apply, config.compute_dtype)
+
+
+def load_and_quantize_hf_checkpoint(checkpoint_dir: str, quantization_config: QuantizationConfig,
+                                    dtype=None, config=None, device=None):
+    """Quantize an HF checkpoint directory of the Llama family in one call,
+    the names translated tensor by tensor as the shards stream (no
+    full-precision state dict). Returns ``(config, module, qparams,
+    apply_fn)``, the module on the meta device."""
+    from .hf_interop import map_hf_key, open_hf_checkpoint
+
+    family, config, module = open_hf_checkpoint(checkpoint_dir, config)
+    qparams, apply_fn = load_and_quantize_model(
+        module, checkpoint=checkpoint_dir, quantization_config=quantization_config, dtype=dtype,
+        key_map=lambda key: map_hf_key(key, family), device=device)
+    return config, module, qparams, apply_fn

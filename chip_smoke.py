@@ -84,6 +84,26 @@ order; any failure exits non-zero:
    alone and while the other replays its own, the restart's seconds,
    device memory before the kill, at the restart's peak and after it, and
    the gateway loop thread's CPU microseconds per streamed token.
+4f. big-model inference (``big_modeling``), on the same model: exactness
+   first, at the same widths with 2 layers in f32: the model exported to an
+   HF directory in 2 GB shards and loaded back by
+   ``load_hf_checkpoint_and_dispatch`` all on the card, all in host memory,
+   all on disk (lazy references into the shards), on an explicit mixed map
+   and on the solver's ``"auto"`` map (card, host and disk); each tier's
+   logits within ``BIG["exact_atol"]`` of the resident model's and its greedy
+   tokens equal to ``generate``'s (32, or 8 where the head streams from
+   disk); ``disk_offload`` with memmap copies; ``cpu_offload_with_hook``,
+   after whose ``offload()`` no weights of it stay on the card; int8
+   ``load_and_quantize_hf_checkpoint`` against its dequantized weights. Then
+   at full depth in bf16: the resident model exported in 5 GB shards, and on
+   each tier (card, host, disk, ``"auto"`` under ``max_memory={0: "8GiB"}``)
+   the load's seconds, a 4 x 2048 forward (32 wgmma flash launches; the
+   host tier also with ``prefetch=False``), batch-1 decode from a 512-token
+   prompt (16 new, 8 on disk), and the peak card memory, which must stay
+   within the resident weights + 2 x the largest streamed block + an
+   allowance (the resident forward's own activation peak, +10 %), beside a
+   plain pinned host-to-card copy of one layer's bytes. Free disk and
+   ``MemAvailable`` are checked first.
 5. profile: device time of one forward and of decode steps, by kernel kind
    (torch.profiler), and the device's busy share of the wall time.
 
@@ -190,6 +210,13 @@ EXTRA = dict(spec_tokens=4, spec_lookup=3, exact_window=64, lora_rank=16,
 # decode tick 12 of replica 0; full depth in 4c's shape and schedule with a
 # kill at tick 40. The watchdog's hang timeout stays far above any tick.
 FLEET = dict(exact_seed=51, exact_kill_tick=12, kill_tick=40, hang_timeout_s=30.0)
+# Phase 4f: big-model inference. Exactness at 2 layers in f32 (an HF
+# directory in 2 GB shards; logits on 1 x 256 tokens, greedy tokens from a
+# 100-token prompt); then full depth in bf16 (5 GB shards): a 4 x 2048
+# forward and batch-1 decode from a 512-token prompt on each tier.
+BIG = dict(exact_seed=71, exact_len=256, exact_prompt=100, exact_new=32, exact_disk_new=8,
+           exact_shard="2GB", exact_atol=1e-5, quant_atol=1e-4, shard="5GB", forward=(4, 2048),
+           prompt=512, new=16, disk_new=8, auto_budget="8GiB")
 
 
 #: Phase 4c's numbers from this run, which phase 4e prints beside its own.
@@ -2027,6 +2054,348 @@ def phase_profile(model, gen):
                          decode, steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4f: big-model inference
+# ---------------------------------------------------------------------------
+
+def streamed_block_bytes(streamed) -> int:
+    """The largest block's bytes that a pass streams onto the card (its
+    host and disk entries; its card entries count as resident)."""
+    from accelerate_tpu_torch.big_modeling import LazyWeight
+
+    store, largest = streamed.store, 0
+    for spec in streamed.specs:
+        total = 0
+        for prefix in spec.prefixes:
+            for name in store.names_under(prefix):
+                if store.placement[name] in ("cpu", "disk"):
+                    val = store.entries[name]
+                    total += val.nbytes if isinstance(val, LazyWeight) else \
+                        val.numel() * val.element_size()
+        largest = max(largest, total)
+    return largest
+
+
+def mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def check_room(directory, disk_gb, ram_gb, what):
+    import shutil
+
+    free = shutil.disk_usage(directory).free / 1e9
+    avail = mem_available_gb()
+    print(f"  {what}: {free:.1f} GB free on {directory}, MemAvailable {avail:.1f} GB "
+          f"(needs {disk_gb:.1f} GB of disk and {ram_gb:.1f} GB of RAM)")
+    if free < disk_gb:
+        fail(f"{directory} has {free:.1f} GB free; {what} needs {disk_gb:.1f} GB "
+             "(set TMPDIR to a larger disk)")
+    if avail < ram_gb:
+        fail(f"MemAvailable is {avail:.1f} GB; {what} needs {ram_gb:.1f} GB")
+
+
+def timed_passes(streamed):
+    """Wrap ``streamed``'s passes: each ends with a synchronize and appends
+    its end time to the returned list (a decode token is one pass)."""
+    import torch
+
+    marks, run = [], streamed._run
+
+    def wrapped(step):
+        out = run(step)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    streamed._run = wrapped
+    return marks
+
+
+def big_model_exactness(cfg):
+    """Phase 4f's exact half: a 2-layer f32 model at the model's widths,
+    exported to an HF directory in shards and loaded back on every tier;
+    each tier's logits and greedy tokens against the resident model's."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import (LlamaForCausalLM, QuantizationConfig, cpu_offload_with_hook,
+                                      dequantize_params, disk_offload, generate,
+                                      init_empty_weights, load_and_quantize_hf_checkpoint,
+                                      load_hf_checkpoint_and_dispatch, save_hf_checkpoint,
+                                      save_model)
+    from accelerate_tpu_torch.utils.modeling import compute_module_sizes
+    from accelerate_tpu_torch.utils.quantization import quantized_nbytes
+
+    f32, card = torch.float32, card_line()
+    gen = torch.Generator(device="cuda").manual_seed(BIG["exact_seed"])
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = LlamaForCausalLM(small, device="cuda", dtype=f32, generator=gen).eval()
+    weights = sum(p.numel() * 4 for p in model.parameters())
+    ids = torch.randint(0, cfg.vocab_size, (1, BIG["exact_len"]), generator=gen, device="cuda")
+    prompt = ids[:, :BIG["exact_prompt"]]
+    with torch.inference_mode():
+        ref = model(ids)
+    refs = {n: generate(model, prompt, max_new_tokens=n, cache_dtype=f32)
+            for n in (BIG["exact_new"], BIG["exact_disk_new"])}
+    with init_empty_weights():
+        meta = LlamaForCausalLM(small)
+    sizes = compute_module_sizes(meta)
+    embed, layer = sizes["model.embed_tokens"], sizes["model.layers.0"]
+    # The solver visits lm_head first (the JAX package's natural order) and,
+    # once the model spills past the card, keeps room for the largest unit
+    # (the head) on card 0: this budget puts the head on the card, the
+    # embedding and layer 0 in host memory, layer 1 and the final norm on
+    # disk (the head cannot share the card with the embedding and spill).
+    auto_budget = {0: 2 * sizes["lm_head"], "cpu": embed + layer}
+    # The maps whose head streams from disk decode fewer tokens: each token
+    # reads the 2.1 GB head (and, all on disk, the 2.1 GB embedding) again.
+    few, many = BIG["exact_disk_new"], BIG["exact_new"]
+    ways = {"card {'': 0}": ({"": 0}, None, many),
+            "host {'': 'cpu'}": ({"": "cpu"}, None, many),
+            "disk {'': 'disk'} (lazy refs)": ({"": "disk"}, None, few),
+            "explicit mixed (embed, layer 0 card; layer 1 host; norm, head disk)": (
+                {"model.embed_tokens": 0, "model.layers.0": 0, "model.layers.1": "cpu",
+                 "model.norm": "disk", "lm_head": "disk"}, None, few),
+            "auto": ("auto", auto_budget, many)}
+    root = tempfile.mkdtemp(prefix="chip_smoke_big_")
+    try:
+        check_room(root, 3.2 * weights / 1e9, 3 * weights / 1e9, "4f exactness")
+        hf = os.path.join(root, "hf")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(model, hf, small, "llama", max_shard_size=BIG["exact_shard"])
+        shards = sorted(n for n in os.listdir(hf) if n.endswith(".safetensors"))
+        print(f"  f32, 2 layers at the model's widths ({card}): HF directory of "
+              f"{weights / 1e9:.2f} GB in {len(shards)} shards written in "
+              f"{time.perf_counter() - t0:.1f} s; logits on 1 x {BIG['exact_len']} tokens "
+              f"(limit: max |diff| <= {BIG['exact_atol']:g}), greedy tokens from a "
+              f"{BIG['exact_prompt']}-token prompt (token-exact)")
+        if len(shards) < 2:
+            fail("the exactness checkpoint was not sharded")
+        for label, (device_map, budget, new) in ways.items():
+            t0 = time.perf_counter()
+            streamed, _ = load_hf_checkpoint_and_dispatch(hf, device_map=device_map,
+                                                          max_memory=budget, dtype=f32)
+            load_s = time.perf_counter() - t0
+            placed = sorted({str(p) for p in streamed.store.placement.values()})
+            logits = streamed(ids)
+            err = (logits - ref).abs().max().item()
+            identical = torch.equal(logits, ref)
+            tokens = streamed.generate(prompt, max_new_tokens=new, cache_dtype=f32)
+            exact = torch.equal(tokens, refs[new])
+            where = ""
+            if device_map == "auto":
+                where = " map " + ", ".join(
+                    f"{k}: {v}" for k, v in sorted({
+                        name.rsplit(".", 1)[0] if ".layers." not in name
+                        else ".".join(name.split(".")[:3]): p
+                        for name, p in streamed.store.placement.items()}.items()))
+            print(f"    {label}: loaded in {load_s:.2f} s, tiers {placed},{where} logits max |diff| "
+                  f"{err:.3e} ({'bit-identical' if identical else 'not bit-identical'}), "
+                  f"{new} greedy tokens {'equal' if exact else 'DIFFER FROM'} generate's")
+            if not (err <= BIG["exact_atol"] and exact):
+                fail(f"the streamed model ({label}) disagrees with the resident model")
+            if device_map == "auto" and set(placed) != {"0", "cpu", "disk"}:
+                fail(f"the auto map used tiers {placed}, not card, host and disk")
+            streamed.close()
+            del streamed, logits, tokens
+
+        port_dir = os.path.join(root, "port")
+        save_model(model, port_dir, max_shard_size=BIG["exact_shard"])
+        streamed = disk_offload(meta, port_dir, offload_folder=os.path.join(root, "offload"))
+        copies = sum(n.endswith(".dat") for n in os.listdir(os.path.join(root, "offload")))
+        err = (streamed(ids) - ref).abs().max().item()
+        print(f"    disk_offload(offload_folder=...): {copies} memmap copies, logits max |diff| "
+              f"{err:.3e}")
+        if not err <= BIG["exact_atol"]:
+            fail("disk_offload with memmap copies disagrees with the resident model")
+        streamed.close()
+        del streamed
+        shutil.rmtree(port_dir)
+        shutil.rmtree(os.path.join(root, "offload"))
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        streamed, hook = cpu_offload_with_hook(model)
+        err = (streamed(ids) - ref).abs().max().item()
+        during = torch.cuda.memory_allocated() - base
+        hook.offload()
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - base
+        print(f"    cpu_offload_with_hook: logits max |diff| {err:.3e}; card memory above the "
+              f"baseline {during / 2**20:.1f} MiB after the forward (its logits), "
+              f"{left / 2**20:.1f} MiB after hook.offload() and dropping them (limit 1 MiB)")
+        if not (err <= BIG["exact_atol"] and left <= 2**20):
+            fail("cpu_offload_with_hook disagrees, or left weights on the card after offload()")
+        del streamed, hook
+
+        qcfg = QuantizationConfig(load_in_8bit=True, compute_dtype=f32)
+        t0 = time.perf_counter()
+        _, _, qparams, apply = load_and_quantize_hf_checkpoint(hf, qcfg)
+        q_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            q_logits = apply(qparams, ids)
+            deq = LlamaForCausalLM(small, device="cuda", dtype=f32)
+            deq.load_state_dict(dequantize_params(qparams, f32))
+            deq_logits = deq(ids)
+        q_err = (q_logits - deq_logits).abs().max().item()
+        rel = ((q_logits - ref).norm() / ref.norm()).item()
+        agree = (q_logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        qbytes = quantized_nbytes(qparams)
+        print(f"    int8 load_and_quantize_hf_checkpoint: {q_s:.1f} s; logits against the "
+              f"dequantized-weights forward max |diff| {q_err:.3e} (limit "
+              f"{BIG['quant_atol']:g}); against the f32 model relative L2 {rel:.3e}, top-1 "
+              f"agreement {agree:.4f}; {qbytes / 1e9:.3f} GB at rest against "
+              f"{weights / 2e9:.3f} GB in bf16 ({qbytes / (weights / 2):.3f}x; the head stays "
+              "f32)")
+        if not q_err <= BIG["quant_atol"]:
+            fail("the int8-loaded model disagrees with its dequantized weights")
+        del qparams, apply, deq, q_logits, deq_logits
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, ref, refs
+    free_cuda()
+
+
+def big_model_full_depth(model, gen):
+    """Phase 4f at full depth in bf16: the resident model exported to an HF
+    directory, then every tier's load, forward, decode and peak memory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import load_hf_checkpoint_and_dispatch, save_hf_checkpoint
+
+    cfg, bf16, card = model.config, torch.bfloat16, card_line()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    B, S = BIG["forward"]
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    prompt = ids[:1, :BIG["prompt"]]
+    layer_bytes = sum(p.numel() * p.element_size() for p in model.model.layers[0].parameters())
+
+    # The activation allowance: the resident model's own peak above its
+    # weights on the same input (logits included).
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model(ids)
+        torch.cuda.synchronize()
+        allowance = torch.cuda.max_memory_allocated() - before
+    allowance = int(allowance * 1.1) + (64 << 20)
+
+    # The yardstick: a plain pinned host-to-card copy of one layer's bytes.
+    src = torch.empty(layer_bytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(layer_bytes, dtype=torch.uint8, device="cuda")
+    copy_ms = timed_ms(lambda: dst.copy_(src, non_blocking=True), iters=10)
+    del src, dst
+    print(f"  bf16, full depth, {weights / 1e9:.2f} GB of weights ({card}): pinned host-to-card "
+          f"copy of one layer's {layer_bytes / 1e6:.0f} MB: {copy_ms:.3f} ms "
+          f"({layer_bytes / copy_ms / 1e6:.1f} GB/s); activation allowance "
+          f"{allowance / 2**30:.2f} GiB (the resident forward's peak above its weights, "
+          f"+10 % + 64 MiB)")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_big8b_")
+    try:
+        check_room(root, 1.1 * weights / 1e9, 2.5 * weights / 1e9, "4f full depth")
+        hf = os.path.join(root, "hf")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(model, hf, cfg, "llama", max_shard_size=BIG["shard"])
+        shards = sorted(n for n in os.listdir(hf) if n.endswith(".safetensors"))
+        print(f"  exported to an HF directory in {time.perf_counter() - t0:.1f} s: {len(shards)} "
+              f"shards of at most {BIG['shard']}")
+        tiers = {"card": ({"": 0}, None), "host": ({"": "cpu"}, None),
+                 "disk": ({"": "disk"}, None), "auto": ("auto", {0: BIG["auto_budget"]})}
+        for tier, (device_map, budget) in tiers.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            avail0 = mem_available_gb()
+            t0 = time.perf_counter()
+            streamed, _ = load_hf_checkpoint_and_dispatch(hf, device_map=device_map,
+                                                          max_memory=budget, dtype=bf16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            host_gb = avail0 - mem_available_gb()
+            resident = streamed.hbm_resident_bytes
+            block = streamed_block_bytes(streamed)
+            bound = resident + 2 * block + allowance
+            if tier == "auto":
+                cards = sum(1 for p in streamed.store.placement.values() if p == 0)
+                layers_on_card = sorted({int(n.split(".")[2]) for n, p in
+                                         streamed.store.placement.items()
+                                         if p == 0 and ".layers." in n})
+                print(f"    auto map under max_memory={budget}: {cards} of "
+                      f"{len(streamed.store.placement)} tensors on the card (embedding, head, "
+                      f"layers {layers_on_card[0]}-{layers_on_card[-1]} whole or in part), the "
+                      "rest in host memory")
+            passes = timed_passes(streamed)
+            counts0 = read_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            streamed(ids)  # the first forward after the load
+            first_ms = (passes[-1] - t1) * 1e3
+            counts = {k: v - counts0[k] for k, v in read_counts().items()}
+            peak = torch.cuda.max_memory_allocated() - base
+            t1 = time.perf_counter()
+            streamed(ids)
+            fwd_ms = (passes[-1] - t1) * 1e3
+            if counts["flash_fwd_sm90"] != cfg.num_hidden_layers or \
+                    counts["flash_fwd"] != cfg.num_hidden_layers:
+                fail(f"the {tier} tier's forward launched flash_fwd {counts['flash_fwd']} times, "
+                     f"{counts['flash_fwd_sm90']} on the wgmma route; expected "
+                     f"{cfg.num_hidden_layers} of each")
+            if peak > bound:
+                fail(f"the {tier} tier's peak {peak / 2**30:.2f} GiB above the baseline exceeds "
+                     f"resident + 2 x largest block + allowance = {bound / 2**30:.2f} GiB")
+            extra = ""
+            if tier == "host":
+                streamed.prefetch = False
+                t1 = time.perf_counter()
+                streamed(ids)
+                extra = (f", {(passes[-1] - t1) * 1e3:.1f} ms with prefetch=False; "
+                         f"{(weights - resident) / 1e9:.2f} GB streamed a pass, "
+                         f"{(weights - resident) / fwd_ms / 1e6:.1f} GB/s")
+                streamed.prefetch = True
+            if tier == "disk":
+                extra = (f"; the first forward after the load {first_ms:.1f} ms against this "
+                         "second one (the shards were just written, so both passes may read "
+                         f"from the page cache; MemAvailable {mem_available_gb():.1f} GB)")
+            new = BIG["disk_new"] if tier == "disk" else BIG["new"]
+            del passes[:]
+            tokens = streamed.generate(prompt, max_new_tokens=new, cache_dtype=bf16)
+            decode_ms = (passes[-1] - passes[0]) * 1e3 / (len(passes) - 1)
+            if tokens.shape != (1, BIG["prompt"] + new) or \
+                    int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+                fail(f"the {tier} tier's generate returned shape {tuple(tokens.shape)} or "
+                     "token ids outside the vocabulary")
+            print(f"    {tier}: load {load_s:.2f} s (host memory taken {host_gb:.1f} GB); "
+                  f"forward {B} x {S}: {fwd_ms:.1f} ms, flash_fwd launches "
+                  f"{counts['flash_fwd_sm90']} (wgmma){extra}; decode {decode_ms:.1f} ms a "
+                  f"token (batch 1, {BIG['prompt']}-token prompt, {new} new, greedy); peak "
+                  f"{peak / 2**30:.2f} GiB above the baseline against resident "
+                  f"{resident / 2**30:.2f} + 2 x block {block / 2**30:.3f} + allowance = "
+                  f"{bound / 2**30:.2f} GiB")
+            streamed.close()
+            del streamed, tokens
+            free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_big_model(model, gen):
+    """Phase 4f: big-model inference (``big_modeling``), exactness at f32
+    on 2 layers, then every tier at full depth in bf16."""
+    big_model_exactness(model.config)
+    big_model_full_depth(model, gen)
+
+
 def reset_counts():
     from accelerate_tpu_torch.ops.flash_cuda import flash_bwd, flash_fwd
 
@@ -2570,6 +2939,10 @@ def main():
     fleet_counts = read_counts()
     if any(fleet_counts.values()):
         fail("4e launched a flash kernel; the serving path's attention is the einsum core")
+    print("== 4f. big-model inference: device maps, host and disk tiers, streamed forward")
+    reset_counts()
+    phase_big_model(model, gen)
+    big_model_counts = read_counts()
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -2585,9 +2958,13 @@ def main():
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
     for entry in kernels:
-        entry["serving_launches"] = serving_counts[entry["name"]]
-        entry["serving_extras_launches"] = extras_counts[entry["name"]]
-        entry["serving_fleet_launches"] = fleet_counts[entry["name"]]
+        # read_counts names the mma.sync kernels by route ("flash_fwd_mma");
+        # its "flash_fwd" is both routes' total.
+        key = entry["name"] if entry["name"].endswith("_sm90") else entry["name"] + "_mma"
+        entry["serving_launches"] = serving_counts[key]
+        entry["serving_extras_launches"] = extras_counts[key]
+        entry["serving_fleet_launches"] = fleet_counts[key]
+        entry["big_model_launches"] = big_model_counts[key]
         if entry["name"].endswith("_sm90"):
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
@@ -2658,6 +3035,23 @@ def main_fleet():
     phase_fleet(model)
     if any(read_counts().values()):
         fail("4e launched a flash kernel")
+
+
+def main_big_model():
+    """Phase 4f alone. Builds the kernels first: its streamed forwards
+    launch the flash forward."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    model, _, gen = build_model()
+    reset_counts()
+    phase_big_model(model, gen)
+    print(f"  flash launches in 4f: {read_counts()}")
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

@@ -1,0 +1,153 @@
+"""HF-layout checkpoints of the Llama family: the port's conversion held
+against the JAX package's on the same weights, for llama, mistral (window),
+qwen2 (q/k/v biases), gemma and gemma2 (unit-offset norms, softcaps).
+
+Tensors must be equal, not close: conversion renames and never computes.
+The one computing check is the forward of a model loaded from an HF
+directory, held against the JAX model on the same weights at f32 within
+atol/rtol 1e-4 (both run einsum attention; the rest is summation order). It
+fails if a square projection (``q_proj``, ``o_proj`` at these widths) comes
+out transposed, which no shape check would catch."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from accelerate_tpu.utils import hf_interop as jhf
+from accelerate_tpu_torch import LlamaForCausalLM, load_hf_checkpoint_and_dispatch
+from accelerate_tpu_torch.utils import hf_interop as phf
+from accelerate_tpu_torch.utils.convert import state_dict_from_flax
+
+from torch_big_model_common import FAMILIES, jax_params, write_hf_dir
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def torch_state(hf: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in hf.items()}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_convert_and_export_agree_with_jax(family):
+    cfg, jcfg, _, params = jax_params(family)
+    hf = jhf.export_hf_state_dict(params, family)
+    ours = phf.convert_hf_state_dict(torch_state(hf), family, strict=True)
+    want = state_dict_from_flax(params, cfg)
+    assert set(ours) == set(want)
+    for name, t in want.items():
+        assert torch.equal(ours[name], t), name
+    back = phf.export_hf_state_dict(ours, family)
+    assert set(back) == set(hf)
+    for key, arr in hf.items():
+        np.testing.assert_array_equal(back[key].numpy(), arr)
+    # And the JAX package reads the port's export as its own weights.
+    jax_back = jhf.convert_hf_state_dict({k: v.numpy() for k, v in back.items()}, family)
+    again = state_dict_from_flax(jax_back, cfg)
+    assert set(again) == set(want)
+    for name, t in want.items():
+        assert torch.equal(again[name], t), name
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_config_round_trip_agrees_with_jax(family):
+    cfg, jcfg, _, _ = jax_params(family)
+    if family == "llama":
+        cfg = dataclasses.replace(cfg, rope_scaling={
+            "rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+            "high_freq_factor": 4.0, "original_max_position_embeddings": 64})
+    hf = json.loads(json.dumps(phf.hf_config_from(cfg, family)))
+    ours = phf.config_from_hf(hf)
+    ref = jhf.config_from_hf(hf)
+    assert ours == cfg
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+
+
+def test_qwen2_and_gemma2_window_configs_from_hf():
+    hf = {"model_type": "qwen2", "num_hidden_layers": 4, "use_sliding_window": True,
+          "sliding_window": 16, "max_window_layers": 2}
+    for ours, ref in [(phf.config_from_hf(hf), jhf.config_from_hf(hf)),
+                      (phf.config_from_hf({**hf, "model_type": "gemma2"}),
+                       jhf.config_from_hf({**hf, "model_type": "gemma2"}))]:
+        assert ours.layer_windows == ref.layer_windows
+        assert ours.sliding_window == ref.sliding_window
+    assert phf.config_from_hf(hf).layer_windows == (None, None, 16, 16)
+
+
+def test_export_casts_floating_tensors():
+    cfg, _, _, params = jax_params("qwen2")
+    out = phf.export_hf_state_dict(state_dict_from_flax(params, cfg), "qwen2",
+                                   dtype=torch.bfloat16)
+    assert {t.dtype for t in out.values()} == {torch.bfloat16}
+    ref = jhf.export_hf_state_dict(params, "qwen2", dtype=jnp.bfloat16)
+    for key, arr in ref.items():
+        np.testing.assert_array_equal(out[key].float().numpy(), np.asarray(arr, np.float32))
+
+
+def test_tied_head_copy_dropped_and_strict_refuses_a_stray_key():
+    cfg, _, _, params = jax_params("gemma")
+    hf = torch_state(jhf.export_hf_state_dict(params, "gemma"))
+    hf["lm_head.weight"] = hf["model.embed_tokens.weight"].clone()
+    ours = phf.convert_hf_state_dict(hf, "gemma", strict=True)
+    assert "lm_head.weight" not in ours
+    with pytest.raises(KeyError, match="no conversion rule"):
+        phf.convert_hf_state_dict({**hf, "model.extra.weight": torch.zeros(1)}, "gemma",
+                                  strict=True)
+    with pytest.raises(KeyError, match="no export rule"):
+        phf.export_hf_state_dict({"model.extra.weight": torch.zeros(1)}, "llama")
+
+
+@pytest.mark.parametrize("family", ["llama", "qwen2", "gemma2"])
+def test_directory_load_agrees_with_jax(tmp_path, family):
+    cfg, jcfg, module, params = jax_params(family)
+    d = write_hf_dir(tmp_path / "hf", params, family, cfg, shards=3)
+    jcfg2, jparams = jhf.load_hf_checkpoint(d)
+    cfg2, ours = phf.load_hf_checkpoint(d)
+    assert cfg2 == cfg
+    want = state_dict_from_flax(jparams, cfg2)
+    assert set(ours) == set(want)
+    for name, t in want.items():
+        assert torch.equal(ours[name], t), name
+
+
+def test_square_projections_keep_their_layout(tmp_path):
+    cfg, _, module, params = jax_params("llama")
+    d = write_hf_dir(tmp_path / "hf", params, "llama", cfg)
+    _, ours = phf.load_hf_checkpoint(d)
+    q = ours["model.layers.0.self_attn.q_proj.weight"]
+    assert q.shape[0] == q.shape[1] and not torch.equal(q, q.T)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    model.load_state_dict(ours)
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    ref = np.asarray(module.apply({"params": params}, jnp.asarray(ids)))
+    with torch.inference_mode():
+        got = model(torch.as_tensor(ids)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_saved_directory_reads_in_jax(tmp_path):
+    cfg, jcfg, _, params = jax_params("mistral")
+    state = state_dict_from_flax(params, cfg)
+    phf.save_hf_checkpoint(state, str(tmp_path / "hf"), cfg, "mistral", max_shard_size="40KB")
+    index = json.loads((tmp_path / "hf" / "model.safetensors.index.json").read_text())
+    assert len(set(index["weight_map"].values())) > 1
+    jcfg2, jparams = jhf.load_hf_checkpoint(str(tmp_path / "hf"))
+    assert jcfg2.sliding_window == cfg.sliding_window
+    back = state_dict_from_flax(jparams, cfg)
+    for name, t in state.items():
+        assert torch.equal(back[name], t), name
+
+
+@pytest.mark.parametrize("model_type", ["mixtral", "gpt2", "t5", "qwen2_moe"])
+def test_families_without_a_port_model_name_the_roadmap(tmp_path, model_type):
+    with pytest.raises(NotImplementedError, match="A9"):
+        phf.detect_family({"model_type": model_type})
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
+    with pytest.raises(NotImplementedError, match="A9"):
+        load_hf_checkpoint_and_dispatch(str(tmp_path), execution_device="cpu")
+    with pytest.raises(ValueError, match="unsupported"):
+        phf.detect_family({"model_type": "no_such_family"})
