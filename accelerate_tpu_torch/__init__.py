@@ -17,8 +17,13 @@ router with failover, the supervisor, scripted faults, the HTTP gateway;
 ``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands), and
 big-model inference (``big_modeling``: the device-map solver over card,
 host and disk, ``StreamedModel`` streaming a model's blocks onto the card,
-HF-layout checkpoints of the Llama family, quantized loading).
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+HF-layout checkpoints of the Llama family, quantized loading), and
+several processes: process groups over NCCL (one card a process) or gloo
+(the CPU), the collectives, sharded and dispatched loaders, data-parallel
+training with the gradients reduced at each sync step, ``LocalSGD``, the
+in-process launchers and ``accelerate-tpu-torch launch``/``env``/``test``/
+``config default``. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"`` (``cpu=True``, or ``launch --use_cpu_emulation``).
 """
 
 from .accelerator import AcceleratedModel, Accelerator
@@ -62,7 +67,9 @@ from .checkpointing import (
 from .data_loader import (
     AsyncPrefetcher,
     BatchSamplerShard,
+    DataLoaderDispatcher,
     DataLoaderShard,
+    IterableDatasetShard,
     NumpyDataLoader,
     SeedableRandomSampler,
     SkipBatchSampler,
@@ -83,6 +90,8 @@ from .generation import (
     speculative_emit,
     speculative_emit_keyed,
 )
+from .launchers import debug_launcher, notebook_launcher
+from .local_sgd import LocalSGD
 from .logging import get_logger
 from .models.llama import (
     LlamaConfig,
@@ -106,7 +115,7 @@ from .optimizer import AcceleratedOptimizer
 from .parallel.sharding import resolve_remat_policy
 from .precision import GradScalerKwargs, Policy, policy_for
 from .scheduler import AcceleratedScheduler, LRScheduler
-from .serving import ServingEngine, ServingStats
+from .serving import Request, RequestStatus, ServingEngine, ServingStats
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import GeneralTracker, JSONLTracker, TensorBoardTracker
 from .utils.convert import flax_from_state_dict, state_dict_from_flax
@@ -120,7 +129,12 @@ from .utils.hf_interop import (
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
+    DDPCommunicationHookType,
+    DistributedDataParallelKwargs,
+    DistributedInitKwargs,
+    DistributedType,
     GradientAccumulationPlugin,
+    InitProcessGroupKwargs,
     ProfileKwargs,
     ProjectConfiguration,
 )
@@ -150,4 +164,8 @@ from .utils.quantization import (
     quantize_params,
     quantize_tensor,
 )
-from .utils.random import set_seed
+from .utils.imports import is_rich_available
+from .utils.random import set_seed, synchronize_rng_states
+
+if is_rich_available():
+    from .utils import rich  # noqa: F401

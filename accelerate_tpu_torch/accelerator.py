@@ -1,13 +1,14 @@
-"""The Accelerator on one GPU: prepare the objects of a training loop, run
-the loop (accumulate, backward, clip, step) or the fused train step, and
-checkpoint, log and gather around it.
+"""The Accelerator: prepare the objects of a training loop, run the loop
+(accumulate, backward, clip, step) or the fused train step, and
+checkpoint, log and gather around it, in one process or in each process of
+a process group (one device a process).
 
-Counterpart of ``accelerate_tpu/accelerator.py`` for one process on one
-device. The JAX package captures an apply function and a parameter pytree
-into jitted steps; here the prepared model keeps a torch module whose f32
-master parameters the torch optimizer updates in place, and every step
-casts them to the compute dtype inside the differentiated function, so the
-gradients reach the masters' ``.grad`` in f32.
+Counterpart of ``accelerate_tpu/accelerator.py``. The JAX package
+captures an apply function and a parameter pytree into jitted steps; here
+the prepared model keeps a torch module whose f32 master parameters the
+torch optimizer updates in place, and every step casts them to the compute
+dtype inside the differentiated function, so the gradients reach the
+masters' ``.grad`` in f32.
 
 Two ways to train, with the same arithmetic in the same order:
 
@@ -34,9 +35,21 @@ policy) and the preemption handler (SIGTERM latches
 ``ServingGateway(accelerator=...)`` (``gateway_metrics()``,
 ``log(include_gateway=True)``).
 
-Multi-device meshes, FSDP (its activation checkpointing included),
-optimizer-state host offload, ``LocalSGD`` and ``join_uneven_inputs`` are
-not ported yet (ROADMAP.md, A8).
+Across processes (a process group, ``state.py``) the model is replicated
+and each process reads its shard of the data: the gradients are summed
+across processes by one explicit all-reduce at the sync step, after the
+last microbatch and before the clip and the update, in buckets of
+``DistributedDataParallelKwargs.bucket_cap_mb`` (``_reduce_gradients``). A
+microbatch that does not sync communicates no gradients. A loss that
+averages over its labels and says how many it has (``loss_fn.label_count``,
+as ``fused_causal_lm_loss`` does) is weighted by this process's share of
+the global label count (one all-reduce of the count a microbatch,
+``_label_share``), and its gradients are summed; any other loss, a
+per-process mean, gets the mean, which is the global mean because the
+sharded loaders give every process the same batch size. So the clip sees, and returns,
+the global norm, and every process applies the same update. Sharded
+training state (FSDP, ZeRO, optimizer host offload) is ROADMAP.md, A8c;
+meshes are A8d.
 """
 
 from __future__ import annotations
@@ -64,6 +77,8 @@ from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
+    DistributedDataParallelKwargs,
+    DistributedInitKwargs,
     GradientAccumulationPlugin,
     ProfileKwargs,
     ProjectConfiguration,
@@ -122,6 +137,73 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP.md, A{item})")
 
 
+def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, extras=None):
+    """Sum ``grads`` in place across the process group, then multiply them
+    by ``scale`` (skipped at 1): one all-reduce a bucket of at most
+    ``bucket_cap_mb`` megabytes, in ``dtype`` (default the gradients'
+    own). A bucket of one contiguous tensor already in that dtype is
+    reduced where it lies; the others are flattened into one buffer and
+    copied back. ``extras``, an f32 vector of per-process scalars (the
+    step's loss), rides in the last flattened bucket when it is f32, or is
+    reduced on its own, and is returned reduced and scaled the same way.
+    Counts its calls and the last one's buckets on the function
+    (``calls``, ``buckets``)."""
+    import torch.distributed as dist
+
+    _reduce_gradients.calls += 1
+    cap = bucket_cap_mb * 2**20
+    buckets, current, size = [], [], 0
+    for g in grads:
+        nbytes = g.numel() * (dtype.itemsize if dtype is not None else g.element_size())
+        if current and size + nbytes > cap:
+            buckets.append(current)
+            current, size = [], 0
+        current.append(g)
+        size += nbytes
+    if current:
+        buckets.append(current)
+    _reduce_gradients.buckets = len(buckets)
+    reduce_dtype = dtype if dtype is not None else (buckets[0][0].dtype if buckets else None)
+
+    def in_place(bucket):
+        return (len(bucket) == 1 and bucket[0].is_contiguous()
+                and bucket[0].dtype == reduce_dtype)
+
+    flattened = [i for i, bucket in enumerate(buckets) if not in_place(bucket)]
+    ride = extras is not None and reduce_dtype == torch.float32 and bool(flattened)
+    reduced = None
+    for i, bucket in enumerate(buckets):
+        if in_place(bucket):
+            dist.all_reduce(bucket[0], op=dist.ReduceOp.SUM)
+            if scale != 1.0:
+                bucket[0].mul_(scale)
+            continue
+        parts = [g.reshape(-1).to(reduce_dtype) for g in bucket]
+        last = ride and i == flattened[-1]
+        if last:
+            parts.append(extras.reshape(-1))
+        flat = torch.cat(parts)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        if scale != 1.0:
+            flat.mul_(scale)
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        if last:
+            reduced = flat[offset:]
+    if extras is not None and not ride:
+        reduced = extras.clone()
+        dist.all_reduce(reduced, op=dist.ReduceOp.SUM)
+        if scale != 1.0:
+            reduced.mul_(scale)
+    return reduced
+
+
+_reduce_gradients.calls = 0
+_reduce_gradients.buckets = 0
+
+
 def _accepts_generator(loss_fn) -> bool:
     """``loss_fn(params, batch, generator)`` rather than ``(params, batch)``."""
     try:
@@ -162,10 +244,13 @@ def _is_dataloader(obj) -> bool:
 
 
 class Accelerator:
-    """One-GPU accelerator. ``mixed_precision`` is "no"/"fp32", "bf16"
-    (f32 masters, bf16 compute) or "fp16" (with dynamic loss scaling; a
+    """The accelerator of one process, alone or in a process group (one
+    card a process). ``mixed_precision`` is "no"/"fp32", "bf16" (f32
+    masters, bf16 compute) or "fp16" (with dynamic loss scaling; a
     ``GradScalerKwargs`` in ``kwargs_handlers`` configures it). Runs on
-    ``cuda`` unless ``cpu=True``; raises without a card otherwise.
+    ``cuda`` unless ``cpu=True``; raises without a card otherwise. In
+    ``kwargs_handlers`` a ``DistributedInitKwargs`` configures the process
+    group and a ``DistributedDataParallelKwargs`` the gradient buckets.
 
     ``seed`` seeds :attr:`generator`, the accelerator's own random stream,
     which a ``loss_fn(params, batch, generator)`` receives (the JAX
@@ -182,9 +267,9 @@ class Accelerator:
                  kwargs_handlers: Optional[list] = None, seed: int = 0, fsdp_plugin=None,
                  mesh_config=None, deepspeed_plugin=None):
         if fsdp_plugin is not None or deepspeed_plugin is not None:
-            raise _not_ported("FSDP/ZeRO sharding, its remat and optimizer offload", "8")
+            raise _not_ported("FSDP/ZeRO sharding, its remat and optimizer offload", "8c")
         if mesh_config is not None:
-            raise _not_ported("a device mesh", "8")
+            raise _not_ported("a device mesh", "8d")
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -192,7 +277,12 @@ class Accelerator:
         handlers = kwargs_handlers or []
         self.scaler_handler = next((h for h in handlers if isinstance(h, GradScalerKwargs)), None)
         self.profile_handler = next((h for h in handlers if isinstance(h, ProfileKwargs)), None)
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
+        self.ddp_handler = next((h for h in handlers
+                                 if isinstance(h, DistributedDataParallelKwargs)), None) \
+            or DistributedDataParallelKwargs()
+        init = next((h for h in handlers if isinstance(h, DistributedInitKwargs)), None)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      **({"init_kwargs": init} if init is not None else {}))
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps)
@@ -300,6 +390,7 @@ class Accelerator:
     def on_process(self, function=None, process_index=None):
         return PartialState().on_process(function, process_index=process_index)
 
+
     def wait_for_everyone(self):
         PartialState().wait_for_everyone()
 
@@ -365,15 +456,21 @@ class Accelerator:
         self._schedulers.append(wrapped)
         return wrapped
 
-    def prepare_data_loader(self, data_loader, device_placement=None) -> DataLoaderShard:
+    def prepare_data_loader(self, data_loader, device_placement=None,
+                            slice_fn_for_dispatch=None) -> DataLoaderShard:
+        """This process's shard of ``data_loader`` on the device
+        (:func:`~accelerate_tpu_torch.data_loader.prepare_data_loader`, with
+        the ``DataLoaderConfiguration``)."""
         cfg = self.dataloader_config
         loader = prepare_data_loader(
-            data_loader, device=self.device,
+            data_loader, device=self.device, split_batches=cfg.split_batches,
             put_on_device=device_placement if device_placement is not None
-            else self.device_placement,
-            dispatch_batches=cfg.dispatch_batches, non_blocking=cfg.non_blocking,
-            prefetch_size=cfg.prefetch_size, async_prefetch=cfg.async_prefetch,
-            num_workers=cfg.num_workers)
+            else self.device_placement, rng_types=self.rng_types,
+            dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
+            slice_fn_for_dispatch=slice_fn_for_dispatch,
+            use_seedable_sampler=cfg.use_seedable_sampler, data_seed=cfg.data_seed,
+            non_blocking=cfg.non_blocking, prefetch_size=cfg.prefetch_size,
+            async_prefetch=cfg.async_prefetch, num_workers=cfg.num_workers)
         loader.pipeline_stats = self.pipeline_stats  # one breakdown over every loader
         self._dataloaders.append(loader)
         return loader
@@ -417,7 +514,8 @@ class Accelerator:
 
     @contextlib.contextmanager
     def no_sync(self, model=None):
-        """Accumulate without syncing inside the block."""
+        """Accumulate without syncing inside the block: no update, and no
+        gradient reduction across processes."""
         prev = self.gradient_state.sync_gradients
         self.gradient_state._set_sync_gradients(False)
         try:
@@ -425,7 +523,75 @@ class Accelerator:
         finally:
             self.gradient_state._set_sync_gradients(prev)
 
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches=None):
+        """Run the block on inputs that may be uneven across processes.
+        ``even_batches`` (when given) replaces that of every prepared
+        loader's batch sampler, and the configuration's default for loaders
+        prepared inside, for the block only. With ``even_batches=False``
+        the processes may read different numbers of batches at the tail, so
+        the block must run no collective per batch: compute locally, then
+        aggregate once after the loop (``gather_for_metrics(...,
+        use_gather_object=True)`` or ``pad_across_processes``), as in the
+        JAX package. ``joinables`` is taken for the reference's signature:
+        there is no ``torch.distributed.algorithms.Join`` to wrap, since the
+        gradients are reduced by the accelerator, not by a DDP wrapper."""
+        restore: list = []
+        entered_with = len(self._dataloaders)
+        previous = self.dataloader_config.even_batches
+        if even_batches is not None:
+            restore.append((self.dataloader_config, previous))
+            self.dataloader_config.even_batches = even_batches
+            for dl in self._dataloaders:
+                sampler = getattr(dl.base_dataloader, "batch_sampler", None)
+                for obj in (sampler, dl):
+                    if hasattr(obj, "even_batches"):
+                        restore.append((obj, obj.even_batches))
+                        obj.even_batches = even_batches
+        try:
+            yield
+        finally:
+            for obj, value in restore:
+                obj.even_batches = value
+            if even_batches is not None:
+                # Loaders prepared inside took the override: give them the
+                # default they would have had.
+                for dl in self._dataloaders[entered_with:]:
+                    sampler = getattr(dl.base_dataloader, "batch_sampler", None)
+                    for obj in (sampler, dl):
+                        if hasattr(obj, "even_batches"):
+                            obj.even_batches = previous
+
     # -- backward and clipping --------------------------------------------
+
+    @property
+    def _reduces_gradients(self) -> bool:
+        """Gradients are reduced at this microbatch: a process group, and a
+        sync step."""
+        return self.state.process_group and self.gradient_state.sync_gradients
+
+    def _reduce(self, grads, loss_fn, dtype=None, extras=None):
+        """The sync step's all-reduce of ``grads`` (and ``extras``): summed
+        for a loss weighted by its label share (``_label_share``), else
+        averaged."""
+        summed = hasattr(loss_fn, "label_count")
+        return _reduce_gradients(grads, 1.0 if summed else 1.0 / self.num_processes,
+                                 self.ddp_handler.bucket_cap_mb, dtype=dtype, extras=extras)
+
+    @staticmethod
+    def _label_share(loss, count):
+        """``loss``, the mean over this process's ``count`` labels, weighted
+        by its share of every process's labels, and the global batch's
+        loss: one all-reduce of ``[loss * count, count]``. The weighted
+        losses add up to the global one, so their gradients are summed. At
+        one process the weight is exactly 1."""
+        import torch.distributed as dist
+
+        count = count.to(torch.float32)
+        pair = torch.stack([loss.detach().float() * count, count])
+        dist.all_reduce(pair, op=dist.ReduceOp.SUM)
+        total = pair[1].clamp(min=1.0)
+        return loss * (count / total).to(loss.dtype), pair[0] / total
 
     def _model_and_optimizer(self, model, optimizer):
         model = model or (self._models[0] if self._models else None)
@@ -441,23 +607,41 @@ class Accelerator:
         the masters' ``.grad``: ``params`` are the compute-cast parameters
         by name (the contract of ``compile_train_step``); the loss is
         divided by ``gradient_accumulation_steps`` and scaled under fp16.
-        Returns the loss, unscaled and undivided, as an f32 device
-        tensor."""
+        At a sync step in a process group the accumulated gradients are then
+        reduced across processes.
+
+        Returns the loss, unscaled and undivided, as an f32 device tensor.
+        In a process group it is the global batch's wherever the call
+        communicates: at a sync step (the loss rides in the gradients'
+        all-reduce), and at every call with a loss that has a
+        ``label_count`` (its label share is all-reduced before the
+        backward, ``_label_share``). At a microbatch that does not sync, a
+        mean loss is this process's own: nothing is communicated there."""
         model, optimizer = self._model_and_optimizer(model, optimizer)
         num_steps = self.gradient_state.num_steps
         cast = _cast_params(model.module, self.policy.compute_dtype)
         out = (loss_fn(cast, batch, self.generator) if _accepts_generator(loss_fn)
                else loss_fn(cast, batch))
         loss = out[0] if isinstance(out, tuple) else out
+        reported = None
+        if self.state.process_group and hasattr(loss_fn, "label_count"):
+            loss, reported = self._label_share(loss, loss_fn.label_count(batch))
         scaled = loss / num_steps if num_steps > 1 else loss
         scale_loss(scaled, optimizer.loss_scale).float().backward()
-        return loss.detach().float()
+        if self._reduces_gradients:
+            extras = None if reported is not None else loss.detach().float().reshape(1)
+            reduced = self._reduce(
+                [p.grad for p in model.module.parameters() if p.grad is not None], loss_fn,
+                extras=extras)
+            reported = reported if reported is not None else reduced[0]
+        return (reported if reported is not None else loss.detach()).float()
 
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Clip the gradients accumulated so far by their global norm,
         ``min(1, max_norm / (norm + 1e-6))``, as the fused step does; fp16
         gradients are unscaled first (and not again at ``step()``). Returns
-        the norm before the clip of the first optimizer with gradients.
+        the norm before the clip of the first optimizer with gradients
+        (across processes, of the reduced gradients: the global norm).
         Call it at a sync step (``if accelerator.sync_gradients:``) to clip
         the whole window's gradients."""
         if norm_type != 2.0:
@@ -499,10 +683,15 @@ class Accelerator:
 
         ``grad_reduce_dtype`` (e.g. ``torch.bfloat16``) differentiates with
         respect to the parameters cast to the compute dtype and then to
-        that dtype, so the gradients are computed, and on several devices
-        would be reduced, in it; they are upcast into the masters' ``.grad``
+        that dtype, so the gradients are computed, and across processes
+        reduced, in it; they are upcast into the masters' ``.grad``
         microbatch by microbatch. A dtype other than the compute dtype also
-        runs the forward in it, which warns."""
+        runs the forward in it, which warns.
+
+        In a process group the gradients are reduced after the last
+        microbatch, before the clip (module docstring), together with the
+        step's loss: ``metrics["loss"]`` is the global one (inside
+        ``no_sync()`` nothing is reduced)."""
         model = model or self._models[0]
         optimizer = optimizer or self._optimizers[0]
         accum = accumulation_steps if accumulation_steps is not None \
@@ -529,7 +718,10 @@ class Accelerator:
 
         def call_loss(cast, micro):
             out = loss_fn(cast, micro, self.generator) if with_generator else loss_fn(cast, micro)
-            return out[0] if isinstance(out, tuple) else out
+            loss = out[0] if isinstance(out, tuple) else out
+            if self._reduces_gradients and hasattr(loss_fn, "label_count"):
+                loss = self._label_share(loss, loss_fn.label_count(micro))[0]
+            return loss
 
         def narrow_backward(micro, loss_scale):
             """Gradients in ``grad_reduce_dtype``, upcast into ``.grad``."""
@@ -559,7 +751,11 @@ class Accelerator:
                     loss = call_loss(_cast_params(model.module, compute), micro)
                     scale_loss(loss / accum, loss_scale).float().backward()
                 loss_sum = loss_sum + loss.detach().float()
-            metrics = {"loss": loss_sum / accum}
+            loss = loss_sum / accum
+            if self._reduces_gradients:
+                loss = self._reduce(optimizer.grads(), loss_fn, dtype=grad_reduce_dtype,
+                                    extras=loss.reshape(1))[0]
+            metrics = {"loss": loss}
 
             if max_grad_norm is not None:
                 optimizer.unscale_()
@@ -609,7 +805,9 @@ class Accelerator:
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True) -> nn.Module:
         """The ``nn.Module`` under a prepared model."""
-        return getattr(model, "module", model)
+        from .utils.other import extract_model_from_parallel
+
+        return extract_model_from_parallel(model, keep_fp32_wrapper)
 
     def get_state_dict(self, model, unwrap: bool = True) -> dict:
         """The model's state dict, on the host."""
@@ -679,8 +877,12 @@ class Accelerator:
         self.flag_tensor = True
 
     def check_trigger(self) -> bool:
-        """True, once, after any process called :meth:`set_trigger`."""
-        if self.flag_tensor:
+        """True, once, after any process called :meth:`set_trigger` (across
+        a process group, one all-reduce of the flags)."""
+        flag = torch.tensor([1.0 if self.flag_tensor else 0.0])
+        if self.state.process_group:
+            flag = reduce(flag)
+        if flag.item() > 0:
             self.flag_tensor = None
             return True
         return False
@@ -742,7 +944,7 @@ class Accelerator:
         """Export the model's weights as (sharded) safetensors."""
         from .checkpointing import save_model
 
-        return save_model(model, save_directory, max_shard_size, safe_serialization)
+        return save_model(self, model, save_directory, max_shard_size, safe_serialization)
 
     # -- tracking ---------------------------------------------------------------
 

@@ -10,7 +10,7 @@ port. Adapters stay full precision in the :class:`~.registry.AdapterBank`,
 so a tenant's delta rides exactly on the quantized base.
 
 ``shardings_for_quantized`` of the JAX module comes with tensor-parallel
-serving (ROADMAP.md, A8).
+serving (ROADMAP.md, A8d).
 """
 
 from __future__ import annotations

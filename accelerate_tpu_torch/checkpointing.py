@@ -383,14 +383,29 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
                            safe_serialization: bool = True, blocking: bool = True) -> str:
     """Save models, optimizers, schedulers, loader positions, custom objects
     and RNG states into one directory; return its path. ``blocking=False``
-    writes the tensor files from a background thread after host copies."""
+    writes the tensor files from a background thread after host copies.
+
+    In a process group the replicated objects are written by the main
+    process only, and each process writes its own RNG states; every
+    process then waits for the others (a background write is on disk
+    after ``wait_for_checkpoint``, which the next load runs first)."""
     wait_for_saves(accelerator)  # never two writes at once
+    state = PartialState()
+    main = state.is_main_process
     out = _checkpoint_dir(accelerator, output_dir)
     pc = accelerator.project_configuration
     automatic = pc.automatic_checkpoint_naming and output_dir is None
-    if automatic:
+    if automatic and main:
         _prune_checkpoints(accelerator, out)
+    state.wait_for_everyone()  # nobody writes into a directory being pruned
     out.mkdir(parents=True, exist_ok=True)
+    rng_file = out / f"{RNG_STATE_NAME}_{state.process_index}.json"
+    rng_file.write_text(json.dumps(get_rng_state(accelerator)))
+    if not main:
+        if automatic:
+            pc.iteration += 1
+        state.wait_for_everyone()
+        return str(out)
 
     writes = []
     for i, model in enumerate(accelerator._models):
@@ -415,8 +430,6 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
         (out / f"{SAMPLER_NAME}_{i}.json").write_text(json.dumps(dl.state_dict()))
     for i, obj in enumerate(accelerator._custom_objects):
         _write_object(out / f"{CUSTOM_OBJECTS_NAME}_{i}", obj.state_dict())
-    rng_file = out / f"{RNG_STATE_NAME}_{PartialState().process_index}.json"
-    rng_file.write_text(json.dumps(get_rng_state(accelerator)))
 
     if blocking:
         for write in writes:
@@ -425,6 +438,7 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
         accelerator._pending_saves.append(_PendingSave(writes, out))
     if automatic:
         pc.iteration += 1
+    state.wait_for_everyone()
     logger.info(f"Saved accelerator state to {out}")
     return str(out)
 
@@ -433,6 +447,7 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
     """Restore what :func:`save_accelerator_state` wrote into the prepared
     objects, in place; return the directory read."""
     wait_for_saves(accelerator)  # a background write must be on disk first
+    PartialState().wait_for_everyone()  # ... the main process's too
     src = _checkpoint_dir(accelerator, input_dir, for_load=True)
     if not src.exists():
         raise FileNotFoundError(f"Checkpoint directory {src} does not exist")
@@ -540,10 +555,12 @@ def save_sharded(tensors: dict, save_directory, max_shard_size="10GB"):
         json.dump(index, f, indent=2)
 
 
-def save_model(model, save_directory: str, max_shard_size="10GB",
+def save_model(accelerator, model, save_directory: str, max_shard_size="10GB",
                safe_serialization: bool = True):
     """Export the model's state dict as safetensors (:func:`save_sharded`).
-    Tied weights (one storage under two names) are written once."""
+    Tied weights (one storage under two names) are written once. Only the
+    main process of ``accelerator`` writes (any object with
+    ``is_main_process``; None writes), and every process waits for it."""
     if not safe_serialization:
         raise NotImplementedError("the port writes model files as safetensors only")
     module = getattr(model, "module", model)
@@ -554,7 +571,10 @@ def save_model(model, save_directory: str, max_shard_size="10GB",
             continue
         seen.add(key)
         flat[name] = t
-    save_sharded(flat, save_directory, max_shard_size)
+    if getattr(accelerator, "is_main_process", True):
+        save_sharded(flat, save_directory, max_shard_size)
+    if hasattr(accelerator, "wait_for_everyone"):
+        accelerator.wait_for_everyone()
 
 
 def load_safetensors_model(save_directory: str) -> dict:

@@ -2,8 +2,11 @@
 ``accelerate_tpu/commands/accelerate_cli.py``.
 
 Subcommands are registered lazily; each lives in its own module under
-``accelerate_tpu_torch.commands``. The port has ``serve`` and
-``loadtest``; the JAX CLI's other commands come with ROADMAP A9.
+``accelerate_tpu_torch.commands``: ``config`` (its ``default``
+subcommand), ``env``, ``launch``, ``loadtest``, ``serve`` and ``test``.
+``estimate-memory`` comes with the other model families (ROADMAP A9),
+``merge-weights`` with sharded checkpoints (A8c); ``tpu-config`` is the
+JAX package's alone.
 """
 
 from __future__ import annotations
@@ -25,8 +28,12 @@ def _subcommand_registrars():
         return load
 
     return {
+        "config": _lazy(".config.config", "config_command_parser"),
+        "env": _lazy(".env", "env_command_parser"),
+        "launch": _lazy(".launch", "launch_command_parser"),
         "loadtest": _lazy(".loadtest", "loadtest_command_parser"),
         "serve": _lazy(".serve", "serve_command_parser"),
+        "test": _lazy(".test", "test_command_parser"),
     }
 
 

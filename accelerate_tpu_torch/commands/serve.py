@@ -117,7 +117,7 @@ def serve_command(args) -> int:
                                       "WEIGHT")
     if args.tp > 1:
         raise SystemExit("--tp > 1 (tensor-parallel slices) is not ported to "
-                         "the PyTorch fleet yet (ROADMAP.md, A8)")
+                         "the PyTorch fleet yet (ROADMAP.md, A8d)")
     device = _resolve_device(args)
 
     model = _resolve_model(args.model, args, device)
@@ -252,7 +252,7 @@ def serve_command_parser(subparsers=None):
                         help="Engine replicas behind the gateway")
     parser.add_argument("--tp", type=int, default=1,
                         help="Tensor-parallel width per replica; only 1 is "
-                             "ported (ROADMAP.md, A8)")
+                             "ported (ROADMAP.md, A8d)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000,
                         help="TCP port (0 = OS-assigned ephemeral)")

@@ -1,23 +1,24 @@
-"""Data loading: index samplers, loaders, resume, packing, and batches on
-the device.
+"""Data loading: index samplers, loaders sharded across processes,
+resume, packing, and batches on the device.
 
-Counterpart of ``accelerate_tpu/data_loader.py`` for one process on one
-device: ``SeedableRandomSampler`` (``:51``), ``BatchSamplerShard`` (``:79``),
-``default_collate`` (``:275``), ``make_global_batch`` (``:296``),
-``AsyncPrefetcher`` (``:373``), ``DataLoaderStateMixin`` (``:516``),
-``DataLoaderShard`` (``:550``), ``NumpyDataLoader`` (``:881``),
-``prepare_data_loader`` (``:979``), ``SkipBatchSampler`` /
-``SkipDataLoader`` / ``skip_first_batches`` (``:1099-1150``) and
+Counterpart of ``accelerate_tpu/data_loader.py``: ``SeedableRandomSampler``
+(``:51``), ``BatchSamplerShard`` (``:79``), ``IterableDatasetShard``
+(``:199``), ``default_collate`` (``:275``), ``make_global_batch``
+(``:296``), ``AsyncPrefetcher`` (``:373``), ``DataLoaderStateMixin``
+(``:516``), ``DataLoaderShard`` (``:550``), ``DataLoaderDispatcher``
+(``:785``), ``NumpyDataLoader`` (``:881``), ``prepare_data_loader``
+(``:979``), ``_reshard_torch_dataloader`` (``:1072``), ``SkipBatchSampler``
+/ ``SkipDataLoader`` / ``skip_first_batches`` (``:1099-1150``) and
 ``pack_sequences`` (``:1152``).
 
-What differs from the JAX package: there is no mesh, so the global batch is
-the host batch, placed on the accelerator's device. On ``cuda`` a batch is
-staged through pinned host memory with a ``non_blocking`` copy on a side
-stream; the training stream waits on the copy's event and records the
-tensors' use (``record_stream``) before it reads them, so the caching
-allocator never hands the buffers out while they are in use. The
-dispatcher, ``IterableDatasetShard`` and even batches across processes come
-with several processes (ROADMAP.md, A8).
+What differs from the JAX package: there is no mesh. Each process reads
+its own shard of every global batch (or, dispatched, receives its slice
+of what the main process read) and places it on its own device. On
+``cuda`` a batch is staged through pinned host memory with a
+``non_blocking`` copy on a side stream; the training stream waits on the
+copy's event and records the tensors' use (``record_stream``) before it
+reads them, so the caching allocator never hands the buffers out while
+they are in use.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 from .logging import get_logger
 from .state import GradientState, PartialState
 from .utils.device import resolve_device
-from .utils.operations import recursively_apply
+from .utils.operations import find_batch_size, recursively_apply
 from .utils.profiling import PipelineStats
 
 logger = get_logger(__name__)
@@ -156,6 +157,53 @@ class BatchSamplerShard:
         while len(flat) < bs * self.num_processes:
             flat += pad_src[: bs * self.num_processes - len(flat)]
         yield flat[bs * self.process_index: bs * (self.process_index + 1)]
+
+
+class IterableDatasetShard(torch.utils.data.IterableDataset):
+    """This process's items of an iterable dataset: it buffers a global
+    batch (``batch_size * num_processes`` items, or ``batch_size`` with
+    ``split_batches``) and yields this process's slice of it. Without
+    ``drop_last`` the last global batch is completed by cycling from the
+    first one."""
+
+    def __init__(self, dataset: Iterable, batch_size: int = 1, drop_last: bool = False,
+                 num_processes: int = 1, process_index: int = 0, split_batches: bool = False):
+        if split_batches and batch_size % num_processes != 0:
+            raise ValueError(f"split_batches=True needs the batch size ({batch_size}) to "
+                             f"divide evenly across {num_processes} processes")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.split_batches = split_batches
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self):
+        rounds = len(self.dataset) / (self.batch_size * self.num_processes)
+        return (math.floor(rounds) if self.drop_last else math.ceil(rounds)) * self.batch_size
+
+    def __iter__(self):
+        real = self.batch_size if self.split_batches else self.batch_size * self.num_processes
+        per = self.batch_size // self.num_processes if self.split_batches else self.batch_size
+        mine = range(self.process_index * per, (self.process_index + 1) * per)
+        first, current = None, []
+        for element in self.dataset:
+            current.append(element)
+            if len(current) == real:
+                yield from (current[i] for i in mine)
+                first = current if first is None else first
+                current = []
+        if not self.drop_last and current:
+            first = list(current) if first is None else first
+            while len(current) < real:
+                current += first
+            yield from (current[i] for i in mine)
 
 
 class BatchSamplerFromSampler:
@@ -460,13 +508,19 @@ class DataLoaderShard(DataLoaderStateMixin):
     * ``data_wait_ms``, ``stage_ms`` and the queue depth go to
       :attr:`pipeline_stats` in both modes.
     * ``state_dict``/``load_state_dict`` hold the resume position (epoch and
-      batches yielded in it)."""
+      batches yielded in it).
+    * In a process group, each epoch starts by giving every process the
+      main process's ``rng_types`` streams (and ``synchronized_generator``),
+      so shuffles agree."""
 
     def __init__(self, base_dataloader: Iterable, device=None, skip_batches: int = 0,
                  prefetch_size: int = 2, total_batch_size: Optional[int] = None,
                  dataset_length: Optional[int] = None, stage_to_device: bool = True,
-                 async_prefetch: bool = True, num_workers: int = 1, non_blocking: bool = True):
+                 async_prefetch: bool = True, num_workers: int = 1, non_blocking: bool = True,
+                 rng_types: Optional[list] = None, synchronized_generator=None):
         self.base_dataloader = base_dataloader
+        self.rng_types = rng_types
+        self.synchronized_generator = synchronized_generator
         self.device = resolve_device(device) if stage_to_device else None
         self.skip_batches = skip_batches
         self.prefetch_size = max(1, prefetch_size)
@@ -593,6 +647,10 @@ class DataLoaderShard(DataLoaderStateMixin):
             self.end()
 
     def __iter__(self):
+        if self.rng_types:
+            from .utils.random import synchronize_rng_states
+
+            synchronize_rng_states(self.rng_types, self.synchronized_generator)
         self.begin()
         self.set_epoch(self.iteration)
         self.batches_consumed = self.skip_batches
@@ -610,6 +668,86 @@ class DataLoaderShard(DataLoaderStateMixin):
         starts at that epoch, past the batches already yielded."""
         self.iteration = sd.get("epoch", 0)
         self.skip_batches = sd.get("batches_consumed", 0)
+
+
+class DataLoaderDispatcher(DataLoaderShard):
+    """The main process reads the batches and every process receives its
+    slice: for a source only one process can read (a stream). The main
+    process reads ``num_processes`` batches (one with ``split_batches``),
+    concatenates them into the global batch and broadcasts it
+    (``broadcast_object_list``); each process keeps its slice
+    (``slice_fn(batch, slice, process_index, num_processes)``, default
+    :func:`slice_tensors`). A last global batch that does not divide is
+    completed by repeating its last sample with ``even_batches``, else
+    split unevenly. In a process group the broadcast runs on the training
+    thread (prefetch is inline), so every process issues it in the same
+    order as the step's collectives."""
+
+    def __init__(self, *args, split_batches: bool = False, even_batches: bool = True,
+                 slice_fn: Optional[Callable] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+        self.slice_fn = slice_fn
+        self._state = PartialState()
+        if self._state.process_group:
+            self.async_prefetch = False
+
+    @property
+    def total_batch_size(self):
+        if self._total_batch_size is not None:
+            return self._total_batch_size
+        bs = getattr(self.base_dataloader, "batch_size", None) or 1
+        return bs if self.split_batches else bs * self._state.num_processes
+
+    def __len__(self):
+        n = 1 if self.split_batches else self._state.num_processes
+        return max(0, math.ceil(len(self.base_dataloader) / n) - (self.skip_batches or 0))
+
+    def _fetch_and_broadcast(self, raw_iter):
+        from .utils.operations import (
+            broadcast_object_list,
+            concatenate,
+            pad_input_tensors,
+            slice_tensors,
+        )
+
+        state = self._state
+        n = state.num_processes
+        payload = [None, None]
+        if state.is_main_process:
+            fetched = []
+            for _ in range(1 if self.split_batches else n):
+                try:
+                    fetched.append(next(raw_iter))
+                except StopIteration:
+                    break
+            payload = [1, None] if not fetched else [
+                0, fetched[0] if len(fetched) == 1 else concatenate(fetched)]
+        if state.process_group:
+            payload = broadcast_object_list(payload)
+        if payload[0] == 1:
+            raise StopIteration
+        batch = payload[1]
+        if n == 1:
+            return batch
+        size = find_batch_size(batch)
+        if self.even_batches and size % n:
+            batch = pad_input_tensors(batch, size, n)
+            size = find_batch_size(batch)
+        per, extra = divmod(size, n)
+        lo = per * state.process_index + min(state.process_index, extra)
+        hi = lo + per + (1 if state.process_index < extra else 0)
+        return (self.slice_fn or slice_tensors)(batch, slice(lo, hi), state.process_index, n)
+
+    def _produce_fn(self) -> Callable[[], Any]:
+        raw_iter = iter(self.base_dataloader) if self._state.is_main_process else iter(())
+        for _ in range(self.skip_batches):
+            try:
+                self._fetch_and_broadcast(raw_iter)
+            except StopIteration:
+                break
+        return lambda: self._fetch_and_broadcast(raw_iter)
 
 
 class NumpyDataLoader:
@@ -651,23 +789,93 @@ class NumpyDataLoader:
         return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
 
 
-def prepare_data_loader(dataloader, device=None, put_on_device: bool = True,
-                        dispatch_batches: Optional[bool] = None, non_blocking: bool = True,
+def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = None,
+                        process_index: Optional[int] = None, split_batches: bool = False,
+                        put_on_device: bool = True, rng_types: Optional[list] = None,
+                        dispatch_batches: Optional[bool] = None, even_batches: bool = True,
+                        slice_fn_for_dispatch: Optional[Callable] = None,
+                        use_seedable_sampler: bool = True, data_seed: Optional[int] = None,
+                        non_blocking: bool = True, use_stateful_dataloader: bool = True,
                         prefetch_size: int = 2, skip_batches: int = 0,
                         async_prefetch: bool = True, num_workers: int = 1) -> DataLoaderShard:
     """Wrap a ``torch.utils.data.DataLoader``, a :class:`NumpyDataLoader` or
-    any iterable of host batches into a :class:`DataLoaderShard` that yields
-    batches on ``device`` (default: the state's). On one process nothing is
-    resharded: the loader's batch is the global batch."""
+    any iterable of host batches into a loader that yields this process's
+    batches on ``device`` (default: the state's).
+
+    Across ``num_processes`` (default: the state's) the loader is resharded
+    as in the JAX package: with ``split_batches`` each global batch (the
+    loader's batch) is split, else each process reads whole batches (the
+    global batch is ``batch_size * num_processes``); ``even_batches``
+    completes the last round by cycling from the start. A torch loader's
+    ``RandomSampler`` becomes a :class:`SeedableRandomSampler` (seed
+    ``data_seed``, default 0) with ``use_seedable_sampler``, so every
+    process draws one order; a torch loader over an ``IterableDataset``
+    reads through :class:`IterableDatasetShard`. Any other iterable is
+    taken as this process's shard already. ``dispatch_batches`` reads on
+    the main process only (:class:`DataLoaderDispatcher`, which slices
+    with ``slice_fn_for_dispatch``). ``use_stateful_dataloader`` is taken
+    for the reference's signature: the loader keeps its resume position
+    itself."""
     state = PartialState()
-    if state.num_processes > 1 or dispatch_batches:
-        raise NotImplementedError("sharding or dispatching a loader across processes is not "
-                                  "ported to accelerate_tpu_torch yet (ROADMAP.md, A8)")
+    num_processes = num_processes if num_processes is not None else state.num_processes
+    process_index = process_index if process_index is not None else state.process_index
+    device = device if device is not None else state.device
+    common = dict(device=device, skip_batches=skip_batches, prefetch_size=prefetch_size,
+                  async_prefetch=async_prefetch, num_workers=num_workers,
+                  stage_to_device=put_on_device, non_blocking=non_blocking, rng_types=rng_types)
+    batch_size = getattr(dataloader, "batch_size", None) or 1
+    if dispatch_batches:
+        return DataLoaderDispatcher(
+            dataloader, split_batches=split_batches, even_batches=even_batches,
+            slice_fn=slice_fn_for_dispatch,
+            total_batch_size=batch_size if split_batches else batch_size * num_processes,
+            **common)
+    new_loader = dataloader
+    if num_processes > 1:
+        if isinstance(dataloader, torch.utils.data.DataLoader):
+            new_loader = _reshard_torch_dataloader(dataloader, num_processes, process_index,
+                                                   split_batches, even_batches,
+                                                   use_seedable_sampler, data_seed)
+        elif isinstance(dataloader, NumpyDataLoader):
+            shard = BatchSamplerShard(
+                BatchSamplerFromSampler(dataloader.sampler, dataloader.batch_size,
+                                        dataloader.drop_last),
+                num_processes=num_processes, process_index=process_index,
+                split_batches=split_batches, even_batches=even_batches)
+            new_loader = NumpyDataLoader(dataloader.dataset, collate_fn=dataloader.collate_fn,
+                                         batch_sampler=shard)
+            new_loader.batch_size = (dataloader.batch_size // num_processes if split_batches
+                                     else dataloader.batch_size)
     return DataLoaderShard(
-        dataloader, device=device if device is not None else state.device,
-        skip_batches=skip_batches, prefetch_size=prefetch_size, async_prefetch=async_prefetch,
-        num_workers=num_workers, stage_to_device=put_on_device, non_blocking=non_blocking,
-        total_batch_size=getattr(dataloader, "batch_size", None) or 1)
+        new_loader, total_batch_size=batch_size if split_batches else batch_size * num_processes,
+        **common)
+
+
+def _reshard_torch_dataloader(dataloader, num_processes, process_index, split_batches,
+                              even_batches, use_seedable_sampler=True, data_seed=None):
+    """A torch ``DataLoader`` rebuilt to read this process's shard."""
+    from torch.utils.data import DataLoader, IterableDataset, RandomSampler
+
+    kwargs = {"num_workers": dataloader.num_workers, "collate_fn": dataloader.collate_fn,
+              "pin_memory": False, "timeout": dataloader.timeout,
+              "worker_init_fn": dataloader.worker_init_fn}
+    if isinstance(dataloader.dataset, IterableDataset):
+        bs = dataloader.batch_size
+        shard = IterableDatasetShard(dataloader.dataset, batch_size=bs,
+                                     drop_last=dataloader.drop_last, num_processes=num_processes,
+                                     process_index=process_index, split_batches=split_batches)
+        return DataLoader(shard, batch_size=bs // num_processes if split_batches else bs,
+                          **kwargs)
+    batch_sampler = dataloader.batch_sampler
+    if use_seedable_sampler and isinstance(getattr(batch_sampler, "sampler", None),
+                                           RandomSampler):
+        batch_sampler = BatchSamplerFromSampler(
+            SeedableRandomSampler(len(dataloader.dataset), seed=data_seed or 0),
+            batch_sampler.batch_size, batch_sampler.drop_last)
+    shard = BatchSamplerShard(batch_sampler, num_processes=num_processes,
+                              process_index=process_index, split_batches=split_batches,
+                              even_batches=even_batches)
+    return DataLoader(dataloader.dataset, batch_sampler=shard, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,15 @@ import numpy as np
 import torch
 
 
+def supports_kv_cache(module) -> bool:
+    """Whether ``module`` threads a KV cache through its forward: the
+    families ``big_modeling.cache_factory_for`` knows (the Llama family and
+    a ``StreamedModel`` of one), or a model with ``init_decode_cache``."""
+    from .big_modeling import cache_factory_for
+
+    return cache_factory_for(module) is not None or hasattr(module, "init_decode_cache")
+
+
 def _make_selector(sampling, repetition_penalty: float = 1.0):
     """Token-selection fn (logits [B, V], generator, seen [B, V] bool) -> [B]
     ids. ``sampling`` is None for greedy, else (temperature, top_k, top_p).

@@ -1002,7 +1002,17 @@ def fused_causal_lm_loss(model, num_chunks: int = 8):
     are never materialized; the LM head runs chunked over the vocabulary
     with an online softmax (``ops/fused_loss.py``), final-logit softcap
     included. ``model`` is a ``LlamaForCausalLM`` or a
-    ``PipelinedLlamaForCausalLM`` (or either, prepared)."""
+    ``PipelinedLlamaForCausalLM`` (or either, prepared).
+
+    The loss is the mean over this call's labels, and the call
+    communicates nothing. ``loss_fn.label_count(batch)`` gives that label
+    count, which the accelerator reads in a process group: its train step
+    and ``backward`` all-reduce the count and weight each process's loss by
+    its share of the global count, so the gradients, summed across
+    processes, are those of the global batch's mean, as in the JAX package,
+    where the batch is one array over every process. The mean of the
+    processes' means would differ wherever they hold different numbers of
+    unmasked labels (packed rows)."""
     from ..ops.fused_loss import chunked_softmax_xent
 
     module = _module(model)
@@ -1020,4 +1030,5 @@ def fused_causal_lm_loss(model, num_chunks: int = 8):
         return chunked_softmax_xent(h.reshape(B * S, H), kernel.to(h.dtype), safe.reshape(-1),
                                     mask.reshape(-1), num_chunks, cfg.final_logit_softcapping)
 
+    loss_fn.label_count = lambda batch: _targets_and_mask(batch)[1].sum()
     return loss_fn

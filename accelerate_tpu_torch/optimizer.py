@@ -21,7 +21,10 @@ the update:
 One update, :meth:`AcceleratedOptimizer._apply`, serves both the loop's
 ``step()`` and the fused step (``Accelerator.compile_train_step``).
 
-ZeRO sharding, host offload and fp8 statistics masks are not ported yet.
+Across processes the gradients it sees are already reduced
+(``Accelerator``), and under fp16 the skip decision is taken on the
+all-reduced flag. ZeRO sharding and host offload are ROADMAP.md, A8c; the
+fp8 statistics masks come with the fp8 path (A9).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from .precision import (
     update_loss_scale,
 )
 from .state import GradientState
+from .utils.operations import _group, reduce
 
 
 class AcceleratedOptimizer:
@@ -98,6 +102,10 @@ class AcceleratedOptimizer:
         if self.loss_scale is not None:
             self.unscale_()
             finite = grads_finite(self.grads())
+            if _group() is not None:
+                # Every process takes one decision: skipped where any saw a
+                # non-finite gradient (the max of the flags).
+                finite = reduce((~finite).float()) == 0
         applied = finite is None or bool(finite)
         if applied:
             self.optimizer.step()

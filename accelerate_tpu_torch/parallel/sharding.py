@@ -5,7 +5,7 @@ Counterpart of ``resolve_remat_policy`` in
 ``jax.checkpoint`` policy; here a name says what a checkpointed decoder
 layer (``models/llama.py``, ``_remat_layer``) keeps from its forward for
 the backward, and so what the backward recomputes. The sharding rules of
-that module are ROADMAP.md, A8.
+that module are ROADMAP.md, A8c (FSDP) and A8d (meshes).
 """
 
 from __future__ import annotations

@@ -79,9 +79,22 @@ class AcceleratedScheduler:
     def get_last_lr(self):
         return self.scheduler.get_last_lr()
 
+    def get_lr(self):
+        """The rates of the current step, as the wrapped scheduler computes
+        them (its last ones when it has no ``get_lr``)."""
+        return self.scheduler.get_lr() if hasattr(self.scheduler, "get_lr") \
+            else self.get_last_lr()
+
     def state_dict(self):
         return self.scheduler.state_dict()
 
     def load_state_dict(self, sd):
         self.scheduler.load_state_dict(sd)
+
+    def __getattr__(self, name):
+        # Anything else (``last_epoch``, ``base_lrs``, ...) is the wrapped
+        # scheduler's. The wrapper's own attributes never reach here.
+        if name == "scheduler":
+            raise AttributeError(name)
+        return getattr(self.scheduler, name)
 

@@ -12,7 +12,7 @@ counterpart), the replica router with failover (``router.py``), the
 supervisor (``supervisor.py``), scripted faults (``chaos.py``) and the
 HTTP gateway in both front ends (``gateway.py``, ``gateway_aio.py``).
 Tensor-parallel slices (``mesh_exec.py``, ``ReplicaSet.from_mesh``) come
-with ROADMAP A8.
+with ROADMAP A8d.
 """
 
 from .chaos import ChaosKilled, ChaosSchedule

@@ -109,7 +109,7 @@ retires its requests, so no replay of a dead engine is still running when
 they fail over.
 
 Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: ``tp``, ``mesh`` and ``devices`` (A8).
+item: ``tp``, ``mesh`` and ``devices`` (A8d).
 """
 
 from __future__ import annotations
@@ -363,7 +363,7 @@ class ServingEngine:
                  autostart: bool = True, warmup: bool = True, idle_poll_s: float = 0.005,
                  device=None):
         if tp is not None or mesh is not None or devices is not None:
-            raise _later("tensor-parallel serving (tp=, mesh=, devices=)", "A8")
+            raise _later("tensor-parallel serving (tp=, mesh=, devices=)", "A8d")
         module = _cached_lm(model, "model")
         cfg = module.config
         if max_slots < 1 or max_len < 2:

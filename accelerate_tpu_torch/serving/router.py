@@ -54,7 +54,7 @@ replacement is swapped in. An engine whose thread was abandoned on a wedge
 (its join timed out) keeps its memory for as long as the thread lives.
 
 ``ReplicaSet.from_mesh`` (tensor-parallel slices) is not ported yet
-(ROADMAP.md, A8).
+(ROADMAP.md, A8d).
 """
 
 from __future__ import annotations
@@ -370,10 +370,10 @@ class ReplicaSet:
     @classmethod
     def from_mesh(cls, model, *args, **kwargs) -> "ReplicaSet":
         """A fleet of tensor-parallel slices: not ported yet (ROADMAP.md,
-        A8, with ``ServingEngine(tp=, mesh=, devices=)``)."""
+        A8d, with ``ServingEngine(tp=, mesh=, devices=)``)."""
         raise NotImplementedError(
             "ReplicaSet.from_mesh (tensor-parallel slices) is not ported to the PyTorch "
-            "serving fleet yet (ROADMAP.md, A8)")
+            "serving fleet yet (ROADMAP.md, A8d)")
 
     # -- introspection ---------------------------------------------------
     def __len__(self) -> int:

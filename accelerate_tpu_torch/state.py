@@ -3,21 +3,35 @@
 Counterpart of ``accelerate_tpu/state.py``: ``PartialState`` (``:89``),
 ``AcceleratorState`` (``:354``) and ``GradientState`` (``:499``), each a
 Borg (every instance shares one ``__dict__``), so any module can read the
-same state. This is one process on one device: ``WORLD_SIZE`` above 1
-raises (process groups over ``torch.distributed`` are ROADMAP.md, A8).
-Tests reset the singletons between cases with ``_reset_state``.
+same state. Tests reset the singletons between cases with ``_reset_state``.
+
+The JAX package runs one process a host and joins hosts with
+``jax.distributed``; torch runs one process a device and joins them in a
+process group (``torch.distributed``). ``PartialState`` builds that group
+when the environment describes a world: the launcher's
+``ACCELERATE_TPU_COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``
+(the names of the JAX launcher, ``commands/launch.py``), or torchrun's
+``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
+``MASTER_PORT``. The backend follows the device: NCCL on the card
+(``cuda:<local rank>``), gloo on the CPU (``cpu=True`` or the launcher's
+``--use_cpu_emulation``). A failed rendezvous raises; nothing falls back to
+one process.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 from contextlib import contextmanager
 from functools import partial, wraps
 from typing import Any, Callable, Optional
 
-from .utils.constants import env_var
-from .utils.dataclasses import GradientAccumulationPlugin
+import numpy as np
+import torch
+
+from .utils.dataclasses import DistributedInitKwargs, DistributedType, GradientAccumulationPlugin
 from .utils.device import resolve_device
+from .utils.environment import env_var, parse_flag_from_env
 
 PRECISIONS = ("no", "fp32", "bf16", "fp16", "fp8")
 
@@ -29,9 +43,52 @@ def is_main_process() -> bool:
     return PartialState._shared_state.get("process_index", 0) == 0
 
 
+def is_initialized() -> bool:
+    """Whether a ``PartialState`` has been constructed."""
+    return PartialState._shared_state != {}
+
+
+def _world_from_env(init: DistributedInitKwargs) -> Optional[dict]:
+    """The process group the environment (or ``init``) describes:
+    ``{"address", "world", "rank", "local_rank"}``, or None for a lone
+    process."""
+    coordinator = init.coordinator_address or os.environ.get(env_var("COORDINATOR_ADDRESS"))
+    if coordinator is not None:
+        world = init.num_processes or os.environ.get(env_var("NUM_PROCESSES"))
+        rank = init.process_id if init.process_id is not None else \
+            os.environ.get(env_var("PROCESS_ID"))
+        if world is None or rank is None:
+            raise ValueError(f"a coordinator address ({coordinator}) needs the world size and "
+                             f"this process's rank ({env_var('NUM_PROCESSES')}, "
+                             f"{env_var('PROCESS_ID')})")
+        local = os.environ.get(env_var("LOCAL_PROCESS_ID"), 0)
+        return {"address": coordinator, "world": int(world), "rank": int(rank),
+                "local_rank": int(local)}
+    if "WORLD_SIZE" in os.environ:  # torchrun
+        missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK") if k not in os.environ]
+        if missing:
+            raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} without {missing}: no "
+                             "rendezvous to join (launch with accelerate-tpu-torch launch or "
+                             "torchrun)")
+        return {"address": f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+                "world": int(os.environ["WORLD_SIZE"]), "rank": int(os.environ["RANK"]),
+                "local_rank": int(os.environ.get("LOCAL_RANK", 0))}
+    return None
+
+
+def _leave_process_group():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 class PartialState:
-    """The process's view of its world: one process, one device (``cuda``
-    unless ``cpu=True``; raises without a card otherwise)."""
+    """The process's view of its world: its rank among ``num_processes``,
+    its device (``cuda:<local rank>`` unless ``cpu=True``; raises without a
+    card otherwise) and the process group's backend. ``init_kwargs`` (a
+    ``DistributedInitKwargs``) overrides what the launcher's environment
+    says."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -39,25 +96,58 @@ class PartialState:
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: several processes are not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md, A8)")
-        device = resolve_device("cpu" if cpu else None)
+        init = kwargs.pop("init_kwargs", None) or DistributedInitKwargs()
+        cpu = bool(cpu) or parse_flag_from_env(env_var("USE_CPU"))
+        world = _world_from_env(init)
+        if world is None:
+            device = resolve_device("cpu" if cpu else None)
+            state = dict(backend=device.type, num_processes=1, process_index=0,
+                         local_process_index=0, distributed_type=DistributedType.NO)
+        else:
+            state = self._init_process_group(world, init, cpu)
+            device = state.pop("device")
         # Set in one update, after everything that can raise: a failed
         # construction leaves the singleton empty.
         self._shared_state.update(
-            _cpu=cpu, device=device, backend=device.type, num_processes=1, process_index=0,
-            local_process_index=0, num_devices=1, distributed_type="NO", debug=False)
+            _cpu=cpu, device=device, num_devices=1, debug=parse_flag_from_env(env_var("DEBUG")),
+            fork_launched=parse_flag_from_env(env_var("FORK_LAUNCHED")), **state)
+
+    @staticmethod
+    def _init_process_group(world: dict, init: DistributedInitKwargs, cpu: bool) -> dict:
+        """Join the process group (gloo on the CPU, NCCL on the card, which
+        is bound first, as NCCL needs)."""
+        import torch.distributed as dist
+
+        local = world["local_rank"]
+        if init.local_device_ids:
+            local = int(init.local_device_ids[0])
+        device = resolve_device("cpu" if cpu else f"cuda:{local}")
+        backend = "gloo" if device.type == "cpu" else "nccl"
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        if not dist.is_initialized():
+            options = {"device_id": device} if backend == "nccl" else {}
+            dist.init_process_group(
+                backend, init_method=f"tcp://{world['address']}", world_size=world["world"],
+                rank=world["rank"], timeout=init.initialization_timeout, **options)
+            # Leaving the group at exit: NCCL warns, and can hang, otherwise.
+            atexit.register(_leave_process_group)
+        return dict(device=device, backend=backend, num_processes=dist.get_world_size(),
+                    process_index=dist.get_rank(), local_process_index=local,
+                    distributed_type=DistributedType.MULTI_GPU if backend == "nccl"
+                    else DistributedType.MULTI_CPU)
 
     def __repr__(self):
         return (f"Distributed environment: {self.distributed_type}  Backend: {self.backend}\n"
                 f"Num processes: {self.num_processes}\nProcess index: {self.process_index}\n"
-                f"Device: {self.device}\n")
+                f"Local process index: {self.local_process_index}\nDevice: {self.device}\n")
 
     @staticmethod
     def _reset_state():
+        """Forget the state and leave the process group, if one was joined."""
+        if PartialState._shared_state.get("distributed_type", DistributedType.NO) \
+                != DistributedType.NO:
+            _leave_process_group()
         PartialState._shared_state.clear()
 
     @property
@@ -67,6 +157,11 @@ class PartialState:
     @property
     def use_distributed(self) -> bool:
         return self.num_processes > 1
+
+    @property
+    def process_group(self) -> bool:
+        """Whether this process is in a process group (possibly of one)."""
+        return self.distributed_type != DistributedType.NO
 
     @property
     def is_main_process(self) -> bool:
@@ -81,15 +176,30 @@ class PartialState:
         return self.process_index == self.num_processes - 1
 
     def wait_for_everyone(self):
-        """Barrier across processes: nothing to wait for on one."""
+        """A barrier across the process group; nothing to wait for without
+        one."""
+        if self.process_group:
+            import torch.distributed as dist
+
+            dist.barrier(**({"device_ids": [self.device.index]}
+                            if self.backend == "nccl" else {}))
+
+    def _goes_first(self, first: bool):
+        if not first:
+            self.wait_for_everyone()
+        yield
+        if first:
+            self.wait_for_everyone()
 
     @contextmanager
     def main_process_first(self):
-        yield
+        """The main process runs the block before the others."""
+        yield from self._goes_first(self.is_main_process)
 
     @contextmanager
     def local_main_process_first(self):
-        yield
+        """Each machine's main process runs the block before its others."""
+        yield from self._goes_first(self.is_local_main_process)
 
     def on_main_process(self, function: Callable = None):
         """Decorator: run only on the main process."""
@@ -125,14 +235,61 @@ class PartialState:
 
         return run
 
+    def on_last_process(self, function: Callable):
+        """Decorator: run only on the last process."""
+        return self.on_process(function, process_index=self.num_processes - 1)
+
     @contextmanager
     def split_between_processes(self, inputs, apply_padding: bool = False):
-        """This process's share of ``inputs``: all of it on one process."""
-        yield inputs
+        """This process's contiguous share of a list, tuple, dict (each
+        value split) or array/tensor: the first ``len % num_processes``
+        processes take one more item. With ``apply_padding`` the shorter
+        shares repeat the last item, so every process holds as many (what
+        ``gather`` needs): a list's with the input's last item, an array's
+        with the share's last row, as in the JAX package."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        length = len(inputs) if not isinstance(inputs, dict) else len(next(iter(inputs.values())))
+        per, extras = divmod(length, self.num_processes)
+        start = per * self.process_index + min(self.process_index, extras)
+        end = start + per + (1 if self.process_index < extras else 0)
+        target = per + 1 if apply_padding and extras > 0 else None
+
+        def split(obj):
+            if isinstance(obj, dict):
+                return {k: split(v) for k, v in obj.items()}
+            if isinstance(obj, (list, tuple)):
+                part = obj[start:end]
+                while target is not None and len(part) < target:
+                    part = list(part) + [obj[-1]]
+                return part
+            if hasattr(obj, "shape"):
+                part = obj[start:end]
+                short = 0 if target is None else target - part.shape[0]
+                if short > 0 and isinstance(obj, torch.Tensor):
+                    part = torch.cat([part, part[-1:].expand(short, *obj.shape[1:])])
+                elif short > 0:
+                    part = np.concatenate([part, np.repeat(part[-1:], short, axis=0)])
+                return part
+            return obj
+
+        yield split(inputs)
 
     def print(self, *args, **kwargs):
         if self.is_main_process:
             print(*args, **kwargs)
+
+    def destroy_process_group(self):
+        """Leave the process group (the state keeps its values)."""
+        if self.process_group:
+            _leave_process_group()
+
+    def set_device(self):
+        """Make this process's card the current one (NCCL's collectives on
+        objects use it)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
 
 
 class AcceleratorState:
@@ -148,7 +305,9 @@ class AcceleratorState:
                  **kwargs):
         self.__dict__ = self._shared_state
         process = PartialState._shared_state
-        if cpu is not None and process and bool(cpu) != process["_cpu"]:
+        if cpu is not None:
+            cpu = bool(cpu) or parse_flag_from_env(env_var("USE_CPU"))
+        if cpu is not None and process and cpu != process["_cpu"]:
             raise ValueError(
                 f"the process's state is already initialized on {process['device']} "
                 f"(cpu={process['_cpu']}); cannot re-init with cpu={bool(cpu)}. Call "
@@ -168,6 +327,9 @@ class AcceleratorState:
             raise ValueError(f"mixed_precision must be one of {PRECISIONS}, got {mixed_precision}")
         partial_state = PartialState(bool(cpu), **kwargs)
         self._shared_state.update(_partial=partial_state, mixed_precision=mixed_precision)
+
+    def __repr__(self):
+        return PartialState().__repr__() + f"Mixed precision type: {self.mixed_precision}\n"
 
     def __getattr__(self, name):
         # Process-level attributes come from PartialState.

@@ -218,6 +218,18 @@ def with_gateway_metrics(values: dict, gateway_stats, prefix: str = "gateway/") 
     return merged
 
 
+def with_fleet_metrics(values: dict, replica_set, prefix: str = "fleet/") -> dict:
+    """``values`` with a replica set's fleet view
+    (``ReplicaSet.fleet_metrics()``: every replica's serving counters folded
+    together, and the router's health and failover counters) under
+    ``prefix``; the caller's own keys win."""
+    if replica_set is None:
+        return values
+    merged = {f"{prefix}{k}": v for k, v in replica_set.fleet_metrics().items()}
+    merged.update(values)
+    return merged
+
+
 def filter_trackers(log_with, logging_dir: Optional[str] = None) -> list:
     """Tracker names and instances to start from ``log_with`` (a name, a
     ``GeneralTracker``, "all", or a list of them)."""

@@ -1,8 +1,8 @@
 """Names of the files a checkpoint holds, and of the environment variables.
 
 Counterpart of ``accelerate_tpu/utils/constants.py`` (the checkpoint names,
-``:9-23``, ``WEIGHTS_PATTERN`` and ``ENV_PREFIX``) and of ``env_var`` in
-``accelerate_tpu/utils/environment.py``. The mesh-axis names of the JAX
+``:9-23``, ``WEIGHTS_PATTERN`` and ``ENV_PREFIX``); ``env_var`` is
+re-exported from ``environment.py``. The mesh-axis names of the JAX
 package have no counterpart on one GPU.
 """
 
@@ -27,7 +27,12 @@ WEIGHTS_PATTERN = "model-{:05d}-of-{:05d}.safetensors"
 ENV_PREFIX = "ACCELERATE_TPU_"
 
 
-def env_var(name: str) -> str:
-    """Namespaced variable name: ``env_var("MIXED_PRECISION") ==
-    "ACCELERATE_TPU_MIXED_PRECISION"``."""
-    return ENV_PREFIX + name
+
+def __getattr__(name):
+    # ``env_var`` lives in ``environment.py`` (which reads ENV_PREFIX from
+    # here); ``from .constants import env_var`` still finds it.
+    if name == "env_var":
+        from .environment import env_var
+
+        return env_var
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

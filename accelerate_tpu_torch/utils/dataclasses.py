@@ -1,20 +1,192 @@
-"""Configuration of the training loop.
+"""Configuration of the training loop, and the enums and handlers of the
+process world.
 
-Counterpart of the part of ``accelerate_tpu/utils/dataclasses.py`` the loop
-reads: ``AutocastKwargs`` (``:146``), ``ProfileKwargs`` (``:265``),
+Counterpart of ``accelerate_tpu/utils/dataclasses.py``: the enums
+(``DistributedType`` ``:49``, ``PrecisionType``, ``RNGType``,
+``LoggerType``, ``ComputeBackend``, ``CustomDtype``), ``KwargsHandler``
+(``:126``), ``AutocastKwargs`` (``:146``),
+``DistributedDataParallelKwargs``, ``DistributedInitKwargs`` /
+``InitProcessGroupKwargs`` (``:235``), ``ProfileKwargs`` (``:265``),
 ``GradientAccumulationPlugin`` (``:291``), ``DataLoaderConfiguration``
 (``:301``) and ``ProjectConfiguration`` (``:323``). ``GradScalerKwargs``
-lives in ``precision.py``.
+lives in ``precision.py``. The sharding plugins (FSDP, DeepSpeed, tensor,
+context, pipeline and expert parallelism) come with ROADMAP.md, A8c/A8d.
 """
 
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass
+import copy
+import dataclasses
+import enum
+import warnings
+from dataclasses import asdict, dataclass, field
+from datetime import timedelta
 from typing import Callable, Optional
 
 
+class EnumWithContains(enum.EnumMeta):
+    """``"value" in MyEnum``."""
+
+    def __contains__(cls, item):
+        try:
+            cls(item)
+        except ValueError:
+            return False
+        return True
+
+
+class BaseEnum(str, enum.Enum, metaclass=EnumWithContains):
+    def __str__(self):
+        return self.value
+
+    @classmethod
+    def list(cls):
+        return list(map(str, cls))
+
+
+class DistributedType(BaseEnum):
+    """How the processes of a run share the work. ``NO``: one process and
+    no process group. ``MULTI_GPU``: a process group over NCCL, one card a
+    process; ``MULTI_CPU``: one over gloo on the CPU (also at a world size
+    of 1, when a launcher asked for a process group). The sharded kinds
+    come with ROADMAP.md, A8c/A8d."""
+
+    NO = "NO"
+    MULTI_CPU = "MULTI_CPU"
+    MULTI_GPU = "MULTI_GPU"
+    FSDP = "FSDP"
+    TENSOR_PARALLEL = "TENSOR_PARALLEL"
+    PIPELINE_PARALLEL = "PIPELINE_PARALLEL"
+    DEEPSPEED = "DEEPSPEED"
+    MEGATRON_LM = "MEGATRON_LM"
+
+
+class PrecisionType(BaseEnum):
+    NO = "no"
+    FP32 = "fp32"
+    FP16 = "fp16"
+    BF16 = "bf16"
+    FP8 = "fp8"
+
+
+class RNGType(BaseEnum):
+    """Random streams that ``synchronize_rng_states`` makes equal across
+    processes: torch's CPU generator, the card's, numpy's, python's, and a
+    generator the caller passes."""
+
+    TORCH = "torch"
+    CUDA = "cuda"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    GENERATOR = "generator"
+
+
+class LoggerType(BaseEnum):
+    ALL = "all"
+    TENSORBOARD = "tensorboard"
+    WANDB = "wandb"
+    COMETML = "comet_ml"
+    MLFLOW = "mlflow"
+    AIM = "aim"
+    CLEARML = "clearml"
+    DVCLIVE = "dvclive"
+    JSONL = "jsonl"
+
+
+class ComputeBackend(BaseEnum):
+    """How a step runs: eagerly, or replayed as a captured CUDA graph (the
+    serving engine's fixed-shape steps)."""
+
+    EAGER = "eager"
+    CUDA_GRAPH = "cuda_graph"
+
+
+class CustomDtype(BaseEnum):
+    """Sub-byte and non-native dtypes, for size accounting."""
+
+    FP8_E4M3 = "fp8_e4m3"
+    FP8_E5M2 = "fp8_e5m2"
+    INT4 = "int4"
+    INT2 = "int2"
+
+
 @dataclass
-class AutocastKwargs:
+class KwargsHandler:
+    """Base of the handlers that configure one part of the accelerator."""
+
+    def to_dict(self):
+        return copy.deepcopy(self.__dict__)
+
+    def to_kwargs(self):
+        """The fields whose values differ from the defaults."""
+        default = self.__class__().to_dict()
+        return {k: v for k, v in self.to_dict().items() if default[k] != v}
+
+
+class DDPCommunicationHookType(BaseEnum):
+    NO = "no"
+    FP16 = "fp16"
+    BF16 = "bf16"
+    POWER_SGD = "power_sgd"
+    BATCHED_POWER_SGD = "batched_power_sgd"
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """How the gradients are reduced across processes. The accelerator
+    reduces them itself, once a sync step, in flat buckets of
+    ``bucket_cap_mb`` megabytes (``Accelerator.backward`` and
+    ``compile_train_step``), not through
+    ``torch.nn.parallel.DistributedDataParallel``: every other field
+    configures that wrapper, so a value other than its default warns that
+    it changes nothing."""
+
+    dim: int = 0
+    broadcast_buffers: bool = True
+    bucket_cap_mb: int = 25
+    find_unused_parameters: bool = False
+    check_reduction: bool = False
+    gradient_as_bucket_view: bool = False
+    static_graph: bool = False
+    comm_hook: DDPCommunicationHookType = DDPCommunicationHookType.NO
+    comm_wrapper: DDPCommunicationHookType = DDPCommunicationHookType.NO
+    comm_state_option: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.bucket_cap_mb <= 0:
+            raise ValueError(f"bucket_cap_mb must be positive, got {self.bucket_cap_mb}")
+        # Field defaults, read directly: to_kwargs() builds a default
+        # instance, which would come back here.
+        ignored = [f.name for f in dataclasses.fields(self) if f.name != "bucket_cap_mb"
+                   and getattr(self, f.name) != (f.default_factory() if f.default is
+                                                 dataclasses.MISSING else f.default)]
+        if ignored:
+            warnings.warn(f"DistributedDataParallelKwargs({', '.join(sorted(ignored))}) has no "
+                          "effect: the accelerator reduces the gradients itself and takes only "
+                          "bucket_cap_mb.")
+
+
+@dataclass
+class DistributedInitKwargs(KwargsHandler):
+    """Arguments of ``torch.distributed.init_process_group``, which
+    ``PartialState`` calls: ``coordinator_address`` ("host:port") is the
+    ``tcp://`` rendezvous, ``num_processes`` the world size,
+    ``process_id`` the rank, ``local_device_ids`` the card (its first
+    entry) and ``initialization_timeout`` the timeout. Unset fields come
+    from the launcher's environment."""
+
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    local_device_ids: Optional[list] = None
+    initialization_timeout: timedelta = field(default_factory=lambda: timedelta(seconds=300))
+
+
+InitProcessGroupKwargs = DistributedInitKwargs
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
     """The handler ``Accelerator.autocast`` takes. The precision policy
     (f32 masters, compute and output dtypes) applies in every prepared call
     already, so there is no region to switch: both fields are kept for the
@@ -25,7 +197,7 @@ class AutocastKwargs:
 
 
 @dataclass
-class ProfileKwargs:
+class ProfileKwargs(KwargsHandler):
     """How ``Accelerator.profile`` traces, on ``torch.profiler``.
 
     * ``activities``: "cpu" and/or "cuda" (or ``ProfilerActivity`` values);
@@ -84,9 +256,11 @@ class GradientAccumulationPlugin:
 
 @dataclass
 class DataLoaderConfiguration:
-    """How prepared loaders batch and stage. ``dispatch_batches``,
-    ``even_batches`` and ``split_batches`` matter across processes only
-    (ROADMAP.md, A8); ``non_blocking`` copies batches to the card from
+    """How prepared loaders batch and stage. ``dispatch_batches`` (the main
+    process reads, every process gets its slice), ``even_batches`` (the
+    last round completed by cycling from the start) and ``split_batches``
+    (the loader's batch is the global one) matter across processes only;
+    ``non_blocking`` copies batches to the card from
     pinned memory; ``prefetch_size`` batches are staged ahead, by a
     background thread when ``async_prefetch``."""
 

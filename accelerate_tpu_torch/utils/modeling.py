@@ -91,9 +91,10 @@ def _leaf_bytes(leaf, dtype=None) -> int:
     return int(math.ceil(n * dtype_byte_size(dtype if dtype is not None else leaf.dtype)))
 
 
-def compute_module_sizes(tree, dtype=None) -> dict:
+def compute_module_sizes(tree, dtype=None, prefix: str = "") -> dict:
     """Byte size of every name prefix, ``""`` for the total. ``dtype``
-    overrides the tensors' own (a planned cast)."""
+    overrides the tensors' own (a planned cast). ``prefix`` is taken for
+    the reference's signature and, as there, changes nothing."""
     sizes: dict = {}
     for name, leaf in named_parameters(tree).items():
         nbytes = _leaf_bytes(leaf, dtype)
@@ -154,7 +155,7 @@ def get_max_memory(max_memory: Optional[dict] = None) -> "OrderedDict[DeviceId, 
     return out
 
 
-def get_balanced_memory(tree, max_memory: Optional[dict] = None,
+def get_balanced_memory(params, max_memory: Optional[dict] = None,
                         no_split_module_classes: Optional[list] = None, dtype=None,
                         low_zero: bool = False) -> "OrderedDict[DeviceId, int]":
     """Budgets that spread the model evenly over the devices instead of
@@ -163,8 +164,8 @@ def get_balanced_memory(tree, max_memory: Optional[dict] = None,
     device_ids = [k for k in budgets if isinstance(k, int)]
     if len(device_ids) <= 1:
         return budgets
-    total = compute_module_sizes(tree, dtype=dtype).get("", 0)
-    units = _split_units(tree, list(no_split_module_classes or []))
+    total = compute_module_sizes(params, dtype=dtype).get("", 0)
+    units = _split_units(params, list(no_split_module_classes or []))
     # A mean unit of slack, so rounding units onto devices does not overflow.
     mean_unit = int(math.ceil(total / max(len(units), 1)))
     per_device = total // (len(device_ids) - (1 if low_zero else 0)) + mean_unit
@@ -219,22 +220,23 @@ def _split_units(tree, no_split: list) -> list:
     return units
 
 
-def find_tied_parameters(tree) -> list:
+def find_tied_parameters(params) -> list:
     """Groups of names that share one tensor (a module's ``named_parameters``
     drops the second name of a tie, so only dicts show ties)."""
-    if isinstance(tree, nn.Module):
-        flat = dict(tree.named_parameters(remove_duplicate=False))
+    if isinstance(params, nn.Module):
+        flat = dict(params.named_parameters(remove_duplicate=False))
     else:
-        flat = named_parameters(tree)
+        flat = named_parameters(params)
     by_id: dict = {}
     for name, leaf in flat.items():
         by_id.setdefault(id(leaf), []).append(name)
     return [g for g in by_id.values() if len(g) > 1]
 
 
-def infer_auto_device_map(tree, max_memory: Optional[dict] = None,
+def infer_auto_device_map(params, max_memory: Optional[dict] = None,
                           no_split_module_classes: Optional[list] = None, dtype=None,
                           tied_parameters: Optional[list] = None,
+                          offload_buffers: bool = False,
                           verbose: bool = False) -> "OrderedDict[str, DeviceId]":
     """Greedy first fit of the model's units onto card, host, then disk.
 
@@ -243,12 +245,14 @@ def infer_auto_device_map(tree, max_memory: Optional[dict] = None,
     past the cards, the first card keeps room for the largest unit, since
     streamed blocks pass through it when they run. Tied tensors count once,
     at their first name, and a unit holding only second names of a tie goes
-    where the first name went."""
+    where the first name went. The map sizes parameters only, as the JAX
+    solver does, so ``offload_buffers`` changes nothing; it is taken for
+    the reference's signature."""
     no_split = list(no_split_module_classes or [])
     budgets = get_max_memory(max_memory)
-    units = _split_units(tree, no_split)
-    leaves = named_parameters(tree)
-    tied = tied_parameters or find_tied_parameters(tree)
+    units = _split_units(params, no_split)
+    leaves = named_parameters(params)
+    tied = tied_parameters or find_tied_parameters(params)
     secondary_of = {other: group[0] for group in tied for other in group[1:]}
 
     def leaves_under(prefixes):
@@ -292,9 +296,9 @@ def infer_auto_device_map(tree, max_memory: Optional[dict] = None,
     return device_map
 
 
-def check_device_map(tree, device_map: dict) -> None:
+def check_device_map(params, device_map: dict) -> None:
     """Every parameter must be covered by a prefix of ``device_map``."""
-    for name in named_parameters(tree):
+    for name in named_parameters(params):
         if not any(p == "" or name == p or name.startswith(p + ".") for p in device_map):
             raise ValueError(f"Parameter {name} not covered by device_map")
 

@@ -169,6 +169,21 @@ class PipelineStats:
             "batches_staged": stage[3],
         }
 
+    def merge(self, other: "PipelineStats") -> "PipelineStats":
+        """Fold ``other``'s counters into this one (several loaders in one
+        breakdown); returns ``self``."""
+        with other._lock:
+            wait, stage, depth = list(other._wait), list(other._stage), list(other._depth)
+        with self._lock:
+            for mine, theirs in ((self._wait, wait), (self._stage, stage)):
+                mine[0] += theirs[0]
+                mine[1] = max(mine[1], theirs[1])
+                mine[2] = theirs[2] or mine[2]
+                mine[3] += theirs[3]
+            self._depth[0] += depth[0]
+            self._depth[1] += depth[1]
+        return self
+
     class _Timer:
         __slots__ = ("_record", "_t0")
 

@@ -145,7 +145,28 @@ order; any failure exits non-zero:
    trace must name the three wgmma flash kernels. Times beside the card's
    name and power limit.
 
-Prints the kernels' JSON line and the card's line, and as its last line
+9. several processes (the earlier models freed): ``accelerate-tpu-torch
+   env`` as a subprocess must name the card and the NCCL version;
+   ``accelerate-tpu-torch test`` runs the omnibus script in a process group
+   of one over NCCL ("All omnibus checks passed.", "1 process(es)");
+   ``launch --num_processes 1`` runs the collectives script, every
+   collective on CUDA tensors through NCCL, and every "... ok" line must
+   appear. Then ``launch --num_processes 1 --mixed_precision bf16
+   chip_smoke.py --multiprocess-child OUT`` trains the tier-1 model
+   (``bench.build_train_step``: 3 + 10 steps in ``run_bench``'s batch
+   order) inside the process group: NCCL at world size 1; 10 forward, 10
+   dK/dV and 10 dQ launches a step, all wgmma, counted in the child; the
+   gradient all-reduce once a step; and its 13 losses equal, bit for bit,
+   the first 13 of phase 6's ``run_bench`` in this process without a
+   process group. Reported beside the card's name and power limit: ms a
+   step launched and here, the reduction's ms a step (timed alone in the
+   child on the model's gradient shapes, CUDA events), the bucket count,
+   the child's start-up seconds (launch to ``init_process_group`` done).
+   ``main_multiprocess()`` runs it alone, with its own reference steps.
+   A child's non-zero exit fails the phase with its last lines.
+
+Prints the kernels' JSON line (each kernel with its launches in phase 9,
+``multiprocess_launches``) and the card's line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2207,7 +2228,7 @@ def big_model_exactness(cfg):
             del streamed, logits, tokens
 
         port_dir = os.path.join(root, "port")
-        save_model(model, port_dir, max_shard_size=BIG["exact_shard"])
+        save_model(None, model, port_dir, max_shard_size=BIG["exact_shard"])
         streamed = disk_offload(meta, port_dir, offload_folder=os.path.join(root, "offload"))
         copies = sum(n.endswith(".dat") for n in os.listdir(os.path.join(root, "offload")))
         err = (streamed(ids) - ref).abs().max().item()
@@ -2885,6 +2906,207 @@ def phase_loop():
     return counts, micro
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: several processes (a process group over NCCL, world size 1)
+# ---------------------------------------------------------------------------
+
+#: The launched trainer: run_bench's model and batches, 3 warm-up and 10
+#: timed steps, run_bench's batch order (so its losses are the first 13 of
+#: phase 6's run).
+MP = dict(warmup=3, iters=10, reduce_iters=5, timeout=400)
+MP_CHILD_FLAG = "--multiprocess-child"
+
+
+def run_cli(args, timeout, env_extra=None):
+    """``accelerate-tpu-torch <args>`` from this checkout, in a session of
+    its own that is killed whole on a timeout; a non-zero exit fails the
+    phase with the command's last lines."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    env.update(env_extra or {})
+    cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli", *args]
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        fail(f"`accelerate-tpu-torch {' '.join(args)}` timed out after {timeout} s:\n"
+             f"{out[-3000:]}\n{err[-3000:]}")
+    if proc.returncode != 0:
+        fail(f"`accelerate-tpu-torch {' '.join(args)}` exited {proc.returncode}:\n"
+             f"{out[-3000:]}\n{err[-3000:]}")
+    return out
+
+
+def multiprocess_child(out_path: str):
+    """The launched trainer (``launch --num_processes 1 --mixed_precision
+    bf16 chip_smoke.py --multiprocess-child OUT``): joins the process group,
+    trains the tier-1 model as ``run_bench`` does, times the gradient
+    reduction alone on the model's gradient shapes, and writes its numbers
+    to ``OUT`` as JSON."""
+    t_start = time.time()
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accelerate_tpu_torch import PartialState
+    from accelerate_tpu_torch.accelerator import _reduce_gradients
+    from accelerate_tpu_torch.bench import build_train_step
+
+    t_import = time.time()
+    state = PartialState()
+    t_group = time.time()
+    cfg, model, step, batches = build_train_step()
+    reduce_calls = _reduce_gradients.calls
+    reset_counts()
+    losses = []
+    for i in range(MP["warmup"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MP["iters"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MP["iters"]
+    counts = read_counts()
+    reduce_calls = _reduce_gradients.calls - reduce_calls
+    buckets = _reduce_gradients.buckets
+
+    # The same steps again under no_sync(): no gradient reduction and no
+    # label-count all-reduce, to split the launched step's cost.
+    from accelerate_tpu_torch import Accelerator
+
+    with Accelerator(mixed_precision="bf16").no_sync():
+        step(batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MP["iters"]):
+            step(batches[i % 4])
+        torch.cuda.synchronize()
+    no_sync_step_ms = (time.perf_counter() - t0) * 1e3 / MP["iters"]
+
+    # The reduction alone, on gradients of the model's shapes (f32, the
+    # step's buckets): what each step paid for it.
+    grads = [torch.zeros_like(p) for p in model.parameters()]
+    from accelerate_tpu_torch.utils.dataclasses import DistributedDataParallelKwargs
+
+    cap = DistributedDataParallelKwargs().bucket_cap_mb
+    _reduce_gradients(grads, 1.0, cap)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(MP["reduce_iters"]):
+        _reduce_gradients(grads, 1.0, cap)
+    end.record()
+    torch.cuda.synchronize()
+    reduction_ms = start.elapsed_time(end) / MP["reduce_iters"]
+    launched_at = float(os.environ["ATPU_SMOKE_LAUNCHED_AT"])
+    result = dict(
+        backend=state.backend, world=state.num_processes, rank=state.process_index,
+        distributed_type=str(state.distributed_type), device=str(state.device),
+        losses=torch.stack(losses).tolist(), step_ms=step_ms, no_sync_step_ms=no_sync_step_ms,
+        counts=counts,
+        reduce_calls=reduce_calls, buckets=buckets, reduction_ms=reduction_ms,
+        gradient_bytes=sum(g.numel() * g.element_size() for g in grads),
+        startup_s=t_group - launched_at, process_start_s=t_start - launched_at,
+        import_s=t_import - t_start, init_process_group_s=t_group - t_import,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    print(f"multiprocess child done: rank {state.process_index} of {state.num_processes} "
+          f"over {state.backend}")
+
+
+def phase_multiprocess(reference=None):
+    """Phase 9: ``env``, ``test`` and the collectives at world size 1 over
+    NCCL, then the tier-1 trainer launched in a process group, held bit for
+    bit against the same steps run here without one (``reference``: phase
+    6's ``run_bench`` result, whose first 13 steps are the same; else they
+    run here). Returns the child's numbers."""
+    import tempfile
+
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    out = run_cli(["env"], timeout=120)
+    nccl = [line for line in out.splitlines() if line.startswith("- NCCL version:")]
+    print(f"  env ({time.perf_counter() - t0:.1f} s): {nccl[0] if nccl else 'no NCCL line'}; "
+          f"card named: {name in out}")
+    if name not in out or not nccl:
+        fail(f"`accelerate-tpu-torch env` printed no card name or NCCL version:\n{out[-2000:]}")
+
+    t0 = time.perf_counter()
+    out = run_cli(["test"], timeout=300)
+    print(f"  test ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(line.strip() for line in out.splitlines()
+                      if "ok" in line or "omnibus" in line))
+    if "All omnibus checks passed." not in out or "1 process(es)" not in out \
+            or "omnibus check on nccl" not in out:
+        fail(f"`accelerate-tpu-torch test` did not pass at world size 1 over NCCL:\n"
+             f"{out[-3000:]}")
+
+    t0 = time.perf_counter()
+    out = run_cli(["launch", "--num_processes", "1", "--module",
+                   "accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess"], timeout=300)
+    checks = ("gather ok", "gather(global array) ok", "gather_object ok", "broadcast ok",
+              "reduce ok", "pad_across_processes ok", "broadcast_object_list ok",
+              "split_between_processes ok", "checkpoint round-trip ok",
+              "debug shape sanitizer ok")
+    missing = [c for c in checks if f"[p0] {c}" not in out]
+    print(f"  collectives on cuda over nccl ({time.perf_counter() - t0:.1f} s): "
+          f"{len(checks) - len(missing)} of {len(checks)} ok")
+    if missing or "on cuda:0 over nccl" not in out \
+            or "All multi-process ops checks passed." not in out:
+        fail(f"the collectives check missed {missing}:\n{out[-3000:]}")
+
+    if reference is None:
+        from accelerate_tpu_torch.bench import run_bench
+
+        reference = run_bench(iters=MP["iters"], warmup=MP["warmup"])
+        free_cuda()
+    ref_losses = reference["extra"]["losses"][:MP["warmup"] + MP["iters"]]
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_mp_") as tmp:
+        result_path = os.path.join(tmp, "child.json")
+        t0 = time.time()
+        run_cli(["launch", "--num_processes", "1", "--mixed_precision", "bf16",
+                 os.path.join(HERE, "chip_smoke.py"), MP_CHILD_FLAG, result_path],
+                timeout=MP["timeout"], env_extra={"ATPU_SMOKE_LAUNCHED_AT": repr(t0)})
+        wall_s = time.time() - t0
+        with open(result_path) as f:
+            child = json.load(f)
+    steps = MP["warmup"] + MP["iters"]
+    layers = reference["extra"]["config"]["layers"]
+    print(f"  launched trainer ({wall_s:.1f} s of wall time): rank {child['rank']} of "
+          f"{child['world']} over {child['backend']} on {child['device']}; start-up "
+          f"{child['startup_s']:.2f} s (process start {child['process_start_s']:.2f} s, import "
+          f"{child['import_s']:.2f} s, init_process_group {child['init_process_group_s']:.2f} s)")
+    print(f"  step {child['step_ms']:.2f} ms launched ({child['no_sync_step_ms']:.2f} ms under "
+          f"no_sync(), no gradient reduction) against {reference['extra']['step_ms']:.2f} ms "
+          f"here without a process group; gradient "
+          f"all-reduce {child['reduction_ms']:.3f} ms a step ({child['buckets']} buckets of "
+          f"<= 25 MB, {child['gradient_bytes'] / 1e9:.3f} GB f32), run {child['reduce_calls']} "
+          f"times in {steps} steps; peak memory {child['peak_memory_gib']:.2f} GiB; {card_line()}")
+    print(f"  launches in {steps} steps: {child['counts']}")
+    if child["backend"] != "nccl" or child["world"] != 1:
+        fail(f"the launched trainer ran over {child['backend']} at world size {child['world']}")
+    if child["counts"] != expected_counts(layers * steps, layers * steps, wgmma=True):
+        fail(f"the launched trainer's flash launches {child['counts']}: expected {layers} of "
+             f"each a step, all on the wgmma route")
+    if child["reduce_calls"] != steps:
+        fail(f"the gradient all-reduce ran {child['reduce_calls']} times in {steps} steps")
+    if child["losses"] != ref_losses:
+        diverged = next(i for i, (a, b) in enumerate(zip(child["losses"], ref_losses)) if a != b)
+        fail(f"the launched losses part from the unlaunched ones at step {diverged + 1}: "
+             f"{child['losses']} against {ref_losses}")
+    print(f"  the {steps} launched losses equal the unlaunched ones bit for bit "
+          f"({child['losses'][0]:.6f} -> {child['losses'][-1]:.6f})")
+    child["reference_step_ms"] = reference["extra"]["step_ms"]
+    return child
+
+
 def main():
     import torch
 
@@ -2954,6 +3176,9 @@ def main():
     phase_train_profile()
     print("== 8. the training loop: packed sequences, dots remat, save/load, resume")
     loop_counts, loop_microbatches = phase_loop()
+    free_cuda()
+    print("== 9. several processes: env, test, collectives and the launched trainer over NCCL")
+    mp = phase_multiprocess(result)
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -2969,6 +3194,8 @@ def main():
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
             entry["loop_path"] = LOOP_PATH
+        entry["multiprocess_launches"] = mp["counts"][key]
+        entry["multiprocess_launches_per_step"] = mp["counts"][key] / len(mp["losses"])
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3054,6 +3281,23 @@ def main_big_model():
     print(f"  flash launches in 4f: {read_counts()}")
 
 
+def main_multiprocess():
+    """Phase 9 alone. Builds the kernels first: the launched trainer runs
+    the flash kernels; its reference steps run here."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    mp = phase_multiprocess()
+    print(json.dumps({"multiprocess": {k: mp[k] for k in (
+        "step_ms", "no_sync_step_ms", "reference_step_ms", "reduction_ms", "buckets", "startup_s",
+        "init_process_group_s", "reduce_calls")}}))
+
+
 TRAIN_PATH = "tier-1 train steps (phase 6)"
 LOOP_PATH = ("tier-1 training loop (phase 8): packed 1024-token rows with segment_ids, "
              "dots remat, accumulation 2")
@@ -3108,4 +3352,7 @@ def kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, la
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == MP_CHILD_FLAG:
+        multiprocess_child(sys.argv[2])
+    else:
+        main()

@@ -304,7 +304,7 @@ def test_disk_offload_and_checkpoint_loading(ckpt, tmp_path):
     ids = torch.as_tensor(ids_for(2, 16, seed=12))
     with torch.inference_mode():
         ref = ckpt.model(ids)
-    save_model(ckpt.model, str(tmp_path / "port"), max_shard_size="200KB")
+    save_model(None, ckpt.model, str(tmp_path / "port"), max_shard_size="200KB")
     with init_empty_weights():
         meta = LlamaForCausalLM(ckpt.cfg)
     lazy = disk_offload(meta, str(tmp_path / "port"), execution_device=CPU)
@@ -324,7 +324,7 @@ def test_disk_offload_and_checkpoint_loading(ckpt, tmp_path):
     got = half(ids)  # every weight fp16, so fp16 logits: within 3e-2 of f32's
     assert got.dtype == torch.float16
     torch.testing.assert_close(got.float(), ref, atol=3e-2, rtol=3e-2)
-    save_model(torch.nn.ModuleDict({"model": torch.nn.ModuleDict(
+    save_model(None, torch.nn.ModuleDict({"model": torch.nn.ModuleDict(
         {"norm": ckpt.model.model.norm})}), str(tmp_path / "partial"))
     with pytest.raises(ValueError, match="missing"):
         load_checkpoint_in_model(meta, str(tmp_path / "partial"), {"": 0}, execution_device=CPU)

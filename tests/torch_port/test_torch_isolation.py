@@ -63,6 +63,11 @@ def test_no_source_imports_jax_or_the_jax_package():
     for name in ("__init__", "lora", "registry", "quantize"):
         assert f"accelerate_tpu_torch/adapters/{name}.py" in scanned, name
     assert "accelerate_tpu_torch/utils/quantization.py" in scanned
+    for name in ("launchers", "local_sgd", "utils/environment", "utils/imports", "utils/other",
+                 "utils/versions", "commands/launch", "commands/env", "commands/test",
+                 "commands/config/config_args", "test_utils/__init__", "test_utils/training",
+                 "test_utils/scripts/test_script", "test_utils/scripts/test_ops_multiprocess"):
+        assert f"accelerate_tpu_torch/{name}.py" in scanned, name
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
     assert not bad, f"the port imports the JAX side: {bad}"
@@ -89,6 +94,12 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.serving.gateway_aio, accelerate_tpu_torch.loadgen\n"
         "import accelerate_tpu_torch.commands.accelerate_cli\n"
         "import accelerate_tpu_torch.commands.serve, accelerate_tpu_torch.commands.loadtest\n"
+        "import accelerate_tpu_torch.commands.launch, accelerate_tpu_torch.commands.env\n"
+        "import accelerate_tpu_torch.commands.test, accelerate_tpu_torch.commands.config.config\n"
+        "import accelerate_tpu_torch.launchers, accelerate_tpu_torch.local_sgd\n"
+        "import accelerate_tpu_torch.utils.environment, accelerate_tpu_torch.utils.other\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_script\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"

@@ -163,7 +163,8 @@ def test_serve_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(SystemExit, match="tiny"):
         serve_command(serve_command_parser().parse_args(["--model", "nonsense",
                                                          "--device", "cpu"]))
-    assert set(accelerate_cli._subcommand_registrars()) == {"serve", "loadtest"}
+    assert set(accelerate_cli._subcommand_registrars()) == {
+        "config", "env", "launch", "loadtest", "serve", "test"}
 
 
 def test_serve_answers_and_drains_on_sigterm():

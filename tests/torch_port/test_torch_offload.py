@@ -244,8 +244,8 @@ def test_reader_refuses_a_truncated_file(tmp_path):
 
 def test_checkpoint_shards_of_a_file_a_directory_and_an_index(tmp_path):
     model = torch.nn.Linear(4, 3)
-    save_model(model, str(tmp_path / "one"))
-    save_model(model, str(tmp_path / "many"), max_shard_size="16")
+    save_model(None, model, str(tmp_path / "one"))
+    save_model(None, model, str(tmp_path / "many"), max_shard_size="16")
     one = checkpoint_shards(tmp_path / "one")
     many = checkpoint_shards(tmp_path / "many")
     assert len(one) == 1 and len(many) == 2

@@ -95,10 +95,19 @@ def test_another_device_in_the_same_process_is_refused():
 
 
 def test_several_processes_are_not_ported(monkeypatch):
+    """A world the environment names but gives no rendezvous for raises
+    (there is no quiet fall-back to one process), and so does one on the
+    card without a card; a failed construction leaves nothing."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="no rendezvous"):
         PartialState(cpu=True)
-    assert not PartialState._shared_state  # a failed construction leaves nothing
+    assert not PartialState._shared_state
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "29500")
+    monkeypatch.setenv("RANK", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PartialState()
+    assert not PartialState._shared_state
 
 
 def test_decorators_and_process_helpers(capsys):
