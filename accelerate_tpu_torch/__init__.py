@@ -130,9 +130,11 @@ from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
     DDPCommunicationHookType,
+    DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     DistributedInitKwargs,
     DistributedType,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
     ProfileKwargs,

@@ -47,9 +47,25 @@ the global label count (one all-reduce of the count a microbatch,
 ``_label_share``), and its gradients are summed; any other loss, a
 per-process mean, gets the mean, which is the global mean because the
 sharded loaders give every process the same batch size. So the clip sees, and returns,
-the global norm, and every process applies the same update. Sharded
-training state (FSDP, ZeRO, optimizer host offload) is ROADMAP.md, A8c;
-meshes are A8d.
+the global norm, and every process applies the same update.
+
+With an FSDP plugin (or a DeepSpeed config, translated onto one) the
+training state is sharded over the process group instead
+(``parallel/sharding.py``, the JAX package's policy leaf for leaf):
+``prepare_model`` keeps each large parameter as this process's chunk and
+hands the model a layout whose gathers put each decoder layer together
+inside the layer loop; their backward reduce-scatters the gradients, so
+the chunks' gradients arrive reduced. The replicated leaves are
+all-reduced at the sync step as above, except under ZeRO
+(``zero_sharding``), where each one whose optimizer state is sharded is
+reduce-scattered into the view its optimizer steps, and its chunks are
+all-gathered after the update. The clip's global norm adds the squared
+norms of every process's chunks (one all-reduce) to those of the
+replicated gradients, counted once. ``cpu_offload`` keeps the optimizer
+state in host memory between updates; ``activation_checkpointing``
+recomputes every decoder layer under the plugin's ``remat_policy``.
+Meshes (tensor, pipeline, expert parallelism, ``HYBRID_SHARD``) are
+ROADMAP.md, A8d.
 """
 
 from __future__ import annotations
@@ -94,17 +110,18 @@ class AcceleratedModel:
     forward with the parameters cast to the compute dtype and the outputs
     cast to the output dtype."""
 
-    def __init__(self, module: nn.Module, policy):
+    def __init__(self, module: nn.Module, policy, layout=None):
         self.module = module
         self.policy = policy
+        #: The sharded layout of the parameters (FSDP), or None.
+        self.layout = layout
 
     @property
     def config(self):
         return self.module.config
 
     def __call__(self, *args, **kwargs):
-        params = {name: p.to(self.policy.compute_dtype) if p.is_floating_point() else p
-                  for name, p in self.module.named_parameters()}
+        params = _compute_params(self.module, self.policy.compute_dtype, self.layout)
         out = torch.func.functional_call(self.module, params, args, kwargs)
         return self.policy.cast_to_output(out)
 
@@ -115,12 +132,19 @@ class AcceleratedModel:
         return self.module.named_parameters()
 
     def state_dict(self):
+        """The module's state dict; under FSDP every parameter whole (a
+        collective: every process calls it)."""
+        if self.layout is not None:
+            return self.layout.full_state_dict(self.module)
         return self.module.state_dict()
 
     def load_state_dict(self, state_dict, strict: bool = True):
         """Copy ``state_dict`` (tensors or arrays) into the f32 masters on the
         model's device, in place: an optimizer prepared on the parameters
-        keeps them."""
+        keeps them. Under FSDP the tensors are whole and each process keeps
+        its chunk."""
+        if self.layout is not None:
+            return self.layout.load_full(self.module, state_dict)
         return self.module.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state_dict.items()}, strict=strict)
 
@@ -219,9 +243,40 @@ def _cast_params(module: nn.Module, dtype) -> dict:
             for n, p in module.named_parameters() if p.requires_grad}
 
 
+def _compute_params(module: nn.Module, dtype, layout=None) -> dict:
+    """What a forward takes: :func:`_cast_params`, or under a sharded
+    layout every parameter as the layout hands it out (the leaves outside
+    the decoder layers gathered, the layers' chunks for their loop)."""
+    if layout is None:
+        return _cast_params(module, dtype)
+    return layout.compute_params(module)
+
+
 def _global_norm(grads) -> torch.Tensor:
     return torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+
+
+def _clip_sharded_(optimizer, max_norm: float) -> torch.Tensor:
+    """:func:`_clip_by_global_norm_` over the gradients of ``optimizer``
+    in a process group where some are this process's chunks: the squared
+    norms of every process's chunks are summed (one all-reduce), and those
+    of the gradients every process holds whole are added once."""
+    chunks, whole = optimizer.sharded_grads()
+    if not chunks:
+        return _clip_by_global_norm_(whole, max_norm)
+    from .utils.operations import reduce
+
+    sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in chunks]).square()
+    total = reduce(sq.sum())
+    if whole:
+        total = total + torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                                     for g in whole]).square().sum()
+    gnorm = total.sqrt()
+    factor = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
+    for g in chunks + whole:
+        g.mul_(factor.to(g.dtype))
+    return gnorm
 
 
 def _clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -251,6 +306,8 @@ class Accelerator:
     ``cuda`` unless ``cpu=True``; raises without a card otherwise. In
     ``kwargs_handlers`` a ``DistributedInitKwargs`` configures the process
     group and a ``DistributedDataParallelKwargs`` the gradient buckets.
+    ``fsdp_plugin`` (or ``deepspeed_plugin``, translated onto one) shards
+    the training state over the process group (module docstring).
 
     ``seed`` seeds :attr:`generator`, the accelerator's own random stream,
     which a ``loss_fn(params, batch, generator)`` receives (the JAX
@@ -266,8 +323,6 @@ class Accelerator:
                  step_scheduler_with_optimizer: bool = True,
                  kwargs_handlers: Optional[list] = None, seed: int = 0, fsdp_plugin=None,
                  mesh_config=None, deepspeed_plugin=None):
-        if fsdp_plugin is not None or deepspeed_plugin is not None:
-            raise _not_ported("FSDP/ZeRO sharding, its remat and optimizer offload", "8c")
         if mesh_config is not None:
             raise _not_ported("a device mesh", "8d")
         self.project_configuration = project_config or ProjectConfiguration(
@@ -282,6 +337,7 @@ class Accelerator:
             or DistributedDataParallelKwargs()
         init = next((h for h in handlers if isinstance(h, DistributedInitKwargs)), None)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      fsdp_plugin=fsdp_plugin, deepspeed_plugin=deepspeed_plugin,
                                       **({"init_kwargs": init} if init is not None else {}))
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
@@ -355,6 +411,18 @@ class Accelerator:
     @property
     def use_distributed(self) -> bool:
         return self.state.use_distributed
+
+    @property
+    def fsdp_plugin(self):
+        """The FSDP plugin (given, or translated from DeepSpeed), or None."""
+        return self.state.fsdp_plugin
+
+    @property
+    def zero_sharding(self) -> bool:
+        """Whether the optimizer state is ZeRO-sharded over the process
+        group: the FSDP plugin's ``zero_sharding`` (DeepSpeed stages 1-3)."""
+        plugin = self.state.fsdp_plugin
+        return bool(plugin is not None and getattr(plugin, "zero_sharding", False))
 
     @property
     def sync_gradients(self) -> bool:
@@ -433,19 +501,63 @@ class Accelerator:
     def prepare_model(self, module: nn.Module, device_placement: Optional[bool] = None,
                       evaluation_mode: bool = False) -> AcceleratedModel:
         """Move the module to the device (in place: an optimizer built on its
-        parameters keeps them) and wrap it with the precision policy."""
+        parameters keeps them) and wrap it with the precision policy. Under
+        an FSDP plugin each parameter the policy shards keeps this
+        process's chunk only (every process must hold the same weights
+        before), and the model gets the layout its layer loops gather by."""
         if device_placement if device_placement is not None else self.device_placement:
             module.to(self.device)
-        wrapped = AcceleratedModel(module, self.policy)
+        layout = None
+        plugin = self.state.fsdp_plugin
+        if plugin is not None:
+            from .parallel.sharding import ShardedLayout, layout_specs, sharding_summary
+
+            specs = layout_specs(module, plugin, self.num_processes)
+            layout = ShardedLayout(
+                module, specs, self.process_index, self.num_processes,
+                compute_dtype=self.policy.compute_dtype,
+                gather_in_remat=plugin.reshard_after_forward and plugin.activation_checkpointing,
+                remat_policy=plugin.remat_policy if plugin.activation_checkpointing else None)
+            layout.shard(module)
+            layout.attach(module)
+            self.logger.debug("Param sharding summary: %s", sharding_summary(specs))
+        wrapped = AcceleratedModel(module, self.policy, layout)
         if evaluation_mode:
             wrapped.eval()
         self._models.append(wrapped)
         return wrapped
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
+        """Wrap a torch optimizer. Under an FSDP plugin it steps the chunks
+        the model keeps; with ``zero_sharding`` its state is laid out by the
+        JAX package's ZeRO policy (``AcceleratedOptimizer.shard_state``),
+        and with ``cpu_offload`` it lives in host memory between updates.
+        Prepare the model first (or with it, before it in ``prepare``)."""
+        plugin = self.state.fsdp_plugin
+        offload = bool(plugin is not None and plugin.cpu_offload)
+        if offload:
+            from .parallel.host_offload import supports_host_memory
+
+            if not supports_host_memory(self.device):
+                raise RuntimeError(
+                    "fsdp_plugin.cpu_offload=True, but host memory cannot be pinned here; "
+                    "the optimizer state would stay on the card")
         wrapped = AcceleratedOptimizer(optimizer, scaler_kwargs=self.scaler_handler,
                                        use_loss_scaling=self.mixed_precision == "fp16",
-                                       device=self.device)
+                                       device=self.device, offload_to_host=offload,
+                                       zero_sharding=self.zero_sharding)
+        if plugin is not None:
+            from .parallel.sharding import _is_kernel
+
+            names, kernels, layout = {}, set(), None
+            for model in self._models:
+                for name, p in model.module.named_parameters():
+                    names[id(p)] = name
+                    if _is_kernel(model.module, name, p.ndim):
+                        kernels.add(name)
+                layout = layout or model.layout
+            wrapped.shard_state(names, layout, self.process_index, self.num_processes,
+                                kernels=kernels)
         self._optimizers.append(wrapped)
         return wrapped
 
@@ -566,17 +678,45 @@ class Accelerator:
 
     @property
     def _reduces_gradients(self) -> bool:
-        """Gradients are reduced at this microbatch: a process group, and a
-        sync step."""
-        return self.state.process_group and self.gradient_state.sync_gradients
+        """Gradients are reduced at this microbatch: a sync step, and a
+        process group or a ZeRO view to hand its gradient."""
+        return self.gradient_state.sync_gradients and (
+            self.state.process_group or any(opt._views for opt in self._optimizers))
 
-    def _reduce(self, grads, loss_fn, dtype=None, extras=None):
-        """The sync step's all-reduce of ``grads`` (and ``extras``): summed
-        for a loss weighted by its label share (``_label_share``), else
-        averaged."""
-        summed = hasattr(loss_fn, "label_count")
-        return _reduce_gradients(grads, 1.0 if summed else 1.0 / self.num_processes,
-                                 self.ddp_handler.bucket_cap_mb, dtype=dtype, extras=extras)
+    def _grad_scale(self, loss_fn) -> float:
+        """What the reductions multiply the summed gradients by: 1 for a
+        loss weighted by its label share (``_label_share``), else 1 / the
+        number of processes (the mean of the processes' means)."""
+        return 1.0 if hasattr(loss_fn, "label_count") else 1.0 / self.num_processes
+
+    def _reduce(self, optimizer, loss_fn, dtype=None, extras=None):
+        """The sync step's reductions: each ZeRO view's gradient
+        reduce-scattered (``reduce_zero_grads``), then the gradients every
+        process holds whole all-reduced with ``extras`` (FSDP chunks
+        arrive reduced from their backward)."""
+        scale = self._grad_scale(loss_fn)
+        optimizer.reduce_zero_grads(scale)
+        if not self.state.process_group:
+            return extras
+        _, whole = optimizer.sharded_grads()
+        return _reduce_gradients(whole, scale, self.ddp_handler.bucket_cap_mb, dtype=dtype,
+                                 extras=extras)
+
+    def _weights_labels(self, model: AcceleratedModel) -> bool:
+        """Whether a loss with a label count is weighted by its share at
+        this microbatch: in a process group, when its gradients are reduced
+        at it, and under a sharded layout always (its chunks reduce in
+        every backward)."""
+        return self.state.process_group and (self._reduces_gradients
+                                              or model.layout is not None)
+
+    def _clip(self, optimizer, max_norm: float):
+        """The global-norm clip of ``optimizer``'s gradients: chunks and
+        whole ones told apart across several processes; at one, where a
+        chunk is the whole tensor, the same ops as without a group."""
+        if self.num_processes > 1:
+            return _clip_sharded_(optimizer, max_norm)
+        return _clip_by_global_norm_(optimizer.grads(), max_norm)
 
     @staticmethod
     def _label_share(loss, count):
@@ -619,7 +759,9 @@ class Accelerator:
         mean loss is this process's own: nothing is communicated there."""
         model, optimizer = self._model_and_optimizer(model, optimizer)
         num_steps = self.gradient_state.num_steps
-        cast = _cast_params(model.module, self.policy.compute_dtype)
+        if model.layout is not None:
+            model.layout.grad_scale = self._grad_scale(loss_fn)
+        cast = _compute_params(model.module, self.policy.compute_dtype, model.layout)
         out = (loss_fn(cast, batch, self.generator) if _accepts_generator(loss_fn)
                else loss_fn(cast, batch))
         loss = out[0] if isinstance(out, tuple) else out
@@ -630,9 +772,7 @@ class Accelerator:
         scale_loss(scaled, optimizer.loss_scale).float().backward()
         if self._reduces_gradients:
             extras = None if reported is not None else loss.detach().float().reshape(1)
-            reduced = self._reduce(
-                [p.grad for p in model.module.parameters() if p.grad is not None], loss_fn,
-                extras=extras)
+            reduced = self._reduce(optimizer, loss_fn, extras=extras)
             reported = reported if reported is not None else reduced[0]
         return (reported if reported is not None else loss.detach()).float()
 
@@ -648,11 +788,10 @@ class Accelerator:
             raise NotImplementedError("clip_grad_norm_ takes the L2 norm (norm_type=2) only")
         first = None
         for opt in self._optimizers:
-            grads = opt.grads()
-            if not grads:
+            if not opt.grads():
                 continue
             opt.unscale_()
-            gnorm = _clip_by_global_norm_(grads, max_norm)
+            gnorm = self._clip(opt, max_norm)
             first = gnorm if first is None else first
         return first
 
@@ -691,12 +830,24 @@ class Accelerator:
         In a process group the gradients are reduced after the last
         microbatch, before the clip (module docstring), together with the
         step's loss: ``metrics["loss"]`` is the global one (inside
-        ``no_sync()`` nothing is reduced)."""
+        ``no_sync()`` nothing is reduced, but FSDP chunks, which reduce in
+        their backward).
+
+        Under an FSDP plugin the sharded model's gradients are
+        reduce-scattered in ``grad_reduce_dtype`` (default f32) inside the
+        backward; ``activation_checkpointing`` recomputes every decoder
+        layer, and ``cpu_offload`` runs the forward and backward with the
+        optimizer state in host memory, then streams it in for the update
+        and out after it."""
         model = model or self._models[0]
         optimizer = optimizer or self._optimizers[0]
         accum = accumulation_steps if accumulation_steps is not None \
             else self.gradient_state.num_steps
         compute = self.policy.compute_dtype
+        layout = model.layout
+        if layout is not None:
+            layout.reduce_dtype = grad_reduce_dtype or torch.float32
+            grad_reduce_dtype = None  # the layout's reduce-scatters narrow the gradients
         if grad_reduce_dtype is not None and grad_reduce_dtype != compute:
             warnings.warn(
                 f"grad_reduce_dtype={grad_reduce_dtype} differs from the mixed-precision compute "
@@ -719,7 +870,7 @@ class Accelerator:
         def call_loss(cast, micro):
             out = loss_fn(cast, micro, self.generator) if with_generator else loss_fn(cast, micro)
             loss = out[0] if isinstance(out, tuple) else out
-            if self._reduces_gradients and hasattr(loss_fn, "label_count"):
+            if self._weights_labels(model) and hasattr(loss_fn, "label_count"):
                 loss = self._label_share(loss, loss_fn.label_count(micro))[0]
             return loss
 
@@ -741,6 +892,10 @@ class Accelerator:
         def step(batch):
             check_accum_shape(batch)
             optimizer.optimizer.zero_grad(set_to_none=True)
+            for p, *_ in optimizer._views:
+                p.grad = None
+            if layout is not None:
+                layout.grad_scale = self._grad_scale(loss_fn)
             loss_scale = optimizer.loss_scale
             loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
             for i in range(accum):
@@ -748,24 +903,27 @@ class Accelerator:
                 if grad_reduce_dtype is not None:
                     loss = narrow_backward(micro, loss_scale)
                 else:
-                    loss = call_loss(_cast_params(model.module, compute), micro)
+                    loss = call_loss(_compute_params(model.module, compute, layout), micro)
                     scale_loss(loss / accum, loss_scale).float().backward()
                 loss_sum = loss_sum + loss.detach().float()
             loss = loss_sum / accum
             if self._reduces_gradients:
-                loss = self._reduce(optimizer.grads(), loss_fn, dtype=grad_reduce_dtype,
+                loss = self._reduce(optimizer, loss_fn, dtype=grad_reduce_dtype,
                                     extras=loss.reshape(1))[0]
             metrics = {"loss": loss}
 
             if max_grad_norm is not None:
                 optimizer.unscale_()
-                metrics["grad_norm"] = _clip_by_global_norm_(optimizer.grads(), max_grad_norm)
+                metrics["grad_norm"] = self._clip(optimizer, max_grad_norm)
             finite = optimizer._apply()
             if finite is not None:
                 metrics["loss_scale"] = optimizer.loss_scale.scale
                 metrics["finite"] = finite
             return metrics
 
+        # The optimizer the step updates, for benchmarks (the JAX step
+        # exposes its executables the same way).
+        step.optimizer = optimizer
         return step
 
     # -- gathering ----------------------------------------------------------
@@ -810,8 +968,16 @@ class Accelerator:
         return extract_model_from_parallel(model, keep_fp32_wrapper)
 
     def get_state_dict(self, model, unwrap: bool = True) -> dict:
-        """The model's state dict, on the host."""
-        return {k: v.detach().cpu() for k, v in self.unwrap_model(model).state_dict().items()}
+        """The model's state dict, on the host; under FSDP every parameter
+        whole (a collective: every process calls it)."""
+        layout = getattr(model, "layout", None)
+        if layout is None:
+            from .parallel.sharding import sharded_layout_of
+
+            layout = sharded_layout_of(self.unwrap_model(model))
+        state = (layout.full_state_dict(self.unwrap_model(model)) if layout is not None
+                 else self.unwrap_model(model).state_dict())
+        return {k: v.detach().cpu() for k, v in state.items()}
 
     # -- preemption, autocast, profile ---------------------------------------
 
@@ -933,11 +1099,17 @@ class Accelerator:
 
         wait_for_saves(self)
 
-    def load_state(self, input_dir: Optional[str] = None, **kwargs):
-        """Restore a ``save_state`` checkpoint into the prepared objects."""
+    def load_state(self, input_dir: Optional[str] = None, load_kwargs: Optional[dict] = None,
+                   via_host: Optional[bool] = None, **kwargs):
+        """Restore a ``save_state`` checkpoint into the prepared objects.
+        ``via_host`` (default: from the checkpoint's ``world.json``, True
+        when another number of processes wrote it) reads every tensor whole
+        and keeps this process's chunk, so a checkpoint saved by 2
+        processes restores into 1 or 4."""
         from .checkpointing import load_accelerator_state
 
-        return load_accelerator_state(self, input_dir)
+        return load_accelerator_state(self, input_dir, load_kwargs=load_kwargs,
+                                      via_host=via_host)
 
     def save_model(self, model, save_directory: str, max_shard_size="10GB",
                    safe_serialization: bool = True):

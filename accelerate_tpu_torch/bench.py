@@ -72,13 +72,17 @@ def mfu_fields(tokens_per_sec: float, cfg, seq: int, n_params: int,
             "peak_tflops": peak_tflops}
 
 
-def build_train_step(batch: int = 8, seq: int = 1024, seed: int = 0, **config_overrides):
+def build_train_step(batch: int = 8, seq: int = 1024, seed: int = 0,
+                     accelerator_kwargs: dict | None = None, **config_overrides):
     """The bench's model, prepared, its fused train step and 4 seeded
     batches: ``(cfg, model, step, batches)``. Random weights come from a
-    ``torch.Generator`` seeded with ``seed``, token ids from numpy's."""
+    ``torch.Generator`` seeded with ``seed``, token ids from numpy's.
+    ``accelerator_kwargs`` go to the ``Accelerator`` (e.g. an
+    ``fsdp_plugin``)."""
     from . import Accelerator, PipelinedLlamaForCausalLM, fused_causal_lm_loss, make_global_batch
 
-    acc = Accelerator(mixed_precision="bf16")  # on the card; raises without one
+    # On the card; raises without one.
+    acc = Accelerator(mixed_precision="bf16", **(accelerator_kwargs or {}))
     cfg = tier1_llama_config(**config_overrides)
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     model = PipelinedLlamaForCausalLM(cfg, device=acc.device, dtype=torch.float32, generator=gen)
@@ -92,11 +96,12 @@ def build_train_step(batch: int = 8, seq: int = 1024, seed: int = 0, **config_ov
 
 
 def run_bench(batch: int = 8, seq: int = 1024, iters: int = 20, warmup: int = 3, seed: int = 0,
-              **config_overrides) -> dict:
+              accelerator_kwargs: dict | None = None, **config_overrides) -> dict:
     """Train the tier-1 model for ``warmup + iters`` steps and return the
     bench's JSON object. ``config_overrides`` change the config (e.g.
-    ``remat=True``)."""
-    cfg, model, step, batches = build_train_step(batch, seq, seed, **config_overrides)
+    ``remat=True``), ``accelerator_kwargs`` the ``Accelerator``."""
+    cfg, model, step, batches = build_train_step(batch, seq, seed, accelerator_kwargs,
+                                                 **config_overrides)
     device = next(model.parameters()).device
     torch.cuda.reset_peak_memory_stats(device)
     losses = []

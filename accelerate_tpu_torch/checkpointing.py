@@ -19,6 +19,19 @@ masters; the optimizer file holds the torch optimizer's state tensors, its
 returns (so the next update cannot change what is saved) and writes the
 files from a background thread; the next save or load, and
 ``Accelerator.wait_for_checkpoint``, wait for it and raise its error.
+
+Sharded training state (FSDP, ZeRO): the main process writes
+``world.json`` (the saving world's size, reference ``:352-359``) and each
+model's and optimizer's layout (every sharded tensor's whole shape and
+dimension); every process writes its chunks to
+``<model|optimizer>.rank<r>-of-<n>.safetensors``, the whole tensors going
+to rank 0's file. ``load_state`` reads a process's own file back when the
+world and the layout are the saving ones, and otherwise (``via_host``,
+default from ``world.json``) reads every file, puts each tensor together
+and keeps this process's chunk by the current layout: a checkpoint saved
+by 2 processes restores into 1 or 4 (reference ``load_array_tree``
+``:113-218``). ``merge-weights`` (``commands/merge.py``) puts a sharded
+model back together into one file.
 """
 
 from __future__ import annotations
@@ -379,6 +392,90 @@ def _join_optimizer_state(tensors: dict, meta: dict) -> dict:
     return {"state": state, "param_groups": meta["param_groups"]}
 
 
+WORLD_NAME = "world.json"
+
+
+def _rank_file(stem: str, rank: int, world: int) -> str:
+    return f"{stem}.rank{rank}-of-{world}.safetensors"
+
+
+def _chunks_to_write(tensors: dict, layout: dict, rank: int) -> dict:
+    """What process ``rank`` writes of ``tensors`` (its own, as stored):
+    its chunks of the sharded ones, and on rank 0 the whole ones."""
+    return {k: t for k, t in tensors.items()
+            if layout.get(k, {}).get("dim") is not None or rank == 0}
+
+
+def _read_sharded(src: Path, stem: str, layout: dict, world: int, rank: Optional[int]) -> dict:
+    """The tensors of a sharded save under ``stem``: process ``rank``'s own
+    (its chunks, and the whole ones from rank 0's file), or with ``rank``
+    None every tensor put back together along its dimension."""
+    if rank is not None:
+        own = load_safetensors(src / _rank_file(stem, rank, world))
+        first = own if rank == 0 else load_safetensors(src / _rank_file(stem, 0, world))
+        return {k: (own[k] if layout.get(k, {}).get("dim") is not None else first[k])
+                for k in first.keys() | own.keys()}
+    files = [load_safetensors(src / _rank_file(stem, r, world)) for r in range(world)]
+    out = dict(files[0])
+    for key, entry in layout.items():
+        if entry.get("dim") is not None:
+            out[key] = torch.cat([f[key] for f in files], dim=entry["dim"])
+    return out
+
+
+def _read_layout(src: Path, stem: str) -> Optional[dict]:
+    """A sharded model save's layout, or None (a whole-model save)."""
+    path = src / f"{stem}.layout.json"
+    return json.loads(path.read_text()) if path.exists() else None
+
+
+def _saved_world(src: Path) -> Optional[int]:
+    path = src / WORLD_NAME
+    return json.loads(path.read_text()).get("process_count") if path.exists() else None
+
+
+def _model_layout(model) -> Optional[dict]:
+    layout = getattr(model, "layout", None)
+    if layout is None:
+        return None
+    return {name: {"shape": list(layout.full_shapes[name]), "dim": layout.dims[name]}
+            for name in layout.full_shapes}
+
+
+def _optimizer_layout(opt, tensors: dict) -> Optional[dict]:
+    """Each state tensor's whole shape and dimension (``state.<pid>.<key>``),
+    when the optimizer steps chunks; else None."""
+    if not getattr(opt, "_chunk_layout", None):
+        return None
+    layouts = opt.param_layouts()
+    params = opt._params()
+    out = {}
+    for key, t in tensors.items():
+        _, pid, _ = key.split(".", 2)
+        dim, whole = layouts[int(pid)]
+        shaped = dim is not None and tuple(t.shape) == tuple(params[int(pid)].shape)
+        out[key] = {"shape": list(whole) if shaped else list(t.shape),
+                    "dim": dim if shaped else None}
+    return out
+
+
+def _chunk_state(opt, tensors: dict, rank: int, world: int) -> dict:
+    """Whole optimizer-state tensors cut to this process's chunks by the
+    optimizer's current layout (a tensor shaped like its whole parameter
+    is cut along the parameter's dimension)."""
+    from .parallel.sharding import chunk_of
+
+    layouts = opt.param_layouts()
+    out = {}
+    for key, t in tensors.items():
+        _, pid, _ = key.split(".", 2)
+        dim, whole = layouts[int(pid)]
+        if dim is not None and tuple(t.shape) == tuple(whole):
+            t = chunk_of(t, dim, rank, world).contiguous()
+        out[key] = t
+    return out
+
+
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
                            safe_serialization: bool = True, blocking: bool = True) -> str:
     """Save models, optimizers, schedulers, loader positions, custom objects
@@ -392,6 +489,7 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     wait_for_saves(accelerator)  # never two writes at once
     state = PartialState()
     main = state.is_main_process
+    rank, world = state.process_index, state.num_processes
     out = _checkpoint_dir(accelerator, output_dir)
     pc = accelerator.project_configuration
     automatic = pc.automatic_checkpoint_naming and output_dir is None
@@ -401,40 +499,60 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     out.mkdir(parents=True, exist_ok=True)
     rng_file = out / f"{RNG_STATE_NAME}_{state.process_index}.json"
     rng_file.write_text(json.dumps(get_rng_state(accelerator)))
-    if not main:
-        if automatic:
-            pc.iteration += 1
-        state.wait_for_everyone()
-        return str(out)
+    if main:
+        (out / WORLD_NAME).write_text(json.dumps({"process_count": world,
+                                                  "device_count": world}))
 
     writes = []
     for i, model in enumerate(accelerator._models):
-        tensors = _host_copy(model.module.state_dict())
-        path = out / _indexed(MODEL_NAME, i, ".safetensors")
+        layout = _model_layout(model)
+        stem = _indexed(MODEL_NAME, i)
+        if layout is None:
+            if main:
+                tensors = _host_copy(model.module.state_dict())
+                path = out / (stem + ".safetensors")
+                writes.append(lambda t=tensors, p=path: save_safetensors(t, p, {"format": "pt"}))
+            continue
+        if main:
+            (out / f"{stem}.layout.json").write_text(json.dumps(layout))
+        tensors = _host_copy(_chunks_to_write(model.module.state_dict(), layout, rank))
+        path = out / _rank_file(stem, rank, world)
         writes.append(lambda t=tensors, p=path: save_safetensors(t, p, {"format": "pt"}))
 
     for i, opt in enumerate(accelerator._optimizers):
         tensors, meta = _split_optimizer_state(opt.optimizer.state_dict())
-        tensors = _host_copy(tensors)
-        meta["steps_applied"] = opt.steps_applied
-        if opt.loss_scale is not None:
-            meta["loss_scale"] = [float(opt.loss_scale.scale), int(opt.loss_scale.growth_tracker),
-                                  int(opt.loss_scale.fin_steps)]
-        (out / f"optimizer_meta_{i}.json").write_text(json.dumps(meta))
-        path = out / _indexed(OPTIMIZER_NAME, i, ".safetensors")
-        writes.append(lambda t=tensors, p=path: save_safetensors(t, p))
+        layout = _optimizer_layout(opt, tensors)
+        stem = _indexed(OPTIMIZER_NAME, i)
+        if main:
+            meta["steps_applied"] = opt.steps_applied
+            if opt.loss_scale is not None:
+                meta["loss_scale"] = [float(opt.loss_scale.scale),
+                                      int(opt.loss_scale.growth_tracker),
+                                      int(opt.loss_scale.fin_steps)]
+            if layout is not None:
+                meta["layout"] = layout
+            (out / f"optimizer_meta_{i}.json").write_text(json.dumps(meta))
+        if layout is None:
+            if main:
+                path = out / (stem + ".safetensors")
+                writes.append(lambda t=_host_copy(tensors), p=path: save_safetensors(t, p))
+            continue
+        path = out / _rank_file(stem, rank, world)
+        mine = _host_copy(_chunks_to_write(tensors, layout, rank))
+        writes.append(lambda t=mine, p=path: save_safetensors(t, p))
 
-    for i, sched in enumerate(accelerator._schedulers):
-        _write_object(out / _indexed(SCHEDULER_NAME, i), sched.state_dict())
-    for i, dl in enumerate(accelerator._dataloaders):
-        (out / f"{SAMPLER_NAME}_{i}.json").write_text(json.dumps(dl.state_dict()))
-    for i, obj in enumerate(accelerator._custom_objects):
-        _write_object(out / f"{CUSTOM_OBJECTS_NAME}_{i}", obj.state_dict())
+    if main:
+        for i, sched in enumerate(accelerator._schedulers):
+            _write_object(out / _indexed(SCHEDULER_NAME, i), sched.state_dict())
+        for i, dl in enumerate(accelerator._dataloaders):
+            (out / f"{SAMPLER_NAME}_{i}.json").write_text(json.dumps(dl.state_dict()))
+        for i, obj in enumerate(accelerator._custom_objects):
+            _write_object(out / f"{CUSTOM_OBJECTS_NAME}_{i}", obj.state_dict())
 
     if blocking:
         for write in writes:
             write()
-    else:
+    elif writes:
         accelerator._pending_saves.append(_PendingSave(writes, out))
     if automatic:
         pc.iteration += 1
@@ -443,28 +561,84 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     return str(out)
 
 
-def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
+def _restore(src: Path, stem: str, layout: Optional[dict], saved: Optional[int], via_host: bool,
+             rank: int, world: int, current_dim=None):
+    """``(tensors, whole)``: a save's tensors under ``stem``, this process's
+    own as stored (``whole`` False) when the world and every tensor's
+    dimension (``current_dim(key, entry)``, None when the target is not
+    sharded) are the saving ones and not ``via_host``; else every tensor
+    whole."""
+    if layout is None:
+        return load_safetensors(src / (stem + ".safetensors")), True
+    if saved is None:
+        saved = len(list(src.glob(f"{stem}.rank*-of-*.safetensors")))
+    same = saved == world and current_dim is not None and all(
+        current_dim(k, v) == v.get("dim") for k, v in layout.items())
+    if same and not via_host:
+        return _read_sharded(src, stem, layout, saved, rank), False
+    return _read_sharded(src, stem, layout, saved, None), True
+
+
+def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
+                           load_kwargs: Optional[dict] = None,
+                           via_host: Optional[bool] = None) -> str:
     """Restore what :func:`save_accelerator_state` wrote into the prepared
-    objects, in place; return the directory read."""
+    objects, in place; return the directory read. ``via_host`` forces
+    (True) or suppresses (False) the restore through whole tensors; the
+    default (None) takes it exactly when ``world.json`` names another
+    number of processes. A sharded save whose layout differs from the
+    current one is read through whole tensors either way.
+    ``load_kwargs`` is taken for the reference's signature (its orbax
+    restore arguments); nothing reads it."""
     wait_for_saves(accelerator)  # a background write must be on disk first
     PartialState().wait_for_everyone()  # ... the main process's too
     src = _checkpoint_dir(accelerator, input_dir, for_load=True)
     if not src.exists():
         raise FileNotFoundError(f"Checkpoint directory {src} does not exist")
+    state = PartialState()
+    rank, world = state.process_index, state.num_processes
+    saved = _saved_world(src)
+    forced = via_host
+    via_host = bool(via_host)
+    if forced is None and saved is not None and saved != world:
+        via_host = True
+        logger.info(f"Checkpoint written by {saved} processes; restoring into {world} "
+                    "through whole tensors")
 
     for i, model in enumerate(accelerator._models):
-        model.module.load_state_dict(load_safetensors(src / _indexed(MODEL_NAME, i,
-                                                                     ".safetensors")))
+        stem = _indexed(MODEL_NAME, i)
+        dims = _model_layout(model)
+        tensors, whole = _restore(src, stem, _read_layout(src, stem), saved, via_host, rank, world,
+                                  None if dims is None else
+                                  (lambda k, _, d=dims: d.get(k, {}).get("dim")))
+        if whole and getattr(model, "layout", None) is not None:
+            model.layout.load_full(model.module, tensors)
+        else:
+            model.module.load_state_dict(tensors)
 
     for i, opt in enumerate(accelerator._optimizers):
         meta_path = src / f"optimizer_meta_{i}.json"
         if not meta_path.exists():
             continue
         meta = json.loads(meta_path.read_text())
-        tensors = load_safetensors(src / _indexed(OPTIMIZER_NAME, i, ".safetensors"))
+        stem = _indexed(OPTIMIZER_NAME, i)
+        layouts = opt.param_layouts()
+
+        def current_dim(key, entry):
+            # A tensor shaped like its whole parameter follows the
+            # parameter's dimension; the rest (step counts) stay whole.
+            dim, whole_shape = layouts[int(key.split(".")[1])]
+            return dim if tuple(entry["shape"]) == tuple(whole_shape) else None
+
+        tensors, whole = _restore(src, stem, meta.get("layout"), saved, via_host, rank, world,
+                                  current_dim if opt._chunk_layout else None)
+        if whole and opt._chunk_layout:
+            tensors = _chunk_state(opt, tensors, rank, world)
         # The tensors were just read from the file, so the optimizer owns
         # them: nothing is shared with another optimizer.
         opt.optimizer.load_state_dict(_join_optimizer_state(tensors, meta))
+        if opt.offload_to_host:
+            opt._state_to("host")
         opt._steps_applied = meta.get("steps_applied", 0)
         opt._step_was_skipped = False
         if meta.get("loss_scale") is not None and opt.loss_scale is not None:
@@ -560,12 +734,18 @@ def save_model(accelerator, model, save_directory: str, max_shard_size="10GB",
     """Export the model's state dict as safetensors (:func:`save_sharded`).
     Tied weights (one storage under two names) are written once. Only the
     main process of ``accelerator`` writes (any object with
-    ``is_main_process``; None writes), and every process waits for it."""
+    ``is_main_process``; None writes), and every process waits for it. A
+    model sharded over the process group (FSDP) is gathered whole first,
+    by every process."""
     if not safe_serialization:
         raise NotImplementedError("the port writes model files as safetensors only")
     module = getattr(model, "module", model)
+    from .parallel.sharding import sharded_layout_of
+
+    layout = getattr(model, "layout", None) or sharded_layout_of(module)
+    state = layout.full_state_dict(module) if layout is not None else module.state_dict()
     flat, seen = {}, set()
-    for name, t in module.state_dict().items():
+    for name, t in state.items():
         key = (t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape))
         if key in seen:
             continue
@@ -577,9 +757,18 @@ def save_model(accelerator, model, save_directory: str, max_shard_size="10GB",
         accelerator.wait_for_everyone()
 
 
-def load_safetensors_model(save_directory: str) -> dict:
-    """A model file written by :func:`save_model` (either package's), one or
-    sharded, as a nested dict of CPU tensors keyed by the dotted names."""
+def merged_model_tensors(checkpoint_dir, index: int = 0) -> dict:
+    """Model ``index`` of a ``save_state`` directory as whole tensors by
+    name: its ``model.safetensors``, or its processes' chunks put back
+    together by its layout."""
+    src = Path(checkpoint_dir)
+    stem = _indexed(MODEL_NAME, index)
+    return _restore(src, stem, _read_layout(src, stem), _saved_world(src), True, 0, 1)[0]
+
+
+def _export_tensors(save_directory) -> dict:
+    """The tensors of a :func:`save_model` export (one file or shards) by
+    their dotted names."""
     d = Path(save_directory)
     index_path = d / SAFE_WEIGHTS_INDEX_NAME
     flat: dict = {}
@@ -589,4 +778,10 @@ def load_safetensors_model(save_directory: str) -> dict:
             flat.update(load_safetensors(d / name))
     else:
         flat = load_safetensors(d / SAFE_WEIGHTS_NAME)
-    return unflatten_params(flat)
+    return flat
+
+
+def load_safetensors_model(save_directory: str) -> dict:
+    """A model file written by :func:`save_model` (either package's), one or
+    sharded, as a nested dict of CPU tensors keyed by the dotted names."""
+    return unflatten_params(_export_tensors(save_directory))

@@ -3,10 +3,9 @@
 
 Subcommands are registered lazily; each lives in its own module under
 ``accelerate_tpu_torch.commands``: ``config`` (its ``default``
-subcommand), ``env``, ``launch``, ``loadtest``, ``serve`` and ``test``.
-``estimate-memory`` comes with the other model families (ROADMAP A9),
-``merge-weights`` with sharded checkpoints (A8c); ``tpu-config`` is the
-JAX package's alone.
+subcommand), ``env``, ``launch``, ``loadtest``, ``merge-weights``,
+``serve`` and ``test``. ``estimate-memory`` comes with the other model
+families (ROADMAP A9); ``tpu-config`` is the JAX package's alone.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ def _subcommand_registrars():
         "env": _lazy(".env", "env_command_parser"),
         "launch": _lazy(".launch", "launch_command_parser"),
         "loadtest": _lazy(".loadtest", "loadtest_command_parser"),
+        "merge-weights": _lazy(".merge", "merge_command_parser"),
         "serve": _lazy(".serve", "serve_command_parser"),
         "test": _lazy(".test", "test_command_parser"),
     }

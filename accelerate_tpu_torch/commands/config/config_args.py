@@ -8,8 +8,9 @@ to this schema). ``accelerate-tpu-torch launch`` merges its flags into the
 file's values and hands them to the processes as ``ACCELERATE_TPU_*``
 variables. The file is flat ``key: value`` YAML; it is read with PyYAML
 where installed and with a flat reader otherwise, and written without it.
-The mesh fields are kept for the file's sake: a mesh axis above 1 is
-ROADMAP.md, A8c/A8d, and ``launch`` refuses it.
+The mesh fields are kept for the file's sake: ``mesh_fsdp`` of -1 or the
+number of processes asks for FSDP over every process, and any other mesh
+axis above 1 is ROADMAP.md, A8d, which ``launch`` refuses.
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ def migrate_reference_config(data: dict) -> tuple:
     if fsdp or dist == "FSDP" or int(ds.get("zero_stage") or 0) >= 1:
         ours["mesh_fsdp"] = -1
         ours["mesh_dp"] = 1
-        notes.append("FSDP/ZeRO sharding -> mesh_fsdp: -1 (ROADMAP.md, A8c)")
+        notes.append("FSDP/ZeRO sharding -> mesh_fsdp: -1 (FSDP over every process; the "
+                     "plugin's options come from the FSDP_* variables)")
     if data.get("num_processes") is not None:
         notes.append("num_processes dropped: pass --num_processes to launch")
     handled = set(copied) | {"fp16", "use_cpu", "compute_environment", "distributed_type",
@@ -191,6 +193,8 @@ class ClusterConfig:
         from ...utils.environment import env_var
 
         env = {env_var("MIXED_PRECISION"): self.mixed_precision}
+        if self.mesh_fsdp not in (None, 0, 1):
+            env[env_var("MESH_FSDP")] = str(self.mesh_fsdp)
         if self.debug:
             env[env_var("DEBUG")] = "true"
         if self.use_cpu_emulation:

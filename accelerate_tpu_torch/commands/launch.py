@@ -18,10 +18,18 @@ left waiting in a collective would hang). ``--max_restarts`` starts the
 whole world again, ``--restart_backoff`` seconds later (doubling), with
 ``ACCELERATE_TPU_RESTART_COUNT`` telling the script which attempt it is.
 
+``--fsdp N`` shards the training state over every process (FSDP): N is -1
+or the number of processes, and the children get
+``ACCELERATE_TPU_MESH_FSDP=N``, which makes their ``AcceleratorState``
+build the default ``FullyShardedDataParallelPlugin``; that plugin reads
+the ``FSDP_*`` variables (``FSDP_SHARDING_STRATEGY``,
+``FSDP_OFFLOAD_PARAMS``, ``FSDP_ACTIVATION_CHECKPOINTING``,
+``FSDP_ZERO_SHARDING``, ``FSDP_MIN_NUM_PARAMS``), which pass through.
+
 Refused: ``--emulated_device_count`` above 1 (a torch process has one
-device), the mesh flags above 1 (ROADMAP.md, A8c for ``--fsdp``, A8d for
-the others), and the JAX package's TPU-pod flags (``--gcloud``,
-``--tpu_name``, ``--tpu_zone``).
+device), ``--fsdp`` of another size and the other mesh flags above 1 (a
+mesh of several axes, ROADMAP.md, A8d), and the JAX package's TPU-pod
+flags (``--gcloud``, ``--tpu_name``, ``--tpu_zone``).
 """
 
 from __future__ import annotations
@@ -48,9 +56,12 @@ def launch_command_parser(subparsers=None):
     parser.add_argument("--mixed_precision", default=None, choices=["no", "bf16", "fp16"])
     parser.add_argument("--debug", action="store_true", default=None,
                         help="Compare every rank's shapes before each tensor collective")
-    for axis in ("dp", "fsdp", "tp", "cp", "ep", "pp"):
+    parser.add_argument("--fsdp", type=int, default=None,
+                        help="Shard the training state over every process: -1 or the number "
+                             "of processes")
+    for axis in ("dp", "tp", "cp", "ep", "pp"):
         parser.add_argument(f"--{axis}", type=int, default=None,
-                            help="Mesh axis: above 1 not ported (ROADMAP.md, A8c/A8d)")
+                            help="Mesh axis: above 1 not ported (ROADMAP.md, A8d)")
     parser.add_argument("--num_machines", type=int, default=None, help="Number of machines")
     parser.add_argument("--machine_rank", type=int, default=None, help="This machine's rank")
     parser.add_argument("--main_process_ip", default=None)
@@ -182,12 +193,16 @@ def validate_launch(args, cfg: ClusterConfig) -> list:
     problems = []
     if not args.module and not os.path.exists(args.training_script):
         problems.append(f"training script not found: {args.training_script}")
-    for axis in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_cp", "mesh_ep", "mesh_pp"):
+    world = (args.num_processes or 1) if (cfg.num_machines or 1) <= 1 else cfg.num_machines
+    if cfg.mesh_fsdp is not None and cfg.mesh_fsdp not in (-1, 0, 1, world):
+        problems.append(f"mesh_fsdp={cfg.mesh_fsdp} over {world} process(es): FSDP shards over "
+                        "-1 or every process; another size is a mesh of several axes, not "
+                        "ported to accelerate_tpu_torch yet (ROADMAP.md, A8d)")
+    for axis in ("mesh_dp", "mesh_tp", "mesh_cp", "mesh_ep", "mesh_pp"):
         value = getattr(cfg, axis)
         if value is not None and value > 1:
-            item = "A8c" if axis == "mesh_fsdp" else "A8d"
-            problems.append(f"{axis}={value}: meshes and sharding are not ported to "
-                            f"accelerate_tpu_torch yet (ROADMAP.md, {item})")
+            problems.append(f"{axis}={value}: meshes are not ported to accelerate_tpu_torch "
+                            "yet (ROADMAP.md, A8d)")
     if args.emulated_device_count is not None and args.emulated_device_count > 1:
         problems.append(f"--emulated_device_count {args.emulated_device_count}: a torch "
                         "process drives one device; start more processes with --num_processes")

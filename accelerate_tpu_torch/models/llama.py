@@ -23,11 +23,17 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
   return ``loss_fn(params, batch)`` over a dict of parameter tensors, run
   through ``torch.func.functional_call``: the JAX contract
   ``loss_fn(params, batch[, rng])``.
+* Under FSDP the accelerator attaches a sharded layout
+  (``parallel/sharding.py``) to the model: the decoder-layer loops then
+  take each layer's parameters from a gather, one layer at a time
+  (``_layer_prefixes`` names where), inside the layer's checkpoint when
+  the plugin reshards after the forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -657,7 +663,12 @@ class LlamaBlock(nn.Module):
         return h if cache is None else (h, cache)
 
 
-def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids, lora=None):
+def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids, lora=None,
+               gather=None):
+    """One decoder layer through ``functional_call`` on ``params``, put
+    together first by ``gather`` (a sharded layout's, or None)."""
+    if gather is not None:
+        params = gather(params)
     return torch.func.functional_call(layer, params, (x, positions),
                                       {"segment_ids": segment_ids, "lora": lora})
 
@@ -678,12 +689,12 @@ class _KeptProducts:
         self.recomputing = False
         self.taken = 0
 
-    def run(self, layer, params, x, positions, segment_ids, lora=None):
+    def run(self, layer, params, x, positions, segment_ids, lora=None, gather=None):
         global _kept_products
         outer, _kept_products = _kept_products, self
         self.taken = 0
         try:
-            return _run_layer(layer, params, x, positions, segment_ids, lora)
+            return _run_layer(layer, params, x, positions, segment_ids, lora, gather)
         finally:
             _kept_products = outer
 
@@ -727,7 +738,7 @@ class _KeptProduct(torch.autograd.Function):
 
 
 def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
-                 policy: str = "nothing", lora=None):
+                 policy: str = "nothing", lora=None, gather=None, gather_inside: bool = False):
     """One decoder layer under ``torch.utils.checkpoint`` (non-reentrant):
     what ``policy`` (a :func:`resolve_remat_policy` name) does not keep is
     recomputed in the backward. "dots" stores the projections' outputs in a
@@ -737,18 +748,39 @@ def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
     costs more host time than the products save. The layer's parameters go
     in by value (``params``), so the recompute uses the tensors this
     forward used, also when the forward ran inside a ``functional_call``
-    that has ended by the time the backward runs."""
+    that has ended by the time the backward runs.
+
+    ``gather`` puts a sharded layer's parameters together: outside the
+    checkpoint (the gathered weights are kept for the backward), or with
+    ``gather_inside`` inside it, so the recompute gathers again and only
+    the chunks are kept (FSDP's reshard after forward)."""
+    if gather is not None and not gather_inside:
+        params, gather = gather(params), None
     rule = resolve_remat_policy(policy)
     if rule is RematPolicy.EVERYTHING:
-        return _run_layer(layer, params, x, positions, segment_ids, lora)
+        return _run_layer(layer, params, x, positions, segment_ids, lora, gather)
     if rule is RematPolicy.NOTHING:
-        return checkpoint(_run_layer, layer, params, x, positions, segment_ids, lora,
+        return checkpoint(_run_layer, layer, params, x, positions, segment_ids, lora, gather,
                           use_reentrant=False)
     kept = _KeptProducts()
-    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, lora,
+    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, lora, gather,
                      use_reentrant=False)
     kept.recomputing = True
     return out
+
+
+def _layout_of(module: nn.Module):
+    """The sharded layout (``parallel/sharding.py``) the accelerator
+    attached to ``module``, and the module's name prefix in it."""
+    return getattr(module, "_sharded_layout", None), getattr(module, "_layout_prefix", "")
+
+
+def _remat_of(config, layout) -> Optional[str]:
+    """The remat policy of a training forward: a sharded layout's (the FSDP
+    plugin's activation checkpointing), else the config's, else None."""
+    if layout is not None and layout.remat_policy is not None:
+        return layout.remat_policy
+    return config.remat_policy if config.remat else None
 
 
 def _default_positions(input_ids, start=0):
@@ -769,6 +801,9 @@ def _scale_embeddings(cfg: LlamaConfig, x):
 
 class LlamaModel(nn.Module):
     """Decoder stack without head."""
+
+    #: Where a sharded layout gathers one decoder layer at a time.
+    _layer_prefixes = ("layers.",)
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -793,12 +828,20 @@ class LlamaModel(nn.Module):
                 "segment_ids (packed sequences) is a training feature; the "
                 "KV-cache decode path does not apply segment masking")
         x = _scale_embeddings(self.config, self.embed_tokens(input_ids))
-        remat = self.config.remat and cache is None and torch.is_grad_enabled()
+        layout, prefix = _layout_of(self)
+        policy = _remat_of(self.config, layout)
+        remat = policy is not None and cache is None and torch.is_grad_enabled()
         per_layer = _lora_layers(lora, len(self.layers))
         for i, layer in enumerate(self.layers):
+            gather = None if layout is None else functools.partial(
+                layout.gather_layer, f"{prefix}layers.{i}.")
             if remat:
                 x = _remat_layer(layer, dict(layer.named_parameters()), x, positions,
-                                 segment_ids, self.config.remat_policy, per_layer[i])
+                                 segment_ids, policy, per_layer[i], gather,
+                                 layout is not None and layout.gather_in_remat)
+            elif gather is not None and cache is None:
+                x = _run_layer(layer, dict(layer.named_parameters()), x, positions, segment_ids,
+                               per_layer[i], gather)
             elif cache is None:
                 x = layer(x, positions, segment_ids=segment_ids, lora=per_layer[i])
             else:
@@ -869,6 +912,9 @@ class PipelinedLlamaForCausalLM(nn.Module):
     the one block to each layer's slice in turn (the JAX package's ``pp=1``
     scan; no pipeline schedule). Uniform windows only, as in JAX."""
 
+    #: Where a sharded layout gathers one decoder layer at a time.
+    _layer_prefixes = ("model.blocks.",)
+
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -931,17 +977,27 @@ class PipelinedLlamaForCausalLM(nn.Module):
             positions = _default_positions(input_ids)
         x = _scale_embeddings(self.config, self.model.embed_tokens(input_ids))
         stacked = dict(self.model.blocks.named_parameters())
-        remat = self.config.remat and torch.is_grad_enabled()
+        layout, prefix = _layout_of(self)
+        gather = None
+        if layout is not None:
+            # Each layer's slice is gathered in the loop; a leaf split over
+            # the layer axis itself is put together here.
+            stacked = layout.gather_stacked(f"{prefix}model.blocks.", stacked)
+            gather = functools.partial(layout.gather_layer, f"{prefix}model.blocks.",
+                                       stacked=True)
+        policy = _remat_of(self.config, layout)
+        remat = policy is not None and torch.is_grad_enabled()
         # One unbind per stacked tensor, not an index per layer: its backward
         # stacks the layers' gradients in one write, where per-layer indexing
         # would add a zero-filled full-size gradient for every layer.
         for values in zip(*(p.unbind(0) for p in stacked.values())):
             params = dict(zip(stacked, values))
             if remat:
-                x = _remat_layer(self.model.blocks, params, x, positions, segment_ids,
-                                 self.config.remat_policy)
+                x = _remat_layer(self.model.blocks, params, x, positions, segment_ids, policy,
+                                 None, gather, layout is not None and layout.gather_in_remat)
             else:
-                x = _run_layer(self.model.blocks, params, x, positions, segment_ids)
+                x = _run_layer(self.model.blocks, params, x, positions, segment_ids,
+                               gather=gather)
         x = self.model.norm(x)
         if return_hidden:
             return x

@@ -293,16 +293,25 @@ class PartialState:
 
 
 class AcceleratorState:
-    """``PartialState`` plus the mixed-precision mode. Constructing it again
-    with another mode raises, as in the JAX package, and so does asking
-    for another device (``cpu``): the device is the process's. ``None``
-    (the default of both) takes what is there; a first ``None`` mode reads
-    ``ACCELERATE_TPU_MIXED_PRECISION`` (the launcher sets it), else "no"."""
+    """``PartialState`` plus the mixed-precision mode and the sharding
+    plugin. Constructing it again with another mode raises, as in the JAX
+    package, and so does asking for another device (``cpu``): the device
+    is the process's. ``None`` (the default of both) takes what is there; a
+    first ``None`` mode reads ``ACCELERATE_TPU_MIXED_PRECISION`` (the
+    launcher sets it), else "no".
+
+    A ``deepspeed_plugin`` is translated onto ``fsdp_plugin``
+    (``DeepSpeedPlugin.to_fsdp_plugin``) unless one is given. Without
+    either, ``ACCELERATE_TPU_MESH_FSDP`` (``launch --fsdp``) asks for the
+    default FSDP plugin over every process: -1, or the number of
+    processes; another size is a 2-D mesh (ROADMAP.md, A8d) and raises.
+    ``distributed_type`` is ``DEEPSPEED`` or ``FSDP`` with a plugin, else
+    the process's."""
 
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: Optional[bool] = None,
-                 **kwargs):
+                 fsdp_plugin=None, deepspeed_plugin=None, **kwargs):
         self.__dict__ = self._shared_state
         process = PartialState._shared_state
         if cpu is not None:
@@ -326,7 +335,26 @@ class AcceleratorState:
         if mixed_precision not in PRECISIONS:
             raise ValueError(f"mixed_precision must be one of {PRECISIONS}, got {mixed_precision}")
         partial_state = PartialState(bool(cpu), **kwargs)
-        self._shared_state.update(_partial=partial_state, mixed_precision=mixed_precision)
+        if deepspeed_plugin is not None and fsdp_plugin is None:
+            fsdp_plugin = deepspeed_plugin.to_fsdp_plugin()
+        mesh_fsdp = os.environ.get(env_var("MESH_FSDP"))
+        if fsdp_plugin is None and mesh_fsdp not in (None, "", "0", "1"):
+            if int(mesh_fsdp) not in (-1, partial_state.num_processes):
+                raise NotImplementedError(
+                    f"{env_var('MESH_FSDP')}={mesh_fsdp} over {partial_state.num_processes} "
+                    "process(es) is a 2-D mesh, not ported to accelerate_tpu_torch yet "
+                    "(ROADMAP.md, A8d); FSDP shards over -1 or every process")
+            from .utils.dataclasses import FullyShardedDataParallelPlugin
+
+            fsdp_plugin = FullyShardedDataParallelPlugin()
+        distributed_type = partial_state.distributed_type
+        if deepspeed_plugin is not None:
+            distributed_type = DistributedType.DEEPSPEED
+        elif fsdp_plugin is not None:
+            distributed_type = DistributedType.FSDP
+        self._shared_state.update(_partial=partial_state, mixed_precision=mixed_precision,
+                                  fsdp_plugin=fsdp_plugin, deepspeed_plugin=deepspeed_plugin,
+                                  distributed_type=distributed_type)
 
     def __repr__(self):
         return PartialState().__repr__() + f"Mixed precision type: {self.mixed_precision}\n"

@@ -8,9 +8,11 @@ Counterpart of ``accelerate_tpu/utils/dataclasses.py``: the enums
 ``DistributedDataParallelKwargs``, ``DistributedInitKwargs`` /
 ``InitProcessGroupKwargs`` (``:235``), ``ProfileKwargs`` (``:265``),
 ``GradientAccumulationPlugin`` (``:291``), ``DataLoaderConfiguration``
-(``:301``) and ``ProjectConfiguration`` (``:323``). ``GradScalerKwargs``
-lives in ``precision.py``. The sharding plugins (FSDP, DeepSpeed, tensor,
-context, pipeline and expert parallelism) come with ROADMAP.md, A8c/A8d.
+(``:301``), ``ProjectConfiguration`` (``:323``), and the sharding plugins
+``FullyShardedDataParallelPlugin`` (``:372``) and ``DeepSpeedPlugin``
+(``:500``). ``GradScalerKwargs`` lives in ``precision.py``. The plugins of
+meshes (tensor, context, pipeline and expert parallelism, Megatron-LM, and
+FSDP's ``HYBRID_SHARD``) come with ROADMAP.md, A8d.
 """
 
 from __future__ import annotations
@@ -18,10 +20,15 @@ from __future__ import annotations
 import copy
 import dataclasses
 import enum
+import json
+import math
+import os
 import warnings
 from dataclasses import asdict, dataclass, field
 from datetime import timedelta
-from typing import Callable, Optional
+from typing import Any, Callable, Literal, Optional
+
+from .environment import env_var, parse_flag_from_env
 
 
 class EnumWithContains(enum.EnumMeta):
@@ -48,8 +55,9 @@ class DistributedType(BaseEnum):
     """How the processes of a run share the work. ``NO``: one process and
     no process group. ``MULTI_GPU``: a process group over NCCL, one card a
     process; ``MULTI_CPU``: one over gloo on the CPU (also at a world size
-    of 1, when a launcher asked for a process group). The sharded kinds
-    come with ROADMAP.md, A8c/A8d."""
+    of 1, when a launcher asked for a process group). ``FSDP`` and
+    ``DEEPSPEED``: an accelerator with a sharding plugin (its process
+    group is either of the two). The mesh kinds come with ROADMAP.md, A8d."""
 
     NO = "NO"
     MULTI_CPU = "MULTI_CPU"
@@ -304,3 +312,220 @@ class ProjectConfiguration:
     def __post_init__(self):
         if self.logging_dir is None:
             self.logging_dir = self.project_dir
+
+
+# ---------------------------------------------------------------------------
+# Sharding plugins: the training state over the process group
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FullyShardedDataParallelPlugin(KwargsHandler):
+    """FSDP and ZeRO over the process group, which is the one mesh axis
+    (``fsdp``) here; ``parallel/sharding.py`` decides each leaf's layout by
+    the JAX package's rules and runs the collectives.
+
+    ``sharding_strategy``: ``FULL_SHARD`` stores each large parameter as
+    this process's chunk and all-gathers a decoder layer's parameters where
+    the layer runs; with ``activation_checkpointing`` the gather sits inside
+    the checkpointed layer, so the backward gathers again (reshard after
+    forward). ``SHARD_GRAD_OP`` stores the same chunks and keeps one gather
+    a step through the backward. ``NO_SHARD`` shards no parameter.
+    ``HYBRID_SHARD`` needs a 2-D mesh (ROADMAP.md, A8d) and raises.
+    ``zero_sharding`` also shards the AdamW state of the replicated leaves
+    (ZeRO-1/2); ``cpu_offload`` keeps the optimizer state in host memory
+    between steps (``parallel/host_offload.py``); ``activation_checkpointing``
+    recomputes every decoder layer under ``remat_policy`` ("dots",
+    "nothing", "everything"). ``min_weight_size_to_shard``: smaller leaves
+    stay whole. The ``FSDP_*`` environment variables override the fields,
+    as in the JAX package. The knobs of torch's FSDP runtime that have no
+    counterpart here stay no-ops, and the two that would look functional
+    warn."""
+
+    sharding_strategy: Literal["FULL_SHARD", "SHARD_GRAD_OP", "NO_SHARD",
+                               "HYBRID_SHARD"] = "FULL_SHARD"
+    reshard_after_forward: bool = True
+    state_dict_type: Literal["FULL_STATE_DICT", "SHARDED_STATE_DICT"] = "SHARDED_STATE_DICT"
+    cpu_offload: bool = False
+    activation_checkpointing: bool = False
+    remat_policy: str = "dots"
+    min_weight_size_to_shard: int = 2**14
+    shard_largest_dim: bool = True
+    zero_sharding: bool = False
+    use_orig_params: bool = True          # parity no-op: parameters stay the module's own
+    sync_module_states: bool = True       # parity no-op: every process loads the same weights
+    forward_prefetch: bool = True         # parity no-op
+    backward_prefetch: bool = True        # parity no-op
+    param_dtype: Optional[str] = None     # not applied: see __post_init__'s warning
+    auto_wrap_policy: Optional[Any] = None  # parity no-op: the unit is the decoder layer
+
+    def __post_init__(self):
+        env = os.environ
+        self.sharding_strategy = env.get("FSDP_SHARDING_STRATEGY", self.sharding_strategy)
+        self.state_dict_type = env.get("FSDP_STATE_DICT_TYPE", self.state_dict_type)
+        if "FSDP_OFFLOAD_PARAMS" in env:
+            self.cpu_offload = parse_flag_from_env("FSDP_OFFLOAD_PARAMS")
+        if "FSDP_ACTIVATION_CHECKPOINTING" in env:
+            self.activation_checkpointing = parse_flag_from_env("FSDP_ACTIVATION_CHECKPOINTING")
+        if "FSDP_ZERO_SHARDING" in env:
+            self.zero_sharding = parse_flag_from_env("FSDP_ZERO_SHARDING")
+        if "FSDP_MIN_NUM_PARAMS" in env:
+            self.min_weight_size_to_shard = int(env["FSDP_MIN_NUM_PARAMS"])
+        if self.sharding_strategy not in ("FULL_SHARD", "SHARD_GRAD_OP", "NO_SHARD",
+                                          "HYBRID_SHARD"):
+            raise ValueError(f"unknown sharding_strategy {self.sharding_strategy!r}")
+        if self.sharding_strategy == "HYBRID_SHARD":
+            raise NotImplementedError(
+                "HYBRID_SHARD shards within a node and replicates across nodes: a 2-D mesh, "
+                "not ported to accelerate_tpu_torch yet (ROADMAP.md, A8d)")
+        if self.sharding_strategy == "NO_SHARD":
+            self.min_weight_size_to_shard = 1 << 62  # nothing shards
+        if self.sharding_strategy == "SHARD_GRAD_OP":
+            self.reshard_after_forward = False
+        if self.param_dtype is not None:
+            warnings.warn(
+                "FullyShardedDataParallelPlugin.param_dtype is not applied: master "
+                "params stay fp32 and the compute dtype comes from mixed_precision. "
+                "Set Accelerator(mixed_precision=...) instead.",
+                stacklevel=2)
+        if self.auto_wrap_policy is not None:
+            warnings.warn(
+                "FullyShardedDataParallelPlugin.auto_wrap_policy is ignored: sharding is "
+                "decided per leaf by size and shape (min_weight_size_to_shard, "
+                "shard_largest_dim), and a decoder layer is the unit of a gather.",
+                stacklevel=2)
+
+
+@dataclass
+class DeepSpeedPlugin(KwargsHandler):
+    """A DeepSpeed config (a dict, or a JSON file) translated onto
+    :class:`FullyShardedDataParallelPlugin` (``to_fsdp_plugin``): stage 0
+    replicates, stages 1-2 shard the optimizer state, stage 3 the
+    parameters too; an ``offload_optimizer`` or ``offload_param`` device
+    "cpu" is ``cpu_offload``. No DeepSpeed engine runs. The config's
+    ``optimizer`` and ``scheduler`` sections build a torch optimizer and a
+    scheduler (WarmupLR, WarmupDecayLR)."""
+
+    hf_ds_config: Optional[Any] = None
+    config_file: Optional[str] = None
+    zero_stage: Optional[int] = None
+    gradient_accumulation_steps: Optional[int] = None
+    gradient_clipping: Optional[float] = None
+    offload_optimizer_device: Optional[str] = None   # "none" | "cpu"
+    offload_param_device: Optional[str] = None
+    zero3_init_flag: Optional[bool] = None
+    zero3_save_16bit_model: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.config_file is None:
+            self.config_file = os.environ.get(env_var("DEEPSPEED_CONFIG_FILE"), None)
+        if self.config_file is not None and self.hf_ds_config is None:
+            with open(self.config_file) as f:
+                self.hf_ds_config = json.load(f)
+        cfg = self.hf_ds_config or {}
+        zero = cfg.get("zero_optimization", {})
+        if self.zero_stage is None:
+            self.zero_stage = int(os.environ.get(env_var("DEEPSPEED_ZERO_STAGE"),
+                                                 zero.get("stage", 2)))
+        if self.gradient_accumulation_steps is None:
+            gas = cfg.get("gradient_accumulation_steps", 1)
+            self.gradient_accumulation_steps = gas if gas != "auto" else 1
+        if self.gradient_clipping is None:
+            gc = cfg.get("gradient_clipping", None)
+            self.gradient_clipping = None if gc in (None, "auto") else float(gc)
+        if self.offload_optimizer_device is None:
+            self.offload_optimizer_device = zero.get("offload_optimizer", {}).get("device", "none")
+        if self.offload_param_device is None:
+            self.offload_param_device = zero.get("offload_param", {}).get("device", "none")
+
+    def _schedule_fn(self) -> Optional[Callable[[int], float]]:
+        """``step -> lr`` from the config's ``scheduler`` section, or None:
+        DeepSpeed's WarmupLR (log or linear warmup, then constant) and
+        WarmupDecayLR (the warmup, then a linear decay to zero at
+        ``total_num_steps``). "auto" values take DeepSpeed's defaults."""
+        cfg = (self.hf_ds_config or {}).get("scheduler")
+        if not cfg:
+            return None
+        p = {k: v for k, v in cfg.get("params", {}).items() if v != "auto"}
+        lo = float(p.get("warmup_min_lr", 0.0))
+        hi = float(p.get("warmup_max_lr", 1e-3))
+        warmup = int(p.get("warmup_num_steps", 0))
+        typ = str(cfg.get("type", "WarmupLR")).lower()
+        # DeepSpeed's gammas: log -> log(1 + step) / log(max(2, warmup))
+        # (1.0 at step warmup - 1), linear -> step / warmup.
+        warmup_type = str(p.get("warmup_type", "log")).lower()
+        if warmup_type not in ("log", "linear"):
+            raise ValueError(f"unsupported DeepSpeed warmup_type {warmup_type!r}")
+
+        def ramp(step):
+            if warmup_type == "linear":
+                frac = step / max(warmup, 1)
+            else:
+                frac = math.log(1.0 + step) / math.log(max(2, warmup))
+            return lo + (hi - lo) * min(frac, 1.0)
+
+        if typ == "warmuplr":
+            def schedule(step):
+                return hi if step >= warmup else ramp(step)
+        elif typ == "warmupdecaylr":
+            total = int(p.get("total_num_steps", max(warmup, 1)))
+
+            def schedule(step):
+                if step < warmup:
+                    return ramp(step)
+                if total <= warmup:
+                    return hi
+                return hi * min(max((total - step) / max(total - warmup, 1), 0.0), 1.0)
+        else:
+            raise ValueError(f"unsupported DeepSpeed scheduler type {cfg.get('type')!r}")
+        return schedule
+
+    def build_optimizer(self, params):
+        """A torch optimizer over ``params`` from the config's
+        ``optimizer`` section (Adam, AdamW, SGD), or None. DeepSpeed's
+        FusedAdam decays weights decoupled, so "Adam" with a weight decay
+        is AdamW, as in the JAX package. Its learning rate is the section's
+        ``lr``; a ``scheduler`` section is :meth:`build_scheduler`."""
+        cfg = (self.hf_ds_config or {}).get("optimizer")
+        if not cfg:
+            return None
+        import torch
+
+        p = {k: v for k, v in cfg.get("params", {}).items() if v != "auto"}
+        lr = float(p.get("lr", 1e-3))
+        betas = tuple(float(b) for b in p.get("betas", (0.9, 0.999)))
+        eps = float(p.get("eps", 1e-8))
+        wd = float(p.get("weight_decay", 0.0))
+        typ = str(cfg.get("type", "AdamW")).lower()
+        if typ in ("adam", "adamw"):
+            if typ == "adam" and wd == 0.0:
+                return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+            return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+        if typ == "sgd":
+            return torch.optim.SGD(params, lr=lr, momentum=float(p.get("momentum", 0.0)))
+        raise ValueError(f"unsupported DeepSpeed optimizer type {cfg.get('type')!r}")
+
+    def build_scheduler(self):
+        """An :class:`~accelerate_tpu_torch.scheduler.LRScheduler` over the
+        config's schedule, or None; prepared, it writes the rate into the
+        optimizer's ``param_groups`` at every applied update."""
+        schedule = self._schedule_fn()
+        if schedule is None:
+            return None
+        from ..scheduler import LRScheduler
+
+        return LRScheduler(schedule)
+
+    def to_fsdp_plugin(self) -> FullyShardedDataParallelPlugin:
+        """The ZeRO stage as an FSDP policy: stage 3 ``FULL_SHARD``, 1-2
+        ``SHARD_GRAD_OP`` with the optimizer state sharded, 0 ``NO_SHARD``."""
+        if self.zero_stage >= 3:
+            strategy = "FULL_SHARD"
+        elif self.zero_stage >= 1:
+            strategy = "SHARD_GRAD_OP"
+        else:
+            strategy = "NO_SHARD"
+        return FullyShardedDataParallelPlugin(
+            sharding_strategy=strategy,
+            cpu_offload=(self.offload_optimizer_device == "cpu"
+                         or self.offload_param_device == "cpu"),
+            zero_sharding=self.zero_stage >= 1)

@@ -165,9 +165,27 @@ order; any failure exits non-zero:
    ``main_multiprocess()`` runs it alone, with its own reference steps.
    A child's non-zero exit fails the phase with its last lines.
 
+10. sharded training state (``parallel/sharding.py``, ``host_offload.py``):
+   ``launch --num_processes 1 --mixed_precision bf16 chip_smoke.py
+   --sharded-child OUT`` trains the tier-1 model at world size 1 over NCCL
+   under ``FullyShardedDataParallelPlugin`` FULL_SHARD with activation
+   checkpointing ("dots"), then SHARD_GRAD_OP, 3 + 10 steps each in
+   ``run_bench``'s batch order: every parameter the policy shards is
+   gathered a decoder layer at a time through the layout (at one rank the
+   gather and the reduce-scatter are the identity), twice a layer a step
+   under FULL_SHARD with remat, once under SHARD_GRAD_OP; 20 + 10 + 10
+   and 10 + 10 + 10 wgmma launches a step; each mode's 13 losses equal the
+   first 13 of phase 6's bit for bit. Then here, without a process group,
+   ``cpu_offload=True``: 3 + 10 steps, their losses equal phase 6's, the
+   Adam moments pinned in host memory between steps, the peak card memory
+   below phase 6's; reported with the step's ms, the moments' bytes, the
+   moments' host-to-card and card-to-host GB/s against a plain pinned copy
+   of the same bytes. ``main_sharded()`` runs it alone, with its own
+   reference steps.
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
-``multiprocess_launches``) and the card's line, and as its last line
-``{"ok": true, "device": {...}}``.
+``multiprocess_launches``, and in phase 10, ``sharded_launches``) and the
+card's line, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3107,6 +3125,221 @@ def phase_multiprocess(reference=None):
     return child
 
 
+SHARDED = dict(warmup=3, iters=10, timeout=500, copy_iters=3)
+SHARDED_CHILD_FLAG = "--sharded-child"
+SHARDED_MODES = {
+    "full_shard_remat": dict(sharding_strategy="FULL_SHARD", activation_checkpointing=True),
+    "shard_grad_op": dict(sharding_strategy="SHARD_GRAD_OP"),
+}
+
+
+def sharded_steps(plugin_kwargs: dict) -> dict:
+    """The tier-1 model under an FSDP plugin: 3 + 10 steps in ``run_bench``'s
+    batch order, the last 10 timed; the flash launches, the layout's layer
+    gathers and the peak memory (reset after the build, as ``run_bench``
+    does)."""
+    import torch
+
+    from accelerate_tpu_torch import FullyShardedDataParallelPlugin
+    from accelerate_tpu_torch.bench import build_train_step
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    cfg, model, step, batches = build_train_step(
+        accelerator_kwargs={"fsdp_plugin": FullyShardedDataParallelPlugin(**plugin_kwargs)})
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    for i in range(SHARDED["warmup"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SHARDED["iters"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SHARDED["iters"]
+    layout = model.layout
+    out = dict(losses=torch.stack(losses).tolist(), step_ms=step_ms, counts=read_counts(),
+               gathers=layout.gathers, layers=cfg.num_hidden_layers,
+               sharded_leaves=sum(d is not None for d in layout.dims.values()),
+               leaves=len(layout.dims), peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               distributed_type=str(AcceleratorState().distributed_type))
+    return out, model, step
+
+
+def sharded_child(out_path: str):
+    """The launched trainer of phase 10 (``launch --num_processes 1
+    --mixed_precision bf16 chip_smoke.py --sharded-child OUT``): each mode of
+    ``SHARDED_MODES`` in turn, in the process group; writes the numbers to
+    ``OUT`` as JSON."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accelerate_tpu_torch import PartialState
+
+    state = PartialState()
+    result = dict(backend=state.backend, world=state.num_processes, device=str(state.device))
+    for mode, kwargs in SHARDED_MODES.items():
+        result[mode], model, step = sharded_steps(kwargs)
+        del model, step
+        free_cuda()
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    print(f"sharded child done: rank {state.process_index} of {state.num_processes} "
+          f"over {state.backend}")
+
+
+def best_gbs(fns, nbytes: int) -> list:
+    """GB/s of each of ``fns`` moving ``nbytes``, run in turns
+    ``SHARDED["copy_iters"]`` times, each synchronised on the host clock:
+    the best run of each."""
+    import torch
+
+    best = [float("inf")] * len(fns)
+    for _ in range(SHARDED["copy_iters"]):
+        for i, fn in enumerate(fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best[i] = min(best[i], time.perf_counter() - t0)
+    return [nbytes / t / 1e9 for t in best]
+
+
+def moments_of(opt) -> list:
+    """The optimizer's state tensors shaped like their parameter."""
+    return [v for p in opt._params() for v in opt.moments(p).values()]
+
+
+def sharded_offload(ref_losses, ref_peak_gib, problems: list):
+    """``cpu_offload=True`` without a process group: the moments live in
+    pinned host memory between steps. Adds what is wrong to ``problems``;
+    returns the numbers."""
+    import torch
+
+    from accelerate_tpu_torch.parallel.host_offload import tree_memory_kinds
+
+    result, model, step = sharded_steps(dict(cpu_offload=True))
+    opt = step.optimizer
+    moments = moments_of(opt)
+    kinds = opt.state_memory_kinds()
+    pinned = all(t.is_pinned() for t in moments)
+    count = len(moments)
+    del moments
+    nbytes = opt.state_bytes()
+    seen = []
+
+    def stream_in():
+        opt._state_to("device")
+        seen.append(tree_memory_kinds(moments_of(opt)))
+
+    h2d, d2h = best_gbs([stream_in, lambda: opt._state_to("host")], nbytes)
+    on_card = set().union(*seen)
+    host = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    card = torch.empty_like(host, device="cuda")
+    plain_h2d, plain_d2h = best_gbs([lambda: card.copy_(host, non_blocking=True),
+                                     lambda: host.copy_(card, non_blocking=True)], nbytes)
+    del host, card
+    result.update(state_kinds=sorted(kinds), pinned=pinned, moment_bytes=nbytes,
+                  moment_tensors=count, h2d_gbs=h2d, d2h_gbs=d2h, plain_h2d_gbs=plain_h2d,
+                  plain_d2h_gbs=plain_d2h, kinds_streamed_in=sorted(on_card))
+    layers = result["layers"]
+    steps = SHARDED["warmup"] + SHARDED["iters"]
+    print(f"  cpu_offload=True, unlaunched: step {result['step_ms']:.2f} ms; peak memory "
+          f"{result['peak_memory_gib']:.2f} GiB against phase 6's {ref_peak_gib:.2f} GiB "
+          f"({ref_peak_gib - result['peak_memory_gib']:.2f} GiB less); Adam moments "
+          f"{nbytes / 1e9:.3f} GB in {count} tensors, between steps {sorted(kinds)} "
+          f"(pinned: {pinned}); streamed in {h2d:.1f} GB/s, out {d2h:.1f} GB/s, against a "
+          f"plain pinned copy of the same bytes {plain_h2d:.1f} / {plain_d2h:.1f} GB/s; "
+          f"{card_line()}")
+    print(f"  launches in {steps} offloaded steps: {result['counts']}")
+    if kinds != {"pinned_host"} or not pinned:
+        problems.append(f"the offloaded optimizer state is {sorted(kinds)} between steps, not "
+                        "pinned host")
+    if on_card != {"device"}:
+        problems.append(f"the streamed-in moments are {sorted(on_card)}, not on the card")
+    if result["counts"] != expected_counts(layers * steps, layers * steps, wgmma=True):
+        problems.append(f"the offloaded steps' flash launches {result['counts']}")
+    if result["losses"] != ref_losses:
+        problems.append(f"the offloaded losses {result['losses']} differ from phase 6's "
+                        f"{ref_losses}")
+    if not result["peak_memory_gib"] < ref_peak_gib:
+        problems.append(f"the offloaded peak {result['peak_memory_gib']:.2f} GiB is not below "
+                        f"phase 6's {ref_peak_gib:.2f} GiB")
+    del model, step, opt
+    free_cuda()
+    return result
+
+
+def phase_sharded(reference=None):
+    """Phase 10: the tier-1 trainer under FSDP, launched at world size 1 over
+    NCCL (FULL_SHARD with remat, SHARD_GRAD_OP), then offloaded here; every
+    run's losses must equal phase 6's bit for bit (``reference``: its
+    ``run_bench`` result, else its 13 steps run here). Every mode is
+    printed before a failure fails the phase. Returns the numbers, with the
+    flash launches of all three runs summed in ``counts``."""
+    import tempfile
+
+    if reference is None:
+        from accelerate_tpu_torch.bench import run_bench
+
+        reference = run_bench(iters=SHARDED["iters"], warmup=SHARDED["warmup"])
+        free_cuda()
+    steps = SHARDED["warmup"] + SHARDED["iters"]
+    ref_losses = reference["extra"]["losses"][:steps]
+    ref_peak = reference["extra"]["peak_memory_gib"]
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_sharded_") as tmp:
+        result_path = os.path.join(tmp, "child.json")
+        t0 = time.time()
+        run_cli(["launch", "--num_processes", "1", "--mixed_precision", "bf16",
+                 os.path.join(HERE, "chip_smoke.py"), SHARDED_CHILD_FLAG, result_path],
+                timeout=SHARDED["timeout"])
+        wall_s = time.time() - t0
+        with open(result_path) as f:
+            child = json.load(f)
+    print(f"  launched trainer ({wall_s:.1f} s of wall time): world {child['world']} over "
+          f"{child['backend']} on {child['device']}; phase 6 without a plugin: "
+          f"{reference['extra']['step_ms']:.2f} ms a step, peak {ref_peak:.2f} GiB")
+    problems = []
+    if child["backend"] != "nccl" or child["world"] != 1:
+        problems.append(f"the sharded trainer ran over {child['backend']} at world size "
+                        f"{child['world']}")
+    total = {k: 0 for k in read_counts()}
+    for mode in SHARDED_MODES:
+        run = child[mode]
+        layers = run["layers"]
+        remat = mode == "full_shard_remat"
+        print(f"  {mode}: step {run['step_ms']:.2f} ms; peak memory {run['peak_memory_gib']:.2f} "
+              f"GiB; {run['sharded_leaves']} of {run['leaves']} leaves sharded, "
+              f"{run['gathers']} layer gathers in {steps} steps; {run['distributed_type']}; "
+              f"losses {run['losses'][0]:.6f} -> {run['losses'][-1]:.6f}; launches "
+              f"{run['counts']}; {card_line()}")
+        if run["distributed_type"] != "FSDP":
+            problems.append(f"{mode} ran as {run['distributed_type']}, not FSDP")
+        if run["gathers"] != (2 if remat else 1) * layers * steps:
+            problems.append(f"{mode} gathered {run['gathers']} layers in {steps} steps, "
+                            f"expected {(2 if remat else 1) * layers * steps}")
+        want = expected_counts((2 if remat else 1) * layers * steps, layers * steps, wgmma=True)
+        if run["counts"] != want:
+            problems.append(f"{mode}'s flash launches {run['counts']}, expected {want}")
+        if run["losses"] != ref_losses:
+            problems.append(f"{mode}'s losses {run['losses']} differ from phase 6's "
+                            f"{ref_losses}")
+        for k, v in run["counts"].items():
+            total[k] += v
+    offload = sharded_offload(ref_losses, ref_peak, problems)
+    for k, v in offload["counts"].items():
+        total[k] += v
+    if problems:
+        fail("phase 10: " + "; ".join(problems))
+    print(f"  every sharded and offloaded run's {steps} losses equal phase 6's bit for bit")
+    return dict(child=child, offload=offload, counts=total, steps=3 * steps,
+                reference_step_ms=reference["extra"]["step_ms"], reference_peak_gib=ref_peak)
+
+
 def main():
     import torch
 
@@ -3179,6 +3412,9 @@ def main():
     free_cuda()
     print("== 9. several processes: env, test, collectives and the launched trainer over NCCL")
     mp = phase_multiprocess(result)
+    free_cuda()
+    print("== 10. sharded training state: FSDP launched over NCCL, optimizer offload")
+    sharded = phase_sharded(result)
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -3196,6 +3432,8 @@ def main():
             entry["loop_path"] = LOOP_PATH
         entry["multiprocess_launches"] = mp["counts"][key]
         entry["multiprocess_launches_per_step"] = mp["counts"][key] / len(mp["losses"])
+        entry["sharded_launches"] = sharded["counts"][key]
+        entry["sharded_launches_per_step"] = sharded["counts"][key] / sharded["steps"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3298,6 +3536,28 @@ def main_multiprocess():
         "init_process_group_s", "reduce_calls")}}))
 
 
+def main_sharded():
+    """Phase 10 alone. Builds the kernels first: the sharded steps run the
+    flash kernels; their reference steps run here."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    sharded = phase_sharded()
+    child, offload = sharded["child"], sharded["offload"]
+    print(json.dumps({"sharded": {
+        **{mode: {k: child[mode][k] for k in ("step_ms", "peak_memory_gib", "gathers")}
+           for mode in SHARDED_MODES},
+        "offload": {k: offload[k] for k in ("step_ms", "peak_memory_gib", "moment_bytes",
+                                            "h2d_gbs", "d2h_gbs", "plain_h2d_gbs",
+                                            "plain_d2h_gbs", "state_kinds")},
+        **{k: sharded[k] for k in ("reference_step_ms", "reference_peak_gib", "counts")}}}))
+
+
 TRAIN_PATH = "tier-1 train steps (phase 6)"
 LOOP_PATH = ("tier-1 training loop (phase 8): packed 1024-token rows with segment_ids, "
              "dots remat, accumulation 2")
@@ -3354,5 +3614,7 @@ def kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, la
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == MP_CHILD_FLAG:
         multiprocess_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == SHARDED_CHILD_FLAG:
+        sharded_child(sys.argv[2])
     else:
         main()

@@ -3,7 +3,7 @@
 Walks the reference's public modules, and fails on a public name, or a
 keyword of a public function or class, that the port's counterpart module
 lacks. The allow-list holds two kinds of entry, each with its reason: what
-ROADMAP items A8c, A8d and A9 still owe, tagged with the item, and what
+ROADMAP items A8d and A9 still owe, tagged with the item, and what
 only the JAX design has (the parameter pytree and PRNG keys a JAX function
 takes, meshes of XLA shardings, the pytree helpers, the JAX and TPU
 probes). An entry the port no longer needs fails too, so the list shrinks
@@ -18,18 +18,16 @@ import pytest
 
 MODULES = ["", ".utils", ".state", ".accelerator", ".data_loader", ".scheduler",
            ".checkpointing", ".generation", ".tracking", ".big_modeling", ".utils.modeling",
-           ".utils.operations", ".launchers", ".local_sgd", ".commands.launch"]
+           ".utils.operations", ".launchers", ".local_sgd", ".commands.launch",
+           ".parallel.sharding", ".parallel.host_offload", ".commands.merge"]
 
-TAGS = {"A8c", "A8d", "A9", "JAX-only"}
+TAGS = {"A8d", "A9", "JAX-only"}
 _PYTREE = "a JAX function takes the parameter pytree; a torch module holds its parameters"
 _KEY = "a JAX PRNG key; the port's functions take a torch.Generator"
 _ABSTRACT = "flax's abstract init over example inputs; a torch module is built on the meta device"
 
 #: Reference names the port does not have, by their home in the reference.
 MISSING_OK = {
-    "accelerate_tpu.utils.dataclasses.FullyShardedDataParallelPlugin":
-        ("A8c", "FSDP sharding of the training state"),
-    "accelerate_tpu.utils.dataclasses.DeepSpeedPlugin": ("A8c", "ZeRO stages map onto FSDP"),
     "accelerate_tpu.utils.dataclasses.TensorParallelPlugin": ("A8d", "tensor parallelism"),
     "accelerate_tpu.utils.dataclasses.ContextParallelPlugin": ("A8d", "ring attention"),
     "accelerate_tpu.utils.dataclasses.PipelineParallelPlugin": ("A8d", "pipeline schedule"),
@@ -37,6 +35,13 @@ MISSING_OK = {
     "accelerate_tpu.utils.dataclasses.MegatronLMPlugin": ("A8d", "a 3D mesh policy"),
     "accelerate_tpu.utils.dataclasses.FP8RecipeKwargs": ("A9", "the fp8 path"),
     "accelerate_tpu.utils.dataclasses.JitConfig": ("JAX-only", "jax.jit options"),
+    "accelerate_tpu.parallel.sharding.ShardingRules": ("A8d", "tensor-parallel path rules"),
+    "accelerate_tpu.parallel.sharding.replicated_sharding": (
+        "JAX-only", "a NamedSharding over a mesh; a replicated leaf's spec is PartitionSpec()"),
+    "accelerate_tpu.parallel.sharding.zero_step_compile_cache_guard": (
+        "JAX-only", "keeps ZeRO executables out of XLA's persistent compile cache"),
+    "accelerate_tpu.parallel.host_offload.shardings_like": (
+        "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
     "accelerate_tpu.parallel.mesh.MeshConfig": ("A8d", "device meshes"),
     "accelerate_tpu.parallel.mesh.make_mesh": ("A8d", "device meshes"),
     "accelerate_tpu.state.current_mesh": ("A8d", "the ambient device mesh"),
@@ -82,8 +87,6 @@ KEYWORDS_OK = [
      "A8d", "in-model parallelism"),
     ("accelerate_tpu.accelerator.Accelerator", ("dynamo_backend", "jit_config"), "JAX-only",
      "how XLA compiles the steps"),
-    ("accelerate_tpu.state.AcceleratorState", ("fsdp_plugin", "deepspeed_plugin"), "A8c",
-     "sharded training state"),
     ("accelerate_tpu.state.AcceleratorState", ("mesh_config", "tp_plugin", "cp_plugin",
                                                "pp_plugin", "ep_plugin", "megatron_lm_plugin"),
      "A8d", "meshes and in-model parallelism"),
@@ -93,11 +96,9 @@ KEYWORDS_OK = [
     ("accelerate_tpu.optimizer.AcceleratedOptimizer", ("tx", "params", "param_shardings",
                                                        "mesh"),
      "JAX-only", "an optax transformation over the parameter pytree"),
-    ("accelerate_tpu.optimizer.AcceleratedOptimizer", ("offload_to_host", "zero_sharding",
-                                                       "zero_min_size_to_shard"),
-     "A8c", "ZeRO sharding and host offload"),
-    ("accelerate_tpu.checkpointing.load_accelerator_state", ("load_kwargs", "via_host"), "A8c",
-     "restoring into another world size"),
+    *[(f"accelerate_tpu.parallel.host_offload.{name}", ("mesh",), "JAX-only",
+       "a leaf keeps its mesh sharding across memory kinds; a tensor moves to a device")
+      for name in ("put_tree", "to_host", "to_device")],
     ("accelerate_tpu.checkpointing.load_safetensors_model", ("threads",), "A9",
      "the threaded reader comes with native/ host IO"),
     ("accelerate_tpu.checkpointing.save_adapter", ("blocking",), "JAX-only",
@@ -241,5 +242,7 @@ def test_allow_list_entries_are_tagged_and_explained():
     # The names this slice ported are off the list.
     for home in ("accelerate_tpu.local_sgd.LocalSGD", "accelerate_tpu.launchers.debug_launcher",
                  "accelerate_tpu.utils.dataclasses.DistributedType",
-                 "accelerate_tpu.tracking.with_fleet_metrics"):
+                 "accelerate_tpu.tracking.with_fleet_metrics",
+                 "accelerate_tpu.utils.dataclasses.FullyShardedDataParallelPlugin",
+                 "accelerate_tpu.utils.dataclasses.DeepSpeedPlugin"):
         assert home not in MISSING_OK

@@ -140,7 +140,7 @@ def test_round_trip_restores_every_object(tmp_path):
     train(acc, model, opt, loader, sched, updates=2, save=save)
     names = sorted(p.name for p in tmp_path.iterdir())
     assert names == ["model.safetensors", "optimizer.safetensors", "optimizer_meta_0.json",
-                     "random_states_0.json", "sampler_0.json", "scheduler.json"]
+                     "random_states_0.json", "sampler_0.json", "scheduler.json", "world.json"]
     assert saved[3] == {"epoch": 0, "batches_consumed": 4}
 
     acc2, model2, opt2, loader2, sched2 = build()

@@ -4,6 +4,7 @@ package's ``ReplicaSet`` under the same scripted kill, and the port's own
 guarantees around a restart (monotone counters, the dead engine freed)."""
 
 import gc
+import threading
 import weakref
 
 import numpy as np
@@ -48,15 +49,58 @@ def run(fleet, work):
     return reqs, [r.result(WAIT).tolist() for r in reqs]
 
 
-def run_placed(fleet, work):
-    """Submit one request at a time, each once the fleet has admitted the
-    one before, so every routing decision sees the same free slots and
-    pages whatever the host's speed."""
-    reqs = []
-    for prompt, n in work:
-        reqs.append(fleet.submit(prompt, max_new_tokens=n))
-        wait_for(lambda: sum(r.engine.max_slots - r.engine.free_slots
-                             for r in fleet.replicas) == len(reqs), what="the admission")
+class Gate:
+    """Parks engine loops at the top of an iteration, where their chaos
+    schedule runs, so requests can be routed while no replica admits or
+    ticks."""
+
+    def __init__(self):
+        self._open = threading.Event()
+        self._open.set()
+        self._parked = 0
+        self._cond = threading.Condition()
+
+    def wait(self):
+        if self._open.is_set():
+            return
+        with self._cond:
+            self._parked += 1
+            self._cond.notify_all()
+        self._open.wait(WAIT)
+        with self._cond:
+            self._parked -= 1
+
+    def hold(self, loops):
+        """Close the gate and wait until ``loops`` engine loops are parked."""
+        self._open.clear()
+        with self._cond:
+            assert self._cond.wait_for(lambda: self._parked == loops, WAIT), "engines parked"
+
+    def release(self):
+        self._open.set()
+
+
+def gated(schedule_cls, gate):
+    """A chaos schedule of ``schedule_cls`` whose loop waits at ``gate``."""
+
+    class Gated(schedule_cls):
+        def apply(self, engine):
+            gate.wait()
+            super().apply(engine)
+
+    return Gated()
+
+
+def run_queued(fleet, work, gate):
+    """Route every request while both replicas are parked, then let them
+    run: each routing decision sees empty slots and the queues it filled,
+    never the engines' progress, so the placement is the same whatever
+    the host's speed."""
+    gate.hold(len(fleet.replicas))
+    try:
+        reqs = [fleet.submit(p, max_new_tokens=n) for p, n in work]
+    finally:
+        gate.release()
     return reqs, [r.result(WAIT).tolist() for r in reqs]
 
 
@@ -65,37 +109,45 @@ def run_placed(fleet, work):
 @pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
 def test_failover_is_token_exact_and_counted_like_the_jax_fleet(tiny):
     """The same kill at decode tick 8 of replica 0 in both packages, every
-    stream placed and slowed alike: every greedy stream is token-exact with
-    JAX ``generate`` and with the JAX fleet's, the failed-over ones take the
-    same replica trail, and the failover and fence counts and the fleet
-    metric keys agree."""
+    stream routed while both replicas are parked and slowed alike: every
+    greedy stream is token-exact with JAX ``generate`` and with the JAX
+    fleet's, the failed-over ones take the same replica trail, and the
+    failover and fence counts and the fleet metric keys agree."""
     module, params, model, oracle = tiny
     work = [(p, 16) for p in prompts((5, 9, 20, 3, 30, 12), seed=3)]
-    # One 64-token page a stream: equal load leaves no page tie-break to
-    # timing, so the lower index wins every tie.
+    # One 64-token page a stream: equal load leaves no page tie-break, so
+    # the lower index wins every tie. Routed before any admission, the
+    # requests alternate 0, 1, 0, ... and the kill at tick 8 lands before
+    # any of replica 0's three 16-token streams ends.
     placed = dict(max_slots=3, max_len=64, prefill_chunk=64)
     slow = dict(from_tick=0, until_tick=10_000, delay_s=0.02)
 
+    jgate = Gate()
+
     def jfactory():
-        return jax_engine(module, params, chaos=JaxChaosSchedule().slow(**slow), **placed)
+        return jax_engine(module, params, chaos=gated(JaxChaosSchedule, jgate).slow(**slow),
+                          **placed)
 
     jax_fleet = JaxReplicaSet(
-        [jax_engine(module, params, chaos=JaxChaosSchedule().slow(**slow).kill(at_tick=8),
-                    **placed), jfactory()], factories=[jfactory, jfactory])
+        [jax_engine(module, params,
+                    chaos=gated(JaxChaosSchedule, jgate).slow(**slow).kill(at_tick=8), **placed),
+         jfactory()], factories=[jfactory, jfactory])
     try:
-        jreqs, jax_streams = run_placed(jax_fleet, work)
+        jreqs, jax_streams = run_queued(jax_fleet, work, jgate)
         jax_metrics = jax_fleet.fleet_metrics()
     finally:
         jax_fleet.shutdown(drain=False, timeout=WAIT)
 
+    gate = Gate()
+
     def factory():
-        return port_engine(model, chaos=ChaosSchedule().slow(**slow), **placed)
+        return port_engine(model, chaos=gated(ChaosSchedule, gate).slow(**slow), **placed)
 
     fleet = ReplicaSet(
-        [port_engine(model, chaos=ChaosSchedule().slow(**slow).kill(at_tick=8), **placed),
-         factory()], factories=[factory, factory])
+        [port_engine(model, chaos=gated(ChaosSchedule, gate).slow(**slow).kill(at_tick=8),
+                     **placed), factory()], factories=[factory, factory])
     try:
-        reqs, streams = run_placed(fleet, work)
+        reqs, streams = run_queued(fleet, work, gate)
         metrics = fleet.fleet_metrics()
         assert fleet.replica_states() == [ReplicaState.FAILED, ReplicaState.HEALTHY]
         assert isinstance(fleet.engine(0).error, ChaosKilled)

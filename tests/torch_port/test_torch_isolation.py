@@ -66,7 +66,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     for name in ("launchers", "local_sgd", "utils/environment", "utils/imports", "utils/other",
                  "utils/versions", "commands/launch", "commands/env", "commands/test",
                  "commands/config/config_args", "test_utils/__init__", "test_utils/training",
-                 "test_utils/scripts/test_script", "test_utils/scripts/test_ops_multiprocess"):
+                 "test_utils/scripts/test_script", "test_utils/scripts/test_ops_multiprocess",
+                 "parallel/sharding", "parallel/host_offload", "commands/merge",
+                 "test_utils/scripts/test_reshard_checkpoint"):
         assert f"accelerate_tpu_torch/{name}.py" in scanned, name
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
@@ -100,6 +102,8 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.utils.environment, accelerate_tpu_torch.utils.other\n"
         "import accelerate_tpu_torch.test_utils.scripts.test_script\n"
         "import accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess\n"
+        "import accelerate_tpu_torch.parallel.host_offload, accelerate_tpu_torch.commands.merge\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_reshard_checkpoint\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"

@@ -45,7 +45,7 @@ def test_env_prints_versions_cards_and_config(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["script.py"], "no CUDA card is visible; pass --use_cpu_emulation"),
-    (["--use_cpu_emulation", "--fsdp", "2", "script.py"], "ROADMAP.md, A8c"),
+    (["--use_cpu_emulation", "--fsdp", "2", "script.py"], "ROADMAP.md, A8d"),
     (["--use_cpu_emulation", "--tp", "2", "script.py"], "ROADMAP.md, A8d"),
     (["--use_cpu_emulation", "--emulated_device_count", "2", "script.py"], "one device"),
     (["--use_cpu_emulation", "--gcloud", "script.py"], "JAX package only"),

@@ -164,7 +164,7 @@ def test_serve_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch):
         serve_command(serve_command_parser().parse_args(["--model", "nonsense",
                                                          "--device", "cpu"]))
     assert set(accelerate_cli._subcommand_registrars()) == {
-        "config", "env", "launch", "loadtest", "serve", "test"}
+        "config", "env", "launch", "loadtest", "merge-weights", "serve", "test"}
 
 
 def test_serve_answers_and_drains_on_sigterm():

@@ -278,8 +278,11 @@ def test_grad_reduce_dtype_sees_narrow_params_and_warns_on_a_mismatch():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        Accelerator(cpu=True, fsdp_plugin=object())
+    from accelerate_tpu_torch import FullyShardedDataParallelPlugin
+
+    with pytest.raises(NotImplementedError, match="HYBRID_SHARD"):
+        Accelerator(cpu=True,
+                    fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD"))
     with pytest.raises(NotImplementedError, match="mesh"):
         Accelerator(cpu=True, mesh_config=object())
 
