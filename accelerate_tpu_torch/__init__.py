@@ -22,7 +22,10 @@ several processes: process groups over NCCL (one card a process) or gloo
 (the CPU), the collectives, sharded and dispatched loaders, data-parallel
 training with the gradients reduced at each sync step, ``LocalSGD``, the
 in-process launchers and ``accelerate-tpu-torch launch``/``env``/``test``/
-``config default``. Entry points run on ``cuda`` unless the caller passes
+``config default``, and device meshes over the process group with
+in-model parallelism: 2-D FSDP and ``HYBRID_SHARD``, tensor, context (ring
+and Ulysses) and pipeline parallelism, and pipelined inference
+(``parallel/mesh.py``, ``inference.py``). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (``cpu=True``, or ``launch --use_cpu_emulation``).
 """
 
@@ -112,6 +115,8 @@ from .ops.flash_cuda import (
 )
 from .ops.fused_loss import chunked_softmax_xent
 from .optimizer import AcceleratedOptimizer
+from .inference import PipelinedInferencer, prepare_pipeline, prepare_pippy
+from .parallel.mesh import MeshConfig, make_mesh
 from .parallel.sharding import resolve_remat_policy
 from .precision import GradScalerKwargs, Policy, policy_for
 from .scheduler import AcceleratedScheduler, LRScheduler
@@ -128,6 +133,7 @@ from .utils.hf_interop import (
 )
 from .utils.dataclasses import (
     AutocastKwargs,
+    ContextParallelPlugin,
     DataLoaderConfiguration,
     DDPCommunicationHookType,
     DeepSpeedPlugin,
@@ -137,8 +143,11 @@ from .utils.dataclasses import (
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
+    MegatronLMPlugin,
+    PipelineParallelPlugin,
     ProfileKwargs,
     ProjectConfiguration,
+    TensorParallelPlugin,
 )
 from .utils.device import resolve_device
 from .utils.memory import find_executable_batch_size, release_memory

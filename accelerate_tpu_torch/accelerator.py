@@ -64,8 +64,20 @@ norms of every process's chunks (one all-reduce) to those of the
 replicated gradients, counted once. ``cpu_offload`` keeps the optimizer
 state in host memory between updates; ``activation_checkpointing``
 recomputes every decoder layer under the plugin's ``remat_policy``.
-Meshes (tensor, pipeline, expert parallelism, ``HYBRID_SHARD``) are
-ROADMAP.md, A8d.
+
+On a mesh (``mesh_config``, the launcher's ``--dp/--fsdp/--tp/--cp/--pp``,
+or the tp/cp/pp/Megatron plugins; ``parallel/mesh.py``) each process is one
+device of the JAX package's mesh and holds what that device holds: the
+``tp`` and ``pp`` plugins split leaves as the JAX rules do, the ``dp`` and
+``fsdp`` processes read different rows, the ``cp`` ones different chunks
+of each row. Gradients are summed over the data axes (dp, fsdp, cp; each
+leaf over those its backward did not already reduce, the ``fsdp`` chunks
+arriving reduce-scattered), label counts too; over ``tp`` and ``pp`` a
+leaf is split or replicated with equal gradients on every process, and is
+left as it is. ``HYBRID_SHARD`` is FULL_SHARD over ``fsdp``, replicated
+over ``dp``. The clip's global norm counts every element once (each set
+of split axes summed over its group). ZeRO shards the moments over
+``dp``, else ``fsdp``. The expert axis waits for MoE (ROADMAP.md, A8d).
 """
 
 from __future__ import annotations
@@ -161,7 +173,8 @@ def _not_ported(what: str, item: str):
                                f"(ROADMAP.md, A{item})")
 
 
-def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, extras=None):
+def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, extras=None,
+                      group=None):
     """Sum ``grads`` in place across the process group, then multiply them
     by ``scale`` (skipped at 1): one all-reduce a bucket of at most
     ``bucket_cap_mb`` megabytes, in ``dtype`` (default the gradients'
@@ -171,8 +184,16 @@ def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, 
     step's loss), rides in the last flattened bucket when it is f32, or is
     reduced on its own, and is returned reduced and scaled the same way.
     Counts its calls and the last one's buckets on the function
-    (``calls``, ``buckets``)."""
+    (``calls``, ``buckets``). ``group``: an ``AxisGroup`` of the mesh to
+    sum over (default every process)."""
     import torch.distributed as dist
+
+    pg = group.group if group is not None else None
+    if group is not None and group.size == 1:
+        if scale != 1.0:
+            for g in grads:
+                g.mul_(scale)
+        return None if extras is None else extras * scale
 
     _reduce_gradients.calls += 1
     cap = bucket_cap_mb * 2**20
@@ -198,7 +219,7 @@ def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, 
     reduced = None
     for i, bucket in enumerate(buckets):
         if in_place(bucket):
-            dist.all_reduce(bucket[0], op=dist.ReduceOp.SUM)
+            dist.all_reduce(bucket[0], op=dist.ReduceOp.SUM, group=pg)
             if scale != 1.0:
                 bucket[0].mul_(scale)
             continue
@@ -207,7 +228,7 @@ def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, 
         if last:
             parts.append(extras.reshape(-1))
         flat = torch.cat(parts)
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=pg)
         if scale != 1.0:
             flat.mul_(scale)
         offset = 0
@@ -218,7 +239,7 @@ def _reduce_gradients(grads, scale: float, bucket_cap_mb: int = 25, dtype=None, 
             reduced = flat[offset:]
     if extras is not None and not ride:
         reduced = extras.clone()
-        dist.all_reduce(reduced, op=dist.ReduceOp.SUM)
+        dist.all_reduce(reduced, op=dist.ReduceOp.SUM, group=pg)
         if scale != 1.0:
             reduced.mul_(scale)
     return reduced
@@ -257,25 +278,32 @@ def _global_norm(grads) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
 
 
-def _clip_sharded_(optimizer, max_norm: float) -> torch.Tensor:
+def _clip_sharded_(optimizer, max_norm: float, mesh=None) -> torch.Tensor:
     """:func:`_clip_by_global_norm_` over the gradients of ``optimizer``
-    in a process group where some are this process's chunks: the squared
-    norms of every process's chunks are summed (one all-reduce), and those
-    of the gradients every process holds whole are added once."""
-    chunks, whole = optimizer.sharded_grads()
-    if not chunks:
+    across the mesh, every element counted once: the squared norms of the
+    gradients split over a set of axes are summed over that set's group
+    (one all-reduce a set; without a mesh, the process group), and those
+    of the gradients held whole are added once."""
+    by_axes = optimizer.grads_by_axes()
+    whole = by_axes.pop(frozenset(), [])
+    if not by_axes:
         return _clip_by_global_norm_(whole, max_norm)
     from .utils.operations import reduce
 
-    sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in chunks]).square()
-    total = reduce(sq.sum())
+    total = None
+    for axes in sorted(by_axes, key=sorted):
+        sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                          for g in by_axes[axes]]).square().sum()
+        sq = mesh.group(*axes).all_reduce(sq) if mesh is not None else reduce(sq)
+        total = sq if total is None else total + sq
     if whole:
         total = total + torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
                                      for g in whole]).square().sum()
     gnorm = total.sqrt()
     factor = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
-    for g in chunks + whole:
-        g.mul_(factor.to(g.dtype))
+    for grads in [whole, *by_axes.values()]:
+        for g in grads:
+            g.mul_(factor.to(g.dtype))
     return gnorm
 
 
@@ -309,6 +337,10 @@ class Accelerator:
     ``fsdp_plugin`` (or ``deepspeed_plugin``, translated onto one) shards
     the training state over the process group (module docstring).
 
+    ``mesh_config``, ``tp_plugin``, ``cp_plugin``, ``pp_plugin`` and
+    ``megatron_lm_plugin`` lay the processes out over a mesh (module
+    docstring; ``AcceleratorState`` resolves them).
+
     ``seed`` seeds :attr:`generator`, the accelerator's own random stream,
     which a ``loss_fn(params, batch, generator)`` receives (the JAX
     package's ``next_rng_key``)."""
@@ -322,9 +354,8 @@ class Accelerator:
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
                  step_scheduler_with_optimizer: bool = True,
                  kwargs_handlers: Optional[list] = None, seed: int = 0, fsdp_plugin=None,
-                 mesh_config=None, deepspeed_plugin=None):
-        if mesh_config is not None:
-            raise _not_ported("a device mesh", "8d")
+                 mesh_config=None, deepspeed_plugin=None, tp_plugin=None, cp_plugin=None,
+                 pp_plugin=None, megatron_lm_plugin=None):
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -337,7 +368,10 @@ class Accelerator:
             or DistributedDataParallelKwargs()
         init = next((h for h in handlers if isinstance(h, DistributedInitKwargs)), None)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      fsdp_plugin=fsdp_plugin, deepspeed_plugin=deepspeed_plugin,
+                                      mesh_config=mesh_config, fsdp_plugin=fsdp_plugin,
+                                      tp_plugin=tp_plugin, cp_plugin=cp_plugin,
+                                      pp_plugin=pp_plugin, deepspeed_plugin=deepspeed_plugin,
+                                      megatron_lm_plugin=megatron_lm_plugin,
                                       **({"init_kwargs": init} if init is not None else {}))
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
@@ -411,6 +445,18 @@ class Accelerator:
     @property
     def use_distributed(self) -> bool:
         return self.state.use_distributed
+
+    @property
+    def mesh(self):
+        """The device mesh over the process group (``parallel/mesh.py``)."""
+        return self.state.mesh
+
+    def _data_group(self):
+        """The processes that read different data: the mesh's ``dp``,
+        ``fsdp`` and ``cp`` axes. Gradients and label counts are summed
+        over it; ``tp`` and ``pp`` processes hold equal copies of what they
+        do not split."""
+        return self.state.mesh.group("dp", "fsdp", "cp")
 
     @property
     def fsdp_plugin(self):
@@ -502,22 +548,26 @@ class Accelerator:
                       evaluation_mode: bool = False) -> AcceleratedModel:
         """Move the module to the device (in place: an optimizer built on its
         parameters keeps them) and wrap it with the precision policy. Under
-        an FSDP plugin each parameter the policy shards keeps this
-        process's chunk only (every process must hold the same weights
-        before), and the model gets the layout its layer loops gather by."""
+        an FSDP plugin, or a mesh whose tensor or pipeline plugin splits
+        leaves, each split parameter keeps this process's chunk only (every
+        process must hold the same weights before), and the model gets the
+        layout its layer loops gather by (``parallel/sharding.py``)."""
         if device_placement if device_placement is not None else self.device_placement:
             module.to(self.device)
         layout = None
         plugin = self.state.fsdp_plugin
-        if plugin is not None:
+        mesh = self.state.mesh
+        tp_plugin = self.state.tp_plugin if mesh.shape["tp"] > 1 else None
+        pp_plugin = self.state.pp_plugin if mesh.shape["pp"] > 1 else None
+        if plugin is not None or tp_plugin is not None or pp_plugin is not None:
             from .parallel.sharding import ShardedLayout, layout_specs, sharding_summary
 
-            specs = layout_specs(module, plugin, self.num_processes)
+            specs = layout_specs(module, plugin, mesh, tp_plugin, pp_plugin)
+            remat = plugin is not None and plugin.activation_checkpointing
             layout = ShardedLayout(
-                module, specs, self.process_index, self.num_processes,
-                compute_dtype=self.policy.compute_dtype,
-                gather_in_remat=plugin.reshard_after_forward and plugin.activation_checkpointing,
-                remat_policy=plugin.remat_policy if plugin.activation_checkpointing else None)
+                module, specs, mesh, compute_dtype=self.policy.compute_dtype,
+                gather_in_remat=remat and plugin.reshard_after_forward,
+                remat_policy=plugin.remat_policy if remat else None)
             layout.shard(module)
             layout.attach(module)
             self.logger.debug("Param sharding summary: %s", sharding_summary(specs))
@@ -528,11 +578,12 @@ class Accelerator:
         return wrapped
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
-        """Wrap a torch optimizer. Under an FSDP plugin it steps the chunks
-        the model keeps; with ``zero_sharding`` its state is laid out by the
-        JAX package's ZeRO policy (``AcceleratedOptimizer.shard_state``),
-        and with ``cpu_offload`` it lives in host memory between updates.
-        Prepare the model first (or with it, before it in ``prepare``)."""
+        """Wrap a torch optimizer. Under a sharded layout it steps the
+        chunks the model keeps; with ``zero_sharding`` its state is laid
+        out by the JAX package's ZeRO policy over the mesh's ``dp`` axis,
+        else ``fsdp`` (``AcceleratedOptimizer.shard_state``), and with
+        ``cpu_offload`` it lives in host memory between updates. Prepare
+        the model first (or with it, before it in ``prepare``)."""
         plugin = self.state.fsdp_plugin
         offload = bool(plugin is not None and plugin.cpu_offload)
         if offload:
@@ -546,18 +597,24 @@ class Accelerator:
                                        use_loss_scaling=self.mixed_precision == "fp16",
                                        device=self.device, offload_to_host=offload,
                                        zero_sharding=self.zero_sharding)
-        if plugin is not None:
+        layout = next((m.layout for m in self._models if m.layout is not None), None)
+        if plugin is not None or layout is not None or self.zero_sharding:
+            from .parallel.mesh import DATA_AXES
             from .parallel.sharding import _is_kernel
 
-            names, kernels, layout = {}, set(), None
+            names, kernels = {}, set()
             for model in self._models:
                 for name, p in model.module.named_parameters():
                     names[id(p)] = name
                     if _is_kernel(model.module, name, p.ndim):
                         kernels.add(name)
-                layout = layout or model.layout
-            wrapped.shard_state(names, layout, self.process_index, self.num_processes,
-                                kernels=kernels)
+            mesh = self.state.mesh
+
+            def pending(name):
+                reduced = {"fsdp"} if layout is not None and layout.sharded(name) else set()
+                return tuple(ax for ax in DATA_AXES if mesh.shape[ax] > 1 and ax not in reduced)
+
+            wrapped.shard_state(names, mesh, layout, kernels=kernels, pending=pending)
         self._optimizers.append(wrapped)
         return wrapped
 
@@ -575,7 +632,8 @@ class Accelerator:
         the ``DataLoaderConfiguration``)."""
         cfg = self.dataloader_config
         loader = prepare_data_loader(
-            data_loader, device=self.device, split_batches=cfg.split_batches,
+            data_loader, device=self.device, mesh=self.state.mesh,
+            split_batches=cfg.split_batches,
             put_on_device=device_placement if device_placement is not None
             else self.device_placement, rng_types=self.rng_types,
             dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
@@ -686,21 +744,36 @@ class Accelerator:
     def _grad_scale(self, loss_fn) -> float:
         """What the reductions multiply the summed gradients by: 1 for a
         loss weighted by its label share (``_label_share``), else 1 / the
-        number of processes (the mean of the processes' means)."""
-        return 1.0 if hasattr(loss_fn, "label_count") else 1.0 / self.num_processes
+        processes of the data group (the mean of their means)."""
+        return 1.0 if hasattr(loss_fn, "label_count") else 1.0 / self._data_group().size
 
     def _reduce(self, optimizer, loss_fn, dtype=None, extras=None):
         """The sync step's reductions: each ZeRO view's gradient
-        reduce-scattered (``reduce_zero_grads``), then the gradients every
-        process holds whole all-reduced with ``extras`` (FSDP chunks
-        arrive reduced from their backward)."""
+        reduce-scattered (``reduce_zero_grads``), then every other
+        gradient summed over the data axes its backward did not reduce
+        (the ``fsdp`` chunks arrive reduce-scattered over ``fsdp``), with
+        ``extras`` over the whole data group."""
         scale = self._grad_scale(loss_fn)
         optimizer.reduce_zero_grads(scale)
         if not self.state.process_group:
             return extras
-        _, whole = optimizer.sharded_grads()
-        return _reduce_gradients(whole, scale, self.ddp_handler.bucket_cap_mb, dtype=dtype,
-                                 extras=extras)
+        data = self._data_group()
+        reduced = None
+        for group, scaled, grads in optimizer.grads_by_pending():
+            group = group if group is not None else data
+            ride = extras is not None and reduced is None and scaled and group is data
+            if group.size == 1 and not (ride or (scaled and self.num_processes == 1)):
+                continue
+            out = _reduce_gradients(grads, scale if scaled else 1.0,
+                                    self.ddp_handler.bucket_cap_mb, dtype=dtype,
+                                    extras=extras if ride else None,
+                                    group=None if group.size == self.num_processes else group)
+            if ride:
+                reduced = out
+        if extras is not None and reduced is None:
+            reduced = _reduce_gradients([], scale, dtype=dtype, extras=extras,
+                                        group=None if data.size == self.num_processes else data)
+        return reduced
 
     def _weights_labels(self, model: AcceleratedModel) -> bool:
         """Whether a loss with a label count is weighted by its share at
@@ -715,11 +788,10 @@ class Accelerator:
         whole ones told apart across several processes; at one, where a
         chunk is the whole tensor, the same ops as without a group."""
         if self.num_processes > 1:
-            return _clip_sharded_(optimizer, max_norm)
+            return _clip_sharded_(optimizer, max_norm, self.state.mesh)
         return _clip_by_global_norm_(optimizer.grads(), max_norm)
 
-    @staticmethod
-    def _label_share(loss, count):
+    def _label_share(self, loss, count):
         """``loss``, the mean over this process's ``count`` labels, weighted
         by its share of every process's labels, and the global batch's
         loss: one all-reduce of ``[loss * count, count]``. The weighted
@@ -729,7 +801,9 @@ class Accelerator:
 
         count = count.to(torch.float32)
         pair = torch.stack([loss.detach().float() * count, count])
-        dist.all_reduce(pair, op=dist.ReduceOp.SUM)
+        data = self._data_group()
+        if data.size > 1:
+            dist.all_reduce(pair, op=dist.ReduceOp.SUM, group=data.group)
         total = pair[1].clamp(min=1.0)
         return loss * (count / total).to(loss.dtype), pair[0] / total
 

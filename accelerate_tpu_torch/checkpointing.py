@@ -20,18 +20,21 @@ returns (so the next update cannot change what is saved) and writes the
 files from a background thread; the next save or load, and
 ``Accelerator.wait_for_checkpoint``, wait for it and raise its error.
 
-Sharded training state (FSDP, ZeRO): the main process writes
-``world.json`` (the saving world's size, reference ``:352-359``) and each
-model's and optimizer's layout (every sharded tensor's whole shape and
-dimension); every process writes its chunks to
+Sharded training state (FSDP, ZeRO, tensor and pipeline splits): the
+main process writes ``world.json`` (the saving world's size, reference
+``:352-359``, and its mesh's axis sizes) and each model's and optimizer's
+layout (every split tensor's whole shape and its dimension on each mesh
+axis); every process writes its chunks to
 ``<model|optimizer>.rank<r>-of-<n>.safetensors``, the whole tensors going
 to rank 0's file. ``load_state`` reads a process's own file back when the
-world and the layout are the saving ones, and otherwise (``via_host``,
-default from ``world.json``) reads every file, puts each tensor together
-and keeps this process's chunk by the current layout: a checkpoint saved
-by 2 processes restores into 1 or 4 (reference ``load_array_tree``
-``:113-218``). ``merge-weights`` (``commands/merge.py``) puts a sharded
-model back together into one file.
+world, the mesh and the layout are the saving ones, and otherwise
+(``via_host``, default from ``world.json``) reads every file, puts each
+tensor together from its chunks by the saving mesh's coordinates and keeps
+this process's chunk by the current layout: a checkpoint saved by 2
+processes restores into 1 or 4, one saved under tp=2 into one process
+(reference ``load_array_tree`` ``:113-218``). ``merge-weights``
+(``commands/merge.py``) puts a sharded model back together into one
+file.
 """
 
 from __future__ import annotations
@@ -399,27 +402,65 @@ def _rank_file(stem: str, rank: int, world: int) -> str:
     return f"{stem}.rank{rank}-of-{world}.safetensors"
 
 
+def _splits_of(entry: dict) -> dict:
+    """``{axis: dim}`` of a layout entry (an entry of a checkpoint written
+    before meshes names one ``dim`` over the process group's ``fsdp``)."""
+    if "splits" in entry:
+        return dict(entry["splits"])
+    return {"fsdp": entry["dim"]} if entry.get("dim") is not None else {}
+
+
+def _coords(sizes: dict, rank: int) -> dict:
+    """Process ``rank``'s coordinates on a mesh of ``sizes`` (row-major in
+    the mesh's axis order)."""
+    from .parallel.mesh import AXIS_ORDER
+
+    out = {}
+    for ax in reversed(AXIS_ORDER):
+        n = int(sizes.get(ax, 1))
+        out[ax] = rank % n
+        rank //= n
+    return out
+
+
+def _mesh_chunk(tensor: torch.Tensor, splits: dict, sizes: dict, coords: dict) -> torch.Tensor:
+    """The chunk of the whole ``tensor`` that the process at ``coords`` of
+    a mesh of ``sizes`` holds."""
+    from .parallel.sharding import chunk_of
+
+    for ax, d in splits.items():
+        tensor = chunk_of(tensor, d, coords.get(ax, 0), int(sizes.get(ax, 1)))
+    return tensor
+
+
 def _chunks_to_write(tensors: dict, layout: dict, rank: int) -> dict:
     """What process ``rank`` writes of ``tensors`` (its own, as stored):
-    its chunks of the sharded ones, and on rank 0 the whole ones."""
-    return {k: t for k, t in tensors.items()
-            if layout.get(k, {}).get("dim") is not None or rank == 0}
+    its chunks of the split ones, and on rank 0 the whole ones."""
+    return {k: t for k, t in tensors.items() if _splits_of(layout.get(k, {})) or rank == 0}
 
 
-def _read_sharded(src: Path, stem: str, layout: dict, world: int, rank: Optional[int]) -> dict:
+def _read_sharded(src: Path, stem: str, layout: dict, world: int, rank: Optional[int],
+                  sizes: Optional[dict] = None) -> dict:
     """The tensors of a sharded save under ``stem``: process ``rank``'s own
     (its chunks, and the whole ones from rank 0's file), or with ``rank``
-    None every tensor put back together along its dimension."""
+    None every tensor put back together from the chunks of the saving
+    mesh (``sizes``, default the process group as ``fsdp``)."""
     if rank is not None:
         own = load_safetensors(src / _rank_file(stem, rank, world))
         first = own if rank == 0 else load_safetensors(src / _rank_file(stem, 0, world))
-        return {k: (own[k] if layout.get(k, {}).get("dim") is not None else first[k])
+        return {k: (own[k] if _splits_of(layout.get(k, {})) else first[k])
                 for k in first.keys() | own.keys()}
+    sizes = sizes or {"fsdp": world}
     files = [load_safetensors(src / _rank_file(stem, r, world)) for r in range(world)]
     out = dict(files[0])
     for key, entry in layout.items():
-        if entry.get("dim") is not None:
-            out[key] = torch.cat([f[key] for f in files], dim=entry["dim"])
+        splits = _splits_of(entry)
+        if not splits or key not in files[0]:
+            continue
+        whole = torch.empty(entry["shape"], dtype=files[0][key].dtype)
+        for r, f in enumerate(files):
+            _mesh_chunk(whole, splits, sizes, _coords(sizes, r)).copy_(f[key])
+        out[key] = whole
     return out
 
 
@@ -429,49 +470,68 @@ def _read_layout(src: Path, stem: str) -> Optional[dict]:
     return json.loads(path.read_text()) if path.exists() else None
 
 
-def _saved_world(src: Path) -> Optional[int]:
+def _read_world(src: Path) -> dict:
     path = src / WORLD_NAME
-    return json.loads(path.read_text()).get("process_count") if path.exists() else None
+    return json.loads(path.read_text()) if path.exists() else {}
+
+
+def _saved_world(src: Path) -> Optional[int]:
+    return _read_world(src).get("process_count")
+
+
+def _saved_mesh(src: Path, world: Optional[int]) -> Optional[dict]:
+    """The saving mesh's axis sizes (a checkpoint written before meshes:
+    the process group as ``fsdp``)."""
+    mesh = _read_world(src).get("mesh")
+    if mesh is not None:
+        return mesh
+    return {"fsdp": world} if world is not None else None
+
+
+def _mesh_sizes(accelerator) -> dict:
+    """The axis sizes of ``accelerator``'s mesh above one (``{"fsdp": 1}``
+    for a mesh of ones), as ``world.json`` records them."""
+    return {ax: s for ax, s in accelerator.mesh.shape.items() if s > 1} or {"fsdp": 1}
 
 
 def _model_layout(model) -> Optional[dict]:
     layout = getattr(model, "layout", None)
     if layout is None:
         return None
-    return {name: {"shape": list(layout.full_shapes[name]), "dim": layout.dims[name]}
+    return {name: {"shape": list(layout.full_shapes[name]), "dim": layout.dims[name],
+                   "splits": layout.splits[name]}
             for name in layout.full_shapes}
 
 
 def _optimizer_layout(opt, tensors: dict) -> Optional[dict]:
-    """Each state tensor's whole shape and dimension (``state.<pid>.<key>``),
+    """Each state tensor's whole shape and splits (``state.<pid>.<key>``),
     when the optimizer steps chunks; else None."""
     if not getattr(opt, "_chunk_layout", None):
         return None
-    layouts = opt.param_layouts()
+    layouts = opt.param_splits()
     params = opt._params()
     out = {}
     for key, t in tensors.items():
         _, pid, _ = key.split(".", 2)
-        dim, whole = layouts[int(pid)]
-        shaped = dim is not None and tuple(t.shape) == tuple(params[int(pid)].shape)
+        splits, whole = layouts[int(pid)]
+        shaped = bool(splits) and tuple(t.shape) == tuple(params[int(pid)].shape)
         out[key] = {"shape": list(whole) if shaped else list(t.shape),
-                    "dim": dim if shaped else None}
+                    "dim": next(iter(splits.values())) if shaped and len(splits) == 1 else None,
+                    "splits": splits if shaped else {}}
     return out
 
 
-def _chunk_state(opt, tensors: dict, rank: int, world: int) -> dict:
+def _chunk_state(opt, tensors: dict, sizes: dict, coords: dict) -> dict:
     """Whole optimizer-state tensors cut to this process's chunks by the
     optimizer's current layout (a tensor shaped like its whole parameter
-    is cut along the parameter's dimension)."""
-    from .parallel.sharding import chunk_of
-
-    layouts = opt.param_layouts()
+    is cut along the parameter's splits)."""
+    layouts = opt.param_splits()
     out = {}
     for key, t in tensors.items():
         _, pid, _ = key.split(".", 2)
-        dim, whole = layouts[int(pid)]
-        if dim is not None and tuple(t.shape) == tuple(whole):
-            t = chunk_of(t, dim, rank, world).contiguous()
+        splits, whole = layouts[int(pid)]
+        if splits and tuple(t.shape) == tuple(whole):
+            t = _mesh_chunk(t, splits, sizes, coords).contiguous()
         out[key] = t
     return out
 
@@ -501,7 +561,8 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     rng_file.write_text(json.dumps(get_rng_state(accelerator)))
     if main:
         (out / WORLD_NAME).write_text(json.dumps({"process_count": world,
-                                                  "device_count": world}))
+                                                  "device_count": world,
+                                                  "mesh": _mesh_sizes(accelerator)}))
 
     writes = []
     for i, model in enumerate(accelerator._models):
@@ -562,21 +623,23 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
 
 
 def _restore(src: Path, stem: str, layout: Optional[dict], saved: Optional[int], via_host: bool,
-             rank: int, world: int, current_dim=None):
+             rank: int, world: int, current_splits=None, sizes: Optional[dict] = None):
     """``(tensors, whole)``: a save's tensors under ``stem``, this process's
-    own as stored (``whole`` False) when the world and every tensor's
-    dimension (``current_dim(key, entry)``, None when the target is not
-    sharded) are the saving ones and not ``via_host``; else every tensor
-    whole."""
+    own as stored (``whole`` False) when the world, the mesh (``sizes``,
+    this process's) and every tensor's splits (``current_splits(key,
+    entry)``, ``{}`` when the target is not split) are the saving ones and
+    not ``via_host``; else every tensor whole."""
     if layout is None:
         return load_safetensors(src / (stem + ".safetensors")), True
     if saved is None:
         saved = len(list(src.glob(f"{stem}.rank*-of-*.safetensors")))
-    same = saved == world and current_dim is not None and all(
-        current_dim(k, v) == v.get("dim") for k, v in layout.items())
+    saved_mesh = _saved_mesh(src, saved)
+    same = (saved == world and current_splits is not None
+            and (sizes is None or saved_mesh == sizes)
+            and all(current_splits(k, v) == _splits_of(v) for k, v in layout.items()))
     if same and not via_host:
         return _read_sharded(src, stem, layout, saved, rank), False
-    return _read_sharded(src, stem, layout, saved, None), True
+    return _read_sharded(src, stem, layout, saved, None, saved_mesh), True
 
 
 def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
@@ -605,12 +668,14 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
         logger.info(f"Checkpoint written by {saved} processes; restoring into {world} "
                     "through whole tensors")
 
+    sizes = _mesh_sizes(accelerator)
+    coords = _coords(sizes, rank)
     for i, model in enumerate(accelerator._models):
         stem = _indexed(MODEL_NAME, i)
         dims = _model_layout(model)
         tensors, whole = _restore(src, stem, _read_layout(src, stem), saved, via_host, rank, world,
                                   None if dims is None else
-                                  (lambda k, _, d=dims: d.get(k, {}).get("dim")))
+                                  (lambda k, _, d=dims: _splits_of(d.get(k, {}))), sizes)
         if whole and getattr(model, "layout", None) is not None:
             model.layout.load_full(model.module, tensors)
         else:
@@ -622,18 +687,18 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
             continue
         meta = json.loads(meta_path.read_text())
         stem = _indexed(OPTIMIZER_NAME, i)
-        layouts = opt.param_layouts()
+        layouts = opt.param_splits()
 
-        def current_dim(key, entry):
+        def current_splits(key, entry):
             # A tensor shaped like its whole parameter follows the
-            # parameter's dimension; the rest (step counts) stay whole.
-            dim, whole_shape = layouts[int(key.split(".")[1])]
-            return dim if tuple(entry["shape"]) == tuple(whole_shape) else None
+            # parameter's splits; the rest (step counts) stay whole.
+            splits, whole_shape = layouts[int(key.split(".")[1])]
+            return splits if tuple(entry["shape"]) == tuple(whole_shape) else {}
 
         tensors, whole = _restore(src, stem, meta.get("layout"), saved, via_host, rank, world,
-                                  current_dim if opt._chunk_layout else None)
+                                  current_splits if opt._chunk_layout else None, sizes)
         if whole and opt._chunk_layout:
-            tensors = _chunk_state(opt, tensors, rank, world)
+            tensors = _chunk_state(opt, tensors, sizes, coords)
         # The tensors were just read from the file, so the optimizer owns
         # them: nothing is shared with another optimizer.
         opt.optimizer.load_state_dict(_join_optimizer_state(tensors, meta))

@@ -8,9 +8,10 @@ to this schema). ``accelerate-tpu-torch launch`` merges its flags into the
 file's values and hands them to the processes as ``ACCELERATE_TPU_*``
 variables. The file is flat ``key: value`` YAML; it is read with PyYAML
 where installed and with a flat reader otherwise, and written without it.
-The mesh fields are kept for the file's sake: ``mesh_fsdp`` of -1 or the
-number of processes asks for FSDP over every process, and any other mesh
-axis above 1 is ROADMAP.md, A8d, which ``launch`` refuses.
+The mesh fields lay the processes out over a mesh (``parallel/mesh.py``):
+``launch`` passes them on as ``ACCELERATE_TPU_MESH_*``; an ``fsdp`` axis
+above 1 asks for FSDP over it. An ``ep`` axis above 1 waits for MoE
+(ROADMAP.md, A8d), and ``launch`` refuses it.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def migrate_reference_config(data: dict) -> tuple:
             ours["mesh_tp"] = int(tp)
         if pp:
             ours["mesh_pp"] = int(pp)
-        notes.append("megatron_lm tp/pp degrees -> mesh_tp/mesh_pp (ROADMAP.md, A8d)")
+        notes.append("megatron_lm tp/pp degrees -> mesh_tp/mesh_pp")
     ds = data.get("deepspeed_config") or {}
     fsdp = data.get("fsdp_config") or {}
     if fsdp or dist == "FSDP" or int(ds.get("zero_stage") or 0) >= 1:
@@ -177,6 +178,16 @@ class ClusterConfig:
         d.pop("extra", None)
         return {k: v for k, v in d.items() if v is not None}
 
+    def mesh_axes(self) -> dict:
+        """The mesh axes that differ from ``MeshConfig``'s defaults (dp -1,
+        the rest 1), by name; an axis of -1 other than dp makes dp 1."""
+        sizes = {ax: getattr(self, f"mesh_{ax}") for ax in ("dp", "fsdp", "tp", "cp", "ep", "pp")}
+        if sizes["dp"] in (None, -1) and any(v == -1 for ax, v in sizes.items() if ax != "dp"):
+            sizes["dp"] = 1
+        defaults = {"dp": -1}
+        return {ax: int(v) for ax, v in sizes.items()
+                if v not in (None, 0) and v != defaults.get(ax, 1)}
+
     def save(self, config_file: Optional[str] = None) -> Path:
         """Write the file (JSON by suffix, else flat YAML); returns its path."""
         path = Path(config_file) if config_file else default_config_file()
@@ -193,8 +204,8 @@ class ClusterConfig:
         from ...utils.environment import env_var
 
         env = {env_var("MIXED_PRECISION"): self.mixed_precision}
-        if self.mesh_fsdp not in (None, 0, 1):
-            env[env_var("MESH_FSDP")] = str(self.mesh_fsdp)
+        for axis, value in self.mesh_axes().items():
+            env[env_var(f"MESH_{axis.upper()}")] = str(value)
         if self.debug:
             env[env_var("DEBUG")] = "true"
         if self.use_cpu_emulation:

@@ -18,23 +18,25 @@ left waiting in a collective would hang). ``--max_restarts`` starts the
 whole world again, ``--restart_backoff`` seconds later (doubling), with
 ``ACCELERATE_TPU_RESTART_COUNT`` telling the script which attempt it is.
 
-``--fsdp N`` shards the training state over every process (FSDP): N is -1
-or the number of processes, and the children get
-``ACCELERATE_TPU_MESH_FSDP=N``, which makes their ``AcceleratorState``
-build the default ``FullyShardedDataParallelPlugin``; that plugin reads
-the ``FSDP_*`` variables (``FSDP_SHARDING_STRATEGY``,
+``--dp/--fsdp/--tp/--cp/--pp N`` lay the processes out over a mesh
+(``parallel/mesh.py``): the children get ``ACCELERATE_TPU_MESH_<AXIS>=N``,
+which their ``AcceleratorState`` builds the mesh from. One axis may be -1
+(it takes the processes the others leave; with none, dp does), and the
+product of the others must divide the number of processes. An ``fsdp``
+axis above 1 builds the default ``FullyShardedDataParallelPlugin``, which
+reads the ``FSDP_*`` variables (``FSDP_SHARDING_STRATEGY``,
 ``FSDP_OFFLOAD_PARAMS``, ``FSDP_ACTIVATION_CHECKPOINTING``,
 ``FSDP_ZERO_SHARDING``, ``FSDP_MIN_NUM_PARAMS``), which pass through.
 
 Refused: ``--emulated_device_count`` above 1 (a torch process has one
-device), ``--fsdp`` of another size and the other mesh flags above 1 (a
-mesh of several axes, ROADMAP.md, A8d), and the JAX package's TPU-pod
-flags (``--gcloud``, ``--tpu_name``, ``--tpu_zone``).
+device), ``--ep`` above 1 (MoE, ROADMAP.md, A8d), and the JAX package's
+TPU-pod flags (``--gcloud``, ``--tpu_name``, ``--tpu_zone``).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 import subprocess
@@ -56,12 +58,14 @@ def launch_command_parser(subparsers=None):
     parser.add_argument("--mixed_precision", default=None, choices=["no", "bf16", "fp16"])
     parser.add_argument("--debug", action="store_true", default=None,
                         help="Compare every rank's shapes before each tensor collective")
+    parser.add_argument("--dp", type=int, default=None, help="data-parallel mesh axis")
     parser.add_argument("--fsdp", type=int, default=None,
-                        help="Shard the training state over every process: -1 or the number "
-                             "of processes")
-    for axis in ("dp", "tp", "cp", "ep", "pp"):
-        parser.add_argument(f"--{axis}", type=int, default=None,
-                            help="Mesh axis: above 1 not ported (ROADMAP.md, A8d)")
+                        help="param-shard (FSDP/ZeRO) mesh axis")
+    parser.add_argument("--tp", type=int, default=None, help="tensor-parallel mesh axis")
+    parser.add_argument("--cp", type=int, default=None, help="context-parallel mesh axis")
+    parser.add_argument("--ep", type=int, default=None,
+                        help="expert-parallel mesh axis: above 1 not ported (ROADMAP.md, A8d)")
+    parser.add_argument("--pp", type=int, default=None, help="pipeline-parallel mesh axis")
     parser.add_argument("--num_machines", type=int, default=None, help="Number of machines")
     parser.add_argument("--machine_rank", type=int, default=None, help="This machine's rank")
     parser.add_argument("--main_process_ip", default=None)
@@ -194,15 +198,20 @@ def validate_launch(args, cfg: ClusterConfig) -> list:
     if not args.module and not os.path.exists(args.training_script):
         problems.append(f"training script not found: {args.training_script}")
     world = (args.num_processes or 1) if (cfg.num_machines or 1) <= 1 else cfg.num_machines
-    if cfg.mesh_fsdp is not None and cfg.mesh_fsdp not in (-1, 0, 1, world):
-        problems.append(f"mesh_fsdp={cfg.mesh_fsdp} over {world} process(es): FSDP shards over "
-                        "-1 or every process; another size is a mesh of several axes, not "
-                        "ported to accelerate_tpu_torch yet (ROADMAP.md, A8d)")
-    for axis in ("mesh_dp", "mesh_tp", "mesh_cp", "mesh_ep", "mesh_pp"):
-        value = getattr(cfg, axis)
-        if value is not None and value > 1:
-            problems.append(f"{axis}={value}: meshes are not ported to accelerate_tpu_torch "
-                            "yet (ROADMAP.md, A8d)")
+    sizes = cfg.mesh_axes()
+    absorbing = [ax for ax, v in sizes.items() if v == -1]
+    bad = {ax: v for ax, v in sizes.items() if v < -1}
+    if bad:
+        problems.append(f"mesh axes must be positive or -1 (all remaining), got {bad}")
+    if len(absorbing) > 1:
+        problems.append(f"only one mesh axis may be -1, got {absorbing}")
+    explicit = math.prod(v for ax, v in sizes.items() if v > 0)
+    if world % explicit:
+        problems.append(f"mesh axes {sizes} (product {explicit}) do not divide the {world} "
+                        "process(es)")
+    if sizes.get("ep", 1) > 1:
+        problems.append(f"mesh_ep={sizes['ep']}: expert parallelism is not ported to "
+                        "accelerate_tpu_torch yet (ROADMAP.md, A8d: MoE and the ep rules)")
     if args.emulated_device_count is not None and args.emulated_device_count > 1:
         problems.append(f"--emulated_device_count {args.emulated_device_count}: a torch "
                         "process drives one device; start more processes with --num_processes")

@@ -278,14 +278,48 @@ def _device_of(device) -> torch.device:
     return resolve_device(device)
 
 
-def make_global_batch(local_batch, device=None):
+def batch_sharding(mesh):
+    """The spec of a batch on ``mesh``: its rows split over the batch axes
+    (``dp`` x ``fsdp``, ``BATCH_AXES``); the ``tp``, ``cp`` and ``pp``
+    processes of one data shard read the same rows."""
+    from .parallel.sharding import PartitionSpec
+    from .utils.constants import BATCH_AXES
+
+    return PartitionSpec(tuple(ax for ax in BATCH_AXES if ax in mesh.shape))
+
+
+def _data_shard(mesh, sharding=None) -> tuple:
+    """``(index, count)`` of this process's data shard on ``mesh`` by the
+    axes ``sharding`` splits dim 0 over (default :func:`batch_sharding`)."""
+    spec = sharding if sharding is not None else batch_sharding(mesh)
+    axes = spec[0] if len(spec) else ()
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    return mesh.index(axes), mesh.size(axes)
+
+
+def make_global_batch(local_batch, device=None, mesh=None, sharding=None):
     """A dict (or list/tuple) of numpy arrays or tensors, nested or not, as
     tensors on ``device``: an ``Accelerator`` (its device), a device, or
     None (``cuda``, which raises without a card). Integer leaves become
-    int64, floating ones float32, booleans stay bool."""
+    int64, floating ones float32, booleans stay bool.
+
+    Without ``mesh`` the batch is this process's rows. With a ``mesh``
+    (the JAX package's one-process form) ``local_batch`` is the global
+    batch, the same on every process, and each keeps its data shard's
+    rows: dim 0 split over the axes of ``sharding`` (default
+    :func:`batch_sharding`); a leaf without a divisible dim 0 stays
+    whole."""
     device = _device_of(device)
-    return recursively_apply(lambda x: _host_tensor(x).to(device), local_batch,
-                             test_type=_any_leaf)
+    index, count = _data_shard(mesh, sharding) if mesh is not None else (0, 1)
+
+    def one(x):
+        t = _host_tensor(x)
+        if count > 1 and t.dim() > 0 and t.shape[0] % count == 0:
+            k = t.shape[0] // count
+            t = t[index * k:(index + 1) * k]
+        return t.to(device)
+
+    return recursively_apply(one, local_batch, test_type=_any_leaf)
 
 
 class _Staged:
@@ -517,8 +551,11 @@ class DataLoaderShard(DataLoaderStateMixin):
                  prefetch_size: int = 2, total_batch_size: Optional[int] = None,
                  dataset_length: Optional[int] = None, stage_to_device: bool = True,
                  async_prefetch: bool = True, num_workers: int = 1, non_blocking: bool = True,
-                 rng_types: Optional[list] = None, synchronized_generator=None):
+                 rng_types: Optional[list] = None, synchronized_generator=None, mesh=None,
+                 device_sharding=None):
         self.base_dataloader = base_dataloader
+        self.mesh = mesh
+        self.device_sharding = device_sharding
         self.rng_types = rng_types
         self.synchronized_generator = synchronized_generator
         self.device = resolve_device(device) if stage_to_device else None
@@ -551,7 +588,9 @@ class DataLoaderShard(DataLoaderStateMixin):
         bs = self.batch_size
         if bs is None:
             bs = getattr(getattr(self.base_dataloader, "batch_sampler", None), "batch_size", None)
-        return (bs or 1) * PartialState().num_processes
+        shards = (self.mesh.data_shards() if self.mesh is not None
+                  else PartialState().num_processes)
+        return (bs or 1) * shards
 
     @property
     def total_dataset_length(self):
@@ -681,7 +720,9 @@ class DataLoaderDispatcher(DataLoaderShard):
     completed by repeating its last sample with ``even_batches``, else
     split unevenly. In a process group the broadcast runs on the training
     thread (prefetch is inline), so every process issues it in the same
-    order as the step's collectives."""
+    order as the step's collectives. With a ``mesh`` the slices are the
+    data shards', so the tp, cp and pp processes of one shard get the same
+    rows."""
 
     def __init__(self, *args, split_batches: bool = False, even_batches: bool = True,
                  slice_fn: Optional[Callable] = None, **kwargs):
@@ -693,15 +734,21 @@ class DataLoaderDispatcher(DataLoaderShard):
         if self._state.process_group:
             self.async_prefetch = False
 
+    def _shard(self) -> tuple:
+        """``(index, count)`` of this process's slice of a global batch."""
+        if self.mesh is not None:
+            return _data_shard(self.mesh, self.device_sharding)
+        return self._state.process_index, self._state.num_processes
+
     @property
     def total_batch_size(self):
         if self._total_batch_size is not None:
             return self._total_batch_size
         bs = getattr(self.base_dataloader, "batch_size", None) or 1
-        return bs if self.split_batches else bs * self._state.num_processes
+        return bs if self.split_batches else bs * self._shard()[1]
 
     def __len__(self):
-        n = 1 if self.split_batches else self._state.num_processes
+        n = 1 if self.split_batches else self._shard()[1]
         return max(0, math.ceil(len(self.base_dataloader) / n) - (self.skip_batches or 0))
 
     def _fetch_and_broadcast(self, raw_iter):
@@ -713,7 +760,7 @@ class DataLoaderDispatcher(DataLoaderShard):
         )
 
         state = self._state
-        n = state.num_processes
+        index, n = self._shard()
         payload = [None, None]
         if state.is_main_process:
             fetched = []
@@ -736,9 +783,9 @@ class DataLoaderDispatcher(DataLoaderShard):
             batch = pad_input_tensors(batch, size, n)
             size = find_batch_size(batch)
         per, extra = divmod(size, n)
-        lo = per * state.process_index + min(state.process_index, extra)
-        hi = lo + per + (1 if state.process_index < extra else 0)
-        return (self.slice_fn or slice_tensors)(batch, slice(lo, hi), state.process_index, n)
+        lo = per * index + min(index, extra)
+        hi = lo + per + (1 if index < extra else 0)
+        return (self.slice_fn or slice_tensors)(batch, slice(lo, hi), index, n)
 
     def _produce_fn(self) -> Callable[[], Any]:
         raw_iter = iter(self.base_dataloader) if self._state.is_main_process else iter(())
@@ -789,7 +836,8 @@ class NumpyDataLoader:
         return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
 
 
-def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = None,
+def prepare_data_loader(dataloader, device=None, mesh=None, device_sharding=None,
+                        num_processes: Optional[int] = None,
                         process_index: Optional[int] = None, split_batches: bool = False,
                         put_on_device: bool = True, rng_types: Optional[list] = None,
                         dispatch_batches: Optional[bool] = None, even_batches: bool = True,
@@ -815,14 +863,23 @@ def prepare_data_loader(dataloader, device=None, num_processes: Optional[int] = 
     the main process only (:class:`DataLoaderDispatcher`, which slices
     with ``slice_fn_for_dispatch``). ``use_stateful_dataloader`` is taken
     for the reference's signature: the loader keeps its resume position
-    itself."""
+    itself.
+
+    With a ``mesh`` the shards are the mesh's data shards, not the
+    processes: the rows split over the axes ``device_sharding`` splits dim
+    0 over (default ``batch_sharding(mesh)``, ``dp`` x ``fsdp``), and the
+    ``tp``, ``cp`` and ``pp`` processes of one shard read the same
+    batches."""
     state = PartialState()
+    if mesh is not None and num_processes is None and process_index is None:
+        process_index, num_processes = _data_shard(mesh, device_sharding)
     num_processes = num_processes if num_processes is not None else state.num_processes
     process_index = process_index if process_index is not None else state.process_index
     device = device if device is not None else state.device
     common = dict(device=device, skip_batches=skip_batches, prefetch_size=prefetch_size,
                   async_prefetch=async_prefetch, num_workers=num_workers,
-                  stage_to_device=put_on_device, non_blocking=non_blocking, rng_types=rng_types)
+                  stage_to_device=put_on_device, non_blocking=non_blocking, rng_types=rng_types,
+                  mesh=mesh, device_sharding=device_sharding)
     batch_size = getattr(dataloader, "batch_size", None) or 1
     if dispatch_batches:
         return DataLoaderDispatcher(

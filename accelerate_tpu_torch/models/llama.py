@@ -28,6 +28,15 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
   take each layer's parameters from a gather, one layer at a time
   (``_layer_prefixes`` names where), inside the layer's checkpoint when
   the plugin reshards after the forward.
+* On a mesh (``parallel/mesh.py``): under tensor parallelism a layer's
+  projections hold this process's chunk, column parallel (q/k/v, gate,
+  up) and row parallel (o, down), between Megatron's f and g
+  (:class:`_CopyToTP`, :class:`_ReduceFromTP`), so attention sees ``H/tp``
+  and ``G/tp`` heads; under context parallelism each process runs its
+  ``S/cp`` tokens of every row (the loss factories cut them, rotary takes
+  global positions) and attention is ring or Ulysses
+  (``ops/ring_attention.py``); ``PipelinedLlamaForCausalLM`` applies its
+  stacked blocks through ``parallel/pipeline.py``'s GPipe schedule.
 """
 
 from __future__ import annotations
@@ -102,8 +111,9 @@ class LlamaConfig:
     remat: bool = False
     remat_policy: str = "dots"
     use_flash_attention: bool = True
-    # "auto" | "flash" | "einsum"; the context-parallel "ring" / "ulysses"
-    # strategies are not ported yet and raise.
+    # "auto" | "ring" | "ulysses" | "flash" | "einsum": "auto" takes ring or
+    # Ulysses attention when the ambient mesh has cp > 1
+    # (ops/ring_attention.py), flash/einsum otherwise.
     attention_backend: str = "auto"
     # Pallas tile sizes of the JAX package; the Hopper kernel's tiles are
     # fixed, so the port reads neither.
@@ -188,12 +198,94 @@ def _linear(cfg: LlamaConfig, in_features: int, out_features: int, bias: bool, d
 
 class _Projection(nn.Linear):
     """A decoder layer's projection: ``nn.Linear``, whose output a "dots"
-    remat keeps (:func:`_remat_layer`)."""
+    remat keeps (:func:`_remat_layer`). Under tensor parallelism its weight
+    is this process's chunk: :meth:`column` and :meth:`row` apply it."""
 
     def forward(self, x):
         if _kept_products is None:
             return F.linear(x, self.weight, self.bias)
         return _KeptProduct.apply(x, self.weight, self.bias, _kept_products)
+
+    def _product(self, x):
+        if _kept_products is None:
+            return F.linear(x, self.weight)
+        return _KeptProduct.apply(x, self.weight, None, _kept_products)
+
+    def column(self, x, tp):
+        """Column parallel: this process's output features; a bias (which
+        the JAX policy replicates) contributes its slice."""
+        y = self._product(x)
+        if self.bias is not None:
+            k = y.shape[-1]
+            y = y + _SliceReplicated.apply(self.bias, tp, 0, k)
+        return y
+
+    def row(self, x, tp):
+        """Row parallel: this process's input features; the partial
+        products are summed over ``tp`` (:class:`_ReduceFromTP`), then the
+        bias is added once."""
+        y = _ReduceFromTP.apply(self._product(x), tp)
+        return y + self.bias if self.bias is not None else y
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: the identity forward before column-parallel
+    projections, whose backward sums the input's gradient over ``tp``
+    (each process's projections gave their part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: after a row-parallel projection, the sum of every
+    process's partial output over ``tp``; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return group.all_reduce(y.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    """This process's ``k``-wide chunk along ``dim`` of a leaf every ``tp``
+    process holds whole; the backward all-gathers the chunks' gradients,
+    so every process holds the whole leaf's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, k):
+        ctx.group, ctx.dim = group, dim
+        return t.narrow(dim, group.index * k, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad.contiguous(), ctx.dim), None, None, None
+
+
+def _tp_group(proj: nn.Module, full: int):
+    """The mesh's ``tp`` group when projection ``proj``'s weight holds
+    ``full`` output rows split over it, else None (the weight is whole, or
+    ``proj`` keeps no float weight, as an int8 ``QuantizedLinear``)."""
+    weight = getattr(proj, "weight", None)
+    local = full if weight is None else weight.shape[0]
+    if local == full:
+        return None
+    from ..parallel.mesh import axis_group
+
+    group = axis_group("tp")
+    if group is None or local * group.size != full:
+        raise ValueError(f"a projection of width {local} of {full} does not split over the "
+                         f"mesh's tp axis ({None if group is None else group.size})")
+    return group
 
 
 class RMSNorm(nn.Module):
@@ -268,7 +360,8 @@ def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
                          sliding_window: Optional[int] = None,
                          sm_scale: Optional[float] = None,
                          logit_softcap: Optional[float] = None):
-    """Dispatch between the attention implementations in ops/.
+    """Dispatch between the attention implementations in ops/ (reference
+    ``accelerate_tpu/models/llama.py:264-350``).
 
     ``logit_softcap`` (Gemma2) runs inside the flash kernel (causal only)
     and the einsum path. ``sliding_window`` narrower than the sequence
@@ -276,14 +369,53 @@ def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
     a window as wide as the sequence is full causal attention.
 
     backend: 'auto' and 'flash' take the flash kernel when it tiles the
-    input, else einsum; 'einsum' always takes einsum. The context-parallel
-    'ring' and 'ulysses' strategies are not ported yet and raise."""
+    input, else einsum; 'einsum' always takes einsum. On a mesh whose
+    ``cp`` axis is above one process, q/k/v are this process's sequence
+    chunks: 'ring' and 'ulysses' run that context-parallel strategy
+    (``ops/ring_attention.py``), and 'auto' picks one when nothing (segment
+    ids, ``sm_scale``, a softcap or a narrower window) needs the whole
+    sequence; otherwise the chunks are gathered, attended whole and cut
+    again (:func:`_over_whole_sequence`). On a ``cp`` axis of one the
+    'ring' and 'ulysses' backends take the flash path, as in the JAX
+    package."""
     if backend not in ("auto", "ring", "ulysses", "flash", "einsum"):
         raise ValueError(
             f"unknown attention_backend {backend!r}; expected auto/ring/ulysses/flash/einsum")
+    from ..parallel.mesh import axis_group
+
+    cp = axis_group("cp")
+    seq = q.shape[1] * (cp.size if cp is not None else 1)
     if backend in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_backend={backend!r}: context-parallel attention is not ported yet")
+        # The context-parallel strategies reject what they would drop.
+        if logit_softcap is not None:
+            raise ValueError(f"attention_backend={backend!r} does not support logit_softcap")
+        if sliding_window is not None and sliding_window < seq:
+            raise ValueError(f"attention_backend={backend!r} does not support sliding_window")
+        if segment_ids is not None:
+            raise ValueError(f"attention_backend={backend!r} does not support segment_ids")
+        if sm_scale is not None:
+            raise ValueError(f"attention_backend={backend!r} does not support sm_scale")
+    if cp is not None:
+        whole_window = sliding_window is None or sliding_window >= seq
+        if backend in ("ring", "ulysses") or (
+                backend == "auto" and logit_softcap is None and whole_window
+                and segment_ids is None and sm_scale is None):
+            from ..ops.ring_attention import context_parallel_attention
+
+            return context_parallel_attention(q, k, v, causal=causal, strategy=backend,
+                                              use_flash=use_flash)
+        return _over_whole_sequence(cp, q, k, v, segment_ids, functools.partial(
+            _local_attention, causal=causal, use_flash=use_flash, backend=backend,
+            sliding_window=sliding_window, sm_scale=sm_scale, logit_softcap=logit_softcap))
+    return _local_attention(q, k, v, segment_ids, causal=causal, use_flash=use_flash,
+                            backend=backend, sliding_window=sliding_window, sm_scale=sm_scale,
+                            logit_softcap=logit_softcap)
+
+
+def _local_attention(q, k, v, segment_ids, causal, use_flash, backend, sliding_window,
+                     sm_scale, logit_softcap):
+    """Attention over the sequence ``q`` holds: the flash kernel or the
+    einsum path (``multi_head_attention``'s rules)."""
     if logit_softcap is not None:
         window = (sliding_window if sliding_window is not None
                   and sliding_window < q.shape[1] else None)
@@ -305,6 +437,33 @@ def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
                                sm_scale=sm_scale)
     return _einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                              sm_scale=sm_scale)
+
+
+class _GatherSplit(torch.autograd.Function):
+    """Every process's chunk along ``dim`` concatenated (an all-gather over
+    ``group``); each process uses the whole differently, so the backward
+    sums the gradients and keeps this process's chunk (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(t.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
+
+
+def _over_whole_sequence(group, q, k, v, segment_ids, attend):
+    """``attend`` over the whole sequence from this process's chunks: q,
+    k, v (and the segment ids) gathered over the ``cp`` group, this
+    process's chunk of the output kept. What the JAX package's GSPMD does
+    for an attention its context-parallel strategies do not take."""
+    S = q.shape[1]
+    qw, kw, vw = (_GatherSplit.apply(t, group, 1) for t in (q, k, v))
+    seg = group.all_gather(segment_ids.contiguous(), 1) if segment_ids is not None else None
+    return attend(qw, kw, vw, seg).narrow(1, group.index * S, S)
 
 
 def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=torch.bfloat16,
@@ -578,6 +737,9 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         B, S, _ = x.shape
         n_q, n_kv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        tp = _tp_group(self.q_proj, n_q * hd)
+        if tp is not None:
+            return self._tensor_parallel(x, positions, causal, cache, segment_ids, lora, tp)
         q = _lora_delta(self.q_proj(x), x, lora, "q_proj").reshape(B, S, n_q, hd)
         k = _lora_delta(self.k_proj(x), x, lora, "k_proj").reshape(B, S, n_kv, hd)
         v = _lora_delta(self.v_proj(x), x, lora, "v_proj").reshape(B, S, n_kv, hd)
@@ -602,6 +764,45 @@ class LlamaAttention(nn.Module):
         out = out.reshape(B, S, n_q * hd)
         return _lora_delta(self.o_proj(out), out, lora, "o_proj")
 
+    def _tensor_parallel(self, x, positions, causal, cache, segment_ids, lora, tp):
+        """The forward on this process's heads: q/k/v column parallel
+        (``H / tp`` query heads, ``G / tp`` K/V heads), the output
+        projection row parallel. K/V heads that ``tp`` cannot split (``G``
+        not a multiple of it) are gathered whole and repeated to this
+        process's query heads."""
+        if cache is not None or lora:
+            raise NotImplementedError(
+                "the KV cache and LoRA adapters under tensor parallelism are not ported to "
+                "accelerate_tpu_torch yet (ROADMAP.md, A8d: tensor-parallel serving)")
+        cfg = self.config
+        B, S, _ = x.shape
+        hd = cfg.head_dim
+        h_local = cfg.num_attention_heads // tp.size
+        x = _CopyToTP.apply(x, tp)
+        q = self.q_proj.column(x, tp).reshape(B, S, h_local, hd)
+        k = self.k_proj.column(x, tp)
+        v = self.v_proj.column(x, tp)
+        if cfg.num_key_value_heads % tp.size:
+            n_kv = cfg.num_key_value_heads
+            rep = cfg.num_attention_heads // n_kv
+            k, v = (_GatherSplit.apply(t, tp, 2).reshape(B, S, n_kv, hd)
+                    .repeat_interleave(rep, dim=2).narrow(2, tp.index * h_local, h_local)
+                    for t in (k, v))
+        else:
+            k = k.reshape(B, S, -1, hd)
+            v = v.reshape(B, S, -1, hd)
+        cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=x.dtype,
+                                    rope_scaling=cfg.rope_scaling)
+        q = apply_rotary(q, cos, sin)
+        k = apply_rotary(k, cos, sin)
+        sm_scale = None if cfg.query_pre_attn_scalar is None else cfg.sm_scale
+        out = multi_head_attention(
+            q, k, v, causal=causal, use_flash=cfg.use_flash_attention,
+            segment_ids=segment_ids, backend=cfg.attention_backend,
+            sliding_window=self.window, sm_scale=sm_scale,
+            logit_softcap=cfg.attn_logit_softcapping)
+        return self.o_proj.row(out.reshape(B, S, h_local * hd), tp)
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
@@ -610,19 +811,30 @@ class LlamaMLP(nn.Module):
         if cfg.mlp_activation not in ("silu", "gelu_tanh", "gelu_exact"):
             raise NotImplementedError(f"mlp_activation {cfg.mlp_activation!r}")
         self.activation = cfg.mlp_activation
+        self.intermediate_size = cfg.intermediate_size
         self.gate_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
         self.up_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device, dtype)
         self.down_proj = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, False, device, dtype)
 
-    def forward(self, x, lora=None):
-        gate = _lora_delta(self.gate_proj(x), x, lora, "gate_proj")
+    def _act(self, gate):
         if self.activation == "gelu_tanh":     # GeGLU, tanh approx (Gemma)
-            act = F.gelu(gate, approximate="tanh")
-        elif self.activation == "gelu_exact":  # GeGLU, exact erf
-            act = F.gelu(gate)
-        else:                                  # SwiGLU (Llama et al.)
-            act = F.silu(gate)
-        h = act * _lora_delta(self.up_proj(x), x, lora, "up_proj")
+            return F.gelu(gate, approximate="tanh")
+        if self.activation == "gelu_exact":    # GeGLU, exact erf
+            return F.gelu(gate)
+        return F.silu(gate)                    # SwiGLU (Llama et al.)
+
+    def forward(self, x, lora=None):
+        tp = _tp_group(self.gate_proj, self.intermediate_size)
+        if tp is not None:
+            if lora:
+                raise NotImplementedError(
+                    "LoRA adapters under tensor parallelism are not ported to "
+                    "accelerate_tpu_torch yet (ROADMAP.md, A8d: tensor-parallel serving)")
+            x = _CopyToTP.apply(x, tp)
+            h = self._act(self.gate_proj.column(x, tp)) * self.up_proj.column(x, tp)
+            return self.down_proj.row(h, tp)
+        gate = _lora_delta(self.gate_proj(x), x, lora, "gate_proj")
+        h = self._act(gate) * _lora_delta(self.up_proj(x), x, lora, "up_proj")
         return _lora_delta(self.down_proj(h), h, lora, "down_proj")
 
 
@@ -792,6 +1004,16 @@ def _default_positions(input_ids, start=0):
     return (start + steps)[None, :].expand(B, S)
 
 
+def _cp_start(seq: int) -> int:
+    """Where this process's chunk of each row starts on a mesh whose
+    ``cp`` axis splits the sequence (0 without one): rotary takes global
+    positions."""
+    from ..parallel.mesh import axis_group
+
+    cp = axis_group("cp")
+    return 0 if cp is None else cp.index * seq
+
+
 def _scale_embeddings(cfg: LlamaConfig, x):
     if not cfg.scale_embeddings:
         return x
@@ -822,7 +1044,8 @@ class LlamaModel(nn.Module):
         """``lora``: an adapter (``adapters/lora.py``) applied to its
         projections, or None."""
         if positions is None:
-            positions = _default_positions(input_ids, 0 if cache_pos is None else cache_pos)
+            positions = _default_positions(
+                input_ids, _cp_start(input_ids.shape[1]) if cache_pos is None else cache_pos)
         if segment_ids is not None and cache is not None:
             raise ValueError(
                 "segment_ids (packed sequences) is a training feature; the "
@@ -908,15 +1131,19 @@ class LlamaForCausalLM(nn.Module):
 class PipelinedLlamaForCausalLM(nn.Module):
     """Llama with its decoder blocks *stacked*: every block parameter
     carries a leading ``[num_layers, ...]`` dim (``model.blocks.*``), the
-    layout of the JAX ``PipelinedLlamaForCausalLM``. The forward applies
-    the one block to each layer's slice in turn (the JAX package's ``pp=1``
-    scan; no pipeline schedule). Uniform windows only, as in JAX."""
+    layout of the JAX ``PipelinedLlamaForCausalLM``. The forward applies the
+    blocks through ``parallel/pipeline.py``'s ``pipeline_apply``: the GPipe
+    schedule over ``num_microbatches`` (default the pipeline plugin's, else
+    ``pp``) when the accelerator has split the stacked leaves over a ``pp``
+    axis (each process holding its stage's layers), a plain loop over the
+    layers otherwise. Uniform windows only, as in JAX."""
 
     #: Where a sharded layout gathers one decoder layer at a time.
     _layer_prefixes = ("model.blocks.",)
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 num_microbatches: Optional[int] = None):
         super().__init__()
         if config.layer_windows is not None and len(set(config.layer_windows)) > 1:
             raise NotImplementedError(
@@ -925,6 +1152,7 @@ class PipelinedLlamaForCausalLM(nn.Module):
                 "sequential LlamaForCausalLM")
         device = resolve_device(device)
         self.config = config
+        self.num_microbatches = num_microbatches
         L = config.num_hidden_layers
         blocks = LlamaBlock(config, device=device, dtype=dtype)
         for name, p in list(blocks.named_parameters()):
@@ -972,32 +1200,52 @@ class PipelinedLlamaForCausalLM(nn.Module):
                 out[name] = tensor
         return out
 
+    def _microbatches(self) -> Optional[int]:
+        if self.num_microbatches is not None:
+            return self.num_microbatches
+        from ..state import AcceleratorState
+
+        plugin = AcceleratorState._shared_state.get("pp_plugin")
+        if plugin is not None and plugin.num_microbatches > 1:
+            return plugin.num_microbatches
+        return None
+
     def forward(self, input_ids, positions=None, segment_ids=None, return_hidden=False):
+        from ..parallel.mesh import axis_group
+        from ..parallel.pipeline import pipeline_apply
+
         if positions is None:
-            positions = _default_positions(input_ids)
+            positions = _default_positions(input_ids, _cp_start(input_ids.shape[1]))
         x = _scale_embeddings(self.config, self.model.embed_tokens(input_ids))
         stacked = dict(self.model.blocks.named_parameters())
         layout, prefix = _layout_of(self)
         gather = None
         if layout is not None:
             # Each layer's slice is gathered in the loop; a leaf split over
-            # the layer axis itself is put together here.
+            # the layer axis itself by fsdp is put together here.
             stacked = layout.gather_stacked(f"{prefix}model.blocks.", stacked)
             gather = functools.partial(layout.gather_layer, f"{prefix}model.blocks.",
                                        stacked=True)
+        pp = axis_group("pp")
+        split = next(iter(stacked.values())).shape[0] != self.config.num_hidden_layers
+        if pp is not None and not split:
+            raise ValueError(
+                f"a pp axis of {pp.size} needs the stacked layers split over it: prepare the "
+                "model with a PipelineParallelPlugin")
         policy = _remat_of(self.config, layout)
         remat = policy is not None and torch.is_grad_enabled()
-        # One unbind per stacked tensor, not an index per layer: its backward
-        # stacks the layers' gradients in one write, where per-layer indexing
-        # would add a zero-filled full-size gradient for every layer.
-        for values in zip(*(p.unbind(0) for p in stacked.values())):
-            params = dict(zip(stacked, values))
+        blocks = self.model.blocks
+        gather_inside = layout is not None and layout.gather_in_remat
+
+        def block_fn(params, h, extras):
+            pos, seg = extras
             if remat:
-                x = _remat_layer(self.model.blocks, params, x, positions, segment_ids, policy,
-                                 None, gather, layout is not None and layout.gather_in_remat)
-            else:
-                x = _run_layer(self.model.blocks, params, x, positions, segment_ids,
-                               gather=gather)
+                return _remat_layer(blocks, params, h, pos, seg, policy, None, gather,
+                                    gather_inside)
+            return _run_layer(blocks, params, h, pos, seg, gather=gather)
+
+        x = pipeline_apply(block_fn, stacked, x, (positions, segment_ids),
+                           num_microbatches=self._microbatches())
         x = self.model.norm(x)
         if return_hidden:
             return x
@@ -1033,6 +1281,28 @@ def _forward_kwargs(batch):
     return {name: batch[name] for name in ("positions", "segment_ids") if name in batch}
 
 
+def _loss_inputs(batch):
+    """``(input_ids, forward kwargs, safe targets, mask)`` of a loss: the
+    targets of whole rows, then, on a mesh whose ``cp`` axis splits the
+    sequence, this process's chunk of each (with global positions)."""
+    from ..state import current_mesh
+
+    safe, mask = _targets_and_mask(batch)
+    ids, kwargs = batch["input_ids"], _forward_kwargs(batch)
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("cp", 1) > 1:
+        S, n = ids.shape[1], mesh.shape["cp"]
+        if S % n:
+            raise ValueError(f"sequence length {S} not divisible by cp={n}")
+        cp = mesh.group("cp")
+        k = S // cp.size
+        kwargs.setdefault("positions", _default_positions(ids))
+        cut = slice(cp.index * k, (cp.index + 1) * k)
+        kwargs = {name: t[:, cut] for name, t in kwargs.items()}
+        ids, safe, mask = ids[:, cut], safe[:, cut], mask[:, cut]
+    return ids, kwargs, safe, mask
+
+
 def _module(model):
     """The ``nn.Module`` under a prepared model (``AcceleratedModel.module``)."""
     return getattr(model, "module", model)
@@ -1046,9 +1316,11 @@ def causal_lm_loss(model):
     module = _module(model)
 
     def loss_fn(params, batch, rng=None):
-        logits = torch.func.functional_call(module, params, (batch["input_ids"],),
-                                            _forward_kwargs(batch))
-        return masked_next_token_ce(logits, batch)
+        ids, kwargs, safe, mask = _loss_inputs(batch)
+        logits = torch.func.functional_call(module, params, (ids,), kwargs)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
     return loss_fn
 
@@ -1060,7 +1332,8 @@ def fused_causal_lm_loss(model, num_chunks: int = 8):
     included. ``model`` is a ``LlamaForCausalLM`` or a
     ``PipelinedLlamaForCausalLM`` (or either, prepared).
 
-    The loss is the mean over this call's labels, and the call
+    The loss is the mean over this call's labels (on a ``cp`` mesh, over
+    this process's chunk of each row, :func:`_loss_inputs`), and the call
     communicates nothing. ``loss_fn.label_count(batch)`` gives that label
     count, which the accelerator reads in a process group: its train step
     and ``backward`` all-reduce the count and weight each process's loss by
@@ -1075,16 +1348,15 @@ def fused_causal_lm_loss(model, num_chunks: int = 8):
     cfg = module.config
 
     def loss_fn(params, batch, rng=None):
-        h = torch.func.functional_call(module, params, (batch["input_ids"],),
-                                       {"return_hidden": True, **_forward_kwargs(batch)})
+        ids, kwargs, safe, mask = _loss_inputs(batch)
+        h = torch.func.functional_call(module, params, (ids,), {"return_hidden": True, **kwargs})
         if cfg.tie_word_embeddings:
             kernel = params["model.embed_tokens.weight"].T
         else:
             kernel = params["lm_head.weight"].T  # [hidden, vocab], the flax layout
-        safe, mask = _targets_and_mask(batch)
         B, S, H = h.shape
         return chunked_softmax_xent(h.reshape(B * S, H), kernel.to(h.dtype), safe.reshape(-1),
                                     mask.reshape(-1), num_chunks, cfg.final_logit_softcapping)
 
-    loss_fn.label_count = lambda batch: _targets_and_mask(batch)[1].sum()
+    loss_fn.label_count = lambda batch: _loss_inputs(batch)[3].sum()
     return loss_fn

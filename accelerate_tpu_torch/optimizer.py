@@ -61,7 +61,7 @@ from .precision import (
     update_loss_scale,
 )
 from .state import GradientState
-from .utils.operations import _group, all_gather_into, reduce, reduce_scatter
+from .utils.operations import _group, reduce
 
 
 class AcceleratedOptimizer:
@@ -78,9 +78,15 @@ class AcceleratedOptimizer:
         self.zero_min_size_to_shard = zero_min_size_to_shard
         #: {parameter name: spec of its optimizer state}, set by shard_state.
         self.opt_state_shardings: Optional[dict] = None
-        self._views: list = []  # (whole parameter, chunk view, dim, rank, world)
+        # ZeRO views: (parameter, chunk view, dim, zero group, group the
+        # gradient is summed over first or None, whether the reduce-scatter
+        # applies the loss scale).
+        self._views: list = []
         self._sharded_ids: set = set()  # parameters whose gradients are chunks
-        self._chunk_layout: dict = {}  # id(parameter) -> (dim, whole shape) of a chunk
+        # id(parameter) -> ({axis: dim} of its splits, whole shape)
+        self._chunk_layout: dict = {}
+        self._split_axes: dict = {}  # id(parameter) -> axes of >1 process it is split over
+        self._pending: dict = {}  # id(parameter) -> group its gradient is summed over
         self.gradient_state = GradientState()
         self.scaler_kwargs = scaler_kwargs or GradScalerKwargs()
         self.loss_scale: Optional[LossScaleState] = make_loss_scale(
@@ -101,102 +107,151 @@ class AcceleratedOptimizer:
     def _params(self):
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
-    def sharded_grads(self) -> tuple:
-        """``(chunks, whole)``: the gradients that are this process's chunk
-        of a leaf (FSDP chunks, ZeRO views), and those every process holds
-        whole and equal."""
-        chunks, whole = [], []
+    def grads_by_axes(self) -> dict:
+        """The gradients by the axes (of more than one process) that their
+        parameter is split over: ``{frozenset(axes): [grads]}``, the whole
+        ones under the empty set."""
+        out: dict = {}
         for p in self._params():
             if p.grad is not None:
-                (chunks if id(p) in self._sharded_ids else whole).append(p.grad)
-        return chunks, whole
+                out.setdefault(self._split_axes.get(id(p), frozenset()), []).append(p.grad)
+        return out
 
-    def shard_state(self, names: dict, layout=None, rank: int = 0, world: int = 1,
-                    kernels=()):
-        """Lay the optimizer state out over the process group: ``names``
-        maps ``id(parameter)`` to its name in the model, ``layout`` is the
+    def grads_by_pending(self) -> list:
+        """``[(group, scaled, grads)]``: the gradients that are not ZeRO
+        views, by the group each is still to be summed over at the sync
+        step (None: the accelerator's data group) and by whether that sum
+        applies the loss scale (not for a chunk whose backward's
+        reduce-scatter applied it)."""
+        views = {id(view) for _, view, *_ in self._views}
+        out: dict = {}
+        for p in self._params():
+            if p.grad is None or id(p) in views:
+                continue
+            group = self._pending.get(id(p))
+            scaled = "fsdp" not in self._chunk_layout.get(id(p), ({}, None))[0]
+            key = (id(group) if group is not None else None, scaled)
+            out.setdefault(key, (group, scaled, []))[2].append(p.grad)
+        return list(out.values())
+
+    def shard_state(self, names: dict, mesh, layout=None, kernels=(), pending=None):
+        """Lay the optimizer state out over ``mesh``: ``names`` maps
+        ``id(parameter)`` to its name in the model, ``layout`` is the
         model's :class:`~accelerate_tpu_torch.parallel.sharding.ShardedLayout`
         (or None), ``kernels`` the names of ``torch.nn.Linear`` weights,
-        whose JAX layout swaps the last two dims. Under ``zero_sharding``
-        every trainable parameter's moments get their spec
-        (``sharding.zero_specs``), and a replicated parameter whose moments
-        take a dimension is replaced in ``param_groups`` by a view of its
+        whose JAX layout swaps the last two dims; ``pending(name)`` gives
+        the axes a parameter's gradient is summed over at the sync step (the
+        accelerator's data axes less those its backward reduced). Under
+        ``zero_sharding`` every trainable parameter's moments get their
+        spec (``sharding.zero_specs``), and a parameter whose moments take
+        a dimension over the zero axis (``dp``, else ``fsdp``) that it is
+        not split over is replaced in ``param_groups`` by a view of its
         chunk. Call before the first update."""
-        from .parallel.sharding import _dim_of, chunk_of, spec_on, swap_dim, zero_specs
+        from .parallel.sharding import chunk_of, swap_spec, zero_axis, zero_specs
 
+        sizes = dict(mesh.shape)
         trainable = [p for p in self._params() if p.requires_grad]
-        rows = []  # (parameter, name, whole shape in the torch layout, is a kernel)
+        # (parameter, name, whole shape in the torch layout, is a kernel,
+        # the axes its gradient is summed over at the sync step)
+        rows = []
         for i, p in enumerate(trainable):
             name = names.get(id(p), f"param_{i}")
-            if layout is not None and layout.sharded(name):
-                self._sharded_ids.add(id(p))
-                self._chunk_layout[id(p)] = (layout.dims[name], layout.full_shapes[name])
+            splits = dict(layout.splits.get(name, {})) if layout is not None else {}
+            if splits:
+                self._chunk_layout[id(p)] = (splits, layout.full_shapes[name])
+                axes = layout.split_axes(name)
+                self._split_axes[id(p)] = axes
+                if axes:
+                    self._sharded_ids.add(id(p))
+            rows_pending = tuple(pending(name)) if pending is not None else ()
+            if pending is not None:
+                self._pending[id(p)] = mesh.group(*rows_pending)
             shape = layout.full_shapes.get(name, tuple(p.shape)) if layout is not None \
                 else tuple(p.shape)
-            rows.append((p, name, shape, name in kernels and len(shape) >= 2))
+            rows.append((p, name, shape, name in kernels and len(shape) >= 2, rows_pending))
         if not self.zero_sharding:
             return
 
         def reference(shape, kernel):
             return (*shape[:-2], shape[-1], shape[-2]) if kernel else shape
 
-        dims = [layout.dims.get(name) if layout is not None else None for _, name, _, _ in rows]
+        axis = zero_axis(sizes)
+        group = mesh.group(axis)
         specs = zero_specs(
-            [(name, reference(shape, kernel)) for _, name, shape, kernel in rows],
-            [spec_on(swap_dim(d, len(shape), kernel))
-             for d, (_, _, shape, kernel) in zip(dims, rows)],
-            world, self.zero_min_size_to_shard)
+            [(name, reference(shape, kernel)) for _, name, shape, kernel, _ in rows],
+            [swap_spec(layout.specs[name], len(shape), kernel) if layout is not None
+             else swap_spec((), len(shape), kernel) for _, name, shape, kernel, _ in rows],
+            sizes, self.zero_min_size_to_shard)
         self.opt_state_shardings = specs
         replace = {}
-        for p, name, shape, kernel in rows:
-            dim = swap_dim(_dim_of(specs[name]), len(shape), kernel)
-            if dim is None or id(p) in self._sharded_ids:
+        for p, name, shape, kernel, pending_axes in rows:
+            spec = swap_spec(specs[name], len(shape), kernel)
+            dim = next((d for d, ax in enumerate(spec) if ax == axis), None)
+            splits = layout.splits.get(name, {}) if layout is not None else {}
+            if dim is None or axis in splits:
                 continue
             if self.optimizer.state.get(p):
                 raise ValueError("prepare the optimizer before its first step: ZeRO lays "
                                  "out the state it creates")
-            view = torch.nn.Parameter(chunk_of(p.data, dim, rank, world))
-            self._views.append((p, view, dim, rank, world))
+            view = torch.nn.Parameter(chunk_of(p.data, dim, group.index, group.size))
+            chunked = id(p) in self._sharded_ids
+            before = tuple(ax for ax in pending_axes if ax != axis)
+            self._views.append((p, view, dim, group, mesh.group(*before) if before else None,
+                                not chunked))
             self._sharded_ids.add(id(view))
-            self._chunk_layout[id(view)] = (dim, tuple(p.shape))
+            self._chunk_layout[id(view)] = ({**splits, axis: dim},
+                                            layout.full_shapes[name] if layout is not None
+                                            else tuple(p.shape))
+            self._split_axes[id(view)] = self._split_axes.get(id(p), frozenset()) | (
+                {axis} if group.size > 1 else set())
             replace[id(p)] = view
-        for group in self.optimizer.param_groups:
-            group["params"] = [replace.get(id(p), p) for p in group["params"]]
+        for group_ in self.optimizer.param_groups:
+            group_["params"] = [replace.get(id(p), p) for p in group_["params"]]
 
     def param_layouts(self) -> list:
         """For each parameter of ``param_groups``, in order: ``(dim, whole
-        shape)`` of the leaf it is this process's chunk of (``dim`` None for
-        a whole parameter)."""
-        return [self._chunk_layout.get(id(p), (None, tuple(p.shape))) for p in self._params()]
+        shape)`` of the leaf it is this process's chunk of along one axis
+        (``dim`` None for a whole parameter, or one split over several
+        axes: :meth:`param_splits`)."""
+        out = []
+        for splits, whole in self.param_splits():
+            out.append((next(iter(splits.values())) if len(splits) == 1 else None, whole))
+        return out
+
+    def param_splits(self) -> list:
+        """For each parameter of ``param_groups``, in order: ``({axis:
+        dim}, whole shape)`` of the leaf it is this process's chunk of."""
+        return [self._chunk_layout.get(id(p), ({}, tuple(p.shape))) for p in self._params()]
 
     def reduce_zero_grads(self, scale: float = 1.0):
         """At the sync step: each ZeRO view's gradient becomes its chunk of
-        the sum over processes of its parameter's whole gradient, times
-        ``scale`` (one reduce-scatter a parameter); the whole gradient is
+        the sum over the data axes of its parameter's gradient: summed over
+        the axes other than the zero axis first (where any), then
+        reduce-scattered over the zero axis, times ``scale`` (unless the
+        parameter's own backward applied it); the parameter's gradient is
         dropped."""
-        for p, view, dim, _, world in self._views:
+        for p, view, dim, group, before, scaled in self._views:
             if p.grad is None:
                 continue
             g = p.grad
-            if world > 1:
-                rows = torch.stack(g.chunk(world, dim=dim))
-                g = rows.reshape(world * rows.shape[1], *rows.shape[2:])
-            view.grad = reduce_scatter(g, scale=scale)
+            if before is not None:
+                before.all_reduce(g)
+            if group.size > 1:
+                g = group.reduce_scatter(g, dim)
+            g = g.contiguous()
+            if scaled and scale != 1.0:
+                g = g.mul_(scale)
+            view.grad = g
             p.grad = None
 
     def _gather_zero_params(self):
         """After an update: every process's updated chunks back into each
-        whole parameter (one all-gather a parameter)."""
-        for p, view, dim, _, world in self._views:
-            if world == 1:
+        parameter (one all-gather a parameter over the zero axis)."""
+        for p, view, dim, group, *_ in self._views:
+            if group.size == 1:
                 continue
             with torch.no_grad():
-                mine = view.detach().contiguous()
-                if dim == 0 and p.data.is_contiguous():
-                    all_gather_into(mine.clone(), out=p.data)
-                else:
-                    parts = all_gather_into(mine).view(world, *mine.shape)
-                    p.data.copy_(torch.cat(parts.unbind(0), dim=dim))
+                p.data.copy_(group.all_gather(view.detach().contiguous(), dim))
 
     def moments(self, p) -> dict:
         """``p``'s optimizer-state tensors shaped like it (AdamW's two

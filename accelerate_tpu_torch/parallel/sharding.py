@@ -1,33 +1,40 @@
-"""Activation-checkpointing policies, and the training state sharded over
-the process group: FSDP and ZeRO.
+"""Activation-checkpointing policies, and the training state laid out
+over the mesh: FSDP and ZeRO, tensor and pipeline splits.
 
 Counterpart of ``accelerate_tpu/parallel/sharding.py``. The JAX package
 declares a ``PartitionSpec`` for every leaf and leaves the collectives to
 XLA; the port keeps the same policy, leaf for leaf, and runs the
 collectives itself.
 
-* The policy (``_spec_for_leaf`` ``:65``, ``infer_param_shardings``
-  ``:148``, ``infer_opt_state_shardings`` ``:208``, ``sharding_summary``,
-  ``shard_params``): pure functions over ``(name, shape)`` pairs that give
-  each leaf a :class:`PartitionSpec`, which prints as JAX's does. The
-  process group is the one mesh axis, ``fsdp``; the tp/pp/ep rules need a
-  mesh (ROADMAP.md, A8d) and raise.
+* The policy (``_spec_for_leaf`` ``:65``, :class:`ShardingRules` ``:104``,
+  ``infer_param_shardings`` ``:148``, ``infer_opt_state_shardings``
+  ``:208``, ``sharding_summary``, ``shard_params``): pure functions over
+  ``(path, shape)`` pairs, paths in the JAX layout
+  (:func:`reference_path`), that give each leaf a :class:`PartitionSpec`,
+  which prints as JAX's does: ``pp`` on dim 0 of a stacked leaf, ``tp`` by
+  the Megatron rules, ``fsdp`` on the largest dimension left. The ``ep``
+  rules wait for MoE (ROADMAP.md, A8d) and raise.
 * The layout (:class:`ShardedLayout`): a prepared module's parameters
-  stored as this process's contiguous chunk along each sharded leaf's
-  dimension (the order of a ``NamedSharding`` over a 1-D mesh), and the
-  gathers that put a leaf back together where it is used. A gather runs
-  through :class:`_GatherLeaves`, an autograd function whose forward
-  all-gathers the compute-dtype chunks and whose backward reduce-scatters
-  the gradient (in f32) into the chunk's ``.grad``. The decoder layers
-  gather one layer at a time inside their loop (``models/llama.py`` calls
-  :meth:`ShardedLayout.gather_layer`); the other leaves are gathered once a
-  forward (:meth:`ShardedLayout.compute_params`).
+  stored as this process's chunk along each split dimension (its
+  coordinate on each axis of the mesh, the elements a ``NamedSharding``
+  gives the JAX package's device of this rank). The ``fsdp`` chunks are
+  gathered where they are used, through :class:`_GatherLeaves`, an
+  autograd function whose forward all-gathers the compute-dtype chunks
+  over the ``fsdp`` group and whose backward reduce-scatters the gradient
+  (in f32) into the chunk's ``.grad``; the decoder layers gather one layer
+  at a time inside their loop (``models/llama.py`` calls
+  :meth:`ShardedLayout.gather_layer`), the other leaves once a forward
+  (:meth:`ShardedLayout.compute_params`). The ``tp`` and ``pp`` chunks
+  stay split: the layers compute on them (``models/llama.py``,
+  ``parallel/pipeline.py``), and the leaves outside the layers (the
+  embedding table, split on hidden, and ``lm_head``, on the vocabulary)
+  are gathered whole for the forward (:class:`_GatherReplicated`).
 
 A ``torch.nn.Linear`` weight is ``[out, in]`` where the JAX ``Dense``
 kernel is ``[in, out]``: the layout decides on the reference's shape (the
 last two dims swapped, :func:`reference_shape`) and maps the chosen
-dimension back, so each process holds the same elements as the JAX
-package's device of that rank.
+dimensions back (:func:`swap_spec`), so each process holds the same
+elements as the JAX package's device of that rank.
 """
 
 from __future__ import annotations
@@ -86,9 +93,47 @@ class PartitionSpec(tuple):
     __str__ = __repr__
 
 
-def _later(what: str):
-    return NotImplementedError(f"{what} is not ported to accelerate_tpu_torch yet "
-                               "(ROADMAP.md, A8d)")
+class ShardingRules:
+    """Ordered ``(regex, tp_dim)`` rules for tensor parallelism, matched
+    against a leaf's '/'-joined path in the JAX package's layout
+    (:func:`reference_path`): the Megatron layout.
+
+    * q/k/v, gate and up projections: column parallel (the output dim);
+    * the attention output and down projections: row parallel (the input
+      dim);
+    * ``embed``/``embedding``/``lm_head``: the last dim. On an embedding
+      table ``[vocab, hidden]`` that is the hidden dim, on ``lm_head``'s
+      kernel ``[hidden, vocab]`` the vocabulary; the JAX package's comment
+      says "shard vocab" for both, its specs split hidden on the table;
+    * norms, scales and biases: replicated."""
+
+    DEFAULT_TP_RULES: list = [
+        (r"(q_proj|k_proj|v_proj|qkv|query|key|value|wq|wk|wv)(/kernel|/w)?$", -1),
+        (r"(gate_proj|up_proj|fc1|intermediate|w1|w3|mlp_in)(/kernel|/w)?$", -1),
+        (r"(o_proj|out_proj|attn_out|dense_out|wo)(/kernel|/w)?$", -2),
+        (r"(down_proj|fc2|w2|mlp_out)(/kernel|/w)?$", -2),
+        (r"(embed|embedding|wte|word_embeddings|lm_head)(/kernel|/embedding|/w)?$", -1),
+        (r"(norm|ln|layernorm|layer_norm|scale|bias)", None),
+    ]
+
+    def __init__(self, rules: Optional[list] = None, use_defaults: bool = True):
+        self.rules = list(rules or [])
+        if use_defaults:
+            self.rules += self.DEFAULT_TP_RULES
+
+    def tp_dim_for(self, path: str) -> Optional[int]:
+        for pattern, dim in self.rules:
+            if re.search(pattern, path, flags=re.IGNORECASE):
+                return dim
+        return None
+
+
+# Parameter subtrees whose dim 0 is a stacked layout axis: pipeline stages
+# (``[L, ...]`` leaves of ``PipelinedLlamaForCausalLM``) and MoE experts.
+DEFAULT_STACK_RULES: list = [
+    (r"(^|/)(blocks|stacked_layers|stages)(/|$)", "pp"),
+    (r"(^|/)(experts|expert_)(/|$|\w)", "ep"),
+]
 
 
 def _spec_for_leaf(shape: tuple, fsdp_size: int, tp_size: int, tp_dim: Optional[int],
@@ -128,10 +173,11 @@ def _pairs(leaves) -> list:
 
 
 def _mesh_shape(mesh) -> dict:
-    """Axis sizes: ``mesh`` as given (``{"fsdp": 2}``), else the process
-    group as the one ``fsdp`` axis."""
+    """Axis sizes: a :class:`~accelerate_tpu_torch.parallel.mesh.Mesh`'s,
+    a mapping's as given (``{"fsdp": 2}``), else the process group as the
+    one ``fsdp`` axis."""
     if mesh is not None:
-        return dict(mesh)
+        return dict(getattr(mesh, "shape", mesh))
     from ..state import PartialState
 
     return {"fsdp": PartialState().num_processes}
@@ -139,27 +185,41 @@ def _mesh_shape(mesh) -> dict:
 
 def infer_param_shardings(params, mesh=None, fsdp_plugin=None, tp_plugin=None, pp_plugin=None,
                           ep_plugin=None, extra_rules=None, stack_rules=None) -> dict:
-    """``{name: PartitionSpec}`` for ``params`` (``(name, shape)`` pairs or
-    a mapping to shapes or tensors) on ``mesh`` (axis sizes, default the
-    process group as ``fsdp``): the FSDP policy of ``fsdp_plugin``
-    (``min_weight_size_to_shard``, ``NO_SHARD`` shards nothing), nothing
-    without one. Tensor, pipeline and expert parallelism need a mesh of
-    several axes (ROADMAP.md, A8d) and raise; ``stack_rules`` only act with
-    them."""
-    if tp_plugin is not None or pp_plugin is not None or ep_plugin is not None or extra_rules:
-        raise _later("tensor, pipeline and expert parallelism (tp/pp/ep sharding rules)")
+    """``{name: PartitionSpec}`` for ``params`` (``(path, shape)`` pairs or
+    a mapping to shapes or tensors; paths '/'-joined in the JAX layout, as
+    :func:`reference_path` gives them) on ``mesh`` (a mesh or its axis
+    sizes, default the process group as ``fsdp``), the JAX package's
+    policy (reference ``:148-205``): with ``pp_plugin`` a leaf under
+    ``blocks`` claims ``pp`` on dim 0; with ``tp_plugin`` and a ``tp`` axis
+    above 1 the :class:`ShardingRules` (the plugin's ``rules``, then
+    ``extra_rules``, then the defaults) claim ``tp``; then the FSDP policy
+    of ``fsdp_plugin`` (``min_weight_size_to_shard``; ``NO_SHARD`` shards
+    nothing) claims ``fsdp``. An ``ep`` axis (MoE) is ROADMAP.md, A8d."""
     sizes = _mesh_shape(mesh)
-    if set(sizes) - {"fsdp", "dp"} and any(v > 1 for k, v in sizes.items()
-                                           if k not in ("fsdp", "dp")):
-        raise _later(f"a mesh of axes {sorted(sizes)}")
-    if fsdp_plugin is None or getattr(fsdp_plugin, "sharding_strategy", "FULL_SHARD") == "NO_SHARD":
-        fsdp_size = 1
-    else:
-        fsdp_size = sizes.get("fsdp", 1)
+    fsdp_size = sizes.get("fsdp", 1)
+    tp_size = sizes.get("tp", 1)
+    pp_size = sizes.get("pp", 1) if pp_plugin is not None else 1
+    if ep_plugin is not None and sizes.get("ep", 1) > 1:
+        raise NotImplementedError("expert parallelism (the ep rules) is not ported to "
+                                  "accelerate_tpu_torch yet (ROADMAP.md, A8d)")
     min_size = getattr(fsdp_plugin, "min_weight_size_to_shard", 2**14) \
         if fsdp_plugin is not None else 2**62
-    return {name: _spec_for_leaf(shape, fsdp_size, 1, None, min_size)
-            for name, shape in _pairs(params)}
+    if fsdp_plugin is None or getattr(fsdp_plugin, "sharding_strategy", "FULL_SHARD") == "NO_SHARD":
+        fsdp_size = 1
+    rules = ShardingRules(rules=(getattr(tp_plugin, "rules", None) or []) + (extra_rules or []),
+                          use_defaults=True) if (tp_plugin is not None and tp_size > 1) else None
+    active_stack = [(pat, ax) for pat, ax in (stack_rules if stack_rules is not None
+                                              else DEFAULT_STACK_RULES)
+                    if {"pp": pp_size}.get(ax, 1) > 1]
+    out = {}
+    for name, shape in _pairs(params):
+        tp_dim = rules.tp_dim_for(name) if rules is not None else None
+        stack_axis = next((ax for pat, ax in active_stack
+                           if re.search(pat, name, flags=re.IGNORECASE)), None)
+        out[name] = _spec_for_leaf(shape, fsdp_size, tp_size if rules is not None else 1, tp_dim,
+                                   min_size, stack_axis=stack_axis,
+                                   stack_axis_size={"pp": pp_size}.get(stack_axis, 1))
+    return out
 
 
 def _path_key(name: str) -> tuple:
@@ -291,6 +351,30 @@ def _is_kernel(module: nn.Module, name: str, ndim: int) -> bool:
     return leaf == "weight" and isinstance(owner, nn.Linear) and ndim >= 2
 
 
+def reference_path(module: nn.Module, name: str) -> str:
+    """The '/'-joined path of parameter ``name`` in the JAX package's tree,
+    which the sharding rules match: ``layers.<i>`` is ``layers_<i>``, a
+    ``torch.nn.Linear`` weight is a ``kernel`` and an ``nn.Embedding``'s
+    an ``embedding`` (``model.layers.0.self_attn.q_proj.weight`` ->
+    ``model/layers_0/self_attn/q_proj/kernel``)."""
+    parts = name.split(".")
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name) if owner_name else module
+    if leaf == "weight" and isinstance(owner, nn.Linear):
+        parts[-1] = "kernel"
+    elif leaf == "weight" and isinstance(owner, nn.Embedding):
+        parts[-1] = "embedding"
+    out, i = [], 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return "/".join(out)
+
+
 def reference_shape(module: nn.Module, name: str, shape: tuple) -> tuple:
     """``shape`` in the JAX package's layout: a ``torch.nn.Linear`` weight
     (``[..., out, in]``) is a ``Dense`` kernel ``[..., in, out]``."""
@@ -299,17 +383,19 @@ def reference_shape(module: nn.Module, name: str, shape: tuple) -> tuple:
     return tuple(shape)
 
 
-def swap_dim(dim: Optional[int], ndim: int, kernel: bool) -> Optional[int]:
-    """``dim`` of a leaf in the other layout: a kernel's last two dims swap
-    between torch's ``[out, in]`` and JAX's ``[in, out]`` (either way)."""
-    if kernel and dim is not None and dim >= ndim - 2:
-        return 2 * ndim - 3 - dim
-    return dim
+def spec_on(dim: Optional[int], axis: str = "fsdp") -> PartitionSpec:
+    """The spec splitting dimension ``dim`` over ``axis`` (None: whole)."""
+    return PartitionSpec(*([None] * dim + [axis])) if dim is not None else PartitionSpec()
 
 
-def spec_on(dim: Optional[int]) -> PartitionSpec:
-    """The spec splitting dimension ``dim`` over ``fsdp`` (None: whole)."""
-    return PartitionSpec(*([None] * dim + ["fsdp"])) if dim is not None else PartitionSpec()
+def swap_spec(spec, ndim: int, kernel: bool) -> PartitionSpec:
+    """``spec`` in the other layout (a kernel's last two dims swapped)."""
+    axes = list(spec) + [None] * (ndim - len(spec))
+    if kernel and ndim >= 2:
+        axes[-2], axes[-1] = axes[-1], axes[-2]
+    while axes and axes[-1] is None:
+        axes.pop()
+    return PartitionSpec(*axes)
 
 
 def _largest_free(shape: tuple, spec) -> Optional[int]:
@@ -320,46 +406,70 @@ def _largest_free(shape: tuple, spec) -> Optional[int]:
     return max(free, key=lambda d: (shape[d], -d)) if free else None
 
 
-def layout_specs(module: nn.Module, fsdp_plugin, world: int) -> dict:
+def _sizes(mesh) -> dict:
+    """Axis sizes of ``mesh``: an int is a process group of that many as
+    the one ``fsdp`` axis."""
+    if isinstance(mesh, int):
+        return {"fsdp": mesh}
+    return _mesh_shape(mesh)
+
+
+def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin=None) -> dict:
     """``{name: PartitionSpec}`` of ``module``'s parameters as the
-    accelerator stores them, in the torch layout: the JAX policy on each
-    leaf's :func:`reference_shape`, its dimension mapped back. A world of
-    one keeps an ``fsdp`` axis of size 1 (every dimension divides it), so
-    the gathers and reduce-scatters run there too, as the identity."""
+    accelerator stores them, in the torch layout: the JAX policy
+    (:func:`infer_param_shardings` on each leaf's :func:`reference_path` and
+    :func:`reference_shape`) mapped back. ``mesh`` is a mesh, its axis
+    sizes, or a number of processes (the one ``fsdp`` axis). An ``fsdp``
+    axis of size 1 under an FSDP plugin still names a dimension (every
+    dimension divides it), so the gathers and reduce-scatters run there
+    too, as the identity."""
+    sizes = _sizes(mesh)
     out = {}
     for name, p in module.named_parameters():
         shape = tuple(p.shape)
+        kernel = _is_kernel(module, name, len(shape))
         ref = reference_shape(module, name, shape)
-        if world > 1:
-            dim = _dim_of(infer_param_shardings([(name, ref)], {"fsdp": world},
-                                                fsdp_plugin)[name])
-        elif fsdp_plugin.sharding_strategy == "NO_SHARD" or not shape \
-                or int(np.prod(shape)) < fsdp_plugin.min_weight_size_to_shard:
-            dim = None
-        else:
-            dim = _largest_free(ref, ())
-        out[name] = spec_on(swap_dim(dim, len(shape), _is_kernel(module, name, len(shape))))
+        path = reference_path(module, name)
+        spec = infer_param_shardings([(path, ref)], sizes, fsdp_plugin, tp_plugin, pp_plugin)[path]
+        if fsdp_plugin is not None and sizes.get("fsdp", 1) == 1 and shape \
+                and fsdp_plugin.sharding_strategy != "NO_SHARD" \
+                and int(np.prod(shape)) >= fsdp_plugin.min_weight_size_to_shard:
+            dim = _largest_free(ref, spec)
+            if dim is not None:
+                axes = list(spec) + [None] * (len(ref) - len(spec))
+                axes[dim] = "fsdp"
+                spec = PartitionSpec(*axes)
+        out[name] = swap_spec(spec, len(shape), kernel)
     return out
 
 
-def zero_specs(params: list, param_specs: list, world: int, min_size_to_shard: int) -> dict:
+def zero_specs(params: list, param_specs: list, mesh, min_size_to_shard: int) -> dict:
     """``{name: PartitionSpec}`` of each parameter's AdamW moments under
     ZeRO (``params``: ``(name, shape)`` pairs in the JAX layout,
-    ``param_specs`` their specs): ``infer_opt_state_shardings`` over the
-    ``count`` and ``mu``/``nu`` leaves of optax's AdamW state. A world of
-    one keeps an ``fsdp`` axis of size 1, as :func:`layout_specs` does."""
+    ``param_specs`` their specs; ``mesh`` as :func:`layout_specs` takes
+    it): ``infer_opt_state_shardings`` over the ``count`` and ``mu``/``nu``
+    leaves of optax's AdamW state. A zero axis of size 1 still names the
+    largest free dimension of a replicated leaf, as :func:`layout_specs`
+    does."""
+    sizes = _sizes(mesh)
+    axis = "dp" if sizes.get("dp", 1) > 1 else "fsdp"
     leaves = [("count", ())] + [(f"{m}/{name}", shape) for m in ("mu", "nu")
                                 for name, shape in params]
-    specs = infer_opt_state_shardings(leaves, {"fsdp": world}, params=params,
-                                      param_shardings=param_specs,
+    specs = infer_opt_state_shardings(leaves, sizes, params=params, param_shardings=param_specs,
                                       min_size_to_shard=min_size_to_shard)
     out = {}
     for (name, shape), spec in zip(params, param_specs):
         out[name] = specs[f"mu/{name}"]
-        if world == 1 and not any(spec) and shape \
+        if sizes.get(axis, 1) == 1 and not any(spec) and shape \
                 and int(np.prod(shape)) >= min_size_to_shard:
-            out[name] = spec_on(_largest_free(shape, ()))
+            out[name] = spec_on(_largest_free(shape, ()), axis)
     return out
+
+
+def zero_axis(mesh) -> str:
+    """The axis ZeRO shards the optimizer state over: ``dp`` when the mesh
+    has a dp axis above 1, else ``fsdp``."""
+    return "dp" if _sizes(mesh).get("dp", 1) > 1 else "fsdp"
 
 
 class _GatherLeaves(torch.autograd.Function):
@@ -384,29 +494,57 @@ class _GatherLeaves(torch.autograd.Function):
         return (None, None, None, *(r.to(dt) for r, (_, dt) in zip(reduced, ctx.meta)))
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """A leaf split along ``dim`` over ``group``, whole: every process's
+    chunk all-gathered. Whatever uses the whole leaf runs the same on every
+    process of the group, so each holds the same gradient, and the backward
+    keeps this process's chunk of it (no communication): the tensor-parallel
+    embedding table and ``lm_head``."""
+
+    @staticmethod
+    def forward(ctx, chunk, group, dim):
+        ctx.group, ctx.dim, ctx.k = group, dim, chunk.shape[dim]
+        return group.all_gather(chunk, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.group.index * ctx.k, ctx.k), None, None
+
+
 class ShardedLayout:
-    """Where a prepared module's parameters live across the process group,
-    and the collectives that put them together.
+    """Where a prepared module's parameters live across the mesh, and the
+    collectives that put them together.
 
-    ``specs`` (``layout_specs``) name each leaf's shard dimension;
-    :meth:`shard` replaces each sharded parameter's data, in place, by
-    this process's chunk, so an optimizer built on the parameters steps
-    the chunks. ``gather_in_remat`` (``FULL_SHARD`` with activation
-    checkpointing): a decoder layer's gather runs inside its checkpoint and
-    again in the backward's recompute; otherwise the gathered weights are
-    kept for the backward (one gather a layer a step). ``remat_policy``:
-    the plugin's, for every layer, or None. ``grad_scale`` multiplies the
-    reduce-scattered gradients (the accelerator sets it: 1 for a loss
-    weighted by its label share, else 1 / world). ``gathers`` counts layer
-    gathers (both the forward's and the recompute's)."""
+    ``specs`` (``layout_specs``) name each leaf's split dimensions:
+    ``dims`` its ``fsdp`` one, ``splits`` every axis's (``{"tp": 0,
+    "fsdp": 1}``). :meth:`shard` replaces each split parameter's data, in
+    place, by this process's chunk along every split (the elements the JAX
+    package's device of this rank holds), so an optimizer built on the
+    parameters steps the chunks. The ``fsdp`` chunks are gathered where a
+    layer runs (over the mesh's ``fsdp`` group); the ``tp`` and ``pp``
+    chunks stay split, the layers computing on them (``models/llama.py``),
+    except the leaves outside the decoder layers, which are gathered whole
+    once a forward. ``gather_in_remat`` (``FULL_SHARD`` with activation
+    checkpointing): a decoder layer's gather runs inside its checkpoint
+    and again in the backward's recompute; otherwise the gathered weights
+    are kept for the backward (one gather a layer a step).
+    ``remat_policy``: the plugin's, for every layer, or None.
+    ``grad_scale`` multiplies the reduce-scattered gradients (the
+    accelerator sets it: 1 for a loss weighted by its label share, else 1
+    / the data-parallel size). ``gathers`` counts layer gathers (both the
+    forward's and the recompute's)."""
 
-    def __init__(self, module: nn.Module, specs: Mapping, rank: int, world: int,
-                 compute_dtype=torch.float32, gather_in_remat: bool = False,
-                 remat_policy: Optional[str] = None, reduce_dtype=torch.float32):
+    def __init__(self, module: nn.Module, specs: Mapping, mesh, compute_dtype=torch.float32,
+                 gather_in_remat: bool = False, remat_policy: Optional[str] = None,
+                 reduce_dtype=torch.float32):
         self.specs = dict(specs)
         self.dims = {n: _dim_of(s) for n, s in self.specs.items()}
+        self.splits = {n: {ax: d for d, ax in enumerate(s) if ax is not None}
+                       for n, s in self.specs.items()}
         self.full_shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
-        self.rank, self.world = rank, world
+        self.mesh = mesh
+        self._fsdp = mesh.group("fsdp")
+        self.rank, self.world = self._fsdp.index, self._fsdp.size
         self.compute_dtype = compute_dtype
         self.reduce_dtype = reduce_dtype
         self.gather_in_remat = gather_in_remat
@@ -435,37 +573,55 @@ class ShardedLayout:
     def sharded(self, name: str) -> bool:
         return self.dims.get(name) is not None
 
+    def _group(self, axis: str):
+        return self._fsdp if axis == "fsdp" else self.mesh.group(axis)
+
+    def split_axes(self, name: str) -> frozenset:
+        """The axes of more than one process that ``name`` is split over."""
+        return frozenset(ax for ax in self.splits.get(name, {})
+                         if self._group(ax).size > 1)
+
+    def chunk(self, name: str, tensor: torch.Tensor) -> torch.Tensor:
+        """This process's chunk of the whole ``tensor`` of leaf ``name``."""
+        for ax, d in self.splits.get(name, {}).items():
+            group = self._group(ax)
+            tensor = chunk_of(tensor, d, group.index, group.size)
+        return tensor
+
     def shard(self, module: nn.Module):
-        """Each sharded parameter's data becomes this process's chunk (a
+        """Each split parameter's data becomes this process's chunk (a
         contiguous copy; the parameter object stays, so optimizers keep
         it)."""
         with torch.no_grad():
             for name, p in module.named_parameters():
-                if self.sharded(name) and tuple(p.shape) == self.full_shapes[name]:
-                    p.data = chunk_of(p.data, self.dims[name], self.rank, self.world).clone()
+                if self.splits.get(name) and tuple(p.shape) == self.full_shapes[name]:
+                    p.data = self.chunk(name, p.data).clone()
 
     def full_state_dict(self, module: nn.Module) -> dict:
-        """Every parameter whole (gathered, no autograd) and the buffers,
-        on this process's device: what an unsharded module's
-        ``state_dict`` holds."""
+        """Every parameter whole (gathered over each of its splits, no
+        autograd) and the buffers, on this process's device: what an
+        unsharded module's ``state_dict`` holds."""
         out = {}
         with torch.no_grad():
             for name, t in module.state_dict().items():
-                if self.sharded(name):
-                    t = self._all_gather([t], (self.dims[name],))[0]
+                for ax, d in sorted(self.splits.get(name, {}).items(),
+                                    key=lambda item: item[0] != "fsdp"):
+                    if ax == "fsdp":
+                        t = self._all_gather([t], (d,))[0]
+                    else:
+                        t = self._group(ax).all_gather(t, d)
                 out[name] = t
         return out
 
     def load_full(self, module: nn.Module, state_dict: Mapping):
         """Copy whole tensors into the module, each parameter's chunk where
-        it is sharded."""
+        it is split."""
         params = dict(module.named_parameters())
         with torch.no_grad():
             for name, value in state_dict.items():
                 value = torch.as_tensor(value)
                 if name in params:
-                    target = params[name]
-                    target.copy_(chunk_of(value, self.dims.get(name), self.rank, self.world))
+                    params[name].copy_(self.chunk(name, value))
                 else:
                     module.get_buffer(name).copy_(value)
 
@@ -477,12 +633,10 @@ class ShardedLayout:
         return tuple(full)
 
     def _all_gather(self, chunks: list, dims) -> list:
-        from ..utils.operations import all_gather_into
-
         if self.world == 1:
             return list(chunks)
         flat = torch.cat([c.reshape(-1) for c in chunks])
-        out = all_gather_into(flat).view(self.world, -1)
+        out = self._fsdp.all_gather(flat).view(self.world, -1)
         wholes, offset = [], 0
         for c, d in zip(chunks, dims):
             part = out[:, offset:offset + c.numel()].reshape(self.world, *c.shape)
@@ -491,14 +645,14 @@ class ShardedLayout:
         return wholes
 
     def _reduce_scatter(self, wholes: list, dims) -> list:
-        from ..utils.operations import reduce_scatter
-
         if self.world == 1:
             return [g.to(self.reduce_dtype) * self.grad_scale if self.grad_scale != 1.0
                     else g.to(self.reduce_dtype) for g in wholes]
         rows = [torch.stack(g.to(self.reduce_dtype).chunk(self.world, dim=d))
                 .reshape(self.world, -1) for g, d in zip(wholes, dims)]
-        mine = reduce_scatter(torch.cat(rows, dim=1).reshape(-1), scale=self.grad_scale)
+        mine = self._fsdp.reduce_scatter(torch.cat(rows, dim=1).reshape(-1))
+        if self.grad_scale != 1.0:
+            mine.mul_(self.grad_scale)
         out, offset = [], 0
         for g, d in zip(wholes, dims):
             shape = list(g.shape)
@@ -521,9 +675,10 @@ class ShardedLayout:
     def compute_params(self, module: nn.Module) -> dict:
         """The tensors a forward through ``functional_call`` takes, by name:
         each leaf outside the decoder layers whole in the compute dtype
-        (the sharded ones gathered, in one collective); the layers' leaves
-        as stored (f32 chunks), which :meth:`gather_layer` puts together
-        inside the layer loop."""
+        (the ``fsdp`` chunks gathered in one collective, then the ``tp``
+        chunks, :class:`_GatherReplicated`); the layers' leaves as stored
+        (f32 chunks), which :meth:`gather_layer` puts together inside the
+        layer loop."""
         params = list(module.named_parameters())
         gathered = [(n, p) for n, p in params if self.sharded(n) and not self._in_layers(n)]
         out = dict(zip((n for n, _ in gathered), self._gather(
@@ -532,16 +687,20 @@ class ShardedLayout:
             if n not in out:
                 out[n] = p if self._in_layers(n) or not p.is_floating_point() \
                     else p.to(self.compute_dtype)
+            if not self._in_layers(n):
+                for ax, d in self.splits.get(n, {}).items():
+                    if ax != "fsdp" and self._group(ax).size > 1:
+                        out[n] = _GatherReplicated.apply(out[n], self._group(ax), d)
         return {n: out[n] for n, _ in params}
 
     def gather_layer(self, prefix: str, params: Mapping, stacked: bool = False) -> dict:
         """One decoder layer's parameters (module-relative names under
-        ``prefix``), whole and in the compute dtype: the sharded ones
-        all-gathered in one collective (counted in :attr:`gathers`), the
-        others cast. ``stacked``: ``params`` are one layer's slices of
-        ``[num_layers, ...]`` leaves, so a leaf's shard dimension is one
-        less (a leaf split over the layer axis is put together beforehand,
-        :meth:`gather_stacked`)."""
+        ``prefix``), their ``fsdp`` chunks put together and in the compute
+        dtype: the sharded ones all-gathered in one collective (counted in
+        :attr:`gathers`), the others cast. ``stacked``: ``params`` are one
+        layer's slices of ``[num_layers, ...]`` leaves, so a leaf's shard
+        dimension is one less (a leaf split over the layer axis is put
+        together beforehand, :meth:`gather_stacked`)."""
         names, tensors, dims = [], [], []
         out = {}
         for rel, t in params.items():
@@ -561,7 +720,8 @@ class ShardedLayout:
 
     def gather_stacked(self, prefix: str, stacked: Mapping) -> dict:
         """``[num_layers, ...]`` leaves under ``prefix``: those split over
-        the layer axis (dim 0) gathered whole now, the rest as they are."""
+        the layer axis (dim 0) by ``fsdp`` gathered whole now, the rest as
+        they are."""
         out = dict(stacked)
         names = [rel for rel in stacked if self.dims.get(prefix + rel) == 0]
         if names:

@@ -48,6 +48,23 @@ def is_initialized() -> bool:
     return PartialState._shared_state != {}
 
 
+def current_mesh(mesh=None):
+    """The ambient device mesh, or None: an explicit ``mesh``, else the
+    innermost ``with mesh:`` block's, else ``AcceleratorState().mesh``
+    (reference ``accelerate_tpu/state.py:50-86``). Every mesh-aware layer
+    (tensor parallelism, ring attention, the pipeline) resolves it here."""
+    if mesh is not None:
+        return mesh
+    from .parallel.mesh import entered_mesh
+
+    entered = entered_mesh()
+    if entered is not None:
+        return entered
+    if AcceleratorState._shared_state:
+        return AcceleratorState._shared_state.get("mesh")
+    return None
+
+
 def _world_from_env(init: DistributedInitKwargs) -> Optional[dict]:
     """The process group the environment (or ``init``) describes:
     ``{"address", "world", "rank", "local_rank"}``, or None for a lone
@@ -293,25 +310,31 @@ class PartialState:
 
 
 class AcceleratorState:
-    """``PartialState`` plus the mixed-precision mode and the sharding
-    plugin. Constructing it again with another mode raises, as in the JAX
-    package, and so does asking for another device (``cpu``): the device
-    is the process's. ``None`` (the default of both) takes what is there; a
-    first ``None`` mode reads ``ACCELERATE_TPU_MIXED_PRECISION`` (the
-    launcher sets it), else "no".
+    """``PartialState`` plus the mixed-precision mode, the parallelism
+    plugins and the mesh (reference ``accelerate_tpu/state.py:354-462``).
+    Constructing it again with another mode raises, as in the JAX package,
+    and so does asking for another device (``cpu``): the device is the
+    process's. ``None`` (the default of both) takes what is there; a first
+    ``None`` mode reads ``ACCELERATE_TPU_MIXED_PRECISION`` (the launcher
+    sets it), else "no".
 
     A ``deepspeed_plugin`` is translated onto ``fsdp_plugin``
-    (``DeepSpeedPlugin.to_fsdp_plugin``) unless one is given. Without
-    either, ``ACCELERATE_TPU_MESH_FSDP`` (``launch --fsdp``) asks for the
-    default FSDP plugin over every process: -1, or the number of
-    processes; another size is a 2-D mesh (ROADMAP.md, A8d) and raises.
-    ``distributed_type`` is ``DEEPSPEED`` or ``FSDP`` with a plugin, else
-    the process's."""
+    (``DeepSpeedPlugin.to_fsdp_plugin``) unless one is given, and a
+    ``megatron_lm_plugin`` onto the tp, pp and FSDP plugins it implies.
+    ``mesh`` is ``mesh_config`` (default ``MeshConfig.from_env()``, the
+    launcher's ``--dp/--fsdp/--tp/--cp/--pp``) over the process group: an
+    FSDP plugin on a mesh that names neither ``fsdp`` nor ``dp`` shards
+    over every process; an ``fsdp`` axis above 1 without a plugin implies
+    the default one; a plugin's ``tp_size``/``cp_size``/``pp_size`` above 1
+    sets its axis. ``distributed_type`` is ``DEEPSPEED``, ``MEGATRON_LM``,
+    ``FSDP``, ``TENSOR_PARALLEL`` or ``PIPELINE_PARALLEL`` after the
+    governing plugin, else the process's."""
 
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: Optional[bool] = None,
-                 fsdp_plugin=None, deepspeed_plugin=None, **kwargs):
+                 mesh_config=None, fsdp_plugin=None, tp_plugin=None, cp_plugin=None,
+                 pp_plugin=None, deepspeed_plugin=None, megatron_lm_plugin=None, **kwargs):
         self.__dict__ = self._shared_state
         process = PartialState._shared_state
         if cpu is not None:
@@ -337,23 +360,43 @@ class AcceleratorState:
         partial_state = PartialState(bool(cpu), **kwargs)
         if deepspeed_plugin is not None and fsdp_plugin is None:
             fsdp_plugin = deepspeed_plugin.to_fsdp_plugin()
-        mesh_fsdp = os.environ.get(env_var("MESH_FSDP"))
-        if fsdp_plugin is None and mesh_fsdp not in (None, "", "0", "1"):
-            if int(mesh_fsdp) not in (-1, partial_state.num_processes):
-                raise NotImplementedError(
-                    f"{env_var('MESH_FSDP')}={mesh_fsdp} over {partial_state.num_processes} "
-                    "process(es) is a 2-D mesh, not ported to accelerate_tpu_torch yet "
-                    "(ROADMAP.md, A8d); FSDP shards over -1 or every process")
+        if megatron_lm_plugin is not None:
+            mtp, mpp, mfsdp = megatron_lm_plugin.to_plugins()
+            tp_plugin = tp_plugin or mtp
+            pp_plugin = pp_plugin or mpp
+            fsdp_plugin = fsdp_plugin or mfsdp
+        import copy
+
+        from .parallel.mesh import MeshConfig
+
+        mesh_config = copy.copy(mesh_config) if mesh_config is not None else MeshConfig.from_env()
+        if fsdp_plugin is not None and mesh_config.fsdp == 1 and mesh_config.dp == -1:
+            mesh_config.fsdp, mesh_config.dp = -1, 1  # FSDP shards over every process
+        if fsdp_plugin is None and mesh_config.fsdp not in (0, 1):
             from .utils.dataclasses import FullyShardedDataParallelPlugin
 
             fsdp_plugin = FullyShardedDataParallelPlugin()
+        for plugin, axis, field in ((tp_plugin, "tp", "tp_size"), (cp_plugin, "cp", "cp_size"),
+                                    (pp_plugin, "pp", "pp_size")):
+            if plugin is not None and getattr(plugin, field) > 1:
+                setattr(mesh_config, axis, getattr(plugin, field))
+        mesh = mesh_config.build()
         distributed_type = partial_state.distributed_type
         if deepspeed_plugin is not None:
             distributed_type = DistributedType.DEEPSPEED
+        elif megatron_lm_plugin is not None:
+            distributed_type = DistributedType.MEGATRON_LM
         elif fsdp_plugin is not None:
             distributed_type = DistributedType.FSDP
+        elif mesh.shape["tp"] > 1:
+            distributed_type = DistributedType.TENSOR_PARALLEL
+        elif mesh.shape["pp"] > 1:
+            distributed_type = DistributedType.PIPELINE_PARALLEL
         self._shared_state.update(_partial=partial_state, mixed_precision=mixed_precision,
                                   fsdp_plugin=fsdp_plugin, deepspeed_plugin=deepspeed_plugin,
+                                  tp_plugin=tp_plugin, cp_plugin=cp_plugin, pp_plugin=pp_plugin,
+                                  ep_plugin=None, megatron_lm_plugin=megatron_lm_plugin,
+                                  mesh_config=mesh_config, mesh=mesh,
                                   distributed_type=distributed_type)
 
     def __repr__(self):

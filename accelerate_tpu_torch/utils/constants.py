@@ -1,9 +1,8 @@
 """Names of the files a checkpoint holds, and of the environment variables.
 
 Counterpart of ``accelerate_tpu/utils/constants.py`` (the checkpoint names,
-``:9-23``, ``WEIGHTS_PATTERN`` and ``ENV_PREFIX``); ``env_var`` is
-re-exported from ``environment.py``. The mesh-axis names of the JAX
-package have no counterpart on one GPU.
+``:9-23``, ``WEIGHTS_PATTERN`` and ``ENV_PREFIX``) and the mesh-axis
+names (``:43-52``); ``env_var`` is re-exported from ``environment.py``.
 """
 
 MODEL_NAME = "model"
@@ -25,6 +24,27 @@ WEIGHTS_PATTERN = "model-{:05d}-of-{:05d}.safetensors"
 # Environment variables the launcher sets and the state reads share this
 # prefix, the JAX package's, so one launched script configures either.
 ENV_PREFIX = "ACCELERATE_TPU_"
+
+# Mesh axis names (parallel/mesh.py). Every layout in the package is
+# expressed over these axes:
+#   dp    - data parallelism (gradients summed, parameters replicated)
+#   fsdp  - fully-sharded data parallelism (parameters, gradients and
+#           optimizer state sharded)
+#   tp    - tensor parallelism (Megatron column/row projections)
+#   cp    - context parallelism (the sequence split; ring or Ulysses
+#           attention)
+#   ep    - expert parallelism (MoE)
+#   pp    - pipeline stages
+MESH_AXIS_DP = "dp"
+MESH_AXIS_FSDP = "fsdp"
+MESH_AXIS_TP = "tp"
+MESH_AXIS_CP = "cp"
+MESH_AXIS_EP = "ep"
+MESH_AXIS_PP = "pp"
+MESH_AXES = (MESH_AXIS_DP, MESH_AXIS_FSDP, MESH_AXIS_TP, MESH_AXIS_CP, MESH_AXIS_EP, MESH_AXIS_PP)
+
+# Axes over which a global batch's rows are split.
+BATCH_AXES = (MESH_AXIS_DP, MESH_AXIS_FSDP)
 
 
 

@@ -8,11 +8,13 @@ Counterpart of ``accelerate_tpu/utils/dataclasses.py``: the enums
 ``DistributedDataParallelKwargs``, ``DistributedInitKwargs`` /
 ``InitProcessGroupKwargs`` (``:235``), ``ProfileKwargs`` (``:265``),
 ``GradientAccumulationPlugin`` (``:291``), ``DataLoaderConfiguration``
-(``:301``), ``ProjectConfiguration`` (``:323``), and the sharding plugins
-``FullyShardedDataParallelPlugin`` (``:372``) and ``DeepSpeedPlugin``
-(``:500``). ``GradScalerKwargs`` lives in ``precision.py``. The plugins of
-meshes (tensor, context, pipeline and expert parallelism, Megatron-LM, and
-FSDP's ``HYBRID_SHARD``) come with ROADMAP.md, A8d.
+(``:301``), ``ProjectConfiguration`` (``:323``), and the parallelism
+plugins: ``FullyShardedDataParallelPlugin`` (``:372``),
+``TensorParallelPlugin``, ``ContextParallelPlugin``,
+``PipelineParallelPlugin`` (``:442-494``), ``DeepSpeedPlugin`` (``:500``)
+and ``MegatronLMPlugin`` with ``add_model_config_to_megatron_parser``
+(``:656-733``). ``GradScalerKwargs`` lives in ``precision.py``. The expert
+plugin comes with MoE (ROADMAP.md, A8d).
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ class DistributedType(BaseEnum):
     process; ``MULTI_CPU``: one over gloo on the CPU (also at a world size
     of 1, when a launcher asked for a process group). ``FSDP`` and
     ``DEEPSPEED``: an accelerator with a sharding plugin (its process
-    group is either of the two). The mesh kinds come with ROADMAP.md, A8d."""
+    group is either of the two). ``TENSOR_PARALLEL``, ``PIPELINE_PARALLEL``
+    and ``MEGATRON_LM``: an accelerator whose mesh has a tp or pp axis
+    above 1, or a Megatron-LM plugin."""
 
     NO = "NO"
     MULTI_CPU = "MULTI_CPU"
@@ -320,9 +324,9 @@ class ProjectConfiguration:
 
 @dataclass
 class FullyShardedDataParallelPlugin(KwargsHandler):
-    """FSDP and ZeRO over the process group, which is the one mesh axis
-    (``fsdp``) here; ``parallel/sharding.py`` decides each leaf's layout by
-    the JAX package's rules and runs the collectives.
+    """FSDP and ZeRO over the mesh's ``fsdp`` axis (by default every
+    process); ``parallel/sharding.py`` decides each leaf's layout by the
+    JAX package's rules and runs the collectives.
 
     ``sharding_strategy``: ``FULL_SHARD`` stores each large parameter as
     this process's chunk and all-gathers a decoder layer's parameters where
@@ -330,7 +334,9 @@ class FullyShardedDataParallelPlugin(KwargsHandler):
     the checkpointed layer, so the backward gathers again (reshard after
     forward). ``SHARD_GRAD_OP`` stores the same chunks and keeps one gather
     a step through the backward. ``NO_SHARD`` shards no parameter.
-    ``HYBRID_SHARD`` needs a 2-D mesh (ROADMAP.md, A8d) and raises.
+    ``HYBRID_SHARD`` is ``FULL_SHARD`` over the ``fsdp`` axis of a mesh
+    whose ``dp`` axis replicates (``MeshConfig(dp=2, fsdp=2)``), as in
+    the JAX package, where the two strategies share one policy.
     ``zero_sharding`` also shards the AdamW state of the replicated leaves
     (ZeRO-1/2); ``cpu_offload`` keeps the optimizer state in host memory
     between steps (``parallel/host_offload.py``); ``activation_checkpointing``
@@ -373,10 +379,6 @@ class FullyShardedDataParallelPlugin(KwargsHandler):
         if self.sharding_strategy not in ("FULL_SHARD", "SHARD_GRAD_OP", "NO_SHARD",
                                           "HYBRID_SHARD"):
             raise ValueError(f"unknown sharding_strategy {self.sharding_strategy!r}")
-        if self.sharding_strategy == "HYBRID_SHARD":
-            raise NotImplementedError(
-                "HYBRID_SHARD shards within a node and replicates across nodes: a 2-D mesh, "
-                "not ported to accelerate_tpu_torch yet (ROADMAP.md, A8d)")
         if self.sharding_strategy == "NO_SHARD":
             self.min_weight_size_to_shard = 1 << 62  # nothing shards
         if self.sharding_strategy == "SHARD_GRAD_OP":
@@ -393,6 +395,50 @@ class FullyShardedDataParallelPlugin(KwargsHandler):
                 "decided per leaf by size and shape (min_weight_size_to_shard, "
                 "shard_largest_dim), and a decoder layer is the unit of a gather.",
                 stacklevel=2)
+
+
+@dataclass
+class TensorParallelPlugin(KwargsHandler):
+    """Tensor parallelism over the mesh's ``tp`` axis: the Megatron
+    column/row layout of ``parallel/sharding.py``'s ``ShardingRules``
+    (``rules`` come before the defaults). ``sequence_parallelism`` is
+    declared, as in the JAX package, where no code reads it; it has no
+    effect here either."""
+
+    tp_size: int = 1
+    sequence_parallelism: bool = True
+    rules: Optional[list] = None  # extra (regex, tp dim) rules
+
+
+@dataclass
+class ContextParallelPlugin(KwargsHandler):
+    """Context parallelism over the mesh's ``cp`` axis: each process holds
+    ``S / cp`` tokens of every row, and attention runs as ring attention
+    (the K/V chunks rotate around the ``cp`` processes by send/recv under
+    an online softmax in f32) or Ulysses (two all-to-alls around the flash
+    kernel), ``ops/ring_attention.py``. ``ring_inner_chunk`` is the width
+    of the key sub-tiles the ring's online softmax takes at a time."""
+
+    cp_size: int = 1
+    mode: Literal["ring", "all_gather"] = "ring"
+    causal: bool = True
+    ring_inner_chunk: int = 1024
+
+    def __post_init__(self):
+        if self.ring_inner_chunk < 1:
+            raise ValueError(f"ring_inner_chunk must be >= 1, got {self.ring_inner_chunk}")
+
+
+@dataclass
+class PipelineParallelPlugin(KwargsHandler):
+    """Pipeline parallelism over the mesh's ``pp`` axis: the GPipe schedule
+    of ``parallel/pipeline.py`` over ``num_microbatches`` microbatches.
+    ``schedule`` is declared with ``"1f1b"`` as in the JAX package, where
+    no code reads it; both run GPipe."""
+
+    pp_size: int = 1
+    num_microbatches: int = 1
+    schedule: Literal["gpipe", "1f1b"] = "gpipe"
 
 
 @dataclass
@@ -529,3 +575,71 @@ class DeepSpeedPlugin(KwargsHandler):
             cpu_offload=(self.offload_optimizer_device == "cpu"
                          or self.offload_param_device == "cpu"),
             zero_sharding=self.zero_stage >= 1)
+
+
+@dataclass
+class MegatronLMPlugin(KwargsHandler):
+    """A Megatron-LM configuration translated onto the mesh
+    (:meth:`to_plugins`): the tp and pp degrees become the ``tp`` and
+    ``pp`` axes, the distributed optimizer a ``SHARD_GRAD_OP`` FSDP plugin.
+    No Megatron engine runs."""
+
+    tp_degree: int = 1
+    pp_degree: int = 1
+    num_micro_batches: int = 1
+    sequence_parallelism: bool = False
+    use_distributed_optimizer: bool = False
+    gradient_clipping: Optional[float] = 1.0
+    recompute_activations: bool = False
+
+    def to_plugins(self):
+        """``(TensorParallelPlugin, PipelineParallelPlugin, FSDP plugin or
+        None)`` of the Megatron degrees."""
+        tp = TensorParallelPlugin(tp_size=self.tp_degree,
+                                  sequence_parallelism=self.sequence_parallelism)
+        pp = PipelineParallelPlugin(pp_size=self.pp_degree,
+                                    num_microbatches=self.num_micro_batches)
+        fsdp = None
+        if self.use_distributed_optimizer:
+            fsdp = FullyShardedDataParallelPlugin(sharding_strategy="SHARD_GRAD_OP")
+        return tp, pp, fsdp
+
+
+def add_model_config_to_megatron_parser(model_config, plugin: Optional[MegatronLMPlugin] = None):
+    """A model config's dimensions under Megatron's argument names, checked
+    against ``plugin``'s degrees (hidden size and heads divisible by tp,
+    layers by pp), as Megatron checks them at setup. ``model_config`` is a
+    config object or a dict (``hidden_size``/``n_embd``,
+    ``num_hidden_layers``/``n_layer``, ...). Returns ``(plugin, args)``."""
+    plugin = plugin or MegatronLMPlugin()
+    get = (model_config.get if isinstance(model_config, dict)
+           else lambda k, d=None: getattr(model_config, k, d))
+
+    def first(*names, required=True):
+        for n in names:
+            v = get(n)
+            if v is not None:
+                return v
+        if required:
+            raise ValueError(f"model config provides none of {names}")
+        return None
+
+    args = {
+        "num_layers": int(first("num_hidden_layers", "n_layer", "num_layers")),
+        "hidden_size": int(first("hidden_size", "n_embd", "d_model")),
+        "num_attention_heads": int(first("num_attention_heads", "n_head", "num_heads")),
+        "max_position_embeddings": int(first(
+            "max_position_embeddings", "n_positions", required=False) or 0) or None,
+        "orig_vocab_size": int(first("vocab_size")),
+    }
+    if args["hidden_size"] % plugin.tp_degree:
+        raise ValueError(
+            f"hidden_size {args['hidden_size']} not divisible by tp_degree {plugin.tp_degree}")
+    if args["num_attention_heads"] % plugin.tp_degree:
+        raise ValueError(
+            f"num_attention_heads {args['num_attention_heads']} not divisible by "
+            f"tp_degree {plugin.tp_degree}")
+    if args["num_layers"] % plugin.pp_degree:
+        raise ValueError(
+            f"num_layers {args['num_layers']} not divisible by pp_degree {plugin.pp_degree}")
+    return plugin, args

@@ -11,9 +11,8 @@ collectives over the process group (``gather`` ``:220``, ``gather_object``
 ``pad_across_processes`` ``:327``, ``reduce`` ``:366``), on
 ``torch.distributed``: NCCL moves tensors on the card, gloo on the CPU.
 Without a process group each collective is the identity (``reduce``
-scales). ``reduce_scatter`` and ``all_gather_into`` are the two halves of
-a sharded update (``parallel/sharding.py``), which XLA inserts by itself
-in the JAX package; with one process each returns its input. Under ``debug`` (``ACCELERATE_TPU_DEBUG``) a tensor collective
+scales); the collectives over a mesh's groups are
+``parallel/mesh.py``'s ``AxisGroup``. Under ``debug`` (``ACCELERATE_TPU_DEBUG``) a tensor collective
 first compares every rank's shapes and raises
 ``DistributedOperationException`` naming the op and each rank's shape
 (``verify_operation`` ``:139-182``). A tensor comes back on the device it
@@ -379,49 +378,3 @@ def reduce(tensor, reduction: str = "sum", scale: float = 1.0):
         return (x * scale).to(home)
 
     return recursively_apply(one, tensor)
-
-
-def _single(name: str, legacy: str):
-    """``torch.distributed``'s ``*_single`` collective, or its older name
-    (which newer torch keeps, deprecated)."""
-    import torch.distributed as dist
-
-    return getattr(dist, name, None) or getattr(dist, legacy)
-
-
-def reduce_scatter(tensor: torch.Tensor, reduction: str = "sum", scale: float = 1.0):
-    """This process's chunk of the sum (or mean) over processes of
-    ``tensor``, whose dim 0 holds one chunk a process in rank order, times
-    ``scale``: ``[num_processes * k, ...] -> [k, ...]``. With one process
-    (or none), ``tensor`` itself, scaled in place unless ``scale`` is 1.
-    NCCL needs tensors on the card, gloo on the CPU: pass them there."""
-    if reduction not in ("sum", "mean"):
-        raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
-    state = _group()
-    n = state["num_processes"] if state is not None else 1
-    if reduction == "mean":
-        scale = scale / n
-    if n == 1:
-        return tensor.mul_(scale) if scale != 1.0 else tensor
-    if tensor.shape[0] % n:
-        raise ValueError(f"reduce_scatter: dim 0 ({tensor.shape[0]}) is not a multiple of "
-                         f"the {n} processes")
-    out = torch.empty((tensor.shape[0] // n, *tensor.shape[1:]), dtype=tensor.dtype,
-                      device=tensor.device)
-    _single("reduce_scatter_single", "reduce_scatter_tensor")(out, tensor.contiguous())
-    return out.mul_(scale) if scale != 1.0 else out
-
-
-def all_gather_into(tensor: torch.Tensor, out: Optional[torch.Tensor] = None):
-    """Every process's ``tensor`` (one shape on all) concatenated on dim 0
-    in rank order, into ``out`` when given (``[num_processes * k, ...]``).
-    With one process (or none), ``tensor`` itself, or copied into ``out``."""
-    state = _group()
-    n = state["num_processes"] if state is not None else 1
-    if n == 1:
-        return tensor if out is None else out.copy_(tensor)
-    if out is None:
-        out = torch.empty((n * tensor.shape[0], *tensor.shape[1:]), dtype=tensor.dtype,
-                          device=tensor.device)
-    _single("all_gather_single", "all_gather_into_tensor")(out, tensor.contiguous())
-    return out

@@ -183,9 +183,31 @@ order; any failure exits non-zero:
    of the same bytes. ``main_sharded()`` runs it alone, with its own
    reference steps.
 
+11. device meshes and in-model parallelism (``parallel/mesh.py``,
+   ``pipeline.py``, ``ops/ring_attention.py``, ``inference.py``):
+   ``launch --num_processes 1 --mixed_precision bf16 --dp 1 --fsdp 1 --tp 1
+   --cp 1 --pp 1 chip_smoke.py --mesh-child OUT`` trains the tier-1 model
+   at world size 1 over NCCL on the mesh the flags build, 3 + 10 steps in
+   ``run_bench``'s batch order, in four modes: (a) with
+   ``TensorParallelPlugin(tp_size=1)`` and ``PipelineParallelPlugin(pp_size=1)``,
+   (b) ``attention_backend="ring"``, (c) ``"ulysses"``, (d)
+   ``HYBRID_SHARD`` with activation checkpointing; each prints its 13
+   losses' ends, step ms, peak GiB and wgmma launches a step (10 + 10 + 10,
+   20 + 10 + 10 under (d)'s remat), and its 13 losses must equal phase 6's
+   bit for bit (else the first step and relative gap where they part are
+   printed and the phase fails). Then here ``prepare_pipeline`` over
+   Llama-3-8B in bf16 at full depth, stacked from phase 3's weights (the
+   same seed), ``num_microbatches=2``, on phase 3's 4 x 2048 tokens: its
+   logits against phase 3's (relative L2 at most 1e-3 on every 256th
+   position's logits, top-1 agreement at least 0.99 over every position),
+   its ms beside phase 3's, and 32 flash launches in the call (one per
+   layer; at pp=1 the whole batch is one pass). ``main_mesh()`` runs it
+   alone (with its own reference steps and 8B forward).
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
-``multiprocess_launches``, and in phase 10, ``sharded_launches``) and the
-card's line, and as its last line ``{"ok": true, "device": {...}}``.
+``multiprocess_launches``, in phase 10, ``sharded_launches``, and in phase
+11, ``mesh_launches``) and the card's line, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -671,6 +693,11 @@ def build_model():
     return model, policy, gen
 
 
+#: Phase 3's input ids, forward ms, logits at every 256th position and
+#: top-1 tokens, for phase 11.
+PHASE3: dict = {}
+
+
 def phase_forward(model, policy, gen):
     import torch
 
@@ -698,6 +725,9 @@ def phase_forward(model, policy, gen):
         print(f"  forward {B}x{S} tokens: {seconds * 1e3:.1f} ms, {B * S / seconds:.0f} tokens/s, "
               f"flash_fwd launches {launches} (one per layer, wgmma route), peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        # What phase 11's pipelined inference is held against.
+        PHASE3.update(ids=ids.cpu(), ms=seconds * 1e3, sample=logits[:, ::256].float().cpu(),
+                      top1=logits.argmax(-1).cpu())
         del logits
 
         # Same widths, small input: flash attention against einsum attention.
@@ -3340,6 +3370,236 @@ def phase_sharded(reference=None):
                 reference_step_ms=reference["extra"]["step_ms"], reference_peak_gib=ref_peak)
 
 
+MESH = dict(warmup=3, iters=10, timeout=500, infer_iters=3)
+MESH_CHILD_FLAG = "--mesh-child"
+MESH_FLAGS = ["--dp", "1", "--fsdp", "1", "--tp", "1", "--cp", "1", "--pp", "1"]
+#: Phase 11's modes: accelerator keywords (plugins by name) and config overrides.
+MESH_MODES = {
+    "mesh_tp1_pp1": dict(plugins=("tp", "pp"), config={}),
+    "ring": dict(plugins=(), config={"attention_backend": "ring"}),
+    "ulysses": dict(plugins=(), config={"attention_backend": "ulysses"}),
+    "hybrid_shard_remat": dict(plugins=("hybrid",), config={}),
+}
+
+
+def mesh_steps(mode: dict) -> dict:
+    """The tier-1 model on the launched process's mesh in one of
+    ``MESH_MODES``: 3 + 10 steps in ``run_bench``'s batch order, the last 10
+    timed; the flash launches, the layer gathers and the peak memory."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        FullyShardedDataParallelPlugin,
+        PipelineParallelPlugin,
+        TensorParallelPlugin,
+    )
+    from accelerate_tpu_torch.bench import build_train_step
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    plugins = {"tp": ("tp_plugin", lambda: TensorParallelPlugin(tp_size=1)),
+               "pp": ("pp_plugin", lambda: PipelineParallelPlugin(pp_size=1)),
+               "hybrid": ("fsdp_plugin", lambda: FullyShardedDataParallelPlugin(
+                   sharding_strategy="HYBRID_SHARD", activation_checkpointing=True))}
+    kwargs = {plugins[k][0]: plugins[k][1]() for k in mode["plugins"]}
+    cfg, model, step, batches = build_train_step(accelerator_kwargs=kwargs, **mode["config"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    for i in range(MESH["warmup"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MESH["iters"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MESH["iters"]
+    state = AcceleratorState()
+    out = dict(losses=torch.stack(losses).tolist(), step_ms=step_ms, counts=read_counts(),
+               layers=cfg.num_hidden_layers, mesh=dict(state.mesh.shape),
+               gathers=model.layout.gathers if model.layout is not None else 0,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               distributed_type=str(state.distributed_type),
+               attention_backend=cfg.attention_backend)
+    del model, step
+    free_cuda()
+    return out
+
+
+def mesh_child(out_path: str):
+    """The launched trainer of phase 11 (``launch --num_processes 1
+    --mixed_precision bf16 --dp 1 --fsdp 1 --tp 1 --cp 1 --pp 1
+    chip_smoke.py --mesh-child OUT``): each mode of ``MESH_MODES`` in turn,
+    in the process group; writes the numbers to ``OUT`` as JSON."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accelerate_tpu_torch import PartialState
+
+    state = PartialState()
+    result = dict(backend=state.backend, world=state.num_processes, device=str(state.device),
+                  env={k: v for k, v in os.environ.items() if k.startswith("ACCELERATE_TPU_MESH")})
+    for name, mode in MESH_MODES.items():
+        result[name] = mesh_steps(mode)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    print(f"mesh child done: rank {state.process_index} of {state.num_processes} "
+          f"over {state.backend}")
+
+
+def first_gap(got: list, want: list):
+    """``(step, relative gap)`` where two loss lists first differ, else None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i + 1, abs(a - b) / max(abs(b), 1e-30)
+    return None
+
+
+def pipelined_inference(problems: list) -> dict:
+    """``prepare_pipeline`` over Llama-3-8B (bf16, full depth) stacked from
+    phase 3's weights, ``num_microbatches=2``, on phase 3's 4 x 2048 tokens,
+    against phase 3's logits (``PHASE3``); its ms, flash launches and peak."""
+    import torch
+
+    from accelerate_tpu_torch import PipelinedLlamaForCausalLM, prepare_pipeline
+
+    model, policy, _ = build_model()  # phase 3's seed: the same weights
+    cfg = model.config
+    stacked_state = PipelinedLlamaForCausalLM.from_sequential_params(model.state_dict())
+    del model
+    free_cuda()
+    stacked = PipelinedLlamaForCausalLM(cfg, device="cuda", dtype=policy.compute_dtype,
+                                        num_microbatches=2).eval()
+    stacked.load_state_dict(stacked_state)
+    del stacked_state
+    free_cuda()
+    fwd = prepare_pipeline(stacked)
+    ids = PHASE3["ids"].cuda()
+    fwd(ids[:1, :256])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(MESH["infer_iters"]):
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = fwd(ids)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if i < MESH["infer_iters"] - 1:
+            del logits
+    sample = logits[:, ::256].float().cpu()
+    rel = ((sample - PHASE3["sample"]).norm() / PHASE3["sample"].norm()).item()
+    agree = (logits.argmax(-1).cpu() == PHASE3["top1"]).float().mean().item()
+    out = dict(ms=min(times), phase3_ms=PHASE3["ms"], rel_l2=rel, top1_agreement=agree,
+               counts=counts, microbatches=fwd.num_microbatches,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               shape=list(logits.shape))
+    print(f"  PipelinedInferencer over llama3_8b (bf16, {cfg.num_hidden_layers} layers, "
+          f"stacked, num_microbatches={fwd.num_microbatches}), {ids.shape[0]} x {ids.shape[1]} "
+          f"tokens: best of {MESH['infer_iters']} {out['ms']:.1f} ms (phase 3's sequential "
+          f"forward {PHASE3['ms']:.1f} ms); logits against phase 3's: relative L2 {rel:.3e} "
+          f"(limit 1e-3), top-1 agreement {agree:.4f} (limit 0.99); flash launches in one call "
+          f"{counts['flash_fwd_sm90']} wgmma of {counts['flash_fwd']} (pp=1: the whole batch in "
+          f"one pass); peak {out['peak_memory_gib']:.1f} GiB; {card_line()}")
+    if tuple(logits.shape) != (ids.shape[0], ids.shape[1], cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        problems.append(f"pipelined logits: shape {tuple(logits.shape)} or non-finite values")
+    if not rel <= 1e-3 or not agree >= 0.99:
+        problems.append(f"pipelined logits part from phase 3's: relative L2 {rel:.3e}, top-1 "
+                        f"agreement {agree:.4f}")
+    if counts != expected_counts(cfg.num_hidden_layers, 0, wgmma=True):
+        problems.append(f"pipelined forward's flash launches {counts}, expected "
+                        f"{cfg.num_hidden_layers} wgmma forward launches")
+    del logits, fwd, stacked
+    free_cuda()
+    return out
+
+
+def phase_mesh(reference=None):
+    """Phase 11: the tier-1 trainer launched on a mesh at world size 1 over
+    NCCL in ``MESH_MODES``, held bit for bit against phase 6
+    (``reference``: its ``run_bench`` result, else its 13 steps run here);
+    then pipelined inference over Llama-3-8B against phase 3 (whose numbers
+    ``PHASE3`` holds; else they are made here). Every mode is printed before
+    a failure fails the phase. Returns the numbers, with the flash launches
+    of every run summed in ``counts``."""
+    import tempfile
+
+    if reference is None:
+        from accelerate_tpu_torch.bench import run_bench
+
+        reference = run_bench(iters=MESH["iters"], warmup=MESH["warmup"])
+        free_cuda()
+    steps = MESH["warmup"] + MESH["iters"]
+    ref_losses = reference["extra"]["losses"][:steps]
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_mesh_") as tmp:
+        result_path = os.path.join(tmp, "child.json")
+        t0 = time.time()
+        run_cli(["launch", "--num_processes", "1", "--mixed_precision", "bf16", *MESH_FLAGS,
+                 os.path.join(HERE, "chip_smoke.py"), MESH_CHILD_FLAG, result_path],
+                timeout=MESH["timeout"])
+        wall_s = time.time() - t0
+        with open(result_path) as f:
+            child = json.load(f)
+    print(f"  launched trainer ({wall_s:.1f} s of wall time): world {child['world']} over "
+          f"{child['backend']} on {child['device']}, mesh variables {child['env']}; phase 6 "
+          f"without a mesh: {reference['extra']['step_ms']:.2f} ms a step, peak "
+          f"{reference['extra']['peak_memory_gib']:.2f} GiB")
+    problems = []
+    if child["backend"] != "nccl" or child["world"] != 1:
+        problems.append(f"the mesh trainer ran over {child['backend']} at world size "
+                        f"{child['world']}")
+    total = {k: 0 for k in read_counts()}
+    for name in MESH_MODES:
+        run = child[name]
+        layers = run["layers"]
+        remat = name == "hybrid_shard_remat"
+        per_step = {k: v / steps for k, v in run["counts"].items() if v}
+        gap = first_gap(run["losses"], ref_losses)
+        print(f"  {name}: mesh {run['mesh']}, {run['distributed_type']}, backend "
+              f"{run['attention_backend']}; step {run['step_ms']:.2f} ms; peak "
+              f"{run['peak_memory_gib']:.2f} GiB; launches a step {per_step}; losses "
+              + ", ".join(f"{x:.6f}" for x in run["losses"])
+              + ("; equal to phase 6's bit for bit" if gap is None else
+                 f"; part from phase 6's at step {gap[0]}, relative gap {gap[1]:.3e}")
+              + f"; {card_line()}")
+        if any(v != 1 for v in run["mesh"].values()):
+            problems.append(f"{name} ran on the mesh {run['mesh']}")
+        want = expected_counts((2 if remat else 1) * layers * steps, layers * steps, wgmma=True)
+        if run["counts"] != want:
+            problems.append(f"{name}'s flash launches {run['counts']}, expected {want}")
+        if remat and run["gathers"] != 2 * layers * steps:
+            problems.append(f"{name} gathered {run['gathers']} layers in {steps} steps, "
+                            f"expected {2 * layers * steps}")
+        if gap is not None:
+            problems.append(f"{name}'s losses part from phase 6's at step {gap[0]} "
+                            f"(relative gap {gap[1]:.3e})")
+        for k, v in run["counts"].items():
+            total[k] += v
+    train_counts = dict(total)
+    if not PHASE3:
+        model, policy, gen = build_model()
+        phase_forward(model, policy, gen)
+        del model, gen
+        free_cuda()
+    infer = pipelined_inference(problems)
+    for k, v in infer["counts"].items():
+        total[k] += v
+    phase_s = time.time() - t_phase
+    print(f"  phase 11 took {phase_s:.1f} s")
+    if problems:
+        fail("phase 11: " + "; ".join(problems))
+    print(f"  every mesh mode's {steps} losses equal phase 6's bit for bit")
+    return dict(child=child, infer=infer, counts=total, train_counts=train_counts,
+                steps=len(MESH_MODES) * steps, seconds=phase_s,
+                reference_step_ms=reference["extra"]["step_ms"])
+
+
 def main():
     import torch
 
@@ -3415,6 +3675,9 @@ def main():
     free_cuda()
     print("== 10. sharded training state: FSDP launched over NCCL, optimizer offload")
     sharded = phase_sharded(result)
+    free_cuda()
+    print("== 11. device meshes: tp/pp plugins, ring, ulysses, HYBRID_SHARD; pipelined inference")
+    mesh = phase_mesh(result)
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -3434,6 +3697,8 @@ def main():
         entry["multiprocess_launches_per_step"] = mp["counts"][key] / len(mp["losses"])
         entry["sharded_launches"] = sharded["counts"][key]
         entry["sharded_launches_per_step"] = sharded["counts"][key] / sharded["steps"]
+        entry["mesh_launches"] = mesh["counts"][key]
+        entry["mesh_launches_per_step"] = mesh["train_counts"][key] / mesh["steps"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3558,6 +3823,27 @@ def main_sharded():
         **{k: sharded[k] for k in ("reference_step_ms", "reference_peak_gib", "counts")}}}))
 
 
+def main_mesh():
+    """Phase 11 alone. Builds the kernels first: the mesh modes run the
+    flash kernels; their reference steps and phase 3's forward run here."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    mesh = phase_mesh()
+    print(json.dumps({"mesh": {
+        **{name: {k: mesh["child"][name][k] for k in ("step_ms", "peak_memory_gib", "gathers")}
+           for name in MESH_MODES},
+        "infer": {k: mesh["infer"][k] for k in ("ms", "phase3_ms", "rel_l2", "top1_agreement",
+                                                "peak_memory_gib")},
+        "seconds": mesh["seconds"], "reference_step_ms": mesh["reference_step_ms"],
+        "counts": mesh["counts"]}}))
+
+
 TRAIN_PATH = "tier-1 train steps (phase 6)"
 LOOP_PATH = ("tier-1 training loop (phase 8): packed 1024-token rows with segment_ids, "
              "dots remat, accumulation 2")
@@ -3616,5 +3902,7 @@ if __name__ == "__main__":
         multiprocess_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == SHARDED_CHILD_FLAG:
         sharded_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == MESH_CHILD_FLAG:
+        mesh_child(sys.argv[2])
     else:
         main()

@@ -19,7 +19,8 @@ import pytest
 MODULES = ["", ".utils", ".state", ".accelerator", ".data_loader", ".scheduler",
            ".checkpointing", ".generation", ".tracking", ".big_modeling", ".utils.modeling",
            ".utils.operations", ".launchers", ".local_sgd", ".commands.launch",
-           ".parallel.sharding", ".parallel.host_offload", ".commands.merge"]
+           ".parallel.sharding", ".parallel.host_offload", ".commands.merge",
+           ".parallel.mesh", ".parallel.pipeline", ".ops.ring_attention", ".inference"]
 
 TAGS = {"A8d", "A9", "JAX-only"}
 _PYTREE = "a JAX function takes the parameter pytree; a torch module holds its parameters"
@@ -28,26 +29,15 @@ _ABSTRACT = "flax's abstract init over example inputs; a torch module is built o
 
 #: Reference names the port does not have, by their home in the reference.
 MISSING_OK = {
-    "accelerate_tpu.utils.dataclasses.TensorParallelPlugin": ("A8d", "tensor parallelism"),
-    "accelerate_tpu.utils.dataclasses.ContextParallelPlugin": ("A8d", "ring attention"),
-    "accelerate_tpu.utils.dataclasses.PipelineParallelPlugin": ("A8d", "pipeline schedule"),
     "accelerate_tpu.utils.dataclasses.ExpertParallelPlugin": ("A8d", "MoE expert parallelism"),
-    "accelerate_tpu.utils.dataclasses.MegatronLMPlugin": ("A8d", "a 3D mesh policy"),
     "accelerate_tpu.utils.dataclasses.FP8RecipeKwargs": ("A9", "the fp8 path"),
     "accelerate_tpu.utils.dataclasses.JitConfig": ("JAX-only", "jax.jit options"),
-    "accelerate_tpu.parallel.sharding.ShardingRules": ("A8d", "tensor-parallel path rules"),
     "accelerate_tpu.parallel.sharding.replicated_sharding": (
         "JAX-only", "a NamedSharding over a mesh; a replicated leaf's spec is PartitionSpec()"),
     "accelerate_tpu.parallel.sharding.zero_step_compile_cache_guard": (
         "JAX-only", "keeps ZeRO executables out of XLA's persistent compile cache"),
     "accelerate_tpu.parallel.host_offload.shardings_like": (
         "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
-    "accelerate_tpu.parallel.mesh.MeshConfig": ("A8d", "device meshes"),
-    "accelerate_tpu.parallel.mesh.make_mesh": ("A8d", "device meshes"),
-    "accelerate_tpu.state.current_mesh": ("A8d", "the ambient device mesh"),
-    "accelerate_tpu.data_loader.batch_sharding": ("A8d", "the batch's mesh sharding"),
-    "accelerate_tpu.inference.PipelinedInferencer": ("A8d", "pipelined inference"),
-    "accelerate_tpu.inference.prepare_pipeline": ("A8d", "pipelined inference"),
     "accelerate_tpu.generation.seq2seq_generate": ("A9", "comes with T5"),
     "accelerate_tpu.big_modeling.LazyStack": ("A9", "stacked experts come with Mixtral"),
     **{f"accelerate_tpu.tracking.{name}": (
@@ -74,22 +64,17 @@ MISSING_OK = {
        for name in ("is_jax_available", "is_flax_available", "is_optax_available",
                     "is_orbax_available", "is_grain_available", "is_pallas_available",
                     "is_tpu_available")},
-    **{f"accelerate_tpu.utils:{name}": ("A8d", "mesh axis names")
-       for name in ("MESH_AXES", "MESH_AXIS_CP", "MESH_AXIS_DP", "MESH_AXIS_EP",
-                    "MESH_AXIS_FSDP", "MESH_AXIS_PP", "MESH_AXIS_TP")},
 }
 
 #: Reference keywords the port's function or class lacks:
 #: (home of the reference object, keywords, tag, reason).
 KEYWORDS_OK = [
-    ("accelerate_tpu.accelerator.Accelerator", ("tp_plugin", "cp_plugin", "pp_plugin",
-                                                "ep_plugin", "megatron_lm_plugin"),
-     "A8d", "in-model parallelism"),
+    ("accelerate_tpu.accelerator.Accelerator", ("ep_plugin",), "A8d",
+     "MoE expert parallelism"),
     ("accelerate_tpu.accelerator.Accelerator", ("dynamo_backend", "jit_config"), "JAX-only",
      "how XLA compiles the steps"),
-    ("accelerate_tpu.state.AcceleratorState", ("mesh_config", "tp_plugin", "cp_plugin",
-                                               "pp_plugin", "ep_plugin", "megatron_lm_plugin"),
-     "A8d", "meshes and in-model parallelism"),
+    ("accelerate_tpu.state.AcceleratorState", ("ep_plugin",), "A8d",
+     "MoE expert parallelism"),
     ("accelerate_tpu.accelerator.AcceleratedModel", ("model", "mesh", "param_shardings",
                                                      "autocast_enabled"),
      "JAX-only", "built by prepare from a flax Model and its mesh shardings"),
@@ -103,12 +88,6 @@ KEYWORDS_OK = [
      "the threaded reader comes with native/ host IO"),
     ("accelerate_tpu.checkpointing.save_adapter", ("blocking",), "JAX-only",
      "save_array_tree's background write (a pytree helper)"),
-    ("accelerate_tpu.data_loader.DataLoaderShard", ("mesh", "device_sharding"), "A8d",
-     "batches sharded over a mesh"),
-    ("accelerate_tpu.data_loader.prepare_data_loader", ("mesh", "device_sharding"), "A8d",
-     "batches sharded over a mesh"),
-    ("accelerate_tpu.data_loader.make_global_batch", ("mesh", "sharding"), "A8d",
-     "batches sharded over a mesh"),
     ("accelerate_tpu.big_modeling.BlockSpec", ("stage",), "A9",
      "encoder and decoder stages come with T5"),
     ("accelerate_tpu.big_modeling.StreamedModel", ("position_bound",), "A9",

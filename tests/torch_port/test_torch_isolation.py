@@ -68,7 +68,9 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "commands/config/config_args", "test_utils/__init__", "test_utils/training",
                  "test_utils/scripts/test_script", "test_utils/scripts/test_ops_multiprocess",
                  "parallel/sharding", "parallel/host_offload", "commands/merge",
-                 "test_utils/scripts/test_reshard_checkpoint"):
+                 "test_utils/scripts/test_reshard_checkpoint", "parallel/mesh",
+                 "parallel/pipeline", "ops/ring_attention", "inference",
+                 "test_utils/scripts/test_composed_mesh", "test_utils/scripts/test_pod_shape"):
         assert f"accelerate_tpu_torch/{name}.py" in scanned, name
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
@@ -104,6 +106,10 @@ def test_import_adds_no_jax_module():
         "import accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess\n"
         "import accelerate_tpu_torch.parallel.host_offload, accelerate_tpu_torch.commands.merge\n"
         "import accelerate_tpu_torch.test_utils.scripts.test_reshard_checkpoint\n"
+        "import accelerate_tpu_torch.parallel.mesh, accelerate_tpu_torch.parallel.pipeline\n"
+        "import accelerate_tpu_torch.ops.ring_attention, accelerate_tpu_torch.inference\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_composed_mesh\n"
+        "import accelerate_tpu_torch.test_utils.scripts.test_pod_shape\n"
         "new = set(sys.modules) - before\n"
         f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r}\n"
         "             or m == 'accelerate_tpu' or m.startswith('accelerate_tpu.'))\n"
@@ -143,6 +149,8 @@ def test_entry_points_raise_without_a_card():
         build_train_step()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(LlamaForCausalLM(LlamaConfig.tiny(), device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Accelerator(mesh_config=accelerate_tpu_torch.MeshConfig(tp=1))
     # The train step takes the prepared objects' device: cpu only when asked.
     acc = Accelerator(cpu=True)
     model, _ = acc.prepare(PipelinedLlamaForCausalLM(LlamaConfig.tiny(), device="cpu"),
@@ -167,7 +175,9 @@ def test_package_exports_the_slice():
                  "GradientAccumulationPlugin", "ServingEngine", "ServingStats",
                  "GraphCaptureWatcher", "AdapterBank", "AdapterBankFull", "LoRAConfig",
                  "prepare_lora", "save_adapter", "load_adapter", "quantize_base_weights",
-                 "quantize_tensor", "speculative_emit_keyed"):
+                 "quantize_tensor", "speculative_emit_keyed", "MeshConfig", "make_mesh",
+                 "TensorParallelPlugin", "ContextParallelPlugin", "PipelineParallelPlugin",
+                 "MegatronLMPlugin", "PipelinedInferencer", "prepare_pipeline"):
         assert hasattr(accelerate_tpu_torch, name), name
     for method in ("prepare", "compile_train_step", "accumulate", "backward", "clip_grad_norm_",
                    "save_state", "load_state", "wait_for_checkpoint", "gather_for_metrics",

@@ -45,13 +45,19 @@ def test_env_prints_versions_cards_and_config(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["script.py"], "no CUDA card is visible; pass --use_cpu_emulation"),
-    (["--use_cpu_emulation", "--fsdp", "2", "script.py"], "ROADMAP.md, A8d"),
-    (["--use_cpu_emulation", "--tp", "2", "script.py"], "ROADMAP.md, A8d"),
+    (["--use_cpu_emulation", "--ep", "2", "script.py"], "ROADMAP.md, A8d"),
+    (["--use_cpu_emulation", "--num_processes", "2", "--ep", "2", "script.py"],
+     "ROADMAP.md, A8d"),
     (["--use_cpu_emulation", "--emulated_device_count", "2", "script.py"], "one device"),
     (["--use_cpu_emulation", "--gcloud", "script.py"], "JAX package only"),
     (["--use_cpu_emulation", "--num_processes", "2", "--num_machines", "2",
       "--main_process_ip", "127.0.0.1", "script.py"], "exclusive"),
     (["--use_cpu_emulation", "--num_machines", "2", "script.py"], "main_process_ip"),
+    (["--use_cpu_emulation", "--fsdp", "2", "script.py"], "do not divide the 1 process(es)"),
+    (["--use_cpu_emulation", "--num_processes", "4", "--tp", "3", "script.py"],
+     "do not divide the 4 process(es)"),
+    (["--use_cpu_emulation", "--num_processes", "4", "--tp", "-1", "--cp", "-1",
+      "script.py"], "only one mesh axis may be -1"),
 ])
 def test_launch_refuses(tmp_path, capsys, argv, message, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -110,6 +116,12 @@ def _double(x):
     return 2 * x, AcceleratorState(cpu=True).mixed_precision
 
 
+def _mesh_shape():
+    from accelerate_tpu_torch.state import AcceleratorState
+
+    return dict(AcceleratorState(cpu=True).mesh.shape)
+
+
 def test_notebook_launcher_in_process_and_its_refusals():
     from accelerate_tpu_torch import notebook_launcher
     from accelerate_tpu_torch.state import AcceleratorState
@@ -117,7 +129,10 @@ def test_notebook_launcher_in_process_and_its_refusals():
     assert notebook_launcher(_double, args=(4,), mixed_precision="bf16") == (8, "bf16")
     assert not AcceleratorState._shared_state  # reset after the run
     with pytest.raises(NotImplementedError, match="A8d"):
-        notebook_launcher(_double, args=(1,), tp=2)
+        notebook_launcher(_double, args=(1,), ep=2)
+    # A mesh of one process's axes reaches the state through the environment.
+    assert notebook_launcher(_mesh_shape, args=(), tp=1, cp=1) == {
+        "pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "cp": 1, "tp": 1}
     with pytest.raises(ValueError, match="master_addr"):
         notebook_launcher(_double, args=(1,), num_nodes=2)
 

@@ -228,7 +228,18 @@ def test_dense_cache_rejects_overflow():
 
 
 def test_context_parallel_backends_are_not_ported():
-    model = LlamaForCausalLM(LlamaConfig.tiny(attention_backend="ring"), device="cpu",
-                             generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="context-parallel"):
-        model(torch.zeros((1, 8), dtype=torch.long))
+    """On a cp axis of one process the ring and Ulysses backends are the
+    flash path (the JAX package's trivial-axis rule); what they cannot
+    take raises as in the JAX package."""
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 16)))
+    logits = {}
+    for backend in ("auto", "ring", "ulysses"):
+        model = LlamaForCausalLM(LlamaConfig.tiny(attention_backend=backend), device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        logits[backend] = model(ids)
+    torch.testing.assert_close(logits["ring"], logits["auto"], rtol=0, atol=0)
+    torch.testing.assert_close(logits["ulysses"], logits["auto"], rtol=0, atol=0)
+    model = LlamaForCausalLM(LlamaConfig.tiny(attention_backend="ring", sliding_window=4),
+                             device="cpu", generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="sliding_window"):
+        model(ids)

@@ -177,10 +177,23 @@ def test_zero_policy_cases_equal_the_jax_policy(case, caplog):
 
 
 def test_tensor_and_pipeline_rules_need_a_mesh():
+    """The tp and pp rules act only with their plugin on a mesh whose axis
+    is above 1; the ep rules (MoE) are not ported; HYBRID_SHARD is
+    FULL_SHARD's policy."""
+    from accelerate_tpu_torch import PipelineParallelPlugin, TensorParallelPlugin
+
+    q = "model/blocks/self_attn/q_proj/kernel"
+    tp = TensorParallelPlugin(tp_size=2)
+    pp = PipelineParallelPlugin(pp_size=2)
+    assert sharding.infer_param_shardings([(q, (2, 8, 8))], {"fsdp": 2}, tp_plugin=tp,
+                                          pp_plugin=pp)[q] == sharding.PartitionSpec()
+    got = sharding.infer_param_shardings([(q, (2, 8, 8))], {"tp": 2, "pp": 2}, tp_plugin=tp,
+                                         pp_plugin=pp)[q]
+    assert str(got) == "PartitionSpec('pp', None, 'tp')"
     with pytest.raises(NotImplementedError, match="A8d"):
-        sharding.infer_param_shardings([("w", (8, 8))], {"fsdp": 2}, tp_plugin=object())
-    with pytest.raises(NotImplementedError, match="A8d"):
-        FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD")
+        sharding.infer_param_shardings([("w", (8, 8))], {"ep": 2}, ep_plugin=object())
+    hybrid = FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD")
+    assert hybrid.reshard_after_forward and hybrid.min_weight_size_to_shard == 2**14
 
 
 def test_plugins_read_the_environment_and_translate_like_the_jax_package(monkeypatch):
@@ -399,5 +412,5 @@ def test_launch_fsdp_asks_the_children_for_fsdp(tmp_path, monkeypatch):
     assert str(state.distributed_type) == "FSDP"
     AcceleratorState._reset_state(reset_partial_state=True)
     monkeypatch.setenv("ACCELERATE_TPU_MESH_FSDP", "2")
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(ValueError, match="1 devices not divisible by explicit axes product 2"):
         AcceleratorState(cpu=True)

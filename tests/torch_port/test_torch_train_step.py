@@ -278,13 +278,16 @@ def test_grad_reduce_dtype_sees_narrow_params_and_warns_on_a_mismatch():
 
 
 def test_unported_options_raise():
-    from accelerate_tpu_torch import FullyShardedDataParallelPlugin
+    """HYBRID_SHARD and meshes are ported; an expert-parallel axis (MoE)
+    still raises."""
+    from accelerate_tpu_torch import FullyShardedDataParallelPlugin, MeshConfig
 
-    with pytest.raises(NotImplementedError, match="HYBRID_SHARD"):
-        Accelerator(cpu=True,
-                    fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Accelerator(cpu=True, mesh_config=object())
+    acc = Accelerator(cpu=True,
+                      fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD"))
+    assert acc.fsdp_plugin.sharding_strategy == "HYBRID_SHARD"
+    assert acc.mesh.shape == {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "cp": 1, "tp": 1}
+    with pytest.raises(NotImplementedError, match="A8d"):
+        MeshConfig(ep=2).build()
 
 
 def test_make_global_batch_types_and_device():
