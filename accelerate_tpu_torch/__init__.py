@@ -43,6 +43,7 @@ from .adapters import (
 )
 from .big_modeling import (
     BlockSpec,
+    LazyStack,
     LazyWeight,
     StreamedModel,
     UserCpuOffloadHook,
@@ -140,6 +141,7 @@ from .utils.dataclasses import (
     DistributedDataParallelKwargs,
     DistributedInitKwargs,
     DistributedType,
+    ExpertParallelPlugin,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,

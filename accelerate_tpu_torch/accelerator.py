@@ -65,8 +65,8 @@ replicated gradients, counted once. ``cpu_offload`` keeps the optimizer
 state in host memory between updates; ``activation_checkpointing``
 recomputes every decoder layer under the plugin's ``remat_policy``.
 
-On a mesh (``mesh_config``, the launcher's ``--dp/--fsdp/--tp/--cp/--pp``,
-or the tp/cp/pp/Megatron plugins; ``parallel/mesh.py``) each process is one
+On a mesh (``mesh_config``, the launcher's ``--dp/--fsdp/--tp/--cp/--pp/--ep``,
+or the tp/cp/pp/ep/Megatron plugins; ``parallel/mesh.py``) each process is one
 device of the JAX package's mesh and holds what that device holds: the
 ``tp`` and ``pp`` plugins split leaves as the JAX rules do, the ``dp`` and
 ``fsdp`` processes read different rows, the ``cp`` ones different chunks
@@ -77,7 +77,10 @@ leaf is split or replicated with equal gradients on every process, and is
 left as it is. ``HYBRID_SHARD`` is FULL_SHARD over ``fsdp``, replicated
 over ``dp``. The clip's global norm counts every element once (each set
 of split axes summed over its group). ZeRO shards the moments over
-``dp``, else ``fsdp``. The expert axis waits for MoE (ROADMAP.md, A8d).
+``dp``, else ``fsdp``. Under an ``ExpertParallelPlugin`` the ``ep``
+processes of a data shard read the same rows and hold their block of each
+MoE layer's experts (``ops/moe.py``); what they hold alike is left as it
+is, as over ``tp``.
 """
 
 from __future__ import annotations
@@ -337,8 +340,9 @@ class Accelerator:
     ``fsdp_plugin`` (or ``deepspeed_plugin``, translated onto one) shards
     the training state over the process group (module docstring).
 
-    ``mesh_config``, ``tp_plugin``, ``cp_plugin``, ``pp_plugin`` and
-    ``megatron_lm_plugin`` lay the processes out over a mesh (module
+    ``mesh_config``, ``tp_plugin``, ``cp_plugin``, ``pp_plugin``,
+    ``ep_plugin`` and ``megatron_lm_plugin`` lay the processes out over a
+    mesh (module
     docstring; ``AcceleratorState`` resolves them).
 
     ``seed`` seeds :attr:`generator`, the accelerator's own random stream,
@@ -355,7 +359,7 @@ class Accelerator:
                  step_scheduler_with_optimizer: bool = True,
                  kwargs_handlers: Optional[list] = None, seed: int = 0, fsdp_plugin=None,
                  mesh_config=None, deepspeed_plugin=None, tp_plugin=None, cp_plugin=None,
-                 pp_plugin=None, megatron_lm_plugin=None):
+                 pp_plugin=None, megatron_lm_plugin=None, ep_plugin=None):
         self.project_configuration = project_config or ProjectConfiguration(
             project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -370,7 +374,8 @@ class Accelerator:
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
                                       mesh_config=mesh_config, fsdp_plugin=fsdp_plugin,
                                       tp_plugin=tp_plugin, cp_plugin=cp_plugin,
-                                      pp_plugin=pp_plugin, deepspeed_plugin=deepspeed_plugin,
+                                      pp_plugin=pp_plugin, ep_plugin=ep_plugin,
+                                      deepspeed_plugin=deepspeed_plugin,
                                       megatron_lm_plugin=megatron_lm_plugin,
                                       **({"init_kwargs": init} if init is not None else {}))
         if gradient_accumulation_plugin is None:
@@ -548,7 +553,7 @@ class Accelerator:
                       evaluation_mode: bool = False) -> AcceleratedModel:
         """Move the module to the device (in place: an optimizer built on its
         parameters keeps them) and wrap it with the precision policy. Under
-        an FSDP plugin, or a mesh whose tensor or pipeline plugin splits
+        an FSDP plugin, or a mesh whose tensor, pipeline or expert plugin splits
         leaves, each split parameter keeps this process's chunk only (every
         process must hold the same weights before), and the model gets the
         layout its layer loops gather by (``parallel/sharding.py``)."""
@@ -559,10 +564,12 @@ class Accelerator:
         mesh = self.state.mesh
         tp_plugin = self.state.tp_plugin if mesh.shape["tp"] > 1 else None
         pp_plugin = self.state.pp_plugin if mesh.shape["pp"] > 1 else None
-        if plugin is not None or tp_plugin is not None or pp_plugin is not None:
+        ep_plugin = self.state.ep_plugin if mesh.shape["ep"] > 1 else None
+        if plugin is not None or tp_plugin is not None or pp_plugin is not None \
+                or ep_plugin is not None:
             from .parallel.sharding import ShardedLayout, layout_specs, sharding_summary
 
-            specs = layout_specs(module, plugin, mesh, tp_plugin, pp_plugin)
+            specs = layout_specs(module, plugin, mesh, tp_plugin, pp_plugin, ep_plugin)
             remat = plugin is not None and plugin.activation_checkpointing
             layout = ShardedLayout(
                 module, specs, mesh, compute_dtype=self.policy.compute_dtype,

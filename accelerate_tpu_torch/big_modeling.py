@@ -1,9 +1,10 @@
 """Big-model inference: run models larger than the card's memory.
 
-Counterpart of ``accelerate_tpu/big_modeling.py`` (its Llama family). The
-design is the JAX package's: the model is split into an embed block, one
-block per decoder layer and a head block, and the weights of each block
-live on the card, in host memory or on disk, as a device map says.
+Counterpart of ``accelerate_tpu/big_modeling.py`` (its Llama and Mixtral
+families). The design is the JAX package's: the model is split into an
+embed block, one block per decoder layer and a head block, and the weights
+of each block live on the card, in host memory or on disk, as a device map
+says.
 
 * "Meta device" init: :func:`init_empty_weights` builds the model on the
   meta device, where it holds shapes and no memory.
@@ -25,7 +26,10 @@ live on the card, in host memory or on disk, as a device map says.
 * Disk tier: :class:`LazyWeight` keeps a reference into the original
   safetensors shard (its byte offsets, the header parsed once) or into a
   memmap copy (``utils/offload.py``); a fetch reads it into pinned staging,
-  then copies it to the card.
+  then copies it to the card. An HF MoE checkpoint stores each expert's
+  matrix apart: :class:`LazyStack` keeps the references to a stacked
+  expert leaf's members (each transposed on read) and stacks them only when
+  its block is fetched, so no tier holds more than a block of experts.
 
 Device maps name placements by the port's parameter names
 (``model.layers.<i>.self_attn.q_proj.weight``). Integer placements name
@@ -96,6 +100,7 @@ class LazyWeight:
     dtype: Optional[torch.dtype] = None
     memmap_info: Optional[dict] = None
     source: Optional[SafetensorsFile] = None
+    transform: Optional[str] = None  # "t": transposed on read (an HF router)
 
     @property
     def nbytes(self) -> int:
@@ -120,12 +125,41 @@ class LazyWeight:
             from .utils.offload import load_offloaded_weight
 
             t = load_offloaded_weight(self.path, self.memmap_info)
-            if not pin:
-                return t
-            staged = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            return staged.copy_(t)
+            return _staged(t) if pin else t
         source = self.source if self.source is not None else SafetensorsFile(self.path)
-        return source.read(self.key, pin=pin)
+        if self.transform is None:
+            return source.read(self.key, pin=pin)
+        from .utils.hf_interop import apply_op
+
+        t = apply_op(source.read(self.key), self.transform)
+        return _staged(t) if pin else t
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``t``."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+@dataclasses.dataclass
+class LazyStack:
+    """A stacked leaf whose members are still on disk (a Mixtral layer's
+    experts: E per-expert matrices -> one ``[E, in, out]`` parameter):
+    ``members`` are their :class:`LazyWeight` s in stack order, each
+    transposed on read. Read and stacked only when its block is fetched,
+    then cast to ``dtype`` where one is given."""
+
+    members: list
+    dtype: Optional[torch.dtype] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(m.nbytes for m in self.members)
+
+    def load(self, pin: bool = False) -> torch.Tensor:
+        """The stacked tensor in host memory in its stored dtype, pinned
+        when ``pin``."""
+        t = torch.stack([m.load() for m in self.members])
+        return _staged(t) if pin else t
 
 
 class WeightStore:
@@ -150,7 +184,7 @@ class WeightStore:
         both; lazy disk entries count 0."""
         total = 0
         for name, val in self.entries.items():
-            if isinstance(val, LazyWeight):
+            if isinstance(val, (LazyWeight, LazyStack)):
                 continue
             k = "cpu" if self.placement.get(name) == "cpu" else "device"
             if kind is None or k == kind:
@@ -183,9 +217,12 @@ def block_specs_for(module) -> Optional[list]:
     """Block specs of a shipped model family, or None for another
     architecture (the caller passes specs)."""
     from .models.llama import LlamaForCausalLM
+    from .models.mixtral import MixtralForCausalLM
 
     if isinstance(module, LlamaForCausalLM):
         return _llama_block_specs(module.config)
+    if isinstance(module, MixtralForCausalLM):
+        return _mixtral_block_specs(module.config)
     return None
 
 
@@ -193,10 +230,29 @@ def _llama_block_specs(cfg) -> list:
     """Embed, one block per decoder layer and the head, in the port's
     names. The computation is ``LlamaForCausalLM.forward``'s, op for op, so
     a streamed forward gives the resident model's logits."""
-    from .models.llama import LlamaBlock, RMSNorm, _default_positions, _lm_head, _scale_embeddings
+    from .models.llama import LlamaBlock
+
+    return _decoder_block_specs(cfg, LlamaBlock, "model.", has_aux=False)
+
+
+def _mixtral_block_specs(cfg) -> list:
+    """``MixtralForCausalLM``'s blocks: its names have no ``model.`` scope,
+    and its blocks return ``(x, aux)`` (the router losses, dropped at
+    inference). Stacked expert leaves from per-expert HF tensors arrive as
+    :class:`LazyStack` s."""
+    from .models.mixtral import MixtralBlock
+
+    return _decoder_block_specs(cfg, MixtralBlock, "", has_aux=True)
+
+
+def _decoder_block_specs(cfg, block_cls, scope: str, has_aux: bool) -> list:
+    """Embed, one block per decoder layer and the head of a decoder-only
+    model whose names sit under ``scope``; blocks of one kind (window, and
+    for Mixtral a dense MLP) share one meta ``block_cls``."""
+    from .models.llama import RMSNorm, _default_positions, _lm_head, _scale_embeddings
 
     call = torch.func.functional_call
-    shared: dict = {}  # kind -> the meta LlamaBlock its blocks run through
+    shared: dict = {}  # kind -> the meta block its blocks run through
     norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.rms_norm_unit_offset, device="meta")
 
     def embed(ptrees, input_ids, pos):
@@ -210,26 +266,30 @@ def _llama_block_specs(cfg) -> list:
 
     def layer_fns(block):
         def apply(ptrees, x, positions):
-            return call(block, ptrees[0], (x, positions)), positions
+            out = call(block, ptrees[0], (x, positions))
+            return (out[0] if has_aux else out), positions
 
         def cached(ptrees, args, cache, pos):
-            x, cache = call(block, ptrees[0], args, {"cache": cache, "cache_pos": pos})
-            return (x, args[1]), cache
+            out = call(block, ptrees[0], args, {"cache": cache, "cache_pos": pos})
+            return (out[0], args[1]), out[-1]
 
         return apply, cached
 
-    specs = [BlockSpec("embed", ("model.embed_tokens",), lambda p, ids: embed(p, ids, 0),
+    specs = [BlockSpec("embed", (f"{scope}embed_tokens",), lambda p, ids: embed(p, ids, 0),
                        kind="embed",
                        cached_apply=lambda p, args, cache, pos: (embed(p, args[0], pos), None))]
     for i in range(cfg.num_hidden_layers):
         window = cfg.window_for(i)
         kind = "layer" if window is None else f"layer_w{window}"
+        if i in getattr(cfg, "mlp_only_layers", ()):
+            kind += "_dense"
         if kind not in shared:
-            shared[kind] = LlamaBlock(cfg, layer_idx=i, device="meta")
+            shared[kind] = block_cls(cfg, layer_idx=i, device="meta")
         apply, cached = layer_fns(shared[kind])
-        specs.append(BlockSpec(f"layers.{i}", (f"model.layers.{i}",), apply, kind=kind,
+        specs.append(BlockSpec(f"layers.{i}", (f"{scope}layers.{i}",), apply, kind=kind,
                                cached_apply=cached, cache_slot=True))
-    head_prefixes = ("model.norm", "model.embed_tokens" if cfg.tie_word_embeddings else "lm_head")
+    head_prefixes = (f"{scope}norm", f"{scope}embed_tokens" if cfg.tie_word_embeddings
+                     else "lm_head")
     specs.append(BlockSpec("head", head_prefixes, head, kind="head",
                            cached_apply=lambda p, args, cache, pos: (head(p, *args), None)))
     return specs
@@ -248,13 +308,20 @@ def cache_factory_for(module) -> Optional[Callable]:
     """``(batch, max_len, dtype=bf16, ring_slack=0) -> per-layer KV cache``
     on the device the model computes on, for model families with cache
     threading (a streamed model's included); None otherwise."""
-    from .models.llama import LlamaForCausalLM
-
     if isinstance(module, StreamedModel):
         return module.cache_factory
-    if not isinstance(module, LlamaForCausalLM):
+    if not _threads_llama_cache(module):
         return None
     return _llama_cache_factory(module.config, next(module.parameters()).device)
+
+
+def _threads_llama_cache(module) -> bool:
+    """A model whose layers attend through ``LlamaAttention``'s KV cache:
+    the Llama family and Mixtral."""
+    from .models.llama import LlamaForCausalLM
+    from .models.mixtral import MixtralForCausalLM
+
+    return isinstance(module, (LlamaForCausalLM, MixtralForCausalLM))
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +385,7 @@ class StreamedModel:
             for name in self._names[prefix]:
                 val, cast = self.store.entries[name], None
                 resident &= self.store.placement[name] not in ("cpu", "disk")
-                if isinstance(val, LazyWeight):
+                if isinstance(val, (LazyWeight, LazyStack)):
                     val, cast = val.load(pin=self._cuda), val.dtype
                 elif self._cuda and val.device.type == "cpu" and not val.is_pinned():
                     raise RuntimeError(
@@ -503,7 +570,7 @@ def _host(t: torch.Tensor, pin: bool) -> torch.Tensor:
 def load_checkpoint_in_model(model, checkpoint, device_map: Optional[dict] = None, dtype=None,
                              offload_folder: Optional[str] = None,
                              offload_to_memmap: bool = False,
-                             key_map: Optional[Callable[[str], Optional[str]]] = None,
+                             key_map: Optional[Callable] = None,
                              execution_device=None) -> WeightStore:
     """Read a safetensors checkpoint (a file, or a directory of one file or
     of shards) tensor by tensor into a placed :class:`WeightStore`.
@@ -514,41 +581,66 @@ def load_checkpoint_in_model(model, checkpoint, device_map: Optional[dict] = Non
     into the shard (no copy), or writes a memmap copy under
     ``offload_folder`` with ``offload_to_memmap=True``. Host memory holds
     one tensor at a time beyond what it keeps. ``key_map(checkpoint key)``
-    gives the port's name (or None to skip): an HF checkpoint's names cross
-    that way (``utils/hf_interop.map_hf_key``). ``model`` (the meta-device
-    model) names the parameters expected; a missing one raises."""
+    gives the port's name (or None to skip), or ``(name, op)``: an HF
+    checkpoint's names cross that way (``utils/hf_interop.map_hf_key`` and
+    ``map_hf_key_and_op``). An op ``"t"`` transposes the tensor on read;
+    ``"stack:<e>:t"`` makes it member ``e`` of a stacked leaf, gathered into
+    a :class:`LazyStack` and placed as one tensor once every member is
+    seen. ``model`` (the meta-device model) names the parameters expected;
+    a missing one raises."""
+    from .utils.hf_interop import apply_op, stack_members
     from .utils.offload import offload_weight, save_offload_index
 
     device = resolve_device(execution_device)
     pin = device.type == "cuda"
     device_map = device_map or {"": 0}
     store = WeightStore()
-    expected = set(named_parameters(model)) if model is not None else None
+    shapes = ({n: tuple(p.shape) for n, p in named_parameters(model).items()}
+              if model is not None else None)
     memmap_index: dict = {}
+    stacks: dict = {}
+
+    def place_tensor(name, t, place):
+        nonlocal memmap_index
+        if isinstance(place, int):
+            t = t.to(_card(place, device))
+        if dtype is not None:
+            t = t.to(dtype)
+        if place == "disk":
+            memmap_index = offload_weight(t, name, offload_folder, memmap_index)
+            store.put(name, LazyWeight(os.path.join(offload_folder, f"{name}.dat"), name,
+                                       memmap_info=memmap_index[name]), place)
+        else:
+            store.put(name, _host(t, pin) if place == "cpu" else t, place)
+
     for shard in checkpoint_shards(checkpoint):
         for key in shard.keys():
-            name = key_map(key) if key_map is not None else key
-            if name is None or (expected is not None and name not in expected):
+            hit = key_map(key) if key_map is not None else key
+            name, op = hit if isinstance(hit, tuple) else (hit, None)
+            if name is None or (shapes is not None and name not in shapes):
+                continue
+            if op is not None and op.startswith("stack:"):
+                stacks.setdefault(name, {})[int(op.split(":")[1])] = LazyWeight(
+                    shard.path, key, dtype, source=shard, transform="t")
                 continue
             place = _placement_for(name, device_map)
             if place == "disk" and not offload_to_memmap:
-                store.put(name, LazyWeight(shard.path, key, dtype, source=shard), place)
+                store.put(name, LazyWeight(shard.path, key, dtype, source=shard, transform=op),
+                          place)
                 continue
-            t = shard.read(key)
-            if isinstance(place, int):
-                t = t.to(_card(place, device))
-            if dtype is not None:
-                t = t.to(dtype)
-            if place == "disk":
-                memmap_index = offload_weight(t, name, offload_folder, memmap_index)
-                store.put(name, LazyWeight(os.path.join(offload_folder, f"{name}.dat"), name,
-                                           memmap_info=memmap_index[name]), place)
-            else:
-                store.put(name, _host(t, pin) if place == "cpu" else t, place)
+            place_tensor(name, apply_op(shard.read(key), op), place)
+    for name, members in stacks.items():
+        count = shapes[name][0] if shapes is not None else None
+        lazy = LazyStack(stack_members(name, members, count), dtype)
+        place = _placement_for(name, device_map)
+        if place == "disk" and not offload_to_memmap:
+            store.put(name, lazy, place)
+        else:
+            place_tensor(name, lazy.load(), place)
     if memmap_index:
         save_offload_index(memmap_index, offload_folder)
-    if expected is not None:
-        missing = expected - set(store.entries)
+    if shapes is not None:
+        missing = set(shapes) - set(store.entries)
         if missing:
             raise ValueError(f"Checkpoint {checkpoint} is missing keys: {sorted(missing)[:5]}...")
     return store
@@ -591,11 +683,9 @@ def dispatch_model(module, params=None, store: Optional[WeightStore] = None,
     if execution_device is None:
         cards = [d for d in store.placement.values() if isinstance(d, int)]
         execution_device = f"cuda:{cards[0] if cards else 0}"
-    from .models.llama import LlamaForCausalLM
-
     device = resolve_device(execution_device)
     factory = (_llama_cache_factory(module.config, device)
-               if isinstance(module, LlamaForCausalLM) else None)
+               if _threads_llama_cache(module) else None)
     return StreamedModel(specs, store, device, cache_factory=factory,
                          config=getattr(module, "config", None))
 
@@ -606,7 +696,7 @@ def load_checkpoint_and_dispatch(module, checkpoint, device_map: Union[str, dict
                                  offload_folder: Optional[str] = None,
                                  offload_to_memmap: bool = False,
                                  block_specs: Optional[list] = None,
-                                 key_map: Optional[Callable[[str], Optional[str]]] = None,
+                                 key_map: Optional[Callable] = None,
                                  execution_device=None) -> StreamedModel:
     """One call: device-map solve (``"auto"``, ``"balanced"``) over the
     meta-device ``module``, shard-streamed load, streaming executor."""
@@ -632,19 +722,20 @@ def load_hf_checkpoint_and_dispatch(checkpoint_dir: str,
                                     offload_to_memmap: bool = False, config=None,
                                     execution_device=None):
     """Big-model load straight from a HuggingFace checkpoint directory of the
-    Llama family (``utils/hf_interop.py``): the names are translated tensor
-    by tensor as the shards stream, so weights go from disk to their
-    placement with no full state dict in between, and disk-tier weights keep
-    lazy references into the HF shards. ``dtype`` casts the weights (and
-    sizes the device map). Returns ``(streamed_model, module)``, the module
-    on the meta device."""
-    from .utils.hf_interop import map_hf_key, open_hf_checkpoint
+    Llama or Mixtral families (``utils/hf_interop.py``): the names are
+    translated tensor by tensor as the shards stream, so weights go from
+    disk to their placement with no full state dict in between, and
+    disk-tier weights keep lazy references into the HF shards (a Mixtral
+    layer's experts as a :class:`LazyStack`). ``dtype`` casts the weights
+    (and sizes the device map). Returns ``(streamed_model, module)``, the
+    module on the meta device."""
+    from .utils.hf_interop import map_hf_key_and_op, open_hf_checkpoint
 
     family, config, module = open_hf_checkpoint(checkpoint_dir, config, dtype)
     streamed = load_checkpoint_and_dispatch(
         module, checkpoint_dir, device_map=device_map, max_memory=max_memory, dtype=dtype,
         offload_folder=offload_folder, offload_to_memmap=offload_to_memmap,
-        key_map=lambda key: map_hf_key(key, family), execution_device=execution_device)
+        key_map=lambda key: map_hf_key_and_op(key, family), execution_device=execution_device)
     return streamed, module
 
 

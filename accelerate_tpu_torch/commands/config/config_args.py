@@ -10,8 +10,7 @@ variables. The file is flat ``key: value`` YAML; it is read with PyYAML
 where installed and with a flat reader otherwise, and written without it.
 The mesh fields lay the processes out over a mesh (``parallel/mesh.py``):
 ``launch`` passes them on as ``ACCELERATE_TPU_MESH_*``; an ``fsdp`` axis
-above 1 asks for FSDP over it. An ``ep`` axis above 1 waits for MoE
-(ROADMAP.md, A8d), and ``launch`` refuses it.
+above 1 asks for FSDP over it.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ left waiting in a collective would hang). ``--max_restarts`` starts the
 whole world again, ``--restart_backoff`` seconds later (doubling), with
 ``ACCELERATE_TPU_RESTART_COUNT`` telling the script which attempt it is.
 
-``--dp/--fsdp/--tp/--cp/--pp N`` lay the processes out over a mesh
+``--dp/--fsdp/--tp/--cp/--pp/--ep N`` lay the processes out over a mesh
 (``parallel/mesh.py``): the children get ``ACCELERATE_TPU_MESH_<AXIS>=N``,
 which their ``AcceleratorState`` builds the mesh from. One axis may be -1
 (it takes the processes the others leave; with none, dp does), and the
@@ -29,8 +29,7 @@ reads the ``FSDP_*`` variables (``FSDP_SHARDING_STRATEGY``,
 ``FSDP_ZERO_SHARDING``, ``FSDP_MIN_NUM_PARAMS``), which pass through.
 
 Refused: ``--emulated_device_count`` above 1 (a torch process has one
-device), ``--ep`` above 1 (MoE, ROADMAP.md, A8d), and the JAX package's
-TPU-pod flags (``--gcloud``, ``--tpu_name``, ``--tpu_zone``).
+device), and the JAX package's TPU-pod flags (``--gcloud``, ``--tpu_name``, ``--tpu_zone``).
 """
 
 from __future__ import annotations
@@ -63,8 +62,7 @@ def launch_command_parser(subparsers=None):
                         help="param-shard (FSDP/ZeRO) mesh axis")
     parser.add_argument("--tp", type=int, default=None, help="tensor-parallel mesh axis")
     parser.add_argument("--cp", type=int, default=None, help="context-parallel mesh axis")
-    parser.add_argument("--ep", type=int, default=None,
-                        help="expert-parallel mesh axis: above 1 not ported (ROADMAP.md, A8d)")
+    parser.add_argument("--ep", type=int, default=None, help="expert-parallel mesh axis")
     parser.add_argument("--pp", type=int, default=None, help="pipeline-parallel mesh axis")
     parser.add_argument("--num_machines", type=int, default=None, help="Number of machines")
     parser.add_argument("--machine_rank", type=int, default=None, help="This machine's rank")
@@ -209,9 +207,6 @@ def validate_launch(args, cfg: ClusterConfig) -> list:
     if world % explicit:
         problems.append(f"mesh axes {sizes} (product {explicit}) do not divide the {world} "
                         "process(es)")
-    if sizes.get("ep", 1) > 1:
-        problems.append(f"mesh_ep={sizes['ep']}: expert parallelism is not ported to "
-                        "accelerate_tpu_torch yet (ROADMAP.md, A8d: MoE and the ep rules)")
     if args.emulated_device_count is not None and args.emulated_device_count > 1:
         problems.append(f"--emulated_device_count {args.emulated_device_count}: a torch "
                         "process drives one device; start more processes with --num_processes")

@@ -50,18 +50,14 @@ def notebook_launcher(function, args=(), num_processes: Optional[int] = None,
     processes of the other ``num_nodes - 1`` machines (their
     ``master_addr:use_port`` rendezvous; this machine is ``node_rank``).
     With one process on one machine the function runs here, in this
-    process. The mesh axes (``dp=``, ``fsdp=``, ``tp=``, ``cp=``, ``pp=``)
-    go to the processes as ``accelerate-tpu-torch launch``'s flags do
-    (``ACCELERATE_TPU_MESH_<AXIS>``); an ``ep`` axis above 1 (MoE) is
-    ROADMAP.md, A8d and raises."""
+    process. The mesh axes (``dp=``, ``fsdp=``, ``tp=``, ``cp=``, ``ep=``,
+    ``pp=``) go to the processes as ``accelerate-tpu-torch launch``'s flags
+    do (``ACCELERATE_TPU_MESH_<AXIS>``)."""
     import torch.multiprocessing as mp
 
     unknown = set(mesh_axes) - {"dp", "fsdp", "tp", "cp", "ep", "pp"}
     if unknown:
         raise TypeError(f"notebook_launcher() got unexpected keyword arguments {sorted(unknown)}")
-    if int(mesh_axes.get("ep", 1)) > 1:
-        raise NotImplementedError("an ep axis above 1 (expert parallelism) is not ported to "
-                                  "accelerate_tpu_torch yet (ROADMAP.md, A8d)")
     if num_nodes > 1 and master_addr is None:
         raise ValueError("notebook_launcher(num_nodes > 1) needs master_addr")
     local = int(num_processes or 1)

@@ -31,7 +31,8 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
 * On a mesh (``parallel/mesh.py``): under tensor parallelism a layer's
   projections hold this process's chunk, column parallel (q/k/v, gate,
   up) and row parallel (o, down), between Megatron's f and g
-  (:class:`_CopyToTP`, :class:`_ReduceFromTP`), so attention sees ``H/tp``
+  (``parallel/sharding.py``'s :class:`_SumGradient`, and
+  :class:`_ReduceFromTP`), so attention sees ``H/tp``
   and ``G/tp`` heads; under context parallelism each process runs its
   ``S/cp`` tokens of every row (the loss factories cut them, rotary takes
   global positions) and attention is ring or Ulysses
@@ -57,7 +58,13 @@ from ..ops.attention import (
     flash_attention_available,
     softcap_logits,
 )
-from ..parallel.sharding import RematPolicy, resolve_remat_policy
+from ..parallel.sharding import (
+    RematPolicy,
+    _GatherSplit,
+    _SliceReplicated,
+    _SumGradient,
+    resolve_remat_policy,
+)
 from ..utils.device import resolve_device
 
 
@@ -228,21 +235,6 @@ class _Projection(nn.Linear):
         return y + self.bias if self.bias is not None else y
 
 
-class _CopyToTP(torch.autograd.Function):
-    """Megatron's f: the identity forward before column-parallel
-    projections, whose backward sums the input's gradient over ``tp``
-    (each process's projections gave their part of it)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.group.all_reduce(grad.contiguous().clone()), None
-
-
 class _ReduceFromTP(torch.autograd.Function):
     """Megatron's g: after a row-parallel projection, the sum of every
     process's partial output over ``tp``; the identity backward."""
@@ -254,21 +246,6 @@ class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
-
-
-class _SliceReplicated(torch.autograd.Function):
-    """This process's ``k``-wide chunk along ``dim`` of a leaf every ``tp``
-    process holds whole; the backward all-gathers the chunks' gradients,
-    so every process holds the whole leaf's gradient."""
-
-    @staticmethod
-    def forward(ctx, t, group, dim, k):
-        ctx.group, ctx.dim = group, dim
-        return t.narrow(dim, group.index * k, k)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.group.all_gather(grad.contiguous(), ctx.dim), None, None, None
 
 
 def _tp_group(proj: nn.Module, full: int):
@@ -437,22 +414,6 @@ def _local_attention(q, k, v, segment_ids, causal, use_flash, backend, sliding_w
                                sm_scale=sm_scale)
     return _einsum_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                              sm_scale=sm_scale)
-
-
-class _GatherSplit(torch.autograd.Function):
-    """Every process's chunk along ``dim`` concatenated (an all-gather over
-    ``group``); each process uses the whole differently, so the backward
-    sums the gradients and keeps this process's chunk (a
-    reduce-scatter)."""
-
-    @staticmethod
-    def forward(ctx, t, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return group.all_gather(t.contiguous(), dim)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
 
 
 def _over_whole_sequence(group, q, k, v, segment_ids, attend):
@@ -778,7 +739,7 @@ class LlamaAttention(nn.Module):
         B, S, _ = x.shape
         hd = cfg.head_dim
         h_local = cfg.num_attention_heads // tp.size
-        x = _CopyToTP.apply(x, tp)
+        x = _SumGradient.apply(x, tp)  # Megatron's f
         q = self.q_proj.column(x, tp).reshape(B, S, h_local, hd)
         k = self.k_proj.column(x, tp)
         v = self.v_proj.column(x, tp)
@@ -830,7 +791,7 @@ class LlamaMLP(nn.Module):
                 raise NotImplementedError(
                     "LoRA adapters under tensor parallelism are not ported to "
                     "accelerate_tpu_torch yet (ROADMAP.md, A8d: tensor-parallel serving)")
-            x = _CopyToTP.apply(x, tp)
+            x = _SumGradient.apply(x, tp)
             h = self._act(self.gate_proj.column(x, tp)) * self.up_proj.column(x, tp)
             return self.down_proj.row(h, tp)
         gate = _lora_delta(self.gate_proj(x), x, lora, "gate_proj")
@@ -901,12 +862,13 @@ class _KeptProducts:
         self.recomputing = False
         self.taken = 0
 
-    def run(self, layer, params, x, positions, segment_ids, lora=None, gather=None):
+    def run(self, fn, *args):
+        """``fn(*args)`` (one layer call) with this object's products kept."""
         global _kept_products
         outer, _kept_products = _kept_products, self
         self.taken = 0
         try:
-            return _run_layer(layer, params, x, positions, segment_ids, lora, gather)
+            return fn(*args)
         finally:
             _kept_products = outer
 
@@ -975,8 +937,8 @@ def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
         return checkpoint(_run_layer, layer, params, x, positions, segment_ids, lora, gather,
                           use_reentrant=False)
     kept = _KeptProducts()
-    out = checkpoint(kept.run, layer, params, x, positions, segment_ids, lora, gather,
-                     use_reentrant=False)
+    out = checkpoint(kept.run, _run_layer, layer, params, x, positions, segment_ids, lora,
+                     gather, use_reentrant=False)
     kept.recomputing = True
     return out
 

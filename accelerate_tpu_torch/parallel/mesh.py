@@ -44,8 +44,8 @@ DATA_AXES = ("dp", "fsdp", "cp")
 
 # Groups built with the mesh (when above one process and below the world):
 # the ones every training step uses.
-_STANDARD_GROUPS = (("dp",), ("fsdp",), ("cp",), ("tp",), ("pp",), ("dp", "fsdp"),
-                    ("dp", "cp"), ("fsdp", "cp"), ("dp", "fsdp", "cp"))
+_STANDARD_GROUPS = (("dp",), ("fsdp",), ("cp",), ("tp",), ("pp",), ("ep",), ("dp", "fsdp"),
+                    ("dp", "cp"), ("fsdp", "cp"), ("dp", "fsdp", "cp"), ("dp", "fsdp", "ep"))
 
 
 @dataclass
@@ -121,16 +121,7 @@ class MeshConfig:
                        else (self.devices if self.devices is not None else range(world)))
         if self.dcn_axis not in MESH_AXES:
             raise ValueError(f"dcn_axis must be one of {MESH_AXES}, got {self.dcn_axis!r}")
-        if self.ep > 1:
-            raise NotImplementedError(
-                "an ep axis above 1 (expert parallelism) is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md, A8d: MoE and the ep rules)")
-        sizes = self.axis_sizes(len(devices))
-        if sizes["ep"] > 1:
-            raise NotImplementedError(
-                "an ep axis above 1 (expert parallelism) is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md, A8d: MoE and the ep rules)")
-        return Mesh(sizes, devices, rank)
+        return Mesh(self.axis_sizes(len(devices)), devices, rank)
 
     def non_trivial_axes(self) -> dict:
         return {ax: getattr(self, ax) for ax in MESH_AXES if getattr(self, ax) not in (1,)}

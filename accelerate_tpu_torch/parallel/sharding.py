@@ -11,22 +11,24 @@ collectives itself.
   ``:208``, ``sharding_summary``, ``shard_params``): pure functions over
   ``(path, shape)`` pairs, paths in the JAX layout
   (:func:`reference_path`), that give each leaf a :class:`PartitionSpec`,
-  which prints as JAX's does: ``pp`` on dim 0 of a stacked leaf, ``tp`` by
-  the Megatron rules, ``fsdp`` on the largest dimension left. The ``ep``
-  rules wait for MoE (ROADMAP.md, A8d) and raise.
+  which prints as JAX's does: ``pp`` on dim 0 of a stacked leaf (the
+  layers), ``ep`` on dim 0 of a stacked expert leaf (``experts``), ``tp``
+  by the Megatron rules, ``fsdp`` on the largest dimension left.
 * The layout (:class:`ShardedLayout`): a prepared module's parameters
   stored as this process's chunk along each split dimension (its
   coordinate on each axis of the mesh, the elements a ``NamedSharding``
-  gives the JAX package's device of this rank). The ``fsdp`` chunks are
+  gives the JAX package's device of this rank: an MoE layer keeps its
+  ``E / ep`` experts resident). The ``fsdp`` chunks are
   gathered where they are used, through :class:`_GatherLeaves`, an
   autograd function whose forward all-gathers the compute-dtype chunks
   over the ``fsdp`` group and whose backward reduce-scatters the gradient
-  (in f32) into the chunk's ``.grad``; the decoder layers gather one layer
+  (in f32) into the chunk's ``.grad`` (an expert leaf over ``fsdp`` only,
+  never over ``ep``); the decoder layers gather one layer
   at a time inside their loop (``models/llama.py`` calls
   :meth:`ShardedLayout.gather_layer`), the other leaves once a forward
-  (:meth:`ShardedLayout.compute_params`). The ``tp`` and ``pp`` chunks
-  stay split: the layers compute on them (``models/llama.py``,
-  ``parallel/pipeline.py``), and the leaves outside the layers (the
+  (:meth:`ShardedLayout.compute_params`). The ``tp``, ``pp`` and ``ep``
+  chunks stay split: the layers compute on them (``models/llama.py``,
+  ``parallel/pipeline.py``, ``ops/moe.py``), and the leaves outside the layers (the
   embedding table, split on hidden, and ``lm_head``, on the vocabulary)
   are gathered whole for the forward (:class:`_GatherReplicated`).
 
@@ -190,18 +192,18 @@ def infer_param_shardings(params, mesh=None, fsdp_plugin=None, tp_plugin=None, p
     :func:`reference_path` gives them) on ``mesh`` (a mesh or its axis
     sizes, default the process group as ``fsdp``), the JAX package's
     policy (reference ``:148-205``): with ``pp_plugin`` a leaf under
-    ``blocks`` claims ``pp`` on dim 0; with ``tp_plugin`` and a ``tp`` axis
+    ``blocks`` claims ``pp`` on dim 0, with ``ep_plugin`` a leaf under
+    ``experts`` claims ``ep`` on dim 0 (where ``ep`` divides it); with
+    ``tp_plugin`` and a ``tp`` axis
     above 1 the :class:`ShardingRules` (the plugin's ``rules``, then
     ``extra_rules``, then the defaults) claim ``tp``; then the FSDP policy
     of ``fsdp_plugin`` (``min_weight_size_to_shard``; ``NO_SHARD`` shards
-    nothing) claims ``fsdp``. An ``ep`` axis (MoE) is ROADMAP.md, A8d."""
+    nothing) claims ``fsdp``."""
     sizes = _mesh_shape(mesh)
     fsdp_size = sizes.get("fsdp", 1)
     tp_size = sizes.get("tp", 1)
     pp_size = sizes.get("pp", 1) if pp_plugin is not None else 1
-    if ep_plugin is not None and sizes.get("ep", 1) > 1:
-        raise NotImplementedError("expert parallelism (the ep rules) is not ported to "
-                                  "accelerate_tpu_torch yet (ROADMAP.md, A8d)")
+    ep_size = sizes.get("ep", 1) if ep_plugin is not None else 1
     min_size = getattr(fsdp_plugin, "min_weight_size_to_shard", 2**14) \
         if fsdp_plugin is not None else 2**62
     if fsdp_plugin is None or getattr(fsdp_plugin, "sharding_strategy", "FULL_SHARD") == "NO_SHARD":
@@ -210,7 +212,7 @@ def infer_param_shardings(params, mesh=None, fsdp_plugin=None, tp_plugin=None, p
                           use_defaults=True) if (tp_plugin is not None and tp_size > 1) else None
     active_stack = [(pat, ax) for pat, ax in (stack_rules if stack_rules is not None
                                               else DEFAULT_STACK_RULES)
-                    if {"pp": pp_size}.get(ax, 1) > 1]
+                    if {"pp": pp_size, "ep": ep_size}.get(ax, 1) > 1]
     out = {}
     for name, shape in _pairs(params):
         tp_dim = rules.tp_dim_for(name) if rules is not None else None
@@ -218,7 +220,7 @@ def infer_param_shardings(params, mesh=None, fsdp_plugin=None, tp_plugin=None, p
                            if re.search(pat, name, flags=re.IGNORECASE)), None)
         out[name] = _spec_for_leaf(shape, fsdp_size, tp_size if rules is not None else 1, tp_dim,
                                    min_size, stack_axis=stack_axis,
-                                   stack_axis_size={"pp": pp_size}.get(stack_axis, 1))
+                                   stack_axis_size={"pp": pp_size, "ep": ep_size}.get(stack_axis, 1))
     return out
 
 
@@ -414,7 +416,8 @@ def _sizes(mesh) -> dict:
     return _mesh_shape(mesh)
 
 
-def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin=None) -> dict:
+def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin=None,
+                 ep_plugin=None) -> dict:
     """``{name: PartitionSpec}`` of ``module``'s parameters as the
     accelerator stores them, in the torch layout: the JAX policy
     (:func:`infer_param_shardings` on each leaf's :func:`reference_path` and
@@ -430,7 +433,8 @@ def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin
         kernel = _is_kernel(module, name, len(shape))
         ref = reference_shape(module, name, shape)
         path = reference_path(module, name)
-        spec = infer_param_shardings([(path, ref)], sizes, fsdp_plugin, tp_plugin, pp_plugin)[path]
+        spec = infer_param_shardings([(path, ref)], sizes, fsdp_plugin, tp_plugin, pp_plugin,
+                                     ep_plugin)[path]
         if fsdp_plugin is not None and sizes.get("fsdp", 1) == 1 and shape \
                 and fsdp_plugin.sharding_strategy != "NO_SHARD" \
                 and int(np.prod(shape)) >= fsdp_plugin.min_weight_size_to_shard:
@@ -494,12 +498,59 @@ class _GatherLeaves(torch.autograd.Function):
         return (None, None, None, *(r.to(dt) for r, (_, dt) in zip(reduced, ctx.meta)))
 
 
+class _SumGradient(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``group``: a
+    leaf or an input every process holds alike but each uses on its own
+    share (Megatron's f before column-parallel projections; an MoE router
+    over an ``ep`` process's routing groups)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+class _SliceReplicated(torch.autograd.Function):
+    """This process's ``k``-wide chunk along ``dim`` of a tensor every
+    process of ``group`` holds whole; the backward all-gathers the chunks'
+    gradients, so every process holds the whole tensor's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, k):
+        ctx.group, ctx.dim = group, dim
+        return t.narrow(dim, group.index * k, k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad.contiguous(), ctx.dim), None, None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    """Every process's chunk along ``dim`` concatenated (an all-gather over
+    ``group``); each process uses the whole differently, so the backward
+    sums the gradients and keeps this process's chunk (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(t.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, None
+
+
 class _GatherReplicated(torch.autograd.Function):
     """A leaf split along ``dim`` over ``group``, whole: every process's
     chunk all-gathered. Whatever uses the whole leaf runs the same on every
     process of the group, so each holds the same gradient, and the backward
     keeps this process's chunk of it (no communication): the tensor-parallel
-    embedding table and ``lm_head``."""
+    embedding table and ``lm_head``, an MoE layer's outputs over ``ep``."""
 
     @staticmethod
     def forward(ctx, chunk, group, dim):

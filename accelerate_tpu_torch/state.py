@@ -322,19 +322,21 @@ class AcceleratorState:
     (``DeepSpeedPlugin.to_fsdp_plugin``) unless one is given, and a
     ``megatron_lm_plugin`` onto the tp, pp and FSDP plugins it implies.
     ``mesh`` is ``mesh_config`` (default ``MeshConfig.from_env()``, the
-    launcher's ``--dp/--fsdp/--tp/--cp/--pp``) over the process group: an
-    FSDP plugin on a mesh that names neither ``fsdp`` nor ``dp`` shards
+    launcher's ``--dp/--fsdp/--tp/--cp/--pp/--ep``) over the process group:
+    an FSDP plugin on a mesh that names neither ``fsdp`` nor ``dp`` shards
     over every process; an ``fsdp`` axis above 1 without a plugin implies
-    the default one; a plugin's ``tp_size``/``cp_size``/``pp_size`` above 1
-    sets its axis. ``distributed_type`` is ``DEEPSPEED``, ``MEGATRON_LM``,
-    ``FSDP``, ``TENSOR_PARALLEL`` or ``PIPELINE_PARALLEL`` after the
+    the default one; a plugin's ``tp_size``/``cp_size``/``pp_size``/
+    ``ep_size`` above 1 sets its axis (``ep_plugin``: an
+    ``ExpertParallelPlugin``, MoE expert parallelism). ``distributed_type``
+    is ``DEEPSPEED``, ``MEGATRON_LM``, ``FSDP``, ``TENSOR_PARALLEL`` or ``PIPELINE_PARALLEL`` after the
     governing plugin, else the process's."""
 
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: Optional[bool] = None,
                  mesh_config=None, fsdp_plugin=None, tp_plugin=None, cp_plugin=None,
-                 pp_plugin=None, deepspeed_plugin=None, megatron_lm_plugin=None, **kwargs):
+                 pp_plugin=None, ep_plugin=None, deepspeed_plugin=None, megatron_lm_plugin=None,
+                 **kwargs):
         self.__dict__ = self._shared_state
         process = PartialState._shared_state
         if cpu is not None:
@@ -377,7 +379,7 @@ class AcceleratorState:
 
             fsdp_plugin = FullyShardedDataParallelPlugin()
         for plugin, axis, field in ((tp_plugin, "tp", "tp_size"), (cp_plugin, "cp", "cp_size"),
-                                    (pp_plugin, "pp", "pp_size")):
+                                    (pp_plugin, "pp", "pp_size"), (ep_plugin, "ep", "ep_size")):
             if plugin is not None and getattr(plugin, field) > 1:
                 setattr(mesh_config, axis, getattr(plugin, field))
         mesh = mesh_config.build()
@@ -395,7 +397,7 @@ class AcceleratorState:
         self._shared_state.update(_partial=partial_state, mixed_precision=mixed_precision,
                                   fsdp_plugin=fsdp_plugin, deepspeed_plugin=deepspeed_plugin,
                                   tp_plugin=tp_plugin, cp_plugin=cp_plugin, pp_plugin=pp_plugin,
-                                  ep_plugin=None, megatron_lm_plugin=megatron_lm_plugin,
+                                  ep_plugin=ep_plugin, megatron_lm_plugin=megatron_lm_plugin,
                                   mesh_config=mesh_config, mesh=mesh,
                                   distributed_type=distributed_type)
 

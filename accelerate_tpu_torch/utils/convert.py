@@ -11,6 +11,13 @@ What changes on the way: flax ``Dense.kernel`` is ``[in, out]`` and
 any stacked layer dim); ``Embed.embedding`` becomes ``embed_tokens.weight``;
 norm ``scale`` and projection ``bias`` keep name and shape. A tied head has
 no ``lm_head`` on either side. Arrays cross as numpy.
+
+Mixtral's raw parameters cross as they are: the router ``[D, E]`` and the
+stacked experts (``gate_proj``/``up_proj`` ``[E, D, F]``, ``down_proj``
+``[E, F, D]``) keep the JAX layout in the port, so the transpose above is
+for ``kernel`` leaves only. (From HF, where each expert is a
+``Linear.weight`` ``[out, in]``, the experts are stacked and transposed,
+``utils/hf_interop.py``.)
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ def _check_layout(keys, config, num_layers):
 def state_dict_from_flax(params, config) -> dict:
     """Flax Llama params (nested dicts of arrays, either layout) -> a state
     dict for ``LlamaForCausalLM`` (``layers_i``) or
-    ``PipelinedLlamaForCausalLM`` (``blocks``). Float32 CPU tensors."""
+    ``PipelinedLlamaForCausalLM`` (``blocks``); flax Mixtral params -> one
+    for ``MixtralForCausalLM``. Float32 CPU tensors."""
     flat = dict(_flatten(params))
-    model = params["model"]
+    model = params.get("model", params)  # Mixtral's tree has no "model" scope
     if "blocks" in model:
         num_layers = next(iter(_flatten(model["blocks"])))[1].shape[0]
     else:

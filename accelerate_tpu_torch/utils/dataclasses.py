@@ -11,10 +11,10 @@ Counterpart of ``accelerate_tpu/utils/dataclasses.py``: the enums
 (``:301``), ``ProjectConfiguration`` (``:323``), and the parallelism
 plugins: ``FullyShardedDataParallelPlugin`` (``:372``),
 ``TensorParallelPlugin``, ``ContextParallelPlugin``,
-``PipelineParallelPlugin`` (``:442-494``), ``DeepSpeedPlugin`` (``:500``)
-and ``MegatronLMPlugin`` with ``add_model_config_to_megatron_parser``
-(``:656-733``). ``GradScalerKwargs`` lives in ``precision.py``. The expert
-plugin comes with MoE (ROADMAP.md, A8d).
+``PipelineParallelPlugin``, ``ExpertParallelPlugin`` (``:442-497``),
+``DeepSpeedPlugin`` (``:500``) and ``MegatronLMPlugin`` with
+``add_model_config_to_megatron_parser`` (``:656-733``). ``GradScalerKwargs``
+lives in ``precision.py``.
 """
 
 from __future__ import annotations
@@ -439,6 +439,19 @@ class PipelineParallelPlugin(KwargsHandler):
     pp_size: int = 1
     num_microbatches: int = 1
     schedule: Literal["gpipe", "1f1b"] = "gpipe"
+
+
+@dataclass
+class ExpertParallelPlugin(KwargsHandler):
+    """MoE expert parallelism over the mesh's ``ep`` axis: ``ep_size`` above
+    1 sets the axis, and the stacked expert leaves are split over it
+    (``parallel/sharding.py``, ``ops/moe.py``). ``capacity_factor`` and
+    ``num_experts`` are declared as in the JAX package, where no code reads
+    them; the model's config sets both."""
+
+    ep_size: int = 1
+    capacity_factor: float = 1.25
+    num_experts: Optional[int] = None
 
 
 @dataclass

@@ -1,19 +1,28 @@
-"""HuggingFace Transformers checkpoints of the Llama family.
+"""HuggingFace Transformers checkpoints of the Llama and Mixtral families.
 
 Counterpart of ``accelerate_tpu/utils/hf_interop.py`` for the families the
-port's ``LlamaForCausalLM`` covers: llama, mistral, qwen2, gemma and
-gemma2. The JAX package's tables map HF names onto a flax tree and
-transpose every projection (op ``"t"``: HF ``Linear.weight`` is ``[out,
-in]``, a flax kernel ``[in, out]``). The port's ``nn.Linear.weight`` is
-``[out, in]`` too, so here every tensor crosses as it is and only the names
-change (``input_layernorm.weight`` -> ``input_norm.scale``, ...). A square
+port's ``LlamaForCausalLM`` covers (llama, mistral, qwen2, gemma, gemma2)
+and those its ``MixtralForCausalLM`` covers (mixtral, qwen2_moe). The JAX
+package's tables map HF names onto a flax tree and transpose every
+projection (op ``"t"``: HF ``Linear.weight`` is ``[out, in]``, a flax
+kernel ``[in, out]``). The port's ``nn.Linear.weight`` is ``[out, in]``
+too, so here a projection crosses as it is and only the names change
+(``input_layernorm.weight`` -> ``input_norm.scale``, ...). A square
 projection carried across with the JAX op would come out transposed with no
 shape check to catch it; the tests hold both packages' loads of one
 directory against each other.
 
+The MoE leaves are the exception, because the port keeps the JAX layout
+for them (``models/mixtral.py``): the router is ``[D, E]`` where HF's
+``gate.weight`` is ``[E, D]`` (op ``"t"``), and each HF expert's
+``Linear.weight`` (Mixtral's ``w1`` = gate ``[F, D]``, ``w2`` = down
+``[D, F]``, ``w3`` = up ``[F, D]``; Qwen2-MoE's ``gate_proj``/``up_proj``/
+``down_proj``) is transposed and stacked on a leading expert dim into
+``[E, in, out]`` (op ``"stack:<e>:t"``, :func:`map_hf_key_and_op`).
+
 The other families of the JAX package (gpt2, gptj, gpt_neox, bloom, opt,
-phi, mixtral, qwen2_moe, bert, vit, t5) come with their models (ROADMAP.md,
-A9) and raise ``NotImplementedError`` here.
+phi, bert, vit, t5) come with their models (ROADMAP.md, A9) and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ __all__ = [
     "save_hf_checkpoint",
 ]
 
-# (HF template, port template, alternatives for {p}); {i} is a layer index.
+# (HF template, port template, alternatives for {p}[, op]); {i} is a layer
+# index; op "t" transposes a 2-D tensor (the router), else none.
 _LLAMA_RULES = [
     ("model.embed_tokens.weight", "model.embed_tokens.weight", None),
     ("model.layers.{i}.self_attn.{p}_proj.weight",
@@ -65,6 +75,50 @@ _GEMMA2_RULES = _LLAMA_RULES + [
      "model.layers.{i}.post_ffn_norm.scale", None),
 ]
 
+
+def _flat(rules):
+    """Llama-family rules without the MLP, for ``MixtralForCausalLM``,
+    which has no ``model.`` scope."""
+    return [(hf_t, ours_t.removeprefix("model."), alts) for hf_t, ours_t, alts in rules
+            if ".mlp." not in hf_t]
+
+
+# Mixtral: llama attention and norms, the router ([E, D] in HF, [D, E]
+# here: op "t"); the experts are stacked by _EXPERT_CONVENTIONS.
+_MIXTRAL_RULES = _flat(_LLAMA_RULES) + [
+    ("model.layers.{i}.block_sparse_moe.gate.weight", "layers.{i}.mlp.router", None, "t"),
+]
+
+# Qwen2-MoE: qwen2 attention (q/k/v biases), the router, the sigmoid-gated
+# shared expert, and the dense MLP of mlp_only_layers.
+_QWEN2_MOE_RULES = _flat(_QWEN2_RULES) + [
+    ("model.layers.{i}.mlp.gate.weight", "layers.{i}.mlp.router", None, "t"),
+    ("model.layers.{i}.mlp.shared_expert.{p}_proj.weight",
+     "layers.{i}.mlp.shared_{p}_proj.weight", ("gate", "up", "down")),
+    ("model.layers.{i}.mlp.shared_expert_gate.weight",
+     "layers.{i}.mlp.shared_expert_gate.weight", None),
+    ("model.layers.{i}.mlp.{p}_proj.weight", "layers.{i}.mlp.{p}_proj.weight",
+     ("gate", "up", "down")),
+]
+
+# Per-expert HF Linears -> the stacked [E, in, out] leaves: per family, the
+# regex with (layer, expert, projection token) groups, token -> the port's
+# leaf, and (layer, expert, token) -> the HF key.
+_EXPERT_CONVENTIONS = {
+    "mixtral": (
+        re.compile(r"model\.layers\.(\d+)\.block_sparse_moe\.experts\.(\d+)\.w([123])\.weight"),
+        {"1": "gate_proj", "2": "down_proj", "3": "up_proj"},
+        lambda layer, e, tok: f"model.layers.{layer}.block_sparse_moe.experts.{e}.w{tok}.weight",
+    ),
+    "qwen2_moe": (
+        re.compile(r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.(gate_proj|up_proj|down_proj)"
+                   r"\.weight"),
+        {p: p for p in ("gate_proj", "up_proj", "down_proj")},
+        lambda layer, e, tok: f"model.layers.{layer}.mlp.experts.{e}.{tok}.weight",
+    ),
+}
+_EXPERT_LEAF = re.compile(r"^layers\.(\d+)\.mlp\.experts\.(gate_proj|up_proj|down_proj)$")
+
 # Mistral and Gemma checkpoints are llama-named tensor for tensor; their
 # differences live in config_from_hf.
 _FAMILY_RULES = {
@@ -73,11 +127,12 @@ _FAMILY_RULES = {
     "qwen2": _QWEN2_RULES,
     "gemma": _LLAMA_RULES,
     "gemma2": _GEMMA2_RULES,
+    "mixtral": _MIXTRAL_RULES,
+    "qwen2_moe": _QWEN2_MOE_RULES,
 }
 
 # Families the JAX package reads that the port has no model for yet.
-_LATER_FAMILIES = ("mixtral", "qwen2_moe", "gpt2", "gptj", "gpt_neox", "bloom", "opt", "phi",
-                   "bert", "vit", "t5")
+_LATER_FAMILIES = ("gpt2", "gptj", "gpt_neox", "bloom", "opt", "phi", "bert", "vit", "t5")
 
 # HF keys that are legitimately rule-less: a tied head's copy and buffers.
 _SKIPPABLE = re.compile(r"(^|\.)(lm_head\.weight|position_ids|rotary_emb\.inv_freq)$")
@@ -85,14 +140,14 @@ _SKIPPABLE = re.compile(r"(^|\.)(lm_head\.weight|position_ids|rotary_emb\.inv_fr
 
 def _compile_rules(rules):
     compiled = []
-    for hf_t, ours_t, alts in rules:
+    for hf_t, ours_t, alts, *op in rules:
         pats = []
         for t in (hf_t, ours_t):
             pat = re.escape(t).replace(r"\{i\}", r"(?P<i>\d+)")
             if alts:
                 pat = pat.replace(r"\{p\}", f"(?P<p>{'|'.join(alts)})")
             pats.append(re.compile(f"^{pat}$"))
-        compiled.append((pats[0], pats[1], hf_t, ours_t))
+        compiled.append((pats[0], pats[1], hf_t, ours_t, op[0] if op else None))
     return compiled
 
 
@@ -123,8 +178,26 @@ def detect_family(hf_config: dict) -> str:
     return family
 
 
+def _qwen_windows(get, n: int) -> tuple:
+    """Qwen2's sliding windows, ``(uniform window, per-layer windows)``
+    with one of them None: only when the config opts in, the first
+    ``max_window_layers`` layers staying full attention."""
+    if not get("use_sliding_window"):
+        return None, None
+    if get("layer_types"):
+        windows = tuple(get("sliding_window") if t == "sliding_attention" else None
+                        for t in get("layer_types"))
+    else:
+        full = get("max_window_layers", n)
+        windows = tuple(None if i < full else get("sliding_window") for i in range(n))
+    if len(set(windows)) == 1:
+        return windows[0], None
+    return None, windows
+
+
 def config_from_hf(hf_config: dict, family: Optional[str] = None) -> LlamaConfig:
-    """The port's ``LlamaConfig`` for an HF ``config.json`` dict."""
+    """The port's ``LlamaConfig`` (a ``MixtralConfig`` for the MoE
+    families) for an HF ``config.json`` dict."""
     family = family or detect_family(hf_config)
     _check_family(family)
     get = hf_config.get
@@ -161,21 +234,34 @@ def config_from_hf(hf_config: dict, family: Optional[str] = None) -> LlamaConfig
     if family == "mistral":
         return LlamaConfig(**kwargs, sliding_window=get("sliding_window"))
     if family == "qwen2":
-        # Sliding windows only when the config opts in; the first
-        # max_window_layers layers stay full attention.
-        sliding, windows = None, None
-        if get("use_sliding_window"):
-            n = kwargs["num_hidden_layers"]
-            if get("layer_types"):
-                windows = tuple(get("sliding_window") if t == "sliding_attention" else None
-                                for t in get("layer_types"))
-            else:
-                full = get("max_window_layers", n)
-                windows = tuple(None if i < full else get("sliding_window") for i in range(n))
-            if len(set(windows)) == 1:
-                sliding, windows = windows[0], None
+        sliding, windows = _qwen_windows(get, kwargs["num_hidden_layers"])
         return LlamaConfig(**kwargs, attention_qkv_bias=True, sliding_window=sliding,
                            layer_windows=windows)
+    if family == "mixtral":
+        from ..models.mixtral import MixtralConfig
+
+        return MixtralConfig(**kwargs, sliding_window=get("sliding_window"),
+                             num_experts=get("num_local_experts", 8),
+                             top_k=get("num_experts_per_tok", 2))
+    if family == "qwen2_moe":
+        # The experts are moe_intermediate_size wide; intermediate_size is
+        # the dense layers' width. A layer is sparse iff it is not in
+        # mlp_only_layers and (i + 1) % decoder_sparse_step == 0.
+        from ..models.mixtral import MixtralConfig
+
+        n = kwargs["num_hidden_layers"]
+        step = get("decoder_sparse_step", 1) or 1
+        only = set(get("mlp_only_layers") or ())
+        sliding, windows = _qwen_windows(get, n)
+        return MixtralConfig(
+            **{**kwargs, "intermediate_size": get("moe_intermediate_size", 1408)},
+            attention_qkv_bias=True, sliding_window=sliding, layer_windows=windows,
+            num_experts=get("num_experts", 60), top_k=get("num_experts_per_tok", 4),
+            norm_topk_prob=bool(get("norm_topk_prob", False)),
+            shared_expert_intermediate_size=get("shared_expert_intermediate_size"),
+            mlp_only_layers=tuple(i for i in range(n) if i in only or (i + 1) % step),
+            dense_intermediate_size=get("intermediate_size"),
+            router_aux_coef=get("router_aux_loss_coef", 0.001))
     gemma = dict(
         {**kwargs, "rms_norm_eps": get("rms_norm_eps", 1e-6),
          "tie_word_embeddings": get("tie_word_embeddings", True)},
@@ -215,10 +301,20 @@ def hf_config_from(config: LlamaConfig, family: str = "llama") -> dict:
         out["head_dim"] = config.head_dim
     else:
         out["hidden_act"] = "silu"
-    if family == "mistral":
+    if family in ("mistral", "mixtral"):
         out["sliding_window"] = config.sliding_window
+    if family == "mixtral":
+        out.update(num_local_experts=config.num_experts, num_experts_per_tok=config.top_k)
+    if family == "qwen2_moe":
+        out.update(moe_intermediate_size=config.intermediate_size,
+                   intermediate_size=config.dense_intermediate_size or config.intermediate_size,
+                   num_experts=config.num_experts, num_experts_per_tok=config.top_k,
+                   norm_topk_prob=bool(config.norm_topk_prob),
+                   shared_expert_intermediate_size=config.shared_expert_intermediate_size,
+                   decoder_sparse_step=1, mlp_only_layers=list(config.mlp_only_layers),
+                   router_aux_loss_coef=config.router_aux_coef)
     windows = [config.window_for(i) for i in range(config.num_hidden_layers)]
-    if family == "qwen2" and any(w is not None for w in windows):
+    if family in ("qwen2", "qwen2_moe") and any(w is not None for w in windows):
         out["use_sliding_window"] = True
         out["sliding_window"] = next(w for w in windows if w is not None)
         out["layer_types"] = ["full_attention" if w is None else "sliding_attention"
@@ -244,9 +340,13 @@ def _read_hf_config(checkpoint_dir: str) -> dict:
 def model_from_config(config: LlamaConfig, family: str, device="meta", dtype=torch.float32):
     """The port's model of ``family`` for ``config``; on the meta device by
     default, where it holds no memory (a skeleton for the loaders)."""
+    _check_family(family)
+    if family in _EXPERT_CONVENTIONS:
+        from ..models.mixtral import MixtralForCausalLM
+
+        return MixtralForCausalLM(config, device=device, dtype=dtype)
     from ..models.llama import LlamaForCausalLM
 
-    _check_family(family)
     return LlamaForCausalLM(config, device=device, dtype=dtype)
 
 
@@ -260,16 +360,50 @@ def open_hf_checkpoint(checkpoint_dir: str, config: Optional[LlamaConfig] = None
     return family, config, model_from_config(config, family, dtype=dtype or torch.float32)
 
 
-def map_hf_key(key: str, family: str) -> Optional[str]:
-    """The port's name for one HF tensor name, or None for a rule-less key
-    (a tied head's copy, buffers): the per-tensor form the shard-streaming
-    loaders use."""
+def map_hf_key_and_op(key: str, family: str) -> Optional[tuple]:
+    """``(the port's name, op)`` of one HF tensor name, or None for a
+    rule-less key (a tied head's copy, buffers): the per-tensor form the
+    shard-streaming loaders use. ``op`` is None (the tensor as it is),
+    ``"t"`` (transposed: the router) or ``"stack:<e>:t"`` (transposed, then
+    member ``e`` of the stacked ``[E, in, out]`` leaf the name gives)."""
     _check_family(family)
-    for hf_re, _, _, ours_t in _COMPILED[family]:
+    if family in _EXPERT_CONVENTIONS:
+        expert_re, leaf_of, _ = _EXPERT_CONVENTIONS[family]
+        match = expert_re.match(key)
+        if match:
+            layer, e, tok = match.groups()
+            return f"layers.{layer}.mlp.experts.{leaf_of[tok]}", f"stack:{int(e)}:t"
+    for hf_re, _, _, ours_t, op in _COMPILED[family]:
         match = hf_re.match(key)
         if match:
-            return _fill(ours_t, match)
+            return _fill(ours_t, match), op
     return None
+
+
+def map_hf_key(key: str, family: str) -> Optional[str]:
+    """The port's name for one HF tensor name (:func:`map_hf_key_and_op`
+    without the op), or None."""
+    hit = map_hf_key_and_op(key, family)
+    return None if hit is None else hit[0]
+
+
+def apply_op(tensor: torch.Tensor, op: Optional[str]) -> torch.Tensor:
+    """``tensor`` under a rule's op: ``"t"`` and ``"stack:<e>:t"``
+    transpose a 2-D tensor (the stacking is the caller's), None keeps it."""
+    if op is not None and op.endswith("t"):
+        return tensor.transpose(0, 1).contiguous()
+    return tensor
+
+
+def stack_members(name: str, parts: dict, count: Optional[int] = None) -> list:
+    """The members ``{e: member}`` of the stacked leaf ``name`` in stack
+    order; ``count`` (the number of experts, when known) makes a checkpoint
+    missing the last ones fail too."""
+    n = count if count is not None else max(parts) + 1
+    missing = sorted(set(range(n)) - set(parts))
+    if missing:
+        raise KeyError(f"missing experts {missing} for {name}")
+    return [parts[e] for e in range(n)]
 
 
 def _drop_tied_head(state_dict: dict) -> bool:
@@ -286,15 +420,25 @@ def convert_hf_state_dict(state_dict: dict, family: str, *, strict: bool = False
     unmatched HF keys are skipped unless ``strict``."""
     _check_family(family)
     drop_head = _drop_tied_head(state_dict)
-    out = {}
+    out, stacked = {}, {}
     for key, value in state_dict.items():
         if drop_head and key == "lm_head.weight":
             continue
-        name = map_hf_key(key, family)
-        if name is not None:
-            out[name] = torch.as_tensor(value)
-        elif strict and not _SKIPPABLE.search(key):
-            raise KeyError(f"no conversion rule for HF key {key!r} ({family})")
+        hit = map_hf_key_and_op(key, family)
+        if hit is None:
+            if strict and not _SKIPPABLE.search(key):
+                raise KeyError(f"no conversion rule for HF key {key!r} ({family})")
+            continue
+        name, op = hit
+        value = apply_op(torch.as_tensor(value), op)
+        if op is not None and op.startswith("stack:"):
+            stacked.setdefault(name, {})[int(op.split(":")[1])] = value
+        else:
+            out[name] = value
+    for name, parts in stacked.items():
+        router = out.get(name.rsplit(".experts.", 1)[0] + ".router")
+        out[name] = torch.stack(stack_members(name, parts,
+                                              None if router is None else router.shape[1]))
     return out
 
 
@@ -307,12 +451,19 @@ def export_hf_state_dict(params, family: str, *, prefix: str = "", dtype=None) -
         params = params.state_dict()
     out = {}
     for key, value in params.items():
-        for _, ours_re, hf_t, _ in _COMPILED[family]:
+        if dtype is not None and value.is_floating_point():
+            value = value.to(dtype)
+        expert = _EXPERT_LEAF.match(key) if family in _EXPERT_CONVENTIONS else None
+        if expert is not None:
+            _, leaf_of, hf_key_for = _EXPERT_CONVENTIONS[family]
+            tok = {v: k for k, v in leaf_of.items()}[expert.group(2)]
+            for e in range(value.shape[0]):
+                out[prefix + hf_key_for(expert.group(1), e, tok)] = apply_op(value[e], "t")
+            continue
+        for _, ours_re, hf_t, _, op in _COMPILED[family]:
             match = ours_re.match(key)
             if match:
-                if dtype is not None and value.is_floating_point():
-                    value = value.to(dtype)
-                out[prefix + _fill(hf_t, match)] = value
+                out[prefix + _fill(hf_t, match)] = apply_op(value, op)
                 break
         else:
             raise KeyError(f"no export rule for parameter {key!r} ({family})")

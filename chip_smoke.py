@@ -204,10 +204,33 @@ order; any failure exits non-zero:
    layer; at pp=1 the whole batch is one pass). ``main_mesh()`` runs it
    alone (with its own reference steps and 8B forward).
 
+12. Mixture-of-Experts at Mixtral-8x7B widths (``ops/moe.py``,
+   ``models/mixtral.py``, ``ExpertParallelPlugin``), random bf16 weights
+   from a seeded generator: (a) 8 layers (23.7 GB) on 4 x 2048 tokens at the
+   training capacity factor 1.25: ms, peak, each layer's dropped pairs and
+   experts' loads, 8 wgmma forward launches, finite logits; on 1 x 256
+   tokens every layer's attention through the flash kernel against einsum
+   attention on the same hidden states (5e-2), and layer 0's index dispatch
+   against the reference's one-hot einsums at f32 (1e-5). (b) ``generate``
+   on it, batch 1, a 512-token prompt, 32 new, greedy: tokens/s, no flash
+   launch, a repeat identical; at f32, 2 layers and hidden 256, token-exact
+   with the greedy loop over uncached forwards that route without drops
+   (the drops at 1.25 printed). (c) 2 layers (3.165 B), 4 x 1024, bf16 over
+   f32 masters, fused AdamW, ``mixtral_lm_loss``, clip 1.0, 3 + 10 steps:
+   launched by ``launch --num_processes 1 --ep 1`` with
+   ``ExpertParallelPlugin(ep_size=1)`` over NCCL, then here without a
+   group; their 13 losses equal bit for bit, 2 + 2 + 2 wgmma launches a
+   step; step ms, peak, router losses, drops. (d) 2 layers exported to an
+   HF directory by ``save_hf_checkpoint`` and loaded by
+   ``load_hf_checkpoint_and_dispatch`` on the "auto" map under a card
+   budget that leaves the last layer and the head in host memory: its 1 x
+   2048 logits against the resident model's (1e-3). Prints the phase's
+   seconds. ``main_moe()`` runs it alone.
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
-``multiprocess_launches``, in phase 10, ``sharded_launches``, and in phase
-11, ``mesh_launches``) and the card's line, and as its last line
-``{"ok": true, "device": {...}}``.
+``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
+11, ``mesh_launches``, and in phase 12, ``moe_launches``) and the card's
+line, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3600,6 +3623,453 @@ def phase_mesh(reference=None):
                 reference_step_ms=reference["extra"]["step_ms"])
 
 
+MOE = dict(seed=81, forward_layers=8, forward=(4, 2048), small=(1, 256), prompt=512, new=32,
+           exact_hidden=256, exact_intermediate=512, exact_prompt=48, exact_new=24,
+           train_layers=2, train=(4, 1024), warmup=3, iters=10, timeout=600,
+           stream_layers=2, stream_tokens=2048, stream_shard="2GB")
+MOE_CHILD_FLAG = "--moe-child"
+MOE_CAPACITY = 1.25  # MixtralConfig's training capacity factor
+MOE_PATH = ("Mixtral-8x7B widths (phase 12): 8-layer forward on 4 x 2048 tokens, 2-layer train "
+            "steps on 4 x 1024 launched and not, 2-layer streamed forward on 1 x 2048")
+
+
+def moe_config(layers: int, **overrides):
+    from accelerate_tpu_torch.models.mixtral import MixtralConfig
+
+    return MixtralConfig.mixtral_8x7b(num_hidden_layers=layers, **overrides)
+
+
+def routing_summary(model) -> str:
+    """Each sparse layer's share of dropped (token, choice) pairs and its
+    experts' loads, from the last forward."""
+    import torch
+
+    counters = model.routing_counters()
+    drops = [float(c["dropped_fraction"]) for c in counters]
+    loads = torch.stack([c["expert_load"] for c in counters]).cpu()
+    share = loads / loads.sum(1, keepdim=True)
+    return (f"dropped pairs per layer {', '.join(f'{d:.4f}' for d in drops)}; expert load "
+            f"shares (min/max over layers) "
+            + ", ".join(f"e{e} {share[:, e].min():.3f}/{share[:, e].max():.3f}"
+                        for e in range(share.shape[1])))
+
+
+def one_hot_moe(experts, router, x, top_k, capacity_factor):
+    """The reference's one-hot form of the MoE layer (one group): dispatch
+    and combine tensors from ``top_k_routing`` and four einsums."""
+    import torch
+
+    from accelerate_tpu_torch.ops.moe import expert_capacity, top_k_routing
+
+    B, S, D = x.shape
+    tokens = x.reshape(1, B * S, D)
+    E = router.shape[1]
+    C = expert_capacity(B * S, E, top_k, capacity_factor)
+    dispatch, combine, _ = top_k_routing(tokens.float() @ router.float(), top_k, C)
+    expert_in = torch.einsum("gnec,gnd->egcd", dispatch.to(x.dtype), tokens)
+    h = torch.nn.functional.silu(torch.einsum("egcd,edf->egcf", expert_in, experts["gate_proj"]))
+    h = h * torch.einsum("egcd,edf->egcf", expert_in, experts["up_proj"])
+    out_e = torch.einsum("egcf,efd->egcd", h, experts["down_proj"])
+    return torch.einsum("gnec,egcd->gnd", combine, out_e.float()).reshape(B, S, D).to(x.dtype)
+
+
+def moe_forward(problems: list):
+    """Phase 12 (a): the 8-layer Mixtral-8x7B forward in bf16 on 4 x 2048
+    tokens (capacity factor 1.25, one routing group): ms, peak, drops and
+    loads, 8 wgmma forward launches, finite logits; on 1 x 256 tokens the
+    flash forward against einsum attention, and layer 0's index dispatch
+    against the one-hot einsums at f32."""
+    import torch
+
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+    from accelerate_tpu_torch.ops.moe import moe_mlp_apply
+
+    cfg = moe_config(MOE["forward_layers"])
+    gen = torch.Generator(device="cuda").manual_seed(MOE["seed"])
+    t0 = time.perf_counter()
+    model = MixtralForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  mixtral_8x7b widths, {cfg.num_hidden_layers} of 32 layers: {n_params / 1e9:.3f} B "
+          f"params ({n_params * 2 / 1e9:.1f} GB in bf16), built in {time.perf_counter() - t0:.1f} s")
+    B, S = MOE["forward"]
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        model(ids[:1, :256])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, aux = model(ids)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        out.update(ms=min(times), counts=counts, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   drops=[float(c["dropped_fraction"]) for c in model.routing_counters()])
+        print(f"  forward {B} x {S} tokens: best of 3 {out['ms']:.1f} ms "
+              f"({B * S / out['ms'] * 1e3:.0f} tokens/s), peak {out['peak_gib']:.1f} GiB, flash "
+              f"launches {counts['flash_fwd_sm90']} wgmma of {counts['flash_fwd']}; load-balance "
+              f"loss {float(aux['load_balance_loss']):.4f}, z-loss "
+              f"{float(aux['router_z_loss']):.4f}; {routing_summary(model)}; {card_line()}")
+        if counts != expected_counts(cfg.num_hidden_layers, 0, wgmma=True):
+            problems.append(f"the Mixtral forward's flash launches {counts}, expected "
+                            f"{cfg.num_hidden_layers} wgmma forward launches")
+        if tuple(logits.shape) != (B, S, cfg.vocab_size) or not torch.isfinite(logits).all():
+            problems.append(f"Mixtral logits: shape {tuple(logits.shape)} or non-finite values")
+        del logits
+
+        # Same widths, small input: every layer's attention through the flash
+        # kernel against einsum attention on the same hidden states (the
+        # routing is not compared: a bf16 rounding can flip a top-k choice).
+        small = ids[:MOE["small"][0], :MOE["small"][1]]
+        positions = torch.arange(small.shape[1], device="cuda")[None].expand_as(small)
+        h = model.embed_tokens(small)
+        rel = 0.0
+        for layer in model.layers:
+            normed = layer.input_norm(h)
+            flash_out = layer.self_attn(normed, positions).float()
+            cfg.attention_backend = "einsum"
+            try:
+                einsum_out = layer.self_attn(normed, positions).float()
+            finally:
+                cfg.attention_backend = "auto"
+            rel = max(rel, ((flash_out - einsum_out).norm() / einsum_out.norm()).item())
+            h = layer(h, positions)[0]
+        flash_logits, einsum_logits = model(small)[0], None
+        cfg.attention_backend = "einsum"
+        try:
+            einsum_logits = model(small)[0]
+        finally:
+            cfg.attention_backend = "auto"
+        agree = (flash_logits.argmax(-1) == einsum_logits.argmax(-1)).float().mean().item()
+        print(f"  flash vs einsum attention in each of the {cfg.num_hidden_layers} layers "
+              f"(1 x 256, bf16, same inputs): relative L2 {rel:.3e} at most (limit 5e-2); whole "
+              f"forwards' top-1 agreement {agree:.4f} (reported: routing may flip)")
+        if not rel <= 5e-2:
+            problems.append(f"the Mixtral attention through the flash kernel parts from the "
+                            f"einsum one ({rel:.3e})")
+
+        mlp = model.layers[0].mlp
+        experts = {k: getattr(mlp.experts, k).float() for k in ("gate_proj", "up_proj",
+                                                                 "down_proj")}
+        x = torch.randn((1, 256, cfg.hidden_size), generator=gen, device="cuda")
+        got, routed = moe_mlp_apply(experts, mlp.router.float(), x, top_k=cfg.top_k,
+                                    capacity_factor=cfg.capacity_factor, num_groups=1)
+        want = one_hot_moe(experts, mlp.router.float(), x, cfg.top_k, cfg.capacity_factor)
+        rel_moe = ((got - want).norm() / want.norm()).item()
+        print(f"  index dispatch vs one-hot einsums (layer 0 at f32, 1 x 256, "
+              f"{float(routed['dropped_fraction']):.4f} of the pairs dropped): relative L2 "
+              f"{rel_moe:.3e} (limit 1e-5)")
+        if not rel_moe <= 1e-5:
+            problems.append(f"the index dispatch parts from the one-hot form ({rel_moe:.3e})")
+        del experts, got, want
+    out["rel_flash_einsum"], out["rel_index_one_hot"] = rel, rel_moe
+    return model, gen, out
+
+
+def moe_generate(model, gen, problems: list) -> dict:
+    """Phase 12 (b): greedy ``generate`` on the 8-layer model, batch 1, a
+    512-token prompt and 32 new tokens: no flash launch, a repeat identical;
+    then at f32, 2 layers and small widths, token-exact with the greedy
+    loop over uncached forwards while that forward drops nothing."""
+    import torch
+
+    from accelerate_tpu_torch import generate
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+
+    prompt = torch.randint(0, model.config.vocab_size, (1, MOE["prompt"]), generator=gen,
+                           device="cuda")
+    reset_counts()
+    runs = []
+    for new in (MOE["new"], MOE["new"], 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append((generate(model, prompt, max_new_tokens=new), time.perf_counter() - t0))
+    counts = read_counts()
+    decode_s = runs[1][1] - runs[2][1]
+    out = dict(tokens_per_s=(MOE["new"] - 1) / decode_s,
+               ms_per_token=decode_s * 1e3 / (MOE["new"] - 1), prefill_ms=runs[2][1] * 1e3)
+    print(f"  generate batch 1, {MOE['prompt']}-token prompt, {MOE['new']} new, greedy: decode "
+          f"{out['tokens_per_s']:.1f} tokens/s ({out['ms_per_token']:.2f} ms a token), prefill "
+          f"{out['prefill_ms']:.1f} ms; flash launches {counts['flash_fwd']}; {card_line()}")
+    if any(counts.values()):
+        problems.append(f"the cached Mixtral generate launched a flash kernel: {counts}")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        problems.append("a repeat greedy Mixtral generate returned other tokens")
+
+    cfg = moe_config(2, hidden_size=MOE["exact_hidden"],
+                     intermediate_size=MOE["exact_intermediate"])
+    small_gen = torch.Generator(device="cuda").manual_seed(MOE["seed"] + 1)
+    small = MixtralForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                               generator=small_gen).eval()
+    ids = torch.randint(0, cfg.vocab_size, (1, MOE["exact_prompt"]), generator=small_gen,
+                        device="cuda")
+    def greedy_loop():
+        ref, drops = ids, []
+        for _ in range(MOE["exact_new"]):
+            logits, _ = small(ref)
+            drops.append(max(float(c["dropped_fraction"]) for c in small.routing_counters()))
+            ref = torch.cat([ref, logits[:, -1].argmax(-1, keepdim=True)], dim=1)
+        return ref, drops
+
+    with torch.inference_mode():
+        cached = generate(small, ids, max_new_tokens=MOE["exact_new"],
+                          cache_dtype=torch.float32)
+        trained_ref, drops = greedy_loop()  # at the training capacity factor 1.25
+        cfg.capacity_factor = float(cfg.num_experts)  # no drops, as the cached path routes
+        try:
+            no_drop_ref, no_drops = greedy_loop()
+        finally:
+            cfg.capacity_factor = MOE_CAPACITY
+    exact = bool(torch.equal(cached, no_drop_ref))
+    first = next((i + 1 for i, d in enumerate(drops) if d > 0), None)
+    print(f"  f32, 2 layers at hidden {cfg.hidden_size}: cached generate against the greedy "
+          f"loop over uncached forwards routed without drops: "
+          f"{'token-exact' if exact else 'parts'} over {MOE['exact_new']} tokens (their drops "
+          f"{max(no_drops):.4f}); at the training capacity factor the uncached forwards drop up "
+          f"to {max(drops):.4f} of the pairs (first at new token {first}) and the loop is "
+          f"{'token-exact too' if torch.equal(cached, trained_ref) else 'parted'}")
+    if not exact or max(no_drops) > 0:
+        problems.append("the cached Mixtral generate parts from the greedy loop over uncached "
+                        "forwards that drop nothing")
+    del small
+    out["exact"] = exact
+    return out
+
+
+def moe_train_steps() -> dict:
+    """Phase 12 (c)'s trainer: Mixtral-8x7B widths at 2 layers, f32
+    masters and bf16 compute, fused AdamW, ``mixtral_lm_loss``, clip 1.0,
+    ``ExpertParallelPlugin(ep_size=1)``; 3 + 10 steps on 4 seeded batches
+    of 4 x 1024 tokens, the last 10 timed. In a process group when the
+    launcher made one."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, ExpertParallelPlugin, make_global_batch
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_lm_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16", ep_plugin=ExpertParallelPlugin(ep_size=1))
+    cfg = moe_config(MOE["train_layers"])
+    gen = torch.Generator(device=acc.device).manual_seed(MOE["seed"] + 2)
+    model = MixtralForCausalLM(cfg, device=acc.device, dtype=torch.float32, generator=gen)
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                    weight_decay=1e-4, fused=True))
+    step = acc.compile_train_step(mixtral_lm_loss(model), max_grad_norm=1.0)
+    rng = np.random.default_rng(MOE["seed"])
+    B, S = MOE["train"]
+    batches = [make_global_batch({"input_ids": rng.integers(0, cfg.vocab_size, size=(B, S))},
+                                 acc) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = []
+    for i in range(MOE["warmup"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(MOE["iters"]):
+        losses.append(step(batches[i % 4])["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MOE["iters"]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    routing = model.module.routing_counters()  # the last step's forward
+    state = AcceleratorState()
+    out = dict(losses=torch.stack(losses).tolist(), step_ms=step_ms, counts=counts,
+               peak_memory_gib=peak, layers=cfg.num_hidden_layers,
+               n_params=sum(p.numel() for p in model.parameters()),
+               load_balance_loss=sum(float(c["load_balance_loss"]) for c in routing) / len(routing),
+               router_z_loss=sum(float(c["router_z_loss"]) for c in routing) / len(routing),
+               drops=[float(c["dropped_fraction"]) for c in routing],
+               mesh=dict(state.mesh.shape), backend=getattr(state, "backend", None),
+               world=state.num_processes)
+    del model, step, batches
+    free_cuda()
+    return out
+
+
+def moe_child(out_path: str):
+    """Phase 12 (c)'s launched trainer (``launch --num_processes 1
+    --mixed_precision bf16 --ep 1 chip_smoke.py --moe-child OUT``): writes
+    ``moe_train_steps``' numbers to ``OUT`` as JSON."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accelerate_tpu_torch import PartialState
+
+    state = PartialState()
+    result = moe_train_steps()
+    result.update(backend=state.backend, env={k: v for k, v in os.environ.items()
+                                              if k.startswith("ACCELERATE_TPU_MESH")})
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    print(f"moe child done: rank {state.process_index} of {state.num_processes} "
+          f"over {state.backend}")
+
+
+def moe_train(problems: list) -> dict:
+    """Phase 12 (c): the 2-layer trainer launched at world size 1 over NCCL
+    with ``--ep 1``, then here without a process group: their 13 losses
+    equal bit for bit and finite, 2 + 2 + 2 wgmma launches a step."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_moe_") as tmp:
+        result_path = os.path.join(tmp, "child.json")
+        t0 = time.time()
+        run_cli(["launch", "--num_processes", "1", "--mixed_precision", "bf16", "--ep", "1",
+                 os.path.join(HERE, "chip_smoke.py"), MOE_CHILD_FLAG, result_path],
+                timeout=MOE["timeout"])
+        wall_s = time.time() - t0
+        with open(result_path) as f:
+            child = json.load(f)
+    here = moe_train_steps()
+    steps = MOE["warmup"] + MOE["iters"]
+    layers = here["layers"]
+    for label, run in (("launched", child), ("here", here)):
+        per_step = {k: v / steps for k, v in run["counts"].items() if v}
+        print(f"  {label}: {run['n_params'] / 1e9:.3f} B params ({layers} layers), mesh "
+              f"{run['mesh']}, world {run['world']} over {run['backend']}; step "
+              f"{run['step_ms']:.2f} ms; peak {run['peak_memory_gib']:.2f} GiB; load-balance "
+              f"loss {run['load_balance_loss']:.4f}, z-loss {run['router_z_loss']:.4f}, "
+              f"dropped pairs {', '.join(f'{d:.4f}' for d in run['drops'])}; launches a step "
+              f"{per_step}; losses {run['losses'][0]:.6f} -> {run['losses'][-1]:.6f}"
+              + (f" ({wall_s:.1f} s of wall time)" if label == "launched" else "")
+              + f"; {card_line()}")
+        if run["counts"] != expected_counts(layers * steps, layers * steps, wgmma=True):
+            problems.append(f"the {label} Mixtral trainer's flash launches {run['counts']}, "
+                            f"expected {layers} of each a step on the wgmma route")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            problems.append(f"the {label} Mixtral trainer gave a non-finite loss")
+    if child["backend"] != "nccl" or child["world"] != 1:
+        problems.append(f"the launched Mixtral trainer ran over {child['backend']} at world "
+                        f"size {child['world']}")
+    gap = first_gap(child["losses"], here["losses"])
+    if gap is not None:
+        problems.append(f"the launched Mixtral losses part from the unlaunched ones at step "
+                        f"{gap[0]} (relative gap {gap[1]:.3e})")
+    else:
+        print(f"  the {steps} launched losses equal the unlaunched ones bit for bit")
+    if here["peak_memory_gib"] > 75:
+        problems.append(f"the 2-layer trainer peaked at {here['peak_memory_gib']:.1f} GiB")
+    return dict(child=child, here=here, steps=2 * steps,
+                counts={k: child["counts"][k] + here["counts"][k] for k in here["counts"]})
+
+
+def unit_of(name: str) -> str:
+    """``layers.<i>`` for a decoder layer's parameter, else its top module."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "layers" else parts[0]
+
+
+def moe_streamed(problems: list) -> dict:
+    """Phase 12 (d): a 2-layer bf16 Mixtral at full width exported to an
+    HF directory by the port's exporter (``save_hf_checkpoint``, family
+    "mixtral": the router transposed, each expert's w1/w2/w3 apart), loaded
+    back by ``load_hf_checkpoint_and_dispatch`` on the solver's "auto" map
+    under a card budget that holds the embedding and layer 0 (the last layer
+    and the head go to host memory, each layer's experts stacked from their
+    per-expert tensors); its 1 x 2048 logits against the resident model's."""
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch.big_modeling import load_hf_checkpoint_and_dispatch
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+    from accelerate_tpu_torch.utils.hf_interop import save_hf_checkpoint
+
+    cfg = moe_config(MOE["stream_layers"])
+    gen = torch.Generator(device="cuda").manual_seed(MOE["seed"] + 3)
+    model = MixtralForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+    sizes: dict = {}
+    for name, p in model.named_parameters():
+        sizes[unit_of(name)] = sizes.get(unit_of(name), 0) + p.numel() * 2
+    largest = max(p.numel() * 2 for p in model.parameters())
+    total = sum(sizes.values())
+    budget = sizes["embed_tokens"] + sizes["layers.0"] + largest + total // 100
+    ids = torch.randint(0, cfg.vocab_size, (1, MOE["stream_tokens"]), generator=gen,
+                        device="cuda")
+    out = {}
+    with torch.inference_mode():
+        want = model(ids)[0]
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_moe_hf_") as tmp:
+        check_room(tmp, total / 1e9 * 1.1, total / 1e9 * 1.5, "the streamed Mixtral")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(model, tmp, cfg, family="mixtral", max_shard_size=MOE["stream_shard"])
+        out["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        streamed, _ = load_hf_checkpoint_and_dispatch(
+            tmp, device_map="auto", dtype=torch.bfloat16,
+            max_memory={0: budget, "cpu": 4 * total})
+        out["load_s"] = time.perf_counter() - t0
+        places = {}
+        for name, place in streamed.store.placement.items():
+            places.setdefault(str(place), set()).add(unit_of(name))
+        streamed(ids[:, :256])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = streamed(ids)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["counts"] = read_counts()
+        streamed.close()
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    out.update(rel_l2=rel, top1_agreement=agree, equal=bool(torch.equal(got, want)))
+    print(f"  streamed Mixtral (bf16, {cfg.num_hidden_layers} layers, {total / 1e9:.2f} GB) "
+          f"exported in {out['export_s']:.1f} s, loaded in {out['load_s']:.1f} s on the "
+          f"\"auto\" map under {budget / 2**30:.2f} GiB of card ("
+          + "; ".join(f"{k}: {', '.join(sorted(v))}" for k, v in sorted(places.items()))
+          + f"); 1 x {ids.shape[1]} forward {out['ms']:.1f} ms, flash launches "
+          f"{out['counts']['flash_fwd_sm90']} wgmma of {out['counts']['flash_fwd']}; logits "
+          f"against the resident model's: {'bit-identical' if out['equal'] else 'differ'}, "
+          f"relative L2 {rel:.3e} (limit 1e-3), top-1 agreement {agree:.4f}; {card_line()}")
+    if "cpu" not in places or "layers.1" not in places.get("cpu", set()):
+        problems.append(f"the streamed Mixtral's map left no layer on the host: {places}")
+    if not rel <= 1e-3:
+        problems.append(f"the streamed Mixtral's logits part from the resident ones ({rel:.3e})")
+    if out["counts"] != expected_counts(cfg.num_hidden_layers, 0, wgmma=True):
+        problems.append(f"the streamed Mixtral forward's flash launches {out['counts']}, "
+                        f"expected {cfg.num_hidden_layers} wgmma forward launches")
+    del model, want, got, streamed
+    free_cuda()
+    return out
+
+
+def phase_moe() -> dict:
+    """Phase 12: Mixture-of-Experts at Mixtral-8x7B widths (``ops/moe.py``,
+    ``models/mixtral.py``, ``ExpertParallelPlugin``): (a) the 8-layer
+    forward, (b) generate, (c) the 2-layer trainer launched with ``--ep 1``
+    and not, (d) the 2-layer model streamed from its HF export. Every check
+    is printed before a failure fails the phase.
+    Returns the numbers, with the flash launches of the main-path runs
+    summed in ``counts``."""
+    t_phase = time.time()
+    problems: list = []
+    model, gen, forward = moe_forward(problems)
+    decode = moe_generate(model, gen, problems)
+    del model, gen
+    free_cuda()
+    train = moe_train(problems)
+    streamed = moe_streamed(problems)
+    counts = {k: forward["counts"][k] + train["counts"][k] + streamed["counts"][k]
+              for k in forward["counts"]}
+    phase_s = time.time() - t_phase
+    print(f"  phase 12 took {phase_s:.1f} s")
+    if problems:
+        fail("phase 12: " + "; ".join(problems))
+    return dict(forward=forward, decode=decode, train=train, streamed=streamed, counts=counts,
+                train_counts=train["counts"], steps=train["steps"], seconds=phase_s)
+
+
 def main():
     import torch
 
@@ -3678,6 +4148,9 @@ def main():
     free_cuda()
     print("== 11. device meshes: tp/pp plugins, ring, ulysses, HYBRID_SHARD; pipelined inference")
     mesh = phase_mesh(result)
+    free_cuda()
+    print("== 12. Mixture-of-Experts at Mixtral-8x7B widths: forward, generate, --ep 1 trainer")
+    moe = phase_moe()
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -3699,6 +4172,9 @@ def main():
         entry["sharded_launches_per_step"] = sharded["counts"][key] / sharded["steps"]
         entry["mesh_launches"] = mesh["counts"][key]
         entry["mesh_launches_per_step"] = mesh["train_counts"][key] / mesh["steps"]
+        entry["moe_launches"] = moe["counts"][key]
+        entry["moe_launches_per_step"] = moe["train_counts"][key] / moe["steps"]
+        entry["moe_path"] = MOE_PATH
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3844,6 +4320,30 @@ def main_mesh():
         "counts": mesh["counts"]}}))
 
 
+def main_moe():
+    """Phase 12 alone. Builds the kernels first: the Mixtral forwards and
+    train steps run the flash kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    moe = phase_moe()
+    train = moe["train"]
+    print(json.dumps({"moe": {
+        "forward": {k: moe["forward"][k] for k in ("ms", "peak_gib", "drops")},
+        "decode": moe["decode"],
+        "train": {k: train["here"][k] for k in ("step_ms", "peak_memory_gib", "load_balance_loss",
+                                                "router_z_loss")},
+        "launched_step_ms": train["child"]["step_ms"],
+        "streamed": {k: moe["streamed"][k] for k in ("ms", "rel_l2", "equal", "load_s")},
+        "counts": moe["counts"],
+        "seconds": moe["seconds"]}}))
+
+
 TRAIN_PATH = "tier-1 train steps (phase 6)"
 LOOP_PATH = ("tier-1 training loop (phase 8): packed 1024-token rows with segment_ids, "
              "dots remat, accumulation 2")
@@ -3904,5 +4404,7 @@ if __name__ == "__main__":
         sharded_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == MESH_CHILD_FLAG:
         mesh_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == MOE_CHILD_FLAG:
+        moe_child(sys.argv[2])
     else:
         main()

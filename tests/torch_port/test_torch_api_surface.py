@@ -20,7 +20,8 @@ MODULES = ["", ".utils", ".state", ".accelerator", ".data_loader", ".scheduler",
            ".checkpointing", ".generation", ".tracking", ".big_modeling", ".utils.modeling",
            ".utils.operations", ".launchers", ".local_sgd", ".commands.launch",
            ".parallel.sharding", ".parallel.host_offload", ".commands.merge",
-           ".parallel.mesh", ".parallel.pipeline", ".ops.ring_attention", ".inference"]
+           ".parallel.mesh", ".parallel.pipeline", ".ops.ring_attention", ".inference",
+           ".ops.moe", ".models.mixtral"]
 
 TAGS = {"A8d", "A9", "JAX-only"}
 _PYTREE = "a JAX function takes the parameter pytree; a torch module holds its parameters"
@@ -29,7 +30,6 @@ _ABSTRACT = "flax's abstract init over example inputs; a torch module is built o
 
 #: Reference names the port does not have, by their home in the reference.
 MISSING_OK = {
-    "accelerate_tpu.utils.dataclasses.ExpertParallelPlugin": ("A8d", "MoE expert parallelism"),
     "accelerate_tpu.utils.dataclasses.FP8RecipeKwargs": ("A9", "the fp8 path"),
     "accelerate_tpu.utils.dataclasses.JitConfig": ("JAX-only", "jax.jit options"),
     "accelerate_tpu.parallel.sharding.replicated_sharding": (
@@ -39,7 +39,6 @@ MISSING_OK = {
     "accelerate_tpu.parallel.host_offload.shardings_like": (
         "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
     "accelerate_tpu.generation.seq2seq_generate": ("A9", "comes with T5"),
-    "accelerate_tpu.big_modeling.LazyStack": ("A9", "stacked experts come with Mixtral"),
     **{f"accelerate_tpu.tracking.{name}": (
         "A9", "a third-party tracker; it comes with tests over fakes of its library")
        for name in ("WandBTracker", "MLflowTracker", "CometMLTracker", "AimTracker",
@@ -69,12 +68,8 @@ MISSING_OK = {
 #: Reference keywords the port's function or class lacks:
 #: (home of the reference object, keywords, tag, reason).
 KEYWORDS_OK = [
-    ("accelerate_tpu.accelerator.Accelerator", ("ep_plugin",), "A8d",
-     "MoE expert parallelism"),
     ("accelerate_tpu.accelerator.Accelerator", ("dynamo_backend", "jit_config"), "JAX-only",
      "how XLA compiles the steps"),
-    ("accelerate_tpu.state.AcceleratorState", ("ep_plugin",), "A8d",
-     "MoE expert parallelism"),
     ("accelerate_tpu.accelerator.AcceleratedModel", ("model", "mesh", "param_shardings",
                                                      "autocast_enabled"),
      "JAX-only", "built by prepare from a flax Model and its mesh shardings"),
@@ -94,8 +89,6 @@ KEYWORDS_OK = [
      "comes with the learned-position families"),
     ("accelerate_tpu.utils.hf_interop.export_hf_state_dict", ("config",), "A9",
      "comes with vit"),
-    ("accelerate_tpu.big_modeling.LazyWeight", ("transform",), "JAX-only",
-     "the flax layout's transpose; HF and torch share the [out, in] layout"),
     ("accelerate_tpu.utils.hf_interop.convert_hf_state_dict", ("to_numpy",), "JAX-only",
      "numpy or jax arrays; the port returns tensors"),
     ("accelerate_tpu.big_modeling.init_empty_weights", ("module", "rng"), "JAX-only",
@@ -128,6 +121,11 @@ KEYWORDS_OK = [
     ("accelerate_tpu.adapters.lora.prepare_lora", ("params",), "JAX-only", _PYTREE),
     ("accelerate_tpu.adapters.lora.prepare_lora", ("rng",), "JAX-only", _KEY),
     ("accelerate_tpu.adapters.lora.merge_adapter", ("params",), "JAX-only", _PYTREE),
+    *[(f"accelerate_tpu.models.mixtral.{name}", ("parent", "name"), "JAX-only",
+       "flax's module tree plumbing; a torch module holds its submodules")
+      for name in ("MixtralSparseMLP", "MixtralBlock", "MixtralForCausalLM")],
+    ("accelerate_tpu.models.mixtral.mixtral_lm_loss", ("apply_fn",), "JAX-only",
+     "a flax apply function; the port's loss takes the model"),
 ]
 
 

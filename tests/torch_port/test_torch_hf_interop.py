@@ -142,7 +142,7 @@ def test_saved_directory_reads_in_jax(tmp_path):
         assert torch.equal(back[name], t), name
 
 
-@pytest.mark.parametrize("model_type", ["mixtral", "gpt2", "t5", "qwen2_moe"])
+@pytest.mark.parametrize("model_type", ["gptj", "gpt2", "t5", "bloom"])
 def test_families_without_a_port_model_name_the_roadmap(tmp_path, model_type):
     with pytest.raises(NotImplementedError, match="A9"):
         phf.detect_family({"model_type": model_type})

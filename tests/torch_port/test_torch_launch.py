@@ -45,9 +45,9 @@ def test_env_prints_versions_cards_and_config(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,message", [
     (["script.py"], "no CUDA card is visible; pass --use_cpu_emulation"),
-    (["--use_cpu_emulation", "--ep", "2", "script.py"], "ROADMAP.md, A8d"),
-    (["--use_cpu_emulation", "--num_processes", "2", "--ep", "2", "script.py"],
-     "ROADMAP.md, A8d"),
+    (["--use_cpu_emulation", "--ep", "2", "script.py"], "do not divide the 1 process(es)"),
+    (["--use_cpu_emulation", "--num_processes", "2", "--ep", "3", "script.py"],
+     "do not divide the 2 process(es)"),
     (["--use_cpu_emulation", "--emulated_device_count", "2", "script.py"], "one device"),
     (["--use_cpu_emulation", "--gcloud", "script.py"], "JAX package only"),
     (["--use_cpu_emulation", "--num_processes", "2", "--num_machines", "2",
@@ -128,8 +128,8 @@ def test_notebook_launcher_in_process_and_its_refusals():
 
     assert notebook_launcher(_double, args=(4,), mixed_precision="bf16") == (8, "bf16")
     assert not AcceleratorState._shared_state  # reset after the run
-    with pytest.raises(NotImplementedError, match="A8d"):
-        notebook_launcher(_double, args=(1,), ep=2)
+    with pytest.raises(ValueError, match="not divisible"):  # ep=2 over one process
+        notebook_launcher(_mesh_shape, args=(), ep=2)
     # A mesh of one process's axes reaches the state through the environment.
     assert notebook_launcher(_mesh_shape, args=(), tp=1, cp=1) == {
         "pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "cp": 1, "tp": 1}

@@ -34,6 +34,8 @@ SIZE_CASES = [
     (dict(dp=-1, fsdp=-1), 8),     # two -1 axes
     (dict(dp=1, fsdp=3), 8),       # does not divide
     (dict(fsdp=3), 8),             # explicit axes do not divide
+    (dict(dp=2, ep=4), 8),
+    (dict(dp=1, ep=-1), 8),        # ep takes every process
 ]
 
 
@@ -70,7 +72,8 @@ def test_from_env_equals_the_jax_one(monkeypatch):
 
 
 @pytest.mark.parametrize("axes", [dict(dp=2, fsdp=2, tp=2), dict(pp=2, cp=2, tp=2),
-                                  dict(dp=1, fsdp=4, tp=2), dict(pp=2, dp=2, cp=2)],
+                                  dict(dp=1, fsdp=4, tp=2), dict(pp=2, dp=2, cp=2),
+                                  dict(dp=2, ep=2, tp=2), dict(fsdp=2, ep=2, cp=2)],
                          ids=lambda a: "x".join(f"{k}{v}" for k, v in a.items()))
 def test_rank_coordinates_follow_the_jax_device_layout(axes):
     import jax

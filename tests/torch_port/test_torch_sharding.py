@@ -177,10 +177,13 @@ def test_zero_policy_cases_equal_the_jax_policy(case, caplog):
 
 
 def test_tensor_and_pipeline_rules_need_a_mesh():
-    """The tp and pp rules act only with their plugin on a mesh whose axis
-    is above 1; the ep rules (MoE) are not ported; HYBRID_SHARD is
-    FULL_SHARD's policy."""
-    from accelerate_tpu_torch import PipelineParallelPlugin, TensorParallelPlugin
+    """The tp, pp and ep rules act only with their plugin on a mesh whose
+    axis is above 1; HYBRID_SHARD is FULL_SHARD's policy."""
+    from accelerate_tpu_torch import (
+        ExpertParallelPlugin,
+        PipelineParallelPlugin,
+        TensorParallelPlugin,
+    )
 
     q = "model/blocks/self_attn/q_proj/kernel"
     tp = TensorParallelPlugin(tp_size=2)
@@ -190,8 +193,12 @@ def test_tensor_and_pipeline_rules_need_a_mesh():
     got = sharding.infer_param_shardings([(q, (2, 8, 8))], {"tp": 2, "pp": 2}, tp_plugin=tp,
                                          pp_plugin=pp)[q]
     assert str(got) == "PartitionSpec('pp', None, 'tp')"
-    with pytest.raises(NotImplementedError, match="A8d"):
-        sharding.infer_param_shardings([("w", (8, 8))], {"ep": 2}, ep_plugin=object())
+    experts = "layers_0/mlp/experts/gate_proj"
+    ep = ExpertParallelPlugin(ep_size=2)
+    assert sharding.infer_param_shardings([(experts, (4, 8, 8))], {"ep": 2})[experts] == \
+        sharding.PartitionSpec()
+    got = sharding.infer_param_shardings([(experts, (4, 8, 8))], {"ep": 2}, ep_plugin=ep)
+    assert str(got[experts]) == "PartitionSpec('ep',)"
     hybrid = FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD")
     assert hybrid.reshard_after_forward and hybrid.min_weight_size_to_shard == 2**14
 

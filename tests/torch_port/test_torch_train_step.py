@@ -278,15 +278,15 @@ def test_grad_reduce_dtype_sees_narrow_params_and_warns_on_a_mismatch():
 
 
 def test_unported_options_raise():
-    """HYBRID_SHARD and meshes are ported; an expert-parallel axis (MoE)
-    still raises."""
+    """HYBRID_SHARD and meshes are ported, the expert-parallel axis too:
+    ``ep=2`` over one process fails as any axis that does not divide it."""
     from accelerate_tpu_torch import FullyShardedDataParallelPlugin, MeshConfig
 
     acc = Accelerator(cpu=True,
                       fsdp_plugin=FullyShardedDataParallelPlugin(sharding_strategy="HYBRID_SHARD"))
     assert acc.fsdp_plugin.sharding_strategy == "HYBRID_SHARD"
     assert acc.mesh.shape == {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "cp": 1, "tp": 1}
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(ValueError, match="not divisible"):
         MeshConfig(ep=2).build()
 
 
