@@ -9,8 +9,13 @@ compiled program and leaves the fusion to XLA, so there is no kernel to
 port. Adapters stay full precision in the :class:`~.registry.AdapterBank`,
 so a tenant's delta rides exactly on the quantized base.
 
-``shardings_for_quantized`` of the JAX module comes with tensor-parallel
-serving (ROADMAP.md, A8d).
+Under a tensor-parallel serving slice (``serving/mesh_exec.py``) the whole
+model is quantized first and then cut: :func:`shardings_for_quantized`
+gives ``weight_q`` its kernel's spec and ``weight_scale`` the axis only
+where its dim equals ``weight_q``'s (a row-parallel projection keeps its
+per-output-channel scales whole), as the JAX function does, and a split
+:class:`QuantizedLinear` runs the same column and row products as a float
+projection (``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from ..utils.quantization import (
 )
 
 __all__ = ["QuantizedLinear", "dequantize_params", "quantize_base_weights", "quantized_nbytes",
-           "SERVING_MIN_WEIGHT_SIZE", "SERVING_SKIP_MODULES"]
+           "shardings_for_quantized", "SERVING_MIN_WEIGHT_SIZE", "SERVING_SKIP_MODULES"]
 
 #: Tensors below this size stay full precision (norms, biases, tiny heads).
 SERVING_MIN_WEIGHT_SIZE = 256
@@ -63,6 +68,11 @@ class QuantizedLinear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.dequantized_weight(), self.bias)
+
+    def _product(self, x):
+        """The product without the bias (``models/llama.py``'s column and
+        row parallel products take it)."""
+        return F.linear(x, self.dequantized_weight())
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, int8"
@@ -115,3 +125,37 @@ def dequantized_state_dict(model: nn.Module) -> dict:
         else:
             out[name] = tensor
     return out
+
+
+def shardings_for_quantized(exec_, model: nn.Module) -> dict:
+    """``{name: PartitionSpec}`` of a quantized model's parameters and
+    buffers under one serving slice (JAX ``:78-115``): the slice's
+    full-precision specs (``exec_.param_shardings``, the Megatron rules on
+    each projection's logical kernel) with each :class:`QuantizedLinear`'s
+    ``weight_q`` taking its kernel's spec and ``weight_scale`` keeping an
+    axis only where its dim equals ``weight_q``'s (the size-1 amax dim
+    replicates). int8 only, as in the JAX package."""
+    from ..parallel.sharding import PartitionSpec
+
+    fp = exec_.param_shardings(model)
+    out = dict(fp)
+    for name, module in model.named_modules():
+        if not isinstance(module, QuantizedLinear):
+            continue
+        prefix = f"{name}." if name else ""
+        spec = list(exec_.kernel_spec(prefix + "weight", (module.out_features,
+                                                          module.in_features)))
+        spec += [None] * (2 - len(spec))
+        q, scale = module.weight_q, module.weight_scale
+        sspec = [ax if ax is not None and scale.shape[i] == q.shape[i] else None
+                 for i, ax in enumerate(spec)]
+        out[prefix + "weight_q"] = PartitionSpec(*_trim(spec))
+        out[prefix + "weight_scale"] = PartitionSpec(*_trim(sspec))
+    return out
+
+
+def _trim(spec: list) -> list:
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return spec

@@ -16,6 +16,12 @@ reassigned tensor would leave them reading the old one. ``acquire`` runs on
 the engine's thread, whose current stream is the engine's, so the copy is
 ordered before the next step it launches. The bookkeeping is under a lock:
 ``register`` and the lookups come from callers' threads.
+
+On a tensor-parallel serving slice (:meth:`AdapterBank.place`) each stack
+holds this process's share, laid out like its base projection (JAX
+``SliceExec.bank_shardings``), and a row load writes the share of the host
+row; the slice's other processes get the whole row from the engine and
+write theirs (``serving/mesh_exec.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +74,13 @@ class AdapterBank:
         self._pins: dict = {}                  # name -> requests in flight
         self.loads = 0
         self.evictions = 0
+        #: the serving slice the bank is placed on (None: whole, one device),
+        #: each leaf's split dim there, and the hook that sends a loaded
+        #: row to the slice's other processes.
+        self._placed_mesh = None
+        self._exec = None
+        self._dims: dict = {}
+        self.row_listener = None
 
     def _identity(self) -> dict:
         return {p: {"a": torch.zeros((d_in, self.rank)), "b": torch.zeros((self.rank, d_out)),
@@ -150,10 +163,79 @@ class AdapterBank:
         return {p: {k: v.index_select(0, rows) for k, v in leaves.items()}
                 for p, leaves in self.stacks.items()}
 
+    def place(self, exec_) -> None:
+        """Shard the bank across a serving slice (JAX ``:106-140``):
+        ``exec_`` is the slice's :class:`~accelerate_tpu_torch.serving.
+        mesh_exec.SliceExec`, whose ``bank_shardings`` lay each target's
+        factors out like its base kernel (column targets split ``b`` on
+        ``d_out``, row targets ``a`` on ``d_in``; the row axis never
+        splits). The stacks become this process's share on the slice's
+        device; later row loads write the share of each row. Engine
+        construction time only, and once a bank: a bank placed on one
+        slice cannot serve another."""
+        from ..parallel.sharding import _dim_of, chunk_of
+
+        with self._lock:
+            if self._placed_mesh is not None and self._placed_mesh is not exec_.mesh:
+                raise ValueError(
+                    "AdapterBank is already placed on another mesh slice; each mesh-sliced "
+                    "engine needs its OWN bank (pass a make_adapters factory to "
+                    "ReplicaSet.from_mesh)")
+            if self._placed_mesh is exec_.mesh:
+                return
+            specs = exec_.bank_shardings(self)
+            self._dims = {p: {k: _dim_of(spec, "tp") for k, spec in leaves.items()}
+                          for p, leaves in specs.items()}
+            self.stacks = {
+                p: {k: chunk_of(v, self._dims[p][k], exec_.index, exec_.tp).to(
+                    exec_.device, copy=True).contiguous() for k, v in leaves.items()}
+                for p, leaves in self.stacks.items()}
+            self.device = exec_.device
+            self._exec = exec_
+            self._placed_mesh = exec_.mesh
+
     def _write_row(self, row: int, host: dict) -> None:
+        self.write_row(row, host)
+        if self.row_listener is not None:
+            self.row_listener(row, host)
+
+    def write_row(self, row: int, host: dict) -> None:
+        """Write the whole host row ``host`` (this process's share of it,
+        on a slice) into bank row ``row``."""
+        from ..parallel.sharding import chunk_of
+
         for p, leaves in self.stacks.items():
             for k, v in leaves.items():
-                v[row].copy_(host[p][k])
+                src = host[p][k]
+                if self._exec is not None:
+                    dim = self._dims[p][k]
+                    src = chunk_of(src, None if dim is None else dim - 1, self._exec.index,
+                                   self._exec.tp)
+                v[row].copy_(src)
+
+    def row_vector(self, host: dict) -> torch.Tensor:
+        """A whole host row as one f32 vector (the bank's targets in order,
+        ``a``, ``b`` and ``scale`` of each)."""
+        return torch.cat([host[p][k].reshape(-1).to(torch.float32)
+                          for p in self._paths for k in ("a", "b", "scale")])
+
+    def row_from_vector(self, flat: torch.Tensor) -> dict:
+        """The host row :meth:`row_vector` packed."""
+        host, at = {}, 0
+        for p in self._paths:
+            d_in, d_out = self._shapes[p]
+            host[p] = {}
+            for k, shape in (("a", (d_in, self.rank)), ("b", (self.rank, d_out)),
+                             ("scale", ())):
+                n = int(torch.Size(shape).numel())
+                host[p][k] = flat[at:at + n].view(shape)
+                at += n
+        return host
+
+    @property
+    def row_size(self) -> int:
+        """Elements of :meth:`row_vector`."""
+        return sum(self.rank * (d_in + d_out) + 1 for d_in, d_out in self._shapes.values())
 
     def acquire(self, name: str):
         """Pin ``name`` into a bank row, loading it (and evicting the least

@@ -13,6 +13,13 @@ at a model:
   (the JAX command's factory returns ``(model, params)``); every replica
   serves that one model, each from its own engine.
 
+``--tp N`` makes each replica a tensor-parallel slice of N devices
+(``ReplicaSet.from_mesh``, ``serving/mesh_exec.py``). Above N=1 the slice
+runs one process per tp index: start the command in N processes of one
+group (``accelerate-tpu-torch launch --num_processes N --module
+accelerate_tpu_torch.commands.accelerate_cli serve --tp N ...``); process 0
+serves HTTP and the others follow its slices until it drains.
+
 It runs on ``cuda`` unless ``--device cpu`` is given: without a card and
 without that flag it exits with an error. The process serves until
 SIGTERM/SIGINT, then drains gracefully: readyz goes 503, in-flight
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import signal
 import time
 
 
@@ -87,14 +95,13 @@ def _parse_tenant_floats(specs, flag: str, what: str):
     return out or None
 
 
-def serve_command(args) -> int:
-    from ..serving import (
-        FleetSupervisor,
-        GatewayConfig,
-        ReplicaSet,
-        ServingEngine,
-        ServingGateway,
-    )
+def build_replica_set(args, model=None, **engine_overrides):
+    """The fleet ``serve`` puts behind its gateway, from its parsed ``args``:
+    ``(replica_set, autoscale_min)``. ``model`` (default: ``--model``'s)
+    and ``engine_overrides`` (extra engine keywords) let a caller build the
+    command's fleet around its own model. With ``--tp`` every process of the
+    group builds it; a follower process's fleet has ``leader`` False."""
+    from ..serving import ReplicaSet, ServingEngine
 
     # Validate cheap usage errors before any model build/warmup.
     # --autoscale-max turns the fixed fleet into a min..max elastic one:
@@ -112,15 +119,14 @@ def serve_command(args) -> int:
     else:
         autoscale_min = args.replicas
         n_build = args.replicas
-    rate_limits = _parse_tenant_floats(args.rate_limit, "--rate-limit", "RPS")
-    fair_share = _parse_tenant_floats(args.fair_share, "--fair-share",
-                                      "WEIGHT")
-    if args.tp > 1:
-        raise SystemExit("--tp > 1 (tensor-parallel slices) is not ported to "
-                         "the PyTorch fleet yet (ROADMAP.md, A8d)")
+    if args.tp is not None and args.tp < 1:
+        raise SystemExit("--tp must be >= 1")
+    if autoscale and args.tp is not None:
+        n_build = args.autoscale_max
     device = _resolve_device(args)
 
-    model = _resolve_model(args.model, args, device)
+    if model is None:
+        model = _resolve_model(args.model, args, device)
     adapter_specs = _parse_adapter_specs(args.adapter)
     max_adapters = args.max_adapters
     if adapter_specs and max_adapters < 2:
@@ -159,11 +165,12 @@ def serve_command(args) -> int:
             prefix_cache_mb=args.prefix_cache_mb,
             priority_policy=priority_policy,
             adapters=make_bank(), trace_dir=args.trace_dir, device=device,
-            **paging, **spec)
+            **paging, **spec, **engine_overrides)
 
     print(f"warming up {n_build} replica(s) on {device} "
           f"(slots={args.max_slots}, max_len={args.max_len}, "
           f"chunk={args.prefill_chunk}"
+          + (f", tp={args.tp}" if args.tp is not None else "")
           + (f", kv={args.kv_dtype}" if args.kv_dtype else "")
           + (f", weights={args.weights_dtype}" if args.weights_dtype else "")
           + (f", adapters={max_adapters - 1}" if max_adapters >= 2 else "")
@@ -172,10 +179,34 @@ def serve_command(args) -> int:
           + (f", spec=lookup n={args.spec_lookup} K={args.spec_tokens}"
              if args.spec_lookup else "")
           + ") ...", flush=True)
-    replica_set = ReplicaSet.from_factory(factory, n_build)
-    if autoscale:
-        for _ in range(args.autoscale_max - autoscale_min):
-            replica_set.add_parked(factory)
+    if args.tp is not None:
+        # One replica = one tp-wide slice; the fleet shares a host prefix
+        # cache, so failover keeps its prefix hits. Slices claim their
+        # devices at build time, so an elastic fleet builds all
+        # max_replicas slices and parks the surplus (the slice factory
+        # rebuilds one on scale-up).
+        try:
+            replica_set = ReplicaSet.from_mesh(
+                model, tp=args.tp, num_slices=n_build,
+                make_adapters=(make_bank if max_adapters >= 2 else None),
+                max_slots=args.max_slots, max_len=args.max_len,
+                max_queued=args.max_queued, eos_token_id=args.eos_token_id,
+                prefill_chunk=args.prefill_chunk,
+                prefix_cache_mb=args.prefix_cache_mb,
+                priority_policy=priority_policy, trace_dir=args.trace_dir,
+                device=device, **paging, **spec, **engine_overrides)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"serve: {e}") from None
+        if not replica_set.leader:
+            return replica_set, autoscale_min
+        if autoscale:
+            for i in range(autoscale_min, args.autoscale_max):
+                replica_set.park_replica(i)
+    else:
+        replica_set = ReplicaSet.from_factory(factory, n_build)
+        if autoscale:
+            for _ in range(args.autoscale_max - autoscale_min):
+                replica_set.add_parked(factory)
     if adapter_specs:
         from ..adapters import load_adapter
 
@@ -184,6 +215,26 @@ def serve_command(args) -> int:
             replica_set.register_adapter(name, adapter)
             print(f"registered adapter {name!r} from {path} "
                   f"(rank {meta.get('rank', '?')})", flush=True)
+    return replica_set, autoscale_min
+
+
+def serve_command(args) -> int:
+    from ..serving import FleetSupervisor, GatewayConfig, ServingGateway
+
+    rate_limits = _parse_tenant_floats(args.rate_limit, "--rate-limit", "RPS")
+    fair_share = _parse_tenant_floats(args.fair_share, "--fair-share",
+                                      "WEIGHT")
+    autoscale = args.autoscale_max is not None
+    replica_set, autoscale_min = build_replica_set(args)
+    if not replica_set.leader:
+        # Process 0 drains the fleet and closes the slices; a signal here
+        # must not leave its slices a process short meanwhile.
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, signal.SIG_IGN)
+        print(f"following the leader's {len(replica_set)} slice(s) of tp={args.tp}",
+              flush=True)
+        replica_set.shutdown()
+        return 0
     gateway = ServingGateway(
         replica_set,
         config=GatewayConfig(host=args.host, port=args.port,
@@ -250,9 +301,12 @@ def serve_command_parser(subparsers=None):
                              "'--device cpu' is given)")
     parser.add_argument("--replicas", type=int, default=1,
                         help="Engine replicas behind the gateway")
-    parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel width per replica; only 1 is "
-                             "ported (ROADMAP.md, A8d)")
+    parser.add_argument("--tp", type=int, default=None,
+                        help="Tensor-parallel width per replica: each replica "
+                             "becomes a disjoint tp-device slice "
+                             "(ReplicaSet.from_mesh); above 1 the command runs "
+                             "in tp processes of one group. Omitted: replicas "
+                             "of one device each, sharing the weights")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000,
                         help="TCP port (0 = OS-assigned ephemeral)")

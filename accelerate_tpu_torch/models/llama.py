@@ -33,7 +33,11 @@ the layout is ``[batch, seq, heads, head_dim]`` throughout, as in JAX.
   up) and row parallel (o, down), between Megatron's f and g
   (``parallel/sharding.py``'s :class:`_SumGradient`, and
   :class:`_ReduceFromTP`), so attention sees ``H/tp``
-  and ``G/tp`` heads; under context parallelism each process runs its
+  and ``G/tp`` heads; a LoRA adapter's factors apply inside the same
+  column and row products, and the serving engine's KV cache holds this
+  process's heads (``serving/mesh_exec.py``); a serving shard's embedding
+  table (split on hidden) and head (on the vocabulary) gather their
+  activations whole; under context parallelism each process runs its
   ``S/cp`` tokens of every row (the loss factories cut them, rotary takes
   global positions) and attention is ring or Ulysses
   (``ops/ring_attention.py``); ``PipelinedLlamaForCausalLM`` applies its
@@ -206,7 +210,8 @@ def _linear(cfg: LlamaConfig, in_features: int, out_features: int, bias: bool, d
 class _Projection(nn.Linear):
     """A decoder layer's projection: ``nn.Linear``, whose output a "dots"
     remat keeps (:func:`_remat_layer`). Under tensor parallelism its weight
-    is this process's chunk: :meth:`column` and :meth:`row` apply it."""
+    is this process's chunk: :func:`column_parallel` and
+    :func:`row_parallel` apply it (and an int8 ``QuantizedLinear``'s)."""
 
     def forward(self, x):
         if _kept_products is None:
@@ -218,21 +223,57 @@ class _Projection(nn.Linear):
             return F.linear(x, self.weight)
         return _KeptProduct.apply(x, self.weight, None, _kept_products)
 
-    def column(self, x, tp):
-        """Column parallel: this process's output features; a bias (which
-        the JAX policy replicates) contributes its slice."""
-        y = self._product(x)
-        if self.bias is not None:
-            k = y.shape[-1]
-            y = y + _SliceReplicated.apply(self.bias, tp, 0, k)
-        return y
 
-    def row(self, x, tp):
-        """Row parallel: this process's input features; the partial
-        products are summed over ``tp`` (:class:`_ReduceFromTP`), then the
-        bias is added once."""
-        y = _ReduceFromTP.apply(self._product(x), tp)
-        return y + self.bias if self.bias is not None else y
+def _lora_factors(mod, dtype):
+    """``(a, b, scale)`` of one adapted module in ``dtype``; a per-row
+    ``scale`` [B] broadcast over ``[B, S, out]``."""
+    scale = mod["scale"].to(dtype)
+    if scale.dim() == 1:
+        scale = scale[:, None, None]
+    return mod["a"].to(dtype), mod["b"].to(dtype), scale
+
+
+def column_parallel(proj: nn.Module, x, tp, lora=None):
+    """Column parallel: ``proj``'s chunk gives this process's output
+    features; a bias (which the JAX policy replicates) contributes its
+    slice. A LoRA module ``lora`` (``a`` whole, ``b`` this process's
+    columns, as the JAX ``bank_shardings`` lays a column target out; a
+    whole ``b`` is cut here) adds its delta to the same columns."""
+    y = proj._product(x)
+    k = y.shape[-1]
+    if proj.bias is not None:
+        y = y + _SliceReplicated.apply(proj.bias, tp, 0, k)
+    if lora is not None:
+        a, b, scale = _lora_factors(lora, x.dtype)
+        if b.shape[-1] != k:
+            b = b.narrow(-1, tp.index * k, k)
+        y = y + ((x @ a) @ b) * scale
+    return y
+
+
+def row_parallel(proj: nn.Module, x, tp, lora=None):
+    """Row parallel: ``proj``'s chunk takes this process's input features;
+    the partial products are summed over ``tp`` (:class:`_ReduceFromTP`),
+    then the bias is added once. A LoRA module ``lora`` (``a`` this
+    process's rows, ``b`` whole, as the JAX ``bank_shardings`` lays a row
+    target out) sums its ``[.., r]`` partial ``x @ a`` in the same
+    all-reduce, then adds ``(x @ a) @ b`` once."""
+    part = proj._product(x)
+    if lora is None:
+        y = _ReduceFromTP.apply(part, tp)
+    else:
+        a, b, scale = _lora_factors(lora, x.dtype)
+        n = x.shape[-1]
+        if a.shape[-2] != n:
+            a = a.narrow(-2, tp.index * n, n)
+        width = part.shape[-1]
+        both = _ReduceFromTP.apply(torch.cat([part, (x @ a).to(part.dtype)], dim=-1), tp)
+        y, u = both[..., :width], both[..., width:]
+    if proj.bias is not None:
+        y = y + proj.bias
+    if lora is not None:
+        y = y + (u.to(x.dtype) @ b) * scale
+    return y
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -248,21 +289,29 @@ class _ReduceFromTP(torch.autograd.Function):
         return grad, None
 
 
-def _tp_group(proj: nn.Module, full: int):
-    """The mesh's ``tp`` group when projection ``proj``'s weight holds
-    ``full`` output rows split over it, else None (the weight is whole, or
-    ``proj`` keeps no float weight, as an int8 ``QuantizedLinear``)."""
-    weight = getattr(proj, "weight", None)
-    local = full if weight is None else weight.shape[0]
+def _split_group(local: int, full: int, what: str = "a projection"):
+    """The mesh's ``tp`` group when a tensor holds ``local`` of ``full``
+    along its split dim, else None (whole)."""
     if local == full:
         return None
     from ..parallel.mesh import axis_group
 
     group = axis_group("tp")
     if group is None or local * group.size != full:
-        raise ValueError(f"a projection of width {local} of {full} does not split over the "
+        raise ValueError(f"{what} of width {local} of {full} does not split over the "
                          f"mesh's tp axis ({None if group is None else group.size})")
     return group
+
+
+def _tp_group(proj: nn.Module, full: int):
+    """The mesh's ``tp`` group when projection ``proj``'s weight holds
+    ``full`` output rows split over it, else None. The weight is a float
+    ``weight``, or an int8 ``QuantizedLinear``'s ``weight_q``."""
+    weight = getattr(proj, "weight", None)
+    if weight is None:
+        weight = getattr(proj, "weight_q", None)
+    local = full if weight is None else weight.shape[0]
+    return _split_group(local, full)
 
 
 class RMSNorm(nn.Module):
@@ -503,7 +552,16 @@ def _update_slots_and_attend(cache, q, k, v, pos, n_rep: int, sliding_window=Non
     Write positions are clamped into the view. Keys past a query's position
     (a slot's stale or scratch entries) are masked by replacement, so they
     add exactly 0 to its output."""
-    B, S = q.shape[:2]
+    k_all, v_all, mask = _write_slots_and_views(cache, k, v, pos, sliding_window)
+    return _grouped_cached_attention(q, k_all, v_all, mask, n_rep, sm_scale=sm_scale,
+                                     logit_softcap=logit_softcap)
+
+
+def _write_slots_and_views(cache, k, v, pos, sliding_window=None):
+    """The write half of :func:`_update_slots_and_attend`: ``k``/``v`` [B,
+    S, n_kv, hd] written at ``pos[b] + i``, then each row's K/V view [B,
+    n_kv, L, hd] and the validity mask [B, S, L] of its queries."""
+    B, S = k.shape[:2]
     dev = pos.device
     q_pos = pos[:, None] + torch.arange(S, device=dev)  # [B, S]
     ck, cv = cache["k"], cache["v"]
@@ -539,7 +597,28 @@ def _update_slots_and_attend(cache, q, k, v, pos, n_rep: int, sliding_window=Non
     mask = k_pos <= q_pos[:, :, None]  # [B, S, L]
     if sliding_window is not None:
         mask = mask & (k_pos > q_pos[:, :, None] - sliding_window)
-    return _grouped_cached_attention(q, k_all, v_all, mask, n_rep, sm_scale=sm_scale,
+    return k_all, v_all, mask
+
+
+def _head_dim_split_attend(cache, q, k, v, pos, tp, sliding_window=None, sm_scale=None,
+                           logit_softcap=None):
+    """Cached attention when the K/V heads do not split over ``tp`` and the
+    cache holds this process's slice of ``head_dim`` of every K/V head (the
+    JAX ``SliceExec.heads_axis`` fallback): ``k``/``v`` [B, S, n_kv, hd]
+    whole, this process's ``hd / tp`` of them written, the views gathered
+    whole over ``tp``, and this process's query heads ``q`` [B, S, H / tp,
+    hd] attend the K/V heads they read, each repeated to its query head."""
+    B, S, h_local, hd = q.shape
+    n_kv = k.shape[2]
+    part = hd // tp.size
+    at = tp.index * part
+    k_all, v_all, mask = _write_slots_and_views(cache, k.narrow(3, at, part),
+                                                v.narrow(3, at, part), pos, sliding_window)
+    k_all, v_all = (tp.all_gather(t.contiguous(), 3) for t in (k_all, v_all))
+    rep = h_local * tp.size // n_kv
+    kv_of = (tp.index * h_local + torch.arange(h_local, device=q.device)) // rep
+    return _grouped_cached_attention(q, k_all.index_select(1, kv_of),
+                                     v_all.index_select(1, kv_of), mask, 1, sm_scale=sm_scale,
                                      logit_softcap=logit_softcap)
 
 
@@ -641,11 +720,7 @@ def _lora_delta(y, x, lora, name):
     mod = lora.get(name) if lora else None
     if mod is None:
         return y
-    a = mod["a"].to(x.dtype)
-    b = mod["b"].to(x.dtype)
-    scale = mod["scale"].to(x.dtype)
-    if scale.dim() == 1:
-        scale = scale[:, None, None]
+    a, b, scale = _lora_factors(mod, x.dtype)
     return y + ((x @ a) @ b) * scale
 
 
@@ -700,7 +775,8 @@ class LlamaAttention(nn.Module):
         n_q, n_kv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         tp = _tp_group(self.q_proj, n_q * hd)
         if tp is not None:
-            return self._tensor_parallel(x, positions, causal, cache, segment_ids, lora, tp)
+            return self._tensor_parallel(x, positions, causal, cache, cache_pos, segment_ids,
+                                         lora, tp)
         q = _lora_delta(self.q_proj(x), x, lora, "q_proj").reshape(B, S, n_q, hd)
         k = _lora_delta(self.k_proj(x), x, lora, "k_proj").reshape(B, S, n_kv, hd)
         v = _lora_delta(self.v_proj(x), x, lora, "v_proj").reshape(B, S, n_kv, hd)
@@ -725,44 +801,68 @@ class LlamaAttention(nn.Module):
         out = out.reshape(B, S, n_q * hd)
         return _lora_delta(self.o_proj(out), out, lora, "o_proj")
 
-    def _tensor_parallel(self, x, positions, causal, cache, segment_ids, lora, tp):
+    def _tensor_parallel(self, x, positions, causal, cache, cache_pos, segment_ids, lora, tp):
         """The forward on this process's heads: q/k/v column parallel
         (``H / tp`` query heads, ``G / tp`` K/V heads), the output
-        projection row parallel. K/V heads that ``tp`` cannot split (``G``
-        not a multiple of it) are gathered whole and repeated to this
-        process's query heads."""
-        if cache is not None or lora:
-            raise NotImplementedError(
-                "the KV cache and LoRA adapters under tensor parallelism are not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md, A8d: tensor-parallel serving)")
+        projection row parallel, a LoRA adapter's factors applied inside
+        each (:func:`column_parallel`, :func:`row_parallel`). K/V heads that
+        ``tp`` cannot split (``G`` not a multiple of it) are gathered whole:
+        without a cache, repeated to this process's query heads; with the
+        serving engine's cache, which then holds a slice of ``head_dim``,
+        through :func:`_head_dim_split_attend`. With a cache (a tensor
+        ``cache_pos``, the serving engine's steps) the cache holds this
+        process's K/V heads. Returns what :meth:`forward` returns."""
         cfg = self.config
         B, S, _ = x.shape
         hd = cfg.head_dim
+        n_kv = cfg.num_key_value_heads
         h_local = cfg.num_attention_heads // tp.size
         x = _SumGradient.apply(x, tp)  # Megatron's f
-        q = self.q_proj.column(x, tp).reshape(B, S, h_local, hd)
-        k = self.k_proj.column(x, tp)
-        v = self.v_proj.column(x, tp)
-        if cfg.num_key_value_heads % tp.size:
-            n_kv = cfg.num_key_value_heads
-            rep = cfg.num_attention_heads // n_kv
-            k, v = (_GatherSplit.apply(t, tp, 2).reshape(B, S, n_kv, hd)
-                    .repeat_interleave(rep, dim=2).narrow(2, tp.index * h_local, h_local)
-                    for t in (k, v))
-        else:
+        q = column_parallel(self.q_proj, x, tp, _lora_of(lora, "q_proj")).reshape(B, S, h_local, hd)
+        k = column_parallel(self.k_proj, x, tp, _lora_of(lora, "k_proj"))
+        v = column_parallel(self.v_proj, x, tp, _lora_of(lora, "v_proj"))
+        split = n_kv % tp.size == 0
+        if split:
             k = k.reshape(B, S, -1, hd)
             v = v.reshape(B, S, -1, hd)
+        else:
+            k, v = (_GatherSplit.apply(t, tp, 2).reshape(B, S, n_kv, hd) for t in (k, v))
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta, dtype=x.dtype,
                                     rope_scaling=cfg.rope_scaling)
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         sm_scale = None if cfg.query_pre_attn_scalar is None else cfg.sm_scale
-        out = multi_head_attention(
-            q, k, v, causal=causal, use_flash=cfg.use_flash_attention,
-            segment_ids=segment_ids, backend=cfg.attention_backend,
-            sliding_window=self.window, sm_scale=sm_scale,
-            logit_softcap=cfg.attn_logit_softcapping)
-        return self.o_proj.row(out.reshape(B, S, h_local * hd), tp)
+        softcap = cfg.attn_logit_softcapping
+        if cache is not None:
+            if not torch.is_tensor(cache_pos):
+                raise NotImplementedError(
+                    "under tensor parallelism the KV cache is the serving engine's (a "
+                    "tensor cache_pos [B]); generate runs on a whole model")
+            if split:
+                out, cache = update_kv_cache_and_attend(
+                    cache, q, k, v, cache_pos, h_local // k.shape[2],
+                    sliding_window=self.window, sm_scale=sm_scale, logit_softcap=softcap)
+            else:
+                out = _head_dim_split_attend(cache, q, k, v, cache_pos, tp,
+                                             sliding_window=self.window, sm_scale=sm_scale,
+                                             logit_softcap=softcap)
+        else:
+            if not split:
+                rep = cfg.num_attention_heads // n_kv
+                k, v = (t.repeat_interleave(rep, dim=2).narrow(2, tp.index * h_local, h_local)
+                        for t in (k, v))
+            out = multi_head_attention(
+                q, k, v, causal=causal, use_flash=cfg.use_flash_attention,
+                segment_ids=segment_ids, backend=cfg.attention_backend,
+                sliding_window=self.window, sm_scale=sm_scale, logit_softcap=softcap)
+        out = row_parallel(self.o_proj, out.reshape(B, S, h_local * hd), tp,
+                           _lora_of(lora, "o_proj"))
+        return out if cache is None else (out, cache)
+
+
+def _lora_of(lora, name: str):
+    """Module ``name`` of ``lora``, or None."""
+    return lora.get(name) if lora else None
 
 
 class LlamaMLP(nn.Module):
@@ -787,13 +887,10 @@ class LlamaMLP(nn.Module):
     def forward(self, x, lora=None):
         tp = _tp_group(self.gate_proj, self.intermediate_size)
         if tp is not None:
-            if lora:
-                raise NotImplementedError(
-                    "LoRA adapters under tensor parallelism are not ported to "
-                    "accelerate_tpu_torch yet (ROADMAP.md, A8d: tensor-parallel serving)")
             x = _SumGradient.apply(x, tp)
-            h = self._act(self.gate_proj.column(x, tp)) * self.up_proj.column(x, tp)
-            return self.down_proj.row(h, tp)
+            h = (self._act(column_parallel(self.gate_proj, x, tp, _lora_of(lora, "gate_proj")))
+                 * column_parallel(self.up_proj, x, tp, _lora_of(lora, "up_proj")))
+            return row_parallel(self.down_proj, h, tp, _lora_of(lora, "down_proj"))
         gate = _lora_delta(self.gate_proj(x), x, lora, "gate_proj")
         h = self._act(gate) * _lora_delta(self.up_proj(x), x, lora, "up_proj")
         return _lora_delta(self.down_proj(h), h, lora, "down_proj")
@@ -1012,7 +1109,7 @@ class LlamaModel(nn.Module):
             raise ValueError(
                 "segment_ids (packed sequences) is a training feature; the "
                 "KV-cache decode path does not apply segment masking")
-        x = _scale_embeddings(self.config, self.embed_tokens(input_ids))
+        x = _scale_embeddings(self.config, _embed(self.config, self.embed_tokens, input_ids))
         layout, prefix = _layout_of(self)
         policy = _remat_of(self.config, layout)
         remat = policy is not None and cache is None and torch.is_grad_enabled()
@@ -1036,11 +1133,35 @@ class LlamaModel(nn.Module):
         return x if cache is None else (x, cache)
 
 
+def _embed(cfg: LlamaConfig, embed_tokens: nn.Embedding, input_ids):
+    """The embedding rows of ``input_ids``; a table split on the hidden dim
+    over ``tp`` (a tensor-parallel serving shard) gathers its rows whole."""
+    x = embed_tokens(input_ids)
+    weight = getattr(embed_tokens, "weight", None)
+    tp = None if weight is None else _split_group(weight.shape[1], cfg.hidden_size,
+                                                  "the embedding table")
+    return x if tp is None else _GatherSplit.apply(x, tp, x.dim() - 1)
+
+
 def _lm_head(cfg: LlamaConfig, x, embedding, lm_head):
+    """Logits of the normed hidden states ``x``. Under a tensor-parallel
+    serving shard the head holds this process's vocabulary rows (its
+    logits are gathered whole), and a tied table its hidden columns (the
+    partial products are summed)."""
     if cfg.tie_word_embeddings:
-        logits = x @ embedding.to(x.dtype).T
+        tp = _split_group(embedding.shape[1], cfg.hidden_size, "the embedding table")
+        if tp is None:
+            logits = x @ embedding.to(x.dtype).T
+        else:
+            k = embedding.shape[1]
+            logits = _ReduceFromTP.apply(x.narrow(-1, tp.index * k, k)
+                                         @ embedding.to(x.dtype).T, tp)
     else:
         logits = lm_head(x)
+        weight = getattr(lm_head, "weight", None)
+        tp = None if weight is None else _split_group(weight.shape[0], cfg.vocab_size, "lm_head")
+        if tp is not None:
+            logits = _GatherSplit.apply(logits, tp, logits.dim() - 1)
     return softcap_logits(logits, cfg.final_logit_softcapping)
 
 

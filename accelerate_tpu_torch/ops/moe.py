@@ -301,7 +301,7 @@ def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Ten
         if mesh is not None and mesh.shape.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"the MoE layer on a mesh with a {axis} axis above 1 is not ported to "
-                "accelerate_tpu_torch (it runs over dp, fsdp and ep)")
+                "accelerate_tpu_torch (it runs over dp, fsdp and ep; ROADMAP.md, A8d)")
     data = _group(mesh, "dp", "fsdp")
     ep = None
     if wg.shape[0] != E:

@@ -170,12 +170,14 @@ class AxisGroup:
     # -- collectives (tensors where the backend moves them: the card for
     # NCCL, the CPU for gloo) ----------------------------------------------
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the group, in place."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or, with ``op="max"``, the maximum) over the group, in
+        place."""
         if self.size > 1:
             import torch.distributed as dist
 
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+            reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+            dist.all_reduce(t, op=reduce_op, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:

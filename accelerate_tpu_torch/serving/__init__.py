@@ -10,9 +10,10 @@ tenant rate limits, fair share, the autoscaler), the counters
 (``metrics.py``), the graph runner (``graphs.py``, which has no JAX
 counterpart), the replica router with failover (``router.py``), the
 supervisor (``supervisor.py``), scripted faults (``chaos.py``) and the
-HTTP gateway in both front ends (``gateway.py``, ``gateway_aio.py``).
-Tensor-parallel slices (``mesh_exec.py``, ``ReplicaSet.from_mesh``) come
-with ROADMAP A8d.
+HTTP gateway in both front ends (``gateway.py``, ``gateway_aio.py``), and
+tensor-parallel slices (``mesh_exec.py``: one process per tp index, process
+0 leading every slice; the engine's ``tp=``/``mesh=``, and
+``ReplicaSet.from_mesh``).
 """
 
 from .chaos import ChaosKilled, ChaosSchedule
@@ -28,6 +29,7 @@ from .control import (
 from .engine import ServingEngine
 from .gateway import GatewayConfig, ServingGateway
 from .graphs import StepGraphs
+from .mesh_exec import SliceExec, SlicePlan
 from .metrics import HISTOGRAM_NAMES, LATENCY_BUCKETS_MS, GatewayStats, LatencyHistogram, ServingStats
 from .request import Request, RequestStatus
 from .router import FleetRequest, ReplicaSet, ReplicaState
@@ -62,6 +64,8 @@ __all__ = [
     "ServingEngine",
     "ServingGateway",
     "ServingStats",
+    "SliceExec",
+    "SlicePlan",
     "SlotScheduler",
     "StepGraphs",
     "TenantRateLimiter",

@@ -108,8 +108,20 @@ pressure signals. A run loop that dies waits for its stream before it
 retires its requests, so no replay of a dead engine is still running when
 they fail over.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
-item: ``tp``, ``mesh`` and ``devices`` (A8d).
+Tensor-parallel slices (``tp=``, ``mesh=``, ``devices=``, or a model
+prepared under a tp-only mesh; JAX ``:505-522``, ``:880-935``,
+``:1049-1100``): the engine serves on one :mod:`.mesh_exec` slice. Its
+model is this process's Megatron shard, its K/V (slot rows or page pool)
+holds this process's heads (or its slice of ``head_dim``), every per-slot
+row and page scale stays whole, a draft model and its pool stay whole, and
+an int8 page's scale is the MAX of the slice's amaxes. Above ``tp=1`` the
+slice runs one process per tp index: the engine on process 0 is the leader
+(everything above), the one on each other process a follower, whose thread
+runs each step the leader's channel hands it; construction is a collective
+(every process builds the same engines in the same order). The chunk step
+gathers a copy-restore block whole, and the leader keeps it on the host
+(slice-portable), as at ``tp=1``. Monolithic prefill is refused, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -118,6 +130,7 @@ import collections
 import contextlib
 import hashlib
 import itertools
+import math
 import os
 import threading
 import time
@@ -142,6 +155,16 @@ from ..utils.device import resolve_device
 from ..utils.profiling import GraphCaptureWatcher
 from .control import PriorityPolicy
 from .graphs import StepGraphs
+from .mesh_exec import (
+    BANK_ROW,
+    STEP,
+    STOP,
+    SliceExec,
+    SliceMesh,
+    SlicePlan,
+    shard_for_serving,
+    validate_serving_mesh,
+)
 from .metrics import ServingStats
 from .request import Request, RequestStatus
 from .scheduler import AdmissionQueue, PagePool, PrefixCache, QueueClosed, QueueFull, SlotScheduler
@@ -152,6 +175,9 @@ __all__ = ["ServingEngine"]
 _ENGINE_SEQ = itertools.count()
 
 _SEED_MASK = (1 << 63) - 1
+
+#: The steps a slice's channel names, by code.
+_STEP_NAMES = ("decode", "spec", "chunk", "restore", "draft_chunk")
 
 
 class _TickFlight:
@@ -251,9 +277,10 @@ class _TokenEmitter:
                 req._emit_pending -= 1
 
 
-def _later(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch serving engine yet "
-                               f"(ROADMAP.md, {item})")
+def _monolithic_refused():
+    return NotImplementedError(
+        "the monolithic prefill path (prefill_chunk=None) is single-chip only; mesh-sliced "
+        "engines require chunked prefill (pass a prefill_chunk width)")
 
 
 def _cached_lm(model, role: str):
@@ -272,12 +299,17 @@ def _windows(cfg) -> list:
     return [cfg.window_for(i) for i in range(cfg.num_hidden_layers)]
 
 
-def _quant_page(blocks):
+def _quant_page(blocks, group=None):
     """int8 pages and their f32 scales from f32 page blocks [n, ...] (JAX
     ``_quant_page`` ``engine.py:1313``, per block): a symmetric absmax over
-    the whole block with a 1e-6 floor, ``/ 127``, round half to even."""
+    the whole block with a 1e-6 floor, ``/ 127``, round half to even. On a
+    slice (``group``, its tp group) each process holds its share of every
+    block: the amax is the MAX over the slice, the whole logical page's."""
     flat = blocks.reshape(blocks.shape[0], -1)
-    scale = flat.abs().amax(dim=1).clamp_min(1e-6) / 127.0
+    amax = flat.abs().amax(dim=1)
+    if group is not None:
+        amax = group.all_reduce(amax.contiguous(), "max")
+    scale = amax.clamp_min(1e-6) / 127.0
     q = torch.clamp(torch.round(flat / scale[:, None]), -127, 127).to(torch.int8)
     return q.view(blocks.shape), scale
 
@@ -324,6 +356,14 @@ class ServingEngine:
         proposals a tick (paged only; its pages come from the same pool).
       spec_lookup: n-gram width of draft-free prompt-lookup speculation
         (exclusive with ``draft_model``).
+      tp / mesh / devices: serve on a tensor-parallel slice
+        (:mod:`.mesh_exec`): ``tp=`` carves one slice of that width from
+        ``devices`` (default: every visible card; ``["cpu"] * tp`` under
+        ``device="cpu"``), ``mesh=`` names a tp-only mesh (a
+        :class:`~.mesh_exec.SliceMesh` of a :class:`~.mesh_exec.SlicePlan`).
+        Without them, a model prepared under a tp-only mesh (the
+        accelerator's, or its own layout's) serves sliced, and one whose
+        parameters are split over another axis raises.
       accelerator: shares its ``serving_stats`` and makes the engine drain
         on its preemption notice (stop admitting, finish in-flight work,
         cancel the queue).
@@ -344,6 +384,9 @@ class ServingEngine:
         unless ``device="cpu"``). The model's parameters must be on it.
     """
 
+    #: Construction-time switch of :attr:`tick_log` (tests).
+    record_ticks = False
+
     def __init__(self, model, *, max_slots: int = 4, max_len: int = 256,
                  eos_token_id: Optional[int] = None, do_sample: bool = False,
                  temperature: float = 1.0, top_k: Optional[int] = None,
@@ -362,8 +405,6 @@ class ServingEngine:
                  async_ticks: Optional[bool] = None, emission_queue: int = 256,
                  autostart: bool = True, warmup: bool = True, idle_poll_s: float = 0.005,
                  device=None):
-        if tp is not None or mesh is not None or devices is not None:
-            raise _later("tensor-parallel serving (tp=, mesh=, devices=)", "A8d")
         module = _cached_lm(model, "model")
         cfg = module.config
         if max_slots < 1 or max_len < 2:
@@ -375,208 +416,331 @@ class ServingEngine:
         if prefix_cache_mb < 0:
             raise ValueError(f"prefix_cache_mb must be >= 0 (got {prefix_cache_mb})")
 
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        param = next(module.parameters())
-        if param.device != self.device:
-            raise ValueError(f"the model's parameters are on {param.device}, the engine's "
-                             f"device is {self.device}; move the model first")
-        self.max_slots = int(max_slots)
-        self.max_len = int(max_len)
-        self.eos_token_id = eos_token_id
-        self._dtype = cache_dtype or torch.bfloat16
-        self._sampling = (float(temperature), top_k, top_p) if do_sample else None
-        self._select = _make_keyed_selector(self._sampling)
-        # The sampling target's warper, shared by the speculative verify.
-        self._warp = _make_warper(self._sampling) if self._sampling is not None else None
-        self._idle_poll_s = float(idle_poll_s)
-        self._accelerator = accelerator
-        self._on_card = self.device.type == "cuda"
+        if prefill_chunk is None and (tp is not None or mesh is not None):
+            raise _monolithic_refused()
+        serving_mesh = self._resolve_serving_mesh(tp, mesh, devices, device, accelerator,
+                                                  model, module)
+        #: the engine's slice mesh when it serves on a slice, else None.
+        self.mesh = serving_mesh
+        self._exec: Optional[SliceExec] = (SliceExec(serving_mesh) if serving_mesh is not None
+                                           else None)
+        #: tensor-parallel width of this engine's slice (1: one device).
+        self.tp = self._exec.tp if self._exec is not None else 1
+        #: the slice's channel (above tp=1), and this engine's role on it.
+        self._channel = self._exec.channel if self._exec is not None else None
+        self.leader = self._exec is None or self._exec.leader
+        self._channel_closed = False
+        self._slice_group = self._exec.group if self._exec is not None else None
+        if serving_mesh is not None and prefill_chunk is None:
+            raise _monolithic_refused()
+        # Above tp=1 construction is a collective: every process of the
+        # slice ends it with a handshake, and one's failure raises on all.
+        try:
+            if self._exec is not None:
+                self.device = self._exec.device
+                if device is not None and torch.device(device).type != self.device.type:
+                    raise ValueError(f"device={device!r} disagrees with the slice's device "
+                                     f"{self.device}")
+            else:
+                self.device = resolve_device(device)
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            if self._exec is None:
+                param = next(module.parameters())
+                if param.device != self.device:
+                    raise ValueError(f"the model's parameters are on {param.device}, the engine's "
+                                     f"device is {self.device}; move the model first")
+            self.max_slots = int(max_slots)
+            self.max_len = int(max_len)
+            self.eos_token_id = eos_token_id
+            self._dtype = cache_dtype or torch.bfloat16
+            self._sampling = (float(temperature), top_k, top_p) if do_sample else None
+            self._select = _make_keyed_selector(self._sampling)
+            # The sampling target's warper, shared by the speculative verify.
+            self._warp = _make_warper(self._sampling) if self._sampling is not None else None
+            self._idle_poll_s = float(idle_poll_s)
+            self._accelerator = accelerator
+            self._on_card = self.device.type == "cuda"
 
-        # The usable position range: max_len capped at the position table.
-        self._chunk_limit = min(self.max_len, int(cfg.max_position_embeddings))
-        if prefill_chunk is None:
-            # Monolithic prefill: one step per 128-bucket of prompt length.
-            self._chunk: Optional[int] = None
-            self._chunk_cap = 0
-        else:
-            self._chunk = min(int(prefill_chunk), self._chunk_limit)
-            # The final chunk may start below its natural i*C offset so its
-            # fixed width never writes past the limit (re-running already
-            # prefilled positions rewrites the same KV).
-            self._chunk_cap = self._chunk_limit - self._chunk
-        self._chunks_per_tick = int(prefill_chunks_per_tick)
+            # The usable position range: max_len capped at the position table.
+            self._chunk_limit = min(self.max_len, int(cfg.max_position_embeddings))
+            if prefill_chunk is None:
+                # Monolithic prefill: one step per 128-bucket of prompt length.
+                self._chunk: Optional[int] = None
+                self._chunk_cap = 0
+            else:
+                self._chunk = min(int(prefill_chunk), self._chunk_limit)
+                # The final chunk may start below its natural i*C offset so its
+                # fixed width never writes past the limit (re-running already
+                # prefilled positions rewrites the same KV).
+                self._chunk_cap = self._chunk_limit - self._chunk
+            self._chunks_per_tick = int(prefill_chunks_per_tick)
 
-        if paged is None:
-            paged = self._chunk is not None
-        if paged and self._chunk is None:
-            raise ValueError("paged=True requires chunked prefill (pages are allocated at chunk "
-                             "granularity); pass a prefill_chunk width")
-        self._paged = bool(paged)
-        if self._paged:
-            P = int(page_size) if page_size is not None else self._chunk
-            if P < 1 or self._chunk % P != 0:
-                raise ValueError(
-                    f"page_size ({page_size}) must be >= 1 and divide the prefill chunk "
-                    f"({self._chunk}) so chunk writes and cached blocks cover whole pages")
-            self._page: Optional[int] = P
-        else:
-            if page_size is not None or max_pages is not None:
-                raise ValueError("page_size=/max_pages= only apply to the paged engine "
-                                 "(paged=False keeps dense per-slot rows)")
-            self._page = None
+            if paged is None:
+                paged = self._chunk is not None
+            if paged and self._chunk is None:
+                raise ValueError("paged=True requires chunked prefill (pages are allocated at "
+                                 "chunk granularity); pass a prefill_chunk width")
+            self._paged = bool(paged)
+            if self._paged:
+                P = int(page_size) if page_size is not None else self._chunk
+                if P < 1 or self._chunk % P != 0:
+                    raise ValueError(
+                        f"page_size ({page_size}) must be >= 1 and divide the prefill chunk "
+                        f"({self._chunk}) so chunk writes and cached blocks cover whole pages")
+                self._page: Optional[int] = P
+            else:
+                if page_size is not None or max_pages is not None:
+                    raise ValueError("page_size=/max_pages= only apply to the paged engine "
+                                     "(paged=False keeps dense per-slot rows)")
+                self._page = None
 
-        # Quantized serving: int8 KV pages (one f32 scale per page and
-        # leaf) need the paged pool; int8 base weights any layout.
-        if kv_dtype not in (None, "int8"):
-            raise ValueError(f"kv_dtype must be None or 'int8' (got {kv_dtype!r})")
-        if weights_dtype not in (None, "int8"):
-            raise ValueError(f"weights_dtype must be None or 'int8' (got {weights_dtype!r})")
-        if kv_dtype is not None and not self._paged:
-            raise ValueError("kv_dtype='int8' requires the paged engine (per-page scales are "
-                             "indexed by page id); pass paged=True or drop kv_dtype")
-        self._kv_dtype = kv_dtype
-        self._weights_dtype = weights_dtype
+            # Quantized serving: int8 KV pages (one f32 scale per page and
+            # leaf) need the paged pool; int8 base weights any layout.
+            if kv_dtype not in (None, "int8"):
+                raise ValueError(f"kv_dtype must be None or 'int8' (got {kv_dtype!r})")
+            if weights_dtype not in (None, "int8"):
+                raise ValueError(f"weights_dtype must be None or 'int8' (got {weights_dtype!r})")
+            if kv_dtype is not None and not self._paged:
+                raise ValueError("kv_dtype='int8' requires the paged engine (per-page scales are "
+                                 "indexed by page id); pass paged=True or drop kv_dtype")
+            self._kv_dtype = kv_dtype
+            self._weights_dtype = weights_dtype
 
-        # Speculation: a draft model or host prompt lookup proposes
-        # spec_tokens tokens a tick, one [max_slots, K+1] verify checks them.
-        if draft_model is not None and spec_lookup is not None:
-            raise ValueError("draft_model= and spec_lookup= are mutually exclusive: one engine "
-                             "drafts either with a model or by prompt lookup")
-        self._draft = None
-        self._spec_lookup: Optional[int] = None
-        self._spec_mode: Optional[str] = None
-        self._spec_k: Optional[int] = None
-        if draft_model is not None or spec_lookup is not None:
-            if not self._paged:
-                raise NotImplementedError("speculative decoding requires the paged engine "
-                                          "(paged=True)")
-            if int(spec_tokens) < 1:
-                raise ValueError(f"spec_tokens must be >= 1 (got {spec_tokens})")
-            self._spec_k = int(spec_tokens)
-        if draft_model is not None:
-            draft = _cached_lm(draft_model, "draft_model")
-            if draft.config.vocab_size != cfg.vocab_size:
-                raise ValueError(f"draft vocab ({draft.config.vocab_size}) != target vocab "
-                                 f"({cfg.vocab_size}); acceptance compares token ids, so the "
-                                 "vocabularies must match")
-            if next(draft.parameters()).device != self.device:
-                raise ValueError("the draft model's parameters are not on the engine's device")
-            span = self.max_len + self._spec_k
-            if any(w is not None and w < span for w in _windows(draft.config)):
-                raise NotImplementedError("the draft model's KV cache must be linear at max_len "
-                                          "+ spec_tokens (raise its sliding window)")
-            self._draft = draft
-            self._spec_mode = "draft"
-        elif spec_lookup is not None:
-            if int(spec_lookup) < 1:
-                raise ValueError(f"spec_lookup (n-gram width) must be >= 1 (got {spec_lookup})")
-            self._spec_lookup = int(spec_lookup)
-            self._spec_mode = "lookup"
+            # Speculation: a draft model or host prompt lookup proposes
+            # spec_tokens tokens a tick, one [max_slots, K+1] verify checks them.
+            if draft_model is not None and spec_lookup is not None:
+                raise ValueError("draft_model= and spec_lookup= are mutually exclusive: one engine "
+                                 "drafts either with a model or by prompt lookup")
+            self._draft = None
+            self._spec_lookup: Optional[int] = None
+            self._spec_mode: Optional[str] = None
+            self._spec_k: Optional[int] = None
+            if draft_model is not None or spec_lookup is not None:
+                if not self._paged:
+                    raise NotImplementedError("speculative decoding requires the paged engine "
+                                              "(paged=True)")
+                if int(spec_tokens) < 1:
+                    raise ValueError(f"spec_tokens must be >= 1 (got {spec_tokens})")
+                self._spec_k = int(spec_tokens)
+            if draft_model is not None:
+                draft = _cached_lm(draft_model, "draft_model")
+                if draft.config.vocab_size != cfg.vocab_size:
+                    raise ValueError(f"draft vocab ({draft.config.vocab_size}) != target vocab "
+                                     f"({cfg.vocab_size}); acceptance compares token ids, so the "
+                                     "vocabularies must match")
+                if next(draft.parameters()).device != self.device:
+                    raise ValueError("the draft model's parameters are not on the engine's device")
+                span = self.max_len + self._spec_k
+                if any(w is not None and w < span for w in _windows(draft.config)):
+                    raise NotImplementedError("the draft model's KV cache must be linear at "
+                                              "max_len + spec_tokens (raise its sliding window)")
+                self._draft = draft
+                self._spec_mode = "draft"
+            elif spec_lookup is not None:
+                if int(spec_lookup) < 1:
+                    raise ValueError(f"spec_lookup (n-gram width) must be >= 1 (got {spec_lookup})")
+                self._spec_lookup = int(spec_lookup)
+                self._spec_mode = "lookup"
 
-        if prefix_cache is not None:
-            if self._chunk is None:
-                raise ValueError("prefix_cache= requires chunked prefill (prefill_chunk=None "
-                                 "has no chunk-aligned blocks)")
-            self._prefix_cache: Optional[PrefixCache] = prefix_cache
-            self._alias_cache = False   # external/shared cache: COPY restores
-        elif self._chunk is not None and prefix_cache_mb > 0:
-            # A paged engine's private cache holds page-id tuples: a hit is
-            # a host table write + refcount, eviction returns the pages.
-            self._alias_cache = self._paged
-            self._prefix_cache = PrefixCache(
-                int(prefix_cache_mb * 2 ** 20),
-                on_evict=self._on_prefix_evict if self._alias_cache else None)
-        else:
-            self._prefix_cache = None
-            self._alias_cache = False
-        #: the chunk step returns the chunk's KV block and a restore step
-        #: exists only where the prefix cache restores by copy.
-        self._copy_restore = self._prefix_cache is not None and not self._alias_cache
-        self._prefilling: collections.deque = collections.deque()
+            self._external_cache = prefix_cache is not None
+            if prefix_cache is not None:
+                if self._chunk is None:
+                    raise ValueError("prefix_cache= requires chunked prefill (prefill_chunk=None "
+                                     "has no chunk-aligned blocks)")
+                self._prefix_cache: Optional[PrefixCache] = prefix_cache
+                self._alias_cache = False   # external/shared cache: COPY restores
+            elif self._chunk is not None and prefix_cache_mb > 0:
+                # A paged engine's private cache holds page-id tuples: a hit is
+                # a host table write + refcount, eviction returns the pages.
+                self._alias_cache = self._paged
+                self._prefix_cache = PrefixCache(
+                    int(prefix_cache_mb * 2 ** 20),
+                    on_evict=self._on_prefix_evict if self._alias_cache else None)
+            else:
+                self._prefix_cache = None
+                self._alias_cache = False
+            #: the chunk step returns the chunk's KV block and a restore step
+            #: exists only where the prefix cache restores by copy.
+            self._copy_restore = self._prefix_cache is not None and not self._alias_cache
+            self._prefilling: collections.deque = collections.deque()
 
-        # Sliding-window (ring) models: the paged view is a linear cache the
-        # attention masks by the window; dense slot rows cannot rotate.
-        windows = _windows(cfg)
-        has_ring = any(w is not None and w < self.max_len for w in windows)
-        if has_ring and not self._paged:
-            raise NotImplementedError(
-                "sliding-window (ring) KV caches need the paged engine (paged=True frees "
-                "out-of-window pages); the dense slot layout cannot rotate them, or set the "
-                "config's window >= max_len")
-        #: the window when pages wholly out of it may be freed: paged and
-        #: every layer windowed alike (mixed local/global stacks keep all
-        #: their pages).
-        self._page_window: Optional[int] = (
-            int(windows[0]) if self._paged and has_ring and len(set(windows)) == 1 else None)
+            # Sliding-window (ring) models: the paged view is a linear cache the
+            # attention masks by the window; dense slot rows cannot rotate.
+            windows = _windows(cfg)
+            has_ring = any(w is not None and w < self.max_len for w in windows)
+            if has_ring and not self._paged:
+                raise NotImplementedError(
+                    "sliding-window (ring) KV caches need the paged engine (paged=True frees "
+                    "out-of-window pages); the dense slot layout cannot rotate them, or set the "
+                    "config's window >= max_len")
+            #: the window when pages wholly out of it may be freed: paged and
+            #: every layer windowed alike (mixed local/global stacks keep all
+            #: their pages).
+            self._page_window: Optional[int] = (
+                int(windows[0]) if self._paged and has_ring and len(set(windows)) == 1 else None)
 
-        if adapters is not None:
-            if not isinstance(adapters, AdapterBank):
-                raise TypeError(f"adapters must be an AdapterBank (got {type(adapters).__name__})")
-        self._adapters = adapters
-        # int8 base weights: a copy of the model whose projections keep
-        # int8 at rest (the caller's model is left as it was); adapters
-        # stay full precision in the bank.
-        self.module = module if weights_dtype is None else quantize_base_weights(module)
+            if adapters is not None:
+                if not isinstance(adapters, AdapterBank):
+                    raise TypeError("adapters must be an AdapterBank "
+                                    f"(got {type(adapters).__name__})")
+            self._adapters = adapters
+            # int8 base weights: a copy of the model whose projections keep
+            # int8 at rest (the caller's model is left as it was); adapters
+            # stay full precision in the bank. On a slice: this process's shard
+            # of the model (of its int8 copy), shared by the slices on one
+            # device.
+            if self._exec is None:
+                self.module = module if weights_dtype is None else quantize_base_weights(module)
+            else:
+                source, config = module, None
+                layout = getattr(model, "layout", None) or getattr(module, "_sharded_layout", None)
+                if layout is not None and any(layout.splits.values()):
+                    # A prepared model holds its training chunks: put it
+                    # together once (a collective over its mesh), then cut it.
+                    source, config = layout.full_state_dict(module), cfg
+                self.module = shard_for_serving(source, self._exec, config=config,
+                                                weights_dtype=weights_dtype)
+                param = next(self.module.parameters())
+                if param.device != self.device:
+                    raise ValueError(f"the model's parameters are on {param.device}, the slice's "
+                                     f"device is {self.device}; move the model first")
+                if adapters is not None:
+                    adapters.place(self._exec)
+                    if self._channel is not None and self.leader:
+                        adapters.row_listener = self._send_bank_row
+            # This process's K/V widths: on a slice the heads axis (the K/V
+            # heads, else head_dim) holds its share.
+            n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+            self._kv_axis = (None if self._exec is None
+                             else self._exec.heads_axis((1, self.max_len, n_kv, hd), 1))
+            if self.tp > 1 and self._kv_axis is None:
+                raise NotImplementedError(
+                    f"neither the K/V heads ({n_kv}) nor head_dim ({hd}) split over tp={self.tp}")
+            self._kv_heads = n_kv // self.tp if self._kv_axis == 2 else n_kv
+            self._kv_hd = hd // self.tp if self._kv_axis == 3 else hd
 
-        self._build_state(cfg, max_pages)
+            self._build_state(cfg, max_pages)
 
-        if stats is None and accelerator is not None:
-            stats = getattr(accelerator, "serving_stats", None)
-        self._stats = stats if stats is not None else ServingStats()
-        if priority_policy == "default":
-            priority_policy = PriorityPolicy()
-        elif priority_policy is not None and not isinstance(priority_policy, PriorityPolicy):
-            raise TypeError("priority_policy must be a PriorityPolicy, None (FCFS), or "
-                            f"the string 'default' (got {priority_policy!r})")
-        self._priority_policy = priority_policy
-        self._queue = AdmissionQueue(
-            max_queued, rank_fn=priority_policy.rank if priority_policy is not None else None)
-        self._slots = SlotScheduler(self.max_slots)
+            if stats is None and accelerator is not None:
+                stats = getattr(accelerator, "serving_stats", None)
+            self._stats = stats if stats is not None else ServingStats()
+            if priority_policy == "default":
+                priority_policy = PriorityPolicy()
+            elif priority_policy is not None and not isinstance(priority_policy, PriorityPolicy):
+                raise TypeError("priority_policy must be a PriorityPolicy, None (FCFS), or "
+                                f"the string 'default' (got {priority_policy!r})")
+            self._priority_policy = priority_policy
+            self._queue = AdmissionQueue(
+                max_queued, rank_fn=priority_policy.rank if priority_policy is not None else None)
+            self._slots = SlotScheduler(self.max_slots)
 
-        name = f"engine-{next(_ENGINE_SEQ)}"
-        self._tracer = Tracer(capacity=int(trace_capacity), enabled=bool(tracing), name=name)
-        self._flight = FlightRecorder(capacity=int(flight_capacity), name=name,
-                                      tracer=self._tracer)
-        self._capture_watcher = GraphCaptureWatcher(
-            on_event=lambda step, seconds: self._flight.record(
-                "graph_capture", step=step, seconds=seconds))
-        self._graphs = StepGraphs(self.device, self._capture_watcher, self._stream)
-        self._postmortem: Optional[dict] = None
+            name = f"engine-{next(_ENGINE_SEQ)}"
+            self._tracer = Tracer(capacity=int(trace_capacity), enabled=bool(tracing), name=name)
+            self._flight = FlightRecorder(capacity=int(flight_capacity), name=name,
+                                          tracer=self._tracer)
+            self._capture_watcher = GraphCaptureWatcher(
+                on_event=lambda step, seconds: self._flight.record(
+                    "graph_capture", step=step, seconds=seconds))
+            self._graphs = StepGraphs(self.device, self._capture_watcher, self._stream)
+            self._postmortem: Optional[dict] = None
 
-        self._accepting = False
-        self._stop = False          # hard stop: cancel everything, exit now
-        self._drain = False         # finish all accepted work, then exit
-        self._abort_queue = False   # preemption: finish running, cancel queued
-        self._error: Optional[BaseException] = None
-        self._fail_injection: Optional[BaseException] = None
-        self._thread: Optional[threading.Thread] = None
-        self._warmup_on_start = bool(warmup)
-        # Liveness and fault injection (supervisor.py, chaos.py): the loop
-        # publishes a heartbeat each iteration unless a chaos hang froze
-        # it; a chaos wedge sleeps ``_wedge_s`` inside the next reconcile.
-        self._chaos = chaos
-        self._trace_dir = trace_dir
-        self._loop_iters = 0
-        self._decode_ticks = 0
-        self._heartbeat = (0, time.monotonic())
-        self._heartbeat_frozen = False
-        self._wedge_s = 0.0
-        # (time, pages freed so far) a tick: the page_drain_rate samples.
-        self._drain_samples: collections.deque = collections.deque(maxlen=256)
-        self._async = True if async_ticks is None else bool(async_ticks)
-        if int(emission_queue) < 1:
-            raise ValueError(f"emission_queue must be >= 1 (got {emission_queue})")
-        self._emission_queue = int(emission_queue)
-        self._emitter: Optional[_TokenEmitter] = None
-        # Host time blocked on the device since the last reconcile:
-        # subtracted from the tick interval to isolate host_us_per_tick.
-        self._blocked_s = 0.0
-        self._last_complete_t: Optional[float] = None
-        self._next_profile_tick = 1
+            self._accepting = False
+            self._stop = False          # hard stop: cancel everything, exit now
+            self._drain = False         # finish all accepted work, then exit
+            self._abort_queue = False   # preemption: finish running, cancel queued
+            self._error: Optional[BaseException] = None
+            self._fail_injection: Optional[BaseException] = None
+            self._thread: Optional[threading.Thread] = None
+            self._warmup_on_start = bool(warmup)
+            # Liveness and fault injection (supervisor.py, chaos.py): the loop
+            # publishes a heartbeat each iteration unless a chaos hang froze
+            # it; a chaos wedge sleeps ``_wedge_s`` inside the next reconcile.
+            self._chaos = chaos
+            self._trace_dir = trace_dir
+            self._loop_iters = 0
+            self._decode_ticks = 0
+            self._heartbeat = (0, time.monotonic())
+            self._heartbeat_frozen = False
+            self._wedge_s = 0.0
+            # (time, pages freed so far) a tick: the page_drain_rate samples.
+            self._drain_samples: collections.deque = collections.deque(maxlen=256)
+            self._async = True if async_ticks is None else bool(async_ticks)
+            if int(emission_queue) < 1:
+                raise ValueError(f"emission_queue must be >= 1 (got {emission_queue})")
+            self._emission_queue = int(emission_queue)
+            self._emitter: Optional[_TokenEmitter] = None
+            # Host time blocked on the device since the last reconcile:
+            # subtracted from the tick interval to isolate host_us_per_tick.
+            self._blocked_s = 0.0
+            self._last_complete_t: Optional[float] = None
+            self._next_profile_tick = 1
+            #: every tick's output on this process (tokens, latches or chains),
+            #: when ``record_ticks`` was set on the class at construction: the
+            #: check that a slice's followers hold the leader's tokens.
+            self.tick_log: Optional[list] = [] if ServingEngine.record_ticks else None
+        except BaseException:
+            if self._channel is not None:
+                try:
+                    self._channel.handshake(failed=True)
+                except Exception:
+                    pass
+            raise
+        if self._channel is not None:
+            self._channel.handshake(failed=False)
         if autostart:
             self.start()
+
+    @staticmethod
+    def _resolve_serving_mesh(tp, mesh, devices, device, accelerator, model, module):
+        """This engine's slice mesh, or None (one device; JAX ``:1049-1100``).
+
+        ``mesh=`` is validated tp-only (and checked against ``tp=``);
+        ``tp=`` carves one slice of that width from ``devices`` (default
+        every visible card, or ``device`` repeated when it is the CPU).
+        Otherwise a mesh of the accelerator (or of the prepared model's
+        layout) routes automatically when it is a tp-only mesh above one
+        process; when it is not tp-only and the model's parameters are split
+        over it, that raises, since serving them whole would need every
+        process's chunks; a mesh over unsplit parameters keeps one
+        device."""
+        if mesh is not None:
+            validate_serving_mesh(mesh)
+            if tp is not None and int(mesh.shape["tp"]) != int(tp):
+                raise ValueError(f"mesh= has tp={mesh.shape['tp']} but tp={tp} was also "
+                                 "passed; drop one or make them agree")
+            if isinstance(mesh, SliceMesh):
+                return mesh
+            tp = int(mesh.shape["tp"])
+        if tp is not None:
+            if devices is None and device is not None and torch.device(device).type == "cpu":
+                devices = [torch.device("cpu")] * int(tp)
+            return SlicePlan.plan(int(tp), num_slices=1, devices=devices).build_mesh(0)
+        if devices is not None:
+            raise ValueError("devices= only makes sense together with tp=")
+        layout = getattr(model, "layout", None) or getattr(module, "_sharded_layout", None)
+        resolved = getattr(accelerator, "mesh", None)
+        if resolved is None and layout is not None:
+            resolved = layout.mesh
+        if resolved is None or resolved.size_total <= 1:
+            return None
+        tp_size = int(resolved.shape.get("tp", 1))
+        if math.prod(s for ax, s in resolved.shape.items() if ax != "tp") == 1 and tp_size > 1:
+            # A tp-only training mesh: serve sliced.
+            cpu = device is not None and torch.device(device).type == "cpu"
+            return SlicePlan.plan(tp_size, num_slices=1,
+                                  devices=[torch.device("cpu")] * tp_size if cpu
+                                  else None).build_mesh(0)
+        spanned = layout is not None and any(
+            ax != "tp" and resolved.shape.get(ax, 1) > 1
+            for split in layout.splits.values() for ax in split)
+        if spanned:
+            raise ValueError(
+                f"params are sharded across {resolved.size_total} processes on a "
+                f"non-tensor-parallel mesh ({dict(resolved.shape)}); the serving engine only "
+                "runs tp-only slices. Re-prepare the model under MeshConfig(dp=1, tp=N), pass "
+                "tp=/mesh= explicitly, or gather params to host before serving.")
+        return None
 
     # ------------------------------------------------------------------
     # device state and the steps
@@ -600,13 +764,14 @@ class ServingEngine:
             self._pool = PagePool(usable)
             self._table = np.zeros((S, self._pages_per_slot), np.int64)
             # +1: page 0 is the scratch page inactive writes route to.
-            self._kv, self._pscale, self._page_bytes = self._pool_state(cfg, usable + 1)
+            self._kv, self._pscale, self._page_bytes = self._pool_state(
+                cfg, usable + 1, self._kv_heads, self._kv_hd)
             Np = self._pages_per_slot
         else:
             self._pool = None
             self._table = None
             self._pages_per_slot = Np = 0
-            shape = (S, cfg.num_key_value_heads, self.max_len, cfg.head_dim)
+            shape = (S, self._kv_heads, self.max_len, self._kv_hd)
             self._kv = [{"k": torch.zeros(shape, dtype=self._dtype, device=dev),
                          "v": torch.zeros(shape, dtype=self._dtype, device=dev)}
                         for _ in range(L)]
@@ -631,7 +796,8 @@ class ServingEngine:
         self._prev = torch.zeros(S, **long) if self._spec_mode == "draft" else None
         self._zero = torch.zeros(1, **long)
         itemsize = torch.finfo(self._dtype).bits // 8
-        self._block_shape = (L, 2, cfg.num_key_value_heads, C, cfg.head_dim)  # head-major
+        # A prefix block is whole on every process of a slice (head-major).
+        self._block_shape = (L, 2, cfg.num_key_value_heads, C, cfg.head_dim)
         self._block_bytes = L * 2 * C * cfg.num_key_value_heads * cfg.head_dim * itemsize
 
         # Static inputs (one int64 tensor a step, so one copy a call) and
@@ -663,6 +829,13 @@ class ServingEngine:
             self._block_in = torch.zeros(self._block_shape, dtype=self._dtype, device=dev)
         else:
             self._block_out = self._block_in = None
+        # A follower's buffers for what the leader's channel sends besides a
+        # step's input: a restore's block, a bank row.
+        follower = self._channel is not None and not self.leader
+        self._block_host = (torch.zeros(self._block_shape, dtype=self._dtype)
+                            if follower and self._copy_restore else None)
+        self._bank_host = (torch.zeros(self._adapters.row_size, dtype=torch.float32)
+                           if follower and self._adapters is not None else None)
 
         # The tick's staging and outputs are double-buffered (see the
         # module docstring); chunk and restore calls wait on their event
@@ -691,13 +864,16 @@ class ServingEngine:
         """A host int64 staging buffer (pinned on the card)."""
         return torch.zeros(n, dtype=torch.int64, pin_memory=self._on_card)
 
-    def _pool_state(self, cfg, pages: int):
+    def _pool_state(self, cfg, pages: int, n_kv: Optional[int] = None, hd: Optional[int] = None):
         """Head-major K/V pages ``[pages, n_kv, P, hd]`` per layer of a model
         with ``cfg`` (int8 under ``kv_dtype="int8"``, with one f32 scale a
         page and leaf: rows ``[2 * layers, pages]``, layer ``i``'s K at row
         ``2i`` and V at ``2i + 1``, initialised to ones), and the bytes of
-        one page over every layer, scales included."""
-        n_kv, hd, L, P = cfg.num_key_value_heads, cfg.head_dim, cfg.num_hidden_layers, self._page
+        one page over every layer, scales included. ``n_kv``/``hd``: this
+        process's widths on a slice (default the config's)."""
+        n_kv = cfg.num_key_value_heads if n_kv is None else n_kv
+        hd = cfg.head_dim if hd is None else hd
+        L, P = cfg.num_hidden_layers, self._page
         quant = self._kv_dtype is not None
         dtype = torch.int8 if quant else self._dtype
         shape = (pages, n_kv, P, hd)
@@ -753,13 +929,36 @@ class ServingEngine:
         tpc = tp.clamp(0, Np - 1)
         tgt = torch.where(touched, table.gather(1, tpc), torch.zeros_like(tpc)).reshape(-1)
         rows = torch.arange(B, device=table.device)[:, None]
+        group = self._scale_group(kv)
         for i, (c, view) in enumerate(zip(kv, views)):
             for j, name in enumerate(("k", "v")):
                 G, _, hd = c[name].shape[1:]
                 blocks = view[name].view(B, G, Np, P, hd)[rows, :, tpc]  # [B, steps, G, P, hd]
-                q, s = _quant_page(blocks.reshape(B * steps, G, P, hd).float())
+                q, s = _quant_page(blocks.reshape(B * steps, G, P, hd).float(), group)
                 c[name].index_copy_(0, tgt, q)
                 scales[2 * i + j].index_copy_(0, tgt, s)
+
+    def _scale_group(self, kv):
+        """The slice's tp group for the target's pages (their page scales
+        are the slice's MAX), None for the draft's (whole on every
+        process)."""
+        return self._slice_group if kv is self._kv else None
+
+    def _whole(self, part):
+        """A ``[n_kv, C, hd]`` K or V slice of a block, whole: this
+        process's share gathered over the slice."""
+        if self._slice_group is None:
+            return part
+        return self._slice_group.all_gather(part.contiguous(), 0 if self._kv_axis == 2 else 2)
+
+    def _local_block(self, blk):
+        """This process's share of a whole block ``[layers, 2, n_kv, C,
+        hd]`` (contiguous)."""
+        if self._slice_group is None:
+            return blk
+        dim = 2 if self._kv_axis == 2 else 4
+        k = blk.shape[dim] // self.tp
+        return blk.narrow(dim, self._exec.index * k, k).contiguous()
 
     def _lora(self, rows):
         """The ``lora=`` argument of a forward whose rows decode under bank
@@ -915,16 +1114,16 @@ class ServingEngine:
             if self._pscale is not None:
                 # The block of the full-precision view, as JAX slices it.
                 for i, v in enumerate(cache):
-                    self._block_out[i, 0].copy_(v["k"][0][:, at_c])
-                    self._block_out[i, 1].copy_(v["v"][0][:, at_c])
+                    self._block_out[i, 0].copy_(self._whole(v["k"][0][:, at_c]))
+                    self._block_out[i, 1].copy_(self._whole(v["v"][0][:, at_c]))
             else:
                 if self._paged:
                     index = (row[0, at_c // self._page], slice(None), at_c % self._page)
                 else:
                     index = (slot.expand(C), slice(None), at_c)
                 for i, c in enumerate(self._kv):  # [C, n_kv, hd] -> [n_kv, C, hd]
-                    self._block_out[i, 0].copy_(c["k"][index].transpose(0, 1))
-                    self._block_out[i, 1].copy_(c["v"][index].transpose(0, 1))
+                    self._block_out[i, 0].copy_(self._whole(c["k"][index].transpose(0, 1)))
+                    self._block_out[i, 1].copy_(self._whole(c["v"][index].transpose(0, 1)))
         if self._dkv is not None:
             self._draft_prefill(ids, offset, buf[at:at + Np].view(1, Np))
 
@@ -952,7 +1151,7 @@ class ServingEngine:
         """Copy one cached chunk block into a slot (JAX ``_restore_prefix_fn``
         / ``_paged_restore_prefix_fn``), quantizing its pages on an int8
         pool, and pin ``pos[slot] = true_len``."""
-        C, buf, blk = self._chunk, self._restore_in, self._block_in
+        C, buf, blk = self._chunk, self._restore_in, self._local_block(self._block_in)
         slot, G, hd = buf[0:1], blk.shape[2], blk.shape[4]
         if self._paged:
             true_len, pages = buf[1:2], buf[2:]
@@ -963,7 +1162,7 @@ class ServingEngine:
                     if self._pscale is None:
                         c[name].index_copy_(0, pages, pages_blk)
                         continue
-                    q, s = _quant_page(pages_blk.float())
+                    q, s = _quant_page(pages_blk.float(), self._slice_group)
                     c[name].index_copy_(0, pages, q)
                     self._pscale[2 * i + j].index_copy_(0, pages, s)
         else:
@@ -999,10 +1198,13 @@ class ServingEngine:
             self._adapter_idx.index_copy_(0, slot, aidx)
         self._chunk_out.copy_(tok)
 
-    def _launch(self, name: str, step, device_in, stage, parts):
+    def _launch(self, name: str, step, device_in, stage, parts, block=None):
         """Copy ``parts`` ((name, values) pairs, laid end to end) through the
-        host buffer ``stage`` into the step's static input ``device_in``,
-        then run the step. The parts' names and shapes are its signature."""
+        host buffer ``stage`` into the step's static input ``device_in``
+        (and a restore's ``block`` into the block input), then run the step.
+        The parts' names and shapes are its signature. On a slice the
+        channel first hands the followers the step, its input and the
+        block."""
         view = stage.numpy()
         at = 0
         for _, values in parts:
@@ -1011,16 +1213,96 @@ class ServingEngine:
             at += flat.size
         if at != view.size:
             raise ValueError(f"step {name!r} takes {view.size} input values, got {at}")
+        if self._channel is not None:
+            self._channel.send(STEP, _STEP_NAMES.index(name), stage,
+                               None if block is None else block.to("cpu"))
+        if block is not None:
+            self._block_in.copy_(block, non_blocking=True)
         device_in.copy_(stage, non_blocking=True)
         signature = (name,) + tuple((k, np.shape(v)) for k, v in parts)
         self._graphs.run(name, step, signature)
+
+    def _host_block(self) -> torch.Tensor:
+        """The chunk step's block, whole, copied to the host (into pinned
+        memory on the card: a pageable copy runs at a tenth of the rate)."""
+        block = torch.empty(self._block_shape, dtype=self._dtype, pin_memory=self._on_card)
+        return block.copy_(self._block_out)
+
+    def _send_bank_row(self, row: int, host: dict):
+        """The bank's row listener on a slice's leader: a loaded row goes to
+        the followers whole."""
+        self._channel.send(BANK_ROW, row, self._adapters.row_vector(host))
+
+    # ------------------------------------------------------------------
+    # a follower of a slice
+    # ------------------------------------------------------------------
+    def _follower_steps(self) -> dict:
+        """Step name -> (step, static input, staging buffer)."""
+        return {"decode": (self._decode_step, self._decode_in, self._decode_stage[0]),
+                "spec": (self._spec_step, self._decode_in, self._decode_stage[0]),
+                "chunk": (self._chunk_step, self._chunk_in, self._chunk_stage),
+                "restore": (self._restore_step, self._restore_in, self._restore_stage),
+                "draft_chunk": (self._draft_chunk_step, self._dchunk_in, self._dchunk_stage)}
+
+    def _follow(self):
+        """A follower's thread: take each message of the slice's channel and
+        run it (a step on this process's shard, a bank row) until the
+        leader's engine stops. A failure is reported to the leader at the
+        next message, whose engine then dies of it; this thread ends."""
+        stream = torch.cuda.stream(self._stream) if self._on_card else contextlib.nullcontext()
+        steps = self._follower_steps()
+        status = 0
+        with torch.inference_mode(), stream, self.mesh:
+            while True:
+                self._loop_iters += 1
+                if self._chaos is not None:
+                    self._chaos.apply(self)
+                if self._fail_injection is not None and not status:
+                    self._error = self._fail_injection
+                    status = 1
+                kind, code, n, has_block = self._channel.receive(status)
+                if status or kind == STOP:
+                    break
+                try:
+                    if kind == STEP:
+                        name = _STEP_NAMES[code]
+                        step, device_in, stage = steps[name]
+                        self._channel.receive_into(stage)
+                        if has_block:
+                            self._block_in.copy_(self._channel.receive_into(self._block_host))
+                        device_in.copy_(stage)  # before the next message reuses stage
+                        self._graphs.run(name, step, (name, n))
+                        if name in ("decode", "spec"):
+                            self._decode_ticks += 1
+                            if self.tick_log is not None:
+                                self.tick_log.append(
+                                    self._decode_out.cpu().numpy().reshape(
+                                        -1, self.max_slots).copy())
+                    elif kind == BANK_ROW:
+                        flat = self._channel.receive_into(self._bank_host)
+                        self._adapters.write_row(code, self._adapters.row_from_vector(flat))
+                    else:
+                        raise RuntimeError(f"unexpected message kind {kind} on slice "
+                                           f"{self.mesh.index}'s channel")
+                except BaseException as e:
+                    self._error = e
+                    self._flight.record("fatal", error=repr(e))
+                    status = 1
+        if self._on_card:
+            self._stream.synchronize()
 
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
     def start(self):
-        """Spawn the engine thread (idempotent) and run warmup traffic."""
+        """Spawn the engine thread (idempotent) and run warmup traffic. A
+        follower's thread follows its leader's steps instead."""
         if self._thread is not None:
+            return
+        if not self.leader:
+            self._thread = threading.Thread(target=self._follow, name="serving-follower",
+                                            daemon=True)
+            self._thread.start()
             return
         self._accepting = True
         self._heartbeat = (self._loop_iters, time.monotonic())
@@ -1041,7 +1323,10 @@ class ServingEngine:
         aliasing and, on a draft engine, the draft chunk). The requests run
         on the base model, bank row 0 on an adapter engine. ``ignore_eos`` keeps the
         dummies decoding. Stats, the prefix cache, spans, flight events and
-        the capture events are cleared afterwards."""
+        the capture events are cleared afterwards. A follower follows its
+        leader's warmup."""
+        if not self.leader:
+            return
         req = self.submit(np.zeros((1, 1), np.int32), max_new_tokens=2, seed=0,
                           ignore_eos=True, block=True)
         if not req.wait(timeout):
@@ -1056,7 +1341,13 @@ class ServingEngine:
                     raise TimeoutError(f"engine warmup did not finish within {timeout}s")
                 self._raise_if_failed(r)
         self._stats.reset()
-        if self._prefix_cache is not None:
+        if self._prefix_cache is not None and self._external_cache:
+            # A cache other engines share keeps their entries (a slice
+            # rebuilt into a fleet finds its predecessor's prefixes warm):
+            # only the warmup prompt's go.
+            self._prefix_cache.discard(
+                self._prefix_keys(np.zeros((1, self._chunk + 1), np.int32), 1))
+        elif self._prefix_cache is not None:
             self._prefix_cache.clear()
         self._tracer.clear()
         self._flight.clear()
@@ -1071,8 +1362,21 @@ class ServingEngine:
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Stop the engine. ``drain=True`` finishes every accepted request
         (queued and running) first; ``drain=False`` cancels them. Blocks
-        for the engine thread (up to ``timeout``)."""
+        for the engine thread (up to ``timeout``). A slice's follower waits
+        for its leader to stop (following it to the end if its thread never
+        started); a leader that never started tells its followers to stop."""
         self._accepting = False
+        if not self.leader:
+            if self._thread is None and not self._channel_closed:
+                self._channel_closed = True
+                self._follow()
+            elif self._thread is not None:
+                self._thread.join(timeout)
+                if not self._thread.is_alive():
+                    self._thread = None
+            if self._error is not None:
+                raise RuntimeError("serving engine died") from self._error
+            return
         if drain:
             self._drain = True
         else:
@@ -1081,6 +1385,8 @@ class ServingEngine:
             self._thread.join(timeout)
             if not self._thread.is_alive():
                 self._thread = None
+        else:
+            self._close_channel()
         self._queue.close()
         if self._emitter is not None:
             self._emitter.close(timeout)
@@ -1222,6 +1528,10 @@ class ServingEngine:
         engine's bank (an unknown name raises
         :class:`~accelerate_tpu_torch.adapters.UnknownAdapterError` here). A
         ``request=`` handle must be fresh."""
+        if not self.leader:
+            raise RuntimeError(
+                f"this process follows serving slice {self.mesh.index}; submit requests on "
+                "its leader, process 0")
         if request is None:
             request = Request(prompt_ids, max_new_tokens=max_new_tokens, rng=rng, seed=seed,
                               timeout=timeout, on_token=on_token, ignore_eos=ignore_eos,
@@ -1378,12 +1688,17 @@ class ServingEngine:
         return self._weights_dtype
 
     def kv_cache_per_chip_bytes(self) -> int:
-        """Bytes of the decode K/V state on the card: the page pool (the
-        draft's too) with its scales, or the dense slot rows."""
+        """Bytes of the decode K/V state on one device: the page pool (the
+        draft's too) with its scales, or the dense slot rows. On a slice,
+        this process's share (JAX ``:2279-2293``, through
+        ``SliceExec.per_chip_bytes``): the K/V leaves split on their heads
+        axis, the scales and the draft's pool whole."""
         tensors = [t for c in self._kv for t in c.values()]
         if self._dkv is not None:
             tensors += [t for c in self._dkv for t in c.values()]
         tensors += [t for t in (self._pscale, self._dpscale) if t is not None]
+        if self._exec is not None:
+            return self._exec.per_chip_bytes(tensors)
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def page_pool_metrics(self) -> dict:
@@ -1429,8 +1744,21 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _run(self):
         stream = torch.cuda.stream(self._stream) if self._on_card else contextlib.nullcontext()
-        with torch.inference_mode(), stream:
+        mesh = self.mesh if self.mesh is not None else contextlib.nullcontext()
+        with torch.inference_mode(), stream, mesh:
             self._run_loop()
+
+    def _close_channel(self):
+        """Tell a slice's followers that this engine stopped (once; not when
+        a follower's failure already ended the conversation)."""
+        if self._channel is None or self._channel_closed:
+            return
+        self._channel_closed = True
+        if self._channel.alive:
+            try:
+                self._channel.send(STOP)
+            except Exception as e:  # the engine is going either way
+                self._flight.record("channel_stop_failed", error=repr(e))
 
     def _run_loop(self):
         # The one launched-but-unread tick (async mode). Loop shape per
@@ -1564,6 +1892,7 @@ class ServingEngine:
                 self._stats.record_finish(req.status)
             if self._emitter is not None:
                 self._emitter.close()
+            self._close_channel()
 
     def _screen(self, req: Request, now: float) -> bool:
         """A request cancelled or past its deadline while queued is
@@ -1786,9 +2115,8 @@ class ServingEngine:
                     else:
                         parts = [("slot", [slot]), ("offset", [i * C]), ("true_len", [S])]
                     self._restore_event.synchronize()  # its staging buffer is free again
-                    self._block_in.copy_(blk, non_blocking=True)
                     self._launch("restore", self._restore_step, self._restore_in,
-                                 self._restore_stage, parts)
+                                 self._restore_stage, parts, block=blk)
                     self._restore_event.record(self._stream)
                     restored_bytes += self._block_bytes
                 if blocks and self._dkv is not None:
@@ -1901,8 +2229,10 @@ class ServingEngine:
                     for pid in pids:
                         self._pool.decref(pid)
             else:
-                self._prefix_cache.put(req._chunk_keys[i], self._block_out.clone(),
-                                       nbytes=self._block_bytes)
+                # On a slice the block is kept on the host: it restores into
+                # any slice (JAX ``:3010-3016``).
+                block = self._block_out.clone() if self._exec is None else self._host_block()
+                self._prefix_cache.put(req._chunk_keys[i], block, nbytes=self._block_bytes)
             self._stats.record_prefix_cache_size(self._prefix_cache.nbytes,
                                                  len(self._prefix_cache))
         req._next_chunk = i + 1
@@ -2146,6 +2476,8 @@ class ServingEngine:
             toks, dones = out[0], out[1].astype(bool)
         t1 = time.monotonic()
         self._blocked_s += t1 - tb
+        if self.tick_log is not None:
+            self.tick_log.append(out)
         if not self._heartbeat_frozen:
             self._heartbeat = (self._loop_iters, t1)
         prev = self._last_complete_t

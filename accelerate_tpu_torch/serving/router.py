@@ -53,8 +53,14 @@ keeps no engine in its callbacks, requests or reports, and
 replacement is swapped in. An engine whose thread was abandoned on a wedge
 (its join timed out) keeps its memory for as long as the thread lives.
 
-``ReplicaSet.from_mesh`` (tensor-parallel slices) is not ported yet
-(ROADMAP.md, A8d).
+``ReplicaSet.from_mesh`` builds a fleet of tensor-parallel slices
+(``mesh_exec.py``): one engine a slice, one fleet-shared host
+``PrefixCache``, per-slice rebuild factories. Above ``tp=1`` every process
+of the group builds the same fleet: process 0's is the fleet (router,
+failover, supervisor, gateway above it), every other process's holds the
+slices' followers, which a thread a slice rebuilds when the leader's
+factory rebuilds that slice (on the same devices, over the same groups)
+and ends when the leader's fleet shuts down.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import numpy as np
 
 from ..observability import new_trace_id
 from .engine import ServingEngine
+from .mesh_exec import BUILD, CLOSE
 from .metrics import ServingStats
 from .request import Request, RequestStatus
 from .scheduler import QueueFull
@@ -352,6 +359,13 @@ class ReplicaSet:
         # Bounded postmortem log: one entry per failover hop, carrying
         # the dead replica's flight-recorder dump (see failover_reports).
         self._failover_reports: list[dict] = []
+        #: a fleet of slices (from_mesh): the plan, each slice's mesh, and
+        #: whether this process holds the fleet (process 0) or followers.
+        self.slice_plan = None
+        self._slice_meshes: list = []
+        self.leader = True
+        self._follower_threads: list = []
+        self._closed_slices = False
 
     @classmethod
     def from_factory(cls, factory: Callable[[], ServingEngine],
@@ -368,12 +382,94 @@ class ReplicaSet:
                    factories=[factory] * num_replicas, **kwargs)
 
     @classmethod
-    def from_mesh(cls, model, *args, **kwargs) -> "ReplicaSet":
-        """A fleet of tensor-parallel slices: not ported yet (ROADMAP.md,
-        A8d, with ``ServingEngine(tp=, mesh=, devices=)``)."""
-        raise NotImplementedError(
-            "ReplicaSet.from_mesh (tensor-parallel slices) is not ported to the PyTorch "
-            "serving fleet yet (ROADMAP.md, A8d)")
+    def from_mesh(cls, model, *, tp: int, num_slices: Optional[int] = None, devices=None,
+                  make_adapters: Optional[Callable] = None, share_prefix_cache: bool = True,
+                  failover_block_s: float = 5.0, max_failovers: Optional[int] = None,
+                  **engine_kwargs) -> "ReplicaSet":
+        """A fleet of tensor-parallel slices (JAX ``:358-413``): carve the
+        devices (default every visible card; ``["cpu"] * tp * num_slices``
+        under ``device="cpu"``) into ``num_slices`` disjoint ``tp``-wide
+        slices (every full slice by default) and build one sliced
+        :class:`~.engine.ServingEngine` a slice. Routing, health, adapter
+        affinity and token-exact failover are the existing machinery.
+
+        Every slice shares ONE :class:`~.scheduler.PrefixCache` of host
+        blocks (unless ``share_prefix_cache=False``), so a prefix prefilled
+        on a slice that later dies is still a hit when its requests resume
+        on another. ``make_adapters`` is called once a slice: a bank is
+        placed on its slice and cannot serve another. A rebuilt slice gets
+        the same devices and groups, a fresh bank and the shared cache.
+
+        Above ``tp=1`` every process of the group calls this with the same
+        arguments: process 0 gets the fleet, every other process one whose
+        ``leader`` is False, holding the slices' followers until process
+        0's fleet shuts down (its :meth:`shutdown` waits for that).
+        Remaining ``engine_kwargs`` pass through to every engine."""
+        import torch
+
+        from .mesh_exec import SlicePlan
+        from .scheduler import PrefixCache
+
+        device = engine_kwargs.get("device")
+        if devices is None and device is not None and torch.device(device).type == "cpu":
+            devices = [torch.device("cpu")] * (int(tp) * int(num_slices or 1))
+        plan = SlicePlan.plan(tp, num_slices=num_slices, devices=devices)
+        meshes = [plan.build_mesh(i) for i in range(len(plan))]
+        leader = meshes[0].coords["tp"] == 0
+        cache_mb = engine_kwargs.pop("prefix_cache_mb", 64.0)
+        # Followers build the same kind of cache (their steps must match
+        # the leader's), and never look anything up in it.
+        shared_cache = None
+        if (share_prefix_cache and cache_mb > 0
+                and engine_kwargs.get("prefill_chunk", 256) is not None):
+            shared_cache = PrefixCache(int(cache_mb * 2 ** 20))
+
+        def _build_slice(i: int, rebuild: bool = False) -> ServingEngine:
+            kw = dict(engine_kwargs)
+            if make_adapters is not None:
+                kw["adapters"] = make_adapters()
+            if shared_cache is not None:
+                kw["prefix_cache"] = shared_cache
+            else:
+                kw["prefix_cache_mb"] = cache_mb
+            channel = meshes[i].channel
+            if rebuild and leader and channel is not None:
+                channel.send(BUILD)
+            return ServingEngine(model, mesh=meshes[i], **kw)
+
+        engines = [_build_slice(i) for i in range(len(plan))]
+        fleet = cls(engines, failover_block_s=failover_block_s, max_failovers=max_failovers,
+                    factories=[(lambda i=i: _build_slice(i, rebuild=True))
+                               for i in range(len(plan))])
+        fleet.slice_plan = plan
+        fleet._slice_meshes = meshes
+        fleet.leader = leader
+        if not leader:
+            fleet._follower_threads = [
+                threading.Thread(target=fleet._follow_slice, args=(i, _build_slice),
+                                 name=f"serving-slice-{i}", daemon=True)
+                for i in range(len(plan))]
+            for t in fleet._follower_threads:
+                t.start()
+        return fleet
+
+    def _follow_slice(self, index: int, build: Callable):
+        """A follower process's thread for slice ``index``: wait for its
+        engine to stop, then rebuild it when the leader rebuilds the slice,
+        until the leader's fleet closes."""
+        channel = self._slice_meshes[index].channel
+        while True:
+            engine = self._replicas[index].engine
+            thread = engine._thread
+            if thread is not None:
+                thread.join()
+            kind = channel.receive()[0]
+            if kind == CLOSE:
+                return
+            if kind != BUILD:
+                raise RuntimeError(f"unexpected message kind {kind} between engines of "
+                                   f"slice {index}")
+            self._replicas[index].engine = build(index)
 
     # -- introspection ---------------------------------------------------
     def __len__(self) -> int:
@@ -1037,7 +1133,13 @@ class ReplicaSet:
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Shut every replica down (``drain=True`` finishes accepted work
         first). Replicas that already died are fenced, not re-raised —
-        their error was already delivered to their requests."""
+        their error was already delivered to their requests. A fleet of
+        slices then closes each slice's channel (its followers' processes
+        stop following); a follower process's fleet waits for that."""
+        if not self.leader:
+            for t in self._follower_threads:
+                t.join(timeout)
+            return
         first_exc: Optional[BaseException] = None
         for r in self._replicas:
             if r.engine is None:  # parked: nothing to shut down
@@ -1048,6 +1150,11 @@ class ReplicaSet:
                 self._fence(r)
                 if r.engine.error is None and first_exc is None:
                     first_exc = e
+        if not self._closed_slices:
+            self._closed_slices = True
+            for mesh in self._slice_meshes:
+                if mesh.channel is not None:
+                    mesh.channel.send(CLOSE)
         if first_exc is not None:
             raise first_exc
 

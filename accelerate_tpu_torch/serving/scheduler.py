@@ -446,6 +446,18 @@ class PrefixCache:
         with self._lock:
             return [(k, b) for k, (b, _) in self._entries.items()]
 
+    def discard(self, keys) -> None:
+        """Drop the entries of ``keys`` that are present (an engine's warmup
+        prompts, from a cache other engines share)."""
+        with self._lock:
+            for key in keys:
+                entry = self._entries.pop(key, None)
+                if entry is None:
+                    continue
+                self._bytes -= entry[1]
+                if self._on_evict is not None:
+                    self._on_evict(key, entry[0])
+
     def clear(self):
         """Drop every entry (engine warmup runs dummy prompts through the
         normal path; their blocks must not linger as phantom prefixes)."""

@@ -227,10 +227,33 @@ order; any failure exits non-zero:
    2048 logits against the resident model's (1e-3). Prints the phase's
    seconds. ``main_moe()`` runs it alone.
 
+13 (after 4f, on the same model). tensor-parallel serving slices
+   (``serving/mesh_exec.py``) at tp 1: the card's machine has one GPU and
+   NCCL takes one rank a card, so tp above 1 runs only over gloo on the CPU
+   (the tests). (a) 4c's exact set (f32, 2 layers, 12 staggered requests on
+   4 slots) through ``ServingEngine(tp=1)`` in three modes (plain, int8 KV,
+   4 LoRA tenants over int8 weights): every stream equal to 4c/4d's plain
+   engine's in the same mode, and in the plain mode to ``generate``. (b)
+   Llama-3-8B at full depth in bf16, 4c's shape (8 slots x 2048, 256-token
+   chunks, an external prefix cache, whose blocks the slice keeps on the
+   host) and 24-request schedule through ``ServingEngine(tp=1)``: graphed
+   tick and chunk ms, TTFT p50/p95, ITL p50/p99, host us a tick, one
+   block's host round trip, ``kv_cache_per_chip_bytes`` beside 4c's from
+   the same run; 0 captures after warmup, 0 flash launches. (c) the fleet
+   ``serve --tp 1`` builds (``ReplicaSet.from_mesh``) on the exact set's
+   model behind the asyncio gateway and a supervisor: the 12 requests over
+   HTTP all 200 and equal to ``generate``, a kill of the slice, its restart
+   on the same device, the longest prompt again a prefix hit from what the
+   dead slice cached, device memory before the kill and after the restart.
+   (d) ``launch --num_processes 1 --tp 1 chip_smoke.py --tp-serving-child
+   OUT``: (a)'s plain set over NCCL, its streams equal (a)'s. Prints the
+   phase's seconds. ``main_tp_serving()`` runs it alone.
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
 ``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
-11, ``mesh_launches``, and in phase 12, ``moe_launches``) and the card's
-line, and as its last line ``{"ok": true, "device": {...}}``.
+11, ``mesh_launches``, in phase 12, ``moe_launches``, and in phase 13,
+``tp_serving_launches``) and the card's line, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1230,7 +1253,7 @@ def steady_tick(engine, card):
             if tick else "no device time seen (not measured)"))
     if not any(profiled.values()):
         fail("torch.profiler saw no device time in a decode tick, graphed or eager")
-    return graphed_ms
+    return graphed_ms, chunk_ms
 
 
 def phase_serving(model):
@@ -1289,7 +1312,9 @@ def phase_serving(model):
           f"none captured after warmup; no flash launch")
     SERVING_4C.update(ttft_p50=s["ttft_ms_p50"], ttft_p95=s["ttft_ms_p95"],
                       itl_p50=percentile(itl, 0.5), itl_p99=percentile(itl, 0.99),
-                      tokens_per_s=s["decode_tokens_per_sec"])
+                      tokens_per_s=s["decode_tokens_per_sec"],
+                      host_us_per_tick=s["host_us_per_tick"],
+                      kv_bytes=engine.kv_cache_per_chip_bytes())
     print(f"  TTFT p50 {s['ttft_ms_p50']:.1f} ms, p95 {s['ttft_ms_p95']:.1f} ms; ITL p50 "
           f"{percentile(itl, 0.5):.2f} ms, p99 {percentile(itl, 0.99):.2f} ms ({len(itl)} "
           f"samples); decode {s['decode_tokens_per_sec']:.1f} tokens/s over "
@@ -1310,7 +1335,7 @@ def phase_serving(model):
         differ = np.flatnonzero(ref != np.asarray(r.tokens))
         agreed.append(f"{int(differ[0]) if differ.size else new}/{new}")
     print(f"  streams against batch-1 generate (bf16): agreed prefixes {', '.join(agreed)}")
-    SERVING_4C["tick_ms"] = steady_tick(engine, card)
+    SERVING_4C["tick_ms"], SERVING_4C["chunk_ms"] = steady_tick(engine, card)
     del engine
     free_cuda()
 
@@ -1347,7 +1372,8 @@ def generate_ref(model, prompt, max_new):
     return out[0, prompt.shape[1]:].cpu().numpy()
 
 
-def serve_exact(model, work, label, refs, check=True, captures_ok=False, adapters_of=None, **kw):
+def serve_exact(model, work, label, refs, check=True, captures_ok=False, adapters_of=None,
+                phase="4d", **kw):
     """Serve ``work`` staggered on an f32 engine; count the streams equal to
     ``refs`` (a list, or ``refs(adapter, prompt, max_new)``) and, when
     ``check``, fail unless all are and nothing was captured after warmup
@@ -1387,8 +1413,8 @@ def serve_exact(model, work, label, refs, check=True, captures_ok=False, adapter
           + ("" if check else f" (agreed tokens a stream: {same})")
           + f"; graphs {sorted(counts)}, captures after warmup {events}")
     if check and (equal != len(work) or (events and not captures_ok)):
-        fail(f"4d exactness, {label}: {equal} of {len(work)} streams token-exact, captures after "
-             f"warmup {events}")
+        fail(f"{phase} exactness, {label}: {equal} of {len(work)} streams token-exact, captures "
+             f"after warmup {events}")
     return outs, s, counts, events, pages
 
 
@@ -4070,6 +4096,242 @@ def phase_moe() -> dict:
                 train_counts=train["counts"], steps=train["steps"], seconds=phase_s)
 
 
+# -- phase 13: tensor-parallel serving slices, at tp 1 ---------------------------
+
+TP_SERVE = dict(timeout=400, block_iters=10)
+TP_CHILD_FLAG = "--tp-serving-child"
+
+
+def slice_modes(cfg) -> dict:
+    """Phase 13 (a): 4c's exact set (f32, 2 layers, 12 staggered requests on
+    4 slots) through ``ServingEngine(tp=1)`` and through 4c/4d's plain
+    engine in three modes; the slice's streams must equal the plain
+    engine's, and in the plain mode ``generate``'s. Returns each mode's
+    slice streams."""
+    from accelerate_tpu_torch.adapters import AdapterBank, LoRAConfig
+
+    model, work = exact_requests(cfg)
+    refs = [generate_ref(model, p, n) for p, n in work]
+    lora = LoRAConfig(rank=EXTRA["lora_rank"], target_modules=EXTRA["lora_targets"])
+    tenants = {f"t{i}": seeded_adapter(model, lora, 300 + i) for i in range(EXTRA["adapters"])}
+    modes = [("plain", {}, None), ("kv_dtype=int8", dict(kv_dtype="int8"), None),
+             (f"{len(tenants)} LoRA tenants over weights_dtype=int8",
+              dict(weights_dtype="int8"), tenants)]
+    out = {}
+    for label, kw, adapters_of in modes:
+        def bank():
+            return (dict(adapters=AdapterBank(model, config=lora, max_adapters=len(tenants) + 1))
+                    if adapters_of else {})
+
+        plain = serve_exact(model, work, f"plain engine, {label}", refs,
+                            check=label == "plain", adapters_of=adapters_of, phase="13",
+                            **kw, **bank())[0]
+        out[label] = serve_exact(
+            model, work, f"ServingEngine(tp=1), {label}, against the plain engine", plain,
+            adapters_of=adapters_of, phase="13", tp=1, **kw, **bank())[0]
+    del model
+    free_cuda()
+    return out
+
+
+def slice_full_depth(model) -> dict:
+    """Phase 13 (b): 4c's full-depth shape and seeded schedule through
+    ``ServingEngine(tp=1)`` with an external prefix cache (host blocks)."""
+    import torch
+
+    from accelerate_tpu_torch import ServingEngine
+    from accelerate_tpu_torch.serving import PrefixCache
+
+    card = card_line()
+    cfg = model.config
+    schedule = serving_schedule(cfg.vocab_size,
+                                torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    C = SERVE["chunk"]
+    t0 = time.perf_counter()
+    engine = ServingEngine(model, tp=1, max_slots=SERVE["slots"], max_len=SERVE["max_len"],
+                           prefill_chunk=C, cache_dtype=torch.bfloat16, trace_capacity=1 << 15,
+                           prefix_cache=PrefixCache(SERVE["prefix_cache_gib"] << 30))
+    warm_s = time.perf_counter() - t0
+    try:
+        reset_counts()
+        reqs, wall, s, itl = serve_schedule(engine, [(a, p, n, None) for a, p, n in schedule])
+        launched = read_counts()
+        steps = engine_checks(engine, "phase 13 (b)")
+        if any(launched.values()):
+            fail(f"the tp=1 slice launched flash kernels: {launched}")
+        blocks = [b for _, b in engine.prefix_cache.entries()]
+    finally:
+        engine.shutdown(drain=False, timeout=600)
+    if not blocks or any(b.device.type != "cpu" for b in blocks):
+        fail("the tp=1 slice's prefix cache does not hold host blocks")
+    tick_ms, chunk_ms = steady_tick(engine, card)
+    # One prefix block's host round trip: the chunk step's block to the
+    # host as the slice saves it, and back into the restore step's input.
+    with torch.inference_mode(), torch.cuda.stream(engine._stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_SERVE["block_iters"]):
+            engine._block_in.copy_(engine._host_block())
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t0) * 1e3 / TP_SERVE["block_iters"]
+    kv_bytes = engine.kv_cache_per_chip_bytes()
+    tokens = sum(len(r.tokens) for r in reqs)
+    c4 = SERVING_4C
+    ref = (lambda key, fmt: format(c4[key], fmt) if key in c4 else "not run")
+    print(f"  (b) ServingEngine(tp=1), bf16, full depth, {SERVE['slots']} slots x "
+          f"{SERVE['max_len']}, chunk {C}, 4c's schedule ({card}): warmup {warm_s:.1f} s; "
+          f"{len(reqs)} requests, {tokens} new tokens in {wall:.3f} s; graphs {steps}, 0 "
+          f"captures after warmup, 0 flash launches")
+    print(f"      beside 4c's engine in this run: graphed tick {tick_ms:.3f} ms (4c "
+          f"{ref('tick_ms', '.3f')}); chunk {chunk_ms:.3f} ms (4c {ref('chunk_ms', '.3f')}); "
+          f"TTFT p50 {s['ttft_ms_p50']:.1f} ms, p95 {s['ttft_ms_p95']:.1f} ms (4c "
+          f"{ref('ttft_p50', '.1f')}, {ref('ttft_p95', '.1f')}); ITL p50 "
+          f"{percentile(itl, 0.5):.2f} ms, p99 {percentile(itl, 0.99):.2f} ms (4c "
+          f"{ref('itl_p50', '.2f')}, {ref('itl_p99', '.2f')}); host "
+          f"{s['host_us_per_tick']:.1f} us a tick (4c {ref('host_us_per_tick', '.1f')}); "
+          f"kv_cache_per_chip_bytes {kv_bytes} (4c {ref('kv_bytes', 'd')}); prefix hits "
+          f"{s['prefix_cache_hit_chunks']} chunks, a {engine._block_bytes / 2**20:.0f} MiB "
+          f"block's host round trip {block_ms:.3f} ms")
+    if "kv_bytes" in c4 and kv_bytes != c4["kv_bytes"]:
+        fail(f"the tp=1 slice holds {kv_bytes} K/V bytes, 4c's engine {c4['kv_bytes']}")
+    out = dict(tick_ms=tick_ms, chunk_ms=chunk_ms, ttft_p50=s["ttft_ms_p50"],
+               ttft_p95=s["ttft_ms_p95"], itl_p50=percentile(itl, 0.5),
+               itl_p99=percentile(itl, 0.99), host_us_per_tick=s["host_us_per_tick"],
+               block_ms=block_ms, kv_bytes=kv_bytes)
+    del engine, reqs
+    free_cuda()
+    return out
+
+
+def slice_fleet_http(cfg) -> dict:
+    """Phase 13 (c): the fleet ``serve --tp 1`` builds (``ReplicaSet.from_mesh``,
+    one slice on the card) around the exact set's model, behind the asyncio
+    gateway and a supervisor; the 12 requests over HTTP, a kill of the
+    slice, its restart on the same device, and a prefix the dead slice
+    inserted served as a hit after the restart."""
+    import threading
+
+    import torch
+
+    from accelerate_tpu_torch.commands.serve import build_replica_set, serve_command_parser
+    from accelerate_tpu_torch.serving import (FleetSupervisor, GatewayConfig, ReplicaState,
+                                              ServingGateway)
+
+    model, work = exact_requests(cfg)
+    refs = [generate_ref(model, p, n).tolist() for p, n in work]
+    args = serve_command_parser().parse_args(
+        ["--tp", "1", "--replicas", "1", "--max-slots", str(SERVE["exact_slots"]),
+         "--max-len", str(SERVE["exact_max_len"]), "--prefill-chunk", str(SERVE["chunk"]),
+         "--port", "0"])
+    fleet, _ = build_replica_set(args, model=model, cache_dtype=torch.float32)
+    if not fleet.leader or fleet.slice_plan is None or fleet.engine(0).tp != 1:
+        fail("serve --tp 1 did not build a fleet of one tp=1 slice")
+    results = [None] * len(work)
+    with FleetSupervisor(fleet, hang_timeout_s=FLEET["hang_timeout_s"], poll_interval_s=0.02,
+                         restart_backoff_s=0.05) as sup, \
+            ServingGateway(fleet, config=GatewayConfig(server="asyncio", port=0)) as gw:
+
+        def call(i):
+            p, n = work[i]
+            results[i] = http_completion(gw.url, {"prompt": p.ravel().tolist(),
+                                                  "max_new_tokens": n, "stream": i % 2 == 1})
+
+        threads = []
+        per = -(-len(work) // 3)
+        for wave in range(3):
+            for i in range(wave * per, min(len(work), (wave + 1) * per)):
+                threads.append(threading.Thread(target=call, args=(i,)))
+                threads[-1].start()
+            time.sleep(0.05)
+        for t in threads:
+            t.join(600)
+        old = fleet.engine(0)
+        device = old.device
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fleet.kill_replica(0)
+        wait_until(lambda: fleet.replica_states()[0] is ReplicaState.HEALTHY
+                   and sup.restarts == 1, 300, "the slice's restart")
+        new = fleet.engine(0)
+        del old
+        free_cuda()
+        after = torch.cuda.memory_allocated()
+        longest = max(range(len(work)), key=lambda i: work[i][0].shape[1])
+        again = http_completion(gw.url, {"prompt": work[longest][0].ravel().tolist(),
+                                         "max_new_tokens": work[longest][1]})
+        hits = new.serving_metrics()["prefix_cache_hit_chunks"]
+    same = sum(code == 200 and final["tokens"] == ref and (toks is None or toks == ref)
+               for (code, final, toks), ref in zip(results, refs))
+    codes = sorted({code for code, _, _ in results})
+    again_ok = again[0] == 200 and again[1]["tokens"] == refs[longest]
+    print(f"  (c) serve --tp 1 (ReplicaSet.from_mesh, one slice on {device}), f32, 2 layers, "
+          f"asyncio gateway ({card_line()}): status codes {codes}; {same} of {len(work)} "
+          f"streams over HTTP ({len(work) // 2} JSON, {len(work) // 2} SSE) equal generate; "
+          f"killed and restarted on {new.device} ({sup.restarts} restart, supervisor events "
+          f"{[e['kind'] for e in sup.events()]}); the {work[longest][0].shape[1]}-token prompt "
+          f"again: {'equal to generate' if again_ok else 'NOT EQUAL'}, {hits} prefix chunks "
+          f"hit that the dead slice cached; device memory {before / 2**30:.3f} GiB before the "
+          f"kill, {after / 2**30:.3f} GiB after the restart")
+    if codes != [200] or same != len(work) or not again_ok or hits < 1 or new.device != device:
+        fail("phase 13 (c): the slice fleet over HTTP is not exact, or its restart lost the "
+             "prefix cache or its device")
+    del model, new
+    free_cuda()
+    return dict(before_gib=before / 2**30, after_gib=after / 2**30, hits=hits)
+
+
+def tp_serving_child(out_path: str):
+    """Phase 13 (d), launched by ``launch --num_processes 1 --tp 1
+    chip_smoke.py --tp-serving-child OUT``: the exact set's plain mode through
+    ``ServingEngine(tp=1)`` inside the process group; writes the streams."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from accelerate_tpu_torch import LlamaConfig, PartialState
+
+    state = PartialState()
+    model, work = exact_requests(LlamaConfig.llama3_8b())
+    streams, _, _, _, _ = serve_exact(model, work, "launched ServingEngine(tp=1)",
+                                      [generate_ref(model, p, n) for p, n in work],
+                                      phase="13 (d)", tp=1)
+    with open(out_path, "w") as f:
+        json.dump(dict(backend=state.backend, world=state.num_processes,
+                       streams=[s.tolist() for s in streams]), f)
+
+
+def phase_tp_serving(model) -> dict:
+    """Phase 13 (see the module docstring)."""
+    import tempfile
+
+    t_phase = time.time()
+    print("  the card's machine has one GPU: the slices run at tp=1 here; tp above 1 runs only "
+          "over gloo on the CPU (tests/torch_port/test_torch_serving_mesh.py)")
+    modes = slice_modes(model.config)
+    full = slice_full_depth(model)
+    fleet = slice_fleet_http(model.config)
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_tp_") as tmp:
+        path = os.path.join(tmp, "child.json")
+        t0 = time.time()
+        run_cli(["launch", "--num_processes", "1", "--tp", "1",
+                 os.path.join(HERE, "chip_smoke.py"), TP_CHILD_FLAG, path],
+                timeout=TP_SERVE["timeout"])
+        wall_s = time.time() - t0
+        with open(path) as f:
+            child = json.load(f)
+    same = sum(a == list(b) for a, b in zip(child["streams"], modes["plain"]))
+    print(f"  (d) launch --num_processes 1 --tp 1 ({wall_s:.1f} s of wall time): world "
+          f"{child['world']} over {child['backend']}; {same} of {len(modes['plain'])} streams "
+          f"equal (a)'s")
+    if child["backend"] != "nccl" or child["world"] != 1 or same != len(modes["plain"]):
+        fail("phase 13 (d): the launched slice is not NCCL at world size 1, or its streams "
+             "differ from (a)'s")
+    seconds = time.time() - t_phase
+    print(f"  phase 13 took {seconds:.1f} s")
+    return dict(full=full, fleet=fleet, seconds=seconds)
+
+
 def main():
     import torch
 
@@ -4128,6 +4390,13 @@ def main():
     reset_counts()
     phase_big_model(model, gen)
     big_model_counts = read_counts()
+    print("== 13. tensor-parallel serving slices at tp 1: exactness, full depth, HTTP fleet, "
+          "launched")
+    reset_counts()
+    phase_tp_serving(model)
+    tp_serving_counts = read_counts()
+    if any(tp_serving_counts.values()):
+        fail("phase 13 launched a flash kernel; the serving path's attention is the einsum core")
     print("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
@@ -4162,6 +4431,7 @@ def main():
         entry["serving_extras_launches"] = extras_counts[key]
         entry["serving_fleet_launches"] = fleet_counts[key]
         entry["big_model_launches"] = big_model_counts[key]
+        entry["tp_serving_launches"] = tp_serving_counts[key]
         if entry["name"].endswith("_sm90"):
             entry["loop_launches"] = loop_counts[entry["name"]]
             entry["loop_launches_per_microbatch"] = loop_counts[entry["name"]] / loop_microbatches
@@ -4180,6 +4450,25 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def main_tp_serving():
+    """Phase 13 alone (no kernel is built: the serving path runs none). 4c's
+    numbers, which (b) prints beside its own, come only from a whole run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    model, _, _ = build_model()
+    reset_counts()
+    result = phase_tp_serving(model)
+    if any(read_counts().values()):
+        fail("phase 13 launched a flash kernel")
+    print(json.dumps({"tp_serving": result}))
 
 
 def main_speculative():
@@ -4406,5 +4695,7 @@ if __name__ == "__main__":
         mesh_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == MOE_CHILD_FLAG:
         moe_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == TP_CHILD_FLAG:
+        tp_serving_child(sys.argv[2])
     else:
         main()

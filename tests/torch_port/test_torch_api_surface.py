@@ -21,7 +21,11 @@ MODULES = ["", ".utils", ".state", ".accelerator", ".data_loader", ".scheduler",
            ".utils.operations", ".launchers", ".local_sgd", ".commands.launch",
            ".parallel.sharding", ".parallel.host_offload", ".commands.merge",
            ".parallel.mesh", ".parallel.pipeline", ".ops.ring_attention", ".inference",
-           ".ops.moe", ".models.mixtral"]
+           ".ops.moe", ".models.mixtral", ".serving.mesh_exec", ".serving.engine",
+           ".serving.router", ".adapters.quantize", ".adapters.registry"]
+
+#: Modules whose public classes are also held method for method.
+METHOD_MODULES = {".serving.mesh_exec"}
 
 TAGS = {"A8d", "A9", "JAX-only"}
 _PYTREE = "a JAX function takes the parameter pytree; a torch module holds its parameters"
@@ -48,6 +52,9 @@ MISSING_OK = {
     "accelerate_tpu.utils.profiling.CompileWatcher": (
         "JAX-only", "watches XLA compiles; the port's counterpart is GraphCaptureWatcher"),
     "accelerate_tpu.utils.random.make_rng_key": ("JAX-only", "a JAX PRNG key"),
+    "accelerate_tpu.serving.mesh_exec.SliceExec.jit": (
+        "JAX-only", "jax.jit with a slice's shardings; the port's steps are fixed-shape "
+        "functions captured as CUDA graphs (serving/graphs.py)"),
     "accelerate_tpu.utils.modeling.jnp_to_np_dtype": ("JAX-only", "jax.numpy dtypes"),
     "accelerate_tpu.checkpointing.flatten_params": ("JAX-only", "a pytree helper"),
     "accelerate_tpu.checkpointing.save_array_tree": ("JAX-only", "a pytree helper"),
@@ -114,6 +121,10 @@ KEYWORDS_OK = [
     ("accelerate_tpu.serving.engine.ServingEngine", ("params", "draft_params"), "JAX-only",
      _PYTREE),
     ("accelerate_tpu.adapters.registry.AdapterBank", ("params",), "JAX-only", _PYTREE),
+    ("accelerate_tpu.adapters.quantize.quantize_base_weights", ("params",), "JAX-only",
+     _PYTREE),
+    ("accelerate_tpu.adapters.quantize.shardings_for_quantized", ("qparams",), "JAX-only",
+     "a quantized parameter pytree; the port's function takes the quantized module"),
     ("accelerate_tpu.adapters.lora.LoRATrainState", ("base_params", "param_mask"), "JAX-only",
      _PYTREE),
     ("accelerate_tpu.adapters.lora.init_lora_params", ("params",), "JAX-only", _PYTREE),
@@ -176,6 +187,11 @@ def gaps(suffix: str):
             missing[home] = name
             continue
         target = getattr(port, name)
+        if suffix in METHOD_MODULES and inspect.isclass(obj):
+            for attr, member in vars(obj).items():
+                if not attr.startswith("_") and callable(getattr(obj, attr)) \
+                        and not hasattr(target, attr):
+                    missing[f"{home}.{attr}"] = attr
         if callable(obj) and callable(target):
             have = set(keywords(target))
             absent = [k for k in keywords(obj) if k not in have]

@@ -242,7 +242,7 @@ def test_counters_and_captures_stay_monotone_across_a_restart(tiny):
 
 def test_restart_and_kill_guards(tiny):
     """Only a fenced replica with a factory restarts; a second kill of a
-    fenced replica is a no-op; the tensor-parallel fleet names A8."""
+    fenced replica is a no-op; a tensor-parallel fleet needs its devices."""
     _, _, model, _ = tiny
     lone = ReplicaSet([port_engine(model, **ENGINE)])
     try:
@@ -262,8 +262,8 @@ def test_restart_and_kill_guards(tiny):
         assert fleet.fleet_metrics()["fleet_fences"] == 1
     finally:
         fleet.shutdown(drain=False, timeout=WAIT)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, A8"):
-        ReplicaSet.from_mesh(model, tp=2)
+    with pytest.raises(ValueError, match="needs at least 2 devices"):
+        ReplicaSet.from_mesh(model, tp=2)  # no card here, and no devices= given
 
 
 def test_cache_aware_and_draining_choice(tiny):

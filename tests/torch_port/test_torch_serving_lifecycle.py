@@ -158,13 +158,24 @@ def test_spans_and_flight_events(model, make_engine):
     (dict(chaos="schedule"), "A7"), (dict(trace_dir="/nowhere"), "A7"),
     (dict(tp=2), "A8"), (dict(mesh="mesh"), "A8"), (dict(devices=["d"]), "A8")])
 def test_options_not_ported_name_their_roadmap_item(model, kwargs, item, tmp_path):
-    """A8 options raise, naming their ROADMAP item. The A5, A6 and A7
-    options, which this test once saw refused, now build an engine that
-    reports them (the placeholders stand for a draft model, a bank, a
-    chaos schedule and a trace directory)."""
+    """Options this test once saw refused, naming their ROADMAP item, now
+    build an engine that reports them (the placeholders stand for a draft
+    model, a bank, a chaos schedule, a trace directory and a slice's
+    mesh). Of the A8 ones, ``tp=2`` in a lone process raises for want of a
+    process per tp index, and ``devices=`` without ``tp=`` raises."""
     if item == "A8":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-            ServingEngine(model, device="cpu", autostart=False, **kwargs)
+        from accelerate_tpu_torch.serving import SlicePlan
+
+        if "tp" in kwargs:
+            with pytest.raises(RuntimeError, match="one process per tp index"):
+                ServingEngine(model, device="cpu", autostart=False, **kwargs)
+        elif "devices" in kwargs:
+            with pytest.raises(ValueError, match="devices= only makes sense together with tp="):
+                ServingEngine(model, device="cpu", autostart=False, devices=["cpu"])
+        else:
+            mesh = SlicePlan.plan(1, devices=["cpu"]).build_mesh(0)
+            engine = ServingEngine(model, device="cpu", autostart=False, mesh=mesh)
+            assert engine.tp == 1 and engine.mesh is mesh
         return
     from accelerate_tpu_torch.adapters import AdapterBank
     from accelerate_tpu_torch.serving import ChaosSchedule
