@@ -23,7 +23,12 @@ from .lora import (
     prepare_lora,
     target_paths,
 )
-from .quantize import QuantizedLinear, dequantized_state_dict, quantize_base_weights
+from .quantize import (
+    QuantizedLinear,
+    dequantized_state_dict,
+    quantize_base_weights,
+    shardings_for_quantized,
+)
 from .registry import AdapterBank, AdapterBankFull, UnknownAdapterError
 
 __all__ = [
@@ -47,5 +52,6 @@ __all__ = [
     "prepare_lora",
     "quantize_base_weights",
     "save_adapter",
+    "shardings_for_quantized",
     "target_paths",
 ]

@@ -179,6 +179,20 @@ class WeightStore:
         """All stored parameter names with this prefix."""
         return [n for n in self.entries if n == prefix or n.startswith(prefix + ".")]
 
+    def fetch_subtree(self, prefix: str, device=None) -> dict:
+        """The tensors under ``prefix``, by their names relative to it
+        (``functional_call``'s flat form of the JAX package's nested
+        subtree), on ``device`` where one is given: disk entries are read
+        (and cast), host and card entries pass through or are copied."""
+        out = {}
+        for name in self.names_under(prefix):
+            rel = name[len(prefix) + 1:] if name != prefix else name.rsplit(".", 1)[-1]
+            val = self.entries[name]
+            if isinstance(val, (LazyWeight, LazyStack)):
+                val = val.load() if val.dtype is None else val.load().to(val.dtype)
+            out[rel] = val if device is None else val.to(device)
+        return out
+
     def total_bytes(self, kind: Optional[str] = None) -> int:
         """Bytes held in memory, of one kind (``"device"`` or ``"cpu"``) or
         both; lazy disk entries count 0."""

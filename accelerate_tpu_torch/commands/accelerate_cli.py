@@ -2,8 +2,8 @@
 ``accelerate_tpu/commands/accelerate_cli.py``.
 
 Subcommands are registered lazily; each lives in its own module under
-``accelerate_tpu_torch.commands``: ``config`` (its ``default``
-subcommand), ``env``, ``launch``, ``loadtest``, ``merge-weights``,
+``accelerate_tpu_torch.commands``: ``config`` (the questionnaire, and its
+``default`` and ``update`` subcommands), ``env``, ``launch``, ``loadtest``, ``merge-weights``,
 ``serve`` and ``test``. ``estimate-memory`` comes with the other model
 families (ROADMAP A9); ``tpu-config`` is the JAX package's alone.
 """

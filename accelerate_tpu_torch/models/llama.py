@@ -384,6 +384,7 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
                          segment_ids=None, backend: str = "auto",
                          sliding_window: Optional[int] = None,
+                         block_q: int = 128, block_k: int = 128,
                          sm_scale: Optional[float] = None,
                          logit_softcap: Optional[float] = None):
     """Dispatch between the attention implementations in ops/ (reference
@@ -403,7 +404,9 @@ def multi_head_attention(q, k, v, causal: bool = True, use_flash: bool = True,
     sequence; otherwise the chunks are gathered, attended whole and cut
     again (:func:`_over_whole_sequence`). On a ``cp`` axis of one the
     'ring' and 'ulysses' backends take the flash path, as in the JAX
-    package."""
+    package. ``block_q``/``block_k`` are the JAX package's flash tile
+    sizes: taken, and fixed by the kernel routes here
+    (``ops/attention.py``'s ``flash_attention``)."""
     if backend not in ("auto", "ring", "ulysses", "flash", "einsum"):
         raise ValueError(
             f"unknown attention_backend {backend!r}; expected auto/ring/ulysses/flash/einsum")
@@ -1348,13 +1351,18 @@ def _targets_and_mask(batch):
     return safe.long(), mask
 
 
-def masked_next_token_ce(logits, batch):
-    """Next-token cross-entropy over a batch with optional ``labels`` (-100 =
-    ignored), in f32. Shared by the causal-LM loss factories."""
-    safe, mask = _targets_and_mask(batch)
+def _masked_ce(logits, safe, mask):
+    """The mean cross-entropy in f32 of ``logits`` against ``safe`` targets
+    over the labels ``mask`` keeps."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def masked_next_token_ce(logits, batch):
+    """Next-token cross-entropy over a batch with optional ``labels`` (-100 =
+    ignored), in f32. Shared by the causal-LM loss factories."""
+    return _masked_ce(logits, *_targets_and_mask(batch))
 
 
 def _forward_kwargs(batch):
@@ -1401,18 +1409,16 @@ def causal_lm_loss(model):
     def loss_fn(params, batch, rng=None):
         ids, kwargs, safe, mask = _loss_inputs(batch)
         logits = torch.func.functional_call(module, params, (ids,), kwargs)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -logp.gather(-1, safe[..., None])[..., 0]
-        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        return _masked_ce(logits, safe, mask)
 
     return loss_fn
 
 
-def fused_causal_lm_loss(model, num_chunks: int = 8):
+def fused_causal_lm_loss(module, num_chunks: int = 8):
     """Memory-efficient :func:`causal_lm_loss`: the [tokens, vocab] logits
     are never materialized; the LM head runs chunked over the vocabulary
     with an online softmax (``ops/fused_loss.py``), final-logit softcap
-    included. ``model`` is a ``LlamaForCausalLM`` or a
+    included. ``module`` is a ``LlamaForCausalLM`` or a
     ``PipelinedLlamaForCausalLM`` (or either, prepared).
 
     The loss is the mean over this call's labels (on a ``cp`` mesh, over
@@ -1427,7 +1433,7 @@ def fused_causal_lm_loss(model, num_chunks: int = 8):
     unmasked labels (packed rows)."""
     from ..ops.fused_loss import chunked_softmax_xent
 
-    module = _module(model)
+    module = _module(module)
     cfg = module.config
 
     def loss_fn(params, batch, rng=None):

@@ -42,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.moe import moe_mlp_apply
-from ..parallel.sharding import RematPolicy, resolve_remat_policy
+from ..parallel.sharding import RematPolicy, _SumGradient, resolve_remat_policy
 from ..utils.device import resolve_device
 from .llama import (
     LlamaAttention,
@@ -50,14 +50,17 @@ from .llama import (
     LlamaMLP,
     RMSNorm,
     _default_positions,
+    _cp_start,
     _KeptProducts,
     _layout_of,
     _lm_head,
+    _loss_inputs,
+    _masked_ce,
     _module,
+    _ReduceFromTP,
     _remat_of,
-    _targets_and_mask,
+    _split_group,
     init_weights,
-    masked_next_token_ce,
 )
 
 
@@ -146,13 +149,20 @@ class MixtralSparseMLP(nn.Module):
         out, aux = moe_mlp_apply(
             experts, self.router, x, top_k=cfg.top_k, capacity_factor=capacity_factor,
             num_groups=cfg.num_expert_groups, router_noise_rng=router_noise,
-            router_noise_eps=cfg.router_noise_eps, normalize_gates=cfg.norm_topk_prob)
+            router_noise_eps=cfg.router_noise_eps, normalize_gates=cfg.norm_topk_prob,
+            intermediate_size=cfg.intermediate_size)
         self.last_routing = {k: aux.pop(k) for k in ("expert_load", "dropped_fraction")}
         self.last_routing.update({k: aux[k].detach() for k in ("load_balance_loss",
                                                                  "router_z_loss")})
         if cfg.shared_expert_intermediate_size:
-            shared = self.shared_down_proj(F.silu(self.shared_gate_proj(x))
-                                           * self.shared_up_proj(x))
+            # Column/row parallel over tp when the layout split it.
+            tp = _split_group(self.shared_gate_proj.weight.shape[0],
+                              cfg.shared_expert_intermediate_size, "the shared expert")
+            xs = x if tp is None else _SumGradient.apply(x, tp)
+            shared = self.shared_down_proj(F.silu(self.shared_gate_proj(xs))
+                                           * self.shared_up_proj(xs))
+            if tp is not None:
+                shared = _ReduceFromTP.apply(shared, tp)
             gate = torch.sigmoid(self.shared_expert_gate(x).float()).to(out.dtype)
             out = out + gate * shared
         return out, aux
@@ -279,7 +289,8 @@ class MixtralForCausalLM(nn.Module):
         ``router_noise_eps > 0``)."""
         cfg = self.config
         if positions is None:
-            positions = _default_positions(input_ids, 0 if cache_pos is None else cache_pos)
+            positions = _default_positions(
+                input_ids, _cp_start(input_ids.shape[1]) if cache_pos is None else cache_pos)
         x = self.embed_tokens(input_ids)
         layout, prefix = _layout_of(self)
         policy = _remat_of(cfg, layout)
@@ -325,7 +336,9 @@ def mixtral_lm_loss(model, config: Optional[MixtralConfig] = None):
     the full logits plus the router losses, ``ce + router_aux_coef * lb +
     router_z_coef * z`` (reference ``accelerate_tpu/models/mixtral.py:
     221-241``). ``rng`` (the accelerator's generator) draws the router
-    jitter when ``router_noise_eps > 0``.
+    jitter when ``router_noise_eps > 0``. On a mesh whose ``cp`` axis
+    splits the sequence the cross-entropy is over this process's chunk of
+    each row (``models/llama.py``'s ``_loss_inputs``).
 
     ``loss_fn.label_count(batch)`` gives the cross-entropy's label count,
     so the accelerator weights each process's loss by its share of the
@@ -340,11 +353,13 @@ def mixtral_lm_loss(model, config: Optional[MixtralConfig] = None):
 
     def loss_fn(params, batch, rng=None):
         generator = rng if (rng is not None and cfg.router_noise_eps > 0.0) else None
-        logits, aux = torch.func.functional_call(module, params, (batch["input_ids"],),
+        ids, kwargs, safe, mask = _loss_inputs(batch)
+        positions = kwargs.get("positions")
+        logits, aux = torch.func.functional_call(module, params, (ids, positions),
                                                  {"router_generator": generator})
-        ce = masked_next_token_ce(logits, batch)
+        ce = _masked_ce(logits, safe, mask)
         return (ce + cfg.router_aux_coef * aux["load_balance_loss"]
                 + cfg.router_z_coef * aux["router_z_loss"])
 
-    loss_fn.label_count = lambda batch: _targets_and_mask(batch)[1].sum()
+    loss_fn.label_count = lambda batch: _loss_inputs(batch)[3].sum()
     return loss_fn

@@ -79,8 +79,8 @@ def _einsum_attention(q, k, v, causal: bool, segment_ids=None, sliding_window=No
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def flash_attention(q, k, v, causal: bool = True, sliding_window=None, segment_ids=None,
-                    sm_scale=None, logit_softcap=None):
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 128, block_k: int = 128,
+                    sliding_window=None, segment_ids=None, sm_scale=None, logit_softcap=None):
     """Flash attention entry point; args are [batch, seq, heads, head_dim].
 
     Dispatches to the Hopper kernels when :func:`flash_attention_available`
@@ -89,8 +89,11 @@ def flash_attention(q, k, v, causal: bool = True, sliding_window=None, segment_i
     dK/dV and dQ kernels in the backward). ``segment_ids``,
     ``sliding_window`` (banded: only the band's tiles are visited),
     ``sm_scale`` and ``logit_softcap`` (pre-mask) all run inside the
-    kernels. Their tiles are fixed; the JAX entry's ``block_q`` and
-    ``block_k`` have no counterpart here."""
+    kernels. ``block_q`` and ``block_k`` are taken as the JAX entry takes
+    them (any size; it clamps them to the sequence) and change nothing:
+    each route fixes its tiles in its source (``ops/csrc/``; the wgmma
+    forward, for one, takes 128 query rows a block), and the einsum path
+    has none."""
     if sliding_window is not None and not causal:
         # Checked here too, so the einsum path fails as the kernel does.
         raise ValueError("sliding_window requires causal=True")

@@ -47,6 +47,29 @@ from the reference's sharding constraints runs here by hand:
   several), the rows are all-gathered over the data axes first and each
   process keeps its own rows of the output.
 
+Tensor, context and pipeline axes (the JAX package runs the layer under
+GSPMD on any mesh, and the results are those of the one-device function):
+
+* ``tp``: the expert leaves hold ``F / tp`` of the hidden width (the JAX
+  specs ``("ep", None, "tp")`` for ``gate_proj``/``up_proj`` and ``("ep",
+  "tp")`` for ``down_proj``). Every ``tp`` process routes the same groups,
+  runs the column products on its slice and the row product on its rows,
+  and the partial outputs meet in one all-reduce over ``tp`` after the
+  (linear, f32) combine, which moves ``[B, S, D]`` instead of the slots.
+  The tokens entering the experts and the gates entering the combine sum
+  their gradients over ``tp`` (Megatron's f); the router path computes the
+  same on every ``tp`` process, so its gradient is whole on each.
+* ``cp``: a routing group is a run of the flattened global ``[B * S]``
+  rows, so the sequence chunks are all-gathered over ``cp`` first, every
+  ``cp`` process routes the whole rows of its data shard, and each keeps
+  its own chunk of the output (the backward reduce-scatters the input's
+  gradient). Routing each chunk alone would drop other tokens.
+* ``pp``: the Mixtral has no stacked form, so its leaves stay whole over
+  ``pp`` and the batch splits over the data axes only: nothing changes.
+
+At an axis of size 1 the ``tp`` and ``cp`` paths run as they are, over
+groups of one process, whose collectives return their input.
+
 The autograd functions below make the backward right: the experts'
 gradients are whole on their owner; the router's and the input's, partial
 on each ``ep`` process, are summed over ``ep``; what every ``ep`` process
@@ -71,7 +94,8 @@ from ..parallel.sharding import _GatherReplicated, _GatherSplit, _SliceReplicate
 
 def default_num_groups(num_tokens: int, mesh=None) -> int:
     """One routing group per ``dp x fsdp x ep`` process when that divides
-    the token count (of the global batch), else 1."""
+    the token count (of the global batch), else 1. The ``tp``, ``cp`` and
+    ``pp`` processes of a data shard share its groups."""
     from ..state import current_mesh
 
     mesh = current_mesh(mesh)
@@ -206,6 +230,21 @@ class _SumStatistics(torch.autograd.Function):
         return ctx.group.all_reduce(grad.contiguous().clone()), None, None
 
 
+def _tp_split(mesh, local: int, full: Optional[int]):
+    """The mesh's ``tp`` group when the expert leaves hold ``local`` of
+    the ``full`` hidden width split over it (a group of one at a ``tp``
+    axis of 1), None when they are whole."""
+    if mesh is None or full is None:
+        return None
+    size = mesh.shape.get("tp", 1)
+    if local == full and size > 1:
+        return None
+    if local * size != full:
+        raise ValueError(f"experts of width {local} of {full} do not split over the mesh's "
+                         f"tp axis ({size})")
+    return mesh.group("tp")
+
+
 def _group(mesh, *axes):
     """The mesh's group over ``axes`` when it spans several processes."""
     if mesh is None or mesh.size(axes) == 1:
@@ -273,7 +312,8 @@ def _expert_mlp(h, wg, wu, wd) -> torch.Tensor:
 def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Tensor, *,
                   top_k: int, capacity_factor: float, num_groups: Optional[int] = None,
                   mesh=None, router_noise_rng=None, router_noise_eps: float = 0.0,
-                  normalize_gates: Optional[bool] = None):
+                  normalize_gates: Optional[bool] = None,
+                  intermediate_size: Optional[int] = None):
     """Sparse expert MLP over ``x`` [batch, seq, d_model] (reference
     ``accelerate_tpu/ops/moe.py:148-203``).
 
@@ -284,7 +324,9 @@ def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Ten
     (default :func:`default_num_groups`). ``router_noise_rng``: a
     ``torch.Generator`` or an int64 key tensor for the multiplicative
     jitter ``U[1 - eps, 1 + eps)`` on the logits (with
-    ``router_noise_eps > 0``).
+    ``router_noise_eps > 0``). ``intermediate_size``: the experts' whole
+    hidden width ``F``; the leaves holding ``F / tp`` of it are this
+    process's ``tp`` chunks (None: the leaves are whole).
 
     Returns ``(out [batch, seq, d_model], aux)``: ``aux`` holds the
     reference's ``load_balance_loss``, ``router_z_loss`` and
@@ -294,14 +336,14 @@ def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Ten
     from ..state import current_mesh
 
     mesh = current_mesh(mesh)
-    B, S, D = x.shape
     wg, wu, wd = expert_params["gate_proj"], expert_params["up_proj"], expert_params["down_proj"]
     E = router_kernel.shape[-1]
-    for axis in ("tp", "cp", "pp"):
-        if mesh is not None and mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"the MoE layer on a mesh with a {axis} axis above 1 is not ported to "
-                "accelerate_tpu_torch (it runs over dp, fsdp and ep; ROADMAP.md, A8d)")
+    tp = _tp_split(mesh, wg.shape[-1], intermediate_size)
+    cp = mesh.group("cp") if mesh is not None else None
+    chunk = x.shape[1]
+    if cp is not None:  # whole rows: a group is a run of the global [B * S]
+        x = _GatherSplit.apply(x, cp, 1)
+    B, S, D = x.shape
     data = _group(mesh, "dp", "fsdp")
     ep = None
     if wg.shape[0] != E:
@@ -352,6 +394,9 @@ def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Ten
         aux["dropped_fraction"] = (~keep).sum().to(torch.float32) / keep.numel()
 
     rows = _slots(expert, slot, local, C)
+    if tp is not None:  # each tp process uses the tokens and gates on its F / tp
+        tokens = _SumGradient.apply(tokens, tp)
+        gates = _SumGradient.apply(gates, tp)
     expert_in = _dispatch(tokens, rows, keep, E, C)
     if ep is None:
         out_e = _expert_mlp(expert_in, wg, wu, wd)
@@ -361,10 +406,16 @@ def moe_mlp_apply(expert_params: dict, router_kernel: torch.Tensor, x: torch.Ten
     else:  # every ep process routed every group: run this block of experts
         mine = _SliceReplicated.apply(expert_in, ep, 0, wg.shape[0])
         out_e = _GatherReplicated.apply(_expert_mlp(mine, wg, wu, wd), ep, 0)
-    out = _combine(out_e, rows, keep, gates).to(x.dtype)
+    out = _combine(out_e, rows, keep, gates)
+    if tp is not None:  # the partial sums over the F / tp slices
+        out = _SumStatistics.apply(out, tp, None)
+    out = out.to(x.dtype)
     if split:
         out = _GatherReplicated.apply(out, ep, 0)
     out = out.reshape(-1, D)
     if spans:
         out = out.narrow(0, data.index * B * S, B * S)
-    return out.reshape(B, S, D), aux
+    out = out.reshape(B, S, D)
+    if cp is not None:
+        out = out.narrow(1, cp.index * chunk, chunk)
+    return out, aux

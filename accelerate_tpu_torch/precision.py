@@ -5,8 +5,9 @@ for params, compute and outputs (``Policy``, ``policy_for``), and for fp16
 a loss-scale state (``LossScaleState``) kept as tensors on the device and
 advanced by pure functions, as torch's GradScaler would. The default on the
 card, as on the TPU, is "bf16": f32 master params, bf16 compute, f32
-outputs, and no scaling (bf16 has f32's exponent range). fp8 is not ported
-yet.
+outputs, and no scaling (bf16 has f32's exponent range). The scaling's
+settings are ``utils/dataclasses.py``'s ``GradScalerKwargs``. fp8 is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from .utils.dataclasses import GradScalerKwargs
 
 
 @dataclass(frozen=True)
@@ -70,18 +73,6 @@ def policy_for(mixed_precision) -> Policy:
     if mp == "fp8":
         raise NotImplementedError("mixed_precision='fp8' is not ported yet")
     raise ValueError(f"Unknown mixed precision mode {mixed_precision}")
-
-
-@dataclass
-class GradScalerKwargs:
-    """Dynamic loss-scaling config for fp16 (``utils/dataclasses.py`` of the
-    JAX package; torch GradScaler's defaults)."""
-
-    init_scale: float = 65536.0
-    growth_factor: float = 2.0
-    backoff_factor: float = 0.5
-    growth_interval: int = 2000
-    enabled: bool = True
 
 
 class LossScaleState(NamedTuple):

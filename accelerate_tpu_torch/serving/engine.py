@@ -160,6 +160,7 @@ from .mesh_exec import (
     STEP,
     STOP,
     SliceExec,
+    SliceFollowerError,
     SliceMesh,
     SlicePlan,
     shard_for_serving,
@@ -1288,6 +1289,8 @@ class ServingEngine:
                     self._error = e
                     self._flight.record("fatal", error=repr(e))
                     status = 1
+                    if kind == STEP:  # the leader is inside this step's collectives
+                        self._exec.mesh.fence()
         if self._on_card:
             self._stream.synchronize()
 
@@ -1867,6 +1870,14 @@ class ServingEngine:
                         else:
                             self._begin_prefill(req, self._chunks_per_tick)
         except BaseException as e:  # engine-fatal: fail everything loudly
+            if (self._channel is not None and not isinstance(e, SliceFollowerError)
+                    and self._exec.mesh.follower_failed()):
+                # The collective failed because a follower fenced the slice.
+                failed = SliceFollowerError(
+                    f"a follower process of serving slice {self.mesh.index} failed inside a "
+                    "step (its error is raised in that process)")
+                failed.__cause__ = e
+                e = failed
             self._error = e
             self._flight.record("fatal", error=repr(e))
             self._postmortem = self._flight.dump()

@@ -29,6 +29,17 @@ process group, as ``launch`` or torchrun start it):
   card: replays) the same step. The header's exchange also carries each
   follower's status, so a follower that failed fails the leader's engine
   at its next step.
+* **A follower failing inside a step** would leave its leader waiting in
+  the step's collectives until the device group's timeout
+  (``STEP_TIMEOUT``). Instead it fences the slice's device group
+  (:meth:`SliceMesh.fence`): it records the failure in the process
+  group's store and closes its end of the group, which fails the
+  leader's pending collective at once over gloo; on NCCL the leader's
+  watchdog reads the store and aborts its own communicator. The leader's
+  step then raises :class:`SliceFollowerError`, its engine dies, and the
+  fleet fails the slice's streams over; a rebuild of the slice
+  (``ReplicaSet.restart_replica``) renews the device group on the same
+  devices (:meth:`SliceMesh.renew_device_group`).
 * **Params** take the Megatron layout of ``parallel/sharding.py``
   (:meth:`SliceExec.param_shardings`); :func:`shard_for_serving` cuts a
   whole model (a module, a torch state dict or flax params) into this
@@ -166,9 +177,22 @@ class SlicePlan:
         return f"SlicePlan(tp={self.tp}, slices={[[str(d) for d in s] for s in self.slices]})"
 
 
-#: How long a slice's step collectives wait: a follower that fails inside
-#: a step fails its leader there after this, instead of hanging it.
+#: How long a slice's step collectives wait for a process that neither
+#: arrives nor fails (a wedged one): a follower that fails inside a step
+#: fences the group at once instead (:meth:`SliceMesh.fence`).
 STEP_TIMEOUT = timedelta(seconds=600)
+
+#: How often a slice leader's watchdog reads the store for a follower's
+#: failure (NCCL groups only: gloo fails the pending collective itself).
+WATCH_INTERVAL_S = 0.05
+
+
+def _device_group(tp: int):
+    """The device group of a slice: ranks ``0 .. tp-1`` on the default
+    backend (NCCL on the card, gloo on the CPU)."""
+    import torch.distributed as dist
+
+    return dist.new_group(list(range(tp)), timeout=STEP_TIMEOUT)
 
 
 def _slice_groups(tp: int):
@@ -177,10 +201,19 @@ def _slice_groups(tp: int):
     idles."""
     import torch.distributed as dist
 
-    ranks = list(range(tp))
-    device = dist.new_group(ranks, timeout=STEP_TIMEOUT)
-    host = dist.new_group(ranks, backend="gloo", timeout=timedelta(days=365))
+    device = _device_group(tp)
+    host = dist.new_group(list(range(tp)), backend="gloo", timeout=timedelta(days=365))
     return device, host
+
+
+class _FencedGroup(AxisGroup):
+    """The device group of a fenced slice: every collective raises."""
+
+    def _fenced(self, *args, **kwargs):
+        raise SliceFollowerError(f"the device group of {self.axes} was fenced after a "
+                                 "failure inside a step")
+
+    all_reduce = all_gather = reduce_scatter = all_to_all = broadcast = _fenced
 
 
 def _join_world(tp: int):
@@ -221,14 +254,106 @@ class SliceMesh(Mesh):
         # spans the whole world or one process.
         super().__init__({"tp": tp}, ranks, rank)
         self.channel: Optional[SliceChannel] = None
+        #: bumped by every renewal of the device group, on every process.
+        self.generation = 0
         if tp > 1:
             device, host = _slice_groups(tp)
             self._groups[("tp",)] = AxisGroup(("tp",), ranks, rank, device)
             self.channel = SliceChannel(AxisGroup(("tp",), ranks, rank, host), self.index)
+            self._watch()
 
     @property
     def tp(self) -> int:
         return self.shape["tp"]
+
+    # -- failures inside a step -------------------------------------------
+    def _failure_key(self) -> str:
+        return f"accelerate_tpu_torch/slice{self.index}/gen{self.generation}/failed"
+
+    @staticmethod
+    def _store():
+        import torch.distributed as dist
+
+        return dist.distributed_c10d._get_default_store()
+
+    def follower_failed(self) -> bool:
+        """Whether a process of this slice fenced its device group (a
+        failure inside a step) since the group was last renewed."""
+        if self.tp == 1:
+            return False
+        try:
+            return bool(self._store().check([self._failure_key()]))
+        except RuntimeError:  # the store is gone: nothing to read
+            return False
+
+    def fence(self) -> None:
+        """After a failure inside a step (a follower's): record it in the
+        process group's store, where the leader's step and watchdog look,
+        and close this process's end of the device group, so the leader's
+        pending collective fails now (gloo) instead of waiting out
+        ``STEP_TIMEOUT``. The slice serves again after a rebuild
+        (:meth:`renew_device_group`)."""
+        if self.tp == 1:
+            return
+        self._store().set(self._failure_key(), str(self.rank))
+        self._close_device_group()
+
+    def _close_device_group(self) -> None:
+        """Close this process's end of the device group. The engine's steps
+        hold its :class:`AxisGroup`, which turns fenced in place (every
+        collective raises); the torch group, unreferenced once destroyed,
+        closes its connections, which gloo's peers see at once."""
+        import torch.distributed as dist
+
+        group = self._groups[("tp",)]
+        if isinstance(group, _FencedGroup):
+            return
+        pg, group.group = group.group, None
+        group.__class__ = _FencedGroup
+        dist.destroy_process_group(pg)
+
+    def renew_device_group(self) -> None:
+        """A fresh device group on the slice's processes and devices (every
+        process of the slice calls it at the slice's rebuild: building a
+        group is a collective over the world); the old one is closed. The
+        failure record of the old group's generation stays behind."""
+        if self.tp == 1:
+            return
+        old = self._groups[("tp",)]
+        self._close_device_group()
+        self.generation += 1
+        self._groups[("tp",)] = AxisGroup(("tp",), old.ranks, old.index, _device_group(self.tp))
+        self._watch()
+
+    def _watch(self) -> None:
+        """On the leader of a slice whose device group is NCCL, a daemon
+        thread that aborts this process's communicator when a follower
+        fenced the group (NCCL's pending kernels do not notice a peer
+        closing its end). It ends with the mesh or at the next renewal."""
+        import torch.distributed as dist
+
+        group = self._groups[("tp",)].group
+        if self.coords["tp"] != 0 or dist.get_backend(group) != "nccl":
+            return
+        ref, generation = weakref.ref(self), self.generation
+
+        def watch():
+            import time
+
+            while True:
+                mesh = ref()
+                if mesh is None or mesh.generation != generation:
+                    return
+                if mesh.follower_failed():
+                    try:
+                        group.abort()
+                    except Exception:
+                        pass
+                    return
+                del mesh
+                time.sleep(WATCH_INTERVAL_S)
+
+        threading.Thread(target=watch, name=f"slice-{self.index}-watchdog", daemon=True).start()
 
     @property
     def device(self) -> torch.device:

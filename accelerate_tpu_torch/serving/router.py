@@ -59,7 +59,7 @@ replacement is swapped in. An engine whose thread was abandoned on a wedge
 of the group builds the same fleet: process 0's is the fleet (router,
 failover, supervisor, gateway above it), every other process's holds the
 slices' followers, which a thread a slice rebuilds when the leader's
-factory rebuilds that slice (on the same devices, over the same groups)
+factory rebuilds that slice (on the same devices, its device group renewed)
 and ends when the leader's fleet shuts down.
 """
 
@@ -435,6 +435,8 @@ class ReplicaSet:
             channel = meshes[i].channel
             if rebuild and leader and channel is not None:
                 channel.send(BUILD)
+            if rebuild:  # every process of the slice: fresh groups on the same devices
+                meshes[i].renew_device_group()
             return ServingEngine(model, mesh=meshes[i], **kw)
 
         engines = [_build_slice(i) for i in range(len(plan))]
@@ -469,7 +471,7 @@ class ReplicaSet:
             if kind != BUILD:
                 raise RuntimeError(f"unexpected message kind {kind} between engines of "
                                    f"slice {index}")
-            self._replicas[index].engine = build(index)
+            self._replicas[index].engine = build(index, rebuild=True)
 
     # -- introspection ---------------------------------------------------
     def __len__(self) -> int:

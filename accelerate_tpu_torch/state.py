@@ -192,31 +192,41 @@ class PartialState:
     def is_last_process(self) -> bool:
         return self.process_index == self.num_processes - 1
 
-    def wait_for_everyone(self):
-        """A barrier across the process group; nothing to wait for without
-        one."""
+    def wait_for_everyone(self, tag: str = "accelerate_tpu_barrier"):
+        """A barrier across the process group named ``tag``; nothing to
+        wait for without one. The processes exchange the tag's hash (the
+        exchange is the barrier), and a process at a barrier of another
+        tag raises, as the JAX package's ``sync_global_devices`` does."""
         if self.process_group:
+            import zlib
+
             import torch.distributed as dist
 
-            dist.barrier(**({"device_ids": [self.device.index]}
-                            if self.backend == "nccl" else {}))
+            device = self.device if self.backend == "nccl" else "cpu"
+            mine = torch.tensor([zlib.crc32(tag.encode())], dtype=torch.int64, device=device)
+            every = [torch.empty_like(mine) for _ in range(self.num_processes)]
+            dist.all_gather(every, mine)
+            if len({int(t.item()) for t in every}) > 1:
+                raise RuntimeError(f"wait_for_everyone tag mismatch ({tag!r}): the processes "
+                                   "are at different barriers")
 
-    def _goes_first(self, first: bool):
+    def _goes_first(self, first: bool, tag: str):
         if not first:
-            self.wait_for_everyone()
+            self.wait_for_everyone(tag + "_pre")
         yield
         if first:
-            self.wait_for_everyone()
+            self.wait_for_everyone(tag + "_pre")
+        self.wait_for_everyone(tag + "_post")
 
     @contextmanager
     def main_process_first(self):
         """The main process runs the block before the others."""
-        yield from self._goes_first(self.is_main_process)
+        yield from self._goes_first(self.is_main_process, "main_first")
 
     @contextmanager
     def local_main_process_first(self):
         """Each machine's main process runs the block before its others."""
-        yield from self._goes_first(self.is_local_main_process)
+        yield from self._goes_first(self.is_local_main_process, "local_main_first")
 
     def on_main_process(self, function: Callable = None):
         """Decorator: run only on the main process."""

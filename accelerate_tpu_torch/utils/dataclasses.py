@@ -13,8 +13,8 @@ plugins: ``FullyShardedDataParallelPlugin`` (``:372``),
 ``TensorParallelPlugin``, ``ContextParallelPlugin``,
 ``PipelineParallelPlugin``, ``ExpertParallelPlugin`` (``:442-497``),
 ``DeepSpeedPlugin`` (``:500``) and ``MegatronLMPlugin`` with
-``add_model_config_to_megatron_parser`` (``:656-733``). ``GradScalerKwargs``
-lives in ``precision.py``.
+``add_model_config_to_megatron_parser`` (``:656-733``), and
+``GradScalerKwargs`` (``:212``), which ``precision.py`` reads.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import json
 import math
 import os
 import warnings
-from dataclasses import asdict, dataclass, field
+from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any, Callable, Literal, Optional
 
@@ -251,7 +251,20 @@ class ProfileKwargs(KwargsHandler):
 
 
 @dataclass
-class GradientAccumulationPlugin:
+class GradScalerKwargs(KwargsHandler):
+    """Dynamic loss-scaling config for fp16 (torch GradScaler's defaults);
+    ``precision.py`` runs the scaling as a functional state on the
+    device."""
+
+    init_scale: float = 65536.0
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
+
+
+@dataclass
+class GradientAccumulationPlugin(KwargsHandler):
     """Gradient accumulation: ``num_steps`` microbatches an update;
     ``adjust_scheduler`` steps schedulers only at sync steps;
     ``sync_with_dataloader`` syncs at the end of a loader whatever the
@@ -262,12 +275,9 @@ class GradientAccumulationPlugin:
     sync_with_dataloader: bool = True
     sync_each_batch: bool = False
 
-    def to_kwargs(self) -> dict:
-        return asdict(self)
-
 
 @dataclass
-class DataLoaderConfiguration:
+class DataLoaderConfiguration(KwargsHandler):
     """How prepared loaders batch and stage. ``dispatch_batches`` (the main
     process reads, every process gets its slice), ``even_batches`` (the
     last round completed by cycling from the start) and ``split_batches``
@@ -295,7 +305,7 @@ class DataLoaderConfiguration:
 
 
 @dataclass
-class ProjectConfiguration:
+class ProjectConfiguration(KwargsHandler):
     """Where checkpoints and logs go. With ``automatic_checkpoint_naming``
     ``save_state()`` writes ``project_dir/checkpoints/checkpoint_<iteration>``
     and keeps at most ``total_limit`` of them."""

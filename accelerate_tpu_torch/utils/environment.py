@@ -130,6 +130,66 @@ def get_gpu_info():
     return names, len(names)
 
 
+def _cpus_of(cpulist: str) -> set:
+    """The CPUs of a sysfs ``cpulist`` (``"0-3,8,10-11"``)."""
+    cpus: set = set()
+    for part in cpulist.strip().split(","):
+        if "-" in part:
+            lo, hi = part.split("-")
+            cpus.update(range(int(lo), int(hi) + 1))
+        elif part:
+            cpus.add(int(part))
+    return cpus
+
+
+def _card_numa_node(local_process_index: int):
+    """The NUMA node of the card this process drives (local index modulo
+    the cards), from its PCI address in sysfs; None when there is no card
+    or the machine does not say."""
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return None
+        props = torch.cuda.get_device_properties(local_process_index % torch.cuda.device_count())
+        address = f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:{props.pci_device_id:02x}.0"
+        with open(f"/sys/bus/pci/devices/{address}/numa_node") as f:
+            node = int(f.read().strip())
+    except (AttributeError, OSError, RuntimeError, ValueError):
+        return None
+    return node if node >= 0 else None
+
+
+def override_numa_affinity(local_process_index: int, verbose: bool | None = None) -> None:
+    """Bind this process to the CPUs of the NUMA node of its card.
+
+    The node is the card's own (its PCI device's ``numa_node``); without
+    a card, or where sysfs does not name one, the nodes are dealt out by
+    ``local_process_index`` as in the JAX package. A machine of one NUMA
+    node (or none listed) is left as it is."""
+    try:
+        nodes = sorted(int(d[len("node"):]) for d in os.listdir("/sys/devices/system/node")
+                       if d.startswith("node") and d[len("node"):].isdigit())
+    except OSError:
+        return
+    if len(nodes) <= 1:
+        return
+    node = _card_numa_node(local_process_index)
+    if node not in nodes:
+        node = nodes[local_process_index % len(nodes)]
+    try:
+        with open(f"/sys/devices/system/node/node{node}/cpulist") as f:
+            cpulist = f.read().strip()
+        cpus = _cpus_of(cpulist)
+        if cpus and hasattr(os, "sched_setaffinity"):
+            os.sched_setaffinity(0, cpus)
+            if verbose:
+                print(f"Assigning process {local_process_index} to NUMA node {node} "
+                      f"(cpus {cpulist})")
+    except (OSError, ValueError):
+        return
+
+
 def run_command(cmd: list, capture: bool = False, env: dict[str, Any] | None = None):
     """Run ``cmd``; raise on a non-zero exit. ``capture`` returns its
     standard output."""

@@ -121,6 +121,11 @@ def is_dvclive_available() -> bool:
     return _is_package_available("dvclive")
 
 
+@lru_cache(maxsize=None)
+def is_boto3_available() -> bool:
+    return _is_package_available("boto3")
+
+
 # Devices and toolchains.
 
 def is_cuda_available() -> bool:

@@ -224,7 +224,12 @@ order; any failure exits non-zero:
    HF directory by ``save_hf_checkpoint`` and loaded by
    ``load_hf_checkpoint_and_dispatch`` on the "auto" map under a card
    budget that leaves the last layer and the head in host memory: its 1 x
-   2048 logits against the resident model's (1e-3). Prints the phase's
+   2048 logits against the resident model's (1e-3). (e) (c)'s trainer
+   launched from a config file that the ``config`` questionnaire wrote
+   from scripted answers on a piped stdin, with ``--tp 1 --cp 1 --pp 1
+   --ep 1`` and the tensor, context (ring) and pipeline plugins at size 1,
+   over NCCL: its 13 losses equal (c)'s bit for bit, 2 + 2 + 2 wgmma
+   launches a step; step ms, peak and its seconds. Prints the phase's
    seconds. ``main_moe()`` runs it alone.
 
 13 (after 4f, on the same model). tensor-parallel serving slices
@@ -3014,18 +3019,20 @@ MP = dict(warmup=3, iters=10, reduce_iters=5, timeout=400)
 MP_CHILD_FLAG = "--multiprocess-child"
 
 
-def run_cli(args, timeout, env_extra=None):
+def run_cli(args, timeout, env_extra=None, stdin_text=None):
     """``accelerate-tpu-torch <args>`` from this checkout, in a session of
     its own that is killed whole on a timeout; a non-zero exit fails the
-    phase with the command's last lines."""
+    phase with the command's last lines. ``stdin_text`` is piped to its
+    standard input (not a TTY)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     env.update(env_extra or {})
     cmd = [sys.executable, "-m", "accelerate_tpu_torch.commands.accelerate_cli", *args]
     proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+                            stderr=subprocess.PIPE, text=True, start_new_session=True,
+                            stdin=subprocess.PIPE if stdin_text is not None else None)
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(input=stdin_text, timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, err = proc.communicate()
@@ -3654,9 +3661,14 @@ MOE = dict(seed=81, forward_layers=8, forward=(4, 2048), small=(1, 256), prompt=
            train_layers=2, train=(4, 1024), warmup=3, iters=10, timeout=600,
            stream_layers=2, stream_tokens=2048, stream_shard="2GB")
 MOE_CHILD_FLAG = "--moe-child"
+MOE_MESH_CHILD_FLAG = "--moe-mesh-child"
+#: The questionnaire's answers for phase 12 (e), one a line: one machine,
+#: bf16, every mesh axis 1, no debug checks.
+MOE_MESH_ANSWERS = "1\n2\n1\n1\n1\n1\n1\n1\n2\n"
 MOE_CAPACITY = 1.25  # MixtralConfig's training capacity factor
 MOE_PATH = ("Mixtral-8x7B widths (phase 12): 8-layer forward on 4 x 2048 tokens, 2-layer train "
-            "steps on 4 x 1024 launched and not, 2-layer streamed forward on 1 x 2048")
+            "steps on 4 x 1024 launched (--ep 1, then from the questionnaire's config with --tp 1 "
+            "--cp 1 --pp 1 --ep 1) and not, 2-layer streamed forward on 1 x 2048")
 
 
 def moe_config(layers: int, **overrides):
@@ -3866,23 +3878,38 @@ def moe_generate(model, gen, problems: list) -> dict:
     return out
 
 
-def moe_train_steps() -> dict:
+def moe_train_steps(mesh_plugins: bool = False) -> dict:
     """Phase 12 (c)'s trainer: Mixtral-8x7B widths at 2 layers, f32
     masters and bf16 compute, fused AdamW, ``mixtral_lm_loss``, clip 1.0,
     ``ExpertParallelPlugin(ep_size=1)``; 3 + 10 steps on 4 seeded batches
     of 4 x 1024 tokens, the last 10 timed. In a process group when the
-    launcher made one."""
+    launcher made one. ``mesh_plugins`` (phase 12 (e)) adds the tensor,
+    context (ring attention) and pipeline plugins at size 1."""
     import numpy as np
     import torch
 
-    from accelerate_tpu_torch import Accelerator, ExpertParallelPlugin, make_global_batch
+    from accelerate_tpu_torch import (
+        Accelerator,
+        ContextParallelPlugin,
+        ExpertParallelPlugin,
+        PipelineParallelPlugin,
+        TensorParallelPlugin,
+        make_global_batch,
+    )
     from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_lm_loss
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
     AcceleratorState._reset_state()
     GradientState._reset_state()
-    acc = Accelerator(mixed_precision="bf16", ep_plugin=ExpertParallelPlugin(ep_size=1))
-    cfg = moe_config(MOE["train_layers"])
+    plugins = {}
+    if mesh_plugins:
+        plugins = dict(tp_plugin=TensorParallelPlugin(tp_size=1),
+                       cp_plugin=ContextParallelPlugin(cp_size=1, mode="ring"),
+                       pp_plugin=PipelineParallelPlugin(pp_size=1))
+    acc = Accelerator(mixed_precision="bf16", ep_plugin=ExpertParallelPlugin(ep_size=1),
+                      **plugins)
+    cfg = moe_config(MOE["train_layers"],
+                     **({"attention_backend": "ring"} if mesh_plugins else {}))
     gen = torch.Generator(device=acc.device).manual_seed(MOE["seed"] + 2)
     model = MixtralForCausalLM(cfg, device=acc.device, dtype=torch.float32, generator=gen)
     model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
@@ -3920,9 +3947,11 @@ def moe_train_steps() -> dict:
     return out
 
 
-def moe_child(out_path: str):
+def moe_child(out_path: str, mesh_plugins: bool = False):
     """Phase 12 (c)'s launched trainer (``launch --num_processes 1
-    --mixed_precision bf16 --ep 1 chip_smoke.py --moe-child OUT``): writes
+    --mixed_precision bf16 --ep 1 chip_smoke.py --moe-child OUT``), or with
+    ``mesh_plugins`` (e)'s (``launch --config_file F --num_processes 1 --tp
+    1 --cp 1 --pp 1 --ep 1 chip_smoke.py --moe-mesh-child OUT``): writes
     ``moe_train_steps``' numbers to ``OUT`` as JSON."""
     import torch
 
@@ -3932,9 +3961,10 @@ def moe_child(out_path: str):
     from accelerate_tpu_torch import PartialState
 
     state = PartialState()
-    result = moe_train_steps()
+    result = moe_train_steps(mesh_plugins)
     result.update(backend=state.backend, env={k: v for k, v in os.environ.items()
-                                              if k.startswith("ACCELERATE_TPU_MESH")})
+                                              if k.startswith("ACCELERATE_TPU_MESH")},
+                  mixed_precision=os.environ.get("ACCELERATE_TPU_MIXED_PRECISION"))
     with open(out_path, "w") as f:
         json.dump(result, f)
     print(f"moe child done: rank {state.process_index} of {state.num_processes} "
@@ -3943,8 +3973,9 @@ def moe_child(out_path: str):
 
 def moe_train(problems: list) -> dict:
     """Phase 12 (c): the 2-layer trainer launched at world size 1 over NCCL
-    with ``--ep 1``, then here without a process group: their 13 losses
-    equal bit for bit and finite, 2 + 2 + 2 wgmma launches a step."""
+    with ``--ep 1``, then (e) (``moe_mesh_train``), then here without a
+    process group: their 13 losses equal bit for bit and finite, 2 + 2 + 2
+    wgmma launches a step."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="atpu_smoke_moe_") as tmp:
@@ -3956,6 +3987,8 @@ def moe_train(problems: list) -> dict:
         wall_s = time.time() - t0
         with open(result_path) as f:
             child = json.load(f)
+    # (e) before the in-process run: this process then holds no model yet.
+    mesh_train = moe_mesh_train(problems, child)
     here = moe_train_steps()
     steps = MOE["warmup"] + MOE["iters"]
     layers = here["layers"]
@@ -3985,8 +4018,59 @@ def moe_train(problems: list) -> dict:
         print(f"  the {steps} launched losses equal the unlaunched ones bit for bit")
     if here["peak_memory_gib"] > 75:
         problems.append(f"the 2-layer trainer peaked at {here['peak_memory_gib']:.1f} GiB")
-    return dict(child=child, here=here, steps=2 * steps,
+    return dict(child=child, here=here, steps=2 * steps, mesh_train=mesh_train,
                 counts={k: child["counts"][k] + here["counts"][k] for k in here["counts"]})
+
+
+def moe_mesh_train(problems: list, reference: dict) -> dict:
+    """Phase 12 (e): (c)'s launched trainer again, its configuration file
+    written by the ``config`` questionnaire from scripted answers on a
+    piped (non-TTY) stdin, launched with ``--tp 1 --cp 1 --pp 1 --ep 1``
+    and the tensor, context (ring) and pipeline plugins at size 1, over
+    NCCL at world size 1: its 13 losses equal (c)'s launched ones bit for
+    bit, 2 + 2 + 2 wgmma launches a step; step ms, peak and the seconds it
+    took."""
+    import tempfile
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="atpu_smoke_moe_mesh_") as tmp:
+        config_file = os.path.join(tmp, "asked.yaml")
+        asked = run_cli(["config", "--config_file", config_file], timeout=120,
+                        stdin_text=MOE_MESH_ANSWERS)
+        with open(config_file) as f:
+            written = f.read()
+        result_path = os.path.join(tmp, "child.json")
+        run_cli(["launch", "--config_file", config_file, "--num_processes", "1", "--tp", "1",
+                 "--cp", "1", "--pp", "1", "--ep", "1", os.path.join(HERE, "chip_smoke.py"),
+                 MOE_MESH_CHILD_FLAG, result_path], timeout=MOE["timeout"])
+        with open(result_path) as f:
+            child = json.load(f)
+    seconds = time.time() - t0
+    steps = MOE["warmup"] + MOE["iters"]
+    layers = child["layers"]
+    per_step = {k: v / steps for k, v in child["counts"].items() if v}
+    ref_ms = reference["step_ms"]
+    print(f"  (e) config questionnaire (piped answers: {'Mixed precision' in asked}) then "
+          f"launch --tp 1 --cp 1 --pp 1 --ep 1: mesh {child['mesh']}, world {child['world']} "
+          f"over {child['backend']}, mixed precision {child['mixed_precision']}; step "
+          f"{child['step_ms']:.2f} ms against (c)'s launched {ref_ms:.2f} ms "
+          f"({100 * (child['step_ms'] / ref_ms - 1):+.2f} %); peak "
+          f"{child['peak_memory_gib']:.2f} GiB; launches a step {per_step}; {seconds:.1f} s; "
+          f"{card_line()}")
+    if "mixed_precision: \"bf16\"" not in written or child["mixed_precision"] != "bf16":
+        problems.append("the questionnaire's config file did not carry bf16 to the launch")
+    if child["backend"] != "nccl" or child["world"] != 1:
+        problems.append(f"(e) ran over {child['backend']} at world size {child['world']}")
+    if child["counts"] != expected_counts(layers * steps, layers * steps, wgmma=True):
+        problems.append(f"(e)'s flash launches {child['counts']}, expected {layers} of each a "
+                        "step on the wgmma route")
+    gap = first_gap(reference["losses"], child["losses"])
+    if gap is not None:
+        problems.append(f"(e)'s losses part from (c)'s at step {gap[0]} (relative gap "
+                        f"{gap[1]:.3e})")
+    else:
+        print(f"  (e)'s {steps} losses equal (c)'s launched ones bit for bit")
+    return dict(child=child, seconds=seconds, steps=steps, counts=child["counts"])
 
 
 def unit_of(name: str) -> str:
@@ -4074,8 +4158,10 @@ def phase_moe() -> dict:
     """Phase 12: Mixture-of-Experts at Mixtral-8x7B widths (``ops/moe.py``,
     ``models/mixtral.py``, ``ExpertParallelPlugin``): (a) the 8-layer
     forward, (b) generate, (c) the 2-layer trainer launched with ``--ep 1``
-    and not, (d) the 2-layer model streamed from its HF export. Every check
-    is printed before a failure fails the phase.
+    and not, (d) the 2-layer model streamed from its HF export, (e) the
+    trainer launched from a questionnaire's config with the tp, cp and pp
+    plugins at size 1. Every check is printed before a failure fails the
+    phase.
     Returns the numbers, with the flash launches of the main-path runs
     summed in ``counts``."""
     t_phase = time.time()
@@ -4085,15 +4171,18 @@ def phase_moe() -> dict:
     del model, gen
     free_cuda()
     train = moe_train(problems)
+    mesh_train = train["mesh_train"]
     streamed = moe_streamed(problems)
-    counts = {k: forward["counts"][k] + train["counts"][k] + streamed["counts"][k]
+    train_counts = {k: train["counts"][k] + mesh_train["counts"][k] for k in train["counts"]}
+    counts = {k: forward["counts"][k] + train_counts[k] + streamed["counts"][k]
               for k in forward["counts"]}
     phase_s = time.time() - t_phase
     print(f"  phase 12 took {phase_s:.1f} s")
     if problems:
         fail("phase 12: " + "; ".join(problems))
-    return dict(forward=forward, decode=decode, train=train, streamed=streamed, counts=counts,
-                train_counts=train["counts"], steps=train["steps"], seconds=phase_s)
+    return dict(forward=forward, decode=decode, train=train, mesh_train=mesh_train,
+                streamed=streamed, counts=counts, train_counts=train_counts,
+                steps=train["steps"] + mesh_train["steps"], seconds=phase_s)
 
 
 # -- phase 13: tensor-parallel serving slices, at tp 1 ---------------------------
@@ -4628,6 +4717,8 @@ def main_moe():
         "train": {k: train["here"][k] for k in ("step_ms", "peak_memory_gib", "load_balance_loss",
                                                 "router_z_loss")},
         "launched_step_ms": train["child"]["step_ms"],
+        "mesh_train": {k: moe["mesh_train"]["child"][k] for k in ("step_ms", "peak_memory_gib")}
+        | {"seconds": moe["mesh_train"]["seconds"]},
         "streamed": {k: moe["streamed"][k] for k in ("ms", "rel_l2", "equal", "load_s")},
         "counts": moe["counts"],
         "seconds": moe["seconds"]}}))
@@ -4695,6 +4786,8 @@ if __name__ == "__main__":
         mesh_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == MOE_CHILD_FLAG:
         moe_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == MOE_MESH_CHILD_FLAG:
+        moe_child(sys.argv[2], mesh_plugins=True)
     elif len(sys.argv) == 3 and sys.argv[1] == TP_CHILD_FLAG:
         tp_serving_child(sys.argv[2])
     else:

@@ -159,7 +159,11 @@ def test_trivial_axis_is_flash_attention():
 
 
 def test_errors_and_the_auto_rule(monkeypatch):
-    from accelerate_tpu_torch.ops import ring_attention as ra
+    import importlib
+
+    # The module: ``accelerate_tpu_torch.ops`` binds the function of the same
+    # name, as the JAX package's ``ops`` does.
+    ra = importlib.import_module("accelerate_tpu_torch.ops.ring_attention")
 
     q = torch.zeros(1, 4, 6, 8)
     with pytest.raises(ValueError, match="not a multiple of kv heads"):

@@ -517,6 +517,17 @@ def test_tp2_fleet_of_slices_fails_over_token_exact(tmp_path, tiny):
     status, follower_error, _ = got["follower_failure"]
     assert status == "failed" and follower_error
     assert "scripted kill" in got["follower_died"]
+    # A follower failing inside a step: its leader is released at once (no
+    # wait on the device group's timeout), the stream fails over
+    # token-exactly within the supervisor's hang timeout plus its grace,
+    # and the slice is rebuilt on its devices with a fresh device group.
+    mid = got["mid_step"]
+    assert np.array_equal(mid["tokens"], full[:len(mid["tokens"])]) and len(mid["tokens"]) == 40
+    assert mid["failovers"] == 1 and mid["trail"] == [mid["trail"][0], 1 - mid["trail"][0]]
+    assert mid["failed_over_s"] < mid["limit_s"], mid["failed_over_s"]
+    assert mid["follower_error"] and mid["old_thread_done"]
+    assert mid["restarted"] and mid["same_mesh"] and mid["same_devices"]
+    assert mid["generation"] == 1 and _matches_offline(mid["after_restart"], short)
     # Prepared models: a tp-only mesh routes into the slice; params split
     # over fsdp raise; unsplit params on a dp mesh keep one device.
     tp, sliced, streams = got["prepared_tp"]

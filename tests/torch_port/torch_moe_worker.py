@@ -5,8 +5,10 @@ gloo world by ``accelerate-tpu-torch launch --use_cpu_emulation``:
         --use_cpu_emulation --num_processes N --ep 2 ... torch_moe_worker.py MODE OUT_DIR [ARG]
 
 MODE is ``train``: for each case of the JSON ``ARG``, a fresh accelerator
-with an ``ExpertParallelPlugin`` of the mesh's ``ep`` and the case's FSDP
-plugin trains the tiny Mixtral of ``OUT_DIR/moe_in.npz`` under the case's
+with an ``ExpertParallelPlugin`` of the mesh's ``ep``, the tensor, context
+and pipeline plugins of its ``tp``/``cp``/``pp`` above 1, and the case's
+FSDP plugin trains the tiny Mixtral of ``OUT_DIR/<inputs>_in.npz``
+(``moe`` unless the case names other inputs) under the case's
 config for its steps; each rank's losses, grad norms, parameter and
 Adam-moment chunks, and a ``save_state`` with the whole state dict where
 the case asks (``setup`` also serves the resume in the test's own
@@ -23,10 +25,13 @@ import torch
 
 from accelerate_tpu_torch import (
     Accelerator,
+    ContextParallelPlugin,
     ExpertParallelPlugin,
     FullyShardedDataParallelPlugin,
     GradientState,
     PartialState,
+    PipelineParallelPlugin,
+    TensorParallelPlugin,
 )
 from accelerate_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, mixtral_lm_loss
 from accelerate_tpu_torch.state import AcceleratorState
@@ -51,8 +56,12 @@ def setup(out: Path, case: dict):
         plugins["fsdp_plugin"] = FullyShardedDataParallelPlugin(
             sharding_strategy=case["fsdp"], activation_checkpointing=case.get("remat", False),
             min_weight_size_to_shard=1024)
+    for axis, plugin in (("tp", TensorParallelPlugin), ("cp", ContextParallelPlugin),
+                         ("pp", PipelineParallelPlugin)):
+        if case.get(axis, 1) > 1:
+            plugins[f"{axis}_plugin"] = plugin(**{f"{axis}_size": case[axis]})
     acc = Accelerator(cpu=True, **plugins)
-    inputs = np.load(out / "moe_in.npz")
+    inputs = np.load(out / f"{case.get('inputs', 'moe')}_in.npz")
     config = MixtralConfig.tiny_moe(**case.get("config", {}))
     model = MixtralForCausalLM(config, device="cpu")
     model.load_state_dict({k[len("param."):]: torch.from_numpy(inputs[k])
@@ -98,7 +107,9 @@ def run_train(out: Path, arg: str) -> dict:
                 acc.save_state(str(out / case["save"]))
                 whole = {f"whole.{k}": v.numpy().copy()
                          for k, v in acc.get_state_dict(model).items()}
+        dropped = [c["dropped_fraction"].item() for c in model.module.routing_counters()]
         got = {"history": np.asarray(history), **whole, **chunks(model, opt),
+               "dropped": np.asarray(dropped),
                "coords": np.asarray(json.dumps(acc.mesh.coords)),
                "specs": np.asarray(json.dumps({n: str(s) for n, s in model.layout.specs.items()})
                                    if model.layout is not None else "{}")}

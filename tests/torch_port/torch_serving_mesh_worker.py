@@ -13,7 +13,8 @@ lookup speculation, K/V bytes, the head_dim split, prefix blocks, captures
 and the construction errors) or ``fleet`` (``ReplicaSet.from_mesh`` with 2
 slices x tp 2: a cross-slice prefix hit, a failover between slices, a
 restart; per-slice adapter banks; a follower's failure; the prepared-model
-routing). Inputs come from ``OUT_DIR/mesh_in.npz`` (the tiny Llama's
+routing; then a second fleet under a ``FleetSupervisor`` whose follower
+fails inside a step). Inputs come from ``OUT_DIR/mesh_in.npz`` (the tiny Llama's
 weights, its ``num_key_value_heads=1`` twin's, an adapter); process 0
 writes ``OUT_DIR/<mode>.json``. Every engine records its ticks, and the
 followers' ticks are held to the leader's at the end.
@@ -33,8 +34,10 @@ from accelerate_tpu_torch.adapters import AdapterBank, LoRAConfig
 from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from accelerate_tpu_torch.serving import (
     ChaosSchedule,
+    FleetSupervisor,
     PrefixCache,
     ReplicaSet,
+    ReplicaState,
     ServingEngine,
 )
 from accelerate_tpu_torch.serving.mesh_exec import (
@@ -244,6 +247,7 @@ def run_fleet(inputs, out: dict):
     fleet.shutdown()
     if not fleet.leader:  # the follower of the slice the leader rebuilt
         ENGINES.extend(fleet.engine(i) for i in range(2) if fleet.engine(i) is not initial[i])
+    run_mid_step(model, out)
 
     # One bank cannot serve two slices.
     plan = SlicePlan.plan(2, num_slices=2, devices=CPU2 * 2)
@@ -301,6 +305,68 @@ def run_fleet(inputs, out: dict):
     acc = Accelerator(cpu=True)
     e = ServingEngine(fresh(), accelerator=acc, autostart=False, **BASE)
     out["prepared_dp"] = [e.tp, e._exec is None]
+
+
+#: The supervisor's timeouts in the mid-step case: the failover must come
+#: within their sum.
+HANG_TIMEOUT_S, KILL_GRACE_S = 5.0, 2.0
+
+
+def run_mid_step(model, out: dict):
+    """A fleet of 2 slices x tp 2 under a ``FleetSupervisor``; the leader
+    names a victim slice through the store and the follower's next
+    all-reduce on that slice's device group raises, inside a step, while
+    the leader waits in the same collective. The leader's engine must die
+    of it at once (a ``SliceFollowerError``), the stream fail over
+    token-exactly, and the supervisor rebuild the slice on its devices
+    with a fresh device group."""
+    store = dist.distributed_c10d._get_default_store()
+    fleet = ReplicaSet.from_mesh(model, tp=2, num_slices=2, **{**BASE, "max_slots": 2})
+    if not fleet.leader:
+        for i in range(2):
+            group = fleet._slice_meshes[i].group("tp")
+
+            def failing(t, op="sum", _key=f"mid_step/{i}", _real=group.all_reduce):
+                if store.check([_key]):
+                    store.delete_key(_key)
+                    raise RuntimeError("scripted failure inside a step")
+                return _real(t, op)
+
+            group.all_reduce = failing
+        fleet.shutdown()
+        return
+    with FleetSupervisor(fleet, hang_timeout_s=HANG_TIMEOUT_S, kill_grace_s=KILL_GRACE_S,
+                         poll_interval_s=0.02, restart_backoff_s=0.05):
+        r = fleet.submit(LONG, max_new_tokens=40, ignore_eos=True)
+        deadline = time.monotonic() + 60
+        while len(r.tokens) < 4 and time.monotonic() < deadline:
+            time.sleep(0.002)
+        victim = r.replica_trail[0]
+        old = fleet.engine(victim)
+        start = time.monotonic()
+        store.set(f"mid_step/{victim}", "1")
+        while r.failovers < 1 and not r.done and time.monotonic() - start < 120:
+            time.sleep(0.002)
+        failed_over_s = time.monotonic() - start
+        assert r.wait(timeout=120)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and (
+                fleet.engine(victim) is old
+                or fleet.replica_states()[victim] is not ReplicaState.HEALTHY):
+            time.sleep(0.01)
+        new = fleet.engine(victim)
+        c = np.asarray(new.submit(LONG, max_new_tokens=10, block=True).result(120))
+        out["mid_step"] = {
+            "tokens": np.asarray(r.tokens).tolist(), "failovers": r.failovers,
+            "trail": r.replica_trail, "failed_over_s": failed_over_s,
+            "limit_s": HANG_TIMEOUT_S + KILL_GRACE_S,
+            "follower_error": isinstance(old.error, SliceFollowerError),
+            "old_thread_done": old._thread is None or not old._thread.is_alive(),
+            "restarted": new is not old, "same_mesh": new.mesh is old.mesh,
+            "same_devices": list(map(str, new.mesh.torch_devices))
+            == list(map(str, old.mesh.torch_devices)),
+            "generation": new.mesh.generation, "after_restart": c.tolist()}
+    fleet.shutdown()
 
 
 def main():
