@@ -17,7 +17,9 @@ router with failover, the supervisor, scripted faults, the HTTP gateway;
 ``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands), and
 big-model inference (``big_modeling``: the device-map solver over card,
 host and disk, ``StreamedModel`` streaming a model's blocks onto the card,
-HF-layout checkpoints of the Llama family, quantized loading), and
+HF-layout checkpoints of the Llama, MoE and GPT-style families and BERT,
+quantized loading), the other model families (``models``: GPT-2, OPT,
+GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet, the small models), and
 several processes: process groups over NCCL (one card a process) or gloo
 (the CPU), the collectives, sharded and dispatched loaders, data-parallel
 training with the gradients reduced at each sync step, ``LocalSGD``, the
@@ -97,6 +99,27 @@ from .generation import (
 from .launchers import debug_launcher, notebook_launcher
 from .local_sgd import LocalSGD
 from .logging import get_logger
+from .models import (
+    MLP,
+    BertConfig,
+    BertForSequenceClassification,
+    BloomConfig,
+    BloomForCausalLM,
+    GPT2Config,
+    GPT2LMHeadModel,
+    GPTJConfig,
+    GPTJForCausalLM,
+    GPTNeoXConfig,
+    GPTNeoXForCausalLM,
+    OPTConfig,
+    OPTForCausalLM,
+    PhiConfig,
+    PhiForCausalLM,
+    RegressionModel,
+    ResNet,
+    ResNetConfig,
+    classification_loss,
+)
 from .models.llama import (
     LlamaConfig,
     LlamaForCausalLM,

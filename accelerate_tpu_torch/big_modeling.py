@@ -1,7 +1,7 @@
 """Big-model inference: run models larger than the card's memory.
 
 Counterpart of ``accelerate_tpu/big_modeling.py`` (its Llama and Mixtral
-families). The design is the JAX package's: the model is split into an
+families, and the GPT-style ones: GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM). The design is the JAX package's: the model is split into an
 embed block, one block per decoder layer and a head block, and the weights
 of each block live on the card, in host memory or on disk, as a device map
 says.
@@ -237,6 +237,9 @@ def block_specs_for(module) -> Optional[list]:
         return _llama_block_specs(module.config)
     if isinstance(module, MixtralForCausalLM):
         return _mixtral_block_specs(module.config)
+    for cls, builder in _gptlike_specs():
+        if isinstance(module, cls):
+            return builder(module.config)
     return None
 
 
@@ -309,6 +312,159 @@ def _decoder_block_specs(cfg, block_cls, scope: str, has_aux: bool) -> list:
     return specs
 
 
+def _gptlike_block_specs(cfg, block_cls, layer_fmt: str, embed_prefixes: tuple, embed_fn,
+                         head_prefixes: tuple, head_fn) -> list:
+    """Embed, one block per layer and the head of a GPT-style family
+    (reference ``_gptlike_block_specs``): its blocks take ``x`` and compute
+    their own positions from ``cache_pos``, so only the embedding and the
+    head differ between families. Every layer runs through one meta
+    ``block_cls``; ``embed_fn(ptrees, ids, pos)`` and ``head_fn(ptrees, x)``
+    compute what the model's forward does, op for op."""
+    call = torch.func.functional_call
+    block = block_cls(cfg, device="meta")
+
+    def layer(ptrees, x):
+        return (call(block, ptrees[0], (x,)),)
+
+    def layer_cached(ptrees, args, cache, pos):
+        x, cache = call(block, ptrees[0], args, {"cache": cache, "cache_pos": pos})
+        return (x,), cache
+
+    specs = [BlockSpec("embed", embed_prefixes, lambda p, ids: (embed_fn(p, ids, 0),),
+                       kind="embed",
+                       cached_apply=lambda p, args, cache, pos: ((embed_fn(p, args[0], pos),),
+                                                                 None))]
+    for i in range(cfg.num_hidden_layers):
+        name = layer_fmt.format(i=i)
+        specs.append(BlockSpec(name, (name,), layer, kind="layer", cached_apply=layer_cached,
+                               cache_slot=True))
+    specs.append(BlockSpec("head", head_prefixes, lambda p, x: (head_fn(p, x),), kind="head",
+                           cached_apply=lambda p, args, cache, pos: ((head_fn(p, args[0]),),
+                                                                     None)))
+    return specs
+
+
+def _layer_norm(eps: float, hidden: int):
+    """``norm(tree, x)``: a meta ``models.llama.LayerNorm`` run on the
+    tensors ``tree`` (scale, bias)."""
+    from .models.llama import LayerNorm
+
+    module = LayerNorm(hidden, eps, device="meta")
+    return lambda tree, x: torch.func.functional_call(module, tree, (x,))
+
+
+def _learned_positions(table: torch.Tensor, pos: int, seq: int, offset: int, what: str):
+    """Rows ``offset + pos .. offset + pos + seq`` of a learned position
+    table, checked against its end first (``models.llama``)."""
+    from .models.llama import _check_learned_positions
+
+    _check_learned_positions(pos, seq, table.shape[0] - offset, what)
+    return table[offset + pos:offset + pos + seq][None]
+
+
+def _tied_logits(x, embedding):
+    return x @ embedding.to(x.dtype).T
+
+
+def _gpt2_block_specs(cfg) -> list:
+    from .models.gpt2 import GPT2Block
+
+    norm = _layer_norm(cfg.layer_norm_eps, cfg.hidden_size)
+
+    def embed(p, ids, pos):
+        return F.embedding(ids, p[0]["weight"]) + _learned_positions(p[1]["weight"], int(pos),
+                                                                     ids.shape[1], 0, "GPT-2")
+
+    def head(p, x):
+        return _tied_logits(norm(p[0], x), p[1]["weight"])
+
+    return _gptlike_block_specs(cfg, GPT2Block, "h.{i}", ("wte", "wpe"), embed,
+                                ("ln_f", "wte"), head)
+
+
+def _opt_block_specs(cfg) -> list:
+    from .models.opt import POSITION_OFFSET, OPTBlock
+
+    norm = _layer_norm(cfg.layer_norm_eps, cfg.hidden_size)
+
+    def embed(p, ids, pos):
+        return F.embedding(ids, p[0]["weight"]) + _learned_positions(
+            p[1]["weight"], int(pos), ids.shape[1], POSITION_OFFSET, "OPT")
+
+    def head(p, x):
+        return _tied_logits(norm(p[0], x), p[1]["weight"])
+
+    return _gptlike_block_specs(cfg, OPTBlock, "layers.{i}", ("embed_tokens", "embed_positions"),
+                                embed, ("final_layer_norm", "embed_tokens"), head)
+
+
+def _untied_head_specs(cfg, block_cls, layer_fmt: str, embed_name: str, norm_name: str,
+                       head_name: str) -> list:
+    """GPT-J, GPT-NeoX and Phi: a plain token embedding, a final norm and
+    an untied head (biased where the checkpoint has a bias)."""
+
+    norm = _layer_norm(cfg.layer_norm_eps, cfg.hidden_size)
+
+    def embed(p, ids, pos):
+        return F.embedding(ids, p[0]["weight"])
+
+    def head(p, x):
+        return F.linear(norm(p[0], x), p[1]["weight"], p[1].get("bias"))
+
+    return _gptlike_block_specs(cfg, block_cls, layer_fmt, (embed_name,), embed,
+                                (norm_name, head_name), head)
+
+
+def _gptj_block_specs(cfg) -> list:
+    from .models.gptj import GPTJBlock
+
+    return _untied_head_specs(cfg, GPTJBlock, "h.{i}", "wte", "ln_f", "lm_head")
+
+
+def _gpt_neox_block_specs(cfg) -> list:
+    from .models.gpt_neox import GPTNeoXBlock
+
+    return _untied_head_specs(cfg, GPTNeoXBlock, "layers.{i}", "embed_in", "final_layer_norm",
+                              "embed_out")
+
+
+def _phi_block_specs(cfg) -> list:
+    from .models.phi import PhiBlock
+
+    return _untied_head_specs(cfg, PhiBlock, "layers.{i}", "embed_tokens", "final_layernorm",
+                              "lm_head")
+
+
+def _bloom_block_specs(cfg) -> list:
+    from .models.bloom import BloomBlock
+
+    norm = _layer_norm(cfg.layer_norm_epsilon, cfg.hidden_size)
+
+    def embed(p, ids, pos):
+        return norm(p[1], F.embedding(ids, p[0]["weight"]))
+
+    def head(p, x):
+        return _tied_logits(norm(p[0], x), p[1]["weight"])
+
+    return _gptlike_block_specs(cfg, BloomBlock, "layers.{i}",
+                                ("word_embeddings", "word_embeddings_layernorm"), embed,
+                                ("ln_f", "word_embeddings"), head)
+
+
+def _gptlike_specs() -> tuple:
+    """The GPT-style families' (model class, spec builder) pairs."""
+    from .models.bloom import BloomForCausalLM
+    from .models.gpt2 import GPT2LMHeadModel
+    from .models.gpt_neox import GPTNeoXForCausalLM
+    from .models.gptj import GPTJForCausalLM
+    from .models.opt import OPTForCausalLM
+    from .models.phi import PhiForCausalLM
+
+    return ((GPT2LMHeadModel, _gpt2_block_specs), (OPTForCausalLM, _opt_block_specs),
+            (GPTJForCausalLM, _gptj_block_specs), (GPTNeoXForCausalLM, _gpt_neox_block_specs),
+            (PhiForCausalLM, _phi_block_specs), (BloomForCausalLM, _bloom_block_specs))
+
+
 def _llama_cache_factory(cfg, device) -> Callable:
     from .models.llama import init_kv_cache
 
@@ -330,12 +486,15 @@ def cache_factory_for(module) -> Optional[Callable]:
 
 
 def _threads_llama_cache(module) -> bool:
-    """A model whose layers attend through ``LlamaAttention``'s KV cache:
-    the Llama family and Mixtral."""
+    """A model whose layers attend through ``models/llama.py``'s KV cache
+    (``init_kv_cache``, ``update_kv_cache_and_attend``): the Llama family,
+    Mixtral and the GPT-style families, whose configs duck-type the
+    cache's fields."""
     from .models.llama import LlamaForCausalLM
     from .models.mixtral import MixtralForCausalLM
 
-    return isinstance(module, (LlamaForCausalLM, MixtralForCausalLM))
+    families = (LlamaForCausalLM, MixtralForCausalLM, *(cls for cls, _ in _gptlike_specs()))
+    return isinstance(module, families)
 
 
 # ---------------------------------------------------------------------------
@@ -349,16 +508,21 @@ class StreamedModel:
     cache=..., cache_pos=...)`` the cached form ``(logits, cache)`` that
     ``generation.py``'s decoders call, as they call a resident model.
     ``prefetch=False`` fetches each block only when it runs, after the
-    previous one has finished (no overlap)."""
+    previous one has finished (no overlap). ``position_bound`` is the
+    model's position table (``max_position_embeddings``; None for ALiBi):
+    ``generate`` refuses a decode that would run past it, and a
+    learned-position embedding block checks its rows before the lookup."""
 
     def __init__(self, specs: list, store: WeightStore, execution_device=None,
-                 prefetch: bool = True, cache_factory: Optional[Callable] = None, config=None):
+                 prefetch: bool = True, cache_factory: Optional[Callable] = None, config=None,
+                 position_bound: Optional[int] = None):
         self.specs = specs
         self.store = store
         self.device = resolve_device(execution_device)
         self.prefetch = prefetch
         self.cache_factory = cache_factory
         self.config = config
+        self.position_bound = position_bound
         self._cuda = self.device.type == "cuda"
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -521,6 +685,18 @@ class StreamedModel:
         ids = torch.as_tensor(input_ids, device=self.device)
         if max_new_tokens <= 0:
             return ids
+        # The highest position a verification chunk touches is S +
+        # max_new_tokens + K - 2: a slack of K - 1 (reference :1094-1106).
+        spec_k = int(prompt_lookup_num_tokens or 0) or (
+            int(num_draft) if assistant_model is not None else 0)
+        slack = spec_k - 1 if spec_k else 0
+        total = ids.shape[1] + max_new_tokens + slack
+        if self.position_bound is not None and total > self.position_bound:
+            label = ("prompt + max_new_tokens + speculative slack" if slack
+                     else "prompt + max_new_tokens")
+            raise ValueError(f"{label} = {total} exceeds the model's position table "
+                             f"({self.position_bound}); max_position_embeddings bounds "
+                             "its positions")
         if assistant_model is not None and prompt_lookup_num_tokens:
             raise ValueError("assistant_model and prompt_lookup_num_tokens are mutually "
                              "exclusive drafters")
@@ -700,8 +876,9 @@ def dispatch_model(module, params=None, store: Optional[WeightStore] = None,
     device = resolve_device(execution_device)
     factory = (_llama_cache_factory(module.config, device)
                if _threads_llama_cache(module) else None)
-    return StreamedModel(specs, store, device, cache_factory=factory,
-                         config=getattr(module, "config", None))
+    config = getattr(module, "config", None)
+    return StreamedModel(specs, store, device, cache_factory=factory, config=config,
+                         position_bound=getattr(config, "max_position_embeddings", None))
 
 
 def load_checkpoint_and_dispatch(module, checkpoint, device_map: Union[str, dict, None] = "auto",

@@ -197,8 +197,7 @@ def _bucket_and_pad(ids, *modules_or_bounds):
     S = ids.shape[1]
     P = _bucket128(S)
     for mb in modules_or_bounds:
-        bound = mb if isinstance(mb, int) else getattr(
-            getattr(mb, "config", None), "max_position_embeddings", None)
+        bound = mb if isinstance(mb, int) else _position_bound(mb)
         if bound is not None:
             P = min(P, int(bound))
     if P <= S:
@@ -206,9 +205,17 @@ def _bucket_and_pad(ids, *modules_or_bounds):
     return torch.cat([ids, ids[:, -1:].expand(ids.shape[0], P - S)], dim=1)
 
 
+def _position_bound(module) -> Optional[int]:
+    """The model's position table: a streamed model's ``position_bound``,
+    else its config's ``max_position_embeddings`` (None: no table)."""
+    if hasattr(module, "position_bound"):
+        return module.position_bound
+    return getattr(getattr(module, "config", None), "max_position_embeddings", None)
+
+
 def _check_position_bound(module, total_len: int, label: str = "prompt + max_new_tokens"):
     """Refuse a decode that would run past the model's position table."""
-    bound = getattr(getattr(module, "config", None), "max_position_embeddings", None)
+    bound = _position_bound(module)
     if bound is not None and total_len > bound:
         raise ValueError(f"{label} = {total_len} exceeds max_position_embeddings = {bound} "
                          f"for {type(module).__name__}")

@@ -336,6 +336,56 @@ class RMSNorm(nn.Module):
         return (norm * scale).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm`` in f32 (``scale`` and ``bias``, the flax
+    names), returned in the input dtype: the norm of the GPT-style families
+    and BERT."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), x.shape[-1:], self.scale.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def gelu(x, approximate: bool):
+    """GELU: the tanh approximation (``jax.nn.gelu``'s default, HF's
+    gelu_new/gelu_fast/gelu_pytorch_tanh) or the exact erf form (HF's
+    gelu/gelu_python)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def _run_blocks(blocks, x, cache=None, cache_pos=None):
+    """``x`` through every block of ``blocks`` (each ``block(x, cache=,
+    cache_pos=)``, the blocks of the GPT-style families), threading the
+    per-layer KV cache in place when one is given."""
+    for i, block in enumerate(blocks):
+        if cache is None:
+            x = block(x)
+        else:
+            x, cache[i] = block(x, cache=cache[i], cache_pos=cache_pos)
+    return x
+
+
+def _start_of(cache_pos) -> int:
+    """Where this call's positions start: ``cache_pos``, or 0 uncached."""
+    return 0 if cache_pos is None else int(cache_pos)
+
+
+def _check_learned_positions(start: int, seq: int, table: int, what: str):
+    """Refuse positions ``[start, start + seq)`` past a learned position
+    table of ``table`` rows, on the host before the lookup: on the card an
+    out-of-range embedding index is a device-side assert that ends the
+    process's CUDA context (flax clips the index instead)."""
+    if start + seq > table:
+        raise ValueError(f"positions [{start}, {start + seq}) run past {what}'s learned position "
+                         f"table of {table} rows")
+
+
 def scale_rope_frequencies(inv_freq: torch.Tensor, rope_scaling: dict) -> torch.Tensor:
     """Apply HF-style RoPE scaling to the base inverse frequencies.
 
@@ -479,6 +529,15 @@ def _over_whole_sequence(group, q, k, v, segment_ids, attend):
     return attend(qw, kw, vw, seg).narrow(1, group.index * S, S)
 
 
+def _window_of(config, layer_idx: int):
+    """Layer ``layer_idx``'s sliding window: ``config.window_for`` where the
+    config has one (the Llama family), else its ``sliding_window`` if any;
+    the other families' configs duck-type the cache fields."""
+    if hasattr(config, "window_for"):
+        return config.window_for(layer_idx)
+    return getattr(config, "sliding_window", None)
+
+
 def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=torch.bfloat16,
                   ring_slack: int = 0, device=None):
     """Per-layer KV cache: a list of ``{"k", "v"}`` with [B, max_len, n_kv, hd]
@@ -490,7 +549,7 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=torc
     caches = []
     n_kv, hd = config.num_key_value_heads, config.head_dim
     for i in range(config.num_hidden_layers):
-        w = config.window_for(i)
+        w = _window_of(config, i)
         if w is not None and w < max_len:
             size = min(w + ring_slack, max_len)
             shape = (batch_size, size, n_kv, hd)
@@ -507,7 +566,7 @@ def init_kv_cache(config: LlamaConfig, batch_size: int, max_len: int, dtype=torc
 
 
 def _cached_attention(q, k_all, v_all, cache_pos: int, n_rep: int, sliding_window=None,
-                      sm_scale=None, logit_softcap=None):
+                      sm_scale=None, logit_softcap=None, alibi_slopes=None):
     """q [B, S, H, hd] against the whole dense cache [B, L, n_kv, hd]: keys at
     global index <= cache_pos + (local query index) are valid, which covers
     prefill and decode alike."""
@@ -519,11 +578,12 @@ def _cached_attention(q, k_all, v_all, cache_pos: int, n_rep: int, sliding_windo
     if sliding_window is not None:
         mask = mask & (k_pos > q_pos[:, None] - sliding_window)
     return _grouped_cached_attention(q, k_all.transpose(1, 2), v_all.transpose(1, 2), mask[None],
-                                     n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
+                                     n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap,
+                                     alibi_slopes=alibi_slopes, k_positions=k_pos[0])
 
 
 def _ring_cached_attention(q, cache, cache_pos: int, n_rep: int, window: int,
-                           sm_scale=None, logit_softcap=None):
+                           sm_scale=None, logit_softcap=None, alibi_slopes=None):
     """Ring-cache decode: a slot is visible iff it was written (pos >= 0),
     is not in the query's future and lies inside the window."""
     S = q.shape[1]
@@ -532,11 +592,12 @@ def _ring_cached_attention(q, cache, cache_pos: int, n_rep: int, window: int,
     mask = ((slot_pos >= 0) & (slot_pos <= q_pos[None, :, None])
             & (slot_pos > q_pos[None, :, None] - window))  # [B, S, W]
     return _grouped_cached_attention(q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-                                     mask, n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
+                                     mask, n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap,
+                                     alibi_slopes=alibi_slopes, k_positions=cache["pos"])
 
 
 def _update_slots_and_attend(cache, q, k, v, pos, n_rep: int, sliding_window=None,
-                             sm_scale=None, logit_softcap=None):
+                             sm_scale=None, logit_softcap=None, alibi_slopes=None):
     """The serving engine's cached attention: row ``b`` writes its K/V at
     positions ``pos[b] + i`` and attends keys at positions ``<=`` its
     query's. ``pos`` [B] is a tensor and nothing here reads it on the host,
@@ -556,8 +617,11 @@ def _update_slots_and_attend(cache, q, k, v, pos, n_rep: int, sliding_window=Non
     (a slot's stale or scratch entries) are masked by replacement, so they
     add exactly 0 to its output."""
     k_all, v_all, mask = _write_slots_and_views(cache, k, v, pos, sliding_window)
+    k_positions = None if alibi_slopes is None else torch.arange(k_all.shape[2],
+                                                                 device=q.device)
     return _grouped_cached_attention(q, k_all, v_all, mask, n_rep, sm_scale=sm_scale,
-                                     logit_softcap=logit_softcap)
+                                     logit_softcap=logit_softcap, alibi_slopes=alibi_slopes,
+                                     k_positions=k_positions)
 
 
 def _write_slots_and_views(cache, k, v, pos, sliding_window=None):
@@ -626,7 +690,7 @@ def _head_dim_split_attend(cache, q, k, v, pos, tp, sliding_window=None, sm_scal
 
 
 def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
-                              logit_softcap=None):
+                              logit_softcap=None, alibi_slopes=None, k_positions=None):
     """Cached-attention core in f32: q [B, S, H, hd] against head-major K/V
     views [B, n_kv, L, hd] (any strides; a token-major cache passes
     ``.transpose(1, 2)``) with a validity mask [B or 1, S, L]. GQA contracts
@@ -634,7 +698,13 @@ def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
     each view is cast to f32 in one copy that also makes it contiguous, and
     the two products are batched matmuls over (B, n_kv) with the keys read
     transposed in place (an einsum over token-major views would copy each f32
-    view once more into this layout)."""
+    view once more into this layout).
+
+    ``alibi_slopes`` [H] adds BLOOM's position bias ``slope_h * key_pos``
+    (``k_positions`` [L] or [B, L], the keys' absolute positions; softmax
+    is shift-invariant along a row, so this is the relative
+    ``slope * (j - i)`` form), as in the JAX core (reference
+    ``models/llama.py:447-476``)."""
     B, S, H, hd = q.shape
     G, L = k_all.shape[1], k_all.shape[2]
     scale = hd ** -0.5 if sm_scale is None else sm_scale
@@ -643,6 +713,11 @@ def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
     vf = v_all.to(torch.float32, memory_format=torch.contiguous_format)
     logits = torch.matmul(qg.reshape(B, G, n_rep * S, hd), kf.transpose(-1, -2))
     logits = softcap_logits(logits.view(B, G, n_rep, S, L), logit_softcap)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.to(device=q.device, dtype=torch.float32).view(1, G, n_rep, 1, 1)
+        kp = k_positions.to(torch.float32)
+        kp = kp.view(1, 1, 1, 1, L) if kp.dim() == 1 else kp.view(B, 1, 1, 1, L)
+        logits = logits + slopes * kp
     logits = logits.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.view(B, G, n_rep * S, L), vf)  # [B, G, rep * S, hd]
@@ -650,7 +725,7 @@ def _grouped_cached_attention(q, k_all, v_all, mask, n_rep: int, sm_scale=None,
 
 
 def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_window=None,
-                               sm_scale=None, logit_softcap=None):
+                               sm_scale=None, logit_softcap=None, alibi_slopes=None):
     """Write this call's K/V into ``cache`` (in place) at ``cache_pos`` and
     attend q against it. Returns (out [B, S, H, hd], cache).
 
@@ -660,11 +735,13 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_wi
     pre-write ring contents concatenated with the chunk, masked by per-slot
     positions; a single-token decode writes one slot and attends the ring
     alone. A tensor ``cache_pos`` [B] (the serving engine) takes
-    :func:`_update_slots_and_attend`."""
+    :func:`_update_slots_and_attend`. ``alibi_slopes`` [H] (BLOOM) adds
+    ``slope_h * key_pos`` to the logits, from each key's stored position."""
     if torch.is_tensor(cache_pos):
         return _update_slots_and_attend(cache, q, k, v, cache_pos, n_rep,
                                         sliding_window=sliding_window, sm_scale=sm_scale,
-                                        logit_softcap=logit_softcap), cache
+                                        logit_softcap=logit_softcap,
+                                        alibi_slopes=alibi_slopes), cache
     if "pos" not in cache:
         S, L = k.shape[1], cache["k"].shape[1]
         if cache_pos + S > L:
@@ -674,7 +751,7 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_wi
         cache["v"][:, cache_pos:cache_pos + S] = v.to(cache["v"].dtype)
         out = _cached_attention(q, cache["k"], cache["v"], cache_pos, n_rep,
                                 sliding_window=sliding_window, sm_scale=sm_scale,
-                                logit_softcap=logit_softcap)
+                                logit_softcap=logit_softcap, alibi_slopes=alibi_slopes)
         return out, cache
 
     window = cache["k"].shape[1]
@@ -695,7 +772,8 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_wi
         qp = chunk_pos[None, :, None]
         mask = seg_valid[:, None, :] & (pc >= 0) & (pc <= qp) & (pc > qp - eff_window)
         out = _grouped_cached_attention(q, k_comb.transpose(1, 2), v_comb.transpose(1, 2), mask,
-                                        n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap)
+                                        n_rep, sm_scale=sm_scale, logit_softcap=logit_softcap,
+                                        alibi_slopes=alibi_slopes, k_positions=pos_comb)
         take = min(S, window)
         idx = cache_pos + torch.arange(S - take, S, dtype=torch.int32, device=q.device)
         slots = (idx % window).long()
@@ -710,7 +788,8 @@ def update_kv_cache_and_attend(cache, q, k, v, cache_pos, n_rep: int, sliding_wi
     cache["pos"][:, slot] = cache_pos
     out = _ring_cached_attention(q, cache, cache_pos, n_rep,
                                  window=min(sliding_window or window, window),
-                                 sm_scale=sm_scale, logit_softcap=logit_softcap)
+                                 sm_scale=sm_scale, logit_softcap=logit_softcap,
+                                 alibi_slopes=alibi_slopes)
     return out, cache
 
 
@@ -1176,7 +1255,7 @@ def init_weights(module: nn.Module, generator: torch.Generator):
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
-            p.fill_(0.0 if module.config.rms_norm_unit_offset else 1.0)
+            p.fill_(0.0 if getattr(module.config, "rms_norm_unit_offset", False) else 1.0)
         elif leaf == "bias":
             p.zero_()
         else:

@@ -18,6 +18,13 @@ stacked experts (``gate_proj``/``up_proj`` ``[E, D, F]``, ``down_proj``
 for ``kernel`` leaves only. (From HF, where each expert is a
 ``Linear.weight`` ``[out, in]``, the experts are stacked and transposed,
 ``utils/hf_interop.py``.)
+
+The other families (GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet
+and the small models) cross by the same rules, their layer lists named as
+in flax (``h_<i>``, ``layers_<i>``, BERT's ``layer_<i>`` -> ``h.<i>``,
+``layers.<i>``, ``layer.<i>``). A 4-D ``kernel`` is a flax conv kernel,
+HWIO, which becomes torch's OIHW (``permute(3, 2, 0, 1)``); ResNet's
+``batch_stats`` (``mean``, ``var``) become buffers of the same names.
 """
 
 from __future__ import annotations
@@ -44,11 +51,59 @@ def _check_layout(keys, config, num_layers):
                          f"{config.num_hidden_layers}")
 
 
+#: The flax names of the families' layer lists (``h_0`` -> ``h.0``).
+_LAYER_LISTS = ("layers", "h", "layer")
+
+
+def _port_leaf(path, array):
+    """``(port name, tensor)`` of one flax leaf outside the Llama family."""
+    names = []
+    for part in path[:-1]:
+        prefix, _, index = part.rpartition("_")
+        if prefix in _LAYER_LISTS and index.isdigit():
+            names += [prefix, index]
+        else:
+            names.append(part)
+    leaf = path[-1]
+    if leaf == "kernel":
+        array = np.transpose(array, (3, 2, 0, 1)) if array.ndim == 4 else np.swapaxes(array, -1, -2)
+        leaf = "weight"
+    elif leaf == "embedding":
+        leaf = "weight"
+    return ".".join(names + [leaf]), torch.from_numpy(np.array(array, order="C"))
+
+
+def _family_state_dict(params, config) -> dict:
+    """:func:`state_dict_from_flax` for the GPT-style families, BERT,
+    ResNet (its variables, ``params`` and ``batch_stats``, or its params
+    alone) and the small models."""
+    if "params" in params:
+        variables, params = params, params["params"]
+        flat = dict(_flatten(params))
+        flat.update(_flatten(variables.get("batch_stats", {})))
+    else:
+        flat = dict(_flatten(params))
+    layers = getattr(config, "num_hidden_layers", None)
+    if layers is not None:
+        found = {part for path in flat for part in path[:-1]
+                 if part.rpartition("_")[0] in _LAYER_LISTS and part.rpartition("_")[2].isdigit()}
+        if len(found) != layers:
+            raise ValueError(f"parameters hold {len(found)} layers, config says {layers}")
+    return dict(_port_leaf(path, np.asarray(array)) for path, array in flat.items())
+
+
 def state_dict_from_flax(params, config) -> dict:
     """Flax Llama params (nested dicts of arrays, either layout) -> a state
     dict for ``LlamaForCausalLM`` (``layers_i``) or
     ``PipelinedLlamaForCausalLM`` (``blocks``); flax Mixtral params -> one
-    for ``MixtralForCausalLM``. Float32 CPU tensors."""
+    for ``MixtralForCausalLM``; the params of another family's flax model
+    (``config`` its config; ResNet's whole variables, ``batch_stats``
+    included) -> one for the port's model of that family. Float32 CPU
+    tensors."""
+    from ..models.llama import LlamaConfig
+
+    if config is None or not isinstance(config, LlamaConfig):
+        return _family_state_dict(params, config)
     flat = dict(_flatten(params))
     model = params.get("model", params)  # Mixtral's tree has no "model" scope
     if "blocks" in model:

@@ -1,16 +1,26 @@
-"""HuggingFace Transformers checkpoints of the Llama and Mixtral families.
+"""HuggingFace Transformers checkpoints of the port's model families.
 
 Counterpart of ``accelerate_tpu/utils/hf_interop.py`` for the families the
-port's ``LlamaForCausalLM`` covers (llama, mistral, qwen2, gemma, gemma2)
-and those its ``MixtralForCausalLM`` covers (mixtral, qwen2_moe). The JAX
+port's ``LlamaForCausalLM`` covers (llama, mistral, qwen2, gemma, gemma2),
+those its ``MixtralForCausalLM`` covers (mixtral, qwen2_moe), the GPT-style
+families (gpt2, opt, gptj, gpt_neox, phi, bloom) and bert. The JAX
 package's tables map HF names onto a flax tree and transpose every
 projection (op ``"t"``: HF ``Linear.weight`` is ``[out, in]``, a flax
 kernel ``[in, out]``). The port's ``nn.Linear.weight`` is ``[out, in]``
-too, so here a projection crosses as it is and only the names change
+too, so here a ``Linear`` crosses as it is and only the names change
 (``input_layernorm.weight`` -> ``input_norm.scale``, ...). A square
 projection carried across with the JAX op would come out transposed with no
 shape check to catch it; the tests hold both packages' loads of one
 directory against each other.
+
+GPT-2 is the inverse case: its HF ``Conv1D`` weights are stored ``[in,
+out]`` already, so the JAX rules copy them into flax kernels as they are
+(reference ``:107-118``), and here they are the one place that *must*
+transpose (op ``"t"``) into the port's ``[out, in]``. Its ``attn.c_proj``
+is square (1600 x 1600 in GPT-2 XL), so a missed transpose would pass
+every shape check; a test compares it by value. HF wrapper prefixes
+(``transformer.``, ``model.decoder.``, ``gpt_neox.``, ``model.``,
+``bert.``) are stripped before matching, as in the reference.
 
 The MoE leaves are the exception, because the port keeps the JAX layout
 for them (``models/mixtral.py``): the router is ``[D, E]`` where HF's
@@ -20,9 +30,8 @@ for them (``models/mixtral.py``): the router is ``[D, E]`` where HF's
 ``down_proj``) is transposed and stacked on a leading expert dim into
 ``[E, in, out]`` (op ``"stack:<e>:t"``, :func:`map_hf_key_and_op`).
 
-The other families of the JAX package (gpt2, gptj, gpt_neox, bloom, opt,
-phi, bert, vit, t5) come with their models (ROADMAP.md, A9) and raise
-``NotImplementedError`` here.
+The other families of the JAX package (vit, t5) come with their models
+(ROADMAP.md, A9) and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -101,6 +110,108 @@ _QWEN2_MOE_RULES = _flat(_QWEN2_RULES) + [
      ("gate", "up", "down")),
 ]
 
+# GPT-2: HF Conv1D weights are [in, out]: the port's Linear takes them
+# transposed (op "t"); the fused qkv is q|k|v on the output axis.
+_GPT2_RULES = [
+    ("wte.weight", "wte.weight", None),
+    ("wpe.weight", "wpe.weight", None),
+    ("h.{i}.ln_{p}.weight", "h.{i}.ln_{p}.scale", ("1", "2")),
+    ("h.{i}.ln_{p}.bias", "h.{i}.ln_{p}.bias", ("1", "2")),
+    ("h.{i}.attn.c_attn.weight", "h.{i}.qkv.weight", None, "t"),
+    ("h.{i}.attn.c_attn.bias", "h.{i}.qkv.bias", None),
+    ("h.{i}.attn.c_proj.weight", "h.{i}.attn_out.weight", None, "t"),
+    ("h.{i}.attn.c_proj.bias", "h.{i}.attn_out.bias", None),
+    ("h.{i}.mlp.c_fc.weight", "h.{i}.fc1.weight", None, "t"),
+    ("h.{i}.mlp.c_fc.bias", "h.{i}.fc1.bias", None),
+    ("h.{i}.mlp.c_proj.weight", "h.{i}.fc2.weight", None, "t"),
+    ("h.{i}.mlp.c_proj.bias", "h.{i}.fc2.bias", None),
+    ("ln_f.weight", "ln_f.scale", None),
+    ("ln_f.bias", "ln_f.bias", None),
+]
+
+
+def _norm(hf_name: str, ours: str) -> list:
+    """The weight and bias rules of one LayerNorm (HF ``weight`` -> the
+    port's ``scale``)."""
+    return [(f"{hf_name}.weight", f"{ours}.scale", None), (f"{hf_name}.bias", f"{ours}.bias", None)]
+
+
+def _linear(hf_name: str, ours: str, alts=None, bias: bool = True) -> list:
+    """The weight (and bias) rules of one ``Linear``, crossing as they are."""
+    rules = [(f"{hf_name}.weight", f"{ours}.weight", alts)]
+    return rules + ([(f"{hf_name}.bias", f"{ours}.bias", alts)] if bias else [])
+
+
+# BLOOM: QKV fused per head (H blocks of [q|k|v]) keeps its layout.
+_BLOOM_RULES = [
+    ("word_embeddings.weight", "word_embeddings.weight", None),
+    *_norm("word_embeddings_layernorm", "word_embeddings_layernorm"),
+    *_norm("h.{i}.input_layernorm", "layers.{i}.input_layernorm"),
+    *_linear("h.{i}.self_attention.query_key_value", "layers.{i}.query_key_value"),
+    *_linear("h.{i}.self_attention.dense", "layers.{i}.dense"),
+    *_norm("h.{i}.post_attention_layernorm", "layers.{i}.post_attention_layernorm"),
+    *_linear("h.{i}.mlp.dense_{p}", "layers.{i}.dense_{p}", ("h_to_4h", "4h_to_h")),
+    *_norm("ln_f", "ln_f"),
+]
+
+_OPT_RULES = [
+    ("embed_tokens.weight", "embed_tokens.weight", None),
+    ("embed_positions.weight", "embed_positions.weight", None),
+    *_linear("layers.{i}.self_attn.{p}_proj", "layers.{i}.{p}_proj", ("q", "k", "v", "out")),
+    *_norm("layers.{i}.self_attn_layer_norm", "layers.{i}.self_attn_layer_norm"),
+    *_linear("layers.{i}.fc{p}", "layers.{i}.fc{p}", ("1", "2")),
+    *_norm("layers.{i}.final_layer_norm", "layers.{i}.final_layer_norm"),
+    *_norm("final_layer_norm", "final_layer_norm"),
+]
+
+# GPT-J: unbiased attention projections; the head is untied AND biased.
+_GPTJ_RULES = [
+    ("wte.weight", "wte.weight", None),
+    *_norm("h.{i}.ln_1", "h.{i}.ln_1"),
+    *_linear("h.{i}.attn.{p}_proj", "h.{i}.{p}_proj", ("q", "k", "v", "out"), bias=False),
+    *_linear("h.{i}.mlp.fc_{p}", "h.{i}.fc_{p}", ("in", "out")),
+    *_norm("ln_f", "ln_f"),
+    *_linear("lm_head", "lm_head"),
+]
+
+# GPT-NeoX: QKV fused per head (H blocks of [q|k|v]) keeps its layout.
+_GPT_NEOX_RULES = [
+    ("embed_in.weight", "embed_in.weight", None),
+    *_norm("layers.{i}.input_layernorm", "layers.{i}.input_layernorm"),
+    *_linear("layers.{i}.attention.query_key_value", "layers.{i}.query_key_value"),
+    *_linear("layers.{i}.attention.dense", "layers.{i}.dense"),
+    *_norm("layers.{i}.post_attention_layernorm", "layers.{i}.post_attention_layernorm"),
+    *_linear("layers.{i}.mlp.dense_{p}", "layers.{i}.dense_{p}", ("h_to_4h", "4h_to_h")),
+    *_norm("final_layer_norm", "final_layer_norm"),
+    ("embed_out.weight", "embed_out.weight", None),
+]
+
+# Phi: the head is untied AND biased.
+_PHI_RULES = [
+    ("embed_tokens.weight", "embed_tokens.weight", None),
+    *_norm("layers.{i}.input_layernorm", "layers.{i}.input_layernorm"),
+    *_linear("layers.{i}.self_attn.{p}_proj", "layers.{i}.{p}_proj", ("q", "k", "v")),
+    *_linear("layers.{i}.self_attn.dense", "layers.{i}.dense"),
+    *_linear("layers.{i}.mlp.fc{p}", "layers.{i}.fc{p}", ("1", "2")),
+    *_norm("final_layernorm", "final_layernorm"),
+    *_linear("lm_head", "lm_head"),
+]
+
+_BERT_RULES = [
+    *[(f"embeddings.{p}_embeddings.weight", f"encoder.{p}_embeddings.weight", None)
+      for p in ("word", "position", "token_type")],
+    *_norm("embeddings.LayerNorm", "encoder.embed_norm"),
+    *_linear("encoder.layer.{i}.attention.self.{p}", "encoder.layer.{i}.attention.{p}",
+             ("query", "key", "value")),
+    *_linear("encoder.layer.{i}.attention.output.dense", "encoder.layer.{i}.attention.attn_out"),
+    *_norm("encoder.layer.{i}.attention.output.LayerNorm", "encoder.layer.{i}.attn_norm"),
+    *_linear("encoder.layer.{i}.intermediate.dense", "encoder.layer.{i}.intermediate"),
+    *_linear("encoder.layer.{i}.output.dense", "encoder.layer.{i}.mlp_out"),
+    *_norm("encoder.layer.{i}.output.LayerNorm", "encoder.layer.{i}.mlp_norm"),
+    *_linear("pooler.dense", "pooler"),
+    *_linear("classifier", "classifier"),
+]
+
 # Per-expert HF Linears -> the stacked [E, in, out] leaves: per family, the
 # regex with (layer, expert, projection token) groups, token -> the port's
 # leaf, and (layer, expert, token) -> the HF key.
@@ -129,13 +240,40 @@ _FAMILY_RULES = {
     "gemma2": _GEMMA2_RULES,
     "mixtral": _MIXTRAL_RULES,
     "qwen2_moe": _QWEN2_MOE_RULES,
+    "gpt2": _GPT2_RULES,
+    "gptj": _GPTJ_RULES,
+    "gpt_neox": _GPT_NEOX_RULES,
+    "bloom": _BLOOM_RULES,
+    "opt": _OPT_RULES,
+    "phi": _PHI_RULES,
+    "bert": _BERT_RULES,
 }
 
 # Families the JAX package reads that the port has no model for yet.
-_LATER_FAMILIES = ("gpt2", "gptj", "gpt_neox", "bloom", "opt", "phi", "bert", "vit", "t5")
+_LATER_FAMILIES = ("vit", "t5")
 
-# HF keys that are legitimately rule-less: a tied head's copy and buffers.
-_SKIPPABLE = re.compile(r"(^|\.)(lm_head\.weight|position_ids|rotary_emb\.inv_freq)$")
+# The prefixes HF wrapper classes add around the base model, stripped
+# before matching (reference :434-440), so e.g. both BertModel and
+# BertForSequenceClassification load.
+_STRIP_PREFIXES = {
+    "gpt2": ("transformer.",),
+    "gptj": ("transformer.",),
+    "gpt_neox": ("gpt_neox.",),
+    "bloom": ("transformer.",),
+    "opt": ("model.decoder.", "decoder."),
+    "phi": ("model.",),
+    "bert": ("bert.",),
+}
+
+# HF keys that are legitimately rule-less: a tied head's copy, buffers and
+# heads the port's models do not have.
+_SKIPPABLE = re.compile(
+    r"(^|\.)(lm_head\.weight|predictions\..*|position_ids|rotary_emb\.inv_freq"
+    r"|attn\.(bias|masked_bias)|attention\.(bias|masked_bias))$")
+
+# HF's GELU spellings the models evaluate: "gelu" and "gelu_python" are the
+# exact erf form, the rest the tanh approximation (reference).
+_GELU_VARIANTS = {"gelu", "gelu_python", "gelu_new", "gelu_fast", "gelu_pytorch_tanh"}
 
 
 def _compile_rules(rules):
@@ -195,12 +333,180 @@ def _qwen_windows(get, n: int) -> tuple:
     return None, windows
 
 
-def config_from_hf(hf_config: dict, family: Optional[str] = None) -> LlamaConfig:
-    """The port's ``LlamaConfig`` (a ``MixtralConfig`` for the MoE
-    families) for an HF ``config.json`` dict."""
+def _gelu_act(get, key: str, default: str) -> str:
+    act = get(key, default)
+    if act not in _GELU_VARIANTS:
+        raise NotImplementedError(f"{key} {act!r} (supported: {sorted(_GELU_VARIANTS)})")
+    return act
+
+
+def _family_config(family: str, get):
+    """The config of a GPT-style family or BERT (reference :666-784,
+    :809-822), with the reference's refusals of what its models cannot
+    represent."""
+    if family == "gpt2":
+        from ..models.gpt2 import GPT2Config
+
+        return GPT2Config(vocab_size=get("vocab_size", 50257), hidden_size=get("n_embd", 768),
+                          num_hidden_layers=get("n_layer", 12),
+                          num_attention_heads=get("n_head", 12),
+                          max_position_embeddings=get("n_positions", 1024),
+                          layer_norm_eps=get("layer_norm_epsilon", 1e-5))
+    if family == "opt":
+        from ..models.opt import OPTConfig
+
+        if not get("do_layer_norm_before", True):
+            raise NotImplementedError("do_layer_norm_before=False OPT variants (350m) are "
+                                      "post-LN; the decoder is pre-LN only")
+        if get("word_embed_proj_dim", get("hidden_size")) != get("hidden_size"):
+            raise NotImplementedError("word_embed_proj_dim != hidden_size (OPT-350m's "
+                                      "projection) is not representable")
+        if not get("enable_bias", True) or not get("layer_norm_elementwise_affine", True):
+            raise NotImplementedError("bias-less or non-affine-LN OPT variants are not "
+                                      "representable (the decoder has biased projections and "
+                                      "affine norms)")
+        act = get("activation_function", "relu")
+        if act not in ("relu", "gelu"):
+            raise NotImplementedError(f"activation_function {act!r} (relu/gelu only)")
+        return OPTConfig(vocab_size=get("vocab_size", 50272),
+                         hidden_size=get("hidden_size", 768),
+                         intermediate_size=get("ffn_dim", 3072),
+                         num_hidden_layers=get("num_hidden_layers", 12),
+                         num_attention_heads=get("num_attention_heads", 12),
+                         max_position_embeddings=get("max_position_embeddings", 2048),
+                         activation=act)
+    if family == "gptj":
+        from ..models.gptj import GPTJConfig
+
+        return GPTJConfig(vocab_size=get("vocab_size", 50400), hidden_size=get("n_embd", 4096),
+                          intermediate_size=get("n_inner") or 4 * get("n_embd", 4096),
+                          num_hidden_layers=get("n_layer", 28),
+                          num_attention_heads=get("n_head", 16),
+                          max_position_embeddings=get("n_positions", 2048),
+                          rotary_dim=get("rotary_dim") or (get("n_embd", 4096)
+                                                           // get("n_head", 16)),
+                          activation=_gelu_act(get, "activation_function", "gelu_new"),
+                          layer_norm_eps=get("layer_norm_epsilon", 1e-5))
+    if family == "phi":
+        from ..models.phi import PhiConfig
+
+        act = _gelu_act(get, "hidden_act", "gelu_new")
+        if get("qk_layernorm", False):
+            raise NotImplementedError("qk_layernorm Phi variants are not representable (the "
+                                      "attention has no per-head q/k norms)")
+        return PhiConfig(vocab_size=get("vocab_size", 51200),
+                         hidden_size=get("hidden_size", 2560),
+                         intermediate_size=get("intermediate_size", 10240),
+                         num_hidden_layers=get("num_hidden_layers", 32),
+                         num_attention_heads=get("num_attention_heads", 32),
+                         num_key_value_heads=get("num_key_value_heads",
+                                                 get("num_attention_heads", 32)),
+                         max_position_embeddings=get("max_position_embeddings", 2048),
+                         partial_rotary_factor=get("partial_rotary_factor", 0.4),
+                         rope_theta=get("rope_theta", 10000.0), hidden_act=act,
+                         layer_norm_eps=get("layer_norm_eps", 1e-5))
+    if family == "bloom":
+        from ..models.bloom import BloomConfig
+
+        if get("slow_but_exact"):
+            raise NotImplementedError("slow_but_exact BLOOM inference reorders the matmul "
+                                      "accumulation; the forward is the standard path")
+        return BloomConfig(vocab_size=get("vocab_size", 250880),
+                           hidden_size=get("hidden_size", get("n_embed", 1024)),
+                           num_hidden_layers=get("n_layer", get("num_hidden_layers", 24)),
+                           num_attention_heads=get("n_head", get("num_attention_heads", 16)),
+                           layer_norm_epsilon=get("layer_norm_epsilon", 1e-5))
+    if family == "gpt_neox":
+        from ..models.gpt_neox import GPTNeoXConfig
+
+        act = _gelu_act(get, "hidden_act", "gelu")
+        if not get("attention_bias", True):
+            raise NotImplementedError("attention_bias=False GPT-NeoX variants are not "
+                                      "representable (the projections have biases)")
+        return GPTNeoXConfig(vocab_size=get("vocab_size", 50432),
+                             hidden_size=get("hidden_size", 768),
+                             intermediate_size=get("intermediate_size", 3072),
+                             num_hidden_layers=get("num_hidden_layers", 12),
+                             num_attention_heads=get("num_attention_heads", 12),
+                             max_position_embeddings=get("max_position_embeddings", 2048),
+                             rotary_pct=get("rotary_pct", 0.25),
+                             rope_theta=get("rotary_emb_base", get("rope_theta", 10000.0)),
+                             use_parallel_residual=get("use_parallel_residual", True),
+                             hidden_act=act, layer_norm_eps=get("layer_norm_eps", 1e-5))
+    from ..models.bert import BertConfig
+
+    return BertConfig(vocab_size=get("vocab_size", 30522), hidden_size=get("hidden_size", 768),
+                      num_hidden_layers=get("num_hidden_layers", 12),
+                      num_attention_heads=get("num_attention_heads", 12),
+                      intermediate_size=get("intermediate_size", 3072),
+                      max_position_embeddings=get("max_position_embeddings", 512),
+                      type_vocab_size=get("type_vocab_size", 2),
+                      layer_norm_eps=get("layer_norm_eps", 1e-12),
+                      num_labels=len(get("id2label", {0: 0, 1: 1})))
+
+
+def _family_hf_config(config, family: str) -> dict:
+    """The HF ``config.json`` fields :func:`_family_config` reads."""
+    c = config
+    if family == "gpt2":
+        return dict(vocab_size=c.vocab_size, n_embd=c.hidden_size, n_layer=c.num_hidden_layers,
+                    n_head=c.num_attention_heads, n_positions=c.max_position_embeddings,
+                    layer_norm_epsilon=c.layer_norm_eps, activation_function="gelu_new")
+    if family == "opt":
+        return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                    word_embed_proj_dim=c.hidden_size, ffn_dim=c.intermediate_size,
+                    num_hidden_layers=c.num_hidden_layers,
+                    num_attention_heads=c.num_attention_heads,
+                    max_position_embeddings=c.max_position_embeddings,
+                    activation_function=c.activation, do_layer_norm_before=True,
+                    tie_word_embeddings=True)
+    if family == "gptj":
+        return dict(vocab_size=c.vocab_size, n_embd=c.hidden_size, n_inner=c.intermediate_size,
+                    n_layer=c.num_hidden_layers, n_head=c.num_attention_heads,
+                    n_positions=c.max_position_embeddings, rotary_dim=c.rotary_dim,
+                    activation_function=c.activation, layer_norm_epsilon=c.layer_norm_eps,
+                    tie_word_embeddings=False)
+    if family == "phi":
+        return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                    intermediate_size=c.intermediate_size,
+                    num_hidden_layers=c.num_hidden_layers,
+                    num_attention_heads=c.num_attention_heads,
+                    num_key_value_heads=c.num_key_value_heads,
+                    max_position_embeddings=c.max_position_embeddings,
+                    partial_rotary_factor=c.partial_rotary_factor, rope_theta=c.rope_theta,
+                    hidden_act=c.hidden_act, layer_norm_eps=c.layer_norm_eps,
+                    tie_word_embeddings=False)
+    if family == "bloom":
+        return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                    n_layer=c.num_hidden_layers, n_head=c.num_attention_heads,
+                    layer_norm_epsilon=c.layer_norm_epsilon)
+    if family == "gpt_neox":
+        return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                    intermediate_size=c.intermediate_size,
+                    num_hidden_layers=c.num_hidden_layers,
+                    num_attention_heads=c.num_attention_heads,
+                    max_position_embeddings=c.max_position_embeddings,
+                    rotary_pct=c.rotary_pct, rotary_emb_base=c.rope_theta,
+                    use_parallel_residual=c.use_parallel_residual, hidden_act=c.hidden_act,
+                    layer_norm_eps=c.layer_norm_eps, tie_word_embeddings=False)
+    return dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+                num_hidden_layers=c.num_hidden_layers, num_attention_heads=c.num_attention_heads,
+                intermediate_size=c.intermediate_size,
+                max_position_embeddings=c.max_position_embeddings,
+                type_vocab_size=c.type_vocab_size, layer_norm_eps=c.layer_norm_eps,
+                hidden_act="gelu", hidden_dropout_prob=c.hidden_dropout_prob,
+                id2label={str(i): f"LABEL_{i}" for i in range(c.num_labels)})
+
+
+def config_from_hf(hf_config: dict, family: Optional[str] = None):
+    """The port's config for an HF ``config.json`` dict: a ``LlamaConfig``
+    (a ``MixtralConfig`` for the MoE families), or the GPT-style family's or
+    BERT's own config."""
     family = family or detect_family(hf_config)
     _check_family(family)
     get = hf_config.get
+    if family in _MODEL_CLASSES:
+        return _family_config(family, get)
     if family in ("gemma", "gemma2"):
         # transformers: an absent hidden_activation means the tanh gelu the
         # checkpoints were trained with; an explicit "gelu" is the erf form.
@@ -281,11 +587,13 @@ def config_from_hf(hf_config: dict, family: Optional[str] = None) -> LlamaConfig
                        query_pre_attn_scalar=get("query_pre_attn_scalar"))
 
 
-def hf_config_from(config: LlamaConfig, family: str = "llama") -> dict:
-    """The HF ``config.json`` dict of a ``LlamaConfig`` (the inverse of
+def hf_config_from(config, family: str = "llama") -> dict:
+    """The HF ``config.json`` dict of a config (the inverse of
     :func:`config_from_hf` for the fields it reads), for writing a
     checkpoint directory."""
     _check_family(family)
+    if family in _MODEL_CLASSES:
+        return dict(model_type=family, **_family_hf_config(config, family))
     out = dict(
         model_type=family, vocab_size=config.vocab_size, hidden_size=config.hidden_size,
         intermediate_size=config.intermediate_size,
@@ -337,10 +645,26 @@ def _read_hf_config(checkpoint_dir: str) -> dict:
         return json.load(f)
 
 
-def model_from_config(config: LlamaConfig, family: str, device="meta", dtype=torch.float32):
+#: The port's model class of each family outside the Llama family and MoE
+#: (reference ``model_from_config``, :876-903): (module, class).
+_MODEL_CLASSES = {
+    "gpt2": ("gpt2", "GPT2LMHeadModel"), "gptj": ("gptj", "GPTJForCausalLM"),
+    "gpt_neox": ("gpt_neox", "GPTNeoXForCausalLM"), "bloom": ("bloom", "BloomForCausalLM"),
+    "opt": ("opt", "OPTForCausalLM"), "phi": ("phi", "PhiForCausalLM"),
+    "bert": ("bert", "BertForSequenceClassification"),
+}
+
+
+def model_from_config(config, family: str, device="meta", dtype=torch.float32):
     """The port's model of ``family`` for ``config``; on the meta device by
     default, where it holds no memory (a skeleton for the loaders)."""
     _check_family(family)
+    if family in _MODEL_CLASSES:
+        import importlib
+
+        module_name, cls = _MODEL_CLASSES[family]
+        models = importlib.import_module(f"..models.{module_name}", __package__)
+        return getattr(models, cls)(config, device=device, dtype=dtype)
     if family in _EXPERT_CONVENTIONS:
         from ..models.mixtral import MixtralForCausalLM
 
@@ -350,7 +674,7 @@ def model_from_config(config: LlamaConfig, family: str, device="meta", dtype=tor
     return LlamaForCausalLM(config, device=device, dtype=dtype)
 
 
-def open_hf_checkpoint(checkpoint_dir: str, config: Optional[LlamaConfig] = None, dtype=None):
+def open_hf_checkpoint(checkpoint_dir: str, config=None, dtype=None):
     """Read ``config.json``, detect the family, build (or take) the config,
     and build the model on the meta device: ``(family, config, module)``."""
     hf_config = _read_hf_config(checkpoint_dir)
@@ -367,6 +691,7 @@ def map_hf_key_and_op(key: str, family: str) -> Optional[tuple]:
     ``"t"`` (transposed: the router) or ``"stack:<e>:t"`` (transposed, then
     member ``e`` of the stacked ``[E, in, out]`` leaf the name gives)."""
     _check_family(family)
+    key = _strip_prefix(key, family)
     if family in _EXPERT_CONVENTIONS:
         expert_re, leaf_of, _ = _EXPERT_CONVENTIONS[family]
         match = expert_re.match(key)
@@ -378,6 +703,13 @@ def map_hf_key_and_op(key: str, family: str) -> Optional[tuple]:
         if match:
             return _fill(ours_t, match), op
     return None
+
+
+def _strip_prefix(key: str, family: str) -> str:
+    for prefix in _STRIP_PREFIXES.get(family, ()):
+        if key.startswith(prefix):
+            return key[len(prefix):]
+    return key
 
 
 def map_hf_key(key: str, family: str) -> Optional[str]:
@@ -426,7 +758,7 @@ def convert_hf_state_dict(state_dict: dict, family: str, *, strict: bool = False
             continue
         hit = map_hf_key_and_op(key, family)
         if hit is None:
-            if strict and not _SKIPPABLE.search(key):
+            if strict and not _SKIPPABLE.search(_strip_prefix(key, family)):
                 raise KeyError(f"no conversion rule for HF key {key!r} ({family})")
             continue
         name, op = hit
@@ -471,7 +803,7 @@ def export_hf_state_dict(params, family: str, *, prefix: str = "", dtype=None) -
 
 
 def load_hf_checkpoint(checkpoint_dir: str, family: Optional[str] = None,
-                       config: Optional[LlamaConfig] = None, dtype=None):
+                       config=None, dtype=None):
     """``(config, state_dict)`` of an HF checkpoint directory (one file or
     sharded), CPU tensors cast to ``dtype`` as they are read."""
     from ..checkpointing import checkpoint_shards
@@ -489,7 +821,7 @@ def load_hf_checkpoint(checkpoint_dir: str, family: Optional[str] = None,
     return config, convert_hf_state_dict(state_dict, family)
 
 
-def save_hf_checkpoint(params, checkpoint_dir: str, config: LlamaConfig, family: str = "llama",
+def save_hf_checkpoint(params, checkpoint_dir: str, config, family: str = "llama",
                        max_shard_size="5GB", dtype=None) -> None:
     """Write an HF checkpoint directory: ``config.json`` and the weights of
     ``params`` (a state dict or a model, on any device) under HF names, one

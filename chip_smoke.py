@@ -13,9 +13,10 @@ order; any failure exits non-zero:
    report.
 2. kernel vs plain version: ``flash_fwd`` on a case matrix (the training
    and the main-path shapes in bf16; non-causal, window, segments, softcap
-   with sm_scale, GQA rep 1/4/8, head_dim 64/128/256, fp16, fp32, ragged
-   lengths such as S=1000 and B=3 x S=200) against ``flash_fwd_reference``
-   on the same inputs, under the tolerances of ``TOLERANCE``, printing each
+   with sm_scale, GQA rep 1/4/8, head_dim 64/80/96/128/256, fp16, fp32, ragged
+   lengths such as S=1000 and B=3 x S=200, and phase 14's families at the
+   forward and 8 x 1024 backward shapes they run) against
+   ``flash_fwd_reference`` on the same inputs, under the tolerances of ``TOLERANCE``, printing each
    case's route (``wgmma`` for 16-bit inputs at head_dim 64/128, else
    ``mma.sync``); a repeat launch must be bit-identical. Then, at the
    training and the main-path shapes, both routes of the forward, its plain
@@ -99,7 +100,7 @@ order; any failure exits non-zero:
    each tier (card, host, disk, ``"auto"`` under ``max_memory={0: "8GiB"}``)
    the load's seconds, a 4 x 2048 forward (32 wgmma flash launches; the
    host tier also with ``prefetch=False``), batch-1 decode from a 512-token
-   prompt (16 new, 8 on disk), and the peak card memory, which must stay
+   prompt (16 new, 4 on disk), and the peak card memory, which must stay
    within the resident weights + 2 x the largest streamed block + an
    allowance (the resident forward's own activation peak, +10 %), beside a
    plain pinned host-to-card copy of one layer's bytes. Free disk and
@@ -145,8 +146,9 @@ order; any failure exits non-zero:
    trace must name the three wgmma flash kernels. Times beside the card's
    name and power limit.
 
-9. several processes (the earlier models freed): ``accelerate-tpu-torch
-   env`` as a subprocess must name the card and the NCCL version;
+9. several processes (the earlier models freed), the first three
+   subprocesses side by side: ``accelerate-tpu-torch env`` must name the
+   card and the NCCL version;
    ``accelerate-tpu-torch test`` runs the omnibus script in a process group
    of one over NCCL ("All omnibus checks passed.", "1 process(es)");
    ``launch --num_processes 1`` runs the collectives script, every
@@ -254,10 +256,42 @@ order; any failure exits non-zero:
    OUT``: (a)'s plain set over NCCL, its streams equal (a)'s. Prints the
    phase's seconds. ``main_tp_serving()`` runs it alone.
 
+14 (after 12, the earlier models freed). the model families (``models/``)
+   at their published widths: GPT-2 XL, Phi-2, GPT-J-6B, BLOOM-560m,
+   GPT-NeoX-20B and OPT-30B (cut to 16 of its 48 layers), random weights
+   from a seeded generator on the card. (a) At f32 with 2 layers: the
+   logits on 1 x 256 tokens through the flash kernels (f32: the mma.sync
+   route) against einsum attention within 2e-5 x max(max|ref|, 1) (BLOOM
+   attends by its ALiBi einsum: no kernel), cached greedy ``generate``
+   token-exact with the uncached argmax loop, ``save_hf_checkpoint`` ->
+   ``load_hf_checkpoint_and_dispatch`` on the card tier (OPT on the host
+   tier too) bit-identical to the resident logits, and for GPT-2 and OPT
+   positions past the learned table refused before the lookup (the
+   streamed model's ``position_bound`` and the resident forward). (b) A
+   bf16 forward on 4 x 2048 tokens (GPT-2 XL 8 x 1024, its table's
+   length): ms, tokens/s, peak GiB, the route (wgmma for GPT-2 XL and OPT,
+   mma.sync for GPT-J, GPT-NeoX and Phi), one flash launch a layer (BLOOM
+   none). (c) batch-1 ``generate`` from a 512-token prompt, 32 new:
+   tokens/s, a repeat identical. (d) 2 layers at GPT-J's and Phi-2's
+   widths, 8 x 1024, bf16 over f32 masters, fused AdamW, clip 1.0,
+   ``compile_train_step``: 3 + 10 steps, step ms and peak, 2 + 2 + 2
+   mma.sync launches a step, finite losses, batch 0's falling. (e) a
+   BERT-base step (32 x 128, bf16) and a ResNet-50 step (64 x 224^2,
+   channels-last, bf16, batch statistics): ms and samples or images/s; the
+   port's ``examples/nlp_example_torch.py`` (5 epochs) and
+   ``cv_example_torch.py`` (1 epoch) as subprocesses on the card, at
+   eval_acc >= 0.8 and acc >= 0.9. Then each family's kernels on its route
+   at its shapes (which phases 2 and 2b hold against the plain versions)
+   timed beside the plain version, SDPA and the bound at the real head_dim.
+   Prints the phase's seconds. ``main_families()`` runs it alone, with
+   phase 2's and 2b's D=80 and family cases.
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
 ``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
-11, ``mesh_launches``, in phase 12, ``moe_launches``, and in phase 13,
-``tp_serving_launches``) and the card's line, and as its last line
+11, ``mesh_launches``, in phase 12, ``moe_launches``, in phase 13,
+``tp_serving_launches``, and in phase 14, ``families_launches``, with its
+timings at the families' shapes in ``families``) and the card's line, and
+as its last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -328,7 +362,7 @@ FLEET = dict(exact_seed=51, exact_kill_tick=12, kill_tick=40, hang_timeout_s=30.
 # forward and batch-1 decode from a 512-token prompt on each tier.
 BIG = dict(exact_seed=71, exact_len=256, exact_prompt=100, exact_new=32, exact_disk_new=8,
            exact_shard="2GB", exact_atol=1e-5, quant_atol=1e-4, shard="5GB", forward=(4, 2048),
-           prompt=512, new=16, disk_new=8, auto_budget="8GiB")
+           prompt=512, new=16, disk_new=4, auto_budget="8GiB")
 
 
 #: Phase 4c's numbers from this run, which phase 4e prints beside its own.
@@ -445,6 +479,7 @@ def kernel_cases():
         ("D=64", 2, 384, 4, 2, 64, bf16, False, {}),
         ("D=256", 2, 384, 4, 2, 256, bf16, False, {}),
         ("D=96 (padded to 128)", 1, 256, 4, 2, 96, bf16, False, {}),
+        ("D=80 (Phi-2's, padded to 128)", 2, 512, 8, 8, 80, bf16, False, {}),
         ("fp16", 2, 512, 8, 2, 128, f16, False, {}),
         ("fp16 D=256 window", 1, 512, 4, 2, 256, f16, False, dict(sliding_window=200)),
         ("fp32", 2, 256, 4, 2, 128, f32, False, {}),
@@ -460,6 +495,7 @@ def kernel_cases():
          dict(sliding_window=100)),
         ("fp16 softcap 20 + sm_scale 0.1, D=128", 1, 512, 4, 2, 128, f16, False,
          dict(logit_softcap=20.0, sm_scale=0.1)),
+        *family_cases(),
     ]
 
 
@@ -535,13 +571,15 @@ def phase_kernels():
 
 
 def shape_text(shape) -> str:
+    """A shape dict, or a (B, S, H, G, D) tuple, as "B=.. S=.. H=.. G=.. D=.. causal bf16"."""
+    shape = shape if isinstance(shape, dict) else dict(zip("BSHGD", shape))
     return " ".join(f"{k}={v}" for k, v in shape.items()) + " causal bf16"
 
 
-def forward_timings(B, S, H, G, D, seed):
-    """Both routes of the forward at one causal bf16 shape, each checked
-    against the plain version once, then timed in turns beside the plain
-    version, SDPA and the bound."""
+def forward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
+    """The forward of each of ``routes`` at one causal bf16 shape, each
+    compared with the plain version once, then timed in turns beside the
+    plain version, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -549,7 +587,8 @@ def forward_timings(B, S, H, G, D, seed):
 
     q, k, v, _ = make_inputs(B, S, H, G, D, torch.bfloat16, seed=seed)
     args = (q, k, v, True, None, None, None, None)
-    routes = {"wgmma": lambda: fc._fwd_wgmma(*args), "mma.sync": lambda: fc._fwd_mma(*args)}
+    launches = {"wgmma": lambda: fc._fwd_wgmma(*args), "mma.sync": lambda: fc._fwd_mma(*args)}
+    routes = {n: launches[n] for n in routes}
     ref, _ = fc.flash_fwd_reference(q, k, v, causal=True)
     err = {n: (fn()[0].float() - ref.float()).abs().max().item() for n, fn in routes.items()}
     del ref
@@ -690,9 +729,9 @@ def phase_backward():
     return timings
 
 
-def backward_timings(B, S, H, G, D, seed):
-    """The dK/dV and the dQ kernel of each route at one causal bf16 shape,
-    each checked against the plain backward once, then timed (the two
+def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
+    """The dK/dV and the dQ kernel of each of ``routes`` at one causal bf16
+    shape, each compared with the plain backward once, then timed (the
     routes of each kernel in turns) beside the plain backward, SDPA's
     backward and the bounds."""
     import torch
@@ -706,8 +745,10 @@ def backward_timings(B, S, H, G, D, seed):
     launch = fc._BackwardLaunch(q, k, v, out, lse, d_out, causal=True, sm_scale=None,
                                 sliding_window=None, segment_ids=None, logit_softcap=None)
     refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
-    routes = {"wgmma": launch.dkdv_wgmma, "mma.sync": launch.dkdv_mma}
-    dq_routes = {"dq wgmma": launch.dq_wgmma, "dq mma.sync": launch.dq_mma}
+    kernels = {"wgmma": (launch.dkdv_wgmma, launch.dq_wgmma),
+               "mma.sync": (launch.dkdv_mma, launch.dq_mma)}
+    dq_routes = {f"dq {n}": kernels[n][1] for n in routes}
+    routes = {n: kernels[n][0] for n in routes}
     err = {}
     for name, fn in routes.items():
         fn()
@@ -3130,21 +3171,34 @@ def phase_multiprocess(reference=None):
     6's ``run_bench`` result, whose first 13 steps are the same; else they
     run here). Returns the child's numbers."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     name = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    out = run_cli(["env"], timeout=120)
-    nccl = [line for line in out.splitlines() if line.startswith("- NCCL version:")]
-    print(f"  env ({time.perf_counter() - t0:.1f} s): {nccl[0] if nccl else 'no NCCL line'}; "
-          f"card named: {name in out}")
-    if name not in out or not nccl:
-        fail(f"`accelerate-tpu-torch env` printed no card name or NCCL version:\n{out[-2000:]}")
 
+    def timed_cli(args, timeout):
+        return run_cli(args, timeout), time.perf_counter()
+
+    # ``env``, ``test`` and the collectives run side by side: each launch
+    # picks its own free port for its process group of one.
     t0 = time.perf_counter()
-    out = run_cli(["test"], timeout=300)
-    print(f"  test ({time.perf_counter() - t0:.1f} s): "
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        runs = {what: pool.submit(timed_cli, args, timeout) for what, args, timeout in (
+            ("env", ["env"], 120), ("test", ["test"], 300),
+            ("collectives", ["launch", "--num_processes", "1", "--module",
+                             "accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess"],
+             300))}
+        done = {what: run.result() for what, run in runs.items()}
+    (env_out, _), (out, test_end), (ops_out, ops_end) = (
+        done["env"], done["test"], done["collectives"])
+    nccl = [line for line in env_out.splitlines() if line.startswith("- NCCL version:")]
+    print(f"  env (beside test): {nccl[0] if nccl else 'no NCCL line'}; card named: "
+          f"{name in env_out}")
+    if name not in env_out or not nccl:
+        fail(f"`accelerate-tpu-torch env` printed no card name or NCCL version:\n"
+             f"{env_out[-2000:]}")
+    print(f"  test ({test_end - t0:.1f} s): "
           + "; ".join(line.strip() for line in out.splitlines()
                       if "ok" in line or "omnibus" in line))
     if "All omnibus checks passed." not in out or "1 process(es)" not in out \
@@ -3152,19 +3206,16 @@ def phase_multiprocess(reference=None):
         fail(f"`accelerate-tpu-torch test` did not pass at world size 1 over NCCL:\n"
              f"{out[-3000:]}")
 
-    t0 = time.perf_counter()
-    out = run_cli(["launch", "--num_processes", "1", "--module",
-                   "accelerate_tpu_torch.test_utils.scripts.test_ops_multiprocess"], timeout=300)
     checks = ("gather ok", "gather(global array) ok", "gather_object ok", "broadcast ok",
               "reduce ok", "pad_across_processes ok", "broadcast_object_list ok",
               "split_between_processes ok", "checkpoint round-trip ok",
               "debug shape sanitizer ok")
-    missing = [c for c in checks if f"[p0] {c}" not in out]
-    print(f"  collectives on cuda over nccl ({time.perf_counter() - t0:.1f} s): "
+    missing = [c for c in checks if f"[p0] {c}" not in ops_out]
+    print(f"  collectives on cuda over nccl ({ops_end - t0:.1f} s, beside test): "
           f"{len(checks) - len(missing)} of {len(checks)} ok")
-    if missing or "on cuda:0 over nccl" not in out \
-            or "All multi-process ops checks passed." not in out:
-        fail(f"the collectives check missed {missing}:\n{out[-3000:]}")
+    if missing or "on cuda:0 over nccl" not in ops_out \
+            or "All multi-process ops checks passed." not in ops_out:
+        fail(f"the collectives check missed {missing}:\n{ops_out[-3000:]}")
 
     if reference is None:
         from accelerate_tpu_torch.bench import run_bench
@@ -4421,6 +4472,522 @@ def phase_tp_serving(model) -> dict:
     return dict(full=full, fleet=fleet, seconds=seconds)
 
 
+# Phase 14: the model families of A9. Published widths; depth as listed.
+FAMILIES = dict(
+    seed=141, exact_layers=2, exact_len=256, exact_prompt=100, exact_new=16, exact_tol=2e-5,
+    forward=(4, 2048), gpt2_forward=(8, 1024), prompt=512, new=32, opt_layers=16,
+    train=(8, 1024), train_layers=2, warmup=3, iters=10, bert=(32, 128), resnet=(64, 224),
+    nlp_acc=0.8, cv_acc=0.9, script_timeout=400)
+#: family (its HF model type) -> (model module, config class, model class,
+#: published-width config factory); the order phase 14 runs them in.
+FAMILY_MODELS = {
+    "gpt2": ("gpt2", "GPT2Config", "GPT2LMHeadModel", "xl"),
+    "phi": ("phi", "PhiConfig", "PhiForCausalLM", "phi_2"),
+    "gptj": ("gptj", "GPTJConfig", "GPTJForCausalLM", "gptj_6b"),
+    "bloom": ("bloom", "BloomConfig", "BloomForCausalLM", None),
+    "gpt_neox": ("gpt_neox", "GPTNeoXConfig", "GPTNeoXForCausalLM", "neox_20b"),
+    "opt": ("opt", "OPTConfig", "OPTForCausalLM", "opt_30b"),
+}
+FAMILY_LABELS = {"gpt2": "GPT-2 XL", "phi": "Phi-2", "gptj": "GPT-J-6B", "bloom": "BLOOM-560m",
+                 "gpt_neox": "GPT-NeoX-20B", "opt": "OPT-30B"}
+FAMILY_PATH = ("model families at published widths (phase 14): full-width forwards (OPT-30B "
+               "cut to 16 of 48 layers), the 2-layer GPT-J and Phi-2 train steps")
+
+
+def family_config(name: str, **overrides):
+    """The family's published-width config (BLOOM's defaults are
+    BLOOM-560m); OPT-30B cut to ``FAMILIES["opt_layers"]`` layers unless
+    ``num_hidden_layers`` is given."""
+    import dataclasses
+    import importlib
+
+    module, cfg_cls, _, factory = FAMILY_MODELS[name]
+    cls = getattr(importlib.import_module(f"accelerate_tpu_torch.models.{module}"), cfg_cls)
+    cfg = getattr(cls, factory)() if factory else cls()
+    if name == "opt":
+        overrides.setdefault("num_hidden_layers", FAMILIES["opt_layers"])
+    return dataclasses.replace(cfg, **overrides)
+
+
+def family_shapes() -> dict:
+    """Phase 14's attention shapes (B, S, H, G, D) of each flash family,
+    causal bf16: its full-width forward ("forward": 4 x 2048, GPT-2 XL's
+    8 x 1024) and its backward at 8 x 1024 ("backward": (d)'s train shape
+    for GPT-J and Phi-2; GPT-2 XL's and OPT-30B's are timed beside them).
+    BLOOM attends by its ALiBi einsum and has none."""
+    shapes = {}
+    for name in ("gpt2", "opt", "gptj", "gpt_neox", "phi"):
+        cfg = family_config(name)
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        heads = (H, getattr(cfg, "num_key_value_heads", H), D)
+        forward = FAMILIES["gpt2_forward"] if name == "gpt2" else FAMILIES["forward"]
+        shapes[name] = dict(forward=(*forward, *heads), backward=(*FAMILIES["train"], *heads))
+    return shapes
+
+
+def family_cases() -> list:
+    """``family_shapes`` as cases of ``kernel_cases``, so that phases 2 and
+    2b hold the families' kernels against the plain versions at the shapes
+    the families run (a shape two families or kinds share, once)."""
+    import torch
+
+    cases, seen = [], set()
+    for name, shapes in family_shapes().items():
+        for kind, shape in shapes.items():
+            if shape not in seen:
+                seen.add(shape)
+                cases.append((f"{FAMILY_LABELS[name]} {kind} shape", *shape, torch.bfloat16,
+                              False, dict(causal=True)))
+    return cases
+
+
+def family_model(name: str, cfg, dtype, seed: int):
+    """The family's model on the card, random weights from a seeded
+    generator."""
+    import importlib
+
+    import torch
+
+    module, _, model_cls, _ = FAMILY_MODELS[name]
+    cls = getattr(importlib.import_module(f"accelerate_tpu_torch.models.{module}"), model_cls)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cls(cfg, device="cuda", dtype=dtype, generator=gen)
+
+
+def family_route(name: str, cfg, dtype) -> str:
+    """The flash route the family's uncached forward takes ("none" for
+    BLOOM, which attends by its ALiBi einsum)."""
+    return "none" if name == "bloom" else route_of(dtype, cfg.head_dim)
+
+
+def family_exactness(name: str, problems: list) -> dict:
+    """(a) at f32 with 2 layers at the published widths: the logits on 1 x
+    256 tokens through the flash kernels (the mma.sync route: f32) against
+    the einsum path; cached greedy ``generate`` against the uncached argmax
+    loop; a ``save_hf_checkpoint`` -> ``load_hf_checkpoint_and_dispatch``
+    round trip on the card tier (for OPT the host tier too), its logits
+    bit-identical to the resident model's; for the learned-position
+    families, ``position_bound`` and the model refusing past the table."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import generate, load_hf_checkpoint_and_dispatch
+    from accelerate_tpu_torch.utils.hf_interop import save_hf_checkpoint
+
+    cfg = family_config(name, num_hidden_layers=FAMILIES["exact_layers"])
+    model = family_model(name, cfg, torch.float32, FAMILIES["seed"])
+    gen = torch.Generator(device="cuda").manual_seed(FAMILIES["seed"] + 1)
+    ids = torch.randint(0, cfg.vocab_size, (1, FAMILIES["exact_len"]), generator=gen,
+                        device="cuda")
+    out = {}
+    with torch.inference_mode():
+        reset_counts()
+        logits = model(ids)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if name != "bloom":
+            cfg.attention_backend = "einsum"
+            try:
+                ref = model(ids)
+            finally:
+                cfg.attention_backend = "auto"
+            err = (logits - ref).abs().max().item()
+            scale = max(ref.abs().max().item(), 1.0)
+            ok = err <= FAMILIES["exact_tol"] * scale
+            if counts["flash_fwd_mma"] != cfg.num_hidden_layers:
+                problems.append(f"{name}: {counts} flash launches at f32, expected "
+                                f"{cfg.num_hidden_layers} mma.sync")
+            print(f"  [{'ok' if ok else 'FAIL'}] {name} (a) f32, 2 layers, 1 x "
+                  f"{FAMILIES['exact_len']}: flash (mma.sync, {counts['flash_fwd_mma']} "
+                  f"launches) vs einsum logits max|d| {err:.3e} (limit "
+                  f"{FAMILIES['exact_tol']:g} x max(max|ref|, 1) = "
+                  f"{FAMILIES['exact_tol'] * scale:.3e})")
+            if not ok:
+                problems.append(f"{name}: flash logits disagree with einsum ({err:.3e})")
+            out["flash_vs_einsum"] = err
+        elif any(counts.values()):
+            problems.append(f"bloom launched a flash kernel: {counts}")
+        prompt = ids[:, :FAMILIES["exact_prompt"]]
+        cached = generate(model, prompt, FAMILIES["exact_new"], cache_dtype=torch.float32)
+        loop = prompt
+        for _ in range(FAMILIES["exact_new"]):
+            loop = torch.cat([loop, model(loop)[:, -1].argmax(-1, keepdim=True)], dim=1)
+        exact = torch.equal(cached, loop)
+        print(f"  [{'ok' if exact else 'FAIL'}] {name} (a) cached greedy generate "
+              f"({FAMILIES['exact_new']} new from {FAMILIES['exact_prompt']}) "
+              f"{'equals' if exact else 'DIFFERS from'} the uncached argmax loop")
+        if not exact:
+            problems.append(f"{name}: cached generate differs from the uncached loop")
+        directory = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            t0 = time.perf_counter()
+            save_hf_checkpoint(model, directory, cfg, name)
+            tiers = [("card", {"": 0})] + ([("host", {"": "cpu"})] if name == "opt" else [])
+            for tier, device_map in tiers:
+                streamed, _ = load_hf_checkpoint_and_dispatch(directory, device_map=device_map)
+                same = torch.equal(streamed(ids), logits)
+                print(f"  [{'ok' if same else 'FAIL'}] {name} (a) save_hf_checkpoint -> "
+                      f"load_hf_checkpoint_and_dispatch, {tier} tier: logits "
+                      f"{'bit-identical to' if same else 'DIFFER from'} the resident model's")
+                if not same:
+                    problems.append(f"{name}: the {tier} tier's logits differ")
+                if name in ("gpt2", "opt"):
+                    table = cfg.max_position_embeddings
+                    refused = []
+                    for call in (lambda: streamed.generate(ids[:, :1].expand(1, table - 3),
+                                                           max_new_tokens=4),
+                                 lambda: model(ids[:, :1].expand(1, table + 1))):
+                        try:
+                            call()
+                            refused.append(False)
+                        except ValueError:
+                            refused.append(True)
+                    torch.cuda.synchronize()  # a device-side assert would surface here
+                    ok = all(refused) and streamed.position_bound == table
+                    print(f"  [{'ok' if ok else 'FAIL'}] {name} (a) position_bound "
+                          f"{streamed.position_bound}: generate past it and a {table + 1}-token "
+                          f"forward {'refused' if ok else 'NOT refused'} before the lookup")
+                    if not ok:
+                        problems.append(f"{name}: positions past the table were not refused")
+                streamed.close()
+                del streamed
+            out["round_trip_s"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    del model
+    free_cuda()
+    return out
+
+
+def family_full_width(name: str, problems: list) -> dict:
+    """(b) and (c): the family at its published widths (the depth of
+    ``family_config``) in bf16, random weights from a seeded generator: a
+    timed forward on 4 x 2048 tokens (GPT-2 XL 8 x 1024, its table's
+    length) with its flash launches, then batch-1 cached decode from a
+    512-token prompt."""
+    import torch
+
+    from accelerate_tpu_torch import generate
+
+    cfg = family_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = family_model(name, cfg, torch.bfloat16, FAMILIES["seed"] + 2)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S = FAMILIES["gpt2_forward"] if name == "gpt2" else FAMILIES["forward"]
+    gen = torch.Generator(device="cuda").manual_seed(FAMILIES["seed"] + 3)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    route = family_route(name, cfg, torch.bfloat16)
+    with torch.inference_mode():
+        model(ids)  # warm-up at the shape: library handles, the allocator
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = model(ids)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        counts = read_counts()
+        finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+            B, S, cfg.vocab_size)
+        del logits
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        layers = cfg.num_hidden_layers
+        want = 0 if route == "none" else layers
+        key = {"wgmma": "flash_fwd_sm90", "mma.sync": "flash_fwd_mma"}.get(route)
+        launched_ok = counts["flash_fwd"] == want and (key is None or counts[key] == want)
+        if not finite:
+            problems.append(f"{name}: full-width logits non-finite or misshapen")
+        if not launched_ok:
+            problems.append(f"{name}: flash launches {counts} in one forward, expected {want} "
+                            f"on {route}")
+        prompt = ids[:1, :FAMILIES["prompt"]]
+        generate(model, prompt[:, :128], 2)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(model, prompt, FAMILIES["new"])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        again = generate(model, prompt, FAMILIES["new"])
+        repeat_ok = torch.equal(tokens, again)
+        if not repeat_ok:
+            problems.append(f"{name}: a repeat generate gave other tokens")
+    label = FAMILY_LABELS[name]
+    print(f"  [{'ok' if finite and launched_ok and repeat_ok else 'FAIL'}] {name} (b) {label}, "
+          f"{layers} layers ({n_params / 1e9:.3f} B params, built in {build_s:.1f} s), bf16, "
+          f"{B} x {S}: {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; route "
+          f"{route}, head_dim {cfg.head_dim}, flash launches {counts['flash_fwd']} a forward "
+          f"(expected {want}); (c) decode 1 x {FAMILIES['prompt']} + {FAMILIES['new']}: "
+          f"{FAMILIES['new'] / decode_s:.2f} tokens/s ({decode_s * 1e3 / FAMILIES['new']:.1f} ms "
+          f"a token incl. prefill), repeat {'identical' if repeat_ok else 'DIFFERS'}")
+    del model
+    free_cuda()
+    return dict(ms=ms, tokens_per_s=B * S / ms * 1e3, peak_gib=peak, route=route, counts=counts,
+                layers=layers, n_params=n_params, launches=counts["flash_fwd"],
+                decode_tokens_per_s=FAMILIES["new"] / decode_s, shape=(B, S),
+                head_dim=cfg.head_dim, heads=cfg.num_attention_heads, build_s=build_s)
+
+
+def family_train(name: str, problems: list) -> dict:
+    """(d) 2 layers at the family's widths, 8 x 1024, bf16 over f32
+    masters, fused AdamW, ``causal_lm_loss``, clip 1.0, through
+    ``Accelerator.compile_train_step``: 3 + 10 steps, step k on seeded
+    batch k % 4, the last 10 timed; 2 + 2 + 2 flash launches a step on the
+    route. Falling: step 12's loss (batch 0 again) below step 0's."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, causal_lm_loss, make_global_batch
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    cfg = family_config(name, num_hidden_layers=FAMILIES["train_layers"])
+    model = family_model(name, cfg, torch.float32, FAMILIES["seed"] + 4)
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                    weight_decay=1e-4, fused=True))
+    step = acc.compile_train_step(causal_lm_loss(model), max_grad_norm=1.0)
+    rng = np.random.default_rng(FAMILIES["seed"])
+    B, S = FAMILIES["train"]
+    batches = [make_global_batch({"input_ids": rng.integers(0, cfg.vocab_size, size=(B, S))},
+                                 acc) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps = FAMILIES["warmup"] + FAMILIES["iters"]
+    losses = [step(batches[k % 4])["loss"] for k in range(FAMILIES["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(batches[k % 4])["loss"] for k in range(FAMILIES["warmup"], steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / FAMILIES["iters"]
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).tolist()
+    last_of_batch_0 = losses[(steps - 1) // 4 * 4]
+    route = family_route(name, cfg, torch.bfloat16)
+    layers = cfg.num_hidden_layers
+    want = expected_counts(layers * steps, layers * steps, wgmma=route == "wgmma")
+    ok = (counts == want and all(math.isfinite(x) for x in losses)
+          and last_of_batch_0 < losses[0])
+    print(f"  [{'ok' if ok else 'FAIL'}] {name} (d) {FAMILY_LABELS[name]} widths, {layers} "
+          f"layers, {B} x {S}, bf16 over f32 masters: {step_ms:.2f} ms a step, peak "
+          f"{peak:.2f} GiB, batch 0's loss {losses[0]:.4f} -> {last_of_batch_0:.4f} (step "
+          f"{(steps - 1) // 4 * 4}), last {losses[-1]:.4f}; launches a step "
+          f"fwd {counts['flash_fwd'] / steps:g}, dK/dV {counts['flash_bwd_dkdv'] / steps:g}, "
+          f"dQ {counts['flash_bwd_dq'] / steps:g} on {route}")
+    if not ok:
+        problems.append(f"{name}: train step launches {counts} (expected {want}) or batch "
+                        f"0's loss {losses[0]} -> {last_of_batch_0} not finite and falling")
+    del model, step, batches
+    free_cuda()
+    return dict(step_ms=step_ms, peak_gib=peak, losses=losses, counts=counts, steps=steps,
+                route=route, layers=layers)
+
+
+def timed_steps(step, batch) -> float:
+    """ms a step of ``step(batch)`` over ``FAMILIES["iters"]`` steps after
+    ``FAMILIES["warmup"]``."""
+    import torch
+
+    for _ in range(FAMILIES["warmup"]):
+        step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FAMILIES["iters"]):
+        loss = step(batch)["loss"]
+    torch.cuda.synchronize()
+    if not math.isfinite(loss.item()):
+        fail("a non-finite loss in phase 14 (e)")
+    return (time.perf_counter() - t0) * 1e3 / FAMILIES["iters"]
+
+
+#: The port's example scripts phase 14 (e) runs, with their arguments, the
+#: accuracy each prints and the threshold ``tests/test_examples.py:82-102``
+#: holds the JAX examples to.
+FAMILY_EXAMPLES = (
+    ("examples/nlp_example_torch.py", ["--epochs", "5", "--batch_size", "16"],
+     r"eval_acc (\d\.\d+)", FAMILIES["nlp_acc"], "nlp"),
+    ("examples/cv_example_torch.py", ["--epochs", "1", "--batch_size", "16"],
+     r" acc (\d\.\d+)", FAMILIES["cv_acc"], "cv"))
+
+
+def start_script(path: str, args: list):
+    """A repository script started as a subprocess in a session of its
+    own; :func:`finish_script` collects it."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.Popen([sys.executable, os.path.join(HERE, path), *args], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return proc, path, time.perf_counter()
+
+
+def finish_script(started, timeout: int):
+    """``(stdout, seconds)`` of a :func:`start_script` subprocess, killed
+    whole on a timeout; a non-zero exit fails the phase."""
+    proc, path, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        fail(f"{path} timed out after {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    if proc.returncode != 0:
+        fail(f"{path} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def small_models(problems: list, scripts: list) -> dict:
+    """(e) a ``compile_train_step`` step of BERT-base (32 x 128, bf16) and
+    of ResNet-50 (64 x 224 x 224 x 3, channels-last, bf16, batch
+    statistics), then the two port example scripts' runs on the card
+    (``scripts``: their :func:`finish_script` results, in
+    ``FAMILY_EXAMPLES``' order), held to the JAX examples' thresholds."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, make_global_batch
+    from accelerate_tpu_torch.models import (
+        BertConfig,
+        BertForSequenceClassification,
+        ResNet,
+        ResNetConfig,
+        classification_loss,
+    )
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    out = {}
+    rng = np.random.default_rng(FAMILIES["seed"])
+    for kind in ("bert", "resnet"):
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        acc = Accelerator(mixed_precision="bf16")
+        gen = torch.Generator(device="cuda").manual_seed(FAMILIES["seed"] + 5)
+        if kind == "bert":
+            cfg = BertConfig.base()
+            B, S = FAMILIES["bert"]
+            model = BertForSequenceClassification(cfg, device="cuda", generator=gen)
+            batch = {"input_ids": rng.integers(0, cfg.vocab_size, (B, S)),
+                     "attention_mask": np.ones((B, S), np.int64),
+                     "token_type_ids": np.zeros((B, S), np.int64),
+                     "labels": rng.integers(0, 2, B)}
+        else:
+            B, side = FAMILIES["resnet"]
+            model = ResNet(ResNetConfig.resnet50(), device="cuda", generator=gen)
+            model = model.to(memory_format=torch.channels_last)
+            batch = {"pixel_values": rng.normal(size=(B, side, side, 3)).astype(np.float32),
+                     "labels": rng.integers(0, 1000, B)}
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4, fused=True))
+        if kind == "bert":
+            loss_fn = classification_loss(model)
+        else:
+            module = model.module
+
+            def loss_fn(params, b):
+                logits = torch.func.functional_call(module, params, (b["pixel_values"],),
+                                                    {"train": True})
+                logp = torch.log_softmax(logits.float(), -1)
+                return -logp.gather(-1, b["labels"].long()[:, None]).mean()
+        step = acc.compile_train_step(loss_fn, max_grad_norm=1.0)
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed_steps(step, make_global_batch(batch, acc))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = "samples" if kind == "bert" else "images"
+        print(f"  [ok] (e) {'BERT-base, 32 x 128' if kind == 'bert' else 'ResNet-50, 64 x 224^2 x 3, channels-last'}, "
+              f"bf16 over f32 masters: {ms:.2f} ms a step, {B / ms * 1e3:.0f} {what}/s, peak "
+              f"{peak:.2f} GiB")
+        out[kind] = dict(step_ms=ms, per_s=B / ms * 1e3, peak_gib=peak)
+        del model, step
+        free_cuda()
+    for (script, args, pattern, limit, label), (text, seconds) in zip(FAMILY_EXAMPLES, scripts):
+        accs = [float(a) for a in re.findall(pattern, text)]
+        ok = bool(accs) and max(accs) >= limit
+        print(f"  [{'ok' if ok else 'FAIL'}] (e) {script} {' '.join(args)} on the card: "
+              f"accuracies {accs} (threshold {limit}), {seconds:.1f} s from its start (it ran "
+              f"beside (a))")
+        if not ok:
+            problems.append(f"{script} did not reach {limit}: {accs}")
+        out[label] = dict(accs=accs, seconds=seconds)
+    return out
+
+
+def family_kernel_timings() -> dict:
+    """Each flash family's kernels on its route, timed by phase 2's
+    ``forward_timings`` and ``backward_timings`` at its ``family_shapes``
+    (phases 2 and 2b hold them against the plain versions there): bounds
+    at the real head_dim, though the mma.sync kernels pad 80 and 96 to a
+    128-wide tile."""
+    import torch
+
+    out = {}
+    for name, shapes in family_shapes().items():
+        route = route_of(torch.bfloat16, shapes["forward"][-1])
+        fwd = forward_timings(*shapes["forward"], seed=150, routes=(route,))
+        bwd = backward_timings(*shapes["backward"], seed=160, routes=(route,))
+        out[name] = dict(route=route, forward=fwd, backward=bwd)
+        ms, err = bwd["ms"], bwd["err"]
+        print(f"  {name} kernels on {route}: forward at {shape_text(shapes['forward'])} "
+              f"{fwd['ms'][route]:.4f} ms (bound {fwd['bound_ms']:.4f} ms, {fwd['bound_by']}, "
+              f"{100 * fwd['bound_ms'] / fwd['ms'][route]:.1f} %), plain {fwd['plain_ms']:.3f} "
+              f"ms, SDPA {fwd['library_ms']:.4f} ms, max|dout| {fwd['err'][route]:.3e}; "
+              f"backward at {shape_text(shapes['backward'])}: dK/dV {ms[route]:.4f} ms (bound "
+              f"{bwd['dkdv_bound'][0]:.4f}, {100 * bwd['dkdv_bound'][0] / ms[route]:.1f} %), dQ "
+              f"{ms['dq ' + route]:.4f} ms (bound {bwd['dq_bound'][0]:.4f}, "
+              f"{100 * bwd['dq_bound'][0] / ms['dq ' + route]:.1f} %), plain "
+              f"{bwd['plain_ms']:.3f} ms, SDPA backward ({bwd['backend']}) "
+              f"{bwd['library_ms']:.4f} ms, max|dk,dv| {err[route]:.3e}, max|dq| "
+              f"{err['dq ' + route]:.3e}")
+        free_cuda()
+    return out
+
+
+def phase_families() -> dict:
+    """Phase 14: the model families of A9 at their published widths (see
+    the module docstring). Returns the numbers and the flash launches of
+    (b)-(d), which the kernels' line carries."""
+    t_phase = time.perf_counter()
+    problems = []
+    # (e)'s example scripts run on the card beside (a)'s untimed exactness
+    # checks, and are collected after it, before any timed part starts.
+    scripts = [start_script(path, args) for path, args, *_ in FAMILY_EXAMPLES]
+    print("  (a) exactness at f32, 2 layers at the published widths")
+    exact = {name: family_exactness(name, problems) for name in FAMILY_MODELS}
+    scripts = [finish_script(started, FAMILIES["script_timeout"]) for started in scripts]
+    print(f"  (b, c) full-width forwards and batch-1 decode, bf16 (t = "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+    full = {name: family_full_width(name, problems) for name in FAMILY_MODELS}
+    print(f"  (d) 2-layer train steps (t = {time.perf_counter() - t_phase:.1f} s)")
+    train = {name: family_train(name, problems) for name in ("gptj", "phi")}
+    # The launches of (b)'s timed forwards and (d)'s steps, by kernel.
+    counts = {key: sum(r["counts"][key] for r in (*full.values(), *train.values()))
+              for key in read_counts()}
+    print(f"  (e) BERT-base, ResNet-50 and the port's example scripts (t = "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+    small = small_models(problems, scripts)
+    print(f"  the kernels at the families' shapes (t = {time.perf_counter() - t_phase:.1f} s)")
+    timings = family_kernel_timings()
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 14: {seconds:.1f} s")
+    if problems:
+        fail("phase 14: " + "; ".join(problems))
+    return dict(exact=exact, full=full, train=train, small=small, timings=timings,
+                counts=counts, seconds=seconds)
+
+
+def stage(title: str, t0: float = time.perf_counter()):
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{title} (t = {time.perf_counter() - t0:.0f} s)", flush=True)
+
+
 def main():
     import torch
 
@@ -4437,78 +5004,82 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("== 1. environment and build")
+    stage("== 1. environment and build")
     phase_environment()
-    print("== 2. flash_fwd vs flash_fwd_reference")
+    stage("== 2. flash_fwd vs flash_fwd_reference")
     forward = phase_kernels()
-    print("== 2b. flash_bwd vs flash_bwd_reference")
+    stage("== 2b. flash_bwd vs flash_bwd_reference")
     backward = phase_backward()
-    print("== 3. Llama-3-8B forward")
+    stage("== 3. Llama-3-8B forward")
     model, policy, gen = build_model()
     launches_8b = phase_forward(model, policy, gen)
-    print("== 4. generate")
+    stage("== 4. generate")
     reset_counts()
     phase_generate(model, gen)
     if any(read_counts().values()):
         fail("the cached generate path launched a flash kernel; its attention is the einsum core")
-    print("== 4b. speculative and beam-search decoding")
+    stage("== 4b. speculative and beam-search decoding")
     reset_counts()
     phase_speculative(model, gen)
     if any(read_counts().values()):
         fail("a speculative or beam-search decoder launched a flash kernel; its attention is "
              "the einsum core")
-    print("== 4c. the serving engine")
+    stage("== 4c. the serving engine")
     reset_counts()
     phase_serving(model)
     serving_counts = read_counts()
     if any(serving_counts.values()):
         fail("the serving engine launched a flash kernel; its attention is the einsum core")
-    print("== 4d. speculative, quantized and multi-tenant serving")
+    stage("== 4d. speculative, quantized and multi-tenant serving")
     reset_counts()
     phase_serving_extras(model)
     extras_counts = read_counts()
     if any(extras_counts.values()):
         fail("4d launched a flash kernel; the serving path's attention is the einsum core")
-    print("== 4e. the serving fleet: router, supervisor, chaos, HTTP gateway, loadgen")
+    stage("== 4e. the serving fleet: router, supervisor, chaos, HTTP gateway, loadgen")
     reset_counts()
     phase_fleet(model)
     fleet_counts = read_counts()
     if any(fleet_counts.values()):
         fail("4e launched a flash kernel; the serving path's attention is the einsum core")
-    print("== 4f. big-model inference: device maps, host and disk tiers, streamed forward")
+    stage("== 4f. big-model inference: device maps, host and disk tiers, streamed forward")
     reset_counts()
     phase_big_model(model, gen)
     big_model_counts = read_counts()
-    print("== 13. tensor-parallel serving slices at tp 1: exactness, full depth, HTTP fleet, "
+    stage("== 13. tensor-parallel serving slices at tp 1: exactness, full depth, HTTP fleet, "
           "launched")
     reset_counts()
     phase_tp_serving(model)
     tp_serving_counts = read_counts()
     if any(tp_serving_counts.values()):
         fail("phase 13 launched a flash kernel; the serving path's attention is the einsum core")
-    print("== 5. where the device time goes")
+    stage("== 5. where the device time goes")
     phase_profile(model, gen)
     layers_8b = model.config.num_hidden_layers
     del model, gen
     free_cuda()
-    print("== 6. train (tier-1 llama, bf16 over f32 masters)")
+    stage("== 6. train (tier-1 llama, bf16 over f32 masters)")
     result, counts, check_counts = phase_train()
-    print("== 7. where the device time of a train step goes")
+    stage("== 7. where the device time of a train step goes")
     phase_train_profile()
-    print("== 8. the training loop: packed sequences, dots remat, save/load, resume")
+    stage("== 8. the training loop: packed sequences, dots remat, save/load, resume")
     loop_counts, loop_microbatches = phase_loop()
     free_cuda()
-    print("== 9. several processes: env, test, collectives and the launched trainer over NCCL")
+    stage("== 9. several processes: env, test, collectives and the launched trainer over NCCL")
     mp = phase_multiprocess(result)
     free_cuda()
-    print("== 10. sharded training state: FSDP launched over NCCL, optimizer offload")
+    stage("== 10. sharded training state: FSDP launched over NCCL, optimizer offload")
     sharded = phase_sharded(result)
     free_cuda()
-    print("== 11. device meshes: tp/pp plugins, ring, ulysses, HYBRID_SHARD; pipelined inference")
+    stage("== 11. device meshes: tp/pp plugins, ring, ulysses, HYBRID_SHARD; pipelined inference")
     mesh = phase_mesh(result)
     free_cuda()
-    print("== 12. Mixture-of-Experts at Mixtral-8x7B widths: forward, generate, --ep 1 trainer")
+    stage("== 12. Mixture-of-Experts at Mixtral-8x7B widths: forward, generate, --ep 1 trainer")
     moe = phase_moe()
+    free_cuda()
+    stage("== 14. the model families: GPT-2 XL, Phi-2, GPT-J-6B, BLOOM-560m, GPT-NeoX-20B, "
+          "OPT-30B; BERT-base, ResNet-50, the port's examples")
+    families = phase_families()
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -4534,11 +5105,41 @@ def main():
         entry["moe_launches"] = moe["counts"][key]
         entry["moe_launches_per_step"] = moe["train_counts"][key] / moe["steps"]
         entry["moe_path"] = MOE_PATH
+        add_family_entries(entry, key, families)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def main_families():
+    """Phase 14 alone. Builds the kernels first, and checks the cases of
+    phases 2 and 2b at D=80 and at the families' shapes: the families'
+    forwards and train steps run the flash kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    family_labels = {case[0] for case in family_cases()}
+    for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
+        if D == 80 or label in family_labels:
+            q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
+            check_forward(label, q, k, v, seg, kw)
+            check_backward(label, q, k, v, seg, kw, seed=400 + i)
+    families = phase_families()
+    print(json.dumps({"families": {
+        "full": {n: {k: f[k] for k in ("ms", "tokens_per_s", "peak_gib", "route", "launches",
+                                       "decode_tokens_per_s", "layers")}
+                 for n, f in families["full"].items()},
+        "train": {n: {k: t[k] for k in ("step_ms", "peak_gib", "route")}
+                  for n, t in families["train"].items()},
+        "small": families["small"], "timings": families["timings"],
+        "counts": families["counts"], "seconds": families["seconds"]}}))
 
 
 def main_tp_serving():
@@ -4722,6 +5323,35 @@ def main_moe():
         "streamed": {k: moe["streamed"][k] for k in ("ms", "rel_l2", "equal", "load_s")},
         "counts": moe["counts"],
         "seconds": moe["seconds"]}}))
+
+
+def add_family_entries(entry: dict, key: str, families: dict):
+    """Phase 14 on one kernel's entry: its launches in the families'
+    timed full-width forwards and train steps, and, for each family whose
+    shape takes this kernel's route, its timing there (``main_path``'s
+    keys) with the family's own launches."""
+    entry["families_launches"] = families["counts"][key]
+    entry["families_path"] = FAMILY_PATH
+    route = "wgmma" if entry["name"].endswith("_sm90") else "mma.sync"
+    kind = ("forward" if entry["name"].startswith("flash_fwd") else
+            "dq" if "_dq" in entry["name"] else "dkdv")
+    rows = []
+    for name, shapes in family_shapes().items():
+        timing = families["timings"][name]
+        if timing["route"] != route:
+            continue
+        t = timing["forward" if kind == "forward" else "backward"]
+        ms_key = f"dq {route}" if kind == "dq" else route
+        bound_ms, bound_by = ((t["bound_ms"], t["bound_by"]) if kind == "forward"
+                              else t[f"{kind}_bound"])
+        ran = families["full"] if kind == "forward" else families["train"]
+        rows.append(dict(family=FAMILY_LABELS[name],
+                         shape=shape_text(shapes["forward" if kind == "forward" else "backward"]),
+                         ms=t["ms"][ms_key], plain_ms=t["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=t["library_ms"],
+                         max_abs_err=t["err"][ms_key],
+                         launches=ran[name]["counts"][key] if name in ran else 0))
+    entry["families"] = rows
 
 
 TRAIN_PATH = "tier-1 train steps (phase 6)"

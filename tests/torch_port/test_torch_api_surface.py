@@ -53,12 +53,8 @@ MISSING_OK = {
         "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
     "accelerate_tpu.generation.seq2seq_generate": ("A9", "comes with T5"),
     "accelerate_tpu.big_modeling.StreamedModel.seq2seq_generate": ("A9", "comes with T5"),
-    **{f"accelerate_tpu.models.{name}": ("A9", "the small models and the other families")
-       for name in ("bert.BertConfig", "bert.BertForSequenceClassification",
-                    "bert.classification_loss", "bloom.BloomConfig", "bloom.BloomForCausalLM",
-                    "gpt2.GPT2Config", "gpt2.GPT2LMHeadModel", "resnet.ResNet",
-                    "resnet.ResNetConfig", "simple.MLP", "simple.RegressionModel",
-                    "t5.T5Config", "t5.T5ForConditionalGeneration", "t5.seq2seq_lm_loss",
+    **{f"accelerate_tpu.models.{name}": ("A9", "T5 and ViT")
+       for name in ("t5.T5Config", "t5.T5ForConditionalGeneration", "t5.seq2seq_lm_loss",
                     "vit.ViTConfig", "vit.ViTForImageClassification")},
     **{f"accelerate_tpu.ops.quant.{name}": ("A9", "the fp8 path")
        for name in ("Fp8Dense", "fp8_matmul", "fp8_meta_mask", "has_fp8_meta",
@@ -67,7 +63,13 @@ MISSING_OK = {
         "JAX-only", "flax's init of a parameter pytree; a torch module is built with its "
         "weights (a generator, or the meta device)")
        for name in ("llama.LlamaForCausalLM", "llama.PipelinedLlamaForCausalLM",
-                    "mixtral.MixtralForCausalLM")},
+                    "mixtral.MixtralForCausalLM", "gpt2.GPT2LMHeadModel", "opt.OPTForCausalLM",
+                    "gptj.GPTJForCausalLM", "gpt_neox.GPTNeoXForCausalLM", "phi.PhiForCausalLM",
+                    "bloom.BloomForCausalLM", "bert.BertForSequenceClassification",
+                    "simple.MLP")},
+    "accelerate_tpu.models.resnet.ResNet.init_variables": (
+        "JAX-only", "flax's init of the params and batch_stats collections; the torch module "
+                    "holds its parameters and its running statistics as buffers"),
     "accelerate_tpu.accelerator.Accelerator.next_rng_key": ("JAX-only", "a JAX PRNG key"),
     "accelerate_tpu.adapters.lora.LoRATrainState.train_params": ("JAX-only", _PYTREE),
     "accelerate_tpu.optimizer.AcceleratedOptimizer.accumulate_grads": (
@@ -137,8 +139,6 @@ KEYWORDS_OK = [
      "save_array_tree's background write (a pytree helper)"),
     ("accelerate_tpu.big_modeling.BlockSpec", ("stage",), "A9",
      "encoder and decoder stages come with T5"),
-    ("accelerate_tpu.big_modeling.StreamedModel", ("position_bound",), "A9",
-     "comes with the learned-position families"),
     ("accelerate_tpu.utils.hf_interop.export_hf_state_dict", ("config",), "A9",
      "comes with vit"),
     ("accelerate_tpu.utils.hf_interop.convert_hf_state_dict", ("to_numpy",), "JAX-only",
@@ -182,15 +182,22 @@ KEYWORDS_OK = [
      _ABSTRACT),
     ("accelerate_tpu.models.llama.causal_lm_loss", ("apply_fn",), "JAX-only",
      "a flax apply function; the port's loss takes the model"),
-    ("accelerate_tpu.models.llama.update_kv_cache_and_attend", ("alibi_slopes",), "A9",
-     "comes with bloom"),
     *[(f"accelerate_tpu.models.{name}", ("parent", "name"), "JAX-only",
        "flax's module tree plumbing; a torch module holds its submodules")
       for name in ("mixtral.MixtralSparseMLP", "mixtral.MixtralBlock",
                    "mixtral.MixtralForCausalLM", "llama.RMSNorm", "llama.LlamaAttention",
                    "llama.LlamaMLP", "llama.LlamaBlock", "llama.LlamaModel",
-                   "llama.LlamaForCausalLM")],
+                   "llama.LlamaForCausalLM", "gpt2.GPT2Block", "gpt2.GPT2LMHeadModel",
+                   "opt.OPTBlock", "opt.OPTForCausalLM", "gptj.GPTJBlock",
+                   "gptj.GPTJForCausalLM", "gpt_neox.GPTNeoXBlock",
+                   "gpt_neox.GPTNeoXForCausalLM", "phi.PhiBlock", "phi.PhiForCausalLM",
+                   "bloom.BloomBlock", "bloom.BloomForCausalLM", "bert.BertSelfAttention",
+                   "bert.BertLayer", "bert.BertEncoder", "bert.BertForSequenceClassification",
+                   "resnet.ResNet", "resnet.BottleneckBlock", "resnet.BasicBlock",
+                   "simple.MLP", "simple.RegressionModel")],
     ("accelerate_tpu.models.mixtral.mixtral_lm_loss", ("apply_fn",), "JAX-only",
+     "a flax apply function; the port's loss takes the model"),
+    ("accelerate_tpu.models.bert.classification_loss", ("apply_fn",), "JAX-only",
      "a flax apply function; the port's loss takes the model"),
 ]
 

@@ -37,7 +37,8 @@ def imported_modules(path: Path):
 
 
 def port_sources():
-    return sorted(REPO.joinpath("accelerate_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(REPO.joinpath("accelerate_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + [REPO / "examples" / f"{name}_example_torch.py" for name in ("nlp", "cv")])
 
 
 def test_forbidden_matches_only_the_jax_side():
@@ -63,6 +64,10 @@ def test_no_source_imports_jax_or_the_jax_package():
     for name in ("__init__", "lora", "registry", "quantize"):
         assert f"accelerate_tpu_torch/adapters/{name}.py" in scanned, name
     assert "accelerate_tpu_torch/utils/quantization.py" in scanned
+    for name in ("simple", "bert", "resnet", "gpt2", "opt", "gptj", "gpt_neox", "phi", "bloom"):
+        assert f"accelerate_tpu_torch/models/{name}.py" in scanned, name
+    for name in ("nlp", "cv"):
+        assert f"examples/{name}_example_torch.py" in scanned, name
     for name in ("launchers", "local_sgd", "utils/environment", "utils/imports", "utils/other",
                  "utils/versions", "commands/launch", "commands/env", "commands/test",
                  "commands/config/config_args", "test_utils/__init__", "test_utils/training",
