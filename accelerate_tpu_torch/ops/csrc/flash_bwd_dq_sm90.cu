@@ -1,7 +1,9 @@
 // Flash-attention dQ backward kernel for Hopper (sm_90a) on wgmma and TMA,
 // written by hand: the route of 16-bit inputs at head_dim 64 and 128
-// (flash_cuda._wgmma_route), beside flash_bwd_dkdv_sm90.cu on the same
-// route. Everything else takes flash_bwd.cu's flash_bwd_dq_kernel.
+// (flash_cuda._wgmma_route("dq", ...)). float32 inputs and every other
+// head_dim (80, 96 and 256 among them, until this kernel takes them) take
+// flash_bwd.cu's flash_bwd_dq_kernel, whichever route the call's dK/dV
+// kernel takes (flash_bwd_dkdv_sm90.cu also takes 80, 96 and 256).
 //
 // Replaces the TPU kernel accelerate_tpu/ops/flash_pallas.py::_bwd_dq_kernel
 // (launched by _flash_bwd): dQ += dS K over the k band (flash_pallas._k_band),
@@ -366,7 +368,8 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float16; D is 64 or 128. The caller has checked
+// dtype: 1 = bfloat16, 2 = float16; D is 64 or 128, and any other D (80,
+// 96 and 256 among them) is refused. The caller has checked
 // shapes, types, contiguity and 16-byte alignment. Returns 0, a cudaError_t,
 // or a tensor-map encoding failure (flash_bwd_dq_sm90_error_string says
 // which).
@@ -398,10 +401,12 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v, co
   p.causal = causal;
   p.window = window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return D == 64 ? launch<__nv_bfloat16, 64>(p, B, s) : launch<__nv_bfloat16, 128>(p, B, s);
+  switch (D) {
+    case 64: return dtype == 1 ? launch<__nv_bfloat16, 64>(p, B, s) : launch<__half, 64>(p, B, s);
+    case 128:
+      return dtype == 1 ? launch<__nv_bfloat16, 128>(p, B, s) : launch<__half, 128>(p, B, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return D == 64 ? launch<__half, 64>(p, B, s) : launch<__half, 128>(p, B, s);
 }
 
 extern "C" const char* flash_bwd_dq_sm90_error_string(int code) { return error_string(code); }

@@ -1,4 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), written by hand.
+// Flash-attention forward for Hopper (sm_90a), written by hand, on mma.sync:
+// the route of float32 inputs and of head_dims other than 64, 80, 96, 128
+// and 256 (flash_cuda._wgmma_route("forward", ...) is False). 16-bit inputs
+// at those head_dims take flash_fwd_sm90.cu.
 //
 // Replaces the TPU kernel accelerate_tpu/ops/flash_pallas.py::_fwd_kernel
 // (launched by _flash_fwd): tiled online-softmax attention with a running

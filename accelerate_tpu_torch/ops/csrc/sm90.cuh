@@ -21,6 +21,15 @@
 //   the next box (the next 64 output columns). Tiles start 1024-byte
 //   aligned, as the swizzle's 8-row atom needs. One tile may be read both
 //   ways (Q in dK/dV, K in dQ).
+// - A head_dim that is not a multiple of 64 (80, 96) ends in one tail panel
+//   of D % 64 columns (16 or 32) after its 64-column panels, under the
+//   widest swizzle its rows take: 32 bytes for 16 columns, 64 bytes for 32
+//   (`Panels`). Its rows are 32 or 64 bytes, so a K-major k16 slice steps a
+//   whole row or half of one, SBO is 8 of its rows, and an MN-major k16
+//   slice steps 16 of them. A product whose N is D (O += P.V, dV += P^T.dO,
+//   dK += dS^T.Q) then runs as one n64/n128 product over the 64-column
+//   panels and one n16/n32 product over the tail (`wgmma_rs_d`): the
+//   accumulators and the products cover D columns, never D rounded up.
 // - wgmma m64nNk16 accumulators follow mma.sync's m16n8 layout per warp:
 //   warp w of the warpgroup owns rows 16w..16w+15; lane 4g+t holds d[4i],
 //   d[4i+1] at row g, columns 8i+2t, 8i+2t+1 and d[4i+2], d[4i+3] at row
@@ -127,13 +136,22 @@ __device__ __forceinline__ int warp_in_warpgroup() {
   return __shfl_sync(0xffffffffu, (static_cast<int>(threadIdx.x) / 32) % 4, 0);
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
+// Shared-memory matrix descriptor of a panel whose rows are `row_bytes`
+// wide (128, 64 or 32), under the swizzle of that width (layout types 1, 2
+// and 3).
+__device__ __forceinline__ uint64_t desc_swizzled(const void* smem, uint32_t lbo_bytes,
+                                                  uint32_t sbo_bytes, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
   const uint32_t addr = smem_u32(smem);
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) |
-         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFFu) << 32) | (layout << 62);
+}
+
+// The 128-byte swizzle's descriptor (a 64-column panel).
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return desc_swizzled(smem, lbo_bytes, sbo_bytes, 128);
 }
 
 // Offset, in descriptor units, of k16 slice `kk` of a K-major tile of
@@ -369,6 +387,61 @@ __device__ __forceinline__ void wgmma_rs_m64n128_f16(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// The narrow products of a tail panel (N = 16 or 32), A from registers.
+__device__ __forceinline__ void wgmma_rs_m64n16_bf16(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n16_f16(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32_bf16(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n32_f16(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
@@ -385,13 +458,124 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if constexpr (N == 64) wgmma_rs_m64n64_bf16(d, a, desc_b, scale_d);
-    else wgmma_rs_m64n128_bf16(d, a, desc_b, scale_d);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma_rs: N is 16, 32, 64 or 128");
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (N == 16) {
+    if constexpr (kBf16) wgmma_rs_m64n16_bf16(d, a, desc_b, scale_d);
+    else wgmma_rs_m64n16_f16(d, a, desc_b, scale_d);
+  } else if constexpr (N == 32) {
+    if constexpr (kBf16) wgmma_rs_m64n32_bf16(d, a, desc_b, scale_d);
+    else wgmma_rs_m64n32_f16(d, a, desc_b, scale_d);
+  } else if constexpr (N == 64) {
+    if constexpr (kBf16) wgmma_rs_m64n64_bf16(d, a, desc_b, scale_d);
+    else wgmma_rs_m64n64_f16(d, a, desc_b, scale_d);
   } else {
-    if constexpr (N == 64) wgmma_rs_m64n64_f16(d, a, desc_b, scale_d);
+    if constexpr (kBf16) wgmma_rs_m64n128_bf16(d, a, desc_b, scale_d);
     else wgmma_rs_m64n128_f16(d, a, desc_b, scale_d);
+  }
+}
+
+// Entries [kOff, kOff + N) of a register array, as an array of their own
+// (constant offsets: the entries stay in registers).
+template <int kOff, int N, int M>
+__device__ __forceinline__ float (&part(float (&d)[M]))[N] {
+  static_assert(kOff + N <= M, "part: out of range");
+  return *reinterpret_cast<float(*)[N]>(&d[kOff]);
+}
+
+// How a D-wide tile lies in shared memory: kFull panels of 64 columns under
+// the 128-byte swizzle, then, where D % 64 != 0, a tail panel of kTail
+// columns (16 or 32) under the swizzle of its row width. Each panel holds
+// the tile's `rows` rows; the tail starts kFull * rows * 128 bytes in, a
+// multiple of 1024.
+template <int D>
+struct Panels {
+  static constexpr int kFull = D / 64;
+  static constexpr int kTail = D % 64;
+  static constexpr int kTailRow = kTail * 2;  // bytes of a tail row
+  static_assert(kTail == 0 || kTail == 16 || kTail == 32, "D % 64 is 0, 16 or 32");
+  static_assert(D % 16 == 0 && D <= 256, "D is a multiple of 16 up to 256");
+};
+
+// One D-wide tile of `rows` rows into `dst`, panel after panel (a box of
+// `map` each, then one of `tail`), all completing on `bar`.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst, const CUtensorMap* map,
+                                              const CUtensorMap* tail, uint64_t* bar, int rows,
+                                              int c1, int c2, int c3) {
+  using P = Panels<D>;
+#pragma unroll
+  for (int x = 0; x < P::kFull; ++x) {
+    tma_load_4d(dst + x * rows * 128, map, bar, 64 * x, c1, c2, c3);
+  }
+  if constexpr (P::kTail > 0) {
+    tma_load_4d(dst + P::kFull * rows * 128, tail, bar, 64 * P::kFull, c1, c2, c3);
+  }
+}
+
+// The two descriptors of a tile, read K-major or MN-major: its 64-column
+// panels' and its tail's (0 where D % 64 == 0).
+struct KDesc {
+  uint64_t main, tail;
+};
+
+// `row0` (a multiple of 8) starts the operand at that row of the tile, as
+// one warpgroup's 64 rows of a 128-row tile.
+template <int D>
+__device__ __forceinline__ KDesc kmajor_descs(const uint8_t* tile, int rows, int row0 = 0) {
+  using P = Panels<D>;
+  KDesc d{desc_sw128(tile + row0 * 128, 16, 1024), 0};
+  if constexpr (P::kTail > 0) {
+    d.tail = desc_swizzled(tile + P::kFull * rows * 128 + row0 * P::kTailRow, 16,
+                           8 * P::kTailRow, P::kTailRow);
+  }
+  return d;
+}
+
+// K-major k16 slice `kk` (unrolled, so constant) of a D-wide tile of `rows`
+// rows: a step inside the 64-column panels, or 32 bytes a slice in the tail.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_slice(const KDesc& d, int kk, int rows) {
+  constexpr int kMain = 4 * Panels<D>::kFull;
+  if (kk < kMain) return d.main + kmajor_step(kk, rows);
+  return d.tail + static_cast<uint64_t>(((kk - kMain) * 32) >> 4);
+}
+
+// The two MN-major descriptors of a tile read as the B operand of a
+// product whose N is D: LBO = one panel (the next 64 columns), SBO = 8 rows.
+template <int D>
+__device__ __forceinline__ KDesc mnmajor_descs(const uint8_t* tile, int rows) {
+  using P = Panels<D>;
+  KDesc d{desc_sw128(tile, rows * 128, 1024), 0};
+  if constexpr (P::kTail > 0) {
+    d.tail = desc_swizzled(tile + P::kFull * rows * 128, rows * P::kTailRow, 8 * P::kTailRow,
+                           P::kTailRow);
+  }
+  return d;
+}
+
+// acc += A . B over N = D columns, for k16 slice `kk` of the contraction:
+// A the register fragment `a`, B the MN-major tile of `d`: one n64 or n128
+// product over the 64-column panels (two n128 at D=256), then one n16 or
+// n32 product over the tail.
+template <typename T, int D>
+__device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                           const KDesc& d, int kk, int rows) {
+  using P = Panels<D>;
+  const uint64_t main = d.main + mnmajor_step(kk);
+  static_assert(P::kFull == 1 || P::kFull == 2 || P::kFull == 4, "D is 64-127, 128-191 or 256");
+  if constexpr (P::kFull == 1) {
+    wgmma_rs<T, 64>(part<0, 32>(acc), a, main, 1);
+  } else {
+    wgmma_rs<T, 128>(part<0, 64>(acc), a, main, 1);
+    if constexpr (P::kFull == 4) {
+      wgmma_rs<T, 128>(part<64, 64>(acc), a, main + static_cast<uint64_t>((2 * rows * 128) >> 4),
+                       1);
+    }
+  }
+  if constexpr (P::kTail > 0) {
+    wgmma_rs<T, P::kTail>(part<32 * P::kFull, P::kTail / 2>(acc), a,
+                          d.tail + static_cast<uint64_t>((kk * 16 * P::kTailRow) >> 4), 1);
   }
 }
 
@@ -433,23 +617,39 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a contiguous 16-bit [B, S, heads, D] tensor (dtype 1 =
-// bfloat16, 2 = float16) in boxes of 64 columns x `rows` rows of one head,
-// 128-byte swizzle, rows past S zero-filled. Returns 0 or an error code.
+// bfloat16, 2 = float16) in boxes of `cols` columns (64, 32 or 16) x `rows`
+// rows of one head, under the swizzle of the box's row width (128, 64 or 32
+// bytes), rows past S zero-filled. Returns 0 or an error code.
 inline int make_map_bshd(CUtensorMap* map, const void* ptr, int dtype, int B, int S, int heads,
-                         int D, int rows) {
+                         int D, int rows, int cols = 64) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kEncodeError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
       const_cast<void*>(ptr), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// The maps of a D-wide tensor: `map` for its 64-column panels and, where
+// D % 64 != 0, `tail` for its tail panel.
+template <int D>
+inline int make_maps_bshd(CUtensorMap* map, CUtensorMap* tail, const void* ptr, int dtype, int B,
+                          int S, int heads, int rows) {
+  int err = make_map_bshd(map, ptr, dtype, B, S, heads, D, rows);
+  if (err == 0 && Panels<D>::kTail > 0) {
+    err = make_map_bshd(tail, ptr, dtype, B, S, heads, D, rows, Panels<D>::kTail);
+  }
+  return err;
 }
 
 inline const char* error_string(int code) {

@@ -16,18 +16,23 @@ their plain PyTorch versions, and the autograd function that joins them.
   ``_flash_bhsd_seg``: forward through :func:`flash_fwd`, backward through
   :func:`flash_bwd`.
 
-Two routes, picked by :func:`_wgmma_route` from the dtype and head_dim
-alone, before any launch: 16-bit inputs at head_dim 64 or 128 take the
-``wgmma`` kernels (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkdv_sm90.cu``,
-``csrc/flash_bwd_dq_sm90.cu``: TMA into shared-memory rings under mbarriers,
-two warpgroups of products); everything else (float32, head_dim 16..256
-otherwise) takes the ``mma.sync`` kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``). A backward call runs dK/dV and dQ on one route.
+Two routes for each kernel, picked by :func:`_wgmma_route` from the kernel,
+the dtype and the head_dim alone, before any launch. 16-bit inputs take the
+``wgmma`` kernels (TMA into shared-memory rings under mbarriers, two
+warpgroups of products) at the head_dims each was built for: the forward
+(``csrc/flash_fwd_sm90.cu``) and dK/dV (``csrc/flash_bwd_dkdv_sm90.cu``) at
+64, 80, 96, 128 and 256, dQ (``csrc/flash_bwd_dq_sm90.cu``) at 64 and 128.
+Everything else (float32, and the other head_dims from 16 to 256) takes the
+``mma.sync`` kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). A
+backward call runs dK/dV and then dQ, each on its own route, one after the
+other on the current stream; both read the same ``lse`` and ``delta``, so
+at head_dim 80, 96 and 256 in 16 bits dK/dV runs on ``wgmma`` and dQ on
+``mma.sync``.
 What bounds them: at the forward path's shape (Llama-3-8B widths, B=4,
 S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB moved, and at
 the training shape (B=8, S=1024, H=16, G=8, D=128) the backward's two
 kernels do ~69 and ~52 GFLOP, each over ~135 MB: the tensor-core rate
-bounds all of them; see the sources' headers.
+bounds all of them, at every head_dim; see the sources' headers.
 
 For a CUDA tensor each wrapper launches its kernels or raises: a failed
 build or launch is never retried on the other route. Only a tensor on the
@@ -133,15 +138,19 @@ _LAUNCHERS = {
     "flash_bwd_dq_sm90": {"flash_bwd_dq_sm90": 8},
 }
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
-_WGMMA_HEAD_DIMS = (64, 128)
+#: The head_dims each ``wgmma`` kernel was built for (its C launcher refuses
+#: any other): the forward and dK/dV tile 80 and 96 as a 64-column panel and
+#: a 16- or 32-column tail, and 256 in 64-key tiles; dQ takes 64 and 128.
+_WGMMA_HEAD_DIMS = {"forward": (64, 80, 96, 128, 256), "dkdv": (64, 80, 96, 128, 256),
+                    "dq": (64, 128)}
 
 
-def _wgmma_route(dtype, head_dim: int) -> bool:
-    """The route predicate: True sends a call to the ``wgmma`` kernels
-    (16-bit inputs at head_dim 64 or 128, what their 128-byte-swizzled TMA
-    boxes and m64nNk16 products take), False to the ``mma.sync`` kernels.
-    It depends on dtype and head_dim only."""
-    return dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS
+def _wgmma_route(kernel: str, dtype, head_dim: int) -> bool:
+    """The route predicate of one kernel ("forward", "dkdv" or "dq"): True
+    sends a call to its ``wgmma`` kernel (16-bit inputs at a head_dim of
+    ``_WGMMA_HEAD_DIMS[kernel]``), False to its ``mma.sync`` kernel. It
+    depends on the kernel, the dtype and the head_dim only."""
+    return dtype in _WGMMA_DTYPES and head_dim in _WGMMA_HEAD_DIMS[kernel]
 
 
 def _library(name: str):
@@ -206,7 +215,8 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
     and lse [B, H, Sq] f32.
 
     A CUDA tensor launches a Hopper kernel (float32, bfloat16 or float16;
-    ``D % 16 == 0`` and ``D <= 256``; the route by :func:`_wgmma_route`) or
+    ``D % 16 == 0`` and ``D <= 256``; the route by ``_wgmma_route("forward",
+    ...)``) or
     raises; a CPU tensor takes :func:`flash_fwd_reference`.
     ``flash_fwd.launches`` counts the launches of both routes,
     ``flash_fwd.wgmma_launches`` and ``flash_fwd.mma_launches`` each route's."""
@@ -216,7 +226,7 @@ def flash_fwd(q, k, v, causal: bool = True, sm_scale=None, sliding_window=None,
                                    sliding_window=sliding_window, segment_ids=segment_ids,
                                    logit_softcap=logit_softcap)
     _check_cuda("flash_fwd", q, k, v, segment_ids)
-    launch = _fwd_wgmma if _wgmma_route(q.dtype, q.shape[-1]) else _fwd_mma
+    launch = _fwd_wgmma if _wgmma_route("forward", q.dtype, q.shape[-1]) else _fwd_mma
     return launch(q, k, v, causal, sm_scale, sliding_window, segment_ids, logit_softcap)
 
 
@@ -310,9 +320,10 @@ class _BackwardLaunch:
     """The two backward kernels' operands on the card, ready to launch:
     checked and laid out, ``delta = rowsum(dO * O)`` [B, H, Sq] computed in
     f32, the outputs allocated. :meth:`dkdv` and :meth:`dq` each launch one
-    kernel on the current stream, on the route of :func:`_wgmma_route`, and
-    count it; :meth:`dkdv_wgmma`, :meth:`dkdv_mma`, :meth:`dq_wgmma` and
-    :meth:`dq_mma` launch the kernel of one route."""
+    kernel on the current stream, each on its own route (``dkdv_wgmma`` and
+    ``dq_wgmma``, from :func:`_wgmma_route`), and count it;
+    :meth:`dkdv_wgmma`, :meth:`dkdv_mma`, :meth:`dq_wgmma` and :meth:`dq_mma`
+    launch the kernel of one route."""
 
     def __init__(self, q, k, v, out, lse, d_out, causal, sm_scale, sliding_window,
                  segment_ids, logit_softcap):
@@ -333,7 +344,8 @@ class _BackwardLaunch:
                       float(D ** -0.5 if sm_scale is None else sm_scale),
                       float(logit_softcap or 0.0), int(bool(causal)), int(sliding_window or 0))
         self.device = q.device
-        self.wgmma = _wgmma_route(q.dtype, D)
+        self.dkdv_on_wgmma = _wgmma_route("dkdv", q.dtype, D)
+        self.dq_on_wgmma = _wgmma_route("dq", q.dtype, D)
 
     def _launch(self, name, fn, *outputs):
         with torch.cuda.device(self.device):
@@ -341,7 +353,7 @@ class _BackwardLaunch:
                     *self.shape, torch.cuda.current_stream().cuda_stream)
 
     def dkdv(self):
-        (self.dkdv_wgmma if self.wgmma else self.dkdv_mma)()
+        (self.dkdv_wgmma if self.dkdv_on_wgmma else self.dkdv_mma)()
 
     def dkdv_wgmma(self):
         self._launch("flash_bwd_dkdv_sm90", "flash_bwd_dkdv_sm90", *self.grads[1:])
@@ -354,7 +366,7 @@ class _BackwardLaunch:
         flash_bwd.dkdv_mma_launches += 1
 
     def dq(self):
-        (self.dq_wgmma if self.wgmma else self.dq_mma)()
+        (self.dq_wgmma if self.dq_on_wgmma else self.dq_mma)()
 
     def dq_wgmma(self):
         self._launch("flash_bwd_dq_sm90", "flash_bwd_dq_sm90", self.grads[0])
@@ -374,7 +386,7 @@ def flash_bwd(q, k, v, out, lse, d_out, causal: bool = True, sm_scale=None,
     ``d_out``; the options are :func:`flash_fwd`'s.
 
     A CUDA tensor computes ``delta = rowsum(dO * O)`` [B, H, Sq] in f32 and
-    launches the dK/dV kernel, then the dQ kernel, both on the route of
+    launches the dK/dV kernel, then the dQ kernel, each on its own route of
     :func:`_wgmma_route` (no atomics: a repeat call gives bit-identical
     gradients), or raises; a CPU tensor takes :func:`flash_bwd_reference`.
     ``flash_bwd.dkdv_launches`` and ``flash_bwd.dq_launches`` count the

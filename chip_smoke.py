@@ -14,14 +14,18 @@ order; any failure exits non-zero:
 2. kernel vs plain version: ``flash_fwd`` on a case matrix (the training
    and the main-path shapes in bf16; non-causal, window, segments, softcap
    with sm_scale, GQA rep 1/4/8, head_dim 64/80/96/128/256, fp16, fp32, ragged
-   lengths such as S=1000 and B=3 x S=200, and phase 14's families at the
-   forward and 8 x 1024 backward shapes they run) against
-   ``flash_fwd_reference`` on the same inputs, under the tolerances of ``TOLERANCE``, printing each
-   case's route (``wgmma`` for 16-bit inputs at head_dim 64/128, else
-   ``mma.sync``); a repeat launch must be bit-identical. Then, at the
-   training and the main-path shapes, both routes of the forward, its plain
-   version and ``F.scaled_dot_product_attention`` (the yardstick, never used
-   by the port) timed beside the bound.
+   lengths such as S=1000 and B=3 x S=200, phase 14's families at the
+   forward and 8 x 1024 backward shapes they run, and Gemma2-9B's attention,
+   B=4 S=2048 H=16 G=8 D=256 with softcap 50 and sm_scale 256^-0.5, causal
+   and with a 1024 window) against ``flash_fwd_reference`` on the same
+   inputs, under the tolerances of ``TOLERANCE``, printing each case's route
+   (``wgmma`` for 16-bit inputs at head_dim 64/80/96/128/256, else
+   ``mma.sync``: the f32 cases hold ``mma.sync`` at 64 to 256); a repeat
+   launch must be bit-identical. Then, at the training and the main-path
+   shapes, both routes of the forward, each forced and held to the same
+   tolerance with a repeat bit-identical, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick, never used by the
+   port) timed beside the bound.
 3. forward: ``LlamaForCausalLM`` at Llama-3-8B widths and full depth, bf16,
    random weights from a seeded generator, on 4 x 2048 tokens; the flash
    kernel must launch once per layer, on the wgmma route, and the logits
@@ -109,12 +113,14 @@ order; any failure exits non-zero:
    (torch.profiler), and the device's busy share of the wall time.
 
 2b (after 2). backward kernels vs plain version: ``flash_bwd`` (the dK/dV
-   and the dQ kernel of the case's route, counted) on phase 2's case matrix
-   against ``flash_bwd_reference`` on the same inputs under
-   ``BWD_TOLERANCE``; a repeat launch must give bit-identical gradients. At
-   the training and the main-path shapes: the dK/dV and the dQ kernel of
-   each route (the two routes of each in turns), the plain backward and the
-   SDPA backward (the yardstick) timed beside the bounds.
+   kernel and the dQ kernel, each on its own route, counted: 16-bit inputs
+   at head_dim 80, 96 and 256 run dK/dV on wgmma and dQ on ``mma.sync``) on
+   phase 2's case matrix against ``flash_bwd_reference`` on the same inputs
+   under ``BWD_TOLERANCE``; a repeat launch must give bit-identical
+   gradients. At the training and the main-path shapes: the dK/dV and the
+   dQ kernel of each route (the two routes of each in turns, each forced and
+   held to the tolerance), the plain backward and the SDPA backward (the
+   yardstick) timed beside the bounds.
 6. train (the Llama-3-8B model is freed first): the tier-1 model
    (``accelerate_tpu_torch.bench.run_bench``: hidden 2048, 10 layers, bf16
    over f32 masters, AdamW, fused LM-head loss, clip 1.0) for 3 + 20 steps on
@@ -269,20 +275,27 @@ order; any failure exits non-zero:
    positions past the learned table refused before the lookup (the
    streamed model's ``position_bound`` and the resident forward). (b) A
    bf16 forward on 4 x 2048 tokens (GPT-2 XL 8 x 1024, its table's
-   length): ms, tokens/s, peak GiB, the route (wgmma for GPT-2 XL and OPT,
-   mma.sync for GPT-J, GPT-NeoX and Phi), one flash launch a layer (BLOOM
-   none). (c) batch-1 ``generate`` from a 512-token prompt, 32 new:
-   tokens/s, a repeat identical. (d) 2 layers at GPT-J's and Phi-2's
-   widths, 8 x 1024, bf16 over f32 masters, fused AdamW, clip 1.0,
-   ``compile_train_step``: 3 + 10 steps, step ms and peak, 2 + 2 + 2
-   mma.sync launches a step, finite losses, batch 0's falling. (e) a
+   length): ms, tokens/s, peak GiB, the route (wgmma for every flash
+   family: head_dim 64, 80, 96, 128 and 256), one flash launch a layer
+   (BLOOM none); then Gemma2-9B (``LlamaConfig.gemma2_9b``, 42 layers,
+   head_dim 256, softcap 50, ``query_pre_attn_scalar``) the same way, 42
+   wgmma launches, and at 2 layers in bf16 on 1 x 1024 (layer 0's window
+   cut to 512) each layer's attention through the flash kernel against the
+   einsum core within 5e-2 relative L2. (c) batch-1 ``generate`` from a
+   512-token prompt, 32 new: tokens/s, a repeat identical. (d) 2 layers at
+   GPT-J's and Phi-2's widths, 8 x 1024, bf16 over f32 masters, fused
+   AdamW, clip 1.0, ``compile_train_step``: 3 + 10 steps, step ms and peak,
+   2 wgmma forward + 2 wgmma dK/dV + 2 mma.sync dQ launches a step, finite
+   losses, batch 0's falling. (e) a
    BERT-base step (32 x 128, bf16) and a ResNet-50 step (64 x 224^2,
    channels-last, bf16, batch statistics): ms and samples or images/s; the
    port's ``examples/nlp_example_torch.py`` (5 epochs) and
    ``cv_example_torch.py`` (1 epoch) as subprocesses on the card, at
-   eval_acc >= 0.8 and acc >= 0.9. Then each family's kernels on its route
-   at its shapes (which phases 2 and 2b hold against the plain versions)
-   timed beside the plain version, SDPA and the bound at the real head_dim.
+   eval_acc >= 0.8 and acc >= 0.9. Then each family's kernels at its
+   shapes (which phases 2 and 2b hold against the plain versions): the
+   forward and dK/dV on both routes, dQ on each route it takes, each forced
+   and held to the tolerances, timed in turns beside the plain version, SDPA
+   and the bound at the real head_dim.
    Prints the phase's seconds. ``main_families()`` runs it alone, with
    phase 2's and 2b's D=80 and family cases.
 
@@ -328,6 +341,10 @@ BWD_TOLERANCE = {"bfloat16": 2e-2, "float16": 4e-3, "float32": 5e-4}
 # 1024 tokens, 16 query heads, 8 kv heads, head_dim 128, causal, bf16.
 TRAIN = dict(B=8, S=1024, H=16, G=8, D=128)
 TRAIN_LABEL = "training shape, tier-1 llama causal"
+# Gemma2-9B's attention shape at phase 14's forward size: B=4 x S=2048, 16
+# query heads, 8 kv heads, head_dim 256.
+GEMMA2_SHAPE = (4, 2048, 16, 8, 256)
+GEMMA2_LABEL = "Gemma2-9B softcap 50 + sm_scale 256^-0.5"
 MAIN_LABEL = "main-path llama3-8b causal"
 PROMPT_LENGTHS = (96, 200, 333, 512)
 NEW_TOKENS = 32
@@ -448,9 +465,25 @@ def phase_environment():
     for name, path in libraries.items():
         log = path.with_suffix(".log")
         lines = log.read_text().splitlines() if log.exists() else []
-        report = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
-        for line in report:
-            print(f"  {name}: {line}")
+        kernel = ""
+        for line in lines:
+            if "Compiling entry function" in line:
+                kernel = ptxas_kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {kernel}: {line.strip()}")
+
+
+def ptxas_kernel_name(line: str) -> str:
+    """``kernel<type, D>`` from a ptxas "Compiling entry function" line's
+    mangled name (e.g. ``flash_fwd_sm90_kernel<bf16, 80>``)."""
+    import re
+
+    mangled = line.split("'")[1] if "'" in line else line
+    found = re.search(r"\d+(flash_\w+?_kernel)I", mangled)
+    dtype = next((t for key, t in (("__nv_bfloat16", "bf16"), ("__half", "fp16"))
+                  if key in mangled), "f32")
+    dims = re.findall(r"Li(\d+)E", mangled)
+    return f"{found.group(1) if found else mangled}<{', '.join([dtype, *dims])}>"
 
 
 def kernel_cases():
@@ -478,14 +511,20 @@ def kernel_cases():
         ("gqa rep 8", 2, 512, 8, 1, 128, bf16, False, {}),
         ("D=64", 2, 384, 4, 2, 64, bf16, False, {}),
         ("D=256", 2, 384, 4, 2, 256, bf16, False, {}),
-        ("D=96 (padded to 128)", 1, 256, 4, 2, 96, bf16, False, {}),
-        ("D=80 (Phi-2's, padded to 128)", 2, 512, 8, 8, 80, bf16, False, {}),
+        ("D=96", 1, 256, 4, 2, 96, bf16, False, {}),
+        ("D=80 (Phi-2's)", 2, 512, 8, 8, 80, bf16, False, {}),
+        ("D=80 window 100 + segments", 1, 384, 4, 2, 80, bf16, True, dict(sliding_window=100)),
+        ("fp16 D=96 softcap 30 + sm_scale 0.1, non-causal", 1, 256, 4, 4, 96, f16, False,
+         dict(causal=False, logit_softcap=30.0, sm_scale=0.1)),
         ("fp16", 2, 512, 8, 2, 128, f16, False, {}),
         ("fp16 D=256 window", 1, 512, 4, 2, 256, f16, False, dict(sliding_window=200)),
         ("fp32", 2, 256, 4, 2, 128, f32, False, {}),
         ("fp32 D=256 softcap window segments", 1, 256, 4, 2, 256, f32, True,
          dict(logit_softcap=30.0, sliding_window=100)),
         ("fp32 non-causal D=64", 1, 256, 4, 1, 64, f32, False, dict(causal=False)),
+        ("fp32 D=80", 1, 256, 4, 2, 80, f32, False, {}),
+        ("fp32 D=96 window 70 + segments", 1, 256, 4, 2, 96, f32, True,
+         dict(sliding_window=70)),
         ("ragged S=200 non-causal", 1, 200, 4, 2, 64, bf16, False, dict(causal=False)),
         ("ragged S=200 causal fp32", 1, 200, 4, 2, 128, f32, False, {}),
         ("S=1000 causal (not a multiple of 128)", 1, 1000, 4, 2, 128, bf16, False, {}),
@@ -496,15 +535,22 @@ def kernel_cases():
         ("fp16 softcap 20 + sm_scale 0.1, D=128", 1, 512, 4, 2, 128, f16, False,
          dict(logit_softcap=20.0, sm_scale=0.1)),
         *family_cases(),
+        # Gemma2-9B's attention (LlamaConfig.gemma2_9b): softcap 50, sm_scale
+        # query_pre_attn_scalar ** -0.5; its 4096 window, cut to 1024 here so
+        # that it cuts at S=2048.
+        (GEMMA2_LABEL, *GEMMA2_SHAPE, bf16, False,
+         dict(causal=True, logit_softcap=50.0, sm_scale=256.0 ** -0.5)),
+        (GEMMA2_LABEL + ", window 1024", *GEMMA2_SHAPE, bf16, False,
+         dict(sliding_window=1024, logit_softcap=50.0, sm_scale=256.0 ** -0.5)),
     ]
 
 
-def route_of(dtype, D) -> str:
-    """The kernel route a forward or backward call of this dtype and
-    head_dim takes (``flash_cuda._wgmma_route``)."""
+def route_of(kernel: str, dtype, D) -> str:
+    """The route kernel ``kernel`` ("forward", "dkdv" or "dq") takes at this
+    dtype and head_dim (``flash_cuda._wgmma_route``)."""
     from accelerate_tpu_torch.ops.flash_cuda import _wgmma_route
 
-    return "wgmma" if _wgmma_route(dtype, D) else "mma.sync"
+    return "wgmma" if _wgmma_route(kernel, dtype, D) else "mma.sync"
 
 
 def in_turns(fns: dict, iters: int = 20) -> dict:
@@ -538,7 +584,8 @@ def check_forward(label, q, k, v, seg, kw):
     excess = (d_out - rtol * ref.float().abs()).max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ok = (torch.isfinite(out.float()).all().item() and excess <= atol and err_lse <= lse_tol)
-    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} ({route_of(dtype, D)}): B={B} "
+    route = route_of("forward", dtype, D)
+    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} ({route}): B={B} "
           f"S={S} H={H} G={G} D={D} {str(dtype).split('.')[-1]} max|dout|={err:.3e} "
           f"max|dlse|={err_lse:.3e} (out {atol:g} + {rtol:g}|ref|, lse {lse_tol:g}); repeat "
           f"launch {'bit-identical' if identical else 'DIFFERS'}")
@@ -589,9 +636,21 @@ def forward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
     args = (q, k, v, True, None, None, None, None)
     launches = {"wgmma": lambda: fc._fwd_wgmma(*args), "mma.sync": lambda: fc._fwd_mma(*args)}
     routes = {n: launches[n] for n in routes}
-    ref, _ = fc.flash_fwd_reference(q, k, v, causal=True)
-    err = {n: (fn()[0].float() - ref.float()).abs().max().item() for n, fn in routes.items()}
-    del ref
+    # Each route forced at this shape, held to TOLERANCE, a repeat identical.
+    ref, ref_lse = fc.flash_fwd_reference(q, k, v, causal=True)
+    atol, rtol, lse_tol = TOLERANCE["bfloat16"]
+    err = {}
+    for name, fn in routes.items():
+        (out, lse), (again, again_lse) = fn(), fn()
+        diff = (out.float() - ref.float()).abs()
+        err[name] = diff.max().item()
+        ok = ((diff - rtol * ref.float().abs()).max().item() <= atol
+              and (lse - ref_lse).abs().max().item() <= lse_tol)
+        if not (ok and torch.equal(out, again) and torch.equal(lse, again_lse)):
+            fail(f"the {name} forward at {shape_text((B, S, H, G, D))} disagrees with the plain "
+                 f"version (max|dout| {err[name]:.3e}) or with a repeat launch")
+        del out, lse, again, again_lse, diff
+    del ref, ref_lse
     ms = in_turns(routes)
     plain_ms = timed_ms(lambda: fc.flash_fwd_reference(q, k, v, causal=True), iters=3, warmup=1)
     # The yardstick: one library call computing the same attention, in its
@@ -648,8 +707,8 @@ def sdpa_backward_yardstick(q, k, v, d_out):
 
 
 def check_backward(label, q, k, v, seg, kw, seed):
-    """``flash_bwd`` (dK/dV, then dQ, both on the case's route, as the
-    counts must show) on one case, with a seeded ``d_out``, against
+    """``flash_bwd`` (dK/dV, then dQ, each on its route, as the counts must
+    show) on one case, with a seeded ``d_out``, against
     ``flash_bwd_reference`` under ``BWD_TOLERANCE``, and a repeat launch
     bit-identical; fails otherwise."""
     import torch
@@ -660,14 +719,14 @@ def check_backward(label, q, k, v, seg, kw, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d_out = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     out, lse = flash_fwd(q, k, v, segment_ids=seg, **kw)
-    route = route_of(dtype, D)
+    route, dq_route = route_of("dkdv", dtype, D), route_of("dq", dtype, D)
     reset_counts()
     grads = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
     torch.cuda.synchronize()
     repeat = flash_bwd(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
     torch.cuda.synchronize()
     counts = read_counts()
-    expected = expected_counts(0, 2, wgmma=route == "wgmma")
+    expected = expected_counts(0, 2, wgmma=route == "wgmma", dq_wgmma=dq_route == "wgmma")
     if counts != expected:
         fail(f"flash_bwd launches {counts} on case {label!r}, expected {expected}")
     refs = flash_bwd_reference(q, k, v, out, lse, d_out, segment_ids=seg, **kw)
@@ -686,8 +745,8 @@ def check_backward(label, q, k, v, seg, kw, seed):
     identical = all(torch.equal(a, b) for a, b in zip(grads, repeat))
     bound = (f"{BWD_TOLERANCE[name]:g} + {BWD_TOLERANCE[name]:g}|ref|" if name == "float32"
              else f"{BWD_TOLERANCE[name]:g} max(max|ref|, 1)")
-    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV and dQ {route}): B={B} "
-          f"S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
+    print(f"  [{'ok' if ok and identical else 'FAIL'}] {label} (dK/dV {route}, dQ {dq_route}): "
+          f"B={B} S={S} H={H} G={G} D={D} {name} {' '.join(report)} (limit "
           f"{bound}); repeat launch {'bit-identical' if identical else 'DIFFERS'}")
     if not ok:
         fail(f"flash_bwd disagrees with flash_bwd_reference on case {label!r}")
@@ -729,11 +788,13 @@ def phase_backward():
     return timings
 
 
-def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
-    """The dK/dV and the dQ kernel of each of ``routes`` at one causal bf16
-    shape, each compared with the plain backward once, then timed (the
-    routes of each kernel in turns) beside the plain backward, SDPA's
-    backward and the bounds."""
+def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync"), dq_routes=None):
+    """The dK/dV kernel of each of ``routes`` and the dQ kernel of each of
+    ``dq_routes`` (default: those of ``routes`` its C launcher takes at this
+    head_dim) at one causal bf16 shape, each forced, held to
+    ``BWD_TOLERANCE`` against the plain backward with a repeat launch
+    bit-identical, then timed (the routes of each kernel in turns) beside
+    the plain backward, SDPA's backward and the bounds."""
     import torch
 
     from accelerate_tpu_torch.ops import flash_cuda as fc
@@ -747,16 +808,26 @@ def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
     refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
     kernels = {"wgmma": (launch.dkdv_wgmma, launch.dq_wgmma),
                "mma.sync": (launch.dkdv_mma, launch.dq_mma)}
-    dq_routes = {f"dq {n}": kernels[n][1] for n in routes}
+    if dq_routes is None:
+        dq_routes = [n for n in routes
+                     if n == "mma.sync" or route_of("dq", torch.bfloat16, D) == "wgmma"]
+    dq_routes = {f"dq {n}": kernels[n][1] for n in dq_routes}
     routes = {n: kernels[n][0] for n in routes}
+    tol = BWD_TOLERANCE["bfloat16"]
     err = {}
-    for name, fn in routes.items():
+    for name, fn, grads, ref in [(n, f, slice(1, 3), refs[1:]) for n, f in routes.items()] + [
+            (n, f, slice(0, 1), refs[:1]) for n, f in dq_routes.items()]:
         fn()
-        err[name] = max((g.float() - r.float()).abs().max().item()
-                        for g, r in zip(launch.grads[1:], refs[1:]))
-    for name, fn in dq_routes.items():
+        first = [g.clone() for g in launch.grads[grads]]
         fn()
-        err[name] = (launch.grads[0].float() - refs[0].float()).abs().max().item()
+        same = all(torch.equal(a, b) for a, b in zip(first, launch.grads[grads]))
+        err[name] = max((g.float() - r.float()).abs().max().item() for g, r in zip(first, ref))
+        ok = all((g.float() - r.float()).abs().max().item()
+                 <= tol * max(r.float().abs().max().item(), 1.0) for g, r in zip(first, ref))
+        if not (ok and same):
+            fail(f"the {name} backward kernel at {shape_text((B, S, H, G, D))} disagrees with the "
+                 f"plain version (max|d| {err[name]:.3e}) or with a repeat launch")
+        del first
     del refs
     ms = in_turns(routes)
     ms.update(in_turns(dq_routes))
@@ -2581,16 +2652,18 @@ def read_counts() -> dict:
             "flash_bwd_dq_mma": flash_bwd.dq_mma_launches}
 
 
-def expected_counts(forward: int, backward: int, wgmma: bool) -> dict:
+def expected_counts(forward: int, backward: int, wgmma: bool, dq_wgmma=None) -> dict:
     """``read_counts`` of ``forward`` forward and ``backward`` backward
-    launches (dK/dV and dQ each), all on one route."""
-    route = {"flash_fwd_sm90": forward, "flash_bwd_dkdv_sm90": backward,
-             "flash_bwd_dq_sm90": backward} if wgmma else {
-        "flash_fwd_mma": forward, "flash_bwd_dkdv_mma": backward, "flash_bwd_dq_mma": backward}
+    launches (dK/dV and dQ each): the forward and dK/dV on the wgmma route
+    when ``wgmma`` (the two share their route predicate), dQ when
+    ``dq_wgmma`` (default: ``wgmma``), else on mma.sync."""
+    dq_wgmma = wgmma if dq_wgmma is None else dq_wgmma
     counts = {"flash_fwd": forward, "flash_fwd_sm90": 0, "flash_fwd_mma": 0,
               "flash_bwd_dkdv": backward, "flash_bwd_dkdv_sm90": 0, "flash_bwd_dkdv_mma": 0,
               "flash_bwd_dq": backward, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_mma": 0}
-    counts.update(route)
+    counts["flash_fwd_sm90" if wgmma else "flash_fwd_mma"] = forward
+    counts["flash_bwd_dkdv_sm90" if wgmma else "flash_bwd_dkdv_mma"] = backward
+    counts["flash_bwd_dq_sm90" if dq_wgmma else "flash_bwd_dq_mma"] = backward
     return counts
 
 
@@ -4489,7 +4562,7 @@ FAMILY_MODELS = {
     "opt": ("opt", "OPTConfig", "OPTForCausalLM", "opt_30b"),
 }
 FAMILY_LABELS = {"gpt2": "GPT-2 XL", "phi": "Phi-2", "gptj": "GPT-J-6B", "bloom": "BLOOM-560m",
-                 "gpt_neox": "GPT-NeoX-20B", "opt": "OPT-30B"}
+                 "gpt_neox": "GPT-NeoX-20B", "opt": "OPT-30B", "gemma2": "Gemma2-9B"}
 FAMILY_PATH = ("model families at published widths (phase 14): full-width forwards (OPT-30B "
                "cut to 16 of 48 layers), the 2-layer GPT-J and Phi-2 train steps")
 
@@ -4554,10 +4627,10 @@ def family_model(name: str, cfg, dtype, seed: int):
     return cls(cfg, device="cuda", dtype=dtype, generator=gen)
 
 
-def family_route(name: str, cfg, dtype) -> str:
-    """The flash route the family's uncached forward takes ("none" for
-    BLOOM, which attends by its ALiBi einsum)."""
-    return "none" if name == "bloom" else route_of(dtype, cfg.head_dim)
+def family_route(name: str, cfg, dtype, kernel: str = "forward") -> str:
+    """The route ``kernel`` takes in the family's uncached forward or its
+    backward ("none" for BLOOM, which attends by its ALiBi einsum)."""
+    return "none" if name == "bloom" else route_of(kernel, dtype, cfg.head_dim)
 
 
 def family_exactness(name: str, problems: list) -> dict:
@@ -4733,6 +4806,98 @@ def family_full_width(name: str, problems: list) -> dict:
                 head_dim=cfg.head_dim, heads=cfg.num_attention_heads, build_s=build_s)
 
 
+def gemma2_full_width(problems: list) -> dict:
+    """(b) Gemma2-9B (``LlamaConfig.gemma2_9b``: head_dim 256, softcap 50,
+    ``query_pre_attn_scalar`` 256, a 4096 window on every other layer) at
+    full depth, 42 layers in bf16 from a seeded generator: a timed forward
+    on 4 x 2048 tokens (the window spans them, so every layer takes the
+    causal kernel), its peak and 42 wgmma forward launches, finite logits.
+    Then at 2 layers in bf16 on 1 x 1024 tokens, layer 0's window cut to
+    512 so that the banded kernel runs: each layer's attention through the
+    flash kernel against the einsum core on the same hidden states (phase
+    12's way), relative L2 within 5e-2 (bf16 rounds the two orders of the
+    sums apart)."""
+    import torch
+
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.gemma2_9b()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(FAMILIES["seed"] + 6)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S = FAMILIES["forward"]
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    layers = cfg.num_hidden_layers
+    with torch.inference_mode():
+        model(ids)  # warm-up at the shape
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = model(ids)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        counts = read_counts()
+        finite = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+            B, S, cfg.vocab_size)
+        del logits
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launched_ok = counts == expected_counts(layers, 0, wgmma=True)
+    del model
+    free_cuda()
+    if not finite:
+        problems.append("gemma2: full-width logits non-finite or misshapen")
+    if not launched_ok:
+        problems.append(f"gemma2: flash launches {counts} in one forward, expected {layers} on "
+                        f"wgmma")
+
+    small = LlamaConfig.gemma2_9b(num_hidden_layers=2, layer_windows=(512, None))
+    model = LlamaForCausalLM(small, device="cuda", dtype=torch.bfloat16, generator=gen).eval()
+    x_ids = ids[:1, :1024]
+    positions = torch.arange(x_ids.shape[1], device="cuda")[None]
+    rel = []
+    with torch.inference_mode():
+        h = model.model.embed_tokens(x_ids) * torch.tensor(small.hidden_size ** 0.5,
+                                                           dtype=torch.bfloat16, device="cuda")
+        reset_counts()
+        for layer in model.model.layers:
+            normed = layer.input_norm(h)
+            flash_out = layer.self_attn(normed, positions).float()
+            small.attention_backend = "einsum"
+            try:
+                einsum_out = layer.self_attn(normed, positions).float()
+            finally:
+                small.attention_backend = "auto"
+            rel.append(((flash_out - einsum_out).norm() / einsum_out.norm()).item())
+            h = layer(h, positions)
+        small_counts = read_counts()
+    del model
+    free_cuda()
+    # Each layer: one flash launch beside its einsum twin, one more in the
+    # layer's own forward.
+    exact_ok = max(rel) <= 5e-2 and small_counts == expected_counts(2 * 2, 0, wgmma=True)
+    if not exact_ok:
+        problems.append(f"gemma2: flash vs einsum attention relative L2 {rel} (limit 5e-2) or "
+                        f"launches {small_counts}")
+    print(f"  [{'ok' if finite and launched_ok and exact_ok else 'FAIL'}] gemma2 (b) Gemma2-9B, "
+          f"{layers} layers ({n_params / 1e9:.3f} B params, built in {build_s:.1f} s), bf16, "
+          f"{B} x {S}: {ms:.1f} ms, {B * S / ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; route "
+          f"wgmma, head_dim {cfg.head_dim}, softcap {cfg.attn_logit_softcapping:g}, flash "
+          f"launches {counts['flash_fwd_sm90']} wgmma of {counts['flash_fwd']} a forward "
+          f"(expected {layers}); 2 layers at 1 x 1024 (layer 0's window 512): flash vs einsum "
+          f"attention relative L2 {', '.join(f'{r:.3e}' for r in rel)} (limit 5e-2), "
+          f"launches {small_counts['flash_fwd_sm90']} wgmma")
+    return dict(ms=ms, tokens_per_s=B * S / ms * 1e3, peak_gib=peak, route="wgmma",
+                counts=counts, layers=layers, n_params=n_params, launches=counts["flash_fwd"],
+                decode_tokens_per_s=None, shape=(B, S), head_dim=cfg.head_dim,
+                heads=cfg.num_attention_heads, build_s=build_s, rel_flash_einsum=rel)
+
+
 def family_train(name: str, problems: list) -> dict:
     """(d) 2 layers at the family's widths, 8 x 1024, bf16 over f32
     masters, fused AdamW, ``causal_lm_loss``, clip 1.0, through
@@ -4771,23 +4936,25 @@ def family_train(name: str, problems: list) -> dict:
     losses = torch.stack(losses).tolist()
     last_of_batch_0 = losses[(steps - 1) // 4 * 4]
     route = family_route(name, cfg, torch.bfloat16)
+    dq_route = family_route(name, cfg, torch.bfloat16, "dq")
     layers = cfg.num_hidden_layers
-    want = expected_counts(layers * steps, layers * steps, wgmma=route == "wgmma")
+    want = expected_counts(layers * steps, layers * steps, wgmma=route == "wgmma",
+                           dq_wgmma=dq_route == "wgmma")
     ok = (counts == want and all(math.isfinite(x) for x in losses)
           and last_of_batch_0 < losses[0])
     print(f"  [{'ok' if ok else 'FAIL'}] {name} (d) {FAMILY_LABELS[name]} widths, {layers} "
           f"layers, {B} x {S}, bf16 over f32 masters: {step_ms:.2f} ms a step, peak "
           f"{peak:.2f} GiB, batch 0's loss {losses[0]:.4f} -> {last_of_batch_0:.4f} (step "
           f"{(steps - 1) // 4 * 4}), last {losses[-1]:.4f}; launches a step "
-          f"fwd {counts['flash_fwd'] / steps:g}, dK/dV {counts['flash_bwd_dkdv'] / steps:g}, "
-          f"dQ {counts['flash_bwd_dq'] / steps:g} on {route}")
+          f"fwd {counts['flash_fwd'] / steps:g} and dK/dV {counts['flash_bwd_dkdv'] / steps:g} "
+          f"on {route}, dQ {counts['flash_bwd_dq'] / steps:g} on {dq_route}")
     if not ok:
         problems.append(f"{name}: train step launches {counts} (expected {want}) or batch "
                         f"0's loss {losses[0]} -> {last_of_batch_0} not finite and falling")
     del model, step, batches
     free_cuda()
     return dict(step_ms=step_ms, peak_gib=peak, losses=losses, counts=counts, steps=steps,
-                route=route, layers=layers)
+                route=route, dq_route=dq_route, layers=layers)
 
 
 def timed_steps(step, batch) -> float:
@@ -4921,31 +5088,38 @@ def small_models(problems: list, scripts: list) -> dict:
 
 
 def family_kernel_timings() -> dict:
-    """Each flash family's kernels on its route, timed by phase 2's
-    ``forward_timings`` and ``backward_timings`` at its ``family_shapes``
-    (phases 2 and 2b hold them against the plain versions there): bounds
-    at the real head_dim, though the mma.sync kernels pad 80 and 96 to a
-    128-wide tile."""
+    """Each flash family's kernels at its ``family_shapes``, every route
+    forced, held to the tolerances and timed in turns by phase 2's
+    ``forward_timings`` and ``backward_timings``: the forward and dK/dV on
+    both routes (wgmma and mma.sync), dQ on each route its C launchers take
+    at the head_dim (mma.sync alone at 80, 96 and 256), beside the plain
+    version, SDPA and the bound at the real head_dim."""
     import torch
 
     out = {}
     for name, shapes in family_shapes().items():
-        route = route_of(torch.bfloat16, shapes["forward"][-1])
-        fwd = forward_timings(*shapes["forward"], seed=150, routes=(route,))
-        bwd = backward_timings(*shapes["backward"], seed=160, routes=(route,))
-        out[name] = dict(route=route, forward=fwd, backward=bwd)
-        ms, err = bwd["ms"], bwd["err"]
-        print(f"  {name} kernels on {route}: forward at {shape_text(shapes['forward'])} "
-              f"{fwd['ms'][route]:.4f} ms (bound {fwd['bound_ms']:.4f} ms, {fwd['bound_by']}, "
-              f"{100 * fwd['bound_ms'] / fwd['ms'][route]:.1f} %), plain {fwd['plain_ms']:.3f} "
-              f"ms, SDPA {fwd['library_ms']:.4f} ms, max|dout| {fwd['err'][route]:.3e}; "
-              f"backward at {shape_text(shapes['backward'])}: dK/dV {ms[route]:.4f} ms (bound "
-              f"{bwd['dkdv_bound'][0]:.4f}, {100 * bwd['dkdv_bound'][0] / ms[route]:.1f} %), dQ "
-              f"{ms['dq ' + route]:.4f} ms (bound {bwd['dq_bound'][0]:.4f}, "
-              f"{100 * bwd['dq_bound'][0] / ms['dq ' + route]:.1f} %), plain "
-              f"{bwd['plain_ms']:.3f} ms, SDPA backward ({bwd['backend']}) "
-              f"{bwd['library_ms']:.4f} ms, max|dk,dv| {err[route]:.3e}, max|dq| "
-              f"{err['dq ' + route]:.3e}")
+        D = shapes["forward"][-1]
+        fwd = forward_timings(*shapes["forward"], seed=150)
+        bwd = backward_timings(*shapes["backward"], seed=160)
+        out[name] = dict(route=route_of("forward", torch.bfloat16, D), forward=fwd, backward=bwd)
+        fms, ms, err = fwd["ms"], bwd["ms"], bwd["err"]
+        dq = " ".join(f"{k[3:]} {v:.4f} ms ({100 * bwd['dq_bound'][0] / v:.1f} %)"
+                      for k, v in ms.items() if k.startswith("dq "))
+        print(f"  {name} kernels, forward at {shape_text(shapes['forward'])}: wgmma "
+              f"{fms['wgmma']:.4f} ms, mma.sync {fms['mma.sync']:.4f} ms "
+              f"({fms['mma.sync'] / fms['wgmma']:.2f}x; bound {fwd['bound_ms']:.4f} ms, "
+              f"{fwd['bound_by']}, wgmma at {100 * fwd['bound_ms'] / fms['wgmma']:.1f} %, "
+              f"mma.sync at {100 * fwd['bound_ms'] / fms['mma.sync']:.1f} %), plain "
+              f"{fwd['plain_ms']:.3f} ms, SDPA {fwd['library_ms']:.4f} ms, max|dout| wgmma "
+              f"{fwd['err']['wgmma']:.3e}, mma.sync {fwd['err']['mma.sync']:.3e}; backward at "
+              f"{shape_text(shapes['backward'])}: dK/dV wgmma {ms['wgmma']:.4f} ms, mma.sync "
+              f"{ms['mma.sync']:.4f} ms ({ms['mma.sync'] / ms['wgmma']:.2f}x; bound "
+              f"{bwd['dkdv_bound'][0]:.4f} ms, wgmma at "
+              f"{100 * bwd['dkdv_bound'][0] / ms['wgmma']:.1f} %, mma.sync at "
+              f"{100 * bwd['dkdv_bound'][0] / ms['mma.sync']:.1f} %), dQ {dq} (bound "
+              f"{bwd['dq_bound'][0]:.4f}), plain {bwd['plain_ms']:.3f} ms, SDPA backward "
+              f"({bwd['backend']}) {bwd['library_ms']:.4f} ms, max|dk,dv| wgmma "
+              f"{err['wgmma']:.3e}, mma.sync {err['mma.sync']:.3e}")
         free_cuda()
     return out
 
@@ -4965,6 +5139,7 @@ def phase_families() -> dict:
     print(f"  (b, c) full-width forwards and batch-1 decode, bf16 (t = "
           f"{time.perf_counter() - t_phase:.1f} s)")
     full = {name: family_full_width(name, problems) for name in FAMILY_MODELS}
+    full["gemma2"] = gemma2_full_width(problems)
     print(f"  (d) 2-layer train steps (t = {time.perf_counter() - t_phase:.1f} s)")
     train = {name: family_train(name, problems) for name in ("gptj", "phi")}
     # The launches of (b)'s timed forwards and (d)'s steps, by kernel.
@@ -5115,8 +5290,8 @@ def main():
 
 def main_families():
     """Phase 14 alone. Builds the kernels first, and checks the cases of
-    phases 2 and 2b at D=80 and at the families' shapes: the families'
-    forwards and train steps run the flash kernels."""
+    phases 2 and 2b at D=80, 96 and 256 and at the families' shapes: the
+    families' forwards and train steps run the flash kernels."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5127,7 +5302,7 @@ def main_families():
     phase_environment()
     family_labels = {case[0] for case in family_cases()}
     for i, (label, B, S, H, G, D, dtype, segments, kw) in enumerate(kernel_cases()):
-        if D == 80 or label in family_labels:
+        if D in (80, 96, 256) or label in family_labels:
             q, k, v, seg = make_inputs(B, S, H, G, D, dtype, seed=100 + i, segments=segments)
             check_forward(label, q, k, v, seg, kw)
             check_backward(label, q, k, v, seg, kw, seed=400 + i)
@@ -5327,9 +5502,9 @@ def main_moe():
 
 def add_family_entries(entry: dict, key: str, families: dict):
     """Phase 14 on one kernel's entry: its launches in the families'
-    timed full-width forwards and train steps, and, for each family whose
-    shape takes this kernel's route, its timing there (``main_path``'s
-    keys) with the family's own launches."""
+    timed full-width forwards and train steps, and, for each family at whose
+    shape this kernel was timed, its timing there (``main_path``'s keys)
+    with the family's own launches."""
     entry["families_launches"] = families["counts"][key]
     entry["families_path"] = FAMILY_PATH
     route = "wgmma" if entry["name"].endswith("_sm90") else "mma.sync"
@@ -5338,10 +5513,10 @@ def add_family_entries(entry: dict, key: str, families: dict):
     rows = []
     for name, shapes in family_shapes().items():
         timing = families["timings"][name]
-        if timing["route"] != route:
-            continue
         t = timing["forward" if kind == "forward" else "backward"]
         ms_key = f"dq {route}" if kind == "dq" else route
+        if ms_key not in t["ms"]:
+            continue
         bound_ms, bound_by = ((t["bound_ms"], t["bound_by"]) if kind == "forward"
                               else t[f"{kind}_bound"])
         ran = families["full"] if kind == "forward" else families["train"]

@@ -65,6 +65,14 @@ CASES = [
     ("softcap-non-causal", dict(B=1, S=128, D=32), False, None, False, 7.0, None, 64, 64),
     ("softcap-window-gqa-scale", dict(B=1, S=256, H=4, G=2, D=32, seed=7), True, 70, False, 5.0,
      0.17, 64, 64),
+    # The head_dims of the families that the wgmma kernels take since they
+    # tile 80 and 96 as a 64-column panel and a tail, and 256 in 64-key
+    # tiles (Phi-2, GPT-NeoX, GPT-J, Gemma2's softcap and scale).
+    ("head-dim-80", dict(B=1, S=128, H=2, D=80, seed=12), True, None, False, None, None, 64, 64),
+    ("head-dim-96-window-segments", dict(B=1, S=256, H=2, D=96, seed=13), True, 70, True, None,
+     None, 64, 64),
+    ("head-dim-256-softcap-gqa-scale", dict(B=1, S=128, H=4, G=2, D=256, seed=14), True, None,
+     False, 50.0, 256.0 ** -0.5, 64, 64),
 ]
 
 

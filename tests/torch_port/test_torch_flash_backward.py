@@ -62,6 +62,12 @@ CASES = [
     ("softcap", dict(seed=8), True, None, False, 7.0, None, TOL),
     ("softcap-window-gqa-scale", dict(S=256, H=4, G=2, seed=9), True, 70, False, 5.0, 0.17,
      dict(atol=7e-4, rtol=7e-4)),
+    # The families' head_dims of the wgmma dK/dV kernel (Phi-2, GPT-NeoX,
+    # GPT-J and Gemma2 with its softcap and scale).
+    ("head-dim-80", dict(D=80, seed=12), True, None, False, None, None, TOL),
+    ("head-dim-96-window", dict(S=256, D=96, seed=13), True, 70, False, None, None, TOL),
+    ("head-dim-256-softcap-gqa-scale", dict(H=4, G=2, D=256, seed=14), True, None, False, 50.0,
+     256.0 ** -0.5, TOL),
 ]
 
 

@@ -1,6 +1,8 @@
-"""The two kernel routes of ops/flash_cuda.py: the predicate that picks one
-before any launch, the plain version for CPU tensors, and the CUDA sources'
-notes. The kernels themselves run only on the card (chip_smoke.py)."""
+"""The two routes of each kernel of ops/flash_cuda.py: the predicate that
+picks one before any launch (per kernel: the forward and dK/dV take wgmma at
+head_dim 64, 80, 96, 128 and 256, dQ at 64 and 128), the plain version for
+CPU tensors, and the CUDA sources' notes and launchers. The kernels
+themselves run only on the card (chip_smoke.py)."""
 
 import re
 import types
@@ -11,11 +13,18 @@ import torch
 from accelerate_tpu_torch.ops import _build
 from accelerate_tpu_torch.ops import flash_cuda as fc
 
-ROUTES = [(dtype, D, True) for dtype in (torch.bfloat16, torch.float16) for D in (64, 128)] + [
-    (torch.float32, 64, False), (torch.float32, 128, False), (torch.bfloat16, 96, False),
-    (torch.float16, 96, False), (torch.bfloat16, 256, False), (torch.float16, 256, False),
-    (torch.bfloat16, 32, False),
-]
+KERNELS = ("forward", "dkdv", "dq")
+# The head_dims at which 16-bit inputs take each kernel's wgmma route, as
+# its C launcher takes them; float32 and every other head_dim take mma.sync.
+WGMMA_DIMS = {"forward": (64, 80, 96, 128, 256), "dkdv": (64, 80, 96, 128, 256),
+              "dq": (64, 128)}
+CASES = [(dtype, D) for dtype in (torch.bfloat16, torch.float16) for D in (64, 80, 96, 128, 256)
+         ] + [(torch.float32, 64), (torch.float32, 128), (torch.float32, 256),
+              (torch.bfloat16, 32)]
+ROUTES = {kernel: [(dtype, D, dtype != torch.float32 and D in WGMMA_DIMS[kernel])
+                   for dtype, D in CASES] for kernel in KERNELS}
+SM90_SOURCES = {"forward": "flash_fwd_sm90", "dkdv": "flash_bwd_dkdv_sm90",
+                "dq": "flash_bwd_dq_sm90"}
 REPLACED = {"flash_fwd": ["_fwd_kernel"], "flash_fwd_sm90": ["_fwd_kernel"],
             "flash_bwd": ["_bwd_dkdv_kernel", "_bwd_dq_kernel"],
             "flash_bwd_dkdv_sm90": ["_bwd_dkdv_kernel"], "flash_bwd_dq_sm90": ["_bwd_dq_kernel"]}
@@ -38,12 +47,24 @@ def qkv(dtype, D, device="cpu", B=1, S=48, H=4, G=2, seed=0):
     return tuple(t.to(device) for t in (q, k, v))
 
 
-@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
-def test_route_predicate(dtype, D, wgmma):
-    assert fc._wgmma_route(dtype, D) is wgmma
+@pytest.mark.parametrize("kernel,dtype,D,wgmma",
+                         [(kernel, *route) for kernel in KERNELS for route in ROUTES[kernel]])
+def test_route_predicate(kernel, dtype, D, wgmma):
+    assert fc._wgmma_route(kernel, dtype, D) is wgmma
 
 
-@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_each_wgmma_launcher_takes_the_head_dims_of_its_predicate(kernel):
+    # The C launcher names every head_dim it was built for and refuses any
+    # other; the predicate never sends it one it refuses.
+    name = SM90_SOURCES[kernel]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    launcher = text[text.index(f'extern "C" int {name}('):]
+    taken = sorted({int(d) for d in re.findall(r"D != (\d+)", launcher)})
+    assert tuple(taken) == fc._WGMMA_HEAD_DIMS[kernel] == WGMMA_DIMS[kernel]
+
+
+@pytest.mark.parametrize("dtype,D,wgmma", ROUTES["forward"])
 def test_forward_dispatches_on_the_predicate_alone(monkeypatch, dtype, D, wgmma):
     # Meta tensors stand in for CUDA ones: the route is chosen from dtype and
     # head_dim before anything touches the card, and exactly one route runs.
@@ -57,8 +78,10 @@ def test_forward_dispatches_on_the_predicate_alone(monkeypatch, dtype, D, wgmma)
 
 @pytest.mark.parametrize("wgmma", [True, False])
 def test_backward_dkdv_takes_its_route(wgmma):
+    # dK/dV follows its own flag whatever dQ's says.
     calls = []
-    launch = types.SimpleNamespace(wgmma=wgmma, dkdv_wgmma=lambda: calls.append("wgmma"),
+    launch = types.SimpleNamespace(dkdv_on_wgmma=wgmma, dq_on_wgmma=not wgmma,
+                                   dkdv_wgmma=lambda: calls.append("wgmma"),
                                    dkdv_mma=lambda: calls.append("mma.sync"))
     fc._BackwardLaunch.dkdv(launch)
     assert calls == ["wgmma" if wgmma else "mma.sync"]
@@ -67,16 +90,18 @@ def test_backward_dkdv_takes_its_route(wgmma):
 @pytest.mark.parametrize("wgmma", [True, False])
 def test_backward_dq_takes_its_route(wgmma):
     calls = []
-    launch = types.SimpleNamespace(wgmma=wgmma, dq_wgmma=lambda: calls.append("wgmma"),
+    launch = types.SimpleNamespace(dq_on_wgmma=wgmma, dkdv_on_wgmma=not wgmma,
+                                   dq_wgmma=lambda: calls.append("wgmma"),
                                    dq_mma=lambda: calls.append("mma.sync"))
     fc._BackwardLaunch.dq(launch)
     assert calls == ["wgmma" if wgmma else "mma.sync"]
 
 
-@pytest.mark.parametrize("dtype,D,wgmma", ROUTES)
-def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D, wgmma):
+@pytest.mark.parametrize("dtype,D", CASES)
+def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D):
     # Meta tensors stand in for CUDA ones, as in the forward's dispatch test:
-    # a backward call launches dK/dV and then dQ, both on the predicate's route.
+    # a backward call launches dK/dV and then dQ, each on its own kernel's
+    # route; at 16-bit D = 80, 96 and 256 the two routes differ.
     calls = []
     monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
     for kernel in ("dkdv", "dq"):
@@ -88,9 +113,27 @@ def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D, wgmma):
     lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
     dq, dk, dv = fc.flash_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q),
                               causal=True)
-    route = "wgmma" if wgmma else "mma.sync"
-    assert calls == [("dkdv", route), ("dq", route)]
+    routes = {kernel: "wgmma" if dtype != torch.float32 and D in WGMMA_DIMS[kernel] else "mma.sync"
+              for kernel in ("dkdv", "dq")}
+    assert calls == [("dkdv", routes["dkdv"]), ("dq", routes["dq"])]
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+
+
+def test_backward_splits_its_routes_at_bf16_head_dim_80(monkeypatch):
+    # Phi-2's head_dim: dK/dV on wgmma, then dQ on mma.sync, in that order.
+    monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
+    q, k, v = qkv(torch.bfloat16, 80, device="meta")
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
+    launch = fc._BackwardLaunch(q, k, v, torch.empty_like(q), lse, torch.empty_like(q), True,
+                                None, None, None, None)
+    assert (launch.dkdv_on_wgmma, launch.dq_on_wgmma) == (True, False)
+    calls = []
+    monkeypatch.setattr(fc._BackwardLaunch, "dkdv_wgmma", lambda self: calls.append("dkdv wgmma"))
+    monkeypatch.setattr(fc._BackwardLaunch, "dq_mma", lambda self: calls.append("dq mma.sync"))
+    monkeypatch.setattr(fc, "_BackwardLaunch", lambda *a, **kw: launch)
+    fc.flash_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q), causal=True)
+    assert calls == ["dkdv wgmma", "dq mma.sync"]
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
