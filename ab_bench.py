@@ -15,9 +15,12 @@ that drift of the card shows. Prints one JSON line per (directory,
 configuration) with the step ms, the peak GiB, the first loss and the
 card's name and power limit; exits non-zero if a run fails.
 
-``--kernels`` times each directory's wgmma flash forward and dK/dV kernel
-instead (``flash_cuda._fwd_wgmma``, ``_BackwardLaunch.dkdv_wgmma``) at the
-bf16 causal shapes of ``KERNEL_SHAPES``: the best of 3 CUDA-event windows
+``--kernels`` times each directory's flash kernels instead, at the bf16
+causal shapes of ``KERNEL_SHAPES``: the wgmma forward and dK/dV
+(``flash_cuda._fwd_wgmma``, ``_BackwardLaunch.dkdv_wgmma``) and dQ through
+its route dispatcher (``_BackwardLaunch.dq``), whose route the line names
+(``<shape> dq route``: "wgmma" or "mma.sync", as that checkout's
+``_wgmma_route`` chose it). Each time is the best of 3 CUDA-event windows
 of 50 launches, after 3 warm-up launches. One JSON line per directory.
 """
 
@@ -33,9 +36,12 @@ CONFIGS = {"remat=False": {}, "nothing": {"remat": True, "remat_policy": "nothin
            "dots": {"remat": True, "remat_policy": "dots"}}
 
 # (B, S, H, G, D) of the kernel timings: the tier-1 training shape, the
-# Llama-3-8B main path, OPT-30B's and GPT-2 XL's forwards (phase 14).
+# Llama-3-8B main path, OPT-30B's and GPT-2 XL's forwards, and the Phi-2,
+# GPT-NeoX-20B and GPT-J-6B backward shapes (chip_smoke.py phase 14).
 KERNEL_SHAPES = {"train": (8, 1024, 16, 8, 128), "main": (4, 2048, 32, 8, 128),
-                 "opt": (4, 2048, 56, 56, 128), "gpt2": (8, 1024, 25, 25, 64)}
+                 "opt": (4, 2048, 56, 56, 128), "gpt2": (8, 1024, 25, 25, 64),
+                 "phi": (8, 1024, 32, 32, 80), "neox": (8, 1024, 64, 64, 96),
+                 "gptj": (8, 1024, 16, 16, 256)}
 
 KERNEL_CHILD = r"""
 import json, subprocess, sys
@@ -54,7 +60,9 @@ for name, (B, S, H, G, D) in json.loads(sys.argv[1]).items():
     out, lse = fc._fwd_wgmma(*args)
     launch = fc._BackwardLaunch(q, k, v, out, lse, torch.randn_like(q), True, None, None, None,
                                 None)
-    for kind, fn in (("fwd", lambda: fc._fwd_wgmma(*args)), ("dkdv", launch.dkdv_wgmma)):
+    res[f"{name} dq route"] = "wgmma" if launch.dq_on_wgmma else "mma.sync"
+    for kind, fn in (("fwd", lambda: fc._fwd_wgmma(*args)), ("dkdv", launch.dkdv_wgmma),
+                     ("dq", launch.dq)):
         for _ in range(3):
             fn()
         best = []
@@ -92,7 +100,7 @@ def main():
     parser.add_argument("trees", nargs="+", help="checkouts of the repository, in run order")
     parser.add_argument("--iters", type=int, default=10, help="timed steps per configuration")
     parser.add_argument("--kernels", action="store_true",
-                        help="time the wgmma flash forward and dK/dV kernels instead")
+                        help="time the flash forward, dK/dV and dQ kernels instead")
     args = parser.parse_args()
     child = ([KERNEL_CHILD, json.dumps(KERNEL_SHAPES)] if args.kernels
              else [CHILD, json.dumps(CONFIGS), str(args.iters)])

@@ -1,11 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), written by hand: two kernels
 // on mma.sync, each the route of its kernel where the wgmma one does not
-// apply (flash_cuda._wgmma_route): flash_bwd_dkdv_kernel for float32 inputs
-// and head_dims other than 64, 80, 96, 128 and 256 (16-bit inputs there take
-// flash_bwd_dkdv_sm90.cu); flash_bwd_dq_kernel for float32 inputs and every
-// head_dim but 64 and 128, so also for 16-bit inputs at 80, 96 and 256,
-// after the wgmma dK/dV kernel of the same call (16-bit inputs at 64 and 128
-// take flash_bwd_dq_sm90.cu).
+// apply (flash_cuda._wgmma_route): flash_bwd_dkdv_kernel and
+// flash_bwd_dq_kernel for float32 inputs and for head_dims other than 64,
+// 80, 96, 128 and 256 (16-bit inputs there take flash_bwd_dkdv_sm90.cu and
+// flash_bwd_dq_sm90.cu).
 //
 // Replaces the TPU kernels of accelerate_tpu/ops/flash_pallas.py launched by
 // _flash_bwd:

@@ -3,7 +3,7 @@
 // head_dim 64, 80, 96, 128 and 256 (flash_cuda._wgmma_route("dkdv", ...)).
 // float32 inputs and any other head_dim take flash_bwd.cu's
 // flash_bwd_dkdv_kernel. The dQ kernel of the same call takes its own route
-// (flash_bwd_dq_sm90.cu at head_dim 64 and 128, else flash_bwd.cu).
+// (flash_bwd_dq_sm90.cu at the same head_dims, else flash_bwd.cu).
 //
 // Replaces the TPU kernel accelerate_tpu/ops/flash_pallas.py::_bwd_dkdv_kernel
 // (launched by _flash_bwd): dV += P^T dO and dK += dS^T Q over the q band

@@ -20,14 +20,12 @@ Two routes for each kernel, picked by :func:`_wgmma_route` from the kernel,
 the dtype and the head_dim alone, before any launch. 16-bit inputs take the
 ``wgmma`` kernels (TMA into shared-memory rings under mbarriers, two
 warpgroups of products) at the head_dims each was built for: the forward
-(``csrc/flash_fwd_sm90.cu``) and dK/dV (``csrc/flash_bwd_dkdv_sm90.cu``) at
-64, 80, 96, 128 and 256, dQ (``csrc/flash_bwd_dq_sm90.cu``) at 64 and 128.
+(``csrc/flash_fwd_sm90.cu``), dK/dV (``csrc/flash_bwd_dkdv_sm90.cu``) and
+dQ (``csrc/flash_bwd_dq_sm90.cu``) all at 64, 80, 96, 128 and 256.
 Everything else (float32, and the other head_dims from 16 to 256) takes the
 ``mma.sync`` kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). A
 backward call runs dK/dV and then dQ, each on its own route, one after the
-other on the current stream; both read the same ``lse`` and ``delta``, so
-at head_dim 80, 96 and 256 in 16 bits dK/dV runs on ``wgmma`` and dQ on
-``mma.sync``.
+other on the current stream; both read the same ``lse`` and ``delta``.
 What bounds them: at the forward path's shape (Llama-3-8B widths, B=4,
 S=2048, causal, bf16) a forward does ~137 GFLOP over ~169 MB moved, and at
 the training shape (B=8, S=1024, H=16, G=8, D=128) the backward's two
@@ -139,10 +137,10 @@ _LAUNCHERS = {
 }
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 #: The head_dims each ``wgmma`` kernel was built for (its C launcher refuses
-#: any other): the forward and dK/dV tile 80 and 96 as a 64-column panel and
-#: a 16- or 32-column tail, and 256 in 64-key tiles; dQ takes 64 and 128.
-_WGMMA_HEAD_DIMS = {"forward": (64, 80, 96, 128, 256), "dkdv": (64, 80, 96, 128, 256),
-                    "dq": (64, 128)}
+#: any other), the same for the three: each tiles 80 and 96 as a 64-column
+#: panel and a 16- or 32-column tail, and 256 in 64-key tiles (in dK/dV and
+#: dQ the two warpgroups split the head's columns).
+_WGMMA_HEAD_DIMS = {kernel: (64, 80, 96, 128, 256) for kernel in ("forward", "dkdv", "dq")}
 
 
 def _wgmma_route(kernel: str, dtype, head_dim: int) -> bool:

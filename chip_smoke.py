@@ -114,7 +114,7 @@ order; any failure exits non-zero:
 
 2b (after 2). backward kernels vs plain version: ``flash_bwd`` (the dK/dV
    kernel and the dQ kernel, each on its own route, counted: 16-bit inputs
-   at head_dim 80, 96 and 256 run dK/dV on wgmma and dQ on ``mma.sync``) on
+   at head_dim 64/80/96/128/256 run both on wgmma, f32 both on ``mma.sync``) on
    phase 2's case matrix against ``flash_bwd_reference`` on the same inputs
    under ``BWD_TOLERANCE``; a repeat launch must give bit-identical
    gradients. At the training and the main-path shapes: the dK/dV and the
@@ -285,7 +285,7 @@ order; any failure exits non-zero:
    512-token prompt, 32 new: tokens/s, a repeat identical. (d) 2 layers at
    GPT-J's and Phi-2's widths, 8 x 1024, bf16 over f32 masters, fused
    AdamW, clip 1.0, ``compile_train_step``: 3 + 10 steps, step ms and peak,
-   2 wgmma forward + 2 wgmma dK/dV + 2 mma.sync dQ launches a step, finite
+   2 wgmma forward + 2 wgmma dK/dV + 2 wgmma dQ launches a step, finite
    losses, batch 0's falling. (e) a
    BERT-base step (32 x 128, bf16) and a ResNet-50 step (64 x 224^2,
    channels-last, bf16, batch statistics): ms and samples or images/s; the
@@ -293,9 +293,9 @@ order; any failure exits non-zero:
    ``cv_example_torch.py`` (1 epoch) as subprocesses on the card, at
    eval_acc >= 0.8 and acc >= 0.9. Then each family's kernels at its
    shapes (which phases 2 and 2b hold against the plain versions): the
-   forward and dK/dV on both routes, dQ on each route it takes, each forced
-   and held to the tolerances, timed in turns beside the plain version, SDPA
-   and the bound at the real head_dim.
+   forward, dK/dV and dQ on both routes, each forced and held to the
+   tolerances, timed in turns beside the plain version, SDPA and the bound
+   at the real head_dim.
    Prints the phase's seconds. ``main_families()`` runs it alone, with
    phase 2's and 2b's D=80 and family cases.
 
@@ -514,6 +514,13 @@ def kernel_cases():
         ("D=96", 1, 256, 4, 2, 96, bf16, False, {}),
         ("D=80 (Phi-2's)", 2, 512, 8, 8, 80, bf16, False, {}),
         ("D=80 window 100 + segments", 1, 384, 4, 2, 80, bf16, True, dict(sliding_window=100)),
+        # The dQ kernel's tiles at 80, 96 and 256: ragged ends at batch > 1,
+        # GQA, non-causal segments, fp16 with a window.
+        ("B=3 S=200 causal, D=96", 3, 200, 4, 2, 96, bf16, False, {}),
+        ("B=3 S=200 causal, D=256", 3, 200, 4, 2, 256, bf16, False, {}),
+        ("gqa rep 8, D=80", 2, 512, 8, 1, 80, bf16, False, {}),
+        ("segments non-causal, D=256", 2, 256, 4, 2, 256, bf16, True, dict(causal=False)),
+        ("fp16 D=80 window 100", 1, 512, 4, 2, 80, f16, False, dict(sliding_window=100)),
         ("fp16 D=96 softcap 30 + sm_scale 0.1, non-causal", 1, 256, 4, 4, 96, f16, False,
          dict(causal=False, logit_softcap=30.0, sm_scale=0.1)),
         ("fp16", 2, 512, 8, 2, 128, f16, False, {}),
@@ -788,13 +795,12 @@ def phase_backward():
     return timings
 
 
-def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync"), dq_routes=None):
-    """The dK/dV kernel of each of ``routes`` and the dQ kernel of each of
-    ``dq_routes`` (default: those of ``routes`` its C launcher takes at this
-    head_dim) at one causal bf16 shape, each forced, held to
-    ``BWD_TOLERANCE`` against the plain backward with a repeat launch
-    bit-identical, then timed (the routes of each kernel in turns) beside
-    the plain backward, SDPA's backward and the bounds."""
+def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync")):
+    """The dK/dV and the dQ kernel of each of ``routes`` at one causal bf16
+    shape, each forced, held to ``BWD_TOLERANCE`` against the plain
+    backward with a repeat launch bit-identical, then timed (the routes of
+    each kernel in turns) beside the plain backward, SDPA's backward and
+    the bounds."""
     import torch
 
     from accelerate_tpu_torch.ops import flash_cuda as fc
@@ -808,10 +814,7 @@ def backward_timings(B, S, H, G, D, seed, routes=("wgmma", "mma.sync"), dq_route
     refs = fc.flash_bwd_reference(q, k, v, out, lse, d_out, causal=True)
     kernels = {"wgmma": (launch.dkdv_wgmma, launch.dq_wgmma),
                "mma.sync": (launch.dkdv_mma, launch.dq_mma)}
-    if dq_routes is None:
-        dq_routes = [n for n in routes
-                     if n == "mma.sync" or route_of("dq", torch.bfloat16, D) == "wgmma"]
-    dq_routes = {f"dq {n}": kernels[n][1] for n in dq_routes}
+    dq_routes = {f"dq {n}": kernels[n][1] for n in routes}
     routes = {n: kernels[n][0] for n in routes}
     tol = BWD_TOLERANCE["bfloat16"]
     err = {}
@@ -5090,10 +5093,10 @@ def small_models(problems: list, scripts: list) -> dict:
 def family_kernel_timings() -> dict:
     """Each flash family's kernels at its ``family_shapes``, every route
     forced, held to the tolerances and timed in turns by phase 2's
-    ``forward_timings`` and ``backward_timings``: the forward and dK/dV on
-    both routes (wgmma and mma.sync), dQ on each route its C launchers take
-    at the head_dim (mma.sync alone at 80, 96 and 256), beside the plain
-    version, SDPA and the bound at the real head_dim."""
+    ``forward_timings`` and ``backward_timings``: the forward, dK/dV and dQ
+    on both routes (wgmma and mma.sync, the old route forced so its time
+    stays beside the new one), beside the plain version, SDPA and the bound
+    at the real head_dim."""
     import torch
 
     out = {}
@@ -5119,7 +5122,12 @@ def family_kernel_timings() -> dict:
               f"{100 * bwd['dkdv_bound'][0] / ms['mma.sync']:.1f} %), dQ {dq} (bound "
               f"{bwd['dq_bound'][0]:.4f}), plain {bwd['plain_ms']:.3f} ms, SDPA backward "
               f"({bwd['backend']}) {bwd['library_ms']:.4f} ms, max|dk,dv| wgmma "
-              f"{err['wgmma']:.3e}, mma.sync {err['mma.sync']:.3e}")
+              f"{err['wgmma']:.3e}, mma.sync {err['mma.sync']:.3e}, max|dq| wgmma "
+              f"{err['dq wgmma']:.3e}, mma.sync {err['dq mma.sync']:.3e}")
+        pair = ms["wgmma"] + ms["dq wgmma"]
+        print(f"  {name} dK/dV + dQ (wgmma): {ms['wgmma']:.4f} + {ms['dq wgmma']:.4f} = "
+              f"{pair:.4f} ms against SDPA's whole backward {bwd['library_ms']:.4f} ms: "
+              f"{pair / bwd['library_ms']:.2f}x its time")
         free_cuda()
     return out
 

@@ -51,7 +51,8 @@ def packed_segments(B, S, seed=0):
 
 
 # (id, shape kwargs, causal, window, segments, softcap, sm_scale, tolerance):
-# every backward case of tests/test_flash_attention.py, blocks 64 x 64.
+# every backward case of tests/test_flash_attention.py, Pallas blocks 64 x 64
+# unless the shape names its own ("block": Pallas takes S a multiple of it).
 CASES = [
     ("causal", dict(), True, None, False, None, None, TOL),
     ("non-causal", dict(), False, None, False, None, None, TOL),
@@ -68,19 +69,27 @@ CASES = [
     ("head-dim-96-window", dict(S=256, D=96, seed=13), True, 70, False, None, None, TOL),
     ("head-dim-256-softcap-gqa-scale", dict(H=4, G=2, D=256, seed=14), True, None, False, 50.0,
      256.0 ** -0.5, TOL),
+    # The edges of the wgmma dQ kernel's tiles at the same head_dims: a
+    # ragged end, non-causal GQA with segments, a window across segments.
+    ("head-dim-96-ragged-200", dict(S=200, D=96, seed=15, block=40), True, None, False, None,
+     None, TOL),
+    ("head-dim-80-non-causal-gqa-segments", dict(S=256, H=4, G=2, D=80, seed=16), False, None,
+     True, None, None, TOL),
+    ("head-dim-256-window-70-segments", dict(S=256, D=256, seed=17), True, 70, True, None, None,
+     TOL),
 ]
 
 
-def _pallas_grads(q, k, v, d_out, causal, window, segs, softcap, sm_scale):
-    """``_flash_bwd`` on the Pallas forward's residuals; returns the
-    residuals (out [B, S, H, D], lse [B, H, S]) and (dq, dk, dv) in the
-    models' layout."""
+def _pallas_grads(q, k, v, d_out, causal, window, segs, softcap, sm_scale, block=64):
+    """``_flash_bwd`` on the Pallas forward's residuals, in ``block`` x
+    ``block`` tiles; returns the residuals (out [B, S, H, D], lse [B, H, S])
+    and (dq, dk, dv) in the models' layout."""
     scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     jq, jk, jv, jdo = (jnp.swapaxes(jnp.asarray(t), 1, 2) for t in (q, k, v, d_out))
     jseg = None if segs is None else jnp.asarray(segs)
-    out, lse = _flash_fwd(jq, jk, jv, scale, causal, window, 64, 64, segment_ids=jseg,
+    out, lse = _flash_fwd(jq, jk, jv, scale, causal, window, block, block, segment_ids=jseg,
                           softcap=softcap)
-    grads = _flash_bwd(scale, causal, window, 64, 64, softcap, (jq, jk, jv, out, lse), jdo,
+    grads = _flash_bwd(scale, causal, window, block, block, softcap, (jq, jk, jv, out, lse), jdo,
                        segment_ids=jseg)
     residuals = (np.swapaxes(np.array(out), 1, 2), np.array(lse)[..., 0])
     return residuals, [np.swapaxes(np.asarray(g), 1, 2) for g in grads]
@@ -89,9 +98,12 @@ def _pallas_grads(q, k, v, d_out, causal, window, segs, softcap, sm_scale):
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_reference_matches_pallas_backward(case):
     _, shape, causal, window, segments, softcap, sm_scale, tol = case
+    shape = dict(shape)
+    block = shape.pop("block", 64)
     q, k, v, d_out = make_qkv(**shape)
     segs = packed_segments(q.shape[0], q.shape[1], seed=shape.get("seed", 0)) if segments else None
-    (out, lse), expected = _pallas_grads(q, k, v, d_out, causal, window, segs, softcap, sm_scale)
+    (out, lse), expected = _pallas_grads(q, k, v, d_out, causal, window, segs, softcap, sm_scale,
+                                         block)
     got = flash_bwd_reference(
         *(torch.from_numpy(t) for t in (q, k, v, out, lse, d_out)), causal=causal,
         sm_scale=sm_scale, sliding_window=window,

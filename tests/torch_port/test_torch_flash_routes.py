@@ -1,6 +1,6 @@
 """The two routes of each kernel of ops/flash_cuda.py: the predicate that
-picks one before any launch (per kernel: the forward and dK/dV take wgmma at
-head_dim 64, 80, 96, 128 and 256, dQ at 64 and 128), the plain version for
+picks one before any launch (each kernel takes wgmma at head_dim 64, 80,
+96, 128 and 256 in 16 bits), the plain version for
 CPU tensors, and the CUDA sources' notes and launchers. The kernels
 themselves run only on the card (chip_smoke.py)."""
 
@@ -17,7 +17,7 @@ KERNELS = ("forward", "dkdv", "dq")
 # The head_dims at which 16-bit inputs take each kernel's wgmma route, as
 # its C launcher takes them; float32 and every other head_dim take mma.sync.
 WGMMA_DIMS = {"forward": (64, 80, 96, 128, 256), "dkdv": (64, 80, 96, 128, 256),
-              "dq": (64, 128)}
+              "dq": (64, 80, 96, 128, 256)}
 CASES = [(dtype, D) for dtype in (torch.bfloat16, torch.float16) for D in (64, 80, 96, 128, 256)
          ] + [(torch.float32, 64), (torch.float32, 128), (torch.float32, 256),
               (torch.bfloat16, 32)]
@@ -101,7 +101,7 @@ def test_backward_dq_takes_its_route(wgmma):
 def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D):
     # Meta tensors stand in for CUDA ones, as in the forward's dispatch test:
     # a backward call launches dK/dV and then dQ, each on its own kernel's
-    # route; at 16-bit D = 80, 96 and 256 the two routes differ.
+    # route.
     calls = []
     monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
     for kernel in ("dkdv", "dq"):
@@ -119,21 +119,26 @@ def test_backward_runs_dkdv_then_dq_on_one_route(monkeypatch, dtype, D):
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
 
 
-def test_backward_splits_its_routes_at_bf16_head_dim_80(monkeypatch):
-    # Phi-2's head_dim: dK/dV on wgmma, then dQ on mma.sync, in that order.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [80, 96, 256])
+def test_backward_runs_both_kernels_on_wgmma_at_the_families_head_dims(monkeypatch, dtype, D):
+    # Phi-2's, GPT-NeoX's and GPT-J's / Gemma2's head_dims: dK/dV on wgmma,
+    # then dQ on wgmma, in that order; neither touches mma.sync.
     monkeypatch.setattr(fc, "_check_cuda", lambda *a: None)
-    q, k, v = qkv(torch.bfloat16, 80, device="meta")
+    q, k, v = qkv(dtype, D, device="meta")
     B, S, H, _ = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
     launch = fc._BackwardLaunch(q, k, v, torch.empty_like(q), lse, torch.empty_like(q), True,
                                 None, None, None, None)
-    assert (launch.dkdv_on_wgmma, launch.dq_on_wgmma) == (True, False)
+    assert (launch.dkdv_on_wgmma, launch.dq_on_wgmma) == (True, True)
     calls = []
-    monkeypatch.setattr(fc._BackwardLaunch, "dkdv_wgmma", lambda self: calls.append("dkdv wgmma"))
-    monkeypatch.setattr(fc._BackwardLaunch, "dq_mma", lambda self: calls.append("dq mma.sync"))
+    for kernel in ("dkdv", "dq"):
+        for route, label in (("wgmma", "wgmma"), ("mma", "mma.sync")):
+            monkeypatch.setattr(fc._BackwardLaunch, f"{kernel}_{route}",
+                                lambda self, kern=kernel, r=label: calls.append(f"{kern} {r}"))
     monkeypatch.setattr(fc, "_BackwardLaunch", lambda *a, **kw: launch)
     fc.flash_bwd(q, k, v, torch.empty_like(q), lse, torch.empty_like(q), causal=True)
-    assert calls == ["dkdv wgmma", "dq mma.sync"]
+    assert calls == ["dkdv wgmma", "dq wgmma"]
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.float16, 64),
