@@ -17,9 +17,10 @@ router with failover, the supervisor, scripted faults, the HTTP gateway;
 ``loadgen``; the ``accelerate-tpu-torch serve``/``loadtest`` commands), and
 big-model inference (``big_modeling``: the device-map solver over card,
 host and disk, ``StreamedModel`` streaming a model's blocks onto the card,
-HF-layout checkpoints of the Llama, MoE and GPT-style families and BERT,
-quantized loading), the other model families (``models``: GPT-2, OPT,
-GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet, the small models), and
+HF-layout checkpoints of the Llama, MoE and GPT-style families, T5, BERT
+and ViT, quantized loading), the other model families (``models``: GPT-2, OPT,
+GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet, the small models, and the
+encoder-decoder T5 with ``seq2seq_generate`` and ViT), and
 several processes: process groups over NCCL (one card a process) or gloo
 (the CPU), the collectives, sharded and dispatched loaders, data-parallel
 training with the gradients reduced at each sync step, ``LocalSGD``, the
@@ -92,6 +93,7 @@ from .generation import (
     generate,
     greedy_generate,
     prompt_lookup_generate,
+    seq2seq_generate,
     speculative_accept,
     speculative_emit,
     speculative_emit_keyed,
@@ -118,7 +120,12 @@ from .models import (
     RegressionModel,
     ResNet,
     ResNetConfig,
+    T5Config,
+    T5ForConditionalGeneration,
+    ViTConfig,
+    ViTForImageClassification,
     classification_loss,
+    seq2seq_lm_loss,
 )
 from .models.llama import (
     LlamaConfig,

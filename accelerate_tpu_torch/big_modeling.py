@@ -1,10 +1,12 @@
 """Big-model inference: run models larger than the card's memory.
 
 Counterpart of ``accelerate_tpu/big_modeling.py`` (its Llama and Mixtral
-families, and the GPT-style ones: GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM). The design is the JAX package's: the model is split into an
-embed block, one block per decoder layer and a head block, and the weights
-of each block live on the card, in host memory or on disk, as a device map
-says.
+families, the GPT-style ones: GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM, and
+the encoder-decoder T5). The design is the JAX package's: the model is
+split into an embed block, one block per decoder layer and a head block (T5:
+an encoder stage run once per input, then a decoder stage, the only one a
+decode step runs), and the weights of each block live on the card, in host
+memory or on disk, as a device map says.
 
 * "Meta device" init: :func:`init_empty_weights` builds the model on the
   meta device, where it holds shapes and no memory.
@@ -217,13 +219,16 @@ class BlockSpec:
     order; blocks of one ``kind`` share one module. ``cached_apply(ptrees,
     args, cache, pos) -> (args, cache)`` is the KV-cached form, ``cache``
     this block's layer cache (None when ``cache_slot`` is False) and ``pos``
-    the write position."""
+    the write position. An encoder-decoder model tags its blocks ``stage``
+    "enc" or "dec", so the executor runs the encoder once and loops only
+    the decoder while generating."""
 
     name: str
     prefixes: tuple
     apply: Callable
     kind: str = "unique"
     cached_apply: Optional[Callable] = None
+    stage: str = "main"
     cache_slot: bool = False
 
 
@@ -232,11 +237,14 @@ def block_specs_for(module) -> Optional[list]:
     architecture (the caller passes specs)."""
     from .models.llama import LlamaForCausalLM
     from .models.mixtral import MixtralForCausalLM
+    from .models.t5 import T5ForConditionalGeneration
 
     if isinstance(module, LlamaForCausalLM):
         return _llama_block_specs(module.config)
     if isinstance(module, MixtralForCausalLM):
         return _mixtral_block_specs(module.config)
+    if isinstance(module, T5ForConditionalGeneration):
+        return _t5_block_specs(module.config)
     for cls, builder in _gptlike_specs():
         if isinstance(module, cls):
             return builder(module.config)
@@ -465,6 +473,106 @@ def _gptlike_specs() -> tuple:
             (PhiForCausalLM, _phi_block_specs), (BloomForCausalLM, _bloom_block_specs))
 
 
+def _t5_block_specs(cfg) -> list:
+    """T5's blocks (reference ``_t5_block_specs``), op for op the resident
+    model's forward. The "enc" stage runs once an input and threads ``(x,
+    bias, decoder_ids, mask)``; its norm hands ``(enc, decoder_ids, None,
+    mask)`` to the "dec" stage, which threads ``(enc, y, bias, mask)``. Layer
+    0 of each stack holds the bucket table (a kind of its own) and computes
+    the bias the later layers reuse. A cached decoder block's cache holds
+    the self-attention buffers ``k``/``v`` and the cross K/V ``ck``/``cv``,
+    computed from ``enc`` at the prefill (``pos == 0``) and read back after.
+    ``streamed(input_ids, decoder_input_ids[, attention_mask])`` gives the
+    teacher-forced logits."""
+    from .models.t5 import T5DecoderBlock, T5EncoderBlock, T5LayerNorm
+
+    call = torch.func.functional_call
+    norm = T5LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device="meta")
+    enc_blocks = [T5EncoderBlock(cfg, has_relative_bias=first, device="meta")
+                  for first in (True, False)]
+    dec_blocks = [T5DecoderBlock(cfg, has_relative_bias=first, device="meta")
+                  for first in (True, False)]
+
+    def embed_enc(p, input_ids, decoder_ids, mask=None):
+        return F.embedding(input_ids, p[0]["weight"]), None, decoder_ids, mask
+
+    def enc_layer(block):
+        def apply(p, x, bias, decoder_ids, mask):
+            x, bias = call(block, p[0], (x, mask, bias))
+            return x, bias, decoder_ids, mask
+
+        return apply
+
+    def enc_norm(p, x, bias, decoder_ids, mask):
+        return call(norm, p[0], (x,)), decoder_ids, None, mask
+
+    def embed_dec(p, enc, decoder_ids, bias, mask):
+        return enc, F.embedding(decoder_ids, p[0]["weight"]), None, mask
+
+    def dec_layer(block):
+        def apply(p, enc, y, bias, mask):
+            y, bias = call(block, p[0], (y, enc), {"cross_mask": mask, "position_bias": bias})
+            return enc, y, bias, mask
+
+        def cached(p, args, cache, pos):
+            enc, y, bias, mask = args
+            cross = None if pos == 0 else (cache["ck"].to(y.dtype), cache["cv"].to(y.dtype))
+            y, bias, _, ckv = call(block, p[0], (y, enc), {
+                "cross_mask": mask, "position_bias": bias, "cache_pos": pos, "cross_kv": cross,
+                "cache": {"k": cache["k"], "v": cache["v"]}})
+            if pos == 0:
+                cache["ck"].copy_(ckv[0])
+                cache["cv"].copy_(ckv[1])
+            return (enc, y, bias, mask), cache
+
+        return apply, cached
+
+    def head(p, enc, y, bias, mask):
+        h = call(norm, p[0], (y,))
+        w = p[1]["weight"]
+        if cfg.tie_word_embeddings:
+            return ((h * cfg.hidden_size ** -0.5) @ w.to(h.dtype).T,)
+        return (F.linear(h, w),)
+
+    specs = [BlockSpec("embed_enc", ("shared_embedding",), embed_enc, kind="t5_embed_enc",
+                       stage="enc")]
+    for i in range(cfg.num_layers):
+        specs.append(BlockSpec(f"encoder_layer.{i}", (f"encoder_layer.{i}",),
+                               enc_layer(enc_blocks[min(i, 1)]),
+                               kind="t5_enc_layer0" if i == 0 else "t5_enc_layer", stage="enc"))
+    specs.append(BlockSpec("encoder_norm", ("encoder_norm",), enc_norm, kind="t5_enc_norm",
+                           stage="enc"))
+    specs.append(BlockSpec("embed_dec", ("shared_embedding",), embed_dec, kind="t5_embed_dec",
+                           stage="dec", cached_apply=lambda p, args, cache, pos:
+                           (embed_dec(p, *args), None)))
+    for i in range(cfg.num_layers):
+        apply, cached = dec_layer(dec_blocks[min(i, 1)])
+        specs.append(BlockSpec(f"decoder_layer.{i}", (f"decoder_layer.{i}",), apply,
+                               kind="t5_dec_layer0" if i == 0 else "t5_dec_layer", stage="dec",
+                               cached_apply=cached, cache_slot=True))
+    head_prefixes = ("decoder_norm", "shared_embedding" if cfg.tie_word_embeddings
+                     else "lm_head")
+    specs.append(BlockSpec("head", head_prefixes, head, kind="t5_head", stage="dec",
+                           cached_apply=lambda p, args, cache, pos: (head(p, *args), None)))
+    return specs
+
+
+def _t5_cache_factory(cfg, device) -> Callable:
+    """``(batch, max_len, dtype=bf16, src_len) -> per-decoder-layer caches``:
+    the self-attention buffers ``k``/``v`` [B, max_len, H, D] and the cross
+    K/V ``ck``/``cv`` [B, src_len, H, D]."""
+
+    def factory(batch, max_len, dtype=torch.bfloat16, src_len=None):
+        if src_len is None:
+            raise ValueError("T5 decode caches need src_len (cross K/V width)")
+        widths = {"k": max_len, "v": max_len, "ck": src_len, "cv": src_len}
+        return [{name: torch.zeros((batch, n, cfg.num_heads, cfg.head_dim), dtype=dtype,
+                                   device=device) for name, n in widths.items()}
+                for _ in range(cfg.num_layers)]
+
+    return factory
+
+
 def _llama_cache_factory(cfg, device) -> Callable:
     from .models.llama import init_kv_cache
 
@@ -477,12 +585,25 @@ def _llama_cache_factory(cfg, device) -> Callable:
 def cache_factory_for(module) -> Optional[Callable]:
     """``(batch, max_len, dtype=bf16, ring_slack=0) -> per-layer KV cache``
     on the device the model computes on, for model families with cache
-    threading (a streamed model's included); None otherwise."""
+    threading (a streamed model's included); None otherwise. T5's factory
+    takes the source length too (``src_len``: the cross K/V's width)."""
     if isinstance(module, StreamedModel):
         return module.cache_factory
-    if not _threads_llama_cache(module):
+    return _family_cache_factory(module)
+
+
+def _family_cache_factory(module, device=None) -> Optional[Callable]:
+    """The cache factory of ``module``'s family on ``device`` (default: the
+    device of its parameters), or None."""
+    from .models.t5 import T5ForConditionalGeneration
+
+    if isinstance(module, T5ForConditionalGeneration):
+        build = _t5_cache_factory
+    elif _threads_llama_cache(module):
+        build = _llama_cache_factory
+    else:
         return None
-    return _llama_cache_factory(module.config, next(module.parameters()).device)
+    return build(module.config, next(module.parameters()).device if device is None else device)
 
 
 def _threads_llama_cache(module) -> bool:
@@ -592,11 +713,12 @@ class StreamedModel:
         with torch.cuda.device(self.device) if self._cuda else contextlib.nullcontext():
             return self._fetch(spec, after)
 
-    def _run(self, step: Callable):
-        """``step(spec, ptrees)`` for every block in order, the next block's
-        weights fetched on the worker while the current one computes (a block
-        kept on the card needs no fetch and no worker)."""
-        specs, prefetch = self.specs, self.prefetch
+    def _run(self, step: Callable, specs: Optional[list] = None):
+        """``step(spec, ptrees)`` for every block of ``specs`` (default: all)
+        in order, the next block's weights fetched on the worker while the
+        current one computes (a block kept on the card needs no fetch and no
+        worker)."""
+        specs, prefetch = specs or self.specs, self.prefetch
         if prefetch and self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="weight-prefetch")
 
@@ -626,26 +748,33 @@ class StreamedModel:
 
     # -- forward -----------------------------------------------------------
     @torch.inference_mode()
-    def __call__(self, input_ids, cache=None, cache_pos=None):
-        """Logits of ``input_ids`` [B, S] through every block; with
-        ``cache`` (a per-layer KV cache, ``cache_factory``), the cached pass
-        at ``cache_pos``, returning ``(logits, cache)``."""
+    def __call__(self, input_ids, *inputs, cache=None, cache_pos=None):
+        """Logits of ``input_ids`` [B, S] through every block (an
+        encoder-decoder model takes ``(input_ids, decoder_input_ids[,
+        attention_mask])``); with ``cache`` (a per-layer KV cache,
+        ``cache_factory``), the cached pass at ``cache_pos``, returning
+        ``(logits, cache)``."""
         ids = torch.as_tensor(input_ids, device=self.device)
         if cache is not None:
-            return self._cached_pass(ids, cache, cache_pos), cache
-        args = (ids,)
+            return self._cached_pass((ids,), cache, cache_pos), cache
+        return self._forward((ids, *(None if t is None else torch.as_tensor(t, device=self.device)
+                                     for t in inputs)))[0]
 
+    def _forward(self, args: tuple, specs: Optional[list] = None) -> tuple:
+        """``args`` through every block of ``specs`` (default: all)
+        uncached; the last block's outputs (the logits first)."""
         def step(spec, ptrees):
             nonlocal args
             args = spec.apply(ptrees, *args)
 
-        self._run(step)
-        return args[0]
+        self._run(step, specs)
+        return args
 
-    def _cached_pass(self, input_ids, caches: list, pos):
-        """One pass (prefill, a decode step or a verification chunk) through
-        every block, updating the layers' caches in place; the logits."""
-        args, layer = (input_ids,), 0
+    def _cached_pass(self, args: tuple, caches: list, pos, specs: Optional[list] = None):
+        """One pass (prefill, a decode step or a verification chunk) of
+        ``args`` through every block of ``specs`` (default: all), updating
+        the layers' caches in place; the logits."""
+        layer = 0
 
         def step(spec, ptrees):
             nonlocal args, layer
@@ -655,7 +784,7 @@ class StreamedModel:
             else:
                 args, _ = spec.cached_apply(ptrees, args, None, pos)
 
-        self._run(step)
+        self._run(step, specs)
         return args[0]
 
     # -- generation --------------------------------------------------------
@@ -682,6 +811,8 @@ class StreamedModel:
         ``eos_token_id`` a row keeps emitting it."""
         from . import generation
 
+        if any(s.stage == "enc" for s in self.specs):
+            raise TypeError("this is an encoder-decoder model; use seq2seq_generate")
         ids = torch.as_tensor(input_ids, device=self.device)
         if max_new_tokens <= 0:
             return ids
@@ -729,6 +860,56 @@ class StreamedModel:
                                                eos_token_id, ids.dtype)
             ids = torch.cat([ids, nxt[:, None]], dim=1)
         return ids
+
+    @torch.inference_mode()
+    def seq2seq_generate(self, input_ids, max_new_tokens: int = 20,
+                         decoder_start_token_id: int = 0, eos_token_id: Optional[int] = None,
+                         use_cache: bool = True, cache_dtype=None, attention_mask=None):
+        """Greedy encoder-decoder decoding with streamed weights (T0pp-class
+        models). The source is padded and masked as
+        ``generation.seq2seq_generate`` pads it, and the encoder blocks run
+        once; each step runs only the "dec" stage. With the cache, one
+        prefill of the start token writes the self-attention buffers and
+        each layer's cross K/V, and each later token is one pass of
+        single-query attention; ``use_cache=False`` runs the whole decoder
+        sequence again for each token. After ``eos_token_id`` a row keeps
+        emitting it, and the loop stops once every row has.
+
+        Returns [B, 1 + generated] decoder ids, the start token first."""
+        from .generation import _make_selector, _next_token, _padded_source
+
+        enc_specs = [s for s in self.specs if s.stage == "enc"]
+        dec_specs = [s for s in self.specs if s.stage == "dec"]
+        if not enc_specs or not dec_specs:
+            raise TypeError("seq2seq_generate needs enc/dec-staged block specs")
+        ids = torch.as_tensor(input_ids, device=self.device)
+        B = ids.shape[0]
+        start = torch.full((B, 1), decoder_start_token_id, dtype=ids.dtype, device=self.device)
+        if max_new_tokens <= 0:
+            return start
+        ids, mask = _padded_source(ids, attention_mask)
+        enc, _, _, mask = self._forward((ids, start, mask), enc_specs)
+        cached = use_cache and all(s.cached_apply is not None for s in dec_specs)
+        if cached:
+            if self.cache_factory is None:
+                raise TypeError("cached seq2seq decode needs a cache_factory")
+            caches = self.cache_factory(B, max_new_tokens, dtype=cache_dtype or torch.bfloat16,
+                                        src_len=ids.shape[1])
+        select = _make_selector(None)
+        seen = torch.zeros((B, 1), dtype=torch.bool, device=self.device)
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        dec = start
+        for t in range(max_new_tokens):
+            if cached:
+                logits = self._cached_pass((enc, dec[:, -1:], None, mask), caches, t, dec_specs)
+            else:
+                logits = self._forward((enc, dec, None, mask), dec_specs)[0]
+            tok, done = _next_token(logits[:, -1], None, seen, done, select, eos_token_id,
+                                    ids.dtype)
+            dec = torch.cat([dec, tok[:, None]], dim=1)
+            if eos_token_id is not None and bool(done.all()):
+                break
+        return dec
 
 
 # ---------------------------------------------------------------------------
@@ -874,11 +1055,10 @@ def dispatch_model(module, params=None, store: Optional[WeightStore] = None,
         cards = [d for d in store.placement.values() if isinstance(d, int)]
         execution_device = f"cuda:{cards[0] if cards else 0}"
     device = resolve_device(execution_device)
-    factory = (_llama_cache_factory(module.config, device)
-               if _threads_llama_cache(module) else None)
     config = getattr(module, "config", None)
-    return StreamedModel(specs, store, device, cache_factory=factory, config=config,
-                         position_bound=getattr(config, "max_position_embeddings", None))
+    return StreamedModel(specs, store, device, cache_factory=_family_cache_factory(module, device),
+                         config=config, position_bound=getattr(config, "max_position_embeddings",
+                                                               None))
 
 
 def load_checkpoint_and_dispatch(module, checkpoint, device_map: Union[str, dict, None] = "auto",
@@ -906,6 +1086,12 @@ def load_checkpoint_and_dispatch(module, checkpoint, device_map: Union[str, dict
     return dispatch_model(module, store=store, block_specs=block_specs, execution_device=device)
 
 
+#: The HF families :func:`load_hf_checkpoint_and_dispatch` streams (the
+#: reference's list).
+_STREAMABLE_FAMILIES = ("llama", "mistral", "qwen2", "qwen2_moe", "gemma", "gemma2", "gpt2",
+                       "gptj", "gpt_neox", "bloom", "opt", "phi", "t5", "mixtral")
+
+
 def load_hf_checkpoint_and_dispatch(checkpoint_dir: str,
                                     device_map: Union[str, dict, None] = "auto",
                                     max_memory: Optional[dict] = None, dtype=None,
@@ -913,7 +1099,8 @@ def load_hf_checkpoint_and_dispatch(checkpoint_dir: str,
                                     offload_to_memmap: bool = False, config=None,
                                     execution_device=None):
     """Big-model load straight from a HuggingFace checkpoint directory of the
-    Llama or Mixtral families (``utils/hf_interop.py``): the names are
+    Llama, Mixtral and GPT-style families and T5 (``utils/hf_interop.py``;
+    T5 generates through ``streamed.seq2seq_generate``): the names are
     translated tensor by tensor as the shards stream, so weights go from
     disk to their placement with no full state dict in between, and
     disk-tier weights keep lazy references into the HF shards (a Mixtral
@@ -923,6 +1110,10 @@ def load_hf_checkpoint_and_dispatch(checkpoint_dir: str,
     from .utils.hf_interop import map_hf_key_and_op, open_hf_checkpoint
 
     family, config, module = open_hf_checkpoint(checkpoint_dir, config, dtype)
+    if family not in _STREAMABLE_FAMILIES:
+        raise ValueError(f"streamed dispatch supports {'/'.join(_STREAMABLE_FAMILIES)} (got "
+                         f"{family!r}); use utils.load_hf_checkpoint + dispatch_model for other "
+                         "families")
     streamed = load_checkpoint_and_dispatch(
         module, checkpoint_dir, device_map=device_map, max_memory=max_memory, dtype=dtype,
         offload_folder=offload_folder, offload_to_memmap=offload_to_memmap,

@@ -4,7 +4,9 @@ Counterpart of ``accelerate_tpu/generation.py``: ``generate`` /
 ``greedy_generate``, the speculative decoders ``prompt_lookup_generate``
 (drafts from the sequence itself) and ``assisted_generate`` (drafts from a
 smaller model) over the shared accept rule ``speculative_accept`` /
-``speculative_emit``, and ``beam_search_generate``. The JAX package
+``speculative_emit``, ``beam_search_generate``, and ``seq2seq_generate``
+for the encoder-decoder T5 (``generate`` hands it such a model; the other
+decoders refuse one). The JAX package
 compiles each decoder into a prefill and one ``lax.scan`` or
 ``lax.while_loop``; PyTorch runs eagerly, so here each is a Python loop of
 cached forwards. The selection rules are the JAX package's, step for step:
@@ -221,10 +223,22 @@ def _check_position_bound(module, total_len: int, label: str = "prompt + max_new
                          f"for {type(module).__name__}")
 
 
-def _cache_factory(module, role: Optional[str] = None):
-    """The model's KV-cache factory; TypeError for a family without one."""
+def _is_encoder_decoder(module) -> bool:
+    """A T5-style model (``init_decode_cache``), or a streamed one whose
+    block specs have an encoder stage."""
+    return hasattr(module, "init_decode_cache") or any(
+        getattr(spec, "stage", None) == "enc" for spec in getattr(module, "specs", ()))
+
+
+def _cache_factory(module, role: Optional[str] = None, caller: str = "generate"):
+    """The model's KV-cache factory; TypeError for an encoder-decoder model
+    (the JAX package's message) and for a family without one."""
     from .big_modeling import cache_factory_for
 
+    if _is_encoder_decoder(module):
+        who = f"; the {role} model is encoder-decoder" if role else ""
+        raise TypeError(f"{caller} supports decoder-only models{who}; use seq2seq_generate for "
+                        "encoder-decoder families")
     factory = cache_factory_for(module)
     if factory is None:
         who = f" ({role})" if role else ""
@@ -275,8 +289,16 @@ def generate(
       generator: ``torch.Generator`` on the module's device for sampling
         (default: one seeded with 0).
 
-    Returns [B, S + max_new_tokens] ids (prompt + completion).
+    Returns [B, S + max_new_tokens] ids (prompt + completion). An
+    encoder-decoder model goes to :func:`seq2seq_generate`, which returns
+    decoder ids [B, 1 + max_new_tokens]: the prompt is the encoder's input.
     """
+    sampling_kw = dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p,
+                       repetition_penalty=repetition_penalty, min_new_tokens=min_new_tokens,
+                       generator=generator)
+    if hasattr(module, "init_decode_cache"):
+        return seq2seq_generate(module, input_ids, max_new_tokens=max_new_tokens,
+                                eos_token_id=eos_token_id, cache_dtype=cache_dtype, **sampling_kw)
     factory = _cache_factory(module)
     device = _device_of(module)
     ids = torch.as_tensor(input_ids, device=device)
@@ -287,36 +309,120 @@ def generate(
     cache = factory(B, _bucket128(S + max_new_tokens), cache_dtype or torch.bfloat16,
                     ring_slack=128)
     ids_p = _bucket_and_pad(ids, module)
+    logits, cache = module(ids_p, cache=cache, cache_pos=0)
 
+    def step(tok, pos):
+        return module(tok[:, None], cache=cache, cache_pos=pos)[0]
+
+    # The penalty counts the prompt too; edge padding re-marks each row's
+    # last real token, so the seen-set is exact.
+    new_tokens = _decode_loop(logits[:, S - 1], ids_p, step, S, max_new_tokens, eos_token_id,
+                              ids.dtype, **sampling_kw)
+    return torch.cat([ids, new_tokens], dim=1)
+
+
+def _decode_loop(last, seen_ids, step, start_pos: int, max_new_tokens: int, eos_token_id, dtype,
+                 do_sample=False, temperature=1.0, top_k=None, top_p=None,
+                 repetition_penalty=1.0, min_new_tokens=0, generator=None):
+    """The decode loop of :func:`generate` and :func:`seq2seq_generate`:
+    token 1 from the prefill's logits ``last`` [B, V], then ``max_new_tokens
+    - 1`` cached steps, ``step(tok [B], pos) -> logits [B, 1, V]`` feeding
+    the last token at ``start_pos``, ``start_pos + 1``, ... The
+    repetition-penalty seen-set starts from ``seen_ids`` [B, S]. Returns the
+    new tokens [B, max_new_tokens]."""
+    B, device = last.shape[0], last.device
     sampling = (float(temperature), top_k, top_p) if do_sample else None
     select = _make_selector(sampling, float(repetition_penalty))
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     track_seen = repetition_penalty != 1.0
-
-    logits, cache = module(ids_p, cache=cache, cache_pos=0)
     if track_seen:
-        # The penalty counts the prompt too; edge padding re-marks each
-        # row's last real token, so the seen-set is exact.
-        seen = _mark_seen(torch.zeros((B, logits.shape[-1]), dtype=torch.bool, device=device),
-                          ids_p)
+        seen = _mark_seen(torch.zeros((B, last.shape[-1]), dtype=torch.bool, device=device),
+                          seen_ids)
     else:
         seen = torch.zeros((B, 1), dtype=torch.bool, device=device)
-    last = _suppress_eos(logits[:, S - 1], 1, eos_token_id, min_new_tokens)
-    tok = select(last, generator, seen).to(ids.dtype)
+    last = _suppress_eos(last, 1, eos_token_id, min_new_tokens)
+    tok = select(last, generator, seen).to(dtype)
     if track_seen:
         seen = _mark_seen(seen, tok)
     done = (tok == eos_token_id) if eos_token_id is not None else torch.zeros_like(tok, dtype=torch.bool)
     new_tokens = [tok]
     for i in range(max_new_tokens - 1):
-        logits, cache = module(tok[:, None], cache=cache, cache_pos=S + i)
         # This step emits generation index i+2 (the prefill token is index 1).
-        last = _suppress_eos(logits[:, -1], i + 2, eos_token_id, min_new_tokens)
-        tok, done = _next_token(last, generator, seen, done, select, eos_token_id, ids.dtype)
+        last = _suppress_eos(step(tok, start_pos + i)[:, -1], i + 2, eos_token_id, min_new_tokens)
+        tok, done = _next_token(last, generator, seen, done, select, eos_token_id, dtype)
         if track_seen:
             seen = _mark_seen(seen, tok)
         new_tokens.append(tok)
-    return torch.cat([ids, torch.stack(new_tokens, dim=1)], dim=1)
+    return torch.stack(new_tokens, dim=1)
+
+
+def _padded_source(ids, attention_mask=None):
+    """An encoder's source [B, S] and its mask (all ones by default), both
+    padded with 0s to the 128-bucket of S: ``(ids, mask)``."""
+    B, S = ids.shape
+    mask = (torch.ones((B, S), dtype=torch.int32, device=ids.device) if attention_mask is None
+            else torch.as_tensor(attention_mask, device=ids.device))
+    pad = _bucket128(S) - S
+    if pad:
+        ids = torch.nn.functional.pad(ids, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    return ids, mask
+
+
+@torch.inference_mode()
+def seq2seq_generate(
+    module,
+    input_ids,
+    max_new_tokens: int = 20,
+    decoder_start_token_id: int = 0,
+    eos_token_id: Optional[int] = None,
+    attention_mask=None,
+    cache_dtype=None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    repetition_penalty: float = 1.0,
+    min_new_tokens: int = 0,
+    generator: Optional[torch.Generator] = None,
+):
+    """KV-cached encoder-decoder decoding (T5: ``mode="encode"`` /
+    ``"decode"`` and ``init_decode_cache``), with :func:`generate`'s
+    selection rules.
+
+    The source is padded to its 128-bucket with 0s and the pads masked
+    through ``attention_mask`` (cross-attention would attend them
+    otherwise). One encoder pass, one prefill of the start token that also
+    computes each layer's cross K/V, then a loop of single-token steps that
+    reuse them: a step costs the same whatever the source length. The
+    repetition penalty counts the start token (transformers' rule over the
+    decoder sequence).
+
+    Returns [B, 1 + max_new_tokens] decoder ids, the start token first, on
+    the model's device."""
+    device = _device_of(module)
+    ids = torch.as_tensor(input_ids, device=device)
+    B = ids.shape[0]
+    start = torch.full((B, 1), decoder_start_token_id, dtype=ids.dtype, device=device)
+    if max_new_tokens <= 0:
+        return start
+    ids, mask = _padded_source(ids, attention_mask)
+    enc = module(ids, attention_mask=mask, mode="encode")
+    # The last token is returned, never fed back: positions 0..max_new - 1.
+    cache = module.init_decode_cache(B, max_new_tokens, cache_dtype or torch.bfloat16)
+    logits, cache, cross_kv = module(decoder_input_ids=start, attention_mask=mask, mode="decode",
+                                     encoder_out=enc, cache=cache, cache_pos=0)
+
+    def step(tok, pos):
+        return module(decoder_input_ids=tok[:, None], attention_mask=mask, mode="decode",
+                      encoder_out=enc, cache=cache, cache_pos=pos, cross_kv=cross_kv)[0]
+
+    new_tokens = _decode_loop(
+        logits[:, -1], start, step, 1, max_new_tokens, eos_token_id, ids.dtype,
+        do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p,
+        repetition_penalty=repetition_penalty, min_new_tokens=min_new_tokens, generator=generator)
+    return torch.cat([start, new_tokens], dim=1)
 
 
 def greedy_generate(module, input_ids, max_new_tokens: int = 20,
@@ -578,7 +684,7 @@ def prompt_lookup_generate(
     ``ring_slack`` covers a chunk plus the prompt's padding). Batch 1 only.
 
     Returns [1, S + max_new_tokens] ids on the model's device."""
-    factory = _cache_factory(module)
+    factory = _cache_factory(module, caller="prompt_lookup_generate")
     ids = torch.as_tensor(input_ids, device=_device_of(module))
     if ids.shape[0] != 1:
         raise ValueError(f"prompt_lookup_generate is batch-1 only (got batch {ids.shape[0]})")
@@ -640,7 +746,8 @@ def assisted_generate(
     are decoder-only over the same vocabulary; batch 1 only.
 
     Returns [1, S + max_new_tokens] ids on the target's device."""
-    factory, draft_factory = _cache_factory(module, "target"), _cache_factory(draft_module, "draft")
+    factory = _cache_factory(module, "target", "assisted_generate")
+    draft_factory = _cache_factory(draft_module, "draft", "assisted_generate")
     t_vocab = getattr(module.config, "vocab_size", None)
     d_vocab = getattr(draft_module.config, "vocab_size", None)
     if t_vocab != d_vocab:
@@ -737,7 +844,7 @@ def beam_search_generate(
 
     Returns [B, S + max_new_tokens] ids of the best beam per row, on the
     model's device."""
-    factory = _cache_factory(module)
+    factory = _cache_factory(module, caller="beam_search_generate")
     device = _device_of(module)
     ids = torch.as_tensor(input_ids, device=device)
     B, S = ids.shape

@@ -15,3 +15,5 @@ from .opt import OPTConfig, OPTForCausalLM
 from .phi import PhiConfig, PhiForCausalLM
 from .resnet import ResNet, ResNetConfig
 from .simple import MLP, RegressionModel
+from .t5 import T5Config, T5ForConditionalGeneration, seq2seq_lm_loss
+from .vit import ViTConfig, ViTForImageClassification

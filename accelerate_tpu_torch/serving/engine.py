@@ -286,8 +286,12 @@ def _monolithic_refused():
 
 def _cached_lm(model, role: str):
     """The cache-threading ``LlamaForCausalLM`` under ``model`` (a prepared
-    model or the module itself); TypeError for anything else."""
+    model or the module itself); NotImplementedError for an encoder-decoder
+    model (the JAX engine's refusal), TypeError for anything else."""
     module = getattr(model, "module", model)
+    if hasattr(module, "init_decode_cache"):
+        raise NotImplementedError("ServingEngine serves decoder-only cache-threading modules; "
+                                  "encoder-decoder models go through seq2seq_generate")
     cfg = getattr(module, "config", None)
     if cfg is None or not hasattr(module, "model") or not hasattr(cfg, "window_for"):
         raise TypeError(f"{type(module).__name__} ({role}) is not a cache-threading "

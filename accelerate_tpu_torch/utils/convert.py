@@ -19,12 +19,15 @@ for ``kernel`` leaves only. (From HF, where each expert is a
 ``Linear.weight`` ``[out, in]``, the experts are stacked and transposed,
 ``utils/hf_interop.py``.)
 
-The other families (GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet
-and the small models) cross by the same rules, their layer lists named as
-in flax (``h_<i>``, ``layers_<i>``, BERT's ``layer_<i>`` -> ``h.<i>``,
-``layers.<i>``, ``layer.<i>``). A 4-D ``kernel`` is a flax conv kernel,
-HWIO, which becomes torch's OIHW (``permute(3, 2, 0, 1)``); ResNet's
-``batch_stats`` (``mean``, ``var``) become buffers of the same names.
+The other families (GPT-2, OPT, GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ViT,
+T5, ResNet and the small models) cross by the same rules, their layer lists
+named as in flax (``h_<i>``, ``layers_<i>``, BERT's and ViT's ``layer_<i>``,
+T5's ``encoder_layer_<i>`` and ``decoder_layer_<i>`` -> ``h.<i>``,
+``layers.<i>``, ``layer.<i>``, ``encoder_layer.<i>``, ...). A 4-D ``kernel``
+is a flax conv kernel, HWIO, which becomes torch's OIHW (``permute(3, 2, 0,
+1)``); ResNet's ``batch_stats`` (``mean``, ``var``) become buffers of the
+same names. Bare leaves (ViT's ``cls_token`` and ``position_embeddings``)
+keep name and shape; T5's tied head is its ``shared_embedding``.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def _check_layout(keys, config, num_layers):
 
 
 #: The flax names of the families' layer lists (``h_0`` -> ``h.0``).
-_LAYER_LISTS = ("layers", "h", "layer")
+_LAYER_LISTS = ("layers", "h", "layer", "encoder_layer", "decoder_layer")
 
 
 def _port_leaf(path, array):
@@ -74,8 +77,8 @@ def _port_leaf(path, array):
 
 
 def _family_state_dict(params, config) -> dict:
-    """:func:`state_dict_from_flax` for the GPT-style families, BERT,
-    ResNet (its variables, ``params`` and ``batch_stats``, or its params
+    """:func:`state_dict_from_flax` for the GPT-style families, BERT, ViT,
+    T5, ResNet (its variables, ``params`` and ``batch_stats``, or its params
     alone) and the small models."""
     if "params" in params:
         variables, params = params, params["params"]
@@ -83,12 +86,19 @@ def _family_state_dict(params, config) -> dict:
         flat.update(_flatten(variables.get("batch_stats", {})))
     else:
         flat = dict(_flatten(params))
-    layers = getattr(config, "num_hidden_layers", None)
+    # T5's num_layers counts each of its two stacks.
+    layers = getattr(config, "num_hidden_layers", getattr(config, "num_layers", None))
     if layers is not None:
-        found = {part for path in flat for part in path[:-1]
-                 if part.rpartition("_")[0] in _LAYER_LISTS and part.rpartition("_")[2].isdigit()}
-        if len(found) != layers:
-            raise ValueError(f"parameters hold {len(found)} layers, config says {layers}")
+        found: dict = {}
+        for path in flat:
+            for part in path[:-1]:
+                prefix, _, index = part.rpartition("_")
+                if prefix in _LAYER_LISTS and index.isdigit():
+                    found.setdefault(prefix, set()).add(index)
+        for prefix, indices in (found or {"layers": set()}).items():
+            if len(indices) != layers:
+                raise ValueError(f"parameters hold {len(indices)} {prefix} layers, config "
+                                 f"says {layers}")
     return dict(_port_leaf(path, np.asarray(array)) for path, array in flat.items())
 
 

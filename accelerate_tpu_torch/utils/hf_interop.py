@@ -3,7 +3,7 @@
 Counterpart of ``accelerate_tpu/utils/hf_interop.py`` for the families the
 port's ``LlamaForCausalLM`` covers (llama, mistral, qwen2, gemma, gemma2),
 those its ``MixtralForCausalLM`` covers (mixtral, qwen2_moe), the GPT-style
-families (gpt2, opt, gptj, gpt_neox, phi, bloom) and bert. The JAX
+families (gpt2, opt, gptj, gpt_neox, phi, bloom), bert, vit and t5. The JAX
 package's tables map HF names onto a flax tree and transpose every
 projection (op ``"t"``: HF ``Linear.weight`` is ``[out, in]``, a flax
 kernel ``[in, out]``). The port's ``nn.Linear.weight`` is ``[out, in]``
@@ -30,8 +30,13 @@ for them (``models/mixtral.py``): the router is ``[D, E]`` where HF's
 ``down_proj``) is transposed and stacked on a leading expert dim into
 ``[E, in, out]`` (op ``"stack:<e>:t"``, :func:`map_hf_key_and_op`).
 
-The other families of the JAX package (vit, t5) come with their models
-(ROADMAP.md, A9) and raise ``NotImplementedError`` here.
+ViT's patch projection is a ``Linear`` over ``(c, ph, pw)``-flattened
+patches: HF's ``Conv2d`` kernel ``[D, C, p, p]`` reshapes into its weight
+``[D, C*p*p]`` (op ``"cf"``, the JAX op's transpose dropped), and the export
+factors it back, which takes ``config=`` (the shape alone does not say C
+and p). T5 v1.1/flan checkpoints name the gated MLP ``wi_0``/``wi_1``,
+v1.0 ``wi``; the export of a gated model writes ``wi_0``. A tied T5
+checkpoint's ``lm_head`` equal to ``shared`` is dropped.
 """
 
 from __future__ import annotations
@@ -197,6 +202,58 @@ _PHI_RULES = [
     *_linear("lm_head", "lm_head"),
 ]
 
+def _t5_stack(hf: str, ours: str, mlp_sublayer: int, decoder: bool) -> list:
+    """The rules of one T5 stack's blocks: HF ``{hf}.block.{i}.layer.<j>``
+    -> the port's ``{ours}.{i}``."""
+    attn = [("q", "query"), ("k", "key"), ("v", "value"), ("o", "attn_out")]
+    self_attn = "self_attention" if decoder else "attention"
+    rules = [(f"{hf}.block.{{i}}.layer.0.SelfAttention.{a}.weight",
+              f"{ours}.{{i}}.{self_attn}.{b}.weight", None) for a, b in attn]
+    rules += [
+        (f"{hf}.block.{{i}}.layer.0.SelfAttention.relative_attention_bias.weight",
+         f"{ours}.{{i}}.{self_attn}.relative_attention_bias.weight", None),
+        (f"{hf}.block.{{i}}.layer.0.layer_norm.weight",
+         f"{ours}.{{i}}.{'self_norm' if decoder else 'attn_norm'}.scale", None)]
+    if decoder:
+        rules += [(f"{hf}.block.{{i}}.layer.1.EncDecAttention.{a}.weight",
+                   f"{ours}.{{i}}.cross_attention.{b}.weight", None) for a, b in attn]
+        rules.append((f"{hf}.block.{{i}}.layer.1.layer_norm.weight",
+                      f"{ours}.{{i}}.cross_norm.scale", None))
+    mlp = f"{hf}.block.{{i}}.layer.{mlp_sublayer}"
+    # wi (v1.0) first, so the export of a relu model writes it; a gated
+    # model's wi_0 is the activated projection, wi_1 the linear gate.
+    rules += [(f"{mlp}.DenseReluDense.{a}.weight", f"{ours}.{{i}}.mlp.{b}.weight", None)
+              for a, b in (("wi", "intermediate"), ("wi_0", "intermediate"),
+                           ("wi_1", "intermediate_gate"), ("wo", "mlp_out"))]
+    return rules + [(f"{mlp}.layer_norm.weight", f"{ours}.{{i}}.mlp_norm.scale", None),
+                    (f"{hf}.final_layer_norm.weight", f"{ours.split('_')[0]}_norm.scale", None)]
+
+
+_T5_RULES = [
+    ("shared.weight", "shared_embedding.weight", None),
+    *_t5_stack("encoder", "encoder_layer", 1, decoder=False),
+    *_t5_stack("decoder", "decoder_layer", 2, decoder=True),
+    ("lm_head.weight", "lm_head.weight", None),
+]
+
+# ViT: the conv kernel [D, C, p, p] is the patch Linear's weight reshaped
+# (op "cf"); cls_token and position_embeddings are bare parameters.
+_VIT_RULES = [
+    ("embeddings.cls_token", "cls_token", None),
+    ("embeddings.position_embeddings", "position_embeddings", None),
+    ("embeddings.patch_embeddings.projection.weight", "patch_projection.weight", None, "cf"),
+    ("embeddings.patch_embeddings.projection.bias", "patch_projection.bias", None),
+    *_norm("encoder.layer.{i}.layernorm_before", "layer.{i}.norm_before"),
+    *_linear("encoder.layer.{i}.attention.attention.{p}", "layer.{i}.attention.{p}",
+             ("query", "key", "value")),
+    *_linear("encoder.layer.{i}.attention.output.dense", "layer.{i}.attention.attn_out"),
+    *_norm("encoder.layer.{i}.layernorm_after", "layer.{i}.norm_after"),
+    *_linear("encoder.layer.{i}.intermediate.dense", "layer.{i}.intermediate"),
+    *_linear("encoder.layer.{i}.output.dense", "layer.{i}.mlp_out"),
+    *_norm("layernorm", "norm"),
+    *_linear("classifier", "classifier"),
+]
+
 _BERT_RULES = [
     *[(f"embeddings.{p}_embeddings.weight", f"encoder.{p}_embeddings.weight", None)
       for p in ("word", "position", "token_type")],
@@ -247,10 +304,9 @@ _FAMILY_RULES = {
     "opt": _OPT_RULES,
     "phi": _PHI_RULES,
     "bert": _BERT_RULES,
+    "vit": _VIT_RULES,
+    "t5": _T5_RULES,
 }
-
-# Families the JAX package reads that the port has no model for yet.
-_LATER_FAMILIES = ("vit", "t5")
 
 # The prefixes HF wrapper classes add around the base model, stripped
 # before matching (reference :434-440), so e.g. both BertModel and
@@ -263,12 +319,17 @@ _STRIP_PREFIXES = {
     "opt": ("model.decoder.", "decoder."),
     "phi": ("model.",),
     "bert": ("bert.",),
+    "vit": ("vit.",),
 }
+
+# The embedding a tied checkpoint's lm_head copies, where it is not Llama's.
+_TIED_EMBEDDING = {"t5": "shared.weight"}
 
 # HF keys that are legitimately rule-less: a tied head's copy, buffers and
 # heads the port's models do not have.
 _SKIPPABLE = re.compile(
     r"(^|\.)(lm_head\.weight|predictions\..*|position_ids|rotary_emb\.inv_freq"
+    r"|encoder\.embed_tokens\.weight|decoder\.embed_tokens\.weight"
     r"|attn\.(bias|masked_bias)|attention\.(bias|masked_bias))$")
 
 # HF's GELU spellings the models evaluate: "gelu" and "gelu_python" are the
@@ -302,10 +363,6 @@ def _fill(template: str, match: re.Match) -> str:
 def _check_family(family: str) -> None:
     if family in _COMPILED:
         return
-    if family in _LATER_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet (ROADMAP.md, A9); the port reads "
-            f"{'/'.join(_COMPILED)}")
     raise ValueError(f"unsupported family {family!r}; supported: {sorted(_COMPILED)}")
 
 
@@ -341,9 +398,45 @@ def _gelu_act(get, key: str, default: str) -> str:
 
 
 def _family_config(family: str, get):
-    """The config of a GPT-style family or BERT (reference :666-784,
-    :809-822), with the reference's refusals of what its models cannot
+    """The config of a GPT-style family, BERT, ViT or T5 (reference
+    :666-840), with the reference's refusals of what its models cannot
     represent."""
+    if family == "vit":
+        from ..models.vit import ViTConfig
+
+        if get("hidden_act", "gelu") != "gelu":
+            raise NotImplementedError(f"hidden_act {get('hidden_act')!r}: the ViT MLP is exact "
+                                      "gelu")
+        if not get("qkv_bias", True):
+            raise NotImplementedError("qkv_bias=False ViT variants are not representable (the "
+                                      "attention projections carry biases)")
+        return ViTConfig(image_size=get("image_size", 224), patch_size=get("patch_size", 16),
+                         num_channels=get("num_channels", 3),
+                         hidden_size=get("hidden_size", 768),
+                         num_hidden_layers=get("num_hidden_layers", 12),
+                         num_attention_heads=get("num_attention_heads", 12),
+                         intermediate_size=get("intermediate_size", 3072),
+                         layer_norm_eps=get("layer_norm_eps", 1e-12),
+                         hidden_dropout_prob=get("hidden_dropout_prob", 0.0),
+                         attention_probs_dropout_prob=get("attention_probs_dropout_prob", 0.0),
+                         num_labels=len(get("id2label", {i: i for i in range(1000)})))
+    if family == "t5":
+        from ..models.t5 import T5Config
+
+        layers = get("num_layers", 6)
+        if get("num_decoder_layers") not in (None, layers):
+            raise NotImplementedError(f"num_decoder_layers {get('num_decoder_layers')} != "
+                                      f"num_layers {layers}: both stacks have num_layers")
+        return T5Config(vocab_size=get("vocab_size", 32128), hidden_size=get("d_model", 512),
+                        intermediate_size=get("d_ff", 2048), num_layers=layers,
+                        num_heads=get("num_heads", 8), head_dim=get("d_kv", 64),
+                        relative_attention_num_buckets=get("relative_attention_num_buckets", 32),
+                        relative_attention_max_distance=get("relative_attention_max_distance",
+                                                            128),
+                        layer_norm_eps=get("layer_norm_epsilon", 1e-6),
+                        dropout_rate=get("dropout_rate", 0.1),
+                        feed_forward_proj=get("feed_forward_proj", "relu"),
+                        tie_word_embeddings=get("tie_word_embeddings", True))
     if family == "gpt2":
         from ..models.gpt2 import GPT2Config
 
@@ -448,6 +541,26 @@ def _family_config(family: str, get):
 def _family_hf_config(config, family: str) -> dict:
     """The HF ``config.json`` fields :func:`_family_config` reads."""
     c = config
+    if family == "vit":
+        return dict(image_size=c.image_size, patch_size=c.patch_size,
+                    num_channels=c.num_channels, hidden_size=c.hidden_size,
+                    num_hidden_layers=c.num_hidden_layers,
+                    num_attention_heads=c.num_attention_heads,
+                    intermediate_size=c.intermediate_size, layer_norm_eps=c.layer_norm_eps,
+                    hidden_dropout_prob=c.hidden_dropout_prob,
+                    attention_probs_dropout_prob=c.attention_probs_dropout_prob,
+                    hidden_act="gelu", qkv_bias=True,
+                    id2label={str(i): f"LABEL_{i}" for i in range(c.num_labels)})
+    if family == "t5":
+        return dict(vocab_size=c.vocab_size, d_model=c.hidden_size, d_ff=c.intermediate_size,
+                    num_layers=c.num_layers, num_decoder_layers=c.num_layers,
+                    num_heads=c.num_heads, d_kv=c.head_dim,
+                    relative_attention_num_buckets=c.relative_attention_num_buckets,
+                    relative_attention_max_distance=c.relative_attention_max_distance,
+                    layer_norm_epsilon=c.layer_norm_eps, dropout_rate=c.dropout_rate,
+                    feed_forward_proj=c.feed_forward_proj,
+                    tie_word_embeddings=c.tie_word_embeddings, is_encoder_decoder=True,
+                    decoder_start_token_id=0, pad_token_id=0, eos_token_id=1)
     if family == "gpt2":
         return dict(vocab_size=c.vocab_size, n_embd=c.hidden_size, n_layer=c.num_hidden_layers,
                     n_head=c.num_attention_heads, n_positions=c.max_position_embeddings,
@@ -500,8 +613,8 @@ def _family_hf_config(config, family: str) -> dict:
 
 def config_from_hf(hf_config: dict, family: Optional[str] = None):
     """The port's config for an HF ``config.json`` dict: a ``LlamaConfig``
-    (a ``MixtralConfig`` for the MoE families), or the GPT-style family's or
-    BERT's own config."""
+    (a ``MixtralConfig`` for the MoE families), or the GPT-style family's,
+    BERT's, ViT's or T5's own config."""
     family = family or detect_family(hf_config)
     _check_family(family)
     get = hf_config.get
@@ -652,6 +765,7 @@ _MODEL_CLASSES = {
     "gpt_neox": ("gpt_neox", "GPTNeoXForCausalLM"), "bloom": ("bloom", "BloomForCausalLM"),
     "opt": ("opt", "OPTForCausalLM"), "phi": ("phi", "PhiForCausalLM"),
     "bert": ("bert", "BertForSequenceClassification"),
+    "vit": ("vit", "ViTForImageClassification"), "t5": ("t5", "T5ForConditionalGeneration"),
 }
 
 
@@ -721,7 +835,11 @@ def map_hf_key(key: str, family: str) -> Optional[str]:
 
 def apply_op(tensor: torch.Tensor, op: Optional[str]) -> torch.Tensor:
     """``tensor`` under a rule's op: ``"t"`` and ``"stack:<e>:t"``
-    transpose a 2-D tensor (the stacking is the caller's), None keeps it."""
+    transpose a 2-D tensor (the stacking is the caller's), ``"cf"`` flattens
+    a conv kernel ``[out, in, kh, kw]`` into ``[out, in*kh*kw]``, None keeps
+    it."""
+    if op == "cf":
+        return tensor.reshape(tensor.shape[0], -1)
     if op is not None and op.endswith("t"):
         return tensor.transpose(0, 1).contiguous()
     return tensor
@@ -738,8 +856,9 @@ def stack_members(name: str, parts: dict, count: Optional[int] = None) -> list:
     return [parts[e] for e in range(n)]
 
 
-def _drop_tied_head(state_dict: dict) -> bool:
-    head, embed = state_dict.get("lm_head.weight"), state_dict.get("model.embed_tokens.weight")
+def _drop_tied_head(state_dict: dict, family: str) -> bool:
+    head = state_dict.get("lm_head.weight")
+    embed = state_dict.get(_TIED_EMBEDDING.get(family, "model.embed_tokens.weight"))
     if head is None or embed is None or head.shape != embed.shape:
         return False
     # First row first, so an untied head pays for no full comparison.
@@ -751,7 +870,7 @@ def convert_hf_state_dict(state_dict: dict, family: str, *, strict: bool = False
     A head equal to the embedding (a tied checkpoint's copy) is dropped;
     unmatched HF keys are skipped unless ``strict``."""
     _check_family(family)
-    drop_head = _drop_tied_head(state_dict)
+    drop_head = _drop_tied_head(state_dict, family)
     out, stacked = {}, {}
     for key, value in state_dict.items():
         if drop_head and key == "lm_head.weight":
@@ -774,13 +893,18 @@ def convert_hf_state_dict(state_dict: dict, family: str, *, strict: bool = False
     return out
 
 
-def export_hf_state_dict(params, family: str, *, prefix: str = "", dtype=None) -> dict:
+def export_hf_state_dict(params, family: str, *, prefix: str = "", config=None,
+                         dtype=None) -> dict:
     """The port's state dict (or a model) -> an HF-named state dict of the
     same tensors. Raises on a parameter with no rule, so nothing is dropped
-    silently; ``dtype`` casts every floating tensor."""
+    silently; ``dtype`` casts every floating tensor. ``config`` is needed
+    where the export is not fixed by the shapes (ViT's conv kernel: its
+    channels and patch size)."""
     _check_family(family)
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
+    # A gated T5 model's activated projection is wi_0, not v1.0's wi.
+    t5_gated = family == "t5" and any(".intermediate_gate." in k for k in params)
     out = {}
     for key, value in params.items():
         if dtype is not None and value.is_floating_point():
@@ -795,7 +919,18 @@ def export_hf_state_dict(params, family: str, *, prefix: str = "", dtype=None) -
         for _, ours_re, hf_t, _, op in _COMPILED[family]:
             match = ours_re.match(key)
             if match:
-                out[prefix + _fill(hf_t, match)] = apply_op(value, op)
+                hf_key = _fill(hf_t, match)
+                if t5_gated and hf_key.endswith(".DenseReluDense.wi.weight"):
+                    hf_key = hf_key.replace(".wi.weight", ".wi_0.weight")
+                if op == "cf":
+                    if config is None:
+                        raise ValueError(f"exporting {key!r} needs config= (conv kernel "
+                                         "channel/patch factorization)")
+                    p = config.patch_size
+                    value = value.reshape(value.shape[0], config.num_channels, p, p)
+                else:
+                    value = apply_op(value, op)
+                out[prefix + hf_key] = value
                 break
         else:
             raise KeyError(f"no export rule for parameter {key!r} ({family})")
@@ -829,7 +964,7 @@ def save_hf_checkpoint(params, checkpoint_dir: str, config, family: str = "llama
     index."""
     from ..checkpointing import save_sharded
 
-    hf = export_hf_state_dict(params, family, dtype=dtype)
+    hf = export_hf_state_dict(params, family, config=config, dtype=dtype)
     save_sharded(hf, checkpoint_dir, max_shard_size)
     hf_config = hf_config_from(config, family)
     floating = [t.dtype for t in hf.values() if t.is_floating_point()]

@@ -256,10 +256,10 @@ def load_and_quantize_model(module, checkpoint=None, params=None,
 
 def load_and_quantize_hf_checkpoint(checkpoint_dir: str, quantization_config: QuantizationConfig,
                                     dtype=None, config=None, device=None):
-    """Quantize an HF checkpoint directory of the Llama family in one call,
-    the names translated tensor by tensor as the shards stream (no
-    full-precision state dict). Returns ``(config, module, qparams,
-    apply_fn)``, the module on the meta device."""
+    """Quantize an HF checkpoint directory in one call (the Llama family,
+    the GPT-style families, T5, ...), the names translated tensor by tensor
+    as the shards stream (no full-precision state dict). Returns ``(config,
+    module, qparams, apply_fn)``, the module on the meta device."""
     from .hf_interop import map_hf_key, open_hf_checkpoint
 
     family, config, module = open_hf_checkpoint(checkpoint_dir, config)

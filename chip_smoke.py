@@ -299,11 +299,41 @@ order; any failure exits non-zero:
    Prints the phase's seconds. ``main_families()`` runs it alone, with
    phase 2's and 2b's D=80 and family cases.
 
+15 (after 14, the earlier models freed). T5 at T0pp's widths (d_model 4096,
+   64 heads of 64, d_ff 10240, gated GELU, untied head; ``T5Config.t0pp``)
+   and ViT-B/16, random weights from a seeded generator on the card; both
+   attend by the einsum core, and the phase fails if a flash kernel
+   launches. (a) At f32 (TF32 off) with 2 + 2 layers: batch 2 with one
+   padded row, sources of 3, 130 and 512 tokens, 16 new: cached
+   ``seq2seq_generate`` token-exact with the uncached loop (a teacher-forced
+   forward and an argmax a step on the same padded source); ``generate``
+   hands T5 to it; ``StreamedModel.seq2seq_generate`` on the pinned-host
+   tier (``cpu_offload``) token-exact with the resident model at 130 and
+   512; ``relative_position_bucket`` on the card equal to the CPU's table
+   for -4096..4096; the HF round trips (export, convert, export) of T5 and
+   ViT-B/16 bit-identical. (b) T0pp at 24 + 24 layers (11.1 B parameters,
+   22.3 GB in bf16): a teacher-forced forward on 4 x 512 source and 4 x
+   128 target tokens (ms, tokens/s, peak), batch-4 ``seq2seq_generate``
+   from 512-token sources, 32 new (tokens/s, ms a token, a repeat
+   identical), each profiled once. (c) T0pp's widths cut to 6 + 6 layers
+   all in pinned host memory (a full 11 B pinned copy would round up to
+   ~36 GiB in the pinned pool's power-of-two blocks): one forward's ms and
+   8 cached tokens' ms a token, the peak card memory within 2 x the largest
+   block + the resident forward's activation peak (phase 4f's bound). (d)
+   2 + 2 layers at T0pp's widths, 8 x 512 sources and 8 x 128 targets, bf16
+   over f32 masters, fused AdamW, clip 1.0, ``seq2seq_lm_loss`` with
+   dropout 0.1 from the accelerator's generator: 3 + 10 steps, step ms and
+   peak, finite losses, batch 0's falling. (e) ViT-B/16: a bf16 forward on
+   64 x 224^2 (ms, images/s) and a bf16-over-f32-masters train step on 64
+   images (ms, images/s, peak). Prints the phase's seconds.
+   ``main_seq2seq_vision()`` runs it alone.
+
 Prints the kernels' JSON line (each kernel with its launches in phase 9,
 ``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
 11, ``mesh_launches``, in phase 12, ``moe_launches``, in phase 13,
-``tp_serving_launches``, and in phase 14, ``families_launches``, with its
-timings at the families' shapes in ``families``) and the card's line, and
+``tp_serving_launches``, in phase 14, ``families_launches``, with its
+timings at the families' shapes in ``families``, and in phase 15,
+``seq2seq_vision_launches``, 0) and the card's line, and
 as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2343,8 +2373,8 @@ def timed_passes(streamed):
 
     marks, run = [], streamed._run
 
-    def wrapped(step):
-        out = run(step)
+    def wrapped(step, specs=None):
+        out = run(step, specs)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         return out
@@ -5166,6 +5196,409 @@ def phase_families() -> dict:
                 counts=counts, seconds=seconds)
 
 
+# Phase 15: T5 (T0pp widths) and ViT-B/16, with seq2seq_generate and staged
+# streaming. Their attention is the einsum core: no flash kernel runs.
+SEQ2SEQ = dict(
+    seed=151, exact_layers=2, exact_sources=(3, 130, 512), exact_new=16, stream_sources=(130, 512),
+    forward=(4, 512, 128), generate=(4, 512, 32), stream_layers=6, stream_new=8,
+    train=(8, 512, 128), train_layers=2, warmup=3, iters=10, vit_batch=64)
+SEQ2SEQ_PATH = ("T5 at T0pp widths and ViT-B/16 (phase 15): einsum attention with a relative "
+                "bias (T5) or none (ViT); no flash kernel")
+
+
+def t5_model(layers: int, dtype, seed: int, **overrides):
+    """T0pp's widths (``T5Config.t0pp``) at ``layers`` + ``layers`` layers on
+    the card, random weights from a seeded generator, dropout off unless
+    asked for."""
+    import torch
+
+    from accelerate_tpu_torch import T5Config, T5ForConditionalGeneration
+
+    cfg = T5Config.t0pp(num_layers=layers, **{"dropout_rate": 0.0, **overrides})
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return T5ForConditionalGeneration(cfg, device="cuda", dtype=dtype, generator=gen)
+
+
+def hf_round_trip(model, family: str, problems: list, config=None) -> tuple:
+    """convert(export(state)) and export again: every tensor bit-identical,
+    the key sets equal. Returns ``(the number of HF tensors, same)``."""
+    import torch
+
+    from accelerate_tpu_torch.utils.hf_interop import convert_hf_state_dict, export_hf_state_dict
+
+    state = model.state_dict()
+    hf = export_hf_state_dict(state, family, config=config)
+    back = convert_hf_state_dict(hf, family, strict=True)
+    again = export_hf_state_dict(back, family, config=config)
+    same = (set(back) == set(state) and set(again) == set(hf)
+            and all(torch.equal(back[k], v) for k, v in state.items())
+            and all(torch.equal(again[k], v) for k, v in hf.items()))
+    if not same:
+        problems.append(f"(a) the {family} HF round trip is not bit-identical")
+    return len(hf), same
+
+
+def seq2seq_exactness(problems: list) -> dict:
+    """(a) at f32 on T0pp's widths with 2 + 2 layers: cached
+    ``seq2seq_generate`` against the uncached loop (a teacher-forced forward
+    and an argmax a step, on the same padded source) for batch 2 with one
+    padded row and sources of 3, 130 and 512 tokens; ``generate`` routing
+    to it; ``StreamedModel.seq2seq_generate`` on the pinned-host tier
+    against the resident tokens; the bucket table on the card against the
+    CPU's; the T5 and ViT-B/16 HF round trips bit-identical."""
+    import torch
+
+    from accelerate_tpu_torch import (
+        ViTConfig,
+        ViTForImageClassification,
+        cpu_offload,
+        generate,
+        seq2seq_generate,
+    )
+    from accelerate_tpu_torch.generation import _padded_source
+    from accelerate_tpu_torch.models.t5 import relative_position_bucket
+
+    S2 = SEQ2SEQ
+    model = t5_model(S2["exact_layers"], torch.float32, S2["seed"])
+    cfg, new = model.config, S2["exact_new"]
+    gen = torch.Generator(device="cuda").manual_seed(S2["seed"] + 1)
+    out, resident = {}, {}
+    for S in S2["exact_sources"]:
+        src = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device="cuda")
+        mask = torch.ones_like(src)
+        mask[1, max(1, S // 2):] = 0  # row 1 padded
+        t0 = time.perf_counter()
+        cached = seq2seq_generate(model, src, new, attention_mask=mask, cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        cached_s = time.perf_counter() - t0
+        ids, pad_mask = _padded_source(src, mask)
+        dec = cached[:, :1]
+        with torch.inference_mode():
+            for _ in range(new):
+                logits = model(ids, dec, pad_mask)
+                dec = torch.cat([dec, logits[:, -1].argmax(-1, keepdim=True).to(dec.dtype)], 1)
+        same = torch.equal(cached, dec)
+        resident[S] = (src, mask, cached)
+        print(f"  [{'ok' if same else 'FAIL'}] (a) source {S} (bucket {ids.shape[1]}), batch 2, "
+              f"row 1 padded after {max(1, S // 2)}: cached seq2seq_generate {tuple(cached.shape)} "
+              f"{'equals' if same else 'DIFFERS FROM'} the uncached loop ({cached_s:.2f} s)")
+        if not same:
+            problems.append(f"(a) cached and uncached decoding differ at source {S}")
+        out[S] = same
+    src = resident[130][0]
+    routed = generate(model, src, new, cache_dtype=torch.float32)
+    direct = seq2seq_generate(model, src, new, cache_dtype=torch.float32)
+    ok = routed.shape == (2, 1 + new) and torch.equal(routed, direct)
+    print(f"  [{'ok' if ok else 'FAIL'}] (a) generate() hands T5 to seq2seq_generate: "
+          f"{tuple(routed.shape)} decoder ids, equal")
+    if not ok:
+        problems.append("(a) generate() did not route T5 to seq2seq_generate")
+
+    # The pinned-host tier: every block streamed, the encoder once.
+    t0 = time.perf_counter()
+    streamed = cpu_offload(model, execution_device="cuda")
+    pin_s = time.perf_counter() - t0
+    for S in S2["stream_sources"]:
+        src, mask, cached = resident[S]
+        t0 = time.perf_counter()
+        got = streamed.seq2seq_generate(src, new, attention_mask=mask, cache_dtype=torch.float32)
+        torch.cuda.synchronize()
+        same = torch.equal(got, cached)
+        print(f"  [{'ok' if same else 'FAIL'}] (a) StreamedModel.seq2seq_generate on the pinned-"
+              f"host tier, source {S}: {'equals' if same else 'DIFFERS FROM'} the resident model "
+              f"({time.perf_counter() - t0:.2f} s; pinned in {pin_s:.1f} s)")
+        if not same:
+            problems.append(f"(a) streamed decoding differs from the resident model at {S}")
+    streamed.close()
+    del streamed
+
+    # The bucket table on the card against the CPU's.
+    rel = torch.arange(-4096, 4097)
+    tables = [(bi, relative_position_bucket(rel.cuda(), bi, 32, 128).cpu(),
+               relative_position_bucket(rel, bi, 32, 128)) for bi in (True, False)]
+    ok = all(torch.equal(card, cpu) for _, card, cpu in tables)
+    print(f"  [{'ok' if ok else 'FAIL'}] (a) relative_position_bucket on the card equals the "
+          "CPU's for -4096..4096 at (32, 128), bidirectional and causal")
+    if not ok:
+        problems.append("(a) the bucket table on the card differs from the CPU's")
+    n_t5, same_t5 = hf_round_trip(model, "t5", problems)
+    del model, routed, direct, resident
+    free_cuda()
+    vcfg = ViTConfig.base()
+    vit = ViTForImageClassification(vcfg, device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(1))
+    n_vit, same_vit = hf_round_trip(vit, "vit", problems, config=vcfg)
+    print(f"  [{'ok' if same_t5 and same_vit else 'FAIL'}] (a) HF round trips (export, "
+          f"convert, export): T5 {n_t5} tensors (wi_0/wi_1), ViT-B/16 {n_vit} (the conv kernel "
+          "[768, 3, 16, 16]), bit-identical")
+    del vit
+    free_cuda()
+    return out
+
+
+def t5_full_depth(problems: list) -> dict:
+    """(b) T0pp at 24 + 24 layers in bf16: a teacher-forced forward (ms,
+    tokens/s, peak) and batch-4 ``seq2seq_generate`` (tokens/s, ms a
+    token, a repeat identical), each profiled once."""
+    import torch
+
+    from accelerate_tpu_torch import seq2seq_generate
+
+    S2 = SEQ2SEQ
+    t0 = time.perf_counter()
+    model = t5_model(24, torch.bfloat16, S2["seed"] + 2)
+    torch.cuda.synchronize()
+    cfg = model.config
+    params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  (b) T0pp, 24 + 24 layers, {params / 1e9:.3f} B parameters, {weights / 1e9:.2f} GB "
+          f"in bf16, built in {time.perf_counter() - t0:.1f} s ({card_line()})")
+    gen = torch.Generator(device="cuda").manual_seed(S2["seed"] + 3)
+    B, S, T = S2["forward"]
+    src = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    tgt = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = timed_ms(lambda: model(src, tgt), iters=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logits = model(src, tgt)
+        finite = bool(torch.isfinite(logits).all())
+        fwd_profile = device_breakdown(f"T0pp forward {B} x ({S} + {T})", lambda: model(src, tgt))
+    tokens = B * (S + T)
+    ok = finite and logits.shape == (B, T, cfg.vocab_size)
+    print(f"  [{'ok' if ok else 'FAIL'}] (b) forward {B} x {S} source + {B} x {T} target tokens: "
+          f"{fwd_ms:.2f} ms, {tokens / fwd_ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB, "
+          f"logits finite")
+    if not ok:
+        problems.append("(b) T0pp's forward gave non-finite logits or a wrong shape")
+    del logits
+    B, S, new = S2["generate"]
+    src = src[:B, :S]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = seq2seq_generate(model, src, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    again = seq2seq_generate(model, src, new)
+    same = torch.equal(first, again)
+    dec_profile = device_breakdown(f"T0pp seq2seq_generate batch {B}, {new} new",
+                                   lambda: seq2seq_generate(model, src, new))
+    ok = same and first.shape == (B, 1 + new) and int(first.max()) < cfg.vocab_size
+    print(f"  [{'ok' if ok else 'FAIL'}] (b) seq2seq_generate batch {B}, {S}-token sources, "
+          f"{new} new (bf16 cache): {gen_s * 1e3:.1f} ms, {B * new / gen_s:.1f} tokens/s, "
+          f"{gen_s * 1e3 / new:.2f} ms a token (the encoder's pass included); a repeat call "
+          f"{'identical' if same else 'DIFFERS'}")
+    if not ok:
+        problems.append("(b) T0pp's seq2seq_generate is not repeatable or out of range")
+    del model
+    free_cuda()
+    return dict(params=params, weights_gb=weights / 1e9, forward_ms=fwd_ms,
+                forward_tokens_per_s=tokens / fwd_ms * 1e3, forward_peak_gib=peak,
+                generate_tokens_per_s=B * new / gen_s, generate_ms_per_token=gen_s * 1e3 / new,
+                forward_profile=fwd_profile, generate_profile=dec_profile)
+
+
+def t5_streamed(problems: list) -> dict:
+    """(c) T0pp's widths cut to 6 + 6 layers, streamed from pinned host
+    memory: one forward's ms and 8 cached tokens' ms a token, the peak card
+    memory held to phase 4f's bound (2 x the largest block + the resident
+    forward's activation peak, +10 % + 64 MiB)."""
+    import torch
+
+    from accelerate_tpu_torch import cpu_offload
+
+    S2 = SEQ2SEQ
+    model = t5_model(S2["stream_layers"], torch.bfloat16, S2["seed"] + 4)
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(S2["seed"] + 5)
+    B, S, T = S2["forward"]
+    src = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    tgt = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device="cuda")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref = model(src, tgt)
+        torch.cuda.synchronize()
+        allowance = int((torch.cuda.max_memory_allocated() - before) * 1.1) + (64 << 20)
+    t0 = time.perf_counter()
+    streamed = cpu_offload(model, execution_device="cuda")
+    pin_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model
+    free_cuda()
+    block = streamed_block_bytes(streamed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    passes = timed_passes(streamed)
+    torch.cuda.reset_peak_memory_stats()
+    streamed(src, tgt)  # warm
+    t0 = time.perf_counter()
+    got = streamed(src, tgt)
+    fwd_ms = (passes[-1] - t0) * 1e3
+    err = (got.float() - ref.float()).abs().max().item()
+    del passes[:]
+    tokens = streamed.seq2seq_generate(src, S2["stream_new"])
+    # passes: the encoder, then one a token.
+    ms_token = (passes[-1] - passes[0]) * 1e3 / (len(passes) - 1)
+    peak = torch.cuda.max_memory_allocated() - base
+    bound = 2 * block + allowance
+    ok = (peak <= bound and tokens.shape == (B, 1 + S2["stream_new"])
+          and bool(torch.isfinite(got).all()))
+    print(f"  [{'ok' if ok else 'FAIL'}] (c) T0pp widths, {cfg.num_layers} + {cfg.num_layers} "
+          f"layers ({weights / 1e9:.2f} GB), all in pinned host memory (pinned in {pin_s:.1f} s): "
+          f"forward {B} x ({S} + {T}) {fwd_ms:.1f} ms ({weights / fwd_ms / 1e6:.1f} GB/s "
+          f"streamed), max |streamed - resident| {err:.3g}; cached decode batch {B}, "
+          f"{S2['stream_new']} new: {ms_token:.1f} ms a token; peak {peak / 2**30:.2f} GiB above "
+          f"the baseline against 2 x block {block / 2**30:.3f} + allowance "
+          f"{allowance / 2**30:.2f} = {bound / 2**30:.2f} GiB")
+    if not ok:
+        problems.append(f"(c) the streamed T5's peak {peak} exceeds {bound}, or its output is "
+                        "wrong")
+    streamed.close()
+    del streamed, got, ref
+    free_cuda()
+    return dict(layers=cfg.num_layers, weights_gb=weights / 1e9, forward_ms=fwd_ms,
+                ms_per_token=ms_token, peak_gib=peak / 2**30, bound_gib=bound / 2**30,
+                max_abs_err=err)
+
+
+def t5_train(problems: list) -> dict:
+    """(d) 2 + 2 layers at T0pp's widths, 8 x 512 sources and 8 x 128
+    targets, bf16 over f32 masters, fused AdamW, clip 1.0,
+    ``compile_train_step(seq2seq_lm_loss(model))``, dropout 0.1 from the
+    accelerator's generator: 3 + 10 steps on seeded batch k % 4, step ms and
+    peak; finite losses, batch 0's falling."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator, make_global_batch, seq2seq_lm_loss
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    S2 = SEQ2SEQ
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = t5_model(S2["train_layers"], torch.float32, S2["seed"] + 6, dropout_rate=0.1)
+    cfg = model.config
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                    weight_decay=1e-4, fused=True))
+    step = acc.compile_train_step(seq2seq_lm_loss(model), max_grad_norm=1.0)
+    rng = np.random.default_rng(S2["seed"])
+    B, S, T = S2["train"]
+    batches = [make_global_batch({"input_ids": rng.integers(0, cfg.vocab_size, (B, S)),
+                                  "labels": rng.integers(0, cfg.vocab_size, (B, T))}, acc)
+               for _ in range(4)]
+    steps = S2["warmup"] + S2["iters"]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batches[k % 4])["loss"] for k in range(S2["warmup"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(batches[k % 4])["loss"] for k in range(S2["warmup"], steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / S2["iters"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(losses).tolist()
+    last0 = losses[(steps - 1) // 4 * 4]
+    ok = all(math.isfinite(x) for x in losses) and last0 < losses[0]
+    print(f"  [{'ok' if ok else 'FAIL'}] (d) T0pp widths, {cfg.num_layers} + {cfg.num_layers} "
+          f"layers, {B} x {S} sources + {B} x {T} targets, bf16 over f32 masters, dropout 0.1: "
+          f"{step_ms:.2f} ms a step, {B * (S + T) / step_ms * 1e3:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB; batch 0's loss {losses[0]:.4f} -> {last0:.4f} (step "
+          f"{(steps - 1) // 4 * 4}), last {losses[-1]:.4f}")
+    if not ok:
+        problems.append(f"(d) T5's losses are not finite or batch 0's did not fall: {losses}")
+    del model, step, batches
+    free_cuda()
+    return dict(step_ms=step_ms, peak_gib=peak, losses=losses)
+
+
+def vit_base(problems: list) -> dict:
+    """(e) ViT-B/16: a bf16 forward on 64 x 224^2 (ms, images/s), and a
+    bf16-over-f32-masters ``compile_train_step`` step on 64 images (ms,
+    images/s, peak)."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        ViTConfig,
+        ViTForImageClassification,
+        make_global_batch,
+    )
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    S2 = SEQ2SEQ
+    cfg, B = ViTConfig.base(), S2["vit_batch"]
+    gen = torch.Generator(device="cuda").manual_seed(S2["seed"] + 7)
+    model = ViTForImageClassification(cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
+    x = torch.randn((B, cfg.image_size, cfg.image_size, cfg.num_channels), generator=gen,
+                    device="cuda")
+    with torch.inference_mode():
+        fwd_ms = timed_ms(lambda: model(x), iters=10)
+        finite = bool(torch.isfinite(model(x)).all())
+    del model
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    acc = Accelerator(mixed_precision="bf16")
+    model = ViTForImageClassification(cfg, device="cuda", generator=gen)
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                    weight_decay=1e-4, fused=True))
+    module = model.module
+
+    def loss_fn(params, b, generator=None):
+        logits = torch.func.functional_call(module, params, (b["pixel_values"],),
+                                            {"generator": generator})
+        logp = torch.log_softmax(logits.float(), -1)
+        return -logp.gather(-1, b["labels"].long()[:, None]).mean()
+
+    step = acc.compile_train_step(loss_fn, max_grad_norm=1.0)
+    rng = np.random.default_rng(S2["seed"])
+    batch = make_global_batch({"pixel_values": rng.normal(size=tuple(x.shape)).astype(np.float32),
+                               "labels": rng.integers(0, cfg.num_labels, B)}, acc)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_steps(step, batch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  [{'ok' if finite else 'FAIL'}] (e) ViT-B/16, {B} x 224^2: bf16 forward "
+          f"{fwd_ms:.2f} ms, {B / fwd_ms * 1e3:.0f} images/s; train step (bf16 over f32 masters, "
+          f"fused AdamW, clip 1.0) {step_ms:.2f} ms, {B / step_ms * 1e3:.0f} images/s, peak "
+          f"{peak:.2f} GiB")
+    if not finite:
+        problems.append("(e) ViT-B/16's forward gave non-finite logits")
+    del model, step, batch
+    free_cuda()
+    return dict(forward_ms=fwd_ms, forward_images_per_s=B / fwd_ms * 1e3, step_ms=step_ms,
+                step_images_per_s=B / step_ms * 1e3, peak_gib=peak)
+
+
+def phase_seq2seq_vision() -> dict:
+    """Phase 15: T5 at T0pp's widths and ViT-B/16 (see the module
+    docstring). No flash kernel may launch: both attend by the einsum
+    core. Returns the numbers and the launches (all 0)."""
+    t_phase = time.perf_counter()
+    problems = []
+    reset_counts()
+    print("  (a) exactness at f32, TF32 off, T0pp widths, 2 + 2 layers")
+    exact = seq2seq_exactness(problems)
+    print(f"  (b) T0pp at full depth, bf16 (t = {time.perf_counter() - t_phase:.1f} s)")
+    full = t5_full_depth(problems)
+    print(f"  (c) T5 streamed from pinned host memory (t = {time.perf_counter() - t_phase:.1f} s)")
+    streamed = t5_streamed(problems)
+    print(f"  (d) T5 train steps (t = {time.perf_counter() - t_phase:.1f} s)")
+    train = t5_train(problems)
+    print(f"  (e) ViT-B/16 (t = {time.perf_counter() - t_phase:.1f} s)")
+    vit = vit_base(problems)
+    counts = read_counts()
+    if any(counts.values()):
+        problems.append(f"a flash kernel launched: {counts}")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 15: {seconds:.1f} s, flash launches {sum(counts.values())}")
+    if problems:
+        fail("phase 15: " + "; ".join(problems))
+    return dict(exact=exact, full=full, streamed=streamed, train=train, vit=vit, counts=counts,
+                seconds=seconds)
+
+
 def stage(title: str, t0: float = time.perf_counter()):
     """A phase's header line, with the seconds since the script started."""
     print(f"{title} (t = {time.perf_counter() - t0:.0f} s)", flush=True)
@@ -5263,6 +5696,9 @@ def main():
     stage("== 14. the model families: GPT-2 XL, Phi-2, GPT-J-6B, BLOOM-560m, GPT-NeoX-20B, "
           "OPT-30B; BERT-base, ResNet-50, the port's examples")
     families = phase_families()
+    free_cuda()
+    stage("== 15. T5 at T0pp widths and ViT-B/16: seq2seq_generate, staged streaming, training")
+    seq2seq = phase_seq2seq_vision()
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -5289,6 +5725,8 @@ def main():
         entry["moe_launches_per_step"] = moe["train_counts"][key] / moe["steps"]
         entry["moe_path"] = MOE_PATH
         add_family_entries(entry, key, families)
+        entry["seq2seq_vision_launches"] = seq2seq["counts"][key]
+        entry["seq2seq_vision_path"] = SEQ2SEQ_PATH
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5323,6 +5761,23 @@ def main_families():
                   for n, t in families["train"].items()},
         "small": families["small"], "timings": families["timings"],
         "counts": families["counts"], "seconds": families["seconds"]}}))
+
+
+def main_seq2seq_vision():
+    """Phase 15 alone (no kernel is built: T5 and ViT attend by the einsum
+    core, and the phase holds that no flash kernel launches)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    out = phase_seq2seq_vision()
+    print(json.dumps({"seq2seq_vision": {k: out[k] for k in ("full", "streamed", "vit",
+                                                             "counts", "seconds")}
+                      | {"train": {k: out["train"][k] for k in ("step_ms", "peak_gib")}}}))
 
 
 def main_tp_serving():

@@ -51,11 +51,6 @@ MISSING_OK = {
         "JAX-only", "keeps ZeRO executables out of XLA's persistent compile cache"),
     "accelerate_tpu.parallel.host_offload.shardings_like": (
         "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
-    "accelerate_tpu.generation.seq2seq_generate": ("A9", "comes with T5"),
-    "accelerate_tpu.big_modeling.StreamedModel.seq2seq_generate": ("A9", "comes with T5"),
-    **{f"accelerate_tpu.models.{name}": ("A9", "T5 and ViT")
-       for name in ("t5.T5Config", "t5.T5ForConditionalGeneration", "t5.seq2seq_lm_loss",
-                    "vit.ViTConfig", "vit.ViTForImageClassification")},
     **{f"accelerate_tpu.ops.quant.{name}": ("A9", "the fp8 path")
        for name in ("Fp8Dense", "fp8_matmul", "fp8_meta_mask", "has_fp8_meta",
                     "recipe_to_config_kwargs", "wrap_optimizer_for_fp8")},
@@ -66,7 +61,8 @@ MISSING_OK = {
                     "mixtral.MixtralForCausalLM", "gpt2.GPT2LMHeadModel", "opt.OPTForCausalLM",
                     "gptj.GPTJForCausalLM", "gpt_neox.GPTNeoXForCausalLM", "phi.PhiForCausalLM",
                     "bloom.BloomForCausalLM", "bert.BertForSequenceClassification",
-                    "simple.MLP")},
+                    "simple.MLP", "t5.T5ForConditionalGeneration",
+                    "vit.ViTForImageClassification")},
     "accelerate_tpu.models.resnet.ResNet.init_variables": (
         "JAX-only", "flax's init of the params and batch_stats collections; the torch module "
                     "holds its parameters and its running statistics as buffers"),
@@ -137,10 +133,6 @@ KEYWORDS_OK = [
      "the threaded reader comes with native/ host IO"),
     ("accelerate_tpu.checkpointing.save_adapter", ("blocking",), "JAX-only",
      "save_array_tree's background write (a pytree helper)"),
-    ("accelerate_tpu.big_modeling.BlockSpec", ("stage",), "A9",
-     "encoder and decoder stages come with T5"),
-    ("accelerate_tpu.utils.hf_interop.export_hf_state_dict", ("config",), "A9",
-     "comes with vit"),
     ("accelerate_tpu.utils.hf_interop.convert_hf_state_dict", ("to_numpy",), "JAX-only",
      "numpy or jax arrays; the port returns tensors"),
     ("accelerate_tpu.big_modeling.init_empty_weights", ("module", "rng"), "JAX-only",
@@ -155,6 +147,8 @@ KEYWORDS_OK = [
     ("accelerate_tpu.generation.generate", ("params",), "JAX-only", _PYTREE),
     ("accelerate_tpu.generation.generate", ("rng",), "JAX-only", _KEY),
     ("accelerate_tpu.generation.greedy_generate", ("params",), "JAX-only", _PYTREE),
+    ("accelerate_tpu.generation.seq2seq_generate", ("params",), "JAX-only", _PYTREE),
+    ("accelerate_tpu.generation.seq2seq_generate", ("rng",), "JAX-only", _KEY),
     ("accelerate_tpu.generation.beam_search_generate", ("params",), "JAX-only", _PYTREE),
     ("accelerate_tpu.generation.prompt_lookup_generate", ("params",), "JAX-only", _PYTREE),
     ("accelerate_tpu.generation.prompt_lookup_generate", ("rng",), "JAX-only", _KEY),
@@ -194,11 +188,20 @@ KEYWORDS_OK = [
                    "bloom.BloomBlock", "bloom.BloomForCausalLM", "bert.BertSelfAttention",
                    "bert.BertLayer", "bert.BertEncoder", "bert.BertForSequenceClassification",
                    "resnet.ResNet", "resnet.BottleneckBlock", "resnet.BasicBlock",
-                   "simple.MLP", "simple.RegressionModel")],
+                   "simple.MLP", "simple.RegressionModel", "t5.T5LayerNorm", "t5.T5Attention",
+                   "t5.T5MLP", "t5.T5EncoderBlock", "t5.T5DecoderBlock",
+                   "t5.T5ForConditionalGeneration", "vit.ViTSelfAttention", "vit.ViTBlock",
+                   "vit.ViTForImageClassification")],
     ("accelerate_tpu.models.mixtral.mixtral_lm_loss", ("apply_fn",), "JAX-only",
      "a flax apply function; the port's loss takes the model"),
     ("accelerate_tpu.models.bert.classification_loss", ("apply_fn",), "JAX-only",
      "a flax apply function; the port's loss takes the model"),
+    ("accelerate_tpu.models.t5.seq2seq_lm_loss", ("apply_fn",), "JAX-only",
+     "a flax apply function; the port's loss takes the model"),
+    *[(f"accelerate_tpu.models.t5.{name}", ("deterministic",), "JAX-only",
+       "flax's dropout switch; a port module drops out when its forward is given a "
+       "torch.Generator")
+      for name in ("T5Attention", "T5MLP", "T5EncoderBlock", "T5DecoderBlock")],
 ]
 
 

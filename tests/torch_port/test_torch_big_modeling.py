@@ -10,7 +10,13 @@ at f32 (einsum attention on both sides; the rest is summation order), and
 bit-equal to the port's resident model (the same ops in the same order);
 greedy, prompt-lookup and assisted decoding token-exact with the JAX
 streamed decoders and with plain greedy. Sampled decoding draws from a
-``torch.Generator``, so it is held to seed-determinism within the port."""
+``torch.Generator``, so it is held to seed-determinism within the port.
+T5 (transformers' tiny model written as an HF directory): the staged
+streamed forward on the host and disk tiers equals the resident model's
+logits bit for bit (and transformers' within 1e-5), streamed decoding
+cached and uncached equals the resident ``seq2seq_generate`` and the JAX
+``StreamedModel.seq2seq_generate`` up to its first EOS, and int8 loading
+off the directory matches the JAX package's."""
 
 import dataclasses
 
@@ -18,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from safetensors.numpy import save_file
 
 from accelerate_tpu import big_modeling as jbm
 from accelerate_tpu.utils import offload as joff
@@ -45,7 +52,7 @@ from accelerate_tpu_torch import big_modeling as pbm
 from accelerate_tpu_torch.utils.convert import state_dict_from_flax
 from accelerate_tpu_torch.utils.modeling import compute_module_sizes
 
-from torch_big_model_common import jax_name, jax_params, write_hf_dir
+from torch_big_model_common import hf_t5, jax_name, jax_params, write_hf_dir
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 CPU = "cpu"
@@ -202,9 +209,9 @@ def test_speculation_streams_fewer_passes_than_tokens(ckpt):
     passes = {"n": 0}
     run = ps._run
 
-    def counting(step):
+    def counting(step, *specs):
         passes["n"] += 1
-        return run(step)
+        return run(step, *specs)
 
     ps._run = counting
     try:
@@ -387,3 +394,118 @@ def test_quantized_loading_matches_jax(ckpt, bits):
         assert torch.equal(from_params[name].q, qp[name].q)
     with pytest.raises(ValueError, match="exactly one"):
         load_and_quantize_model(module, quantization_config=qcfg, device=CPU)
+
+
+# -- T5: the encoder-decoder streamed --------------------------------------
+
+
+def t5_hf_dir(tmp_path, variant="relu-tied"):
+    """transformers' tiny T5 written as an HF directory; returns the
+    transformers model."""
+    import json
+
+    hf = hf_t5(variant)
+    save_file({k: v.numpy() for k, v in hf.state_dict().items()},
+              str(tmp_path / "model.safetensors"))
+    (tmp_path / "config.json").write_text(json.dumps(hf.config.to_dict()))
+    return hf
+
+
+def t5_resident(directory):
+    from accelerate_tpu_torch.utils.hf_interop import load_hf_checkpoint, model_from_config
+
+    cfg, state = load_hf_checkpoint(directory)
+    model = model_from_config(cfg, "t5", device=CPU)
+    model.load_state_dict(state)
+    return model
+
+
+def t5_src(B=2, S=8):
+    return torch.from_numpy((np.arange(B * S).reshape(B, S) * 7) % 100)
+
+
+@pytest.mark.parametrize("tier", ["cpu", "disk"])
+def test_t5_streamed_forward_matches_the_resident_model(tmp_path, tier):
+    """The stages in order give transformers' logits (1e-5), and the
+    resident model's bit for bit."""
+    hf = t5_hf_dir(tmp_path, "flan")
+    streamed, meta = load_hf_checkpoint_and_dispatch(str(tmp_path), device_map={"": tier},
+                                                     execution_device=CPU)
+    assert next(meta.parameters()).is_meta
+    assert [s.stage for s in streamed.specs].count("enc") == 4  # embed, 2 layers, norm
+    src, tgt = t5_src(), t5_src(S=6) // 2
+    got = streamed(src, tgt)
+    with torch.no_grad():
+        np.testing.assert_allclose(got.numpy(), hf(input_ids=src, decoder_input_ids=tgt)
+                                   .logits.numpy(), atol=1e-5, rtol=1e-5)
+        assert torch.equal(got, t5_resident(str(tmp_path))(src, tgt))
+
+
+@pytest.mark.parametrize("variant", ["relu-tied", "flan"])
+def test_t5_streamed_decoding_is_token_exact(tmp_path, variant):
+    """On the host tier: the cached streamed decode equals the resident
+    ``seq2seq_generate`` and the uncached streamed loop token for token,
+    and the JAX ``StreamedModel.seq2seq_generate`` on the same directory up
+    to its first EOS (the JAX call leaves rows that emitted EOS running
+    while the others go on)."""
+    from accelerate_tpu_torch import seq2seq_generate
+
+    t5_hf_dir(tmp_path, variant)
+    streamed, _ = load_hf_checkpoint_and_dispatch(str(tmp_path), device_map={"": "cpu"},
+                                                  execution_device=CPU)
+    src = t5_src()
+    cached = streamed.seq2seq_generate(src, max_new_tokens=6, eos_token_id=1,
+                                       cache_dtype=torch.float32)
+    resident = seq2seq_generate(t5_resident(str(tmp_path)), src, max_new_tokens=6,
+                                eos_token_id=1, cache_dtype=torch.float32)
+    assert torch.equal(cached, resident[:, :cached.shape[1]])
+    assert torch.equal(streamed.seq2seq_generate(src, max_new_tokens=6, eos_token_id=1,
+                                                 use_cache=False), cached)
+    # Without an EOS the shapes are fixed and the two loops equal.
+    free = streamed.seq2seq_generate(src, max_new_tokens=6, cache_dtype=torch.float32)
+    assert free.shape == (2, 7)
+    assert torch.equal(free, seq2seq_generate(t5_resident(str(tmp_path)), src, max_new_tokens=6,
+                                              cache_dtype=torch.float32))
+    js, _ = jbm.load_hf_checkpoint_and_dispatch(str(tmp_path), device_map={"": "cpu"})
+    ref = np.asarray(js.seq2seq_generate(jnp.asarray(src.numpy(), jnp.int32), max_new_tokens=6,
+                                         cache_dtype=jnp.float32))
+    for row_ours, row_ref in zip(free.numpy(), ref):
+        eos = np.flatnonzero(row_ref == 1)
+        stop = eos[0] + 1 if eos.size else len(row_ref)
+        np.testing.assert_array_equal(row_ours[:stop], row_ref[:stop])
+
+
+def test_t5_streamed_model_refuses_decoder_only_generation(tmp_path):
+    t5_hf_dir(tmp_path)
+    streamed, _ = load_hf_checkpoint_and_dispatch(str(tmp_path), device_map={"": "cpu"},
+                                                  execution_device=CPU)
+    with pytest.raises(TypeError, match="seq2seq_generate"):
+        streamed.generate(torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(TypeError, match="seq2seq_generate"):
+        generate(streamed, torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(ValueError, match="src_len"):
+        streamed.cache_factory(1, 4)
+
+
+def test_t5_quantized_loading_matches_jax(tmp_path):
+    """int8 off a T5 directory: the dequantized weights equal the JAX
+    package's (in the port's layout) exactly; logits within 1e-4."""
+    t5_hf_dir(tmp_path, "flan")
+    qkw = dict(load_in_8bit=True, min_weight_size=256)
+    _, _, jqp, japply = jq.load_and_quantize_hf_checkpoint(
+        str(tmp_path), jq.QuantizationConfig(compute_dtype=jnp.float32, **qkw))
+    cfg, module, qp, apply = load_and_quantize_hf_checkpoint(
+        str(tmp_path), QuantizationConfig(compute_dtype=torch.float32, **qkw), device=CPU)
+    quantized = [n for n, t in qp.items() if isinstance(t, QuantizedTensor)]
+    assert "encoder_layer.0.attention.query.weight" in quantized
+    assert "shared_embedding.weight" in quantized and "lm_head.weight" not in quantized
+    want = state_dict_from_flax(jq.dequantize_params(jqp, jnp.float32), cfg)
+    for name in quantized:
+        np.testing.assert_array_equal(qp[name].dequantize(torch.float32).numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+    src, tgt = t5_src(), t5_src(S=6) // 2
+    with torch.inference_mode():
+        got = apply(qp, src, tgt).numpy()
+    np.testing.assert_allclose(got, np.asarray(japply(jqp, jnp.asarray(src.numpy(), jnp.int32),
+                                                      jnp.asarray(tgt.numpy(), jnp.int32))),
+                               atol=1e-4, rtol=1e-4)

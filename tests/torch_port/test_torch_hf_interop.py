@@ -1,7 +1,8 @@
 """HF-layout checkpoints: the port's conversion held against the JAX
 package's on the same weights, for llama, mistral (window), qwen2 (q/k/v
 biases), gemma and gemma2 (unit-offset norms, softcaps), and for the GPT-style
-families and BERT on checkpoints that ``transformers`` itself writes.
+families, BERT, T5 (relu-tied and flan-style: gated, untied) and ViT on
+checkpoints that ``transformers`` itself writes.
 
 Tensors must be equal, not close: conversion renames and never computes.
 The one computing check is the forward of a model loaded from an HF
@@ -19,11 +20,11 @@ import pytest
 import torch
 
 from accelerate_tpu.utils import hf_interop as jhf
-from accelerate_tpu_torch import LlamaForCausalLM, load_hf_checkpoint_and_dispatch
+from accelerate_tpu_torch import LlamaForCausalLM
 from accelerate_tpu_torch.utils import hf_interop as phf
 from accelerate_tpu_torch.utils.convert import state_dict_from_flax
 
-from torch_big_model_common import FAMILIES, jax_params, write_hf_dir
+from torch_big_model_common import FAMILIES, T5_VARIANTS, hf_t5, jax_params, write_hf_dir
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -143,15 +144,10 @@ def test_saved_directory_reads_in_jax(tmp_path):
         assert torch.equal(back[name], t), name
 
 
-@pytest.mark.parametrize("model_type", ["vit", "t5"])
-def test_families_without_a_port_model_name_the_roadmap(tmp_path, model_type):
-    with pytest.raises(NotImplementedError, match="A9"):
-        phf.detect_family({"model_type": model_type})
-    (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
-    with pytest.raises(NotImplementedError, match="A9"):
-        load_hf_checkpoint_and_dispatch(str(tmp_path), execution_device="cpu")
+def test_an_unknown_family_is_refused():
     with pytest.raises(ValueError, match="unsupported"):
         phf.detect_family({"model_type": "no_such_family"})
+    assert [phf.detect_family({"model_type": f}) for f in ("t5", "vit")] == ["t5", "vit"]
 
 
 # -- The GPT-style families and BERT, from transformers' own models --------
@@ -262,3 +258,152 @@ def test_saved_family_directory_reads_in_jax(tmp_path, family):
         assert torch.equal(back[name], t), name
     cfg2, again = phf.load_hf_checkpoint(str(tmp_path / "hf"))
     assert cfg2 == cfg and all(torch.equal(again[k], t) for k, t in state.items())
+
+
+# -- T5 and ViT, from transformers' own tiny models -------------------------
+
+def hf_vit(seed=0):
+    torch.manual_seed(seed)
+    cfg = transformers.ViTConfig(image_size=32, patch_size=8, num_channels=3, hidden_size=32,
+                                 num_hidden_layers=2, num_attention_heads=4,
+                                 intermediate_size=64)
+    cfg.id2label = {0: "a", 1: "b", 2: "c"}
+    with torch.no_grad():
+        return transformers.ViTForImageClassification(cfg).eval()
+
+
+def t5_src_tgt():
+    src = torch.from_numpy((np.arange(16).reshape(2, 8) * 7) % 100)
+    return src, torch.from_numpy((np.arange(12).reshape(2, 6) * 3) % 100)
+
+
+def assert_same_as_jax(family, hf, cfg, **export_kw):
+    """The port reads ``hf``'s state dict into the tensors the JAX package
+    reads it into, and its export is the JAX package's bit for bit; the
+    round trip (convert, export, convert) is bit-identical. Returns the
+    port's state dict."""
+    state = {k: v.detach() for k, v in hf.state_dict().items()}
+    ours = phf.convert_hf_state_dict(state, family, strict=True)
+    jparams = jhf.convert_hf_state_dict({k: v.numpy() for k, v in state.items()}, family)
+    want = from_flax(jparams, cfg)
+    assert set(ours) == set(want)
+    for name, t in want.items():
+        assert torch.equal(ours[name], t), name
+    back = phf.export_hf_state_dict(ours, family, **export_kw)
+    jback = jhf.export_hf_state_dict(jparams, family, **export_kw)
+    assert set(back) == set(jback)
+    for key, arr in jback.items():
+        np.testing.assert_array_equal(back[key].numpy(), arr, err_msg=key)
+    again = phf.convert_hf_state_dict(back, family, strict=True)
+    assert set(again) == set(ours) and all(torch.equal(again[k], t) for k, t in ours.items())
+    return ours
+
+
+@pytest.mark.parametrize("variant", list(T5_VARIANTS))
+def test_t5_checkpoint_loads_as_in_jax(variant):
+    """Config fields equal the JAX package's, tensors equal, logits within
+    1e-5 of transformers' (tied: the 1/sqrt(d) head; flan: gated MLP,
+    untied head), and the round trip is bit-identical."""
+    hf = hf_t5(variant)
+    hf_config = hf.config.to_dict()
+    cfg, jcfg = phf.config_from_hf(hf_config), jhf.config_from_hf(hf_config)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert phf.config_from_hf(json.loads(json.dumps(phf.hf_config_from(cfg, "t5")))) == cfg
+    ours = assert_same_as_jax("t5", hf, cfg)
+    assert ("lm_head.weight" in ours) == (variant == "flan")
+    model = phf.model_from_config(cfg, "t5", device="cpu")
+    model.load_state_dict(ours)
+    src, tgt = t5_src_tgt()
+    with torch.no_grad():
+        np.testing.assert_allclose(model(src, tgt).numpy(),
+                                   hf(input_ids=src, decoder_input_ids=tgt).logits.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_t5_tied_head_copy_is_dropped():
+    hf = hf_t5("relu-tied")
+    state = dict(hf.state_dict())
+    assert torch.equal(state["lm_head.weight"], state["shared.weight"])
+    assert "lm_head.weight" not in phf.convert_hf_state_dict(state, "t5", strict=True)
+    state["lm_head.weight"] = state["lm_head.weight"] + 1.0  # an untied head converts
+    assert "lm_head.weight" in phf.convert_hf_state_dict(state, "t5", strict=True)
+
+
+def test_vit_checkpoint_loads_as_in_jax():
+    """As for T5, and the export factors the patch projection back into
+    the conv kernel only with ``config=``."""
+    hf = hf_vit()
+    hf_config = {**hf.config.to_dict(), "model_type": "vit"}
+    cfg, jcfg = phf.config_from_hf(hf_config), jhf.config_from_hf(hf_config)
+    assert cfg.num_labels == 3 and cfg.patch_size == 8
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert phf.config_from_hf(json.loads(json.dumps(phf.hf_config_from(cfg, "vit")))) == cfg
+    ours = assert_same_as_jax("vit", hf, cfg, config=cfg)
+    with pytest.raises(ValueError, match="needs config"):
+        phf.export_hf_state_dict(ours, "vit")
+    kernel = hf.state_dict()["vit.embeddings.patch_embeddings.projection.weight"]
+    assert torch.equal(phf.export_hf_state_dict(ours, "vit", prefix="vit.", config=cfg)[
+        "vit.embeddings.patch_embeddings.projection.weight"], kernel)
+    model = phf.model_from_config(cfg, "vit", device="cpu")
+    model.load_state_dict(ours)
+    x = np.random.default_rng(0).standard_normal((2, 3, 32, 32)).astype(np.float32)
+    with torch.no_grad():
+        np.testing.assert_allclose(model(torch.from_numpy(x.transpose(0, 2, 3, 1))).numpy(),
+                                   hf(torch.from_numpy(x)).logits.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("family", ["t5", "vit"])
+def test_saved_t5_and_vit_directories_read_in_jax(tmp_path, family):
+    hf = hf_t5("flan", seed=1) if family == "t5" else hf_vit(seed=1)
+    cfg = phf.config_from_hf({**hf.config.to_dict(), "model_type": family})
+    state = phf.convert_hf_state_dict(hf.state_dict(), family)
+    phf.save_hf_checkpoint(state, str(tmp_path / "hf"), cfg, family, max_shard_size="20KB")
+    jcfg, jparams = jhf.load_hf_checkpoint(str(tmp_path / "hf"))
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    back = from_flax(jparams, cfg)
+    assert set(back) == set(state) and all(torch.equal(back[k], t) for k, t in state.items())
+    cfg2, again = phf.load_hf_checkpoint(str(tmp_path / "hf"))
+    assert cfg2 == cfg and all(torch.equal(again[k], t) for k, t in state.items())
+
+
+@pytest.mark.parametrize("variant", list(T5_VARIANTS))
+def test_t5_seq2seq_generate_matches_transformers(variant):
+    """Greedy ``seq2seq_generate`` against transformers' ``generate``:
+    equal arrays with ``min_new_tokens`` on both sides (no early EOS), and
+    equal up to and including transformers' first EOS without it (past it
+    transformers pads, the port repeats EOS)."""
+    from accelerate_tpu_torch import seq2seq_generate
+
+    hf = hf_t5(variant, seed=2)
+    cfg = phf.config_from_hf(hf.config.to_dict())
+    model = phf.model_from_config(cfg, "t5", device="cpu")
+    model.load_state_dict(phf.convert_hf_state_dict(hf.state_dict(), "t5"))
+    src, _ = t5_src_tgt()
+    for min_new in (7, 0):
+        ours = seq2seq_generate(model, src, max_new_tokens=7, eos_token_id=1,
+                                min_new_tokens=min_new, cache_dtype=torch.float32).numpy()
+        with torch.no_grad():
+            theirs = hf.generate(src, attention_mask=torch.ones_like(src), max_new_tokens=7,
+                                 min_new_tokens=min_new, do_sample=False).numpy()
+        for row_ours, row_hf in zip(ours, theirs):
+            eos = np.flatnonzero(row_hf == 1)
+            stop = eos[0] + 1 if eos.size else len(row_hf)
+            np.testing.assert_array_equal(row_ours[:stop], row_hf[:stop])
+            assert (row_ours[stop:] == 1).all()
+
+
+@pytest.mark.parametrize("buckets", [(32, 128), (8, 20)], ids=["32-128", "8-20"])
+def test_t5_bucket_table_equals_transformers(buckets):
+    """The reference's ``log(n / max_exact + 1e-6)`` (HF's has no 1e-6)
+    flips no bucket against transformers' for -4096..4096, both ways."""
+    from transformers.models.t5.modeling_t5 import T5Attention
+
+    from accelerate_tpu_torch.models.t5 import relative_position_bucket
+
+    rel = torch.arange(-4096, 4097)
+    for bidirectional in (True, False):
+        assert torch.equal(relative_position_bucket(rel, bidirectional, *buckets),
+                           T5Attention._relative_position_bucket(rel, bidirectional, *buckets))

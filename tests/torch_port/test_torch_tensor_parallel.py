@@ -15,6 +15,9 @@ projections).
   JAX's device r holds (``torch_mesh_common.check_chunks`` says why the
   two tolerances). Every child runs under a timeout of 120 s in a session
   of its own.
+* T5 at tp=2: 4 steps' losses and grad norms within 1e-5 relative of the
+  JAX run on 2 emulated devices, the projections split as the JAX rules
+  split them.
 """
 
 import json
@@ -105,3 +108,59 @@ def test_tensor_parallel_llama_follows_the_jax_mesh(tmp_path, case):
         coords = json.loads(str(got["coords"]))
         assert coords["tp"] == r % 2 and coords["fsdp"] == (r // 2 if n == 4 else 0)
     check_chunks(ranks, model, opt)
+
+
+def test_tensor_parallel_t5_follows_the_jax_mesh(tmp_path):
+    """The tiny T5 (relu, tied) trains at tp=2 over gloo: 4 fused AdamW
+    steps of ``seq2seq_lm_loss`` with clip 1.0, each rank's losses and grad
+    norms within 1e-5 relative of the JAX ``Accelerator``'s on 2 emulated
+    devices under ``MeshConfig(tp=2)`` (reference ``tests/test_models.py``
+    trains it at fsdp 4 x tp 2). The projections split as the JAX rules
+    split them: ``query``/``key``/``value`` and ``intermediate`` by column,
+    ``attn_out`` and ``mlp_out`` by row."""
+    import jax
+    import optax
+
+    from accelerate_tpu import Accelerator as JaxAccelerator
+    from accelerate_tpu import MeshConfig as JaxMeshConfig
+    from accelerate_tpu import Model
+    from accelerate_tpu.data_loader import make_global_batch
+    from accelerate_tpu.models import t5 as jt5
+    from accelerate_tpu.state import AcceleratorState
+    from accelerate_tpu.utils import TensorParallelPlugin as JaxTP
+    from accelerate_tpu_torch import T5Config, state_dict_from_flax
+
+    lr, steps = 1e-3, 4
+    cfg = jt5.T5Config.tiny(dropout_rate=0.0)
+    module = jt5.T5ForConditionalGeneration(cfg)
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32)
+        + 0.05 * rng.standard_normal(np.shape(x)).astype(np.float32),
+        module.init_params(jax.random.PRNGKey(0), src_len=16, tgt_len=8))
+    ids = rng.integers(0, cfg.vocab_size, (steps, 4, 16)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (steps, 4, 8)).astype(np.int32)
+    state = state_dict_from_flax(params, T5Config.tiny())
+    np.savez(tmp_path / "t5_in.npz", input_ids=ids, labels=labels,
+             **{f"param.{k}": v.numpy() for k, v in state.items()})
+    ranks = run_worker(tmp_path, "t5", 2, ["--tp", "2"], {"tp": 2, "lr": lr})
+
+    AcceleratorState._reset_state()
+    acc = JaxAccelerator(mesh_config=JaxMeshConfig(tp=2, devices=jax.devices()[:2]),
+                         tp_plugin=JaxTP(tp_size=2))
+    acc.prepare(Model(module, params), optax.adamw(lr, weight_decay=1e-4))
+    step = acc.compile_train_step(jt5.seq2seq_lm_loss(module.apply), max_grad_norm=1.0)
+    history = []
+    for s in range(steps):
+        m = step(make_global_batch({"input_ids": ids[s], "labels": labels[s]}, acc.mesh))
+        history.append([float(m["loss"]), float(m["grad_norm"])])
+    AcceleratorState._reset_state()
+    for got in ranks:
+        np.testing.assert_allclose(got["history"], np.asarray(history), rtol=1e-5)
+        assert str(got["distributed_type"]) == "TENSOR_PARALLEL"
+        specs = json.loads(str(got["specs"]))
+        assert specs["encoder_layer.0.attention.query.weight"] == "PartitionSpec('tp',)"
+        assert specs["decoder_layer.1.cross_attention.attn_out.weight"] == \
+            "PartitionSpec(None, 'tp')"
+        assert specs["encoder_layer.1.mlp.intermediate.weight"] == "PartitionSpec('tp',)"
+        assert specs["decoder_layer.0.mlp.mlp_out.weight"] == "PartitionSpec(None, 'tp')"

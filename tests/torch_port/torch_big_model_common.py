@@ -1,7 +1,7 @@
 """Helpers of the big-model tests: seeded JAX Llama-family weights, and an
 HF-layout checkpoint directory written from them by the JAX package's own
 ``export_hf_state_dict`` (plus a safetensors writer), which both packages
-then load."""
+then load; transformers' own tiny T5 (:func:`hf_t5`)."""
 
 import json
 import os
@@ -79,3 +79,25 @@ def jax_name(name: str) -> str:
     if out[-1] == "weight":
         out[-1] = "embedding" if out[-2] == "embed_tokens" else "kernel"
     return ".".join(out)
+
+
+#: transformers' T5 variants the tests build: v1.0 (relu, the head tied to
+#: the embedding) and v1.1/flan (gated GELU, an untied head).
+T5_VARIANTS = {"relu-tied": dict(feed_forward_proj="relu", tie_word_embeddings=True),
+               "flan": dict(feed_forward_proj="gated-gelu", tie_word_embeddings=False)}
+
+
+def hf_t5(variant="relu-tied", seed=0):
+    """transformers' tiny T5 of the JAX package's tests (32 wide, 2 + 2
+    layers, 4 heads of 8, 8 buckets up to distance 20), seeded, in eval
+    mode."""
+    import torch
+    import transformers
+
+    torch.manual_seed(seed)
+    cfg = transformers.T5Config(
+        vocab_size=100, d_model=32, d_ff=64, d_kv=8, num_layers=2, num_heads=4,
+        relative_attention_num_buckets=8, relative_attention_max_distance=20, dropout_rate=0.0,
+        decoder_start_token_id=0, eos_token_id=1, pad_token_id=0, **T5_VARIANTS[variant])
+    with torch.no_grad():
+        return transformers.T5ForConditionalGeneration(cfg).eval()

@@ -12,7 +12,8 @@ world through ``load_state(via_host=True)``), ``attn`` (ring and Ulysses
 attention cases of ``OUT_DIR/attn_in.npz`` on this process's chunks:
 outputs and the three gradients) or ``pipeline`` (``pipeline_apply``
 cases of ``OUT_DIR/pipe_in.npz``, and ``PipelinedInferencer`` over the
-tiny stacked Llama). Results go to ``OUT_DIR/<mode>_<rank>.npz``.
+tiny stacked Llama) or ``t5`` (the tiny T5 of ``OUT_DIR/t5_in.npz`` trained
+under the tensor-parallel plugin). Results go to ``OUT_DIR/<mode>_<rank>.npz``.
 """
 
 import json
@@ -208,12 +209,37 @@ def run_pipeline(out: Path, arg: str):
     return result
 
 
+def run_t5(out: Path, arg: str):
+    """The tiny T5 of ``OUT_DIR/t5_in.npz`` for its steps of fused AdamW on
+    ``seq2seq_lm_loss`` under the tensor-parallel plugin: losses, grad
+    norms and the layout's specs."""
+    from accelerate_tpu_torch import T5Config, T5ForConditionalGeneration, seq2seq_lm_loss
+
+    cfg = json.loads(arg)
+    acc = Accelerator(cpu=True, tp_plugin=TensorParallelPlugin(tp_size=cfg["tp"]))
+    inputs = np.load(out / "t5_in.npz")
+    model = T5ForConditionalGeneration(T5Config.tiny(dropout_rate=0.0), device="cpu")
+    model.load_state_dict({k[len("param."):]: torch.from_numpy(inputs[k])
+                           for k in inputs.files if k.startswith("param.")})
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=cfg["lr"],
+                                                    weight_decay=1e-4))
+    step = acc.compile_train_step(seq2seq_lm_loss(model), max_grad_norm=1.0)
+    history = []
+    for s in range(inputs["input_ids"].shape[0]):
+        m = step({k: torch.from_numpy(rows_of(acc, inputs[k][s])).long()
+                  for k in ("input_ids", "labels")})
+        history.append([m["loss"].item(), m["grad_norm"].item()])
+    return {"history": np.asarray(history),
+            "specs": np.asarray(json.dumps({n: str(s) for n, s in model.layout.specs.items()})),
+            "distributed_type": np.asarray(str(acc.distributed_type))}
+
+
 def main():
     mode, out = sys.argv[1], Path(sys.argv[2])
     arg = sys.argv[3] if len(sys.argv) > 3 else "{}"
     state = PartialState()
     result = {"llama": run_llama, "resume": run_resume, "attn": run_attn,
-              "pipeline": run_pipeline}[mode](out, arg)
+              "pipeline": run_pipeline, "t5": run_t5}[mode](out, arg)
     result["world"] = np.asarray(state.num_processes)
     np.savez(out / f"{mode}_{state.process_index}.npz", **result)
     print(f"{mode} ok on rank {state.process_index}", flush=True)
