@@ -20,7 +20,10 @@ host and disk, ``StreamedModel`` streaming a model's blocks onto the card,
 HF-layout checkpoints of the Llama, MoE and GPT-style families, T5, BERT
 and ViT, quantized loading), the other model families (``models``: GPT-2, OPT,
 GPT-J, GPT-NeoX, Phi, BLOOM, BERT, ResNet, the small models, and the
-encoder-decoder T5 with ``seq2seq_generate`` and ViT), and
+encoder-decoder T5 with ``seq2seq_generate`` and ViT), fp8 training
+(``use_fp8``: delayed-scaling projections on ``torch._scaled_mm``,
+``ops/quant.py``), ``estimate-memory``, the native host IO (``native/``),
+and
 several processes: process groups over NCCL (one card a process) or gloo
 (the CPU), the collectives, sharded and dispatched loaders, data-parallel
 training with the gradients reduced at each sync step, ``LocalSGD``, the
@@ -172,6 +175,7 @@ from .utils.dataclasses import (
     DistributedInitKwargs,
     DistributedType,
     ExpertParallelPlugin,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,

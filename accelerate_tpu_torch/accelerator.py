@@ -562,6 +562,13 @@ class Accelerator:
         layout = None
         plugin = self.state.fsdp_plugin
         mesh = self.state.mesh
+        from .ops.quant import has_fp8_meta
+
+        if has_fp8_meta(module) and (mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1):
+            raise NotImplementedError(
+                "fp8 projections (use_fp8) under tp > 1 or pp > 1 are not ported: a split "
+                "projection's amaxes and a pipeline stage's stacked statistics are not "
+                "reduced over their axis yet (ROADMAP.md, A10)")
         tp_plugin = self.state.tp_plugin if mesh.shape["tp"] > 1 else None
         pp_plugin = self.state.pp_plugin if mesh.shape["pp"] > 1 else None
         ep_plugin = self.state.ep_plugin if mesh.shape["ep"] > 1 else None
@@ -590,7 +597,9 @@ class Accelerator:
         out by the JAX package's ZeRO policy over the mesh's ``dp`` axis,
         else ``fsdp`` (``AcceleratedOptimizer.shard_state``), and with
         ``cpu_offload`` it lives in host memory between updates. Prepare
-        the model first (or with it, before it in ``prepare``)."""
+        the model first (or with it, before it in ``prepare``). A prepared
+        model's fp8 statistics are committed at each of its steps
+        (``ops/quant.py``'s ``wrap_optimizer_for_fp8``)."""
         plugin = self.state.fsdp_plugin
         offload = bool(plugin is not None and plugin.cpu_offload)
         if offload:
@@ -604,6 +613,11 @@ class Accelerator:
                                        use_loss_scaling=self.mixed_precision == "fp16",
                                        device=self.device, offload_to_host=offload,
                                        zero_sharding=self.zero_sharding)
+        from .ops.quant import has_fp8_meta, wrap_optimizer_for_fp8
+
+        for model in self._models:
+            if has_fp8_meta(model.module):
+                wrap_optimizer_for_fp8(optimizer, model.module)
         layout = next((m.layout for m in self._models if m.layout is not None), None)
         if plugin is not None or layout is not None or self.zero_sharding:
             from .parallel.mesh import DATA_AXES
@@ -919,7 +933,14 @@ class Accelerator:
         backward; ``activation_checkpointing`` recomputes every decoder
         layer, and ``cpu_offload`` runs the forward and backward with the
         optimizer state in host memory, then streams it in for the update
-        and out after it."""
+        and out after it.
+
+        A model with fp8 projections (``use_fp8``) records each backward's
+        amaxes, and the update commits them (``ops/quant.py``): each
+        history rolls once per step, with the max over the step's
+        microbatches of each operand's amax (the JAX step adds the
+        microbatches' next statistics instead, ROADMAP.md C), and the
+        statistics stay out of the clip. A skipped fp16 update drops them."""
         model = model or self._models[0]
         optimizer = optimizer or self._optimizers[0]
         accum = accumulation_steps if accumulation_steps is not None \
@@ -938,6 +959,7 @@ class Accelerator:
                 stacklevel=2)
         named = [(n, p) for n, p in model.module.named_parameters() if p.requires_grad]
         with_generator = _accepts_generator(loss_fn)
+        from .ops.quant import discard_fp8_pending
 
         def check_accum_shape(batch):
             if accum > 1:
@@ -972,6 +994,7 @@ class Accelerator:
 
         def step(batch):
             check_accum_shape(batch)
+            discard_fp8_pending(model)  # this step's amaxes only, as in the JAX step
             optimizer.optimizer.zero_grad(set_to_none=True)
             for p, *_ in optimizer._views:
                 p.grad = None

@@ -73,16 +73,19 @@ def mfu_fields(tokens_per_sec: float, cfg, seq: int, n_params: int,
 
 
 def build_train_step(batch: int = 8, seq: int = 1024, seed: int = 0,
-                     accelerator_kwargs: dict | None = None, **config_overrides):
+                     accelerator_kwargs: dict | None = None, mixed_precision: str = "bf16",
+                     **config_overrides):
     """The bench's model, prepared, its fused train step and 4 seeded
     batches: ``(cfg, model, step, batches)``. Random weights come from a
     ``torch.Generator`` seeded with ``seed``, token ids from numpy's.
     ``accelerator_kwargs`` go to the ``Accelerator`` (e.g. an
-    ``fsdp_plugin``)."""
+    ``fsdp_plugin``); ``mixed_precision="fp8"`` with ``use_fp8=True`` is
+    the fp8 step (the same weights: the statistics are buffers, which the
+    generator does not draw)."""
     from . import Accelerator, PipelinedLlamaForCausalLM, fused_causal_lm_loss, make_global_batch
 
     # On the card; raises without one.
-    acc = Accelerator(mixed_precision="bf16", **(accelerator_kwargs or {}))
+    acc = Accelerator(mixed_precision=mixed_precision, **(accelerator_kwargs or {}))
     cfg = tier1_llama_config(**config_overrides)
     gen = torch.Generator(device=acc.device).manual_seed(seed)
     model = PipelinedLlamaForCausalLM(cfg, device=acc.device, dtype=torch.float32, generator=gen)

@@ -831,22 +831,34 @@ def merged_model_tensors(checkpoint_dir, index: int = 0) -> dict:
     return _restore(src, stem, _read_layout(src, stem), _saved_world(src), True, 0, 1)[0]
 
 
-def _export_tensors(save_directory) -> dict:
+def _export_tensors(save_directory, read=load_safetensors) -> dict:
     """The tensors of a :func:`save_model` export (one file or shards) by
-    their dotted names."""
+    their dotted names, each file read by ``read(path)``."""
     d = Path(save_directory)
     index_path = d / SAFE_WEIGHTS_INDEX_NAME
     flat: dict = {}
     if index_path.exists():
         index = json.loads(index_path.read_text())
         for name in sorted(set(index["weight_map"].values())):
-            flat.update(load_safetensors(d / name))
+            flat.update(read(d / name))
     else:
-        flat = load_safetensors(d / SAFE_WEIGHTS_NAME)
+        flat = read(d / SAFE_WEIGHTS_NAME)
     return flat
 
 
-def load_safetensors_model(save_directory: str) -> dict:
+def load_safetensors_model(save_directory: str, threads: int = 8) -> dict:
     """A model file written by :func:`save_model` (either package's), one or
-    sharded, as a nested dict of CPU tensors keyed by the dotted names."""
-    return unflatten_params(_export_tensors(save_directory))
+    sharded, as a nested dict of CPU tensors keyed by the dotted names. Each
+    file is read by ``threads`` threads through the native runtime
+    (``native/io.py``'s ``fast_load_safetensors``; a Python read where g++
+    is missing), or by :func:`load_safetensors` for a dtype it does not
+    map."""
+    from .native.io import fast_load_safetensors
+
+    def read(path):
+        try:
+            return fast_load_safetensors(str(path), threads=threads)
+        except ValueError:  # a dtype the fast path does not map
+            return load_safetensors(path)
+
+    return unflatten_params(_export_tensors(save_directory, read))

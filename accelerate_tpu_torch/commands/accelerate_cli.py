@@ -3,9 +3,9 @@
 
 Subcommands are registered lazily; each lives in its own module under
 ``accelerate_tpu_torch.commands``: ``config`` (the questionnaire, and its
-``default`` and ``update`` subcommands), ``env``, ``launch``, ``loadtest``, ``merge-weights``,
-``serve`` and ``test``. ``estimate-memory`` comes with the other model
-families (ROADMAP A9); ``tpu-config`` is the JAX package's alone.
+``default`` and ``update`` subcommands), ``env``, ``estimate-memory``,
+``launch``, ``loadtest``, ``merge-weights``, ``serve`` and ``test``.
+``tpu-config`` is the JAX package's alone.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ def _subcommand_registrars():
     return {
         "config": _lazy(".config.config", "config_command_parser"),
         "env": _lazy(".env", "env_command_parser"),
+        "estimate-memory": _lazy(".estimate", "estimate_command_parser"),
         "launch": _lazy(".launch", "launch_command_parser"),
         "loadtest": _lazy(".loadtest", "loadtest_command_parser"),
         "merge-weights": _lazy(".merge", "merge_command_parser"),

@@ -60,7 +60,8 @@ def migrate_reference_config(data: dict) -> tuple:
         notes.append("legacy 'fp16' key -> mixed_precision")
     if str(ours.get("mixed_precision", "no")) == "fp8":
         ours["mixed_precision"] = "bf16"
-        notes.append("mixed_precision fp8 -> bf16: the fp8 path is not ported (ROADMAP.md, A9)")
+        notes.append("mixed_precision fp8 -> bf16 autocast; enable fp8 matmuls via the model "
+                     "config's use_fp8 / FP8RecipeKwargs")
     if data.get("use_cpu"):
         ours["use_cpu_emulation"] = True
         notes.append("use_cpu -> use_cpu_emulation (processes on the CPU over gloo)")

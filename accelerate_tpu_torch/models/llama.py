@@ -62,6 +62,7 @@ from ..ops.attention import (
     flash_attention_available,
     softcap_logits,
 )
+from ..ops.quant import FP8_FORMATS, Fp8Dense
 from ..parallel.sharding import (
     RematPolicy,
     _GatherSplit,
@@ -130,7 +131,8 @@ class LlamaConfig:
     # fixed, so the port reads neither.
     flash_block_q: int = 128
     flash_block_k: int = 128
-    # fp8 projections of the JAX package (ops/quant.py); not ported yet.
+    # fp8 projections (ops/quant.py's Fp8Dense, delayed scaling) in every
+    # decoder layer; pair with Accelerator(mixed_precision="fp8").
     use_fp8: bool = False
     fp8_margin: int = 0
     fp8_amax_history_len: int = 16
@@ -202,8 +204,16 @@ class LlamaConfig:
 
 
 def _linear(cfg: LlamaConfig, in_features: int, out_features: int, bias: bool, device, dtype):
+    """A decoder layer's projection: :class:`_Projection`, or under
+    ``cfg.use_fp8`` an fp8 one (``ops/quant.py``'s ``Fp8Dense``, the JAX
+    ``_dense_factory``; the embedding and ``lm_head`` stay high-precision)."""
     if cfg.use_fp8:
-        raise NotImplementedError("fp8 projections (use_fp8) are not ported yet")
+        fwd, bwd = FP8_FORMATS[cfg.fp8_format]
+        return _Fp8Projection(in_features, out_features, use_bias=bias, param_dtype=dtype,
+                              device=device, margin=cfg.fp8_margin,
+                              amax_history_len=cfg.fp8_amax_history_len,
+                              amax_compute_algo=cfg.fp8_amax_compute_algo, fwd_dtype=fwd,
+                              bwd_dtype=bwd)
     return _Projection(in_features, out_features, bias=bias, device=device, dtype=dtype)
 
 
@@ -222,6 +232,15 @@ class _Projection(nn.Linear):
         if _kept_products is None:
             return F.linear(x, self.weight)
         return _KeptProduct.apply(x, self.weight, None, _kept_products)
+
+
+class _Fp8Projection(Fp8Dense):
+    """A decoder layer's fp8 projection, whose product a "dots" remat keeps
+    as it keeps :class:`_Projection`'s. (Never tensor parallel: the
+    accelerator refuses fp8 under tp > 1.)"""
+
+    def forward(self, x):
+        return self._fp8_forward(x, kept=_kept_products)
 
 
 def _lora_factors(mod, dtype):
@@ -1016,11 +1035,15 @@ class LlamaBlock(nn.Module):
 
 
 def _run_layer(layer: nn.Module, params: dict, x, positions, segment_ids, lora=None,
-               gather=None):
+               gather=None, buffers=None):
     """One decoder layer through ``functional_call`` on ``params``, put
-    together first by ``gather`` (a sharded layout's, or None)."""
+    together first by ``gather`` (a sharded layout's, or None), and
+    ``buffers`` (a stacked layer's slices of its fp8 statistics, which its
+    backward writes into) as they are."""
     if gather is not None:
         params = gather(params)
+    if buffers:
+        params = {**params, **buffers}
     return torch.func.functional_call(layer, params, (x, positions),
                                       {"segment_ids": segment_ids, "lora": lora})
 
@@ -1091,7 +1114,8 @@ class _KeptProduct(torch.autograd.Function):
 
 
 def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
-                 policy: str = "nothing", lora=None, gather=None, gather_inside: bool = False):
+                 policy: str = "nothing", lora=None, gather=None, gather_inside: bool = False,
+                 buffers=None):
     """One decoder layer under ``torch.utils.checkpoint`` (non-reentrant):
     what ``policy`` (a :func:`resolve_remat_policy` name) does not keep is
     recomputed in the backward. "dots" stores the projections' outputs in a
@@ -1111,13 +1135,13 @@ def _remat_layer(layer: nn.Module, params: dict, x, positions, segment_ids,
         params, gather = gather(params), None
     rule = resolve_remat_policy(policy)
     if rule is RematPolicy.EVERYTHING:
-        return _run_layer(layer, params, x, positions, segment_ids, lora, gather)
+        return _run_layer(layer, params, x, positions, segment_ids, lora, gather, buffers)
     if rule is RematPolicy.NOTHING:
         return checkpoint(_run_layer, layer, params, x, positions, segment_ids, lora, gather,
-                          use_reentrant=False)
+                          buffers, use_reentrant=False)
     kept = _KeptProducts()
     out = checkpoint(kept.run, _run_layer, layer, params, x, positions, segment_ids, lora,
-                     gather, use_reentrant=False)
+                     gather, buffers, use_reentrant=False)
     kept.recomputing = True
     return out
 
@@ -1324,6 +1348,12 @@ class PipelinedLlamaForCausalLM(nn.Module):
             owner_name, _, leaf = name.rpartition(".")
             setattr(blocks.get_submodule(owner_name), leaf,
                     nn.Parameter(torch.empty((L, *p.shape), device=device, dtype=dtype)))
+        # The fp8 statistics (use_fp8) stack too: [L] scales, [L, history].
+        for name, b in list(blocks.named_buffers()):
+            owner_name, _, leaf = name.rpartition(".")
+            owner = blocks.get_submodule(owner_name)
+            owner.register_buffer(leaf, b.expand(L, *b.shape).clone(),
+                                  persistent=leaf not in owner._non_persistent_buffers_set)
         self.model = nn.Module()
         self.model.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                                device=device, dtype=dtype)
@@ -1401,15 +1431,19 @@ class PipelinedLlamaForCausalLM(nn.Module):
         remat = policy is not None and torch.is_grad_enabled()
         blocks = self.model.blocks
         gather_inside = layout is not None and layout.gather_in_remat
+        # Each layer's slices of the stacked fp8 statistics ride beside its
+        # parameters (views: its backward records its amaxes in place).
+        buffers = dict(blocks.named_buffers())
 
         def block_fn(params, h, extras):
             pos, seg = extras
+            own = {name: params.pop(name) for name in buffers}
             if remat:
                 return _remat_layer(blocks, params, h, pos, seg, policy, None, gather,
-                                    gather_inside)
-            return _run_layer(blocks, params, h, pos, seg, gather=gather)
+                                    gather_inside, own)
+            return _run_layer(blocks, params, h, pos, seg, gather=gather, buffers=own)
 
-        x = pipeline_apply(block_fn, stacked, x, (positions, segment_ids),
+        x = pipeline_apply(block_fn, {**stacked, **buffers}, x, (positions, segment_ids),
                            num_microbatches=self._microbatches())
         x = self.model.norm(x)
         if return_hidden:

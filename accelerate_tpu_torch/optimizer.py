@@ -42,7 +42,13 @@ Sharded training state (reference ``:48-135``, ``:200-306``):
   after ``load_state_dict``. A frozen parameter has no state, as in the
   JAX package's LoRA case.
 
-The fp8 statistics masks come with the fp8 path (ROADMAP.md, A9).
+A model's fp8 statistics (``ops/quant.py``) are buffers, so the torch
+optimizer never steps them and the clip never sees them; the step post
+hook ``Accelerator.prepare_optimizer`` registers
+(``wrap_optimizer_for_fp8``) commits them at each applied update, and
+:meth:`AcceleratedOptimizer._apply` drops them with a skipped one, as the
+JAX fused step leaves them with the skipped update
+(``accelerate_tpu/accelerator.py:1038-1042``).
 """
 
 from __future__ import annotations
@@ -308,7 +314,9 @@ class AcceleratedOptimizer:
         """One update from the accumulated gradients: under fp16 unscale
         them (unless already done) and skip the update when one is not
         finite (one device read, as GradScaler does), updating the loss
-        scale either way; then drop the gradients and count. Returns the
+        scale either way; then drop the gradients and count. An applied
+        update commits the fp8 statistics (the optimizer's step hook), a
+        skipped one drops their pending amaxes. Returns the
         finite flag (a device tensor) under loss scaling, else None."""
         finite = None
         if self.loss_scale is not None:
@@ -326,6 +334,11 @@ class AcceleratedOptimizer:
             self._gather_zero_params()
             if self.offload_to_host:
                 self._state_to("host")
+        else:
+            from .ops.quant import discard_fp8_pending, fp8_models_of
+
+            for model in fp8_models_of(self.optimizer):
+                discard_fp8_pending(model)
         if finite is not None:
             self.loss_scale = update_loss_scale(self.loss_scale, finite, self.scaler_kwargs)
         for group in self.optimizer.param_groups:

@@ -6,8 +6,12 @@ a loss-scale state (``LossScaleState``) kept as tensors on the device and
 advanced by pure functions, as torch's GradScaler would. The default on the
 card, as on the TPU, is "bf16": f32 master params, bf16 compute, f32
 outputs, and no scaling (bf16 has f32's exponent range). The scaling's
-settings are ``utils/dataclasses.py``'s ``GradScalerKwargs``. fp8 is not
-ported yet.
+settings are ``utils/dataclasses.py``'s ``GradScalerKwargs``. "fp8" is
+the bf16 policy: the fp8 products are the model's own (``use_fp8``,
+``ops/quant.py``), and their statistics stay f32 through every cast here
+(a module's ``Fp8Dense`` keeps its buffers f32 under ``.to(dtype)``; a
+state dict's entries are exempt by name), as the JAX ``_cast_floating``
+exempts the leaves.
 """
 
 from __future__ import annotations
@@ -43,12 +47,16 @@ class Policy:
 
 
 def _cast_floating(tree, dtype):
+    from .ops.quant import FP8_META_NAMES
+
     if isinstance(tree, nn.Module):
-        return tree.to(dtype)  # nn.Module.to casts floating parameters only, in place
+        # In place; Fp8Dense keeps its statistics f32.
+        return tree.to(dtype)
     if isinstance(tree, torch.Tensor):
         return tree.to(dtype) if tree.is_floating_point() else tree
     if isinstance(tree, dict):
-        return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+        return {k: v if str(k).rsplit(".", 1)[-1] in FP8_META_NAMES
+                else _cast_floating(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_cast_floating(v, dtype) for v in tree)
     return tree
@@ -60,6 +68,8 @@ def policy_for(mixed_precision) -> Policy:
     * "no"/"fp32": everything f32.
     * "bf16": f32 params, bf16 compute, f32 outputs.
     * "fp16": f32 params, fp16 compute, f32 outputs.
+    * "fp8": the bf16 policy; the fp8 products are the model's
+      (``use_fp8``, ``ops/quant.py``).
     """
     mp = str(mixed_precision)
     if mp in ("no", "fp32"):
@@ -71,7 +81,8 @@ def policy_for(mixed_precision) -> Policy:
         return Policy(param_dtype=torch.float32, compute_dtype=torch.float16,
                       output_dtype=torch.float32)
     if mp == "fp8":
-        raise NotImplementedError("mixed_precision='fp8' is not ported yet")
+        return Policy(param_dtype=torch.float32, compute_dtype=torch.bfloat16,
+                      output_dtype=torch.float32)
     raise ValueError(f"Unknown mixed precision mode {mixed_precision}")
 
 

@@ -209,6 +209,27 @@ class AutocastKwargs(KwargsHandler):
 
 
 @dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The delayed-scaling fp8 recipe (``ops/quant.py``):
+    ``recipe_to_config_kwargs`` turns it into a model config's ``use_fp8``
+    fields. ``margin`` gives ``2**margin`` of headroom under the format's
+    largest value, ``amax_history_len`` and ``amax_compute_algo``
+    ("most_recent" or "max" over the history) set how a scale follows the
+    amaxes, and ``fp8_format`` picks the formats: "HYBRID" (e4m3 forward,
+    e5m2 for the gradient), "E4M3" or "E5M2". ``backend`` and ``interval``
+    are read by nothing, as in the JAX package; ``use_autocast_during_eval``
+    likewise."""
+
+    backend: Literal["XLA", "PALLAS"] = "XLA"
+    margin: int = 0
+    interval: int = 16
+    fp8_format: Literal["E4M3", "E5M2", "HYBRID"] = "HYBRID"
+    amax_history_len: int = 1024
+    amax_compute_algo: Literal["max", "most_recent"] = "most_recent"
+    use_autocast_during_eval: bool = False
+
+
+@dataclass
 class ProfileKwargs(KwargsHandler):
     """How ``Accelerator.profile`` traces, on ``torch.profiler``.
 

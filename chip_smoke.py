@@ -328,12 +328,36 @@ order; any failure exits non-zero:
    images (ms, images/s, peak). Prints the phase's seconds.
    ``main_seq2seq_vision()`` runs it alone.
 
-Prints the kernels' JSON line (each kernel with its launches in phase 9,
+16 (after 15). The fp8 training path, ``estimate-memory`` and the native
+   host IO. (a) The fp8 GEMM at the tier-1 projections' shapes (x [8192,
+   2048] against [2048, 2048], [2048, 1024], [2048, 5632], [5632, 2048]),
+   forward, dx and dW, HYBRID and E4M3, on the operands as ``Fp8Dense`` lays
+   them out: ``torch._scaled_mm`` (cuBLASLt, ``use_fast_accum=False``)
+   within ``FP8_TOLERANCE`` (2 bf16 ulps) of the largest output of the
+   widened product, a repeat bit-identical; ms as the model calls it and of
+   the product alone, beside a bf16 ``torch.matmul`` (a yardstick); the
+   E5M2 x E5M2 product on its widened route against the CPU's. (b)
+   ``PipelinedLlamaForCausalLM(tier1_llama_config(use_fp8=True))`` under
+   ``Accelerator(mixed_precision="fp8")`` and ``compile_train_step(...,
+   max_grad_norm=1.0)``, phase 6's weights and batches, the batches read by
+   a ``TokenBinDataLoader`` from a token file written from phase 6's seed:
+   3 + 20 steps; step ms, tokens/s, MFU by phase 6's formula, peak memory;
+   10 + 10 + 10 wgmma flash launches and 210 fp8 GEMMs a step (none in
+   ``lm_head``); after step 1 every scale differs from 1 and slot 0 of each
+   history is the amax it recorded; losses finite and falling, the last
+   within ``FP8_REL_TOL`` (0.12, ``benchmarks/fp8.py:25``) of phase 6's.
+   (c) ``estimate-memory llama3-8b`` counts phase 3's parameters. (d) The
+   native library builds; ``load_safetensors_model`` of a 1.07 GB
+   checkpoint written here is bit-identical to ``SafetensorsFile``'s read,
+   GB/s at 1 and 8 threads. ``main_fp8()`` runs it alone.
+
+Prints the fp8 GEMM's JSON line, the kernels' JSON line (each kernel with its launches in phase 9,
 ``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
 11, ``mesh_launches``, in phase 12, ``moe_launches``, in phase 13,
 ``tp_serving_launches``, in phase 14, ``families_launches``, with its
-timings at the families' shapes in ``families``, and in phase 15,
-``seq2seq_vision_launches``, 0) and the card's line, and
+timings at the families' shapes in ``families``, in phase 15,
+``seq2seq_vision_launches``, 0, and in phase 16's fp8 steps,
+``fp8_launches``) and the card's line, and
 as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -5599,6 +5623,351 @@ def phase_seq2seq_vision() -> dict:
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the fp8 training path, estimate-memory, native host IO
+# ---------------------------------------------------------------------------
+
+#: The tier-1 projections' [in, out] kernels against x [8192, 2048] (q/o,
+#: k/v, gate/up, down), both recipes whose products _scaled_mm runs.
+FP8_SHAPES = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048))
+FP8_TOKENS = 8 * 1024
+#: Against the widened product (the same fp8 values, exact products, f32
+#: accumulation) both outputs differ only by the order of the f32 sums and
+#: the final rounding to bf16: at most 2 bf16 ulps of the largest output.
+FP8_TOLERANCE = 2 ** -6
+#: benchmarks/fp8.py:25: the final loss within 12 % of bf16's.
+FP8_REL_TOL = 0.12
+FP8_PATH = ("tier-1 fp8 train steps (phase 16): delayed-scaling e4m3/e5m2 projections, "
+            "bf16 elsewhere")
+
+
+def fp8_gemm_checks(problems: list) -> dict:
+    """(a): every projection shape of the tier-1 step, forward, dx and dW,
+    through ``_scaled_mm`` against the widened product, under HYBRID and
+    E4M3, on the operands as ``Fp8Dense`` lays them out (the kernel a
+    transposed view of the ``[out, in]`` weight); a repeat bit-identical;
+    times as the model calls each product (with the fp8 transposes it
+    makes) and of the product alone on operands laid out beforehand,
+    beside a bf16 ``torch.matmul`` of the same shape (a yardstick). Then
+    the E5M2 route (widened on the card) against the same product on the
+    CPU."""
+    import torch
+
+    from accelerate_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(161)
+    out, worst = {}, 0.0
+    for recipe in ("HYBRID", "E4M3"):
+        fwd, bwd = quant.FP8_FORMATS[recipe]
+        for K, N in FP8_SHAPES:
+            x = torch.randn((FP8_TOKENS, K), generator=gen, device="cuda").bfloat16()
+            w = (torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5).bfloat16().t()
+            dy = (torch.randn((FP8_TOKENS, N), generator=gen, device="cuda") * 1e-4).bfloat16()
+
+            def scale(t, dtype):
+                return (quant._amax(t) / torch.finfo(dtype).max).reshape(())
+
+            sx, sw, sg = scale(x, fwd), scale(w, fwd), scale(dy, bwd)
+            qx, qw = quant._quantize(x, sx, fwd), quant._quantize(w, sw, fwd)
+            qdy = quant._quantize(dy, sg, bwd)
+            gemms = {"forward": (qx, qw, sx, sw), "dx": (qdy, qw.t(), sg, sw),
+                     "dW": (qx.t(), qdy, sx, sg)}
+            for what, (a, b, sa, sb) in gemms.items():
+                before = quant.fp8_gemm.scaled_mm_launches
+                got = quant.fp8_gemm(a, b, sa, sb, torch.bfloat16)
+                again = quant.fp8_gemm(a, b, sa, sb, torch.bfloat16)
+                if quant.fp8_gemm.scaled_mm_launches != before + 2:
+                    problems.append(f"{recipe} {what} [{K}, {N}] did not run _scaled_mm")
+                plain = quant._widened(a, b, sa * sb, torch.bfloat16)
+                err = (got.float() - plain.float()).abs().max().item()
+                rel = err / plain.float().abs().max().item()
+                worst = max(worst, rel)
+                if not torch.equal(got, again):
+                    problems.append(f"{recipe} {what} [{K}, {N}]: a repeat launch differs")
+                if not rel <= FP8_TOLERANCE:
+                    problems.append(f"{recipe} {what} [{K}, {N}]: {rel:.3e} of the largest "
+                                    f"output from the widened product (limit {FP8_TOLERANCE:.3e})")
+                da, db = a.to(torch.bfloat16) * sa, b.to(torch.bfloat16) * sb
+                ms = timed_ms(lambda: quant.fp8_gemm(a, b, sa, sb, torch.bfloat16), 20)
+                a_laid, b_laid = a.contiguous(), quant._col_major(b)
+                gemm_ms = timed_ms(lambda: quant.fp8_gemm(a_laid, b_laid, sa, sb,
+                                                          torch.bfloat16), 20)
+                plain_ms = timed_ms(lambda: quant._widened(a, b, sa * sb, torch.bfloat16), 5)
+                bf16_ms = timed_ms(lambda: torch.matmul(da, db), 20)
+                M_, K_, N_ = a.shape[0], a.shape[1], b.shape[1]
+                flops = 2.0 * M_ * K_ * N_
+                nbytes = M_ * K_ + K_ * N_ + 2 * M_ * N_
+                bound = max(flops / 1979e12, nbytes / PEAK_BYTES) * 1e3
+                out[f"{recipe} {what} [{M_}, {K_}] x [{K_}, {N_}]"] = dict(
+                    rel_err=rel, ms=ms, gemm_ms=gemm_ms, plain_ms=plain_ms,
+                    bf16_matmul_ms=bf16_ms, bound_ms=bound, tflops=flops / gemm_ms / 1e9)
+                print(f"    {recipe:6s} {what:7s} [{M_}, {K_}] x [{K_}, {N_}]: {ms:.4f} ms as "
+                      f"the model calls it, {gemm_ms:.4f} ms the product alone "
+                      f"({flops / gemm_ms / 1e9:.0f} TFLOP/s; bound {bound:.4f} ms at 1979 "
+                      f"TFLOP/s fp8), widened {plain_ms:.3f} ms, bf16 matmul {bf16_ms:.4f} ms; "
+                      f"max abs err {err:.3e} = {rel:.2e} of the largest output")
+    # E5M2 x E5M2: sm_90 has no such product, so the card widens.
+    x = torch.randn((FP8_TOKENS, 2048), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((2048, 1024), generator=gen, device="cuda") * 2048 ** -0.5).bfloat16()
+    sx = (quant._amax(x) / 57344.0).reshape(())
+    sw = (quant._amax(w) / 57344.0).reshape(())
+    qx, qw = quant._quantize(x, sx, quant.E5M2), quant._quantize(w, sw, quant.E5M2)
+    before = quant.fp8_gemm.widened_launches
+    got = quant.fp8_gemm(qx, qw, sx, sw, torch.bfloat16)
+    if quant.fp8_gemm.widened_launches != before + 1:
+        problems.append("the E5M2 product did not take the widened route")
+    cpu = quant.fp8_gemm(qx.cpu(), qw.cpu(), sx.cpu(), sw.cpu(), torch.bfloat16)
+    e5_err = (got.cpu().float() - cpu.float()).abs().max().item() / cpu.float().abs().max().item()
+    e5_ms = timed_ms(lambda: quant.fp8_gemm(qx, qw, sx, sw, torch.bfloat16), 10)
+    if not e5_err <= FP8_TOLERANCE:
+        problems.append(f"E5M2 on the card vs the CPU: {e5_err:.3e}")
+    print(f"    E5M2 x E5M2 (widened on the card) [8192, 2048] x [2048, 1024]: {e5_ms:.4f} ms, "
+          f"{e5_err:.2e} of the largest output from the CPU's product")
+    print(f"    worst _scaled_mm error {worst:.3e} of the largest output "
+          f"(limit {FP8_TOLERANCE:.3e}, use_fast_accum=False)")
+    return dict(gemms=out, worst=worst, e5m2=dict(ms=e5_ms, rel_err=e5_err))
+
+
+def fp8_train(bf16: dict, problems: list) -> dict:
+    """(b): the tier-1 step with fp8 projections at full width, phase 6's
+    weights and data, the data read by a ``TokenBinDataLoader`` from a token
+    file this phase writes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import make_global_batch
+    from accelerate_tpu_torch.bench import build_train_step, mfu_fields
+    from accelerate_tpu_torch.native.io import TokenBinDataLoader
+    from accelerate_tpu_torch.ops import quant
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()  # the bf16 accelerators before: another precision
+    GradientState._reset_state()
+    cfg, model, step, batches = build_train_step(mixed_precision="fp8", use_fp8=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        rng = np.random.default_rng(0)  # phase 6's batches, in its order
+        rows = [rng.integers(0, cfg.vocab_size, size=(8, 1024)) for _ in range(4)]
+        np.concatenate(rows).astype(np.int32).tofile(path)
+        loader = TokenBinDataLoader(path, seq_len=1024, batch_size=8, shuffle=False)
+        data = [make_global_batch(b, next(model.module.parameters()).device) for b in loader]
+    if len(data) != 4 or not all(torch.equal(d["input_ids"], b["input_ids"])
+                                 for d, b in zip(data, batches)):
+        problems.append("the token file's batches are not phase 6's")
+    # Slot 0 of each history after step 1 against the amax it recorded.
+    recorded = {}
+    real_commit = quant.commit_fp8_meta
+
+    def commit(m):
+        if not recorded:
+            recorded.update({name: mod.amax_pending.clone()
+                             for name, mod in m.named_modules()
+                             if isinstance(mod, quant.Fp8Dense)})
+        real_commit(m)
+
+    quant.commit_fp8_meta = commit
+    reset_counts()
+    gemms0 = (quant.fp8_gemm.launches, quant.fp8_gemm.scaled_mm_launches)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    # Phase 6's order (run_bench): warm-up steps on batches 0, 1, 2, then
+    # the timed ones from batch 0 again.
+    order = [0, 1, 2] + [i % 4 for i in range(20)]
+    try:
+        losses.append(step(data[order[0]])["loss"])
+        fp8_modules = {n: m for n, m in model.module.named_modules()
+                       if isinstance(m, quant.Fp8Dense)}
+        # Step 1 quantizes dy with the initial grad scale 1: below e5m2's
+        # smallest subnormal (2**-16) it flushes to 0, so a projection whose
+        # dy comes through another's dx (q/k/v, gate/up) records a 0 amax,
+        # and the rule keeps its grad scale (TE's). Every other scale moves.
+        held = 0
+        for name, mod in fp8_modules.items():
+            for i, (hist, scale) in enumerate(zip(quant._META_HISTS, quant._META_SCALES)):
+                amax = recorded[name][..., i]
+                if not torch.equal(getattr(mod, hist)[..., 0], amax):
+                    problems.append(f"{name}.{hist}[..., 0] is not the amax step 1 recorded")
+                moved = getattr(mod, scale) != 1
+                if not torch.equal(moved, amax > 0):
+                    problems.append(f"{name}.{scale}: moved {moved.tolist()} after step 1, "
+                                    f"amaxes {amax.tolist()}")
+                held += int((~moved).sum())
+        for i in range(1, 3):
+            losses.append(step(data[order[i]])["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3, 23):
+            metrics = step(data[order[i]])
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 20
+    finally:
+        quant.commit_fp8_meta = real_commit
+    still = [f"{n}.{scale}" for n, m in fp8_modules.items() for scale in quant._META_SCALES
+             if bool((getattr(m, scale) == 1).any())]
+    if still:
+        problems.append(f"scales still 1 after {len(losses)} steps: {still}")
+    counts = read_counts()
+    steps = len(losses)
+    gemms = ((quant.fp8_gemm.launches - gemms0[0]) / steps,
+             (quant.fp8_gemm.scaled_mm_launches - gemms0[1]) / steps)
+    losses = torch.stack(losses).tolist()
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_s = 8 * 1024 / dt
+    flops = mfu_fields(tokens_per_s, cfg, 1024, n_params)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel_gap = abs(losses[-1] - bf16["loss"]) / abs(bf16["loss"])
+    print(f"  (b) tier-1 fp8 step ({len(fp8_modules)} stacked Fp8Dense x {cfg.num_hidden_layers} "
+          f"layers, history {cfg.fp8_amax_history_len}, HYBRID): step {dt * 1e3:.2f} ms (bf16 "
+          f"step of phase 6: {bf16['step_ms']:.2f} ms), {tokens_per_s:.0f} tokens/s, MFU "
+          f"{flops['mfu']:.4f} (phase 6's formula), peak {peak:.2f} GiB (bf16 "
+          f"{bf16['peak_gib']:.2f} GiB)")
+    print(f"      fp8 GEMMs a step {gemms[0]:g} ({gemms[1]:g} on _scaled_mm; expected "
+          f"{7 * cfg.num_hidden_layers * 3}), flash launches in {steps} steps {counts}")
+    print(f"      after step 1: every history's slot 0 is the amax it recorded; {held} of "
+          f"{len(fp8_modules) * 3 * cfg.num_hidden_layers} scales held at 1 (a dy flushed to 0 "
+          f"at grad scale 1), none after step {steps}")
+    print(f"      loss step 1 {losses[0]:.5f} -> step {steps} {losses[-1]:.5f} (bf16 "
+          f"{bf16['loss']:.5f}, relative gap {rel_gap:.4f}, limit {FP8_REL_TOL}); mean of the "
+          f"first 4 {sum(losses[:4]) / 4:.5f}, of the last 4 {sum(losses[-4:]) / 4:.5f}")
+    expected = expected_counts(cfg.num_hidden_layers * steps, cfg.num_hidden_layers * steps,
+                               wgmma=True)
+    if counts != expected:
+        problems.append(f"flash launches {counts} in {steps} fp8 steps, expected {expected}")
+    if gemms != (7 * cfg.num_hidden_layers * 3, 7 * cfg.num_hidden_layers * 3):
+        problems.append(f"fp8 GEMMs a step {gemms}, expected 210 on _scaled_mm")
+    if not all(math.isfinite(x) for x in losses):
+        problems.append("an fp8 step gave a non-finite loss")
+    if not sum(losses[-4:]) < sum(losses[:4]):
+        problems.append("the fp8 loss did not fall")
+    if not rel_gap < FP8_REL_TOL:
+        problems.append(f"fp8 final loss {losses[-1]:.5f} vs bf16 {bf16['loss']:.5f}")
+    del model, step
+    free_cuda()
+    return dict(step_ms=dt * 1e3, tokens_per_s=tokens_per_s, mfu=flops["mfu"], peak_gib=peak,
+                losses=losses, bf16_loss=bf16["loss"], bf16_step_ms=bf16["step_ms"],
+                rel_gap=rel_gap, gemms_per_step=gemms[0], counts=counts, steps=steps)
+
+
+def estimate_check(numel_8b: int, problems: list) -> dict:
+    """(c): ``estimate-memory llama3-8b``'s parameter count is the numel of
+    phase 3's Llama-3-8B."""
+    import contextlib
+    import io
+
+    from accelerate_tpu_torch.commands import estimate
+    from accelerate_tpu_torch.utils.modeling import named_parameters
+
+    model = estimate._on_meta(estimate._model_registry()["llama3-8b"])
+    counted = sum(t.numel() for t in named_parameters(model).values())
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = estimate.estimate_command(estimate.estimate_command_parser().parse_args(
+            ["llama3-8b", "--dtypes", "bfloat16"]))
+    head = text.getvalue().splitlines()[0]
+    print(f"  (c) estimate-memory llama3-8b: {counted} parameters (phase 3's model: {numel_8b}); "
+          f"'{head}'")
+    if rc != 0 or counted != numel_8b or f"({numel_8b / 1e9:.2f} B params)" not in head:
+        problems.append(f"estimate-memory counts {counted}, phase 3's model {numel_8b}")
+    return dict(params=counted, phase3_params=numel_8b)
+
+
+def native_io(problems: list) -> dict:
+    """(d): the native library builds here, and ``load_safetensors_model``
+    of a 1.07 GB checkpoint written here is bit-identical to
+    ``SafetensorsFile``'s read, at 1 and 8 threads (the page cache warm:
+    the file was just written)."""
+    import tempfile
+
+    import torch
+
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.checkpointing import (
+        SafetensorsFile,
+        load_safetensors_model,
+        save_safetensors,
+    )
+
+    if not native.available():
+        problems.append("the native library did not build on this machine")
+        return {}
+    gen = torch.Generator().manual_seed(163)
+    tensors = {f"layer.{i}.weight": torch.randn((4096, 4096), generator=gen).bfloat16()
+               for i in range(32)}
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    out = {"gb": nbytes / 1e9}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_safetensors(tensors, os.path.join(tmp, "model.safetensors"))
+        reference = SafetensorsFile(os.path.join(tmp, "model.safetensors"))
+        t0 = time.perf_counter()
+        plain = {name: reference.read(name) for name in reference.keys()}
+        out["safetensors_file_gbs"] = nbytes / (time.perf_counter() - t0) / 1e9
+        for threads in (1, 8):
+            t0 = time.perf_counter()
+            loaded = load_safetensors_model(tmp, threads=threads)
+            out[f"threads_{threads}_gbs"] = nbytes / (time.perf_counter() - t0) / 1e9
+            flat = {f"layer.{i}.weight": loaded["layer"][str(i)]["weight"] for i in range(32)}
+            if not all(torch.equal(flat[n], plain[n]) for n in plain):
+                problems.append(f"load_safetensors_model(threads={threads}) differs")
+    print(f"  (d) native host IO: available; {out['gb']:.2f} GB checkpoint (warm page cache): "
+          f"load_safetensors_model {out['threads_1_gbs']:.2f} GB/s at 1 thread, "
+          f"{out['threads_8_gbs']:.2f} GB/s at 8; SafetensorsFile.read {out['safetensors_file_gbs']:.2f} "
+          "GB/s; bit-identical")
+    return out
+
+
+def phase_fp8(bf16: dict, numel_8b: int) -> dict:
+    """Phase 16 (see the module docstring). ``bf16``: phase 6's final loss,
+    step ms and peak; ``numel_8b``: phase 3's parameter count."""
+    t_phase = time.perf_counter()
+    problems = []
+    print("  (a) the fp8 GEMM: _scaled_mm against the widened product")
+    gemm = fp8_gemm_checks(problems)
+    train = fp8_train(bf16, problems)
+    estimated = estimate_check(numel_8b, problems)
+    host = native_io(problems)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 16: {seconds:.1f} s")
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return dict(gemm=gemm, train=train, estimate=estimated, native=host, seconds=seconds,
+                counts=train["counts"])
+
+
+def main_fp8():
+    """Phase 16 alone: builds the kernels, runs phase 6's bf16 steps for its
+    reference loss, and counts Llama-3-8B's parameters on the meta device
+    (phase 3's model is built only by the whole run)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.bench import run_bench
+    from accelerate_tpu_torch.big_modeling import init_empty_weights
+
+    with init_empty_weights():
+        numel_8b = sum(p.numel() for p in LlamaForCausalLM(LlamaConfig.llama3_8b()).parameters())
+    result = run_bench()
+    free_cuda()
+    out = phase_fp8(phase6_reference(result), numel_8b)
+    print(json.dumps({"fp8": {k: out[k] for k in ("gemm", "estimate", "native", "seconds")}
+                      | {"train": {k: v for k, v in out["train"].items() if k != "losses"}}}))
+
+
+def phase6_reference(result: dict) -> dict:
+    """What phase 16 compares with from phase 6's run."""
+    extra = result["extra"]
+    return dict(loss=extra["losses"][-1], step_ms=extra["step_ms"],
+                peak_gib=extra["peak_memory_gib"])
+
+
 def stage(title: str, t0: float = time.perf_counter()):
     """A phase's header line, with the seconds since the script started."""
     print(f"{title} (t = {time.perf_counter() - t0:.0f} s)", flush=True)
@@ -5628,6 +5997,7 @@ def main():
     backward = phase_backward()
     stage("== 3. Llama-3-8B forward")
     model, policy, gen = build_model()
+    numel_8b = sum(p.numel() for p in model.parameters())  # for phase 16 (c)
     launches_8b = phase_forward(model, policy, gen)
     stage("== 4. generate")
     reset_counts()
@@ -5699,6 +6069,9 @@ def main():
     free_cuda()
     stage("== 15. T5 at T0pp widths and ViT-B/16: seq2seq_generate, staged streaming, training")
     seq2seq = phase_seq2seq_vision()
+    free_cuda()
+    stage("== 16. the fp8 training path, estimate-memory, native host IO")
+    fp8 = phase_fp8(phase6_reference(result), numel_8b)
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -5727,6 +6100,15 @@ def main():
         add_family_entries(entry, key, families)
         entry["seq2seq_vision_launches"] = seq2seq["counts"][key]
         entry["seq2seq_vision_path"] = SEQ2SEQ_PATH
+        entry["fp8_launches"] = fp8["counts"][key]
+        entry["fp8_launches_per_step"] = fp8["counts"][key] / fp8["train"]["steps"]
+        entry["fp8_path"] = FP8_PATH
+    print(json.dumps({"fp8_gemm": {"route": "torch._scaled_mm (cuBLASLt), E5M2 x E5M2 widened",
+                                   "replaces": "accelerate_tpu/ops/quant.py:98 and :116 (XLA "
+                                               "dot_general, no Pallas kernel)",
+                                   "launches_per_step": fp8["train"]["gemms_per_step"],
+                                   "worst_rel_err": fp8["gemm"]["worst"],
+                                   "gemms": fp8["gemm"]["gemms"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,7 +43,6 @@ _ABSTRACT = "flax's abstract init over example inputs; a torch module is built o
 
 #: Reference names the port does not have, by their home in the reference.
 MISSING_OK = {
-    "accelerate_tpu.utils.dataclasses.FP8RecipeKwargs": ("A9", "the fp8 path"),
     "accelerate_tpu.utils.dataclasses.JitConfig": ("JAX-only", "jax.jit options"),
     "accelerate_tpu.parallel.sharding.replicated_sharding": (
         "JAX-only", "a NamedSharding over a mesh; a replicated leaf's spec is PartitionSpec()"),
@@ -51,9 +50,6 @@ MISSING_OK = {
         "JAX-only", "keeps ZeRO executables out of XLA's persistent compile cache"),
     "accelerate_tpu.parallel.host_offload.shardings_like": (
         "JAX-only", "NamedShardings with a memory kind; a tensor's place is its device"),
-    **{f"accelerate_tpu.ops.quant.{name}": ("A9", "the fp8 path")
-       for name in ("Fp8Dense", "fp8_matmul", "fp8_meta_mask", "has_fp8_meta",
-                    "recipe_to_config_kwargs", "wrap_optimizer_for_fp8")},
     **{f"accelerate_tpu.models.{name}.init_params": (
         "JAX-only", "flax's init of a parameter pytree; a torch module is built with its "
         "weights (a generator, or the meta device)")
@@ -90,6 +86,12 @@ MISSING_OK = {
         "A9", "a third-party tracker; it comes with tests over fakes of its library")
        for name in ("WandBTracker", "MLflowTracker", "CometMLTracker", "AimTracker",
                     "ClearMLTracker", "DVCLiveTracker")},
+    **{f"accelerate_tpu.ops.quant.Fp8Dense.{name}": (
+        "JAX-only", "a flax initializer; the port's weights come from the model's init, a "
+        "generator or a loaded state dict") for name in ("kernel_init", "bias_init")},
+    "accelerate_tpu.ops.quant.overwrite_with_cotangent": (
+        "JAX-only", "an optax transformation that overwrites a leaf with its cotangent; the "
+        "port's statistics are buffers that commit_fp8_meta overwrites at the update"),
     "accelerate_tpu.accelerator.Model": (
         "JAX-only", "a flax apply function and its parameter pytree; the port takes nn.Module"),
     "accelerate_tpu.utils.profiling.CompileWatcher": (
@@ -129,8 +131,14 @@ KEYWORDS_OK = [
     *[(f"accelerate_tpu.parallel.host_offload.{name}", ("mesh",), "JAX-only",
        "a leaf keeps its mesh sharding across memory kinds; a tensor moves to a device")
       for name in ("put_tree", "to_host", "to_device")],
-    ("accelerate_tpu.checkpointing.load_safetensors_model", ("threads",), "A9",
-     "the threaded reader comes with native/ host IO"),
+    ("accelerate_tpu.ops.quant.Fp8Dense", ("kernel_init", "bias_init"), "JAX-only",
+     "flax initializers; the port's weights come from the model's init, a generator or a "
+     "loaded state dict"),
+    ("accelerate_tpu.ops.quant.Fp8Dense", ("parent", "name"), "JAX-only",
+     "flax's module tree plumbing; a torch module holds its submodules"),
+    ("accelerate_tpu.ops.quant.wrap_optimizer_for_fp8", ("tx", "params"), "JAX-only",
+     "an optax transformation over the parameter pytree; the port's takes the torch "
+     "optimizer and the model whose statistics its steps commit"),
     ("accelerate_tpu.checkpointing.save_adapter", ("blocking",), "JAX-only",
      "save_array_tree's background write (a pytree helper)"),
     ("accelerate_tpu.utils.hf_interop.convert_hf_state_dict", ("to_numpy",), "JAX-only",

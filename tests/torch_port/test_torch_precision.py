@@ -8,7 +8,7 @@ from accelerate_tpu.precision import policy_for as jax_policy_for
 from accelerate_tpu_torch import LlamaConfig, LlamaForCausalLM, policy_for
 
 
-@pytest.mark.parametrize("mode", ["no", "fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("mode", ["no", "fp32", "bf16", "fp16", "fp8"])
 def test_policy_dtypes_match_jax(mode):
     ref, pol = jax_policy_for(mode), policy_for(mode)
     for field in ("param_dtype", "compute_dtype", "output_dtype"):
@@ -28,7 +28,8 @@ def test_bf16_policy_casts_floating_values_only():
 
 
 def test_unported_and_unknown_modes_raise():
-    with pytest.raises(NotImplementedError, match="fp8"):
-        policy_for("fp8")
+    """Every mode is ported ("fp8", once refused, is the bf16 policy, the fp8
+    products being the model's own); an unknown one raises."""
+    assert policy_for("fp8") == policy_for("bf16")
     with pytest.raises(ValueError, match="Unknown"):
         policy_for("int3")
