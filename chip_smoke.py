@@ -100,9 +100,10 @@ order; any failure exits non-zero:
    disk); ``disk_offload`` with memmap copies; ``cpu_offload_with_hook``,
    after whose ``offload()`` no weights of it stay on the card; int8
    ``load_and_quantize_hf_checkpoint`` against its dequantized weights. Then
-   at full depth in bf16: the resident model exported in 5 GB shards, and on
+   in bf16 at 16 of the 32 layers (``BIG["layers"]``; the script's time
+   limit): the resident model's first 16 layers exported in 5 GB shards, and on
    each tier (card, host, disk, ``"auto"`` under ``max_memory={0: "8GiB"}``)
-   the load's seconds, a 4 x 2048 forward (32 wgmma flash launches; the
+   the load's seconds, a 4 x 2048 forward (16 wgmma flash launches; the
    host tier also with ``prefetch=False``), batch-1 decode from a 512-token
    prompt (16 new, 4 on disk), and the peak card memory, which must stay
    within the resident weights + 2 x the largest streamed block + an
@@ -214,9 +215,10 @@ order; any failure exits non-zero:
 
 12. Mixture-of-Experts at Mixtral-8x7B widths (``ops/moe.py``,
    ``models/mixtral.py``, ``ExpertParallelPlugin``), random bf16 weights
-   from a seeded generator: (a) 8 layers (23.7 GB) on 4 x 2048 tokens at the
+   from a seeded generator: (a) 4 layers (11.9 GB; cut from 8 to keep the
+   whole script inside its time limit) on 4 x 2048 tokens at the
    training capacity factor 1.25: ms, peak, each layer's dropped pairs and
-   experts' loads, 8 wgmma forward launches, finite logits; on 1 x 256
+   experts' loads, 4 wgmma forward launches, finite logits; on 1 x 256
    tokens every layer's attention through the flash kernel against einsum
    attention on the same hidden states (5e-2), and layer 0's index dispatch
    against the reference's one-hot einsums at f32 (1e-5). (b) ``generate``
@@ -224,10 +226,10 @@ order; any failure exits non-zero:
    launch, a repeat identical; at f32, 2 layers and hidden 256, token-exact
    with the greedy loop over uncached forwards that route without drops
    (the drops at 1.25 printed). (c) 2 layers (3.165 B), 4 x 1024, bf16 over
-   f32 masters, fused AdamW, ``mixtral_lm_loss``, clip 1.0, 3 + 10 steps:
+   f32 masters, fused AdamW, ``mixtral_lm_loss``, clip 1.0, 3 + 5 steps:
    launched by ``launch --num_processes 1 --ep 1`` with
    ``ExpertParallelPlugin(ep_size=1)`` over NCCL, then here without a
-   group; their 13 losses equal bit for bit, 2 + 2 + 2 wgmma launches a
+   group; their 8 losses equal bit for bit, 2 + 2 + 2 wgmma launches a
    step; step ms, peak, router losses, drops. (d) 2 layers exported to an
    HF directory by ``save_hf_checkpoint`` and loaded by
    ``load_hf_checkpoint_and_dispatch`` on the "auto" map under a card
@@ -236,7 +238,7 @@ order; any failure exits non-zero:
    launched from a config file that the ``config`` questionnaire wrote
    from scripted answers on a piped stdin, with ``--tp 1 --cp 1 --pp 1
    --ep 1`` and the tensor, context (ring) and pipeline plugins at size 1,
-   over NCCL: its 13 losses equal (c)'s bit for bit, 2 + 2 + 2 wgmma
+   over NCCL: its 8 losses equal (c)'s bit for bit, 2 + 2 + 2 wgmma
    launches a step; step ms, peak and its seconds. Prints the phase's
    seconds. ``main_moe()`` runs it alone.
 
@@ -351,13 +353,40 @@ order; any failure exits non-zero:
    checkpoint written here is bit-identical to ``SafetensorsFile``'s read,
    GB/s at 1 and 8 threads. ``main_fp8()`` runs it alone.
 
+17 (after 16). The example ports. (a) The 19 ``examples/by_feature_torch``
+   and 3 ``examples/inference_torch`` scripts on the card, one after
+   another in this process through ``example_lib_torch.run_example`` (the
+   port's accelerator state reset between them), at the JAX scripts'
+   defaults; the scripts of several processes at world size 1
+   (``megatron_lm_gpt_pretraining --tp 1 --pp 1``); checkpointing once and
+   again resumed, early stopping with ``--min_delta 10``, FSDP with offload
+   and activation checkpointing. Each script's seconds, its last line and
+   the check its CPU test makes (the resume line, the JSONL read back, the
+   trace file, the exported HF file...). (b) The tier-1 train step at full
+   width (phase 6's model, bf16 over f32 masters, the wgmma kernels; AdamW
+   at the examples' 3e-4) for 8 steps over 4 batches of 8 rows of 1024
+   packed by ``pack_sequences`` (``segment_ids`` and ``positions`` through
+   the kernels both ways), logged under
+   ``log_with=["jsonl", "tensorboard", <a GeneralTracker>]``: every logged
+   loss equals the step's, the JSONL (and, where the package is there, the
+   TensorBoard scalars) read back, the loss finite and falling (the mean of
+   the last 4 below the first 4's), 10 + 10 + 10 wgmma launches a step; the
+   step's ms. Then 4 documents packed into one row, twice: of ragged
+   lengths (boundaries inside the kernel's tiles; alone, each runs through
+   the einsum core, as the JAX gate sends a sequence that is not a multiple
+   of 128) and of multiples of 128 (alone, each through the kernel too):
+   the packed forward's logits of each within phase 3's bf16 tolerance
+   (relative L2 5e-2) of the document run alone, and without the segment
+   ids a later document's are not. ``main_examples()`` runs it alone.
+
 Prints the fp8 GEMM's JSON line, the kernels' JSON line (each kernel with its launches in phase 9,
 ``multiprocess_launches``, in phase 10, ``sharded_launches``, in phase
 11, ``mesh_launches``, in phase 12, ``moe_launches``, in phase 13,
 ``tp_serving_launches``, in phase 14, ``families_launches``, with its
 timings at the families' shapes in ``families``, in phase 15,
-``seq2seq_vision_launches``, 0, and in phase 16's fp8 steps,
-``fp8_launches``) and the card's line, and
+``seq2seq_vision_launches``, 0, in phase 16's fp8 steps,
+``fp8_launches``, and in phase 17 (b)'s packed steps,
+``examples_flash_launches``) and the card's line, and
 as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -414,9 +443,9 @@ SERVE = dict(exact_requests=12, exact_prompts=(5, 700), exact_new=32, exact_slot
              prefix_cache_gib=4, seed=41)
 # Phase 4d: speculative, quantized and multi-tenant serving. Exactness on
 # 4c's set; full depth in 4c's shape and schedule (modes b-d on its first
-# 12 requests); a sliding-window model at Mistral-7B's shapes.
+# 8 requests); a sliding-window model at Mistral-7B's shapes.
 EXTRA = dict(spec_tokens=4, spec_lookup=3, exact_window=64, lora_rank=16,
-             lora_targets=("q_proj", "k_proj", "v_proj", "o_proj"), adapters=4, cut_requests=12,
+             lora_targets=("q_proj", "k_proj", "v_proj", "o_proj"), adapters=4, cut_requests=8,
              draft=dict(hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
                         tie_word_embeddings=True),
              window=dict(config=dict(vocab_size=32000, rope_theta=10000.0, sliding_window=4096,
@@ -429,11 +458,11 @@ EXTRA = dict(spec_tokens=4, spec_lookup=3, exact_window=64, lora_rank=16,
 FLEET = dict(exact_seed=51, exact_kill_tick=12, kill_tick=40, hang_timeout_s=30.0)
 # Phase 4f: big-model inference. Exactness at 2 layers in f32 (an HF
 # directory in 2 GB shards; logits on 1 x 256 tokens, greedy tokens from a
-# 100-token prompt); then full depth in bf16 (5 GB shards): a 4 x 2048
-# forward and batch-1 decode from a 512-token prompt on each tier.
+# 100-token prompt); then 16 of the 32 layers in bf16 (5 GB shards): a
+# 4 x 2048 forward and batch-1 decode from a 512-token prompt on each tier.
 BIG = dict(exact_seed=71, exact_len=256, exact_prompt=100, exact_new=32, exact_disk_new=8,
            exact_shard="2GB", exact_atol=1e-5, quant_atol=1e-4, shard="5GB", forward=(4, 2048),
-           prompt=512, new=16, disk_new=4, auto_budget="8GiB")
+           prompt=512, new=16, disk_new=4, auto_budget="8GiB", layers=16)
 
 
 #: Phase 4c's numbers from this run, which phase 4e prints beside its own.
@@ -2556,8 +2585,11 @@ def big_model_exactness(cfg):
 
 
 def big_model_full_depth(model, gen):
-    """Phase 4f at full depth in bf16: the resident model exported to an HF
-    directory, then every tier's load, forward, decode and peak memory."""
+    """Phase 4f in bf16 at ``BIG["layers"]`` of the model's layers: the
+    resident model's first layers exported to an HF directory, then every
+    tier's load, forward, decode and peak memory."""
+    import dataclasses
+    import re
     import shutil
     import tempfile
 
@@ -2565,15 +2597,19 @@ def big_model_full_depth(model, gen):
 
     from accelerate_tpu_torch import load_hf_checkpoint_and_dispatch, save_hf_checkpoint
 
-    cfg, bf16, card = model.config, torch.bfloat16, card_line()
-    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    bf16, card = torch.bfloat16, card_line()
+    cfg = dataclasses.replace(model.config, num_hidden_layers=BIG["layers"])
+    state = {k: v for k, v in model.state_dict().items()
+             if not (m := re.match(r"model\.layers\.(\d+)\.", k)) or int(m[1]) < BIG["layers"]}
+    weights = sum(t.numel() * t.element_size() for t in state.values())
     B, S = BIG["forward"]
     ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
     prompt = ids[:1, :BIG["prompt"]]
     layer_bytes = sum(p.numel() * p.element_size() for p in model.model.layers[0].parameters())
 
     # The activation allowance: the resident model's own peak above its
-    # weights on the same input (logits included).
+    # weights on the same input (logits included; its 32 layers' peak is
+    # the peak of one layer's activations, as the streamed model's is).
     with torch.inference_mode():
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -2588,7 +2624,8 @@ def big_model_full_depth(model, gen):
     dst = torch.empty(layer_bytes, dtype=torch.uint8, device="cuda")
     copy_ms = timed_ms(lambda: dst.copy_(src, non_blocking=True), iters=10)
     del src, dst
-    print(f"  bf16, full depth, {weights / 1e9:.2f} GB of weights ({card}): pinned host-to-card "
+    print(f"  bf16, {cfg.num_hidden_layers} of {model.config.num_hidden_layers} layers, "
+          f"{weights / 1e9:.2f} GB of weights ({card}): pinned host-to-card "
           f"copy of one layer's {layer_bytes / 1e6:.0f} MB: {copy_ms:.3f} ms "
           f"({layer_bytes / copy_ms / 1e6:.1f} GB/s); activation allowance "
           f"{allowance / 2**30:.2f} GiB (the resident forward's peak above its weights, "
@@ -2599,7 +2636,7 @@ def big_model_full_depth(model, gen):
         check_room(root, 1.1 * weights / 1e9, 2.5 * weights / 1e9, "4f full depth")
         hf = os.path.join(root, "hf")
         t0 = time.perf_counter()
-        save_hf_checkpoint(model, hf, cfg, "llama", max_shard_size=BIG["shard"])
+        save_hf_checkpoint(state, hf, cfg, "llama", max_shard_size=BIG["shard"])
         shards = sorted(n for n in os.listdir(hf) if n.endswith(".safetensors"))
         print(f"  exported to an HF directory in {time.perf_counter() - t0:.1f} s: {len(shards)} "
               f"shards of at most {BIG['shard']}")
@@ -2683,7 +2720,7 @@ def big_model_full_depth(model, gen):
 
 def phase_big_model(model, gen):
     """Phase 4f: big-model inference (``big_modeling``), exactness at f32
-    on 2 layers, then every tier at full depth in bf16."""
+    on 2 layers, then every tier in bf16 at ``BIG["layers"]`` layers."""
     big_model_exactness(model.config)
     big_model_full_depth(model, gen)
 
@@ -3837,9 +3874,9 @@ def phase_mesh(reference=None):
                 reference_step_ms=reference["extra"]["step_ms"])
 
 
-MOE = dict(seed=81, forward_layers=8, forward=(4, 2048), small=(1, 256), prompt=512, new=32,
+MOE = dict(seed=81, forward_layers=4, forward=(4, 2048), small=(1, 256), prompt=512, new=32,
            exact_hidden=256, exact_intermediate=512, exact_prompt=48, exact_new=24,
-           train_layers=2, train=(4, 1024), warmup=3, iters=10, timeout=600,
+           train_layers=2, train=(4, 1024), warmup=3, iters=5, timeout=600,
            stream_layers=2, stream_tokens=2048, stream_shard="2GB")
 MOE_CHILD_FLAG = "--moe-child"
 MOE_MESH_CHILD_FLAG = "--moe-mesh-child"
@@ -3847,7 +3884,8 @@ MOE_MESH_CHILD_FLAG = "--moe-mesh-child"
 #: bf16, every mesh axis 1, no debug checks.
 MOE_MESH_ANSWERS = "1\n2\n1\n1\n1\n1\n1\n1\n2\n"
 MOE_CAPACITY = 1.25  # MixtralConfig's training capacity factor
-MOE_PATH = ("Mixtral-8x7B widths (phase 12): 8-layer forward on 4 x 2048 tokens, 2-layer train "
+MOE_PATH = (f"Mixtral-8x7B widths (phase 12): {MOE['forward_layers']}-layer forward on 4 x 2048 "
+            "tokens, 2-layer train "
             "steps on 4 x 1024 launched (--ep 1, then from the questionnaire's config with --tp 1 "
             "--cp 1 --pp 1 --ep 1) and not, 2-layer streamed forward on 1 x 2048")
 
@@ -3893,9 +3931,10 @@ def one_hot_moe(experts, router, x, top_k, capacity_factor):
 
 
 def moe_forward(problems: list):
-    """Phase 12 (a): the 8-layer Mixtral-8x7B forward in bf16 on 4 x 2048
-    tokens (capacity factor 1.25, one routing group): ms, peak, drops and
-    loads, 8 wgmma forward launches, finite logits; on 1 x 256 tokens the
+    """Phase 12 (a): the Mixtral-8x7B forward at ``MOE["forward_layers"]``
+    layers in bf16 on 4 x 2048 tokens (capacity factor 1.25, one routing
+    group): ms, peak, drops and loads, one wgmma forward launch a layer,
+    finite logits; on 1 x 256 tokens the
     flash forward against einsum attention, and layer 0's index dispatch
     against the one-hot einsums at f32."""
     import torch
@@ -4062,8 +4101,9 @@ def moe_generate(model, gen, problems: list) -> dict:
 def moe_train_steps(mesh_plugins: bool = False) -> dict:
     """Phase 12 (c)'s trainer: Mixtral-8x7B widths at 2 layers, f32
     masters and bf16 compute, fused AdamW, ``mixtral_lm_loss``, clip 1.0,
-    ``ExpertParallelPlugin(ep_size=1)``; 3 + 10 steps on 4 seeded batches
-    of 4 x 1024 tokens, the last 10 timed. In a process group when the
+    ``ExpertParallelPlugin(ep_size=1)``; ``MOE["warmup"]`` + ``MOE["iters"]``
+    steps on 4 seeded batches of 4 x 1024 tokens, the last ``MOE["iters"]``
+    timed. In a process group when the
     launcher made one. ``mesh_plugins`` (phase 12 (e)) adds the tensor,
     context (ring attention) and pipeline plugins at size 1."""
     import numpy as np
@@ -4337,8 +4377,8 @@ def moe_streamed(problems: list) -> dict:
 
 def phase_moe() -> dict:
     """Phase 12: Mixture-of-Experts at Mixtral-8x7B widths (``ops/moe.py``,
-    ``models/mixtral.py``, ``ExpertParallelPlugin``): (a) the 8-layer
-    forward, (b) generate, (c) the 2-layer trainer launched with ``--ep 1``
+    ``models/mixtral.py``, ``ExpertParallelPlugin``): (a) the forward at
+    ``MOE["forward_layers"]`` layers, (b) generate, (c) the 2-layer trainer launched with ``--ep 1``
     and not, (d) the 2-layer model streamed from its HF export, (e) the
     trainer launched from a questionnaire's config with the tp, cp and pp
     plugins at size 1. Every check is printed before a failure fails the
@@ -5961,6 +6001,297 @@ def main_fp8():
                       | {"train": {k: v for k, v in out["train"].items() if k != "losses"}}}))
 
 
+# Phase 17: the example ports. (a) each script with its arguments on the
+# card ("{out}": a temporary directory) and what its output must show;
+# (b) the packed full-width steps and the 4 documents of the packed check.
+EXAMPLE_RUNS = (
+    ("by_feature_torch/gradient_accumulation.py", [], [r"epoch 1: loss \d+\.\d+ acc"]),
+    ("by_feature_torch/automatic_gradient_accumulation.py", [],
+     [r"batch_size=16 x accumulation=1", r"epoch 1: loss"]),
+    ("by_feature_torch/checkpointing.py", ["--project_dir", "{out}/ckpt"],
+     [r"epoch 2: loss .* \(state saved\)"]),
+    ("by_feature_torch/checkpointing.py",
+     ["--project_dir", "{out}/ckpt", "--epochs", "3", "--resume_from_checkpoint", "latest"],
+     [r"resumed from epoch 2", r"epoch 3: loss"]),
+    ("by_feature_torch/early_stopping.py", ["--min_delta", "10.0"],
+     [r"early stop at epoch 1 \(no improvement\)"]),
+    ("by_feature_torch/local_sgd.py", [], [r"epoch 1: loss"]),
+    ("by_feature_torch/memory.py", [], [r"trying batch_size=16", r"epoch 1: loss"]),
+    ("by_feature_torch/multi_process_metrics.py", [], [r"over exactly 100 samples"]),
+    ("by_feature_torch/profiler.py", ["--trace_dir", "{out}/trace"], [r"profiled 6 steps"]),
+    ("by_feature_torch/tracking.py", ["--project_dir", "{out}/track"], [r"epoch 1: loss"]),
+    ("by_feature_torch/fsdp_with_peak_mem_tracking.py",
+     ["--cpu_offload", "--activation_checkpointing"], [r"epoch 1: loss .*\(offload=on\)"]),
+    ("by_feature_torch/cross_validation.py", [], [r"ensemble accuracy over 2 folds"]),
+    ("by_feature_torch/ddp_comm_hook.py", [], [r"max per-step loss drift: 0\.0"]),
+    ("by_feature_torch/schedule_free.py", [], [r"epoch 1: loss .* eval-avg acc"]),
+    ("by_feature_torch/deepspeed_with_config_support.py", [],
+     [r"sharding=SHARD_GRAD_OP offload=True", r"epoch 1: loss .* lr 1\.00e-03"]),
+    ("by_feature_torch/megatron_lm_gpt_pretraining.py", ["--tp", "1", "--pp", "1"],
+     [r"loss \d+\.\d+ -> \d+\.\d+ over 8 steps"]),
+    ("by_feature_torch/moe_context_parallel.py", [],
+     [r"MoE over .*: loss", r"ring attention over cp=1: seq 1024 -> logits \(2, 1024, 256\)"]),
+    ("by_feature_torch/native_data_pipeline.py", [],
+     [r"resume state: \{'epoch': 0, 'skip_batches': 2\}", r"trained 16 steps"]),
+    ("by_feature_torch/hf_checkpoint_finetune.py", ["--output_dir", "{out}/hf"],
+     [r"exported fine-tuned weights"]),
+    ("by_feature_torch/sequence_packing.py", [], [r"packed 256 docs", r"epoch 1: loss"]),
+    ("inference_torch/distributed_inference.py", [], [r"distributed inference example: OK"]),
+    ("inference_torch/pipeline_inference.py", [], [r"pipeline inference example: OK"]),
+    ("inference_torch/speculative_decoding.py", [], [r"speculative decoding example: OK"]),
+)
+PACKED = dict(steps=8, batches=4, batch=8, lr=3e-4, seed=17, logits_rel=5e-2,
+              docs=((424, 300, 200, 100), (384, 256, 256, 128)))
+EXAMPLES_PATH = ("tier-1 train steps on rows packed by pack_sequences (phase 17 (b)): "
+                 "segment_ids and positions through the kernels, 8 x 1024 tokens a step")
+
+
+def example_files_check(script: str, out: str) -> str:
+    """What a script's CPU test reads back from its files, on the card's
+    run; '' where the script writes none to check."""
+    import glob
+
+    name = os.path.basename(script)
+    if name == "profiler.py":
+        traces = glob.glob(os.path.join(out, "trace", "*.json"))
+        if not traces:
+            fail("profiler.py wrote no Chrome trace")
+        with open(traces[0]) as f:
+            head = f.read(4096)
+        if '"traceEvents"' not in head:
+            fail(f"{traces[0]} is not a Chrome trace")
+        return f"trace {os.path.basename(traces[0])}"
+    if name == "tracking.py":
+        files = glob.glob(os.path.join(out, "track", "**", "*.jsonl"), recursive=True)
+        with open(files[0]) as f:
+            lines = [json.loads(line) for line in f]
+        logged = [line["train_loss"] for line in lines if "train_loss" in line]
+        if not logged or lines[0]["_type"] != "config":
+            fail(f"tracking.py's JSONL holds no train_loss: {lines[:3]}")
+        return f"JSONL read back: {len(logged)} train_loss lines"
+    if name == "hf_checkpoint_finetune.py":
+        from safetensors import safe_open
+
+        with safe_open(os.path.join(out, "hf", "model.safetensors"), "pt") as f:
+            if "model.layers.0.self_attn.q_proj.weight" not in f.keys():
+                fail("hf_checkpoint_finetune.py's export lacks HF names")
+        return "HF names read back"
+    if name == "checkpointing.py":
+        return f"checkpoints {sorted(os.listdir(os.path.join(out, 'ckpt', 'checkpoints')))}"
+    return ""
+
+
+def examples_on_the_card(problems: list) -> dict:
+    """Phase 17 (a): every example port on the card, in this process."""
+    import re
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    from example_lib_torch import run_example
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    results = {}
+    reset_counts()
+    try:
+        for script, args, patterns in EXAMPLE_RUNS:
+            r = run_example(os.path.join(HERE, "examples", script),
+                            [a.replace("{out}", out) for a in args])
+            text = r["stdout"]
+            missing = [p for p in patterns if not re.search(p, text)]
+            ok = r["error"] is None and not missing
+            files = example_files_check(script, out) if ok else ""
+            last = text.strip().splitlines()[-1] if text.strip() else ""
+            print(f"  [{'ok' if ok else 'FAIL'}] (a) {script} {' '.join(args)}: "
+                  f"{r['seconds']:.2f} s; {last}{'; ' + files if files else ''}")
+            if not ok:
+                print((r["error"] or text)[-3000:])
+                problems.append(f"{script}: " + ("failed" if r["error"] else f"no {missing}"))
+            results[f"{script} {' '.join(args)}".strip()] = dict(seconds=r["seconds"], last=last)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    counts = read_counts()
+    print(f"  (a) flash launches in the example scripts: {counts} (their models attend by "
+          "einsum, use_flash_attention=False, as the JAX scripts set)")
+    return dict(scripts=results, counts=counts)
+
+
+def packed_full_width(problems: list) -> dict:
+    """Phase 17 (b) (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import (Accelerator, PipelinedLlamaForCausalLM,
+                                      fused_causal_lm_loss, make_global_batch, pack_sequences)
+    from accelerate_tpu_torch.bench import tier1_llama_config
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.tracking import GeneralTracker
+
+    class Recorder(GeneralTracker):
+        """A caller's own tracker: what ``log`` handed it."""
+
+        name = "recorder"
+        requires_logging_directory = False
+
+        def __init__(self):
+            super().__init__()
+            self.logged = []
+
+        @property
+        def tracker(self):
+            return self.logged
+
+        def log(self, values, step=None, **kwargs):
+            self.logged.append((step, dict(values)))
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    root = tempfile.mkdtemp(prefix="chip_smoke_packed_")
+    try:
+        recorder = Recorder()
+        acc = Accelerator(mixed_precision="bf16", project_dir=root,
+                          log_with=["jsonl", "tensorboard", recorder])
+        cfg = tier1_llama_config()
+        steps, B = PACKED["steps"], PACKED["batch"]
+        acc.init_trackers("packed", config={"layers": cfg.num_hidden_layers, "rows": B,
+                                            "seq": LOOP["seq"]})
+        names = [t.name for t in acc.trackers]
+        module = PipelinedLlamaForCausalLM(
+            cfg, device=acc.device, dtype=torch.float32,
+            generator=torch.Generator(device=acc.device).manual_seed(0))
+        model, _ = acc.prepare(module, torch.optim.AdamW(module.parameters(), lr=PACKED["lr"],
+                                                         weight_decay=1e-4))
+        step = acc.compile_train_step(fused_causal_lm_loss(model), max_grad_norm=1.0)
+        rows, docs = packed_rows(cfg.vocab_size, rows=PACKED["batches"] * B, seed=PACKED["seed"])
+        batches = [make_global_batch({k: np.stack([r[k] for r in rows[i * B:(i + 1) * B]])
+                                      for k in rows[0]}, acc) for i in range(PACKED["batches"])]
+        segments = [int(b["segment_ids"].max()) for b in batches]
+        reset_counts()
+        losses, seconds = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batches[i % len(batches)])["loss"].item()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss)
+            acc.log({"train_loss": loss}, step=i + 1)
+        counts = read_counts()
+        acc.end_training()
+        step_ms = sum(seconds[1:]) * 1e3 / (steps - 1)
+        print(f"  (b) tier-1 llama, bf16 over f32 masters, {steps} steps over {len(batches)} "
+              f"batches of {B} x {LOOP['seq']} rows packed from {len(docs)} documents of 64-2048 "
+              f"tokens (up to {max(segments)} a row): {step_ms:.2f} ms a step (steps "
+              f"2-{steps}), first {seconds[0] * 1e3:.1f} "
+              f"ms; loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}; trackers "
+              f"{names} ({card_line()})")
+        if counts != expected_counts(cfg.num_hidden_layers * steps,
+                                     cfg.num_hidden_layers * steps, wgmma=True):
+            problems.append(f"packed steps launched {counts}, expected 10 + 10 + 10 wgmma a step")
+        if not all(math.isfinite(x) for x in losses) or not sum(losses[-4:]) < sum(losses[:4]):
+            problems.append(f"packed losses not finite or not falling: {losses}")
+        if recorder.logged != [(i + 1, {"train_loss": x}) for i, x in enumerate(losses)]:
+            problems.append(f"the GeneralTracker logged {recorder.logged}, not the steps' losses")
+        with open(os.path.join(root, "packed.metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        jsonl = [line["train_loss"] for line in lines[1:]]
+        if lines[0]["_type"] != "config" or jsonl != losses:
+            problems.append(f"the JSONL file read back {jsonl}, not {losses}")
+        tensorboard = "not installed: skipped, as a named tracker without its package is"
+        if "tensorboard" in names:
+            from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+            events = EventAccumulator(os.path.join(root, "packed"))
+            events.Reload()
+            scalars = [(e.step, e.value) for e in events.Scalars("train_loss")]
+            if [s for s, _ in scalars] != list(range(1, steps + 1)) or not np.allclose(
+                    [v for _, v in scalars], losses, rtol=1e-6):
+                problems.append(f"TensorBoard read back {scalars}")
+            tensorboard = f"{len(scalars)} scalars read back"
+        print(f"  (b) every logged loss equals its step's; JSONL read back ({len(jsonl)} losses); "
+              f"TensorBoard {tensorboard}")
+
+        # 4 documents in one row: each one's logits as if run alone.
+        rng = np.random.default_rng(PACKED["seed"])
+        reset_counts()
+        worst, crossed, alone_launches = 0.0, [], 0
+        for lengths in PACKED["docs"]:
+            four = [rng.integers(1, cfg.vocab_size, n) for n in lengths]
+            packed = pack_sequences(four, LOOP["seq"])
+            if packed["input_ids"].shape[0] != 1:
+                fail(f"{lengths} packed into {packed['input_ids'].shape[0]} rows, not 1")
+            row = make_global_batch(packed, acc)
+            with torch.no_grad():
+                whole = model(row["input_ids"], positions=row["positions"],
+                              segment_ids=row["segment_ids"])[0]
+                unmasked = model(row["input_ids"])[0]
+                for s in range(1, len(four) + 1):
+                    where = (row["segment_ids"][0] == s).nonzero()[:, 0]
+                    alone = model(row["input_ids"][:, where])[0]
+                    alone_launches += len(where) % 128 == 0
+                    rel = ((whole[where] - alone).norm() / alone.norm()).item()
+                    worst = max(worst, rel)
+                    if s > 1:
+                        crossed.append(((unmasked[where] - alone).norm() / alone.norm()).item())
+            print(f"  (b) 4 documents of {lengths} tokens in one packed row: logits within "
+                  f"relative L2 {worst:.3e} (worst so far) of each run alone (limit "
+                  f"{PACKED['logits_rel']}); without segment_ids and positions, documents 2-4: "
+                  f"{', '.join(f'{c:.3e}' for c in crossed[-3:])}")
+        forward_counts = read_counts()
+        print(f"  (b) packed-row forwards' launches {forward_counts} (2 a row and 1 a document "
+              "of a multiple of 128 tokens, a layer)")
+        if not worst <= PACKED["logits_rel"]:
+            problems.append(f"a packed document's logits differ from its own run by {worst}")
+        if not min(crossed) > PACKED["logits_rel"]:
+            problems.append("without segment_ids a later document still matches: the check "
+                            "shows nothing")
+        if forward_counts != expected_counts(
+                cfg.num_hidden_layers * (2 * len(PACKED["docs"]) + alone_launches), 0, wgmma=True):
+            problems.append(f"the packed forwards launched {forward_counts}")
+        del model, step, batches, module
+        acc.free_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_cuda()
+    return dict(step_ms=step_ms, first_ms=seconds[0] * 1e3, losses=losses, counts=counts,
+                logits_rel=worst, unmasked_rel=crossed, trackers=names)
+
+
+def phase_examples() -> dict:
+    """Phase 17 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    problems = []
+    scripts = examples_on_the_card(problems)
+    free_cuda()
+    packed = packed_full_width(problems)
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase 17: {seconds:.1f} s")
+    if problems:
+        fail("phase 17: " + "; ".join(problems))
+    return dict(scripts=scripts, packed=packed, seconds=seconds, counts=packed["counts"])
+
+
+def main_examples():
+    """Phase 17 alone: builds the kernels first."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_environment()
+    out = phase_examples()
+    print(json.dumps({"examples": {"seconds": out["seconds"], "scripts": out["scripts"],
+                                   "packed": out["packed"]}}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def phase6_reference(result: dict) -> dict:
     """What phase 16 compares with from phase 6's run."""
     extra = result["extra"]
@@ -6072,6 +6403,9 @@ def main():
     free_cuda()
     stage("== 16. the fp8 training path, estimate-memory, native host IO")
     fp8 = phase_fp8(phase6_reference(result), numel_8b)
+    free_cuda()
+    stage("== 17. the example ports on the card; packed full-width steps under three trackers")
+    examples = phase_examples()
 
     steps = result["extra"]["steps"]
     kernels = kernel_lines(forward, backward, counts, check_counts, steps, launches_8b, layers_8b)
@@ -6103,6 +6437,9 @@ def main():
         entry["fp8_launches"] = fp8["counts"][key]
         entry["fp8_launches_per_step"] = fp8["counts"][key] / fp8["train"]["steps"]
         entry["fp8_path"] = FP8_PATH
+        entry["examples_flash_launches"] = examples["counts"][key]
+        entry["examples_flash_launches_per_step"] = examples["counts"][key] / PACKED["steps"]
+        entry["examples_path"] = EXAMPLES_PATH
     print(json.dumps({"fp8_gemm": {"route": "torch._scaled_mm (cuBLASLt), E5M2 x E5M2 widened",
                                    "replaces": "accelerate_tpu/ops/quant.py:98 and :116 (XLA "
                                                "dot_general, no Pallas kernel)",

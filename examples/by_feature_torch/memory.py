@@ -1,0 +1,54 @@
+"""OOM-adaptive batch size on the PyTorch/CUDA port (counterpart of
+examples/by_feature/memory.py).
+
+``find_executable_batch_size`` calls the loop with a halved batch size
+after each ``torch.OutOfMemoryError``, emptying the allocator's cache in
+between; ``free_memory`` drops the previous attempt's prepared objects
+first. On the card by default; ``--cpu`` on the CPU.
+"""
+
+import sys
+from pathlib import Path
+
+sys.path[:0] = [str(Path(__file__).resolve().parents[1]), str(Path(__file__).resolve().parents[2])]
+
+import torch
+
+from accelerate_tpu_torch import Accelerator
+from accelerate_tpu_torch.models.bert import classification_loss
+from accelerate_tpu_torch.utils import set_seed
+from accelerate_tpu_torch.utils.memory import find_executable_batch_size
+from example_lib_torch import build_model, common_parser, evaluate, get_dataloaders
+
+
+def training_function(args):
+    set_seed(args.seed)
+    accelerator = Accelerator(mixed_precision=args.mixed_precision, cpu=args.cpu)
+    prepared = {}
+
+    @find_executable_batch_size(starting_batch_size=args.batch_size)
+    def inner_training_loop(batch_size):
+        accelerator.print(f"trying batch_size={batch_size}")
+        accelerator.free_memory(*prepared.values())
+        model = build_model(args.seed, accelerator.device)
+        train_dl, eval_dl = get_dataloaders(batch_size)
+        model, optimizer, train_dl, eval_dl = accelerator.prepare(
+            model, torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=1e-4),
+            train_dl, eval_dl)
+        prepared.update(model=model, optimizer=optimizer)
+        step = accelerator.compile_train_step(classification_loss(model), max_grad_norm=1.0)
+        for epoch in range(args.epochs):
+            losses = [step(batch)["loss"] for batch in train_dl]
+            acc = evaluate(accelerator, model, eval_dl)
+            accelerator.print(f"epoch {epoch}: loss {torch.stack(losses).mean().item():.4f} "
+                              f"acc {acc:.3f}")
+
+    inner_training_loop()
+
+
+def main():
+    training_function(common_parser(__doc__).parse_args())
+
+
+if __name__ == "__main__":
+    main()

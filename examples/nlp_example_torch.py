@@ -9,8 +9,9 @@ runs on the CUDA card by default; ``--cpu`` runs it on the CPU:
     python examples/nlp_example_torch.py            # on the card
     python examples/nlp_example_torch.py --cpu      # on the CPU
 
-Data is synthetic (paraphrase-detection-shaped, no downloads), built here
-with numpy from the seed: pairs of token sequences labeled by a hidden rule,
+Data is synthetic (paraphrase-detection-shaped, no downloads), built with
+numpy from the seed by the examples' skeleton (``example_lib_torch``): pairs
+of token sequences whose label is whether they share rare anchor tokens,
 enough to watch the loss fall and ``gather_for_metrics`` produce exact eval
 counts with an uneven final batch.
 """
@@ -18,7 +19,6 @@ counts with an uneven final batch.
 import argparse
 import math
 
-import numpy as np
 import torch
 
 from accelerate_tpu_torch import Accelerator, NumpyDataLoader
@@ -29,41 +29,7 @@ from accelerate_tpu_torch.models.bert import (
 )
 from accelerate_tpu_torch.scheduler import LRScheduler
 from accelerate_tpu_torch.utils import set_seed
-
-
-class SyntheticMRPC:
-    """Sentence pairs; equivalent pairs share rare "anchor" tokens.
-
-    Paraphrase pairs (label 1) carry a few copies of one anchor token (ids
-    4-19) in BOTH halves; non-pairs are pure filler (ids 20+). The signal is
-    token *presence*, so it generalizes to held-out pairs: a learnable
-    stand-in for MRPC's paraphrase signal at ``BertConfig.tiny`` scale, so
-    the accuracy the example prints reflects actual learning."""
-
-    def __init__(self, n=512, seq_len=64, vocab=1024, seed=0):
-        rng = np.random.default_rng(seed)
-        half = seq_len // 2
-        self.input_ids = rng.integers(20, vocab, (n, seq_len)).astype(np.int32)
-        same = rng.integers(0, 2, n).astype(np.int32)
-        anchors = rng.integers(4, 20, n)
-        for i in np.nonzero(same)[0]:
-            for lo in (0, half):  # 3 anchor copies per half
-                pos = lo + rng.choice(half, 3, replace=False)
-                self.input_ids[i, pos] = anchors[i]
-        self.token_type_ids = np.concatenate(
-            [np.zeros((n, half), np.int32), np.ones((n, seq_len - half), np.int32)], axis=1)
-        self.labels = same
-
-    def __len__(self):
-        return len(self.labels)
-
-    def __getitem__(self, i):
-        return {
-            "input_ids": self.input_ids[i],
-            "token_type_ids": self.token_type_ids[i],
-            "attention_mask": np.ones_like(self.input_ids[i]),
-            "labels": self.labels[i],
-        }
+from example_lib_torch import SyntheticMRPC
 
 
 def warmup_cosine_decay(init_value, peak_value, warmup_steps, decay_steps, end_value=0.0):

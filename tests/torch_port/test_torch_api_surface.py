@@ -82,10 +82,6 @@ MISSING_OK = {
         "holds one check_state and one check_training against a one-process run")
        for name in ("check_state_and_mesh", "check_training_convergence_multiprocess",
                     "check_training_parity")},
-    **{f"accelerate_tpu.tracking.{name}": (
-        "A9", "a third-party tracker; it comes with tests over fakes of its library")
-       for name in ("WandBTracker", "MLflowTracker", "CometMLTracker", "AimTracker",
-                    "ClearMLTracker", "DVCLiveTracker")},
     **{f"accelerate_tpu.ops.quant.Fp8Dense.{name}": (
         "JAX-only", "a flax initializer; the port's weights come from the model's init, a "
         "generator or a loaded state dict") for name in ("kernel_init", "bias_init")},

@@ -37,8 +37,12 @@ def imported_modules(path: Path):
 
 
 def port_sources():
+    examples = REPO / "examples"
     return (sorted(REPO.joinpath("accelerate_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-            + [REPO / "examples" / f"{name}_example_torch.py" for name in ("nlp", "cv")])
+            + [examples / f"{name}_example_torch.py" for name in ("nlp", "cv")]
+            + [examples / "example_lib_torch.py"]
+            + sorted(examples.joinpath("by_feature_torch").glob("*.py"))
+            + sorted(examples.joinpath("inference_torch").glob("*.py")))
 
 
 def test_forbidden_matches_only_the_jax_side():
@@ -68,6 +72,9 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert f"accelerate_tpu_torch/models/{name}.py" in scanned, name
     for name in ("nlp", "cv"):
         assert f"examples/{name}_example_torch.py" in scanned, name
+    assert "examples/example_lib_torch.py" in scanned
+    assert len([p for p in scanned if p.startswith("examples/by_feature_torch/")]) == 19
+    assert len([p for p in scanned if p.startswith("examples/inference_torch/")]) == 3
     for name in ("launchers", "local_sgd", "utils/environment", "utils/imports", "utils/other",
                  "utils/versions", "commands/launch", "commands/env", "commands/test",
                  "commands/config/config_args", "test_utils/__init__", "test_utils/training",
@@ -80,6 +87,32 @@ def test_no_source_imports_jax_or_the_jax_package():
     bad = [(str(p.relative_to(REPO)), m) for p in sources for m in imported_modules(p)
            if forbidden(m)]
     assert not bad, f"the port imports the JAX side: {bad}"
+
+
+@pytest.mark.parametrize("kind", ["by_feature", "inference"])
+def test_every_jax_example_script_has_a_port_of_the_same_name(kind):
+    examples = REPO / "examples"
+    jax_scripts = {p.name for p in (examples / kind).glob("*.py")}
+    ported = {p.name for p in (examples / f"{kind}_torch").glob("*.py")}
+    assert jax_scripts and ported == jax_scripts, (jax_scripts ^ ported)
+
+
+@pytest.mark.parametrize("script", ["by_feature_torch/gradient_accumulation.py",
+                                    "inference_torch/speculative_decoding.py"])
+def test_example_ports_need_the_card_unless_given_cpu(script):
+    """Without ``--cpu`` an example port raises where there is no card;
+    nothing falls back to the CPU (with ``--cpu`` every port runs in
+    ``test_torch_examples.py``)."""
+    sys.path.insert(0, str(REPO / "examples"))
+    try:
+        from example_lib_torch import run_example
+
+        result = run_example(REPO / "examples" / script, ["--epochs", "1"]
+                             if "by_feature" in script else [])
+    finally:
+        sys.path.remove(str(REPO / "examples"))
+    assert result["error"] is not None and "no CUDA device is available" in result["error"], \
+        result
 
 
 def test_import_adds_no_jax_module():

@@ -200,8 +200,7 @@ def test_trackers_through_the_accelerator(tmp_path):
     assert lines[1]["loss"] == 2.0 and lines[1]["input_pipeline/data_wait_ms"] == 4.0
     with pytest.raises(ValueError, match="not an available tracker"):
         acc.get_tracker("wandb")
-    with pytest.raises(NotImplementedError, match="wandb tracker needs a package"):
-        tracking.filter_trackers("wandb", str(tmp_path))
+    assert tracking.filter_trackers("wandb", str(tmp_path)) == []  # no wandb package here
     with pytest.raises(ValueError, match="Unknown tracker"):
         tracking.filter_trackers("nope", str(tmp_path))
     custom = tracking.JSONLTracker("c", str(tmp_path))
