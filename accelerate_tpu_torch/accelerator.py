@@ -555,20 +555,15 @@ class Accelerator:
         parameters keeps them) and wrap it with the precision policy. Under
         an FSDP plugin, or a mesh whose tensor, pipeline or expert plugin splits
         leaves, each split parameter keeps this process's chunk only (every
-        process must hold the same weights before), and the model gets the
-        layout its layer loops gather by (``parallel/sharding.py``)."""
+        process must hold the same weights before; a pipeline stage also
+        keeps only its layers' slices of stacked fp8 statistics), and the
+        model gets the layout its layer loops gather by
+        (``parallel/sharding.py``)."""
         if device_placement if device_placement is not None else self.device_placement:
             module.to(self.device)
         layout = None
         plugin = self.state.fsdp_plugin
         mesh = self.state.mesh
-        from .ops.quant import has_fp8_meta
-
-        if has_fp8_meta(module) and (mesh.shape["tp"] > 1 or mesh.shape["pp"] > 1):
-            raise NotImplementedError(
-                "fp8 projections (use_fp8) under tp > 1 or pp > 1 are not ported: a split "
-                "projection's amaxes and a pipeline stage's stacked statistics are not "
-                "reduced over their axis yet (ROADMAP.md, A10)")
         tp_plugin = self.state.tp_plugin if mesh.shape["tp"] > 1 else None
         pp_plugin = self.state.pp_plugin if mesh.shape["pp"] > 1 else None
         ep_plugin = self.state.ep_plugin if mesh.shape["ep"] > 1 else None

@@ -236,11 +236,17 @@ class _Projection(nn.Linear):
 
 class _Fp8Projection(Fp8Dense):
     """A decoder layer's fp8 projection, whose product a "dots" remat keeps
-    as it keeps :class:`_Projection`'s. (Never tensor parallel: the
-    accelerator refuses fp8 under tp > 1.)"""
+    as it keeps :class:`_Projection`'s. Under tensor parallelism its weight
+    is this process's chunk and its statistics are whole (the JAX policy
+    replicates them), so every process quantizes with the same scales and
+    the partial products sum to the whole one; :func:`column_parallel` and
+    :func:`row_parallel` apply it through :meth:`_product`."""
 
     def forward(self, x):
         return self._fp8_forward(x, kept=_kept_products)
+
+    def _product(self, x, out_dtype=None):
+        return self._fp8_product(x, _kept_products, out_dtype)
 
 
 def _lora_factors(mod, dtype):
@@ -273,11 +279,16 @@ def column_parallel(proj: nn.Module, x, tp, lora=None):
 def row_parallel(proj: nn.Module, x, tp, lora=None):
     """Row parallel: ``proj``'s chunk takes this process's input features;
     the partial products are summed over ``tp`` (:class:`_ReduceFromTP`),
-    then the bias is added once. A LoRA module ``lora`` (``a`` this
-    process's rows, ``b`` whole, as the JAX ``bank_shardings`` lays a row
-    target out) sums its ``[.., r]`` partial ``x @ a`` in the same
-    all-reduce, then adds ``(x @ a) @ b`` once."""
-    part = proj._product(x)
+    then the bias is added once. An fp8 projection's partials leave the
+    product in f32 and are summed in f32, then cast once, as the JAX
+    ``_fwd``'s f32 product is reduced before its cast. A LoRA module
+    ``lora`` (``a`` this process's rows, ``b`` whole, as the JAX
+    ``bank_shardings`` lays a row target out) sums its ``[.., r]`` partial
+    ``x @ a`` in the same all-reduce, then adds ``(x @ a) @ b`` once."""
+    if isinstance(proj, _Fp8Projection):
+        part = proj._product(x, torch.float32)
+    else:
+        part = proj._product(x)
     if lora is None:
         y = _ReduceFromTP.apply(part, tp)
     else:
@@ -288,6 +299,7 @@ def row_parallel(proj: nn.Module, x, tp, lora=None):
         width = part.shape[-1]
         both = _ReduceFromTP.apply(torch.cat([part, (x @ a).to(part.dtype)], dim=-1), tp)
         y, u = both[..., :width], both[..., width:]
+    y = y.to(x.dtype)
     if proj.bias is not None:
         y = y + proj.bias
     if lora is not None:

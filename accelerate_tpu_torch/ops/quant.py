@@ -22,9 +22,14 @@ DelayedScaling recipe on the same arithmetic:
   :func:`wrap_optimizer_for_fp8` registers, which ``Accelerator`` adds for a
   model with statistics. A skipped update (fp16, a non-finite gradient)
   drops them (:func:`discard_fp8_pending`). Across processes the pending
-  amaxes of the whole model are max-reduced over the world in one
-  all-reduce at the commit, so every process commits the amax of the whole
-  logical tensor, as the JAX package's global arrays give.
+  amaxes of the whole model are max-reduced in one all-reduce at the
+  commit, over the processes that hold the same statistics
+  (:func:`statistics_group`: every axis of the mesh but ``pp``), so every
+  process commits the amax of the whole logical tensor, as the JAX
+  package's global arrays give: under ``tp`` the max over a split kernel's
+  halves, a row-parallel input's and a column-parallel gradient's. Under
+  ``pp`` each stage holds its own layers' ``[L / pp]`` slices of a stacked
+  statistic (``parallel/sharding.py``) and commits them alone.
 
 The fp8 product is a plain matmul in JAX (``lax.dot_general`` on fp8
 arrays, outside any Pallas kernel); on the card it is
@@ -167,13 +172,13 @@ class _Fp8Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel, input_scale, kernel_scale, grad_scale, pending, fwd_dtype,
-                bwd_dtype, kept):
+                bwd_dtype, kept, out_dtype):
         x2 = x.reshape(-1, x.shape[-1])
         qx = _quantize(x2, input_scale, fwd_dtype)
         qk = _quantize(kernel, kernel_scale, fwd_dtype)
 
         def product():
-            return fp8_gemm(qx, qk, input_scale, kernel_scale, x.dtype)
+            return fp8_gemm(qx, qk, input_scale, kernel_scale, out_dtype or x.dtype)
 
         y = product() if kept is None else kept.product(product)
         ctx.save_for_backward(qx, qk, input_scale, kernel_scale, grad_scale)
@@ -196,11 +201,11 @@ class _Fp8Matmul(torch.autograd.Function):
             with torch.no_grad():
                 seen = torch.stack([*ctx.amaxes, _amax(dy)])
                 pending.copy_(torch.maximum(pending, seen))
-        return dx, dk, None, None, None, None, None, None, None
+        return dx, dk, None, None, None, None, None, None, None, None
 
 
 def fp8_matmul(x, kernel, meta: dict, *, fwd_dtype=E4M3, bwd_dtype=E5M2, margin: int = 0,
-               amax_compute_algo: str = "max", _kept=None):
+               amax_compute_algo: str = "max", out_dtype=None, _kept=None):
     """``x @ kernel`` (``kernel`` [in, out], the flax layout) on fp8
     operands with delayed scaling.
 
@@ -210,12 +215,15 @@ def fp8_matmul(x, kernel, meta: dict, *, fwd_dtype=E4M3, bwd_dtype=E5M2, margin:
     returns their next values as the meta cotangents instead;
     :func:`next_fp8_meta` computes those). ``margin`` and
     ``amax_compute_algo`` are taken where the JAX function takes them: they
-    shape the next statistics, not this product."""
+    shape the next statistics, not this product. ``out_dtype`` (default
+    ``x``'s): the dtype the scaled product leaves the GEMM in, f32 for a
+    partial that is summed before its one cast (a row-parallel
+    projection's)."""
     del margin, amax_compute_algo
     # Without a backward to come, no amax is recorded (nor computed).
     pending = meta.get(PENDING) if torch.is_grad_enabled() else None
     return _Fp8Matmul.apply(x, kernel, meta["input_scale"], meta["kernel_scale"],
-                            meta["grad_scale"], pending, fwd_dtype, bwd_dtype, _kept)
+                            meta["grad_scale"], pending, fwd_dtype, bwd_dtype, _kept, out_dtype)
 
 
 def next_fp8_meta(meta: dict, pending, *, fwd_dtype=E4M3, bwd_dtype=E5M2, margin: int = 0,
@@ -294,10 +302,15 @@ class Fp8Dense(nn.Linear):
         return {"fwd_dtype": self.fwd_dtype, "bwd_dtype": self.bwd_dtype, "margin": self.margin,
                 "amax_compute_algo": self.amax_compute_algo}
 
-    def _fp8_forward(self, x, kept=None):
+    def _fp8_product(self, x, kept=None, out_dtype=None):
+        """The fp8 product without the bias."""
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        y = fp8_matmul(x, self.weight.t(), self.meta(), **self.recipe(), _kept=kept)
+        return fp8_matmul(x, self.weight.t(), self.meta(), **self.recipe(), out_dtype=out_dtype,
+                          _kept=kept)
+
+    def _fp8_forward(self, x, kept=None):
+        y = self._fp8_product(x, kept)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -324,12 +337,33 @@ def discard_fp8_pending(model):
             getattr(m, PENDING).fill_(_EMPTY)
 
 
+#: The mesh axes whose processes hold the same statistics: all but ``pp``,
+#: whose stages each hold their own layers'.
+STATISTICS_AXES = ("dp", "fsdp", "ep", "cp", "tp")
+
+
+def statistics_group(mesh=None):
+    """The :class:`~accelerate_tpu_torch.parallel.mesh.AxisGroup` of the
+    processes that hold the same statistics as this one: on ``mesh``
+    (default ``current_mesh()``) those that differ from it along
+    :data:`STATISTICS_AXES` only, the processes of its pipeline stage;
+    without a mesh, every process of the group."""
+    from ..parallel.mesh import AxisGroup, _world
+    from ..state import current_mesh
+
+    mesh = current_mesh(mesh)
+    if mesh is not None and mesh.coords is not None:
+        return mesh.group(*STATISTICS_AXES)
+    world, rank = _world()
+    return AxisGroup((), list(range(world)), rank)
+
+
 def commit_fp8_meta(model):
     """Apply the recorded amaxes of every :class:`Fp8Dense` of ``model``:
-    in a process group, max-reduced over every process first (one
-    all-reduce of one stacked vector); then each history rolled and each
-    scale recomputed (:func:`next_fp8_meta`), in place, and the pending
-    amaxes cleared."""
+    in a process group, max-reduced first over the processes that hold the
+    same statistics (:func:`statistics_group`; one all-reduce of one
+    stacked vector); then each history rolled and each scale recomputed
+    (:func:`next_fp8_meta`), in place, and the pending amaxes cleared."""
     from ..utils.operations import _group, _to_comm
 
     modules = fp8_modules(model)
@@ -338,13 +372,11 @@ def commit_fp8_meta(model):
     with torch.no_grad():
         pending = [getattr(m, PENDING) for m in modules]
         state = _group()
-        if state is not None:
-            import torch.distributed as dist
-
+        group = statistics_group() if state is not None else None
+        if group is not None and group.size > 1:
             flat = torch.cat([p.reshape(-1) for p in pending])
             comm, home = _to_comm(flat, state)
-            dist.all_reduce(comm, op=dist.ReduceOp.MAX)
-            flat = comm.to(home)
+            flat = group.all_reduce(comm, op="max").to(home)
             offset = 0
             for p in pending:
                 p.copy_(flat[offset:offset + p.numel()].view_as(p))

@@ -45,7 +45,8 @@ DATA_AXES = ("dp", "fsdp", "cp")
 # Groups built with the mesh (when above one process and below the world):
 # the ones every training step uses.
 _STANDARD_GROUPS = (("dp",), ("fsdp",), ("cp",), ("tp",), ("pp",), ("ep",), ("dp", "fsdp"),
-                    ("dp", "cp"), ("fsdp", "cp"), ("dp", "fsdp", "cp"), ("dp", "fsdp", "ep"))
+                    ("dp", "cp"), ("fsdp", "cp"), ("dp", "fsdp", "cp"), ("dp", "fsdp", "ep"),
+                    ("dp", "fsdp", "ep", "cp", "tp"))  # the last: fp8 statistics' commit
 
 
 @dataclass
@@ -312,11 +313,8 @@ class Mesh:
             return self._groups[key]
         if self.coords is None:
             raise RuntimeError(f"process {self.rank} is not in the mesh {self.shape}")
-        # Move the group's axes last: each row of the reshaped ranks is a group.
-        rest = [i for i, ax in enumerate(AXIS_ORDER) if ax not in key]
-        own = [i for i, ax in enumerate(AXIS_ORDER) if ax in key]
-        rows = np.transpose(self.devices, rest + own).reshape(-1, self.size(key) or 1)
-        mine = next(r for r in rows.tolist() if self.rank in r)
+        rows = self.groups_of(*key)
+        mine = next(r for r in rows if self.rank in r)
         size = len(mine)
         group = None
         world, _ = _world()
@@ -327,11 +325,20 @@ class Mesh:
             if size < world:
                 import torch.distributed as dist
 
-                group, _ = dist.new_subgroups_by_enumeration(
-                    [sorted(r) for r in rows.tolist()])
+                group, _ = dist.new_subgroups_by_enumeration([sorted(r) for r in rows])
         out = AxisGroup(key, mine, mine.index(self.rank), group)
         self._groups[key] = out
         return out
+
+    def groups_of(self, *axes) -> list:
+        """Every group of ``axes``: the ranks of each set of processes that
+        differ only along those axes, in row-major order over them (no
+        communication)."""
+        key = tuple(ax for ax in AXIS_ORDER if ax in axes)
+        # Move the group's axes last: each row of the reshaped ranks is a group.
+        rest = [i for i, ax in enumerate(AXIS_ORDER) if ax not in key]
+        own = [i for i, ax in enumerate(AXIS_ORDER) if ax in key]
+        return np.transpose(self.devices, rest + own).reshape(-1, self.size(key) or 1).tolist()
 
     def data_index(self) -> int:
         """This process's data shard: its index over the batch axes."""

@@ -30,7 +30,9 @@ collectives itself.
   chunks stay split: the layers compute on them (``models/llama.py``,
   ``parallel/pipeline.py``, ``ops/moe.py``), and the leaves outside the layers (the
   embedding table, split on hidden, and ``lm_head``, on the vocabulary)
-  are gathered whole for the forward (:class:`_GatherReplicated`).
+  are gathered whole for the forward (:class:`_GatherReplicated`). A
+  pipeline stage also keeps only its layers' slices of the stacked fp8
+  statistics (buffers), which the JAX stack rule splits with the weights.
 
 A ``torch.nn.Linear`` weight is ``[out, in]`` where the JAX ``Dense``
 kernel is ``[in, out]``: the layout decides on the reference's shape (the
@@ -416,9 +418,20 @@ def _sizes(mesh) -> dict:
     return _mesh_shape(mesh)
 
 
+def _statistics(module: nn.Module) -> list:
+    """``(name, buffer)`` of ``module``'s fp8 statistics and pending amaxes
+    (``ops/quant.py``): the buffers a layout splits as it splits their
+    layer's parameters."""
+    from ..ops.quant import FP8_META_NAMES, PENDING
+
+    return [(name, b) for name, b in module.named_buffers()
+            if name.rsplit(".", 1)[-1] in (*FP8_META_NAMES, PENDING)]
+
+
 def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin=None,
                  ep_plugin=None) -> dict:
-    """``{name: PartitionSpec}`` of ``module``'s parameters as the
+    """``{name: PartitionSpec}`` of ``module``'s parameters, and of its fp8
+    statistics (split over ``pp`` only, dim 0 of a stacked one), as the
     accelerator stores them, in the torch layout: the JAX policy
     (:func:`infer_param_shardings` on each leaf's :func:`reference_path` and
     :func:`reference_shape`) mapped back. ``mesh`` is a mesh, its axis
@@ -444,6 +457,14 @@ def layout_specs(module: nn.Module, fsdp_plugin, mesh, tp_plugin=None, pp_plugin
                 axes[dim] = "fsdp"
                 spec = PartitionSpec(*axes)
         out[name] = swap_spec(spec, len(shape), kernel)
+    for name, b in _statistics(module):
+        # The JAX stack rule puts a stacked statistic on ``pp`` like its
+        # layer's weights; its tp rules replicate it. Over fsdp it stays
+        # whole too: every product reads its scales, and the commit writes
+        # the values the JAX package's global array holds.
+        path = reference_path(module, name)
+        out[name] = infer_param_shardings([(path, tuple(b.shape))], sizes,
+                                          pp_plugin=pp_plugin)[path]
     return out
 
 
@@ -593,6 +614,8 @@ class ShardedLayout:
         self.splits = {n: {ax: d for d, ax in enumerate(s) if ax is not None}
                        for n, s in self.specs.items()}
         self.full_shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+        self.full_shapes.update((n, tuple(b.shape)) for n, b in module.named_buffers()
+                                if n in self.specs)
         self.mesh = mesh
         self._fsdp = mesh.group("fsdp")
         self.rank, self.world = self._fsdp.index, self._fsdp.size
@@ -640,13 +663,13 @@ class ShardedLayout:
         return tensor
 
     def shard(self, module: nn.Module):
-        """Each split parameter's data becomes this process's chunk (a
-        contiguous copy; the parameter object stays, so optimizers keep
-        it)."""
+        """Each split parameter's and statistic's data becomes this
+        process's chunk (a contiguous copy; the tensor object stays, so
+        optimizers keep it)."""
         with torch.no_grad():
-            for name, p in module.named_parameters():
-                if self.splits.get(name) and tuple(p.shape) == self.full_shapes[name]:
-                    p.data = self.chunk(name, p.data).clone()
+            for name, t in _stored(module):
+                if self.splits.get(name) and tuple(t.shape) == self.full_shapes[name]:
+                    t.data = self.chunk(name, t.data).clone()
 
     def full_state_dict(self, module: nn.Module) -> dict:
         """Every parameter whole (gathered over each of its splits, no
@@ -665,16 +688,12 @@ class ShardedLayout:
         return out
 
     def load_full(self, module: nn.Module, state_dict: Mapping):
-        """Copy whole tensors into the module, each parameter's chunk where
-        it is split."""
-        params = dict(module.named_parameters())
+        """Copy whole tensors into the module, each parameter's and
+        statistic's chunk where it is split."""
+        stored = dict(_stored(module))
         with torch.no_grad():
             for name, value in state_dict.items():
-                value = torch.as_tensor(value)
-                if name in params:
-                    params[name].copy_(self.chunk(name, value))
-                else:
-                    module.get_buffer(name).copy_(value)
+                stored[name].copy_(self.chunk(name, torch.as_tensor(value)))
 
     # -- the collectives --------------------------------------------------
 
@@ -779,6 +798,11 @@ class ShardedLayout:
             wholes = self._gather([stacked[r] for r in names], [0] * len(names))
             out.update(zip(names, wholes))
         return out
+
+
+def _stored(module: nn.Module) -> list:
+    """``(name, tensor)`` of every parameter and buffer of ``module``."""
+    return [*module.named_parameters(), *module.named_buffers()]
 
 
 def sharded_layout_of(module: nn.Module) -> Optional[ShardedLayout]:

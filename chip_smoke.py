@@ -351,7 +351,14 @@ order; any failure exits non-zero:
    (c) ``estimate-memory llama3-8b`` counts phase 3's parameters. (d) The
    native library builds; ``load_safetensors_model`` of a 1.07 GB
    checkpoint written here is bit-identical to ``SafetensorsFile``'s read,
-   GB/s at 1 and 8 threads. ``main_fp8()`` runs it alone.
+   GB/s at 1 and 8 threads. (e) Each tier-1 fp8 projection cut as tp 2
+   cuts it (q/k/v/gate/up by columns, o/down by rows; 8 x 1024 tokens,
+   HYBRID, warm scales): both halves' ``_Fp8Projection._product`` forward
+   and backward on ``torch._scaled_mm``, the row halves' partials in f32;
+   put together (concatenated, or summed in f32 and cast once) within
+   ``FP8_TOLERANCE`` of the largest entry of the whole product, the halves'
+   max amaxes equal to the whole's; ms of each half's forward and of the
+   whole's. ``main_fp8()`` runs it alone.
 
 17 (after 16). The example ports. (a) The 19 ``examples/by_feature_torch``
    and 3 ``examples/inference_torch`` scripts on the card, one after
@@ -5958,6 +5965,96 @@ def native_io(problems: list) -> dict:
     return out
 
 
+def fp8_split_checks(problems: list) -> dict:
+    """(e): each tier-1 fp8 projection and its two tp halves, built by the
+    model's factory (``models/llama.py``'s ``_linear``) with the whole
+    statistics on both halves, forward and backward through ``_product``
+    (the row halves' partials in f32, as ``row_parallel`` takes them)."""
+    import torch
+
+    from accelerate_tpu_torch.bench import tier1_llama_config
+    from accelerate_tpu_torch.models.llama import _linear
+    from accelerate_tpu_torch.ops import quant
+
+    cfg = tier1_llama_config(use_fp8=True)
+    hidden, inter = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    shapes = {"q_proj": (hidden, q, "column"), "k_proj": (hidden, kv, "column"),
+              "v_proj": (hidden, kv, "column"), "o_proj": (q, hidden, "row"),
+              "gate_proj": (hidden, inter, "column"), "up_proj": (hidden, inter, "column"),
+              "down_proj": (inter, hidden, "row")}
+    fwd, bwd = quant.FP8_FORMATS[cfg.fp8_format]
+    gen = torch.Generator(device="cuda").manual_seed(165)
+    out = {}
+
+    def run(proj, x, dy, out_dtype=None):
+        x = x.detach().requires_grad_()
+        y = proj._product(x, out_dtype)
+        y.backward(dy.to(y.dtype))
+        return y.detach(), x.grad, proj.weight.grad
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+    for name, (K, N, kind) in shapes.items():
+        x = torch.randn((8, 1024, K), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((N, K), generator=gen, device="cuda") * K ** -0.5).bfloat16()
+        dy = (torch.randn((8, 1024, N), generator=gen, device="cuda") * 1e-4).bfloat16()
+        meta = {"input_scale": quant._amax(x) / torch.finfo(fwd).max,
+                "kernel_scale": quant._amax(w) / torch.finfo(fwd).max,
+                "grad_scale": quant._amax(dy) / torch.finfo(bwd).max}
+
+        def make(weight):
+            proj = _linear(cfg, weight.shape[1], weight.shape[0], False, "cuda", torch.bfloat16)
+            with torch.no_grad():
+                proj.weight.copy_(weight)
+                for stat, value in meta.items():
+                    getattr(proj, stat).copy_(value)
+            return proj
+
+        whole = make(w)
+        column = kind == "column"
+        halves = [make(c.contiguous()) for c in w.chunk(2, dim=0 if column else 1)]
+        xs = [x, x] if column else [c.contiguous() for c in x.chunk(2, dim=-1)]
+        dys = [c.contiguous() for c in dy.chunk(2, dim=-1)] if column else [dy, dy]
+        partial = None if column else torch.float32
+        before = quant.fp8_gemm.scaled_mm_launches
+        y, dx, dw = run(whole, x, dy)
+        parts = [run(h, xi, gi, partial) for h, xi, gi in zip(halves, xs, dys)]
+        launches = quant.fp8_gemm.scaled_mm_launches - before
+        if column:
+            got_y, got_dx = torch.cat([p[0] for p in parts], -1), parts[0][1] + parts[1][1]
+        else:
+            got_y = (parts[0][0] + parts[1][0]).to(torch.bfloat16)
+            got_dx = torch.cat([p[1] for p in parts], -1)
+        got_dw = torch.cat([p[2] for p in parts], dim=0 if column else 1)
+        err = rel(got_y, y)
+        amax_ok = torch.equal(torch.maximum(halves[0].amax_pending, halves[1].amax_pending),
+                              whole.amax_pending)
+        with torch.no_grad():
+            whole_ms = timed_ms(lambda: whole._product(x), 20)
+            half_ms = [timed_ms(lambda h=h, xi=xi: h._product(xi, partial), 20)
+                       for h, xi in zip(halves, xs)]
+        out[name] = dict(kind=kind, shape=[K, N], rel_err=err, dx_rel_err=rel(got_dx, dx),
+                         dw_rel_err=rel(got_dw, dw), amaxes_equal=amax_ok, launches=launches,
+                         whole_ms=whole_ms, half_ms=half_ms)
+        print(f"    {name:9s} {kind:6s} [8192, {K}] x [{K}, {N}]: halves put together "
+              f"{err:.2e} of the largest output (dx {out[name]['dx_rel_err']:.2e}, dW "
+              f"{out[name]['dw_rel_err']:.2e}); max amaxes equal {amax_ok}; forward ms whole "
+              f"{whole_ms:.4f}, halves {half_ms[0]:.4f} + {half_ms[1]:.4f}")
+        if not err <= FP8_TOLERANCE:
+            problems.append(f"(e) {name}: the halves are {err:.3e} of the largest output from "
+                            f"the whole product (limit {FP8_TOLERANCE:.3e})")
+        if not amax_ok:
+            problems.append(f"(e) {name}: the halves' max amaxes "
+                            f"{torch.maximum(*(h.amax_pending for h in halves)).tolist()} are "
+                            f"not the whole's {whole.amax_pending.tolist()}")
+        if launches != 9:
+            problems.append(f"(e) {name}: {launches} _scaled_mm launches, expected 9")
+        del x, w, dy, whole, halves, xs, dys, parts, y, dx, dw
+    return out
+
+
 def phase_fp8(bf16: dict, numel_8b: int) -> dict:
     """Phase 16 (see the module docstring). ``bf16``: phase 6's final loss,
     step ms and peak; ``numel_8b``: phase 3's parameter count."""
@@ -5968,12 +6065,15 @@ def phase_fp8(bf16: dict, numel_8b: int) -> dict:
     train = fp8_train(bf16, problems)
     estimated = estimate_check(numel_8b, problems)
     host = native_io(problems)
+    print(f"  (e) the tier-1 fp8 projections cut as tp 2 cuts them (t = "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+    split = fp8_split_checks(problems)
     seconds = time.perf_counter() - t_phase
     print(f"  phase 16: {seconds:.1f} s")
     if problems:
         fail("phase 16: " + "; ".join(problems))
-    return dict(gemm=gemm, train=train, estimate=estimated, native=host, seconds=seconds,
-                counts=train["counts"])
+    return dict(gemm=gemm, train=train, estimate=estimated, native=host, split=split,
+                seconds=seconds, counts=train["counts"])
 
 
 def main_fp8():
@@ -5997,7 +6097,8 @@ def main_fp8():
     result = run_bench()
     free_cuda()
     out = phase_fp8(phase6_reference(result), numel_8b)
-    print(json.dumps({"fp8": {k: out[k] for k in ("gemm", "estimate", "native", "seconds")}
+    print(json.dumps({"fp8": {k: out[k] for k in ("gemm", "estimate", "native", "split",
+                                                  "seconds")}
                       | {"train": {k: v for k, v in out["train"].items() if k != "losses"}}}))
 
 
@@ -6445,7 +6546,8 @@ def main():
                                                "dot_general, no Pallas kernel)",
                                    "launches_per_step": fp8["train"]["gemms_per_step"],
                                    "worst_rel_err": fp8["gemm"]["worst"],
-                                   "gemms": fp8["gemm"]["gemms"]}}))
+                                   "gemms": fp8["gemm"]["gemms"],
+                                   "tp_halves": fp8["split"]}}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,8 +21,18 @@ same numpy inputs, on the tiny Llama of ``benchmarks/fp8.py`` (hidden 128):
   and a third, the optax overwrite ``p + (g - p)``, which rounds a scale
   moving from 1 to ~1e-8 to a multiple of 2**-24, so the trajectories start
   from warm statistics (the JAX ``_bwd`` of a warm-up batch);
-* dp, FSDP and ZeRO-2 in a gloo world of 2 against the JAX package on 2
-  emulated devices.
+* tensor parallelism in one process: an fp8 projection's two tp halves
+  put together equal the whole product, and the halves' max amaxes the
+  whole's; under bf16 the row-parallel partials are summed in f32 and
+  cast once; on a tp 2 x pp 2 mesh each stage's tp pair commits one set
+  of statistics, which split over ``pp`` as the JAX specs split them;
+* one gloo world of 2 running dp, FSDP, ZeRO-2, tp 2 and pp 2 (fused
+  steps of the stacked Llama) and the user's loop at tp 2 (the sequential
+  Llama) against the JAX package on 2 emulated devices (pp against its
+  whole-model run); each commit max-reduces over the processes that hold
+  the statistics, bit for bit; a pp-2 checkpoint restores into world 1;
+  and a fourth reference quirk: the JAX GPipe scan sums the statistics'
+  next values over its ``M + pp - 1`` ticks.
 
 Tolerances: the arithmetic is bit-exact. A model's statistics from one
 set of operands are bit-exact too; two frameworks' forwards differ in the
@@ -35,6 +45,7 @@ step of lr 1e-4 taken the other way at the largest weight (measured
 6.5e-8 under the bf16 policy, 1.1e-4 in the f32 worlds of 2).
 """
 
+import fcntl
 import functools
 import os
 import signal
@@ -629,6 +640,175 @@ def test_dots_remat_and_lora_work_around_the_fp8_projections(stacked):
             assert not torch.equal(model(ids, lora=lora), model(ids))
 
 
+
+
+# ---------------------------------------------------------------------------
+# Split projections (tensor parallelism) in one process
+# ---------------------------------------------------------------------------
+
+def fp8_projection(weight, meta=None, dtype=torch.float32):
+    """An fp8 decoder projection holding ``weight`` [out, in] and a copy of
+    ``meta``'s statistics (warm scales, so nothing clips)."""
+    from accelerate_tpu_torch.models.llama import _Fp8Projection
+
+    proj = _Fp8Projection(weight.shape[1], weight.shape[0], amax_history_len=8)
+    with torch.no_grad():
+        proj.weight.copy_(weight)
+        for name, value in (meta or {}).items():
+            getattr(proj, name).copy_(value)
+    return proj.to(dtype)
+
+
+def split_case(kind: str, dtype=torch.float32):
+    """A whole projection and its two tp halves (``kind`` "column": the
+    output features split; "row": the input features), the input each takes
+    and the output gradient each gets."""
+    rng = np.random.default_rng(11)
+    x = t(rng.standard_normal((3, 16, 96)) * 2).to(dtype)
+    w = t(rng.standard_normal((64, 96)) * 0.1)
+    dy = t(rng.standard_normal((3, 16, 64)) * 1e-2).to(dtype)
+    meta = {"input_scale": torch.tensor(float(x.abs().max()) / 448.0),
+            "kernel_scale": torch.tensor(float(w.abs().max()) / 448.0),
+            "grad_scale": torch.tensor(float(dy.abs().max()) / 57344.0)}
+    whole = fp8_projection(w, meta, dtype)
+    if kind == "column":
+        halves = [fp8_projection(c, meta, dtype) for c in w.chunk(2, dim=0)]
+        inputs, grads = [x, x], list(dy.chunk(2, dim=-1))
+    else:
+        halves = [fp8_projection(c, meta, dtype) for c in w.chunk(2, dim=1)]
+        inputs, grads = list(x.chunk(2, dim=-1)), [dy, dy]
+    return whole, halves, x, dy, inputs, grads
+
+
+def run_product(proj, x, dy, out_dtype=None):
+    """``proj._product`` forward and backward: ``(y, dx, dW)``; the
+    amaxes land in ``proj.amax_pending``."""
+    x = x.clone().requires_grad_()
+    y = proj._product(x) if out_dtype is None else proj._product(x, out_dtype)
+    y.backward(dy.to(y.dtype))
+    return y.detach(), x.grad, proj.weight.grad
+
+
+@pytest.mark.parametrize("kind", ["column", "row"])
+def test_split_fp8_products_put_together_equal_the_whole(kind):
+    """``_Fp8Projection._product`` on the two halves tp 2 cuts (q/k/v/gate/
+    up by columns, o/down by rows), with the whole statistics on both: the
+    outputs concatenated (column) or summed (row), the input gradients
+    summed (column) or concatenated (row) and the weight gradients
+    concatenated equal the whole product's within 1e-6 of their largest
+    entry (f32 sums in another order; measured 1.2e-7 at most, the row
+    outputs); the halves' max amaxes equal the
+    whole's, bit for bit. A column half's input is the whole ``x``, so both
+    record the whole input amax; a row half's output gradient is the whole
+    ``dy``, so both record its amax."""
+    whole, halves, x, dy, inputs, grads = split_case(kind)
+    y, dx, dw = run_product(whole, x, dy)
+    parts = [run_product(h, xi, gi) for h, xi, gi in zip(halves, inputs, grads)]
+    cat_dim = 0 if kind == "column" else 1
+    if kind == "column":
+        got_y, got_dx = torch.cat([p[0] for p in parts], -1), parts[0][1] + parts[1][1]
+    else:
+        got_y, got_dx = parts[0][0] + parts[1][0], torch.cat([p[1] for p in parts], -1)
+    got_dw = torch.cat([p[2] for p in parts], cat_dim)
+    for got, want, what in ((got_y, y, "y"), (got_dx, dx, "dx"), (got_dw, dw, "dW")):
+        err = float((got - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), (kind, what, err)
+    pend = [h.amax_pending for h in halves]
+    same(torch.maximum(*pend), whole.amax_pending, kind)
+    shared = 0 if kind == "column" else 2  # the operand both halves see whole
+    same(pend[0][shared], pend[1][shared])
+    same(pend[0][shared], whole.amax_pending[shared])
+    assert not torch.equal(pend[0][1], pend[1][1])  # each half its kernel's amax
+
+
+def bf16_ulps(got, want):
+    """``|got - want|`` in bf16 ulps of the largest entry of ``want``."""
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    return float((got.float() - want.float()).abs().max()) / ulp
+
+
+def test_under_bf16_row_partials_are_summed_in_f32_and_column_dx_in_bf16(monkeypatch):
+    """The choice the tp path takes under the bf16 policy. A row-parallel
+    fp8 partial leaves the product in f32 and the partials are summed in
+    f32, then cast once, as the JAX ``_fwd``'s f32 product is reduced before
+    its cast: the sum equals the whole product's bf16 output but for rare
+    rounding ties, each one bf16 ulp (measured: every element equal).
+    Summing bf16 partials instead rounds three times (measured: 39 % of the
+    elements differ, by up to half an ulp of the largest entry). A
+    column-parallel input gradient is cast to bf16 by each half's backward
+    and the halves summed in bf16 (Megatron's f, as the port's bf16
+    projections do; the JAX backward reduces in f32 before its cast):
+    within 2 bf16 ulps of the largest entry of the whole gradient
+    (measured: half an ulp, 36 % of the elements differ)."""
+    whole, halves, x, dy, inputs, grads = split_case("row", torch.bfloat16)
+    with torch.no_grad():
+        y = whole._product(x)
+        f32 = [h._product(xi, torch.float32) for h, xi in zip(halves, inputs)]
+        bf16 = [h._product(xi) for h, xi in zip(halves, inputs)]
+    assert y.dtype == torch.bfloat16 and f32[0].dtype == torch.float32
+    ours = (f32[0] + f32[1]).to(torch.bfloat16)
+    other = bf16[0] + bf16[1]
+    ties = float((ours != y).float().mean())
+    assert ties < 0.01 and bf16_ulps(ours, y) <= 1.0, (ties, bf16_ulps(ours, y))
+    assert float((other != y).float().mean()) > 10 * max(ties, 1e-4)
+    # row_parallel hands the all-reduce the f32 partial and casts its sum.
+    from accelerate_tpu_torch.models import llama as L
+    from accelerate_tpu_torch.parallel.mesh import AxisGroup
+
+    reduced = []
+    real = L._ReduceFromTP.apply
+    monkeypatch.setattr(L._ReduceFromTP, "apply",
+                        lambda part, group: (reduced.append(part.dtype), real(part, group))[1])
+    with torch.no_grad():
+        out = L.row_parallel(halves[0], inputs[0], AxisGroup(("tp",), [0], 0))
+    assert reduced == [torch.float32] and out.dtype == torch.bfloat16
+    same(out.float(), f32[0].to(torch.bfloat16).float())
+    whole, halves, x, dy, inputs, grads = split_case("column", torch.bfloat16)
+    _, dx, _ = run_product(whole, x, dy)
+    parts = [run_product(h, xi, gi)[1] for h, xi, gi in zip(halves, inputs, grads)]
+    assert parts[0].dtype == torch.bfloat16
+    assert bf16_ulps(parts[0] + parts[1], dx) <= 2.0
+
+
+def test_statistics_share_a_stage_and_split_over_pp_as_jax_lays_them_out():
+    """On a mesh of tp=2 x pp=2 (ranks row-major over pp, then tp) the
+    processes that commit one set of statistics are each stage's tp pair;
+    the stacked statistics split over ``pp`` on dim 0 and stay whole over
+    ``tp``, the JAX package's specs for the same leaves of its pipelined
+    fp8 Llama (4 emulated devices) string for string."""
+    from accelerate_tpu import MeshConfig as JaxMeshConfig
+    from accelerate_tpu.parallel.sharding import _leaf_path_str
+    from accelerate_tpu.parallel.sharding import infer_param_shardings as jax_shardings
+    from accelerate_tpu.utils import PipelineParallelPlugin as JaxPP
+    from accelerate_tpu.utils import TensorParallelPlugin as JaxTP
+    from accelerate_tpu_torch import PipelineParallelPlugin, TensorParallelPlugin
+    from accelerate_tpu_torch.parallel import sharding
+    from accelerate_tpu_torch.parallel.mesh import Mesh
+
+    axes = {"pp": 2, "tp": 2}
+    groups = [Mesh(axes, range(4), rank=r).groups_of(*P.STATISTICS_AXES) for r in range(4)]
+    assert groups == [[[0, 1], [2, 3]]] * 4
+    assert Mesh(axes, range(4)).groups_of("pp") == [[0, 2], [1, 3]]
+    assert Mesh({"dp": 2, "tp": 2}, range(4)).groups_of(*P.STATISTICS_AXES) == [[0, 1, 2, 3]]
+    assert P.statistics_group().ranks == [0]  # one process: itself
+
+    cfg = dict(CONFIG, num_hidden_layers=4)
+    params = JaxPipelined(JaxLlamaConfig.tiny(**cfg)).init_params(jax.random.PRNGKey(0))
+    mesh = JaxMeshConfig(**axes, devices=jax.devices()[:4]).build()
+    sh = jax_shardings(params, mesh, tp_plugin=JaxTP(tp_size=2), pp_plugin=JaxPP(pp_size=2))
+    want = {_leaf_path_str(p): str(s.spec) for p, s in jax.tree_util.tree_leaves_with_path(
+        sh, is_leaf=lambda x: hasattr(x, "spec"))}
+    module = PipelinedLlamaForCausalLM(LlamaConfig.tiny(**cfg), device="cpu")
+    stored = sharding.layout_specs(module, None, axes, TensorParallelPlugin(tp_size=2),
+                                   PipelineParallelPlugin(pp_size=2))
+    stats = [n for n, _ in module.named_buffers() if n.rsplit(".", 1)[-1] in P.FP8_META_NAMES]
+    assert len(stats) == 7 * 6
+    for name in stats:
+        assert str(stored[name]) == want[sharding.reference_path(module, name)] \
+            == "PartitionSpec('pp',)", name
+    assert str(stored["model.blocks.self_attn.q_proj.amax_pending"]) == "PartitionSpec('pp',)"
+
+
 # ---------------------------------------------------------------------------
 # A gloo world of 2
 # ---------------------------------------------------------------------------
@@ -650,24 +830,67 @@ def launch(out):
     assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
 
 
-def test_a_world_of_two_follows_jax_on_two_devices(tmp_path):
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The world of 2's results directory: ``torch_fp8_worker.py`` runs its
+    six layouts in one launch, once for the session (the first xdist worker
+    to ask runs it under a lock; the others read its files)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the session's workers
+    out, done = root / "fp8_world", root / "fp8_world.done"
+    with open(root / "fp8_world.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            out.mkdir(exist_ok=True)
+            state = state_dict_from_flax(warm_params(), LlamaConfig.tiny(**CONFIG))
+            np.savez(out / "fp8_in.npz", precision="no",
+                     input_ids=np.stack([b["input_ids"] for b in batches(4)]),
+                     **{f"param.{k}": v.numpy() for k, v in state.items()})
+            launch(out)
+            done.write_text("ok")
+    return out
+
+
+def ranks_of(world, layout: str) -> list:
+    return [np.load(world / f"{layout}_{r}.npz") for r in range(2)]
+
+
+def by_prefix(got, prefix: str) -> dict:
+    return {k[len(prefix):]: got[k] for k in got.files if k.startswith(prefix)}
+
+
+def jax_reference(layout: str, data, mesh=None, **plugins):
+    from accelerate_tpu.state import AcceleratorState as JaxState
+    from accelerate_tpu.state import GradientState as JaxGradientState
+
+    JaxState._reset_state()
+    JaxGradientState._reset_state()
+    return jax_run(warm_params(), data, precision="no", mesh_config=mesh, **plugins)
+
+
+def check_commits(ranks, groups, layout: str):
+    """After each commit, every process's slot 0 of each history is the max
+    of the amaxes recorded by the processes of its group (lists of ranks
+    holding one set of statistics), bit for bit."""
+    for group in groups:
+        for r in group:
+            for name, committed in by_prefix(ranks[r], "committed.").items():
+                local = np.stack([ranks[q][f"local.{name}"] for q in group])
+                same(committed, local.max(axis=0), f"{layout} rank {r} {name}")
+
+
+def test_a_world_of_two_follows_jax_on_two_devices(world):
     """``benchmarks/fp8.py``'s layouts (dp, FSDP, ZeRO-2) at world 2 over
-    gloo, one launch running all three, the JAX package on 2 emulated
-    devices the reference (f32 compute, so only the fp8 roundings differ).
-    Each commit's statistics are every process's max, bit for bit: both
-    processes hold the same statistics, each history's slot 0 the max of
-    the two processes' recorded amaxes. A tp plugin of 2 and a pp plugin of
-    2 are refused by name."""
+    gloo, in the launch that runs the tp and pp layouts too, the JAX
+    package on 2 emulated devices the reference (f32 compute, so only the
+    fp8 roundings differ). Each commit's statistics are every process's
+    max, bit for bit: both processes hold the same statistics, each
+    history's slot 0 the max of the two processes' recorded amaxes."""
     from accelerate_tpu.utils import DeepSpeedPlugin as JaxDeepSpeed
     from accelerate_tpu.utils import FullyShardedDataParallelPlugin as JaxFSDP
 
-    params = warm_params()
     data = batches(4)
-    state = state_dict_from_flax(params, LlamaConfig.tiny(**CONFIG))
-    np.savez(tmp_path / "fp8_in.npz", precision="no",
-             input_ids=np.stack([b["input_ids"] for b in data]),
-             **{f"param.{k}": v.numpy() for k, v in state.items()})
-    launch(tmp_path)
     devices = jax.devices()[:2]
     references = {
         "dp": (MeshConfig(dp=2, devices=devices), {}),
@@ -676,31 +899,178 @@ def test_a_world_of_two_follows_jax_on_two_devices(tmp_path):
         "zero2": (MeshConfig(fsdp=2, devices=devices),
                   dict(deepspeed_plugin=JaxDeepSpeed(zero_stage=2))),
     }
-    from accelerate_tpu.state import AcceleratorState as JaxState
-    from accelerate_tpu.state import GradientState as JaxGradientState
-
     for layout, (mesh, plugins) in references.items():
-        JaxState._reset_state()
-        JaxGradientState._reset_state()
-        ranks = [np.load(tmp_path / f"{layout}_{r}.npz") for r in range(2)]
-        ref_losses, ref_states = jax_run(params, data, precision="no", mesh_config=mesh,
-                                         **plugins)
+        ranks = ranks_of(world, layout)
+        ref_losses, ref_states = jax_reference(layout, data, mesh, **plugins)
         for r, got in enumerate(ranks):
             assert int(got["num_processes"]) == 2
             np.testing.assert_allclose(got["losses"], ref_losses, rtol=LOSS_RTOL,
                                        err_msg=layout)
-            close_stats({k[len("stat."):]: got[k] for k in got.files if k.startswith("stat.")},
-                        ref_states[-1], f"{layout} rank {r}")
-            for k in got.files:
-                if k.startswith("stat."):
-                    same(got[k], ranks[0][k], k)  # one set of statistics on every process
-            # Slot 0 after each commit: the max over the world of the amaxes
-            # each process recorded (the inputs' column of [.., 3]).
-            local = np.stack([rk["local"] for rk in ranks]).reshape(2, len(data), -1, 3)
-            same(got["committed"], local.max(axis=0)[..., 0], layout)
-        assert not np.array_equal(ranks[0]["local"], ranks[1]["local"])  # the max mattered
+            close_stats(by_prefix(got, "stat."), ref_states[-1], f"{layout} rank {r}")
+            for k, v in by_prefix(got, "stat.").items():
+                same(v, ranks[0][f"stat.{k}"], k)  # one set of statistics on every process
+        check_commits(ranks, [[0, 1]], layout)
+        name = "model.blocks.self_attn.q_proj"
+        assert not np.array_equal(ranks[0][f"local.{name}"], ranks[1][f"local.{name}"])
+
+
+def test_a_world_of_two_at_tp_2_follows_jax(world):
+    """The fused step at tp 2 (the stacked Llama's projections split as the
+    Megatron rules split them, their statistics whole) against the JAX
+    package on ``MeshConfig(tp=2)``: losses and statistics within the
+    trajectory tolerances. Both processes hold one set of statistics, and
+    each commit's slot 0 is the max of the two processes' amaxes, bit for
+    bit: of a split kernel's halves, of a row-parallel input's halves and
+    of a column-parallel gradient's. A column-parallel input is whole on
+    both processes, so both record the same amax of it."""
+    from accelerate_tpu.utils import TensorParallelPlugin as JaxTP
+
+    ranks = ranks_of(world, "tp")
+    ref_losses, ref_states = jax_reference(
+        "tp", batches(4), MeshConfig(tp=2, devices=jax.devices()[:2]), tp_plugin=JaxTP(tp_size=2))
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["losses"], ref_losses, rtol=LOSS_RTOL, err_msg="tp")
+        close_stats(by_prefix(got, "stat."), ref_states[-1], f"tp rank {r}")
+        for k, v in by_prefix(got, "stat.").items():
+            same(v, ranks[0][f"stat.{k}"], k)
+    check_commits(ranks, [[0, 1]], "tp")
+    local = [by_prefix(got, "local.") for got in ranks]
+    for name in local[0]:
+        column = name.rsplit(".", 1)[-1] in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+        assert not np.array_equal(local[0][name][..., 1], local[1][name][..., 1]), name
+        split = 2 if column else 0  # the operand each process holds a half of
+        assert not np.array_equal(local[0][name][..., split], local[1][name][..., split]), name
+        if column:
+            same(local[0][name][..., 0], local[1][name][..., 0], name)
+
+
+def test_a_world_of_two_at_pp_2_follows_the_jax_whole_model(world):
+    """The fused step at pp 2 (GPipe, two microbatches): each stage holds
+    and commits its own ``[L / 2]`` slices of the stacked statistics (its
+    slot 0 its own amaxes, the max over its microbatches: no other process
+    holds them), and their concatenation follows the JAX package's
+    whole-model run on the same global batch, as do the losses."""
+    ranks = ranks_of(world, "pp")
+    ref_losses, ref_states = jax_reference(
+        "pp", batches(4), MeshConfig(dp=1, devices=jax.devices()[:1]))
+    stats_by_rank = [by_prefix(got, "stat.") for got in ranks]
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["losses"], ref_losses, rtol=LOSS_RTOL, err_msg="pp")
+        for name, v in stats_by_rank[r].items():
+            assert v.shape[0] == 1, name  # this stage's layer of 2
+    whole = {name: np.concatenate([s[name] for s in stats_by_rank])
+             for name in stats_by_rank[0]}
+    close_stats(whole, ref_states[-1], "pp")
+    check_commits(ranks, [[0], [1]], "pp")
+    name = "model.blocks.mlp.down_proj"
+    assert not np.array_equal(ranks[0][f"local.{name}"], ranks[1][f"local.{name}"])
+
+
+def test_the_user_loop_at_tp_2_follows_jax(world):
+    """The sequential Llama at tp 2 in the user's loop (``backward`` and
+    ``optimizer.step``, whose step hook commits) against the JAX package's
+    loop on ``MeshConfig(tp=2)`` from the same warm weights: losses and
+    statistics within the trajectory tolerances, one set of statistics on
+    both processes, each commit's slot 0 the max of the two."""
+    from accelerate_tpu.state import AcceleratorState as JaxState
+    from accelerate_tpu.state import GradientState as JaxGradientState
+    from accelerate_tpu.utils import TensorParallelPlugin as JaxTP
+
+    ranks = ranks_of(world, "tp_loop")
+    JaxState._reset_state()
+    JaxGradientState._reset_state()
+    cfg = JaxLlamaConfig.tiny(**CONFIG)
+    module = JaxLlama(cfg)
+    params = JaxPipelined.to_sequential_params(warm_params())
+    acc = JaxAccelerator(mixed_precision="no", mesh_config=MeshConfig(
+        tp=2, devices=jax.devices()[:2]), tp_plugin=JaxTP(tp_size=2))
+    model, opt = acc.prepare(Model(module, params), optax.adamw(1e-4))
+    ref_losses = []
+    for b in batches(4):
+        with acc.mesh:
+            ref_losses.append(float(acc.backward(jax_fused_loss(module),
+                                                 jax_make_global_batch(b, acc.mesh))))
+            opt.step()
+    ref = stats(state_dict_from_flax(jax.device_get(model.params), LlamaConfig.tiny(**CONFIG)))
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["losses"], ref_losses, rtol=LOSS_RTOL, err_msg="loop")
+        close_stats(by_prefix(got, "stat."), ref, f"loop rank {r}")
+        for k, v in by_prefix(got, "stat.").items():
+            same(v, ranks[0][f"stat.{k}"], k)
+    assert len(ranks[0]["committed.model.layers.0.self_attn.q_proj"]) == 4  # one a step
+    check_commits(ranks, [[0, 1]], "tp_loop")
+
+
+def test_a_pp_2_checkpoint_restores_into_world_1(world):
+    """The pp layout's ``save_state``: each process's file holds its stage's
+    ``[L / 2]`` slices of every statistic, the layout names them split over
+    ``pp``, and a world of 1 restores the whole ``[L]`` statistics (through
+    whole tensors), bit for bit the stages' concatenation; ``merge-weights``
+    puts them together the same way."""
+    import json
+
+    from accelerate_tpu_torch.checkpointing import load_safetensors, merged_model_tensors
+
+    ck = world / "pp_ck"
+    layout = json.loads((ck / "model.layout.json").read_text())
+    want = {}
     for r in range(2):
-        got = np.load(tmp_path / f"dp_{r}.npz")
-        for axis in ("tp", "pp"):
-            assert "tp > 1 or pp > 1 are not ported" in str(got[f"refused_{axis}"])
-            assert "ROADMAP.md, A10" in str(got[f"refused_{axis}"])
+        chunk = stats(load_safetensors(ck / f"model.rank{r}-of-2.safetensors"))
+        assert len(chunk) == 7 * 6
+        for name, value in chunk.items():
+            assert value.shape[0] == 1 and layout[name]["splits"] == {"pp": 0}, name
+            want[name] = np.concatenate([want[name], value]) if name in want else value
+    same_as_stages = by_prefix(ranks_of(world, "pp")[0], "stat.")
+    for name, value in same_as_stages.items():
+        same(want[name][:1], value, name)
+    acc, model, _, step = port_setup(None)  # every tensor comes from the checkpoint
+    acc.load_state(str(ck))
+    got = stats(model.module.state_dict())
+    merged = stats(merged_model_tensors(ck))
+    assert got.keys() == want.keys() == merged.keys()
+    for name, value in want.items():
+        assert got[name].shape[0] == 2
+        same(got[name], value, name)
+        same(merged[name], value, name)
+    assert np.isfinite(step(make_global_batch(batches(1)[0], acc))["loss"].item())
+
+
+def test_the_reference_pipeline_sums_every_tick_the_port_rolls_once(world):
+    """The JAX GPipe scan applies every stage's layers at each of its
+    ``M + pp - 1`` ticks with the stage parameters as scan constants, so
+    each fp8 statistic's "gradient" (its next value) is summed over the
+    ticks, bubble ticks included: after one step at pp 2, M 2 every old
+    history slot is tripled and each kernel's slot 0 is three times its
+    amax (the same weights at every tick). The port's stage rolls each
+    history once with the max of its microbatches' amaxes: the old slots
+    move down one, and the kernel's slot 0 is its amax, as the JAX
+    whole-model run gives it. (ROADMAP.md C.)"""
+    from accelerate_tpu.state import AcceleratorState as JaxState
+    from accelerate_tpu.utils import PipelineParallelPlugin as JaxPP
+
+    params = warm_params()
+    start = stats(state_dict_from_flax(params, LlamaConfig.tiny(**CONFIG)))
+    ticks = 2 + 2 - 1
+    JaxState._reset_state()
+    module = JaxPipelined(JaxLlamaConfig.tiny(**CONFIG), num_microbatches=2)
+    acc = JaxAccelerator(mixed_precision="no", pp_plugin=JaxPP(pp_size=2, num_microbatches=2),
+                         mesh_config=MeshConfig(dp=1, pp=2, devices=jax.devices()[:2]))
+    model, _ = acc.prepare(Model(module, params), optax.adamw(1e-4))
+    step = acc.compile_train_step(jax_fused_loss(module), max_grad_norm=1.0)
+    with acc.mesh:
+        step(jax_make_global_batch(batches(1)[0], acc.mesh))
+    summed = stats(state_dict_from_flax(jax.device_get(model.params), LlamaConfig.tiny(**CONFIG)))
+    _, (whole,) = jax_reference("pp", batches(1), MeshConfig(dp=1, devices=jax.devices()[:1]))
+    ranks = ranks_of(world, "pp")
+    port = {name: np.concatenate([by_prefix(got, "first.")[name] for got in ranks])
+            for name in by_prefix(ranks[0], "first.")}
+    for name, value in summed.items():
+        if not name.endswith("_history"):
+            continue
+        np.testing.assert_allclose(value[..., 2:], ticks * start[name][..., 1:-1], rtol=1e-6,
+                                   err_msg=name)
+        same(port[name][..., 1:], start[name][..., :-1], name)  # rolled once
+        if name.endswith("kernel_amax_history"):
+            np.testing.assert_allclose(value[..., 0], ticks * whole[name][..., 0], rtol=1e-6,
+                                       err_msg=name)
+            same(port[name][..., 0], whole[name][..., 0], name)
